@@ -1,0 +1,83 @@
+"""Typed config system.
+
+Reference: ``util/HyperspaceConf.scala:27-238`` — typed accessors over flat
+string-keyed Spark SQL confs. Counterpart of ``hyperspace_tpu/config.py``
+trimmed to the accessors this slice reads; defaults come from
+:mod:`hyperspace_tpu_torch.constants`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from hyperspace_tpu_torch import constants as C
+
+
+def _to_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
+class Config:
+    """Flat key→value config with typed accessors."""
+
+    def __init__(self, initial: Optional[dict] = None):
+        self._values: dict = dict(initial or {})
+
+    # -- raw access ---------------------------------------------------------
+    def set(self, key: str, value: Any) -> None:
+        self._values[key] = value
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self._values.get(key, default)
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        return _to_bool(self._values.get(key, default))
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        return int(self._values.get(key, default))
+
+    def get_str(self, key: str, default: str = "") -> str:
+        return str(self._values.get(key, default))
+
+    # -- typed accessors (HyperspaceConf.scala) -----------------------------
+    @property
+    def apply_enabled(self) -> bool:
+        return self.get_bool(
+            C.HYPERSPACE_APPLY_ENABLED, C.HYPERSPACE_APPLY_ENABLED_DEFAULT
+        )
+
+    @property
+    def system_path(self) -> str:
+        return self.get_str(C.INDEX_SYSTEM_PATH, C.INDEX_SYSTEM_PATH_DEFAULT)
+
+    @property
+    def num_buckets(self) -> int:
+        return self.get_int(C.INDEX_NUM_BUCKETS, C.INDEX_NUM_BUCKETS_DEFAULT)
+
+    @property
+    def lineage_enabled(self) -> bool:
+        return self.get_bool(
+            C.INDEX_LINEAGE_ENABLED, C.INDEX_LINEAGE_ENABLED_DEFAULT
+        )
+
+    @property
+    def filter_rule_use_bucket_spec(self) -> bool:
+        return self.get_bool(
+            C.INDEX_FILTER_RULE_USE_BUCKET_SPEC,
+            C.INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT,
+        )
+
+    @property
+    def cache_expiry_seconds(self) -> int:
+        return self.get_int(
+            C.INDEX_CACHE_EXPIRY_SECONDS, C.INDEX_CACHE_EXPIRY_SECONDS_DEFAULT
+        )
+
+    @property
+    def support_nested_fields(self) -> bool:
+        return self.get_bool(
+            C.INDEX_SUPPORT_NESTED_FIELDS,
+            C.INDEX_SUPPORT_NESTED_FIELDS_DEFAULT,
+        )

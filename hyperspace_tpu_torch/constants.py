@@ -1,0 +1,80 @@
+"""Config keys, index states and reserved property names.
+
+Reference: ``index/IndexConstants.scala:21-170`` and
+``actions/Constants.scala:20-34``. Counterpart of
+``hyperspace_tpu/constants.py`` trimmed to the keys this slice reads; the
+key strings, names that reach disk and defaults are unchanged, so both
+packages read one system path the same way.
+"""
+
+import os
+
+# ---------------------------------------------------------------------------
+# Index lifecycle states (actions/Constants.scala:20-34)
+# ---------------------------------------------------------------------------
+
+
+class States:
+    DOESNOTEXIST = "DOESNOTEXIST"
+    CREATING = "CREATING"
+    ACTIVE = "ACTIVE"
+    REFRESHING = "REFRESHING"
+    OPTIMIZING = "OPTIMIZING"
+    DELETING = "DELETING"
+    DELETED = "DELETED"
+    RESTORING = "RESTORING"
+    VACUUMING = "VACUUMING"
+    VACUUMINGOUTDATED = "VACUUMINGOUTDATED"
+
+    STABLE_STATES = frozenset({ACTIVE, DELETED, DOESNOTEXIST})
+
+
+# ---------------------------------------------------------------------------
+# Config keys (index/IndexConstants.scala) — flat string keys
+# ---------------------------------------------------------------------------
+
+HYPERSPACE_APPLY_ENABLED = "hyperspace.apply.enabled"
+HYPERSPACE_APPLY_ENABLED_DEFAULT = True
+
+INDEX_SYSTEM_PATH = "hyperspace.system.path"
+# PathResolver.scala's <warehouse>/indexes, anchored at the user's home
+INDEX_SYSTEM_PATH_DEFAULT = os.path.join(
+    os.path.expanduser("~"), "hyperspace", "indexes"
+)
+
+INDEX_NUM_BUCKETS = "hyperspace.index.num_buckets"
+INDEX_NUM_BUCKETS_DEFAULT = 200  # IndexConstants.scala:33-36 (= shuffle partitions)
+
+INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+INDEX_LINEAGE_ENABLED_DEFAULT = False  # IndexConstants.scala:105-106
+
+INDEX_FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
+INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = False  # IndexConstants.scala:56-57
+
+INDEX_CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+INDEX_CACHE_EXPIRY_SECONDS_DEFAULT = 300  # CachingIndexCollectionManager.scala
+
+# Nested (struct) field indexing is opt-in, as in the reference
+# (conf.supportNestedFields gate, actions/CreateAction.scala:69-71;
+# flattened-name machinery in util/ResolverUtils.scala:130-234).
+INDEX_SUPPORT_NESTED_FIELDS = "hyperspace.index.supportNestedFields"
+INDEX_SUPPORT_NESTED_FIELDS_DEFAULT = False
+
+# ---------------------------------------------------------------------------
+# Reserved column / property names
+# ---------------------------------------------------------------------------
+
+# Lineage column (IndexConstants: DATA_FILE_NAME_ID = "_data_file_id")
+DATA_FILE_NAME_ID = "_data_file_id"
+
+# Index log directory + data-version prefix (IndexDataManager.scala:24-37)
+HYPERSPACE_LOG_DIR = "_hyperspace_log"
+INDEX_VERSION_DIR_PREFIX = "v__"
+LATEST_STABLE_LOG_NAME = "latestStable"
+
+# IndexLogEntry property keys
+LINEAGE_PROPERTY = "lineage"
+HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY = "hasParquetAsSourceFormat"
+
+# Nested-column prefix (util/ResolverUtils.scala `__hs_nested.`)
+NESTED_FIELD_PREFIX = "__hs_nested."

@@ -1,0 +1,75 @@
+"""Index trait + config trait.
+
+Reference: ``index/Index.scala:31-168`` (the contract every index kind
+implements; Jackson-polymorphic on a ``type`` property) and
+``index/IndexConfigTrait.scala:32-59`` (user config whose ``createIndex``
+returns the index object plus its data).
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Dict, List
+
+
+class Index(abc.ABC):
+    """A derived dataset. Subclasses must set ``kind`` and register in
+    :mod:`hyperspace_tpu_torch.indexes.registry`."""
+
+    kind: str = "Index"
+    # Reference kindAbbr shown in plan strings, e.g. "CI" / "ZOCI" / "DS".
+    kind_abbr: str = "IX"
+
+    # -- serialization (polymorphic via "type") -----------------------------
+    @abc.abstractmethod
+    def to_dict(self) -> dict:
+        ...
+
+    @classmethod
+    @abc.abstractmethod
+    def from_dict(cls, d: dict) -> "Index":
+        ...
+
+    # -- schema surface -----------------------------------------------------
+    @property
+    @abc.abstractmethod
+    def indexed_columns(self) -> List[str]:
+        ...
+
+    @property
+    def included_columns(self) -> List[str]:
+        return []
+
+    def referenced_columns(self) -> List[str]:
+        return list(self.indexed_columns) + list(self.included_columns)
+
+    # -- data-plane operations (Index.scala write; optimize/refresh are
+    # ported with the lifecycle, ROADMAP queue A item 6) ----------------
+    @abc.abstractmethod
+    def write(self, ctx, index_data) -> None:
+        """Write ``index_data`` into ``ctx.index_data_path``."""
+
+
+class IndexConfigTrait(abc.ABC):
+    """User-supplied index definition (IndexConfigTrait.scala:32-59)."""
+
+    @property
+    @abc.abstractmethod
+    def index_name(self) -> str:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def referenced_columns(self) -> List[str]:
+        ...
+
+    @abc.abstractmethod
+    def create_index(self, ctx, source_data, properties: Dict[str, str]):
+        """Return ``(Index, index_data)`` — the index object and the data to
+        write (IndexConfigTrait.createIndex)."""
+
+    def describe_index(self, ctx, source_data, properties: Dict[str, str]):
+        """The Index object alone, WITHOUT building index data — used for
+        the begin-phase (transient-state) log entry, which is written
+        before any data exists."""
+        raise NotImplementedError

@@ -1,0 +1,170 @@
+"""Logical plan nodes: Scan / Filter / Project.
+
+Counterpart of ``hyperspace_tpu/plan/nodes.py``, cut to the nodes of the
+filter-serve slice (Join, Aggregate, Sort, Limit and Union are ported
+with their slices, ROADMAP queue A). In the reference these are
+Catalyst's ``LogicalRelation``, ``Filter`` and ``Project``, matched
+against in ``covering/FilterIndexRule.scala:33-55`` (Filter[→Project]
+over a relation). Plans are immutable; rewrites build new trees.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import pyarrow as pa
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan import expressions as E
+
+
+class LogicalPlan:
+    """Base node. ``output`` is the ordered list of column names; ``schema``
+    maps name -> pyarrow type."""
+
+    @property
+    def children(self) -> List["LogicalPlan"]:
+        return []
+
+    @property
+    def output(self) -> List[str]:
+        raise NotImplementedError
+
+    def schema(self) -> Dict[str, pa.DataType]:
+        raise NotImplementedError
+
+    # -- traversal ----------------------------------------------------------
+    def collect_leaves(self) -> List["Scan"]:
+        if isinstance(self, Scan):
+            return [self]
+        out: List[Scan] = []
+        for c in self.children:
+            out.extend(c.collect_leaves())
+        return out
+
+    def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
+        if not children:
+            return self
+        raise NotImplementedError
+
+    def pretty(self, indent: int = 0) -> str:
+        s = "  " * indent + self._node_string()
+        for c in self.children:
+            s += "\n" + c.pretty(indent + 1)
+        return s
+
+    def _node_string(self) -> str:
+        return type(self).__name__
+
+    def __repr__(self):
+        return self.pretty()
+
+
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """A file-based source snapshot a Scan reads.
+
+    The planner-side analogue of the reference's ``FileBasedRelation``
+    (``sources/interfaces.scala:43-277``): root paths + concrete data files
+    + schema + format. ``index_info`` is set when this relation *is* an
+    index's data (the rewrite target state, like ``IndexHadoopFsRelation``,
+    ``plans/logical/IndexHadoopFsRelation.scala:29-53``).
+    """
+
+    root_paths: Tuple[str, ...]
+    files: Tuple[str, ...]
+    fmt: str
+    schema_fields: Tuple[Tuple[str, pa.DataType], ...]
+    options: Tuple[Tuple[str, str], ...] = ()
+    index_info: Optional[Tuple[str, int, str]] = None  # (name, log_version, abbr)
+    bucket_spec: Optional[Tuple[int, Tuple[str, ...]]] = None  # (numBuckets, cols)
+
+    @property
+    def schema(self) -> Dict[str, pa.DataType]:
+        return dict(self.schema_fields)
+
+    @property
+    def column_names(self) -> List[str]:
+        return [n for n, _ in self.schema_fields]
+
+
+class Scan(LogicalPlan):
+    def __init__(self, relation: Relation):
+        self.relation = relation
+
+    @property
+    def output(self) -> List[str]:
+        return self.relation.column_names
+
+    def schema(self) -> Dict[str, pa.DataType]:
+        return self.relation.schema
+
+    def with_children(self, children):
+        assert not children
+        return self
+
+    def _node_string(self):
+        r = self.relation
+        if r.index_info:
+            name, ver, abbr = r.index_info
+            return (
+                f"Scan Hyperspace(Type: {abbr}, Name: {name}, "
+                f"LogVersion: {ver}) [{', '.join(self.output)}]"
+            )
+        roots = ",".join(r.root_paths)
+        return f"Scan {r.fmt} {roots} [{', '.join(self.output)}]"
+
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: E.Expr, child: LogicalPlan):
+        self.condition = condition
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def schema(self):
+        return self.child.schema()
+
+    def with_children(self, children):
+        (c,) = children
+        return Filter(self.condition, c)
+
+    def _node_string(self):
+        return f"Filter {self.condition!r}"
+
+
+class Project(LogicalPlan):
+    def __init__(self, columns: Sequence[str], child: LogicalPlan):
+        missing = [c for c in columns if c not in child.output]
+        if missing:
+            raise HyperspaceException(
+                f"Cannot project {missing}; child outputs {child.output}"
+            )
+        self.columns = list(columns)
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    @property
+    def output(self):
+        return list(self.columns)
+
+    def schema(self):
+        s = self.child.schema()
+        return {c: s[c] for c in self.columns}
+
+    def with_children(self, children):
+        (c,) = children
+        return Project(self.columns, c)
+
+    def _node_string(self):
+        return f"Project [{', '.join(self.columns)}]"

@@ -1,0 +1,9 @@
+"""Typed tag keys on (log entry, plan node) pairs.
+
+Reference: ``index/IndexLogEntryTags.scala:1-85``. Tags carry per-plan
+candidate-evaluation results (here: whyNot reasons) from the candidate
+filters to the ranking/rewrite stages without mutating shared state.
+"""
+
+FILTER_REASONS = "filterReasons"
+INDEX_PLAN_ANALYSIS_ENABLED = "indexPlanAnalysisEnabled"
