@@ -1,6 +1,6 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-src PATH]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -9,9 +9,16 @@ against its plain PyTorch version on the card:
 2. build: every CUDA kernel under hyperspace_tpu_torch/csrc with nvcc
    for sm_90a;
 3. kernels: murmur3 bucket ids (kernel B1) bit-equal to the plain
-   version over n in {0, 1, 255, 257, 6,001,215}, k in {1, 2, 3},
-   num_buckets in {200, 2^31}, seeds {42, 7}; kernel and plain version
-   timed with CUDA events at 6,001,215 rows, k = 1;
+   version over 136 cases (``b1_cases``: n from 0 to 6,001,215 with
+   ragged tails, k in {1, 2, 3, 4}, odd n and views 8 bytes off a 16-byte
+   boundary, num_buckets in {1, 200, 2^31 - 1, 2^31}, seeds {42, 7});
+   timed with CUDA events on a busy device at 6,001,215 rows: cold (L2
+   flushed before each run) for k = 1, 2, 3 beside each byte bound and
+   the plain version, warm (back to back) for k = 1, and at a query's
+   n = 1 and 8 as latency.
+   With ``--baseline-src`` an earlier B1 source is built too, held
+   against the plain version and timed cold in turns with the current
+   kernel (baseline, current, current, baseline);
 4. main path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -26,6 +33,7 @@ table is written under build/chip_smoke/ and removed at the end.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -59,77 +67,258 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, warmup: int = 5, iters: int = 30) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs."""
+def hold_device(ms: float = 10.0) -> None:
+    """Enqueue about ``ms`` of device busy-wait (at up to 2 GHz), so that
+    the events and launches the host enqueues next queue behind it and
+    time the device, not the host's path from Python to each launch."""
+    import torch
+
+    torch.cuda._sleep(int(ms * 2e6))
+
+
+def time_cuda(fn, launches: int = 30, repeats: int = 5) -> float:
+    """Milliseconds per launch of ``fn``, warm: ``launches`` back-to-back
+    runs between two CUDA events behind :func:`hold_device`, the median
+    over ``repeats`` such runs."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        hold_device()
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def time_cold(fn, flush, warmup: int = 3, iters: int = 30) -> list:
+    """Milliseconds of ``iters`` CUDA-event-timed runs of ``fn``, each
+    after reading all of ``flush`` (five times the 50 MB L2) outside the
+    timed window: every run finds its inputs in HBM and the L2 holding
+    only clean lines, so no write-back of earlier work lands in the
+    timed window. The flush keeps the card busy while the host enqueues
+    the run, so the events time the device."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    times = []
+    pairs = []
     for _ in range(iters):
+        flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
 
 
 def murmur3_ops_per_row(k: int) -> int:
     """32-bit integer operations per row of kernel B1: 6 per word mix (two
-    words per key), 10 for fmix, about 28 for the modulo by a runtime
-    divisor."""
-    return 12 * k + 38
+    words per key); 9 for fmix (the length xor, three shift-xor pairs, two
+    multiplies); 6 for the remainder by precomputed constants (two
+    32x32 -> 64-bit products at 2 each, two 32-bit products at 1)."""
+    return 12 * k + 15
 
 
-def check_kernels(dev) -> dict:
+def b1_bound(n: int, k: int) -> dict:
+    """Least time of B1 on [k, n] reps: the larger of its bytes (k int64
+    reads and one int32 write per row) over HBM bandwidth and its integer
+    operations over the int32 peak."""
+    nbytes = (8 * k + 4) * n
+    ops = n * murmur3_ops_per_row(k)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes,
+        "bytes_ms": bytes_ms,
+        "int32_ops": ops,
+        "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def b1_cases() -> dict:
+    """Correctness cases of B1: (n, k, plane-0 offset in int64s) ->
+    [(num_buckets, seed), ...]. Ragged tails around the 128-row warp
+    tile, an exact multiple of it, odd n with k >= 2 (every other plane
+    8 bytes off a 16-byte boundary), views whose plane 0 starts 8 bytes
+    off, the extreme bucket counts, and k = 4 for the generic-k path."""
+    cases: dict = {}
+
+    def add(ns, ks, offsets, nbs, seeds):
+        for n, k, off, nb, seed in itertools.product(ns, ks, offsets, nbs, seeds):
+            cases.setdefault((n, k, off), []).append((nb, seed))
+
+    add((0, 1, 255, 257, N_ROWS), (1, 2, 3), (0,), (200, 1 << 31), (42, 7))
+    add((2, 3, 4, 5, 127, 128, 129, 1 << 20), (1, 2, 3), (0,), (200, 1 << 31), (42,))
+    add((5, 129, 1 << 20, N_ROWS), (1, 2, 3), (1,), (200,), (7,))
+    add((257, N_ROWS), (1, 2, 3), (0,), (1, (1 << 31) - 1), (42,))
+    add((129, N_ROWS), (4,), (0, 1), (200,), (42,))
+    return cases
+
+
+def device_reps(reps_np: np.ndarray, dev, offset_rows: int):
+    """The [k, n] reps on the card, as a contiguous view starting
+    ``offset_rows`` int64s into a fresh allocation."""
+    import torch
+
+    k, n = reps_np.shape
+    buf = torch.empty(k * n + offset_rows, dtype=torch.int64, device=dev)
+    reps = buf[offset_rows:].view(k, n)
+    reps.copy_(torch.from_numpy(reps_np))
+    if n and reps.data_ptr() % 16 != (8 * offset_rows) % 16:
+        raise AssertionError("allocation not 16-byte aligned; offset case is void")
+    return reps
+
+
+def check_b1(dev, kernel, label: str, cases: dict) -> tuple:
+    """Hold ``kernel`` bit-equal to the plain version over ``cases``;
+    returns (number of cases, max_abs_err)."""
     import torch
 
     from hyperspace_tpu_torch.ops import hash as H
 
     rng = np.random.default_rng(SEED)
     i64 = np.iinfo(np.int64)
-    max_err = 0
-    for n in (0, 1, 255, 257, N_ROWS):
-        for k in (1, 2, 3):
-            reps_np = rng.integers(i64.min, i64.max, size=(k, n), dtype=np.int64,
-                                   endpoint=True)
-            extremes = np.array([i64.min, i64.max, -1, 0], dtype=np.int64)
-            reps_np[0, : min(n, 4)] = extremes[: min(n, 4)]
-            reps = torch.from_numpy(reps_np).to(dev)
-            for nb in (200, 1 << 31):
-                for seed in (42, 7):
-                    got = H.bucket_ids_kernel(reps, nb, seed)
-                    want = H.bucket_ids_torch(reps, nb, seed)
-                    torch.cuda.synchronize()
-                    if got.dtype != torch.int32 or got.shape != (n,):
-                        raise AssertionError(f"bad output {got.dtype} {got.shape}")
-                    err = (got.long() - want.long()).abs().max().item() if n else 0
-                    max_err = max(max_err, err)
-                    if err != 0:
-                        raise AssertionError(
-                            f"B1 differs from plain: n={n} k={k} nb={nb} seed={seed}"
-                        )
-    log(f"kernels: B1 bit-equal to plain over 60 cases (max_abs_err {max_err})")
-    reps = torch.from_numpy(
-        rng.integers(i64.min, i64.max, size=(1, N_ROWS), dtype=np.int64)
-    ).to(dev)
-    kernel_ms = time_cuda(lambda: H.bucket_ids_kernel(reps, 200))
-    plain_ms = time_cuda(lambda: H.bucket_ids_torch(reps, 200))
-    nbytes = reps.numel() * 8 + N_ROWS * 4
-    ops = N_ROWS * murmur3_ops_per_row(1)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(
-        f"kernels: B1 at {N_ROWS} rows, k=1: kernel_ms {kernel_ms:.4f} "
-        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-        f"(bytes {nbytes} -> {bytes_ms:.4f} ms, int32 ops {ops} -> "
-        f"{ops_ms:.4f} ms) library_ms n/a"
-    )
+    max_err, count = 0, 0
+    for (n, k, off), params in cases.items():
+        reps_np = rng.integers(i64.min, i64.max, size=(k, n), dtype=np.int64,
+                               endpoint=True)
+        extremes = np.array([i64.min, i64.max, -1, 0], dtype=np.int64)
+        reps_np[0, : min(n, 4)] = extremes[: min(n, 4)]
+        reps = device_reps(reps_np, dev, off)
+        for nb, seed in params:
+            got = kernel(reps, nb, seed)
+            torch.cuda.synchronize()
+            want = H.bucket_ids_torch(reps, nb, seed)
+            if got.dtype != torch.int32 or got.shape != (n,):
+                raise AssertionError(f"{label}: bad output {got.dtype} {got.shape}")
+            err = (got.long() - want.long()).abs().max().item() if n else 0
+            max_err = max(max_err, err)
+            count += 1
+            if err != 0:
+                raise AssertionError(
+                    f"{label} differs from plain: n={n} k={k} offset={off} "
+                    f"nb={nb} seed={seed}"
+                )
+    return count, max_err
+
+
+def build_baseline(src: str):
+    """Start nvcc on an earlier B1 source (the C interface without the
+    remainder constant and alignment bits) beside the package build;
+    returns (process, library path)."""
+    from hyperspace_tpu_torch import kernels
+
+    out_dir = os.path.join(ROOT, "build", "baseline_b1")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libbaseline_b1.so")
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def load_baseline(proc, lib: str):
+    """Wait for :func:`build_baseline`; returns a wrapper with the
+    package kernel's signature (reps, num_buckets, seed) -> out."""
+    import ctypes
+
+    import torch
+
+    log_text, _ = proc.communicate()
+    log(f"build: baseline B1: {log_text.strip()}")
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed on the baseline B1 source")
+    fn = ctypes.CDLL(lib).hs_murmur3_bucket_ids
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(reps, num_buckets: int, seed: int = 42):
+        k, n = reps.shape
+        out = torch.empty(n, dtype=torch.int32, device=reps.device)
+        err = fn(reps.data_ptr(), out.data_ptr(), n, k, num_buckets,
+                 seed & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline B1 launch failed: CUDA error {err}")
+        return out
+
+    return run
+
+
+def check_kernels(dev, baseline=None) -> dict:
+    import torch
+
+    from hyperspace_tpu_torch.ops import hash as H
+
+    count, max_err = check_b1(dev, H.bucket_ids_kernel, "B1", b1_cases())
+    log(f"kernels: B1 bit-equal to plain over {count} cases (max_abs_err {max_err})")
+
+    rng = np.random.default_rng(SEED + 2)
+    i64 = np.iinfo(np.int64)
+    # 256 MiB read before every cold run: five times the L2
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    cold = []
+    for k in (1, 2, 3):
+        reps = torch.from_numpy(
+            rng.integers(i64.min, i64.max, size=(k, N_ROWS), dtype=np.int64)
+        ).to(dev)
+        ms = float(np.median(time_cold(lambda: H.bucket_ids_kernel(reps, 200), flush)))
+        plain_ms = time_cuda(lambda: H.bucket_ids_torch(reps, 200))
+        b = b1_bound(N_ROWS, k)
+        cold.append({"k": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms})
+        log(
+            f"kernels: B1 cold at {N_ROWS} rows, k={k}: ms {ms:.4f} bound_ms "
+            f"{b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%}; bytes {b['bytes']} -> "
+            f"{b['bytes_ms']:.4f} ms, int32 ops {b['int32_ops']} -> "
+            f"{b['ops_ms']:.4f} ms); plain_ms {plain_ms:.4f}; library_ms n/a"
+        )
+        if k == 1:
+            reps1 = reps
+    warm_ms = time_cuda(lambda: H.bucket_ids_kernel(reps1, 200))
+    log(f"kernels: B1 warm (back to back) at {N_ROWS} rows, k=1: ms {warm_ms:.4f}")
+
+    query = {}
+    for n in (1, 8):
+        reps = reps1[:, :n].contiguous()
+        device_ms = time_cuda(lambda: H.bucket_ids_kernel(reps, 200), launches=100)
+        host = []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            H.bucket_ids_kernel(reps, 200)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        query[str(n)] = {"device_ms": device_ms, "host_ms": float(np.median(host))}
+        log(f"kernels: B1 query launch n={n}: device_ms {device_ms:.4f} "
+            f"host_ms (call + synchronize) {np.median(host):.4f}")
+
+    turns = None
+    if baseline is not None:
+        _, err_b = check_b1(dev, baseline, "baseline B1", {(N_ROWS, 1, 0): [(200, 42)]})
+        baseline_samples, turns = [], []
+        for name in ("baseline", "new", "new", "baseline"):
+            fn = baseline if name == "baseline" else H.bucket_ids_kernel
+            t = time_cold(lambda: fn(reps1, 200), flush)
+            if name == "baseline":
+                baseline_samples += t
+            turns.append([name, float(np.median(t))])
+        log(f"kernels: B1 cold in turns at {N_ROWS} rows, k=1 (baseline bit-equal, "
+            f"max_abs_err {err_b}): " + ", ".join(f"{a} {b:.4f}" for a, b in turns))
+    k1 = cold[0]
     return {
         "name": "murmur3_bucket_ids",
         "route": "cuda",
@@ -137,11 +326,18 @@ def check_kernels(dev) -> dict:
         "replaces": "hyperspace_tpu/ops/hash.py:248",
         "launches": 0,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
         "library_ms": None,
+        "cases": count,
+        "timing": "cold: 256 MiB read before each run, median of 30",
+        "cold_by_k": cold,
+        "warm_ms": warm_ms,
+        "query": query,
+        "baseline_ms": float(np.median(baseline_samples)) if turns else None,
+        "turns_ms": turns,
     }
 
 
@@ -280,8 +476,18 @@ def main_path(work: str, device) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--baseline-src",
+        help="an earlier csrc/murmur3_bucket.cu (the seven-argument C interface) "
+        "to build, hold against the plain version and time in turns with the "
+        "current kernel: baseline, current, current, baseline",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -301,15 +507,17 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
+    pending = build_baseline(args.baseline_src) if args.baseline_src else None
     out_dir = kernels.build_all()
     log(f"build: nvcc sm_90a in {time.perf_counter() - t0:.2f}s -> {out_dir}")
     for name in os.listdir(out_dir):
         if name.endswith(".log"):
             with open(os.path.join(out_dir, name)) as fh:
                 log(f"build: {name}: {fh.read().strip()}")
+    baseline = load_baseline(*pending) if pending else None
 
     dev = torch.device("cuda")
-    record = check_kernels(dev)
+    record = check_kernels(dev, baseline)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)

@@ -27,6 +27,7 @@ import functools
 import torch
 
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
 
@@ -92,22 +93,70 @@ def bucket_ids_torch(
     return torch.remainder(h, int(num_buckets)).to(torch.int32)
 
 
+def fastmod_m(num_buckets: int) -> int:
+    """The kernel's remainder constant for divisor d = ``num_buckets``:
+    floor((2^64 - 1) / d) + 1 mod 2^64, so that for every 32-bit h,
+    h % d == floor(((m * h) mod 2^64) * d / 2^64) (Lemire, Kaser and
+    Kurz, 2019). d = 1 gives 0."""
+    return ((_M64 // int(num_buckets)) + 1) & _M64
+
+
+def aligned_planes(key_reps: torch.Tensor) -> int:
+    """Bit j set iff plane j (j < 32) of the [k, n] int64 tensor starts on
+    a 16-byte boundary, so the kernel may read it with 16-byte loads.
+    Plane j starts 8jn bytes after plane 0: with odd n every other plane
+    is only 8-byte aligned, and a view with a storage offset can move
+    plane 0 itself."""
+    k, n = key_reps.shape
+    base = key_reps.data_ptr()
+    return sum(1 << j for j in range(min(k, 32)) if (base + 8 * j * n) % 16 == 0)
+
+
 @functools.cache
 def _kernel_fn():
     from hyperspace_tpu_torch import kernels
 
     fn = kernels.load("murmur3_bucket").hs_murmur3_bucket_ids
     fn.argtypes = [
-        ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_int64,
-        ctypes.c_int,
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_void_p,
+        ctypes.c_void_p,  # reps
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # n
+        ctypes.c_int,  # k
+        ctypes.c_int64,  # num_buckets
+        ctypes.c_uint64,  # fastmod_m
+        ctypes.c_int64,  # seed
+        ctypes.c_uint32,  # aligned_planes
+        ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(
+    key_reps: torch.Tensor, out: torch.Tensor, num_buckets: int, seed: int, stream: int
+) -> None:
+    """Hand contiguous [k, n] reps and a fresh [n] int32 output to the C
+    function on ``stream``; raise on any error code it returns (the C side
+    refuses an output or a plane marked aligned that is not)."""
+    global launches
+    if not key_reps.is_contiguous():
+        raise ValueError("key_reps must be contiguous")
+    k, n = key_reps.shape
+    err = _kernel_fn()(
+        key_reps.data_ptr(),
+        out.data_ptr(),
+        n,
+        k,
+        int(num_buckets),
+        fastmod_m(num_buckets),
+        int(seed) & _M32,
+        aligned_planes(key_reps),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"murmur3 bucket kernel launch failed: CUDA error {err}")
+    if n:  # the C side launches nothing for n = 0
+        launches += 1
 
 
 def bucket_ids_kernel(
@@ -115,29 +164,13 @@ def bucket_ids_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/murmur3_bucket.cu`` on the current stream: [k, n]
     int64 contiguous CUDA key reps -> [n] int32 bucket ids."""
-    global launches
     _check(key_reps, num_buckets)
     if key_reps.device.type != "cuda":
         raise ValueError(f"bucket_ids_kernel needs a CUDA tensor, got {key_reps.device}")
-    if not key_reps.is_contiguous():
-        raise ValueError("key_reps must be contiguous")
-    k, n = key_reps.shape
-    out = torch.empty(n, dtype=torch.int32, device=key_reps.device)
-    stream = torch.cuda.current_stream(key_reps.device).cuda_stream
+    out = torch.empty(key_reps.shape[1], dtype=torch.int32, device=key_reps.device)
     with torch.cuda.device(key_reps.device):
-        err = _kernel_fn()(
-            key_reps.data_ptr(),
-            out.data_ptr(),
-            n,
-            k,
-            int(num_buckets),
-            int(seed) & _M32,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"murmur3 bucket kernel launch failed: CUDA error {err}")
-    if n:  # the C side launches nothing for n = 0
-        launches += 1
+        stream = torch.cuda.current_stream(key_reps.device).cuda_stream
+        _launch(key_reps, out, num_buckets, seed, stream)
     return out
 
 

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of hyperspace_tpu_torch (nor
-chip_smoke.py) imports JAX or the JAX package, and a session never runs
-on the CPU unless the caller asks for it."""
+chip_smoke.py, nor scripts/torch_*.py) imports JAX or the JAX package,
+and a session never runs on the CPU unless the caller asks for it."""
 
 import ast
 import os
@@ -17,6 +17,12 @@ FORBIDDEN = ("jax", "jaxlib", "hyperspace_tpu")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    out += [
+        os.path.join(scripts, f)
+        for f in os.listdir(scripts)
+        if f.startswith("torch_") and f.endswith(".py")
+    ]
     for dirpath, _dirs, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
