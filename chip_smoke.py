@@ -7,28 +7,52 @@ against its plain PyTorch version on the card:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every CUDA kernel under hyperspace_tpu_torch/csrc with nvcc
-   for sm_90a;
-3. kernels: murmur3 bucket ids (kernel B1) bit-equal to the plain
-   version over 136 cases (``b1_cases``: n from 0 to 6,001,215 with
-   ragged tails, k in {1, 2, 3, 4}, odd n and views 8 bytes off a 16-byte
-   boundary, num_buckets in {1, 200, 2^31 - 1, 2^31}, seeds {42, 7});
-   timed with CUDA events on a busy device at 6,001,215 rows: cold (L2
-   flushed before each run) for k = 1, 2, 3 beside each byte bound and
-   the plain version, warm (back to back) for k = 1, and at a query's
-   n = 1 and 8 as latency.
-   With ``--baseline-src`` an earlier B1 source is built too, held
-   against the plain version and timed cold in turns with the current
-   kernel (baseline, current, current, baseline);
-4. main path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
+   for sm_90a, one nvcc per source, all started together;
+3. kernels:
+   * murmur3 bucket ids (kernel B1) bit-equal to the plain version over
+     136 cases (``b1_cases``: n from 0 to 6,001,215 with ragged tails, k
+     in {1, 2, 3, 4}, odd n and views 8 bytes off a 16-byte boundary,
+     num_buckets in {1, 200, 2^31 - 1, 2^31}, seeds {42, 7}); timed with
+     CUDA events on a busy device at 6,001,215 rows: cold (L2 flushed
+     before each run) for k = 1, 2, 3 beside each byte bound and the
+     plain version, warm (back to back) for k = 1, and at a query's n = 1
+     and 8 as latency. With ``--baseline-src`` an earlier B1 source is
+     built too, held against the plain version and timed cold in turns
+     with the current kernel (baseline, current, current, baseline);
+   * the per-bucket join match (kernel B4) with pair lists equal in
+     order to the plain version over ``b4_cases`` (presorted and unsorted
+     segments, B in {1, 7, 200}, empty segments on either side, n or
+     m = 0, INT64_MIN / INT64_MAX keys, null sentinels, many-to-many
+     duplicates, one skewed 2,000 x 2,000 segment);
+4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
    IN-list filters served from the index with bucket pruning, each
-   checked against the unindexed plan row for row.
+   checked against the unindexed plan row for row;
+5. join path: an orders table in the bench.py shape (1,500,000 rows,
+   8 files), its covering index on o_orderkey, then ``orders ⋈
+   lineitem`` on the order key served shuffle-free from both indexes
+   (phase 4's li_idx covers the lineitem columns the join uses)
+   (one warm-up and 5 timed runs, each stage's seconds), its rows equal
+   as a multiset to the unindexed plan's (also timed); then a two-key
+   join with about 1 % null keys on 200,000 rows a side, equal to its
+   unindexed plan;
+6. B4 on phase 5's own inputs: the first B4 call of each of phase 5's
+   four plans is recorded (``B4Inputs``) and held equal in order to the
+   plain version: the indexed join (1,500,000 x 6,001,215 keys, 200
+   presorted buckets), the unindexed one (one segment, both row maps),
+   and the two-key join both ways (per-bucket sorts, row maps). The
+   indexed and unindexed inputs are timed there cold and warm, count and
+   emit passes apart, beside the bound and the plain version, with a
+   batched ``torch.searchsorted`` over the indexed buckets padded to
+   [B, W] (ranges only, no pairs) as a yardstick.
 
-Any failure raises and exits non-zero. The last two lines of standard
-output are the kernels' JSON record and ``{"ok": true, "device": ...}``.
-It needs one CUDA device and the repository checkout it lives in; the
-table is written under build/chip_smoke/ and removed at the end.
+Kernel launch counts are set to 0 just before phases 4 and 5 and read
+just after each; phase 6's launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
+lines of standard output are the kernels' JSON record and ``{"ok": true,
+"device": ...}``. It needs one CUDA device and the repository checkout
+it lives in; the tables are written under build/chip_smoke/ and removed
+at the end.
 """
 
 from __future__ import annotations
@@ -341,6 +365,311 @@ def check_kernels(dev, baseline=None) -> dict:
     }
 
 
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+N_BUCKETS = 200
+
+
+def b4_cases(rng) -> list:
+    """Correctness cases of B4: (label, left keys, left offsets, right
+    keys, right offsets, left mode, right mode), numpy. Mode "sorted": each
+    segment is ascending already (a clean index bucket); "sort": the side
+    is stably sorted per segment on the card first, as the main path does
+    for unsorted buckets; "as is" (left only): the keys go to B4 in their
+    own order, as the unindexed join's left does."""
+
+    def case(label, l_sizes, r_sizes, lo, hi, l_mode, r_mode):
+        l_sizes = np.asarray(l_sizes, dtype=np.int64)
+        r_sizes = np.asarray(r_sizes, dtype=np.int64)
+        l = rng.integers(lo, hi, int(l_sizes.sum()), dtype=np.int64, endpoint=True)
+        r = rng.integers(lo, hi, int(r_sizes.sum()), dtype=np.int64, endpoint=True)
+        l_offs = np.concatenate([[0], np.cumsum(l_sizes)])
+        r_offs = np.concatenate([[0], np.cumsum(r_sizes)])
+        for keys, offs, mode in ((l, l_offs, l_mode), (r, r_offs, r_mode)):
+            if mode == "sorted":
+                for a, b in zip(offs[:-1], offs[1:]):
+                    keys[a:b].sort()
+        return [label, l, l_offs, r, r_offs, l_mode, r_mode]
+
+    out = []
+    for nb in (1, 7, N_BUCKETS):
+        ls = rng.integers(0, 3000, nb)
+        rs = rng.integers(0, 3000, nb)
+        out.append(case(f"presorted B={nb}", ls, rs, 0, 4000, "sorted", "sorted"))
+        out.append(case(f"unsorted B={nb}", ls, rs, 0, 4000, "sort", "sort"))
+        out.append(case(f"left unsorted B={nb}", ls, rs, -50, 50, "sort", "sorted"))
+    sizes = np.array([0, 500, 0, 700, 300, 0, 900])
+    out.append(case("empty left segments", sizes, sizes[::-1] + 1, 0, 300,
+                    "sorted", "sorted"))
+    out.append(case("empty right segments", sizes[::-1] + 1, sizes, 0, 300,
+                    "sort", "sort"))
+    out.append(case("n = 0", [0, 0, 0], [5, 0, 9], 0, 5, "sorted", "sorted"))
+    out.append(case("m = 0", [5, 0, 9], [0, 0, 0], 0, 5, "sorted", "sorted"))
+    out.append(case("n = m = 0", [0], [0], 0, 5, "sorted", "sorted"))
+    out.append(case("row order", [40_000], [50_000], 0, 20_000, "as is", "sort"))
+    ext = case("INT64_MIN / INT64_MAX", [1000, 1000], [1000, 1000], I64_MIN, I64_MAX,
+               "sort", "sort")
+    for arr in (ext[1], ext[3]):  # the extremes as real keys on both sides
+        arr[::7] = I64_MAX
+        arr[3::11] = I64_MIN
+        arr[5::13] = -1
+    out.append(ext)
+    # the executor's null sentinels: left even offsets, right odd, and a
+    # real key equal to one of them
+    from hyperspace_tpu_torch.execution.join_exec import _SENTINEL_BASE
+
+    sen = case("null sentinels", [800, 800], [800, 800], -10, 10, "sort", "sort")
+    sen[1][::9] = _SENTINEL_BASE - 2 * np.arange(len(sen[1][::9]))
+    sen[3][::9] = _SENTINEL_BASE - 2 * np.arange(len(sen[3][::9])) - 1
+    sen[3][1] = _SENTINEL_BASE  # a real right key equal to a left sentinel
+    out.append(sen)
+    out.append(case("many-to-many", [3000, 3000], [3000, 3000], 0, 3, "sorted", "sorted"))
+    skew = case("skewed segment", [100, 2000, 100], [100, 2000, 100], 0, 1000,
+                "sort", "sort")
+    skew[1][100:2100] = 42
+    skew[3][100:2100] = 42
+    out.append(skew)
+    return out
+
+
+def run_b4_case(dev, l, l_offs, r, r_offs, l_mode, r_mode) -> int:
+    """Hold B4 against its plain version on one case on the card; returns
+    the max abs error (0, or it raises)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import join as J
+
+    lk = torch.from_numpy(l).to(dev)
+    rk = torch.from_numpy(r).to(dev)
+    l_row = r_row = None
+    if l_mode == "sort":
+        lk, l_row = J.segment_sort(lk, l_offs)
+    if r_mode == "sort":
+        rk, r_row = J.segment_sort(rk, r_offs)
+    return compare_b4(dev, lk, l_offs, rk, r_offs, l_row, r_row)
+
+
+def compare_b4(dev, lk, l_offs, rk, r_offs, l_row=None, r_row=None) -> int:
+    import torch
+
+    from hyperspace_tpu_torch.ops import join as J
+
+    got = J.match_pairs_kernel(lk, l_offs, rk, r_offs, l_row, r_row)
+    torch.cuda.synchronize()
+    want = J.match_pairs_torch(lk, l_offs, rk, r_offs, l_row, r_row)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != torch.int64 or g.device != lk.device:
+            raise AssertionError(f"B4: bad output {g.dtype} {tuple(g.shape)} "
+                                 f"want {tuple(w.shape)}")
+    err = max(
+        (int((g - w).abs().max()) if g.numel() else 0) for g, w in zip(got, want)
+    )
+    if err != 0:
+        raise AssertionError("B4 pairs differ from the plain version")
+    return err
+
+
+def b4_bound(n: int, m: int, pairs: int, segments: int, probes: int,
+             maps: int = 0) -> dict:
+    """Least time of B4: the larger of its bytes (each left and right key
+    read once, ``maps`` row maps of the left/right length read once, the
+    offsets, 16 bytes written per pair) over HBM bandwidth and its
+    integer operations over the int32 peak: 6 int32 operations (64-bit
+    address, compare and bound update, two each) per binary-search probe
+    and 4 per pair written (two 64-bit stores' addresses)."""
+    nbytes = 8 * n + 8 * m + maps + 16 * (segments + 1) + 16 * pairs
+    ops = 6 * probes + 4 * pairs
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes,
+        "bytes_ms": bytes_ms,
+        "int32_ops": ops,
+        "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def b4_probes(l_offs: np.ndarray, r_offs: np.ndarray) -> int:
+    """Binary-search probes of B4's count pass on these segments: per left
+    row, the segment lookup over B + 1 offsets and the lower and upper
+    bound over its right segment."""
+    seg = np.ceil(np.log2(max(len(l_offs) - 1, 1))).astype(np.int64)
+    r_len = np.diff(r_offs)
+    per_row = seg + 2 * np.ceil(np.log2(r_len + 1)).astype(np.int64)
+    return int(np.sum(np.diff(l_offs) * per_row))
+
+
+def check_b4_cases(dev) -> tuple:
+    """B4's cases against its plain version (phase 3): (count, max abs
+    error)."""
+    rng = np.random.default_rng(SEED + 3)
+    count, max_err = 0, 0
+    for _label, l, l_offs, r, r_offs, l_mode, r_mode in b4_cases(rng):
+        max_err = max(max_err, run_b4_case(dev, l, l_offs, r, r_offs, l_mode, r_mode))
+        count += 1
+    log(f"kernels: B4 pairs equal in order to plain over {count} cases "
+        f"(max_abs_err {max_err})")
+    return count, max_err
+
+
+class B4Inputs:
+    """Keeps the inputs of the first B4 call that the join executor makes
+    under each label: the very keys, offsets and row maps that phase 5
+    hands the kernel, for the comparison with the plain version and the
+    timing after the phase. The wrapper calls straight through, so its
+    launches count as the main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.execution import join_exec
+
+        self.calls, self.label = {}, None
+        inner = join_exec.match_pairs
+
+        def recording(*args):
+            if self.label is not None:
+                self.calls.setdefault(self.label, args)
+            return inner(*args)
+
+        join_exec.match_pairs = recording
+
+
+def time_b4(dev, args, flush) -> dict:
+    """Cold and warm times of B4 on one recorded call's inputs: count
+    pass, emit pass, and the two with the scan between them, beside the
+    bound; and the wrapper's whole call, its read of the total included."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import join as J
+
+    lk, l_offs, rk, r_offs, l_row, r_row = args
+    l_offs, r_offs = np.asarray(l_offs, np.int64), np.asarray(r_offs, np.int64)
+    stream = torch.cuda.current_stream().cuda_stream
+    l_offs_t = torch.from_numpy(l_offs).to(dev)
+    r_offs_t = torch.from_numpy(r_offs).to(dev)
+    lo, cnt = J._count_pass(lk, l_offs_t, rk, r_offs_t, stream)
+    incl = torch.cumsum(cnt, 0)
+    total = int(incl[-1])
+    li = torch.empty(total, dtype=torch.int64, device=dev)
+    ri = torch.empty(total, dtype=torch.int64, device=dev)
+
+    def sequence():  # count pass, scan, emit pass: B4's device work
+        lo2, cnt2 = J._count_pass(lk, l_offs_t, rk, r_offs_t, stream)
+        J._emit_pass(lo2, cnt2, torch.cumsum(cnt2, 0), l_row, r_row, li, ri, stream)
+
+    med = lambda t: float(np.median(t))  # noqa: E731
+    count_ms = med(time_cold(lambda: J._count_pass(lk, l_offs_t, rk, r_offs_t, stream),
+                             flush))
+    emit_ms = med(time_cold(
+        lambda: J._emit_pass(lo, cnt, incl, l_row, r_row, li, ri, stream), flush))
+    ms = med(time_cold(sequence, flush))
+    call = []
+    for _ in range(10):
+        flush.sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        J.match_pairs_kernel(lk, l_offs, rk, r_offs, l_row, r_row)
+        torch.cuda.synchronize()
+        call.append((time.perf_counter() - t0) * 1e3)
+    maps = sum(8 * t.shape[0] for t in (l_row, r_row) if t is not None)
+    b = b4_bound(lk.shape[0], rk.shape[0], total, len(l_offs) - 1,
+                 b4_probes(l_offs, r_offs), maps)
+    return {
+        "n": lk.shape[0], "m": rk.shape[0], "segments": len(l_offs) - 1,
+        "pairs": total, "row_maps": [l_row is not None, r_row is not None],
+        "ms": ms, "count_ms": count_ms, "emit_ms": emit_ms,
+        "warm_ms": time_cuda(sequence), "call_ms": med(call),
+        "plain_ms": time_cuda(
+            lambda: J.match_pairs_torch(lk, l_offs, rk, r_offs, l_row, r_row),
+            launches=3, repeats=3),
+        **b,
+    }
+
+
+def check_b4_main_path(dev, recorded: dict, cases: int, case_err: int) -> dict:
+    """B4 on the inputs that phase 5 handed it: each recorded call held
+    equal in order to the plain version, then the indexed and the
+    unindexed join's shapes timed; returns B4's record for the kernels
+    line."""
+    import torch
+
+    labels = ("indexed", "unindexed", "two-key indexed", "two-key unindexed")
+    missing = [k for k in labels if k not in recorded]
+    if missing:
+        raise AssertionError(f"phase 5 made no B4 call for {missing}")
+    max_err = case_err
+    for label in labels:
+        lk, l_offs, rk, r_offs, l_row, r_row = recorded[label]
+        max_err = max(max_err, compare_b4(dev, lk, l_offs, rk, r_offs, l_row, r_row))
+        log(f"kernels: B4 pairs equal in order to plain on phase 5's {label} join inputs "
+            f"({lk.shape[0]} x {rk.shape[0]} keys, {len(l_offs) - 1} segments, row maps "
+            f"{l_row is not None}/{r_row is not None})")
+    if recorded["indexed"][4] is not None or recorded["indexed"][5] is not None:
+        raise AssertionError("the indexed join did not take the presorted route")
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)  # 256 MiB
+    t = time_b4(dev, recorded["indexed"], flush)
+    u = time_b4(dev, recorded["unindexed"], flush)
+
+    # yardstick: both sides padded to [B, W] with INT64_MAX, one batched
+    # torch.searchsorted per bound (the count pass's ranges, no pairs)
+    lk, l_offs, rk, r_offs = recorded["indexed"][:4]
+
+    def padded(keys, offs):
+        sizes = torch.from_numpy(np.diff(offs)).to(dev)
+        seg = torch.repeat_interleave(torch.arange(len(offs) - 1, device=dev), sizes)
+        pos = torch.arange(keys.shape[0], device=dev) - torch.from_numpy(
+            offs[:-1]).to(dev)[seg]
+        out = torch.full((len(offs) - 1, int(sizes.max())), I64_MAX, dtype=torch.int64,
+                         device=dev)
+        out[seg, pos] = keys
+        return out
+
+    lp, rp = padded(lk, l_offs), padded(rk, r_offs)
+    yard_ms = float(np.median(time_cold(
+        lambda: (torch.searchsorted(rp, lp), torch.searchsorted(rp, lp, right=True)),
+        flush)))
+    for label, r in (("indexed", t), ("unindexed", u)):
+        log(
+            f"kernels: B4 cold on the {label} join's inputs, {r['n']} x {r['m']} keys, "
+            f"{r['segments']} segments, row maps {r['row_maps']}, {r['pairs']} pairs: "
+            f"ms {r['ms']:.4f} (count pass {r['count_ms']:.4f}, emit pass "
+            f"{r['emit_ms']:.4f}) bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_ms'] / r['ms']:.1%}; bytes {r['bytes']} -> {r['bytes_ms']:.4f} "
+            f"ms, int32 ops {r['int32_ops']} -> {r['ops_ms']:.4f} ms); warm ms "
+            f"{r['warm_ms']:.4f}; wrapper call with its total read ms {r['call_ms']:.4f}; "
+            f"plain_ms {r['plain_ms']:.4f}"
+        )
+    log(f"kernels: batched torch.searchsorted over the indexed join's [{len(l_offs) - 1}, "
+        f"W] buckets (yardstick, ranges only) cold ms {yard_ms:.4f}; library_ms n/a")
+    return {
+        "name": "bucket_match_pairs",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/bucket_match.cu",
+        "replaces": "hyperspace_tpu/ops/join.py:142",
+        "launches": 0,
+        "max_abs_err": max_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "cases": cases + len(labels),
+        "timing": "cold: 256 MiB read before each run, median of 30; count pass, "
+                  "torch.cumsum and emit pass, on the indexed join's recorded inputs",
+        "pairs": t["pairs"],
+        "bytes": t["bytes"],
+        "count_ms": t["count_ms"],
+        "emit_ms": t["emit_ms"],
+        "warm_ms": t["warm_ms"],
+        "call_ms": t["call_ms"],
+        "searchsorted_yardstick_ms": yard_ms,
+        "unindexed": {k: u[k] for k in ("n", "m", "pairs", "ms", "count_ms", "emit_ms",
+                                        "warm_ms", "call_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bytes")},
+    }
+
+
 def gen_lineitem(out_dir: str) -> str:
     """The bench.py lineitem shape at SF1 scale, 8 Parquet files."""
     import pyarrow as pa
@@ -370,7 +699,7 @@ def gen_lineitem(out_dir: str) -> str:
     return src
 
 
-def main_path(work: str, device) -> dict:
+def filter_path(work: str, device) -> dict:
     import pyarrow.parquet as pq
     import torch
 
@@ -472,7 +801,158 @@ def main_path(work: str, device) -> dict:
         f"({n_rows} rows); unindexed p50_ms "
         f"{np.percentile(base_times, 50):.3f}"
     )
-    return {"launches": total_launches}
+    return {"launches": total_launches, "session": sess, "hs": hs, "items": df}
+
+
+def gen_orders(out_dir: str) -> str:
+    """The bench.py orders shape at SF1 scale, 8 Parquet files."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(SEED + 4)
+    orders = pa.table(
+        {
+            "o_orderkey": np.arange(N_ORDERS, dtype=np.int64),
+            "o_custkey": rng.integers(0, N_ORDERS // 10, N_ORDERS),
+            "o_totalprice": rng.normal(150000, 30000, N_ORDERS),
+        }
+    )
+    src = os.path.join(out_dir, "orders")
+    os.makedirs(src)
+    for i in range(N_FILES):
+        lo, hi = i * N_ORDERS // N_FILES, (i + 1) * N_ORDERS // N_FILES
+        pq.write_table(orders.slice(lo, hi - lo), os.path.join(src, f"part{i}.parquet"))
+    return src
+
+
+def gen_null_keyed(out_dir: str, name: str, cols, seed: int, n: int = 200_000) -> str:
+    """Two int64 key columns (about 1 % nulls in each) and a value."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    k1, k2, v = cols
+    table = pa.table(
+        {
+            k1: pa.array(rng.integers(0, 20_000, n), mask=rng.random(n) < 0.01),
+            k2: pa.array(rng.integers(0, 5, n), mask=rng.random(n) < 0.01),
+            v: rng.integers(0, 1000, n),
+        }
+    )
+    src = os.path.join(out_dir, name)
+    os.makedirs(src)
+    for i in range(2):
+        pq.write_table(table.slice(i * n // 2, n // 2), os.path.join(src, f"p{i}.parquet"))
+    return src
+
+
+def sorted_rows(t):
+    return t.sort_by([(c, "ascending") for c in t.column_names])
+
+
+def index_served(hs, df, names) -> None:
+    text = hs.explain(df)
+    with_plan = text.split("Plan without indexes:")[0]
+    if with_plan.count("Hyperspace(Type: CI") != 2 or not all(
+        f"Name: {n}," in with_plan for n in names
+    ):
+        raise AssertionError(f"join not index-served on both sides:\n{text}")
+
+
+def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
+    """Phase 5: orders ⋈ lineitem served from both indexes, then a two-key
+    join with null keys; launch counts read from 0 at its start. Each
+    plan's first B4 inputs are kept in ``b4_inputs`` under its label."""
+    from hyperspace_tpu_torch import CoveringIndexConfig
+    from hyperspace_tpu_torch import ops
+
+    sess, hs, items = ctx["session"], ctx["hs"], ctx["items"]
+    src = gen_orders(work)
+    ops.reset_launch_counts()
+    orders = sess.read.parquet(src)
+    t0 = time.perf_counter()
+    hs.create_index(
+        orders, CoveringIndexConfig("o_idx", ["o_orderkey"], ["o_custkey", "o_totalprice"])
+    )
+    log(f"join path: built o_idx over {N_ORDERS} rows in {time.perf_counter() - t0:.3f}s, "
+        f"B1 launches {ops.launch_counts()['murmur3_bucket_ids']}")
+
+    def q():
+        return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+            "o_orderkey", "o_custkey", "l_quantity")
+
+    sess.enable_hyperspace()
+    index_served(hs, q(), ("o_idx", "li_idx"))
+    sess.exec_stats.reset()
+    b4_before = ops.launch_counts()["bucket_match_pairs"]
+    b4_inputs.label = "indexed"
+    q().collect()  # warm-up
+    times, stages = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = q().collect()
+        times.append((time.perf_counter() - t0) * 1e3)
+        stages.append(dict(sess.join_stats))
+    b4_indexed = ops.launch_counts()["bucket_match_pairs"] - b4_before
+    stats = sess.exec_stats.as_dict()
+    if b4_indexed <= 0 or stats["co_bucketed_joins"] != 6 or stats["unbucketed_joins"]:
+        raise AssertionError(f"indexed join did not run co-bucketed through B4: "
+                             f"{stats}, B4 launches {b4_indexed}")
+    if got.num_rows != N_ROWS:
+        raise AssertionError(f"join gave {got.num_rows} rows, want {N_ROWS}")
+    p50, p99 = np.percentile(times, [50, 99])
+    stage_p50 = {k: float(np.median([st.get(k, 0.0) for st in stages])) for k in stages[0]}
+    log(f"join path: orders ⋈ lineitem index-served x5: p50_ms {p50:.3f} p99_ms "
+        f"{p99:.3f}, {got.num_rows} rows, stage p50 s "
+        f"{ {k: round(v, 4) for k, v in stage_p50.items()} }, B4 launches {b4_indexed} "
+        f"({b4_indexed // 6} per join), co-bucketed joins {stats['co_bucketed_joins']}")
+
+    sess.disable_hyperspace()
+    b4_inputs.label = "unindexed"
+    base_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        want = q().collect()
+        base_times.append((time.perf_counter() - t0) * 1e3)
+    base_stages = dict(sess.join_stats)
+    stats = sess.exec_stats.as_dict()
+    if stats["unbucketed_joins"] != 2:
+        raise AssertionError(f"unindexed plan did not run unbucketed: {stats}")
+    if not sorted_rows(got).equals(sorted_rows(want)):
+        raise AssertionError("index-served join rows differ from the unindexed plan")
+    log(f"join path: rows equal to the unindexed plan as a multiset; unindexed ms "
+        f"{', '.join(f'{t:.3f}' for t in base_times)}, stages s "
+        f"{ {k: round(v, 4) for k, v in base_stages.items()} }")
+
+    a_src = gen_null_keyed(work, "nk_a", ("k1", "k2", "va"), SEED + 5)
+    b_src = gen_null_keyed(work, "nk_b", ("j1", "j2", "vb"), SEED + 6)
+    a, b = sess.read.parquet(a_src), sess.read.parquet(b_src)
+    hs.create_index(a, CoveringIndexConfig("nk_a_idx", ["k1", "k2"], ["va"]))
+    hs.create_index(b, CoveringIndexConfig("nk_b_idx", ["j1", "j2"], ["vb"]))
+
+    def q2():
+        return a.join(b, on=(a["k1"] == b["j1"]) & (a["k2"] == b["j2"])).select(
+            "k1", "k2", "va", "vb")
+
+    sess.enable_hyperspace()
+    index_served(hs, q2(), ("nk_a_idx", "nk_b_idx"))
+    sess.exec_stats.reset()
+    b4_inputs.label = "two-key indexed"
+    got2 = q2().collect()
+    if sess.exec_stats.co_bucketed_joins != 1:
+        raise AssertionError("two-key join did not run co-bucketed")
+    sess.disable_hyperspace()
+    b4_inputs.label = "two-key unindexed"
+    want2 = q2().collect()
+    b4_inputs.label = None
+    if got2.num_rows == 0 or got2.column("k1").null_count or got2.column("k2").null_count:
+        raise AssertionError("two-key join gave no rows or matched a null key")
+    if not sorted_rows(got2).equals(sorted_rows(want2)):
+        raise AssertionError("two-key null join differs from the unindexed plan")
+    launches = ops.launch_counts()
+    log(f"join path: two-key join with null keys, {got2.num_rows} rows, equal to the "
+        f"unindexed plan; phase launches {launches}")
+    return {"launches": launches, "p50_ms": p50, "p99_ms": p99}
 
 
 def main() -> int:
@@ -517,19 +997,25 @@ def main() -> int:
     baseline = load_baseline(*pending) if pending else None
 
     dev = torch.device("cuda")
-    record = check_kernels(dev, baseline)
+    b1 = check_kernels(dev, baseline)
+    b4_cases_run, b4_case_err = check_b4_cases(dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    b4_inputs = B4Inputs()
     try:
-        # the default session device is cuda; main_path runs it as a user would
-        record["launches"] = main_path(work, None)["launches"]
+        # the default session device is cuda; the paths run it as a user would
+        ctx = filter_path(work, None)
+        b1["launches"] = ctx["launches"]
+        b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    b4 = check_b4_main_path(dev, b4_inputs.calls, b4_cases_run, b4_case_err)
+    b4["launches"] = b4_launches
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4]}), flush=True)
     print(
         json.dumps(
             {

@@ -8,8 +8,9 @@ on-disk layout and its results, and runs its device work on an NVIDIA GPU
 (kernels written by hand for Hopper under ``csrc/``). It imports neither
 JAX nor the reference package.
 
-This slice covers building a covering index and serving a bucket-pruned
-filter from it::
+The ported slices cover building a covering index, serving a
+bucket-pruned filter from it, and serving an equi-join of two tables
+indexed on the join key bucket by bucket, without a shuffle::
 
     from hyperspace_tpu_torch import HyperspaceSession, Hyperspace, CoveringIndexConfig
 
@@ -19,6 +20,9 @@ filter from it::
     hs.create_index(df, CoveringIndexConfig("idx", ["k"], ["v"]))
     sess.enable_hyperspace()
     df.filter(df["k"] == 3).select("v").collect()   # served from the index
+    other = sess.read.parquet("/data/u")
+    hs.create_index(other, CoveringIndexConfig("u_idx", ["j"], ["w"]))
+    df.join(other, on=df["k"] == other["j"]).select("v", "w").collect()
 """
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException  # noqa: F401

@@ -1,9 +1,9 @@
 """DataFrame API — the user-facing query surface.
 
-Counterpart of ``hyperspace_tpu/dataframe.py`` for this slice: filter,
-select, collect and explain (join, group_by, sort and limit are ported with
-their slices, ROADMAP queue A). A DataFrame is a (session, logical plan)
-pair; ``collect()`` runs the session's optimizer —
+Counterpart of ``hyperspace_tpu/dataframe.py`` for the ported slices:
+filter, select, inner equi-join, collect and explain (group_by, sort and
+limit are ported with their slices, ROADMAP queue A). A DataFrame is a
+(session, logical plan) pair; ``collect()`` runs the session's optimizer —
 where index rewrites happen when ``enable_hyperspace()`` is on, like the
 reference's injected ``ApplyHyperspace`` rule (``package.scala:82-93``) —
 then the executor.
@@ -11,13 +11,13 @@ then the executor.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Union
 
 import pyarrow as pa
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan import expressions as E
-from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project
+from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project
 
 
 def _resolve_plan_name(plan: LogicalPlan, name: str) -> str:
@@ -78,6 +78,19 @@ class DataFrame:
         )
         cols = [self._resolve_name(c) for c in cols]
         return DataFrame(self._session, Project(cols, self._plan))
+
+    def join(
+        self,
+        other: "DataFrame",
+        on: Union[E.Expr, str, Sequence[str]],
+        how: str = "inner",
+    ) -> "DataFrame":
+        if isinstance(on, (str, list, tuple)):
+            raise HyperspaceException(
+                "Same-name join keys are ambiguous in this IR; "
+                "join with an expression like left['a'] == right['b']"
+            )
+        return DataFrame(self._session, Join(self._plan, other._plan, on, how))
 
     # -- actions ------------------------------------------------------------
     def collect(self) -> pa.Table:

@@ -1,23 +1,36 @@
 """Plan executor: walks the (optimized) logical plan and produces Arrow.
 
-Counterpart of ``hyperspace_tpu/execution/executor.py`` for Scan, Filter
-and Project. Column pruning and simple conjuncts are pushed into the
-parquet read; a filter over a bucketed index scan first drops the bucket
-files that cannot hold a match (murmur3 of the literals, kernel B1 on the
-session's device); the predicate mask is then evaluated on the session's
-device (``ops/filter.py``), with the host evaluator kept for what does not
-lower (``Unsupported``) and counted in ``session.exec_stats``.
+Counterpart of ``hyperspace_tpu/execution/executor.py`` for Scan, Filter,
+Project and inner equi-Join. Column pruning and simple conjuncts are
+pushed into the parquet read; a filter over a bucketed index scan first
+drops the bucket files that cannot hold a match (murmur3 of the literals,
+kernel B1 on the session's device); the predicate mask is then evaluated
+on the session's device (``ops/filter.py``), with the host evaluator kept
+for what does not lower (``Unsupported``) and counted in
+``session.exec_stats``.
+
+A join whose two sides keep aligned bucketed index layouts (the
+JoinIndexRule rewrite) runs shuffle-free: each side is executed into
+per-bucket batches (bucket id from the file names, rows in file order)
+and ``execution/join_exec`` zips equal buckets pairwise, matching them
+with kernel B4 (``ops/join.py``) on the session's device. Any other join
+runs the unindexed ``inner_join`` through the same kernel as one segment.
+``session.exec_stats`` counts both kinds; ``session.join_stats`` holds the
+latest join's stage seconds: ``scan`` (both sides read, filtered and
+projected) here, the rest in ``join_exec``.
 
 Rows come out in the reference's order: files in relation order, rows in
-file order, the mask applied in place. Not ported yet: joins, aggregates,
-sort and limit, zone-map range pruning, the fused serve pipeline, the
-serve cache and Hybrid Scan (ROADMAP queue A items 4-7 and 10).
+file order, the mask applied in place; a co-bucketed join's rows bucket
+by bucket. Not ported yet: aggregates, sort and limit, zone-map range
+pruning, the fused serve pipeline, the serve cache, the pipelined and
+streaming join serve, and Hybrid Scan (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from functools import lru_cache as _lru_cache
 from typing import Set
 
@@ -25,12 +38,13 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.ops.filter import Unsupported, device_filter_mask
 from hyperspace_tpu_torch.ops.hash import bucket_ids
 from hyperspace_tpu_torch.plan import expressions as E
-from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
 
 
 def execute(plan: LogicalPlan, session):
@@ -58,6 +72,8 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     if isinstance(plan, Project):
         batch = _exec(plan.child, set(plan.columns), session)
         return batch.select(plan.columns)
+    if isinstance(plan, Join):
+        return _exec_join(plan, needed, session)
     raise NotImplementedError(
         f"{type(plan).__name__} is not ported yet (ROADMAP queue A)"
     )
@@ -264,3 +280,134 @@ def _exec_scan(
         return ColumnarBatch.from_arrow(empty)
     table = pio.read_table(list(rel.files), cols, rel.fmt, filters=pushdown)
     return ColumnarBatch.from_arrow(table).select(cols)
+
+
+# -- joins ---------------------------------------------------------------------
+
+
+def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
+    from hyperspace_tpu_torch.execution.join_exec import (
+        co_bucketed_join_prepared,
+        inner_join,
+        prepare_join_side,
+    )
+
+    pairs = E.equi_join_pairs(plan.condition)
+    if pairs is None:
+        raise HyperspaceException(
+            f"Only conjunctive equi-joins are executable: {plan.condition!r}"
+        )
+    lcols = set(plan.left.output)
+    on = [(a, b) if a in lcols else (b, a) for a, b in pairs]
+    l_keys = [l for l, _ in on]
+    r_keys = [r for _, r in on]
+    l_needed = (needed & lcols) | set(l_keys)
+    r_needed = (needed & set(plan.right.output)) | set(r_keys)
+    stats: dict = {}
+    layout = _aligned_bucket_layouts(plan, on)
+    if layout is None:
+        session.exec_stats.unbucketed_joins += 1
+        t0 = time.perf_counter()
+        left = _exec(plan.left, l_needed, session)
+        right = _exec(plan.right, r_needed, session)
+        stats["scan"] = time.perf_counter() - t0
+        out = inner_join(left, right, on, session.device, stats)
+        session.join_stats = stats
+        return out
+    # Shuffle-free co-bucketed join (the JoinIndexRule payoff; the
+    # physical analogue of Spark SMJ over co-bucketed index scans with
+    # no Exchange, JoinIndexRule.scala:619-634): equal buckets are
+    # matched pairwise by kernel B4.
+    session.exec_stats.co_bucketed_joins += 1
+    _num_buckets, l_bucket_cols, r_bucket_cols = layout
+    t0 = time.perf_counter()
+    lbs = _exec_bucketed(plan.left, l_needed, session, l_bucket_cols)
+    rbs = _exec_bucketed(plan.right, r_needed, session, r_bucket_cols)
+    stats["scan"] = time.perf_counter() - t0
+    joined = None
+    if lbs and rbs:
+        lp = prepare_join_side(lbs, l_keys, stats)
+        rp = prepare_join_side(rbs, r_keys, stats)
+        joined = co_bucketed_join_prepared(lp, rp, on, session.device, stats)
+    session.join_stats = stats
+    if joined is not None:
+        return joined
+    schema = plan.schema()
+    out_cols = [c for c in plan.output if c in (needed | set(l_keys) | set(r_keys))]
+    return ColumnarBatch.from_arrow(
+        pa.table({c: pa.array([], type=schema[c]) for c in out_cols})
+    )
+
+
+def _bucket_layout(plan: LogicalPlan):
+    """(num_buckets, bucket_cols) if the subtree preserves a bucketed scan
+    layout (Scan with bucket_spec under Filter/Project)."""
+    if isinstance(plan, Scan):
+        return plan.relation.bucket_spec
+    if isinstance(plan, Filter):
+        return _bucket_layout(plan.child)
+    if isinstance(plan, Project):
+        spec = _bucket_layout(plan.child)
+        if spec and all(c in plan.columns for c in spec[1]):
+            return spec
+    return None
+
+
+def _aligned_bucket_layouts(plan: Join, on):
+    """Both sides bucketed, same count, and bucket columns positionally
+    aligned through the join mapping (order matters: the bucket hash chains
+    over columns in order — mirroring Spark's order-sensitive
+    HashPartitioning compatibility)."""
+    l_spec = _bucket_layout(plan.left)
+    r_spec = _bucket_layout(plan.right)
+    if not l_spec or not r_spec:
+        return None
+    (ln, lcols), (rn, rcols) = l_spec, r_spec
+    if ln != rn or len(lcols) != len(rcols):
+        return None
+    mapping = dict(on)
+    for lc, rc in zip(lcols, rcols):
+        if mapping.get(lc) != rc:
+            return None
+    return ln, tuple(lcols), tuple(rcols)
+
+
+def _exec_bucketed(plan: LogicalPlan, needed: Set[str], session, bucket_cols):
+    """Execute a linear subtree over a bucketed index scan into per-bucket
+    batches: bucket id from each file's name, a bucket's rows in file
+    order. The files are read one table each on a thread pool."""
+    if isinstance(plan, Scan):
+        rel = plan.relation
+        groups: dict = {}
+        for f, b in zip(rel.files, _bucket_ids_of_files(rel.files)):
+            if b is None:
+                raise HyperspaceException(f"Not a bucket file: {f}")
+            groups.setdefault(b, []).append(f)
+        cols = [c for c in rel.column_names if c in needed] or rel.column_names[:1]
+        ordered = [f for b in sorted(groups) for f in groups[b]]
+        tables = dict(zip(ordered, pio.read_tables(ordered, cols, rel.fmt)))
+        return {
+            b: ColumnarBatch.from_arrow(
+                pa.concat_tables([tables[f] for f in groups[b]])
+            ).select(cols)
+            for b in sorted(groups)
+        }
+    if isinstance(plan, Filter):
+        child_needed = set(needed) | E.references(plan.condition)
+        return {
+            b: batch.filter(_filter_mask(plan.condition, batch, session))
+            for b, batch in _exec_bucketed(
+                plan.child, child_needed, session, bucket_cols
+            ).items()
+        }
+    if isinstance(plan, Project):
+        cols = [c for c in plan.columns if c in needed] or plan.columns
+        return {
+            b: batch.select([c for c in cols if c in batch.column_names])
+            for b, batch in _exec_bucketed(
+                plan.child, set(cols), session, bucket_cols
+            ).items()
+        }
+    raise HyperspaceException(
+        f"Node not supported in bucketed execution: {type(plan).__name__}"
+    )

@@ -369,6 +369,17 @@ class ColumnarBatch:
         """[num_keys, num_rows] int64 key representations."""
         return np.stack([self.column(n).key_rep() for n in names])
 
+    def null_any(self, names: Sequence[str]) -> np.ndarray:
+        """[num_rows] bool: True where ANY named column is null. The
+        correct null-row detector for join semantics (reps encode null as
+        an in-band value; see NULL_KEY_REP)."""
+        out = np.zeros(self.num_rows, dtype=bool)
+        for n in names:
+            m = self.column(n).null_mask
+            if m is not None:
+                out |= m
+        return out
+
     @staticmethod
     def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
         if not batches:

@@ -42,6 +42,19 @@ def _file_schemas(paths: Sequence[str]) -> List[pa.Schema]:
     return _pool_map(lambda p: pq.ParquetFile(p).schema_arrow, list(paths))
 
 
+def read_tables(
+    paths: Sequence[str], columns: Sequence[str], fmt: str = "parquet"
+) -> List[pa.Table]:
+    """One table per file, in ``paths`` order (each file's rows in file
+    order), read on a small thread pool: the per-bucket reads of a
+    bucketed index scan. Files that carry every column literally (index
+    data does) are read directly, without a dataset per file."""
+    paths = list(paths)
+    if fmt != "parquet" or not paths or _resolve_nested_columns(paths, columns, fmt)[1]:
+        return _pool_map(lambda p: read_table([p], columns, fmt), paths)
+    return _pool_map(lambda p: pq.ParquetFile(p).read(columns=list(columns)), paths)
+
+
 def _literal_column_names(path: str) -> frozenset:
     """Top-level column names of one parquet file, memoized by the file's
     identity (path, size, mtime_ns) — per-file read loops with nested

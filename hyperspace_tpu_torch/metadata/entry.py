@@ -525,6 +525,10 @@ class IndexLogEntry(LogEntry):
         return self.relations[0]
 
     @property
+    def source_files_size_in_bytes(self) -> int:
+        return self.relation.content.size_in_bytes
+
+    @property
     def has_source_update(self) -> bool:
         """True when a quick refresh recorded a pending source delta
         (IndexLogEntry.hasSourceUpdate): the fingerprint matches the newer

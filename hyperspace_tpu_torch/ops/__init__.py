@@ -8,7 +8,9 @@ the plain version, a tensor on the card launches the kernel or raises.
 
 * :mod:`.hash` — murmur3 bucket ids (kernel B1, ``csrc/murmur3_bucket.cu``);
 * :mod:`.sort` — bucket-partitioned stable key sort (torch ops);
-* :mod:`.filter` — SQL three-valued predicate masks (torch ops).
+* :mod:`.filter` — SQL three-valued predicate masks (torch ops);
+* :mod:`.join` — per-bucket merge-join match of co-bucketed sides
+  (kernel B4, ``csrc/bucket_match.cu``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,12 @@ KERNEL_TWINS = {
         "bucket_ids_kernel",
         "bucket_ids_torch",
         "hyperspace_tpu_torch/csrc/murmur3_bucket.cu",
+    ),
+    "bucket_match_pairs": (
+        "hyperspace_tpu_torch.ops.join",
+        "match_pairs_kernel",
+        "match_pairs_torch",
+        "hyperspace_tpu_torch/csrc/bucket_match.cu",
     ),
 }
 

@@ -208,6 +208,18 @@ def split_conjuncts(expr: Optional[Expr]) -> List[Expr]:
     return [expr]
 
 
+def equi_join_pairs(cond: Expr) -> Optional[List[Tuple[str, str]]]:
+    """If cond is a conjunction of Col == Col, the (left, right) name pairs;
+    else None (JoinIndexRule CNF equi-condition check :164-170)."""
+    pairs = []
+    for c in split_conjuncts(cond):
+        if isinstance(c, Eq) and isinstance(c.left, Col) and isinstance(c.right, Col):
+            pairs.append((c.left.name, c.right.name))
+        else:
+            return None
+    return pairs
+
+
 def conjunction(exprs: List[Expr]) -> Optional[Expr]:
     out: Optional[Expr] = None
     for e in exprs:

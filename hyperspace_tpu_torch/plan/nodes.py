@@ -1,11 +1,13 @@
-"""Logical plan nodes: Scan / Filter / Project.
+"""Logical plan nodes: Scan / Filter / Project / Join.
 
 Counterpart of ``hyperspace_tpu/plan/nodes.py``, cut to the nodes of the
-filter-serve slice (Join, Aggregate, Sort, Limit and Union are ported
-with their slices, ROADMAP queue A). In the reference these are
-Catalyst's ``LogicalRelation``, ``Filter`` and ``Project``, matched
-against in ``covering/FilterIndexRule.scala:33-55`` (Filter[→Project]
-over a relation). Plans are immutable; rewrites build new trees.
+filter-serve and join-serve slices (Aggregate, Sort, Limit and Union are
+ported with their slices, ROADMAP queue A). In the reference these are
+Catalyst's ``LogicalRelation``, ``Filter``, ``Project`` and ``Join``,
+matched against in ``covering/FilterIndexRule.scala:33-55`` (Filter[→Project]
+over a relation) and ``covering/JoinIndexRule.scala:122-170`` (inner
+equi-join of linear children). Plans are immutable; rewrites build new
+trees.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ class LogicalPlan:
         for c in self.children:
             out.extend(c.collect_leaves())
         return out
+
+    def transform_up(self, fn) -> "LogicalPlan":
+        """Bottom-up rewrite: fn(node_with_new_children) -> node."""
+        node = self.with_children([c.transform_up(fn) for c in self.children])
+        return fn(node)
 
     def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
         if not children:
@@ -168,3 +175,79 @@ class Project(LogicalPlan):
 
     def _node_string(self):
         return f"Project [{', '.join(self.columns)}]"
+
+
+class Join(LogicalPlan):
+    """Inner equi-join (the only join type JoinIndexRule handles;
+    ``JoinIndexRule.scala:155-162`` requires inner + equi-CNF)."""
+
+    def __init__(
+        self,
+        left: LogicalPlan,
+        right: LogicalPlan,
+        condition: E.Expr,
+        how: str = "inner",
+    ):
+        if how != "inner":
+            raise HyperspaceException(f"Unsupported join type: {how}")
+        self.left = left
+        self.right = right
+        self.condition = condition
+        self.how = how
+        dup = set(left.output) & set(right.output)
+        if dup:
+            raise HyperspaceException(
+                f"Ambiguous join output columns: {sorted(dup)}; "
+                "project/rename before joining"
+            )
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    @property
+    def output(self):
+        return self.left.output + self.right.output
+
+    def schema(self):
+        s = dict(self.left.schema())
+        s.update(self.right.schema())
+        return s
+
+    def with_children(self, children):
+        left, right = children
+        return Join(left, right, self.condition, self.how)
+
+    def _node_string(self):
+        return f"Join {self.how} on {self.condition!r}"
+
+
+def prune_join_columns(plan: LogicalPlan, needed: Optional[set] = None) -> LogicalPlan:
+    """Insert explicit Projects above Join children so each side carries
+    only the columns used above it.
+
+    The reference's rules run after Catalyst's column pruning, so
+    ``JoinIndexRule`` sees minimal child outputs; this pass provides the
+    same invariant for our IR. Only Join children are wrapped — existing
+    Filter/Project chains are preserved so the Filter-rule plan shapes
+    stay matchable.
+    """
+    if needed is None:
+        needed = set(plan.output)
+    if isinstance(plan, Project):
+        return Project(plan.columns, prune_join_columns(plan.child, set(plan.columns)))
+    if isinstance(plan, Filter):
+        child_needed = needed | E.references(plan.condition)
+        return Filter(plan.condition, prune_join_columns(plan.child, child_needed))
+    if isinstance(plan, Join):
+        refs = E.references(plan.condition)
+        out = []
+        for child in (plan.left, plan.right):
+            child_needed = (needed | refs) & set(child.output)
+            pruned = prune_join_columns(child, child_needed)
+            cols = [c for c in pruned.output if c in child_needed]
+            if cols != pruned.output:
+                pruned = Project(cols, pruned)
+            out.append(pruned)
+        return Join(out[0], out[1], plan.condition, plan.how)
+    return plan

@@ -50,6 +50,14 @@ def no_first_indexed_col_cond(first_indexed: str, condition_cols: str) -> Filter
     )
 
 
+def not_eligible_join(reason: str) -> FilterReason:
+    return FilterReason(
+        "NOT_ELIGIBLE_JOIN",
+        (("reason", reason),),
+        "The join shape is not eligible for the join-index rewrite.",
+    )
+
+
 def another_index_applied(applied: str) -> FilterReason:
     return FilterReason(
         "ANOTHER_INDEX_APPLIED",

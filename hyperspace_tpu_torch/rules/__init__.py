@@ -1,1 +1,1 @@
-"""Index-aware plan rewriting (the filter rule in this slice)."""
+"""Index-aware plan rewriting (the filter and join rules)."""

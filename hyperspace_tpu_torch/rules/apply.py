@@ -14,7 +14,7 @@ import logging
 import threading
 
 from hyperspace_tpu_torch.constants import States
-from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, prune_join_columns
 from hyperspace_tpu_torch.rules.candidate import collect_candidates
 from hyperspace_tpu_torch.rules.score import ScoreBasedIndexPlanOptimizer
 
@@ -46,6 +46,7 @@ def apply_hyperspace(
             entries = session.index_manager.get_indexes([States.ACTIVE])
         if not entries:
             return plan
+        plan = prune_join_columns(plan)
         candidates = collect_candidates(session, plan, entries)
         if not candidates:
             return plan

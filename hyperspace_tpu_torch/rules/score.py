@@ -4,7 +4,7 @@ Reference: ``rules/ScoreBasedIndexPlanOptimizer.scala:31-81`` — a
 recursive, memoized search: at every node, either some rule rewrites the
 subtree (its score), or the children are optimized independently (sum of
 child scores); keep the max. The reference's rule set is `:32-33`;
-this slice registers FilterIndexRule and NoOpRule.
+the port registers FilterIndexRule, JoinIndexRule and NoOpRule.
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, NoOpRu
 
 
 def _all_rules() -> List[HyperspaceRule]:
-    """The filter rule only: the join, z-order, data-skipping and
-    aggregate rules are ported with their slices (ROADMAP queue A)."""
+    """The filter and join rules, in the reference's order: the z-order,
+    data-skipping and aggregate rules are ported with their slices
+    (ROADMAP queue A)."""
     from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
+    from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
 
-    return [FilterIndexRule(), NoOpRule()]
+    return [FilterIndexRule(), JoinIndexRule(), NoOpRule()]
 
 
 class ScoreBasedIndexPlanOptimizer:

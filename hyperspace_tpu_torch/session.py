@@ -46,13 +46,16 @@ def resolve_device(device=None) -> torch.device:
 class ExecStats:
     """Counts of what the executor ran, per session: predicate masks
     evaluated on the device, masks evaluated on the host because the
-    predicate does not lower (``ops/filter.Unsupported``), and
-    bucket-pruned scans."""
+    predicate does not lower (``ops/filter.Unsupported``), bucket-pruned
+    scans, joins served shuffle-free from co-bucketed index scans, and
+    joins run unindexed."""
 
     def __init__(self):
         self.device_filter_evals = 0
         self.host_filter_evals = 0
         self.bucket_pruned_scans = 0
+        self.co_bucketed_joins = 0
+        self.unbucketed_joins = 0
 
     def reset(self) -> None:
         self.__init__()
@@ -100,6 +103,8 @@ class HyperspaceSession:
         self.exec_stats = ExecStats()
         #: stage wall seconds of the latest index build (indexes/covering_build)
         self.build_stats: dict = {}
+        #: stage wall seconds of the latest join (execution/join_exec)
+        self.join_stats: dict = {}
         self._hyperspace_enabled = False
         self._source_manager = None
         self._index_manager = None

@@ -187,6 +187,8 @@ def test_point_query_is_bucket_pruned_and_masked_on_the_device(world):
         "device_filter_evals": 1,
         "host_filter_evals": 0,
         "bucket_pruned_scans": 1,
+        "co_bucketed_joins": 0,
+        "unbucketed_joins": 0,
     }
 
 
