@@ -1,6 +1,6 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-src PATH]
+    python3 chip_smoke.py [--baseline-src PATH] [--only-b4]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -23,7 +23,11 @@ against its plain PyTorch version on the card:
      order to the plain version over ``b4_cases`` (presorted and unsorted
      segments, B in {1, 7, 200}, empty segments on either side, n or
      m = 0, INT64_MIN / INT64_MAX keys, null sentinels, many-to-many
-     duplicates, one skewed 2,000 x 2,000 segment);
+     duplicates, one skewed 2,000 x 2,000 segment, and for B4's two
+     search branches a group across three one-row segments, windows of
+     512 and 513 right keys, an all-equal segment wider than 512, a
+     window of 512 keys all below a left key, n in {1, 31, 33, 1185}),
+     each with int32 and with int64 lo / cnt;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -42,10 +46,20 @@ against its plain PyTorch version on the card:
    plain version: the indexed join (1,500,000 x 6,001,215 keys, 200
    presorted buckets), the unindexed one (one segment, both row maps),
    and the two-key join both ways (per-bucket sorts, row maps). The
-   indexed and unindexed inputs are timed there cold and warm, count and
-   emit passes apart, beside the bound and the plain version, with a
+   indexed and unindexed inputs are timed there cold and warm, count
+   pass, range-total scan and emit pass apart, with int64 lo / cnt too,
+   beside the bound and the plain version; so are the unindexed inputs
+   with the left side shuffled and phase 3's "row order" case (random
+   left keys, which send every row to the search in global memory); a
    batched ``torch.searchsorted`` over the indexed buckets padded to
-   [B, W] (ranges only, no pairs) as a yardstick.
+   [B, W] (ranges only, no pairs) is timed as a yardstick.
+
+``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
+timings of phase 6 on device tensors shaped like phase 5's indexed and
+unindexed calls, built from the same keys with B1 and a device sort
+instead of from the tables, and prints the card line and the records
+under ``only_b4`` instead of ``kernels``, with null launches: the main
+path does not run.
 
 Kernel launch counts are set to 0 just before phases 4 and 5 and read
 just after each; phase 6's launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
@@ -348,7 +362,7 @@ def check_kernels(dev, baseline=None) -> dict:
         "route": "cuda",
         "source": "hyperspace_tpu_torch/csrc/murmur3_bucket.cu",
         "replaces": "hyperspace_tpu/ops/hash.py:248",
-        "launches": 0,
+        "launches": None,  # the main path's count, filled in by main
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -428,12 +442,23 @@ def b4_cases(rng) -> list:
     skew[1][100:2100] = 42
     skew[3][100:2100] = 42
     out.append(skew)
+    out.extend(b4_branch_cases())
     return out
 
 
-def run_b4_case(dev, l, l_offs, r, r_offs, l_mode, r_mode) -> int:
-    """Hold B4 against its plain version on one case on the card; returns
-    the max abs error (0, or it raises)."""
+def b4_branch_cases() -> list:
+    """B4's edge cases, shared with the tests (``tests/torch_b4_cases.py``,
+    numpy only): each search branch at its edges, presorted."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b4_cases import b4_edge_cases
+
+    return [[label, l, l_offs, r, r_offs, "sorted", "sorted"]
+            for label, (l, l_offs, r, r_offs) in b4_edge_cases().items()]
+
+
+def b4_case_inputs(dev, l, l_offs, r, r_offs, l_mode, r_mode) -> tuple:
+    """One case's B4 arguments on the card: (l_keys, l_offs, r_sorted,
+    r_offs, l_row, r_row), a "sort" side sorted per segment first."""
     import torch
 
     from hyperspace_tpu_torch.ops import join as J
@@ -445,26 +470,31 @@ def run_b4_case(dev, l, l_offs, r, r_offs, l_mode, r_mode) -> int:
         lk, l_row = J.segment_sort(lk, l_offs)
     if r_mode == "sort":
         rk, r_row = J.segment_sort(rk, r_offs)
-    return compare_b4(dev, lk, l_offs, rk, r_offs, l_row, r_row)
+    return lk, l_offs, rk, r_offs, l_row, r_row
 
 
 def compare_b4(dev, lk, l_offs, rk, r_offs, l_row=None, r_row=None) -> int:
+    """Hold B4 against its plain version on one set of inputs, with int32
+    and with int64 lo / cnt; returns the max abs error (0, or it
+    raises)."""
     import torch
 
     from hyperspace_tpu_torch.ops import join as J
 
-    got = J.match_pairs_kernel(lk, l_offs, rk, r_offs, l_row, r_row)
-    torch.cuda.synchronize()
     want = J.match_pairs_torch(lk, l_offs, rk, r_offs, l_row, r_row)
-    for g, w in zip(got, want):
-        if g.shape != w.shape or g.dtype != torch.int64 or g.device != lk.device:
-            raise AssertionError(f"B4: bad output {g.dtype} {tuple(g.shape)} "
-                                 f"want {tuple(w.shape)}")
-    err = max(
-        (int((g - w).abs().max()) if g.numel() else 0) for g, w in zip(got, want)
-    )
-    if err != 0:
-        raise AssertionError("B4 pairs differ from the plain version")
+    err = 0
+    for int64_index in (False, True):
+        got = J.match_pairs_kernel(lk, l_offs, rk, r_offs, l_row, r_row, int64_index)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != torch.int64 or g.device != lk.device:
+                raise AssertionError(f"B4: bad output {g.dtype} {tuple(g.shape)} "
+                                     f"want {tuple(w.shape)}")
+        err = max([err] + [int((g - w).abs().max()) if g.numel() else 0
+                           for g, w in zip(got, want)])
+        if err != 0:
+            raise AssertionError(f"B4 pairs differ from the plain version "
+                                 f"(int64 lo / cnt: {int64_index})")
     return err
 
 
@@ -505,11 +535,11 @@ def check_b4_cases(dev) -> tuple:
     error)."""
     rng = np.random.default_rng(SEED + 3)
     count, max_err = 0, 0
-    for _label, l, l_offs, r, r_offs, l_mode, r_mode in b4_cases(rng):
-        max_err = max(max_err, run_b4_case(dev, l, l_offs, r, r_offs, l_mode, r_mode))
+    for _label, *case in b4_cases(rng):
+        max_err = max(max_err, compare_b4(dev, *b4_case_inputs(dev, *case)))
         count += 1
-    log(f"kernels: B4 pairs equal in order to plain over {count} cases "
-        f"(max_abs_err {max_err})")
+    log(f"kernels: B4 pairs equal in order to plain over {count} cases, each with "
+        f"int32 and with int64 lo / cnt (max_abs_err {max_err})")
     return count, max_err
 
 
@@ -535,9 +565,11 @@ class B4Inputs:
 
 
 def time_b4(dev, args, flush) -> dict:
-    """Cold and warm times of B4 on one recorded call's inputs: count
-    pass, emit pass, and the two with the scan between them, beside the
-    bound; and the wrapper's whole call, its read of the total included."""
+    """Cold and warm times of B4 on one set of inputs: count pass, the scan
+    of its range totals, emit pass, and the three in sequence (B4's device
+    work, int32 lo / cnt as the wrapper takes them here, and the int64
+    instance), beside the bound; and the wrapper's whole call, its read of
+    the total included."""
     import torch
 
     from hyperspace_tpu_torch.ops import join as J
@@ -547,22 +579,32 @@ def time_b4(dev, args, flush) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     l_offs_t = torch.from_numpy(l_offs).to(dev)
     r_offs_t = torch.from_numpy(r_offs).to(dev)
-    lo, cnt = J._count_pass(lk, l_offs_t, rk, r_offs_t, stream)
-    incl = torch.cumsum(cnt, 0)
-    total = int(incl[-1])
+    dtype = J.index_dtype(rk.shape[0])
+    groups = {t: J._range_groups(lk.shape[0], t) for t in (torch.int32, torch.int64)}
+
+    def count_pass(index=dtype):
+        return J._count_pass(lk, l_offs_t, rk, r_offs_t, groups[index], index, stream)
+
+    counts = count_pass()
+    range_tot = counts.range_tot.clone()  # the totals, before the scan
+    total = int(J._scan_pass(counts.range_tot, stream)[-1])
     li = torch.empty(total, dtype=torch.int64, device=dev)
     ri = torch.empty(total, dtype=torch.int64, device=dev)
 
-    def sequence():  # count pass, scan, emit pass: B4's device work
-        lo2, cnt2 = J._count_pass(lk, l_offs_t, rk, r_offs_t, stream)
-        J._emit_pass(lo2, cnt2, torch.cumsum(cnt2, 0), l_row, r_row, li, ri, stream)
+    def sequence(index=dtype):  # count pass, scan, emit pass: B4's device work
+        c = count_pass(index)
+        J._scan_pass(c.range_tot, stream)
+        J._emit_pass(c, l_row, r_row, li, ri, stream)
 
     med = lambda t: float(np.median(t))  # noqa: E731
-    count_ms = med(time_cold(lambda: J._count_pass(lk, l_offs_t, rk, r_offs_t, stream),
-                             flush))
-    emit_ms = med(time_cold(
-        lambda: J._emit_pass(lo, cnt, incl, l_row, r_row, li, ri, stream), flush))
+    count_ms = med(time_cold(count_pass, flush))
+    zeros = torch.zeros_like(range_tot)  # stays zero under repeated scans in place
+    scan_ms = med(time_cold(lambda: J._scan_pass(zeros, stream), flush))
+    torch_cumsum_ms = med(time_cold(lambda: torch.cumsum(range_tot, 0), flush))
+    emit_ms = med(time_cold(lambda: J._emit_pass(counts, l_row, r_row, li, ri, stream),
+                            flush))
     ms = med(time_cold(sequence, flush))
+    int64_index_ms = med(time_cold(lambda: sequence(torch.int64), flush))
     call = []
     for _ in range(10):
         flush.sum()
@@ -577,7 +619,9 @@ def time_b4(dev, args, flush) -> dict:
     return {
         "n": lk.shape[0], "m": rk.shape[0], "segments": len(l_offs) - 1,
         "pairs": total, "row_maps": [l_row is not None, r_row is not None],
-        "ms": ms, "count_ms": count_ms, "emit_ms": emit_ms,
+        "ms": ms, "count_ms": count_ms, "scan_ms": scan_ms, "emit_ms": emit_ms,
+        "int64_index_ms": int64_index_ms, "torch_cumsum_ms": torch_cumsum_ms,
+        "range_groups": groups[dtype],
         "warm_ms": time_cuda(sequence), "call_ms": med(call),
         "plain_ms": time_cuda(
             lambda: J.match_pairs_torch(lk, l_offs, rk, r_offs, l_row, r_row),
@@ -586,34 +630,88 @@ def time_b4(dev, args, flush) -> dict:
     }
 
 
-def check_b4_main_path(dev, recorded: dict, cases: int, case_err: int) -> dict:
+def check_b4_main_path(dev, recorded: dict) -> int:
     """B4 on the inputs that phase 5 handed it: each recorded call held
-    equal in order to the plain version, then the indexed and the
-    unindexed join's shapes timed; returns B4's record for the kernels
-    line."""
-    import torch
-
+    equal in order to the plain version; returns the max abs error."""
     labels = ("indexed", "unindexed", "two-key indexed", "two-key unindexed")
     missing = [k for k in labels if k not in recorded]
     if missing:
         raise AssertionError(f"phase 5 made no B4 call for {missing}")
-    max_err = case_err
+    max_err = 0
     for label in labels:
         lk, l_offs, rk, r_offs, l_row, r_row = recorded[label]
         max_err = max(max_err, compare_b4(dev, lk, l_offs, rk, r_offs, l_row, r_row))
         log(f"kernels: B4 pairs equal in order to plain on phase 5's {label} join inputs "
             f"({lk.shape[0]} x {rk.shape[0]} keys, {len(l_offs) - 1} segments, row maps "
-            f"{l_row is not None}/{r_row is not None})")
+            f"{l_row is not None}/{r_row is not None}), int32 and int64 lo / cnt")
     if recorded["indexed"][4] is not None or recorded["indexed"][5] is not None:
         raise AssertionError("the indexed join did not take the presorted route")
+    return max_err
+
+
+def b4_replica(dev) -> dict:
+    """B4's inputs in phase 5's two main calls, built on the card from the
+    same keys without writing the tables: the indexed join's (orders'
+    1,500,000 keys against lineitem's 6,001,215, each side in B1's 200
+    buckets, key-sorted within each, identity row maps) and the unindexed
+    join's (one segment: orders' keys in row order with their row map,
+    lineitem's sorted with its sort permutation)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import hash as H
+    from hyperspace_tpu_torch.ops.sort import sort_permutation
+
+    items = torch.from_numpy(lineitem_columns()["l_orderkey"]).to(dev)
+    orders = torch.arange(N_ORDERS, dtype=torch.int64, device=dev)
+
+    def bucketed(keys):
+        ids = H.bucket_ids_kernel(keys[None], N_BUCKETS).long()
+        sizes = torch.bincount(ids, minlength=N_BUCKETS).cpu().numpy()
+        perm = sort_permutation(keys[None], ids)
+        return keys[perm], np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+    order_r = sort_permutation(items[None])
+    return {
+        "indexed": (*bucketed(orders), *bucketed(items), None, None),
+        "unindexed": (orders, np.array([0, N_ORDERS]), items[order_r],
+                      np.array([0, N_ROWS]), torch.arange(N_ORDERS, device=dev), order_r),
+    }
+
+
+def b4_timed_inputs(dev, inputs: dict) -> dict:
+    """The inputs B4 is timed on: the indexed and the unindexed join's
+    (``inputs``), the unindexed ones with the left side shuffled (no window
+    then serves any rows: every row searches global memory), and phase 3's
+    "row order" case (random left keys)."""
+    import torch
+
+    lk, l_offs, rk, r_offs, l_row, r_row = inputs["unindexed"]
+    perm = torch.from_numpy(np.random.default_rng(SEED + 8).permutation(
+        lk.shape[0])).to(dev)
+    row_order = next(c for c in b4_cases(np.random.default_rng(SEED + 3))
+                     if c[0] == "row order")
+    return {
+        "indexed": inputs["indexed"],
+        "unindexed": inputs["unindexed"],
+        "unindexed, left shuffled": (lk[perm], l_offs, rk, r_offs, l_row[perm], r_row),
+        "row order": b4_case_inputs(dev, *row_order[1:]),
+    }
+
+
+def b4_timings(dev, inputs: dict) -> dict:
+    """Times B4 cold and warm on :func:`b4_timed_inputs`; logs each beside
+    its bound; returns B4's record for the kernels line (launches and
+    max_abs_err filled in by the caller)."""
+    import torch
 
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)  # 256 MiB
-    t = time_b4(dev, recorded["indexed"], flush)
-    u = time_b4(dev, recorded["unindexed"], flush)
+    timed = b4_timed_inputs(dev, inputs)
+    t, u, shuffled, small = (time_b4(dev, timed[k], flush) for k in (
+        "indexed", "unindexed", "unindexed, left shuffled", "row order"))
 
     # yardstick: both sides padded to [B, W] with INT64_MAX, one batched
     # torch.searchsorted per bound (the count pass's ranges, no pairs)
-    lk, l_offs, rk, r_offs = recorded["indexed"][:4]
+    lk, l_offs, rk, r_offs = inputs["indexed"][:4]
 
     def padded(keys, offs):
         sizes = torch.from_numpy(np.diff(offs)).to(dev)
@@ -629,52 +727,59 @@ def check_b4_main_path(dev, recorded: dict, cases: int, case_err: int) -> dict:
     yard_ms = float(np.median(time_cold(
         lambda: (torch.searchsorted(rp, lp), torch.searchsorted(rp, lp, right=True)),
         flush)))
-    for label, r in (("indexed", t), ("unindexed", u)):
+    for label, r in (("indexed join's", t), ("unindexed join's", u),
+                     ("unindexed join's, left shuffled,", shuffled),
+                     ('"row order" case\'s', small)):
         log(
-            f"kernels: B4 cold on the {label} join's inputs, {r['n']} x {r['m']} keys, "
+            f"kernels: B4 cold on the {label} inputs, {r['n']} x {r['m']} keys, "
             f"{r['segments']} segments, row maps {r['row_maps']}, {r['pairs']} pairs: "
-            f"ms {r['ms']:.4f} (count pass {r['count_ms']:.4f}, emit pass "
-            f"{r['emit_ms']:.4f}) bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_ms'] / r['ms']:.1%}; bytes {r['bytes']} -> {r['bytes_ms']:.4f} "
-            f"ms, int32 ops {r['int32_ops']} -> {r['ops_ms']:.4f} ms); warm ms "
-            f"{r['warm_ms']:.4f}; wrapper call with its total read ms {r['call_ms']:.4f}; "
-            f"plain_ms {r['plain_ms']:.4f}"
+            f"ms {r['ms']:.4f} (count pass {r['count_ms']:.4f}, scan {r['scan_ms']:.4f}, "
+            f"emit pass {r['emit_ms']:.4f}; int64 lo / cnt {r['int64_index_ms']:.4f}; "
+            f"torch.cumsum over the range totals {r['torch_cumsum_ms']:.4f}; "
+            f"{r['range_groups']} groups of 32 rows a warp) "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}; bytes "
+            f"{r['bytes']} -> {r['bytes_ms']:.4f} ms, int32 ops {r['int32_ops']} -> "
+            f"{r['ops_ms']:.4f} ms); warm ms {r['warm_ms']:.4f}; wrapper call with its "
+            f"total read ms {r['call_ms']:.4f}; plain_ms {r['plain_ms']:.4f}"
         )
     log(f"kernels: batched torch.searchsorted over the indexed join's [{len(l_offs) - 1}, "
         f"W] buckets (yardstick, ranges only) cold ms {yard_ms:.4f}; library_ms n/a")
+    keys = ("n", "m", "pairs", "ms", "count_ms", "scan_ms", "emit_ms", "int64_index_ms",
+            "torch_cumsum_ms",
+            "warm_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bytes")
     return {
         "name": "bucket_match_pairs",
         "route": "cuda",
         "source": "hyperspace_tpu_torch/csrc/bucket_match.cu",
         "replaces": "hyperspace_tpu/ops/join.py:142",
-        "launches": 0,
-        "max_abs_err": max_err,
+        "launches": None,  # the main path's count, filled in by main
+        "max_abs_err": 0,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
-        "cases": cases + len(labels),
         "timing": "cold: 256 MiB read before each run, median of 30; count pass, "
-                  "torch.cumsum and emit pass, on the indexed join's recorded inputs",
+                  "scan of the range totals and emit pass, on the indexed join's "
+                  "inputs",
         "pairs": t["pairs"],
         "bytes": t["bytes"],
         "count_ms": t["count_ms"],
+        "scan_ms": t["scan_ms"],
         "emit_ms": t["emit_ms"],
+        "int64_index_ms": t["int64_index_ms"],
+        "torch_cumsum_ms": t["torch_cumsum_ms"],
         "warm_ms": t["warm_ms"],
         "call_ms": t["call_ms"],
         "searchsorted_yardstick_ms": yard_ms,
-        "unindexed": {k: u[k] for k in ("n", "m", "pairs", "ms", "count_ms", "emit_ms",
-                                        "warm_ms", "call_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "bytes")},
+        "unindexed": {k: u[k] for k in keys},
+        "unindexed_left_shuffled": {k: shuffled[k] for k in keys},
+        "row_order_case": {k: small[k] for k in keys},
     }
 
 
-def gen_lineitem(out_dir: str) -> str:
-    """The bench.py lineitem shape at SF1 scale, 8 Parquet files."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
+def lineitem_columns() -> dict:
+    """The bench.py lineitem shape at SF1 scale, columns in file order."""
     rng = np.random.default_rng(SEED)
     l_orderkey = rng.integers(0, N_ORDERS, N_ROWS, dtype=np.int64)
     l_shipdate = np.datetime64("1994-01-01") + rng.integers(
@@ -683,14 +788,22 @@ def gen_lineitem(out_dir: str) -> str:
     l_quantity = rng.integers(1, 51, N_ROWS, dtype=np.int64)
     l_extendedprice = rng.normal(30000, 8000, N_ROWS)
     order = np.argsort(l_shipdate, kind="stable")
-    items = pa.table(
-        {
-            "l_orderkey": l_orderkey[order],
-            "l_shipdate": pa.array(l_shipdate[order].astype("datetime64[D]")),
-            "l_quantity": l_quantity[order],
-            "l_extendedprice": l_extendedprice[order],
-        }
-    )
+    return {
+        "l_orderkey": l_orderkey[order],
+        "l_shipdate": l_shipdate[order].astype("datetime64[D]"),
+        "l_quantity": l_quantity[order],
+        "l_extendedprice": l_extendedprice[order],
+    }
+
+
+def gen_lineitem(out_dir: str) -> str:
+    """:func:`lineitem_columns` as 8 Parquet files."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    cols = lineitem_columns()
+    cols["l_shipdate"] = pa.array(cols["l_shipdate"])
+    items = pa.table(cols)
     src = os.path.join(out_dir, "lineitem")
     os.makedirs(src)
     for i in range(N_FILES):
@@ -967,6 +1080,13 @@ def main() -> int:
         "to build, hold against the plain version and time in turns with the "
         "current kernel: baseline, current, current, baseline",
     )
+    parser.add_argument(
+        "--only-b4", action="store_true",
+        help="for iterating on kernel B4: run phases 1-3, then time B4 on device "
+        "tensors shaped like phase 5's indexed and unindexed calls (built from the "
+        "same keys without writing the tables) and print the records under "
+        "only_b4 with null launches; no main path, no final ok line",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -999,6 +1119,12 @@ def main() -> int:
     dev = torch.device("cuda")
     b1 = check_kernels(dev, baseline)
     b4_cases_run, b4_case_err = check_b4_cases(dev)
+    if args.only_b4:  # no main path: its launches stay null
+        b4 = b4_timings(dev, b4_replica(dev))
+        b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
+        print(card, flush=True)
+        print(json.dumps({"only_b4": [b1, b4]}), flush=True)
+        return 0
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1011,8 +1137,10 @@ def main() -> int:
         b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    b4 = check_b4_main_path(dev, b4_inputs.calls, b4_cases_run, b4_case_err)
-    b4["launches"] = b4_launches
+    main_err = check_b4_main_path(dev, b4_inputs.calls)
+    b4 = b4_timings(dev, {k: b4_inputs.calls[k] for k in ("indexed", "unindexed")})
+    b4.update(launches=b4_launches, max_abs_err=max(b4_case_err, main_err),
+              cases=b4_cases_run + 4)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4]}), flush=True)

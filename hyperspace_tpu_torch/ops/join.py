@@ -18,9 +18,9 @@ whole match — ranges and pair expansion — is kernel B4
   key-sorted already.
 * :func:`match_pairs` is the entry point: a CPU tensor takes the plain
   version :func:`match_pairs_torch`, a CUDA tensor launches B4 (count
-  pass, ``torch.cumsum`` to size the output, emit pass) and counts each
-  launch in :data:`launches`. It raises on what it cannot take; there is
-  no fallback.
+  pass, a scan of its per-range totals that sizes the output, emit
+  pass) and counts each launch in :data:`launches`. It raises on
+  what it cannot take; there is no fallback.
 
 Pair order: segment ascending, then left position, then right sorted
 position — the reference's order on every one of its routes.
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +38,7 @@ import torch
 from hyperspace_tpu_torch.ops.sort import sort_permutation
 
 #: kernel launches made by :func:`match_pairs` on CUDA tensors (count
-#: and emit passes each count one; never the plain version)
+#: pass, scan and emit pass each count one; never the plain version)
 launches = 0
 
 
@@ -185,17 +185,32 @@ def match_pairs_torch(
 def _kernel_fns():
     from hyperspace_tpu_torch import kernels
 
-    lib = kernels.load("bucket_match")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return bind(kernels.load("bucket_match"))
+
+
+def bind(lib: ctypes.CDLL) -> dict:
+    """The C functions of a library built from ``csrc/bucket_match.cu``,
+    with their argument types, by name."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    ranges = lib.hs_bucket_match_ranges
+    # n, index_bytes, out: groups of 32 left rows per range
+    ranges.argtypes = [i64, i32, ctypes.POINTER(i64)]
+    ranges.restype = ctypes.c_int
     count = lib.hs_bucket_match_count
-    # l_keys, n, l_offs, r_offs, num_segments, r_sorted, lo, cnt, stream
-    count.argtypes = [p, i64, p, p, i64, p, p, p, p]
+    # l_keys, n, l_offs, r_offs, num_segments, r_sorted, range_groups, lo,
+    # cnt, group_first, range_tot, index_bytes, stream
+    count.argtypes = [p, i64, p, p, i64, p, i64, p, p, p, p, i32, p]
     count.restype = ctypes.c_int
+    scan = lib.hs_bucket_match_scan
+    # v, len, stream
+    scan.argtypes = [p, i64, p]
+    scan.restype = ctypes.c_int
     emit = lib.hs_bucket_match_emit
-    # lo, cnt, incl, n, l_row, r_row, li, ri, stream
-    emit.argtypes = [p, p, p, i64, p, p, p, p, p]
+    # lo, cnt, group_first, range_offs, n, range_groups, l_row, r_row, li,
+    # ri, index_bytes, stream
+    emit.argtypes = [p, p, p, p, i64, i64, p, p, p, p, i32, p]
     emit.restype = ctypes.c_int
-    return count, emit
+    return {"ranges": ranges, "count": count, "scan": scan, "emit": emit}
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -207,36 +222,90 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"bucket match {what} launch failed: CUDA error {err}")
 
 
+def index_dtype(m: int, int64_index: bool = False) -> torch.dtype:
+    """The type of B4's per-left-row ``lo`` / ``cnt``: int32 while the
+    right side has fewer than 2^31 rows (every ``lo`` is below ``m``,
+    every ``cnt`` at most ``m``), else int64; ``int64_index`` takes the
+    int64 instance at any ``m``."""
+    return torch.int64 if int64_index or m >= 1 << 31 else torch.int32
+
+
+def _range_groups(n: int, dtype: torch.dtype) -> int:
+    """Groups of 32 left rows in each range that a warp of B4's count
+    pass walks: the groups split evenly over one resident wave of that
+    pass on the current device (asked of the library, which caches the
+    wave per device); the emit pass finds each group's range by it."""
+    out = ctypes.c_int64(0)
+    err = _kernel_fns()["ranges"](n, torch.iinfo(dtype).bits // 8, ctypes.byref(out))
+    _raise_on(err, "range sizing")
+    return out.value
+
+
+class _Counts(NamedTuple):
+    """What B4's count pass leaves for the emit pass: per left position
+    ``lo`` and ``cnt`` (int32 or int64), per group of 32 positions its
+    first output within its range (``group_first``, int64), and
+    ``range_tot`` (int64: 0, then each range's pair total; after
+    :func:`_scan_pass` each range's first output, last the number of
+    pairs)."""
+
+    lo: torch.Tensor
+    cnt: torch.Tensor
+    group_first: torch.Tensor
+    range_tot: torch.Tensor
+    range_groups: int
+
+
 def _count_pass(
     l_keys: torch.Tensor,
     l_offs: torch.Tensor,
     r_sorted: torch.Tensor,
     r_offs: torch.Tensor,
+    range_groups: int,
+    dtype: torch.dtype,
     stream: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B4's count pass on ``stream``: per left position the
-    absolute lower bound ``lo`` and the match count ``cnt`` ([n] int64
-    each). ``l_offs`` / ``r_offs`` are the checked offsets on the device;
-    every tensor is contiguous."""
+) -> _Counts:
+    """Launch B4's count pass on ``stream`` over ranges of
+    ``range_groups`` groups of 32 left positions, ``lo`` / ``cnt`` of
+    ``dtype``. ``l_offs`` / ``r_offs`` are the checked offsets on the
+    device; every tensor is contiguous."""
     global launches
-    n = l_keys.shape[0]
-    lo = torch.empty(n, dtype=torch.int64, device=l_keys.device)
-    cnt = torch.empty(n, dtype=torch.int64, device=l_keys.device)
-    err = _kernel_fns()[0](
+    n, dev = l_keys.shape[0], l_keys.device
+    groups = (n + 31) // 32
+    ranges = (groups + range_groups - 1) // range_groups
+    counts = _Counts(
+        torch.empty(n, dtype=dtype, device=dev),
+        torch.empty(n, dtype=dtype, device=dev),
+        torch.empty(groups, dtype=torch.int64, device=dev),
+        torch.empty(ranges + 1, dtype=torch.int64, device=dev),
+        range_groups,
+    )
+    err = _kernel_fns()["count"](
         l_keys.data_ptr(), n, l_offs.data_ptr(), r_offs.data_ptr(),
-        l_offs.shape[0] - 1, r_sorted.data_ptr(), lo.data_ptr(),
-        cnt.data_ptr(), stream,
+        l_offs.shape[0] - 1, r_sorted.data_ptr(), range_groups,
+        counts.lo.data_ptr(), counts.cnt.data_ptr(), counts.group_first.data_ptr(),
+        counts.range_tot.data_ptr(), counts.lo.element_size(), stream,
     )
     _raise_on(err, "count")
     if n:  # the C side launches nothing for n = 0
         launches += 1
-    return lo, cnt
+    return counts
+
+
+def _scan_pass(range_tot: torch.Tensor, stream: int) -> torch.Tensor:
+    """Launch B4's scan on ``stream``: ``range_tot`` becomes its inclusive
+    cumsum in place, each range's first output, its last entry the number
+    of pairs; returns it."""
+    global launches
+    err = _kernel_fns()["scan"](range_tot.data_ptr(), range_tot.shape[0], stream)
+    _raise_on(err, "scan")
+    if range_tot.shape[0]:
+        launches += 1
+    return range_tot
 
 
 def _emit_pass(
-    lo: torch.Tensor,
-    cnt: torch.Tensor,
-    incl: torch.Tensor,
+    counts: _Counts,
     l_row: Optional[torch.Tensor],
     r_row: Optional[torch.Tensor],
     li: torch.Tensor,
@@ -244,12 +313,14 @@ def _emit_pass(
     stream: int,
 ) -> None:
     """Launch B4's emit pass on ``stream``: write the pairs into ``li`` /
-    ``ri`` ([incl[-1]] int64) at each position's exclusive offset."""
+    ``ri`` ([counts.range_tot[-1]] int64) once :func:`_scan_pass` has
+    scanned ``counts.range_tot``."""
     global launches
-    n = lo.shape[0]
-    err = _kernel_fns()[1](
-        lo.data_ptr(), cnt.data_ptr(), incl.data_ptr(), n, _ptr(l_row),
-        _ptr(r_row), li.data_ptr(), ri.data_ptr(), stream,
+    n = counts.lo.shape[0]
+    err = _kernel_fns()["emit"](
+        counts.lo.data_ptr(), counts.cnt.data_ptr(), counts.group_first.data_ptr(),
+        counts.range_tot.data_ptr(), n, counts.range_groups, _ptr(l_row), _ptr(r_row),
+        li.data_ptr(), ri.data_ptr(), counts.lo.element_size(), stream,
     )
     _raise_on(err, "emit")
     if n:
@@ -268,10 +339,14 @@ def match_pairs_kernel(
     r_offs,
     l_row: Optional[torch.Tensor] = None,
     r_row: Optional[torch.Tensor] = None,
+    int64_index: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B4 on the card: count pass, inclusive ``torch.cumsum`` of the
-    counts, one read of the total to allocate the pairs, emit pass. With
-    n = 0 or m = 0 nothing launches."""
+    """B4 on the card: count pass, scan of its totals (one per range of
+    consecutive groups of 32 left rows), one read of the last to allocate
+    the pairs, emit pass: three launches. ``lo`` / ``cnt`` are int32
+    unless the right side has 2^31 rows or more, or ``int64_index`` asks
+    for the int64 instance (:func:`index_dtype`). With n = 0 or m = 0
+    nothing launches."""
     lo_np, ro_np = _check(l_keys, l_offs, r_sorted, r_offs, l_row, r_row)
     dev = l_keys.device
     if dev.type != "cuda":
@@ -285,13 +360,16 @@ def match_pairs_kernel(
         stream = torch.cuda.current_stream(dev).cuda_stream
         l_offs_t = torch.from_numpy(lo_np).to(dev)
         r_offs_t = torch.from_numpy(ro_np).to(dev)
-        lo, cnt = _count_pass(l_keys, l_offs_t, r_sorted, r_offs_t, stream)
-        incl = torch.cumsum(cnt, 0)
-        total = int(incl[-1])
+        dtype = index_dtype(r_sorted.shape[0], int64_index)
+        counts = _count_pass(
+            l_keys, l_offs_t, r_sorted, r_offs_t,
+            _range_groups(l_keys.shape[0], dtype), dtype, stream,
+        )
+        total = int(_scan_pass(counts.range_tot, stream)[-1])
         li = torch.empty(total, dtype=torch.int64, device=dev)
         ri = torch.empty(total, dtype=torch.int64, device=dev)
         if total:
-            _emit_pass(lo, cnt, incl, l_row, r_row, li, ri, stream)
+            _emit_pass(counts, l_row, r_row, li, ri, stream)
     return li, ri
 
 

@@ -13,6 +13,7 @@ import torch
 
 from hyperspace_tpu_torch.ops import hash as H
 from hyperspace_tpu_torch.ops import join as J
+from torch_b4_cases import b4_edge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -49,8 +50,27 @@ def test_b4_equals_its_plain_version(cuda_device, l_sizes, r_sizes, lo, hi):
     before = J.launches
     got = J.match_pairs_kernel(lk, l_offs, rk, r_offs, l_row, r_row)
     torch.cuda.synchronize()
-    assert J.launches == before + 2
+    assert J.launches == before + 3  # count pass, scan, emit pass
     want = J.match_pairs_torch(lk, l_offs, rk, r_offs, l_row, r_row)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].numel() > 0
+
+
+EDGE = b4_edge_cases()
+
+
+@pytest.mark.parametrize("int64_index", [False, True])
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_b4_edge_cases_equal_the_plain_version(cuda_device, case, int64_index):
+    """Each search branch of B4 (shared-memory window, per-lane galloping,
+    groups across segments, ragged tails), with int32 and with int64
+    lo / cnt: pairs equal in order to the plain version."""
+    l, l_offs, r, r_offs = EDGE[case]
+    lk = torch.from_numpy(l).to(cuda_device)
+    rk = torch.from_numpy(r).to(cuda_device)
+    got = J.match_pairs_kernel(lk, l_offs, rk, r_offs, int64_index=int64_index)
+    torch.cuda.synchronize()
+    want = J.match_pairs_torch(lk, l_offs, rk, r_offs)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[0].numel() > 0
 

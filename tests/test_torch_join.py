@@ -11,6 +11,8 @@ packages on the same tables: the rewritten plan's text, its score, the
 filter reasons and the rows, in order. All comparisons are exact."""
 
 import ctypes
+import os
+import re
 
 import numpy as np
 import pyarrow as pa
@@ -31,6 +33,7 @@ from hyperspace_tpu_torch.execution import join_exec as TJ
 from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig as TConfig
 from hyperspace_tpu_torch.io.columnar import ColumnarBatch as TBatch
 from hyperspace_tpu_torch.ops import join as J
+from torch_b4_cases import b4_edge_cases
 
 I64 = np.iinfo(np.int64)
 
@@ -140,6 +143,42 @@ def test_presorted_buckets_take_identity_maps(case):
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
+EDGE = b4_edge_cases()
+
+
+@pytest.mark.parametrize("sort_sides", [False, True])
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_b4_edge_cases_match_reference_in_order(case, sort_sides):
+    """The shapes that send B4's groups down each search branch (a group
+    across one-row segments, windows of W and W + 1 keys, an all-equal
+    segment wider than W, ragged n): the plain version's pairs equal the
+    reference's, presorted with identity maps and through the sorting
+    route with each side's keys shuffled within its segments."""
+    l, l_offs, r, r_offs = EDGE[case]
+    if sort_sides:
+        rng = np.random.default_rng(5)
+        l, r = l.copy(), r.copy()
+        for keys, offs in ((l, l_offs), (r, r_offs)):
+            for a, e in zip(offs[:-1], offs[1:]):
+                keys[a:e] = rng.permutation(keys[a:e])
+    got = _port_pairs(l, l_offs, r, r_offs, sort_l=sort_sides, sort_r=sort_sides)
+    want = _reference_pairs(l, l_offs, r, r_offs)
+    assert len(want[0]) > 0
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_edge_cases_sit_at_the_kernels_window_width():
+    """The edge cases' window width is the kernel's own (``kWindow`` in
+    ``csrc/bucket_match.cu``): the cases of W and W + 1 keys stay at the
+    window's edge if it changes."""
+    import torch_b4_cases
+    from hyperspace_tpu_torch import kernels as port_kernels
+
+    with open(os.path.join(port_kernels.CSRC_DIR, "bucket_match.cu")) as fh:
+        found = re.search(r"constexpr int kWindow = (\d+);", fh.read())
+    assert found and int(found.group(1)) == torch_b4_cases.WINDOW
+
+
 @pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("n, m", [(0, 5), (5, 0), (300, 500), (2000, 1500)])
 def test_unindexed_match_matches_merge_join_indices(n, m, k):
@@ -227,23 +266,31 @@ def test_join_key_equal_to_pad_sentinel():
 # --- wrapper host logic -----------------------------------------------------------
 
 _COUNT_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_void_p]
-_EMIT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p]
+_EMIT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_SCAN_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+_RANGES_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
 
 
 @pytest.fixture
 def fake_b4(monkeypatch):
-    """Stand ctypes callbacks in for hs_bucket_match_count / _emit, so
-    every argument goes through the C types the wrapper declares."""
+    """Stand ctypes callbacks in for hs_bucket_match_ranges / _count /
+    _scan / _emit, so every argument goes through the C types the wrapper
+    declares. The range sizing answers ``state["range_groups"]``."""
     from hyperspace_tpu_torch import kernels as port_kernels
 
-    state = {"count": [], "emit": [], "rc": 0}
+    state = {"count": [], "emit": [], "scan": [], "ranges": [], "rc": 0,
+             "range_groups": 2}
 
     def make(name, argtypes):
         def c_function(*args):
+            if name == "ranges":
+                args[2][0] = state["range_groups"]
+                args = args[:2]
             state[name].append(args)
             return state["rc"]
 
@@ -252,6 +299,8 @@ def fake_b4(monkeypatch):
     lib = type("FakeLib", (), {
         "hs_bucket_match_count": make("count", _COUNT_ARGS),
         "hs_bucket_match_emit": make("emit", _EMIT_ARGS),
+        "hs_bucket_match_scan": make("scan", _SCAN_ARGS),
+        "hs_bucket_match_ranges": make("ranges", _RANGES_ARGS),
     })()
     monkeypatch.setattr(port_kernels, "load", lambda name: lib)
     monkeypatch.setattr(J, "launches", 0)
@@ -261,51 +310,110 @@ def fake_b4(monkeypatch):
 
 
 def test_count_pass_packs_arguments_for_the_c_function(fake_b4):
-    lk = torch.arange(7, dtype=torch.int64)
+    lk = torch.arange(70, dtype=torch.int64)
     rk = torch.arange(9, dtype=torch.int64)
-    lo_t = torch.tensor([0, 3, 7])
+    lo_t = torch.tensor([0, 30, 70])
     ro_t = torch.tensor([0, 4, 9])
-    lo, cnt = J._count_pass(lk, lo_t, rk, ro_t, 0xABC0)
-    count, _emit = J._kernel_fns()
+    c = J._count_pass(lk, lo_t, rk, ro_t, 2, torch.int32, 0xABC0)
+    count = J._kernel_fns()["count"]
     assert list(count.argtypes) == _COUNT_ARGS and count.restype is ctypes.c_int
     (args,) = fake_b4["count"]
-    assert args == (lk.data_ptr(), 7, lo_t.data_ptr(), ro_t.data_ptr(), 2,
-                    rk.data_ptr(), lo.data_ptr(), cnt.data_ptr(), 0xABC0)
-    assert lo.shape == cnt.shape == (7,) and J.launches == 1
+    assert args == (lk.data_ptr(), 70, lo_t.data_ptr(), ro_t.data_ptr(), 2,
+                    rk.data_ptr(), 2, c.lo.data_ptr(), c.cnt.data_ptr(),
+                    c.group_first.data_ptr(), c.range_tot.data_ptr(), 4, 0xABC0)
+    assert c.lo.shape == c.cnt.shape == (70,) and c.lo.dtype == c.cnt.dtype == torch.int32
+    # 3 groups of 32 rows in ranges of 2 groups: a leading 0, then 2 totals
+    assert c.group_first.shape == (3,) and c.group_first.dtype == torch.int64
+    assert c.range_tot.shape == (3,) and c.range_tot.dtype == torch.int64
+    assert c.range_groups == 2 and J.launches == 1
 
 
 @pytest.mark.parametrize("with_maps", [False, True])
 def test_emit_pass_packs_arguments_and_null_maps(fake_b4, with_maps):
     n, total = 5, 12
-    lo, cnt, incl = (torch.zeros(n, dtype=torch.int64) for _ in range(3))
+    c = J._Counts(torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32),
+                  torch.zeros(1, dtype=torch.int64), torch.tensor([0, total]), 1)
     l_row = torch.arange(n) if with_maps else None
     r_row = torch.arange(20) if with_maps else None
     li, ri = torch.empty(total, dtype=torch.int64), torch.empty(total, dtype=torch.int64)
-    J._emit_pass(lo, cnt, incl, l_row, r_row, li, ri, 7)
-    _count, emit = J._kernel_fns()
+    J._emit_pass(c, l_row, r_row, li, ri, 7)
+    emit = J._kernel_fns()["emit"]
     assert list(emit.argtypes) == _EMIT_ARGS and emit.restype is ctypes.c_int
     (args,) = fake_b4["emit"]
     maps = (l_row.data_ptr(), r_row.data_ptr()) if with_maps else (None, None)
-    assert args == (lo.data_ptr(), cnt.data_ptr(), incl.data_ptr(), n, *maps,
-                    li.data_ptr(), ri.data_ptr(), 7)
+    assert args == (c.lo.data_ptr(), c.cnt.data_ptr(), c.group_first.data_ptr(),
+                    c.range_tot.data_ptr(), n, 1, *maps, li.data_ptr(), ri.data_ptr(), 4, 7)
     assert J.launches == 1
+
+
+def test_scan_pass_packs_arguments_for_the_c_function(fake_b4):
+    range_tot = torch.tensor([0, 5, 0, 7], dtype=torch.int64)
+    assert J._scan_pass(range_tot, 0xBEE) is range_tot  # in place
+    scan = J._kernel_fns()["scan"]
+    assert list(scan.argtypes) == _SCAN_ARGS and scan.restype is ctypes.c_int
+    assert fake_b4["scan"] == [(range_tot.data_ptr(), 4, 0xBEE)]
+    assert J.launches == 1
+
+
+@pytest.mark.parametrize("dtype, index_bytes", [(torch.int32, 4), (torch.int64, 8)])
+def test_range_sizing_asks_the_library(fake_b4, dtype, index_bytes):
+    """The groups per range come from the library (one resident wave of
+    the count pass), for this n and index type; sizing launches nothing."""
+    fake_b4["range_groups"] = 24
+    assert J._range_groups(1_500_000, dtype) == 24
+    ranges = J._kernel_fns()["ranges"]
+    assert list(ranges.argtypes) == _RANGES_ARGS and ranges.restype is ctypes.c_int
+    assert fake_b4["ranges"] == [(1_500_000, index_bytes)] and J.launches == 0
 
 
 def test_launch_raises_on_a_c_error_and_counts_no_launch(fake_b4):
     fake_b4["rc"] = 700  # cudaErrorIllegalAddress
     z = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="count launch failed: CUDA error 700"):
-        J._count_pass(z, torch.tensor([0, 3]), z, torch.tensor([0, 3]), 0)
+        J._count_pass(z, torch.tensor([0, 3]), z, torch.tensor([0, 3]), 1, torch.int32, 0)
     with pytest.raises(RuntimeError, match="emit launch failed: CUDA error 700"):
-        J._emit_pass(z, z, z, None, None, z, z, 0)
+        J._emit_pass(J._Counts(z, z, z, torch.tensor([0, 0]), 1), None, None, z, z, 0)
+    with pytest.raises(RuntimeError, match="scan launch failed: CUDA error 700"):
+        J._scan_pass(torch.tensor([0, 0]), 0)
+    with pytest.raises(RuntimeError, match="range sizing launch failed: CUDA error 700"):
+        J._range_groups(3, torch.int32)
     assert J.launches == 0
 
 
 def test_launch_counts_nothing_for_no_rows(fake_b4):
     z = torch.zeros(0, dtype=torch.int64)
-    J._count_pass(z, torch.tensor([0, 0]), z, torch.tensor([0, 0]), 0)
-    J._emit_pass(z, z, z, None, None, z, z, 0)
+    c = J._count_pass(z, torch.tensor([0, 0]), z, torch.tensor([0, 0]), 1, torch.int32, 0)
+    J._emit_pass(c, None, None, z, z, 0)
     assert len(fake_b4["count"]) == len(fake_b4["emit"]) == 1 and J.launches == 0
+
+
+@pytest.mark.parametrize(
+    "m, int64_index, want",
+    [
+        (0, False, torch.int32),
+        (6_001_215, False, torch.int32),
+        ((1 << 31) - 1, False, torch.int32),
+        (1 << 31, False, torch.int64),
+        (1 << 40, False, torch.int64),
+        (9, True, torch.int64),
+    ],
+)
+def test_index_type_is_int32_below_2_pow_31_right_rows(m, int64_index, want):
+    assert J.index_dtype(m, int64_index) == want
+
+
+@pytest.mark.parametrize("dtype, index_bytes", [(torch.int32, 4), (torch.int64, 8)])
+def test_both_index_types_reach_the_c_functions(fake_b4, dtype, index_bytes):
+    """lo / cnt of either type go out with their element size, and the
+    emit pass takes the type of the count pass's outputs."""
+    k = torch.arange(40, dtype=torch.int64)
+    offs = torch.tensor([0, 40])
+    c = J._count_pass(k, offs, k, offs, 1, dtype, 0)
+    assert c.lo.dtype == c.cnt.dtype == dtype
+    J._scan_pass(c.range_tot, 0)
+    J._emit_pass(c, None, None, k, k, 0)
+    assert fake_b4["count"][0][11] == fake_b4["emit"][0][10] == index_bytes
+    assert J.launches == 3
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(fake_b4):
