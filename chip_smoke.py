@@ -28,17 +28,27 @@ against its plain PyTorch version on the card:
      512 and 513 right keys, an all-equal segment wider than 512, a
      window of 512 keys all below a left key, n in {1, 31, 33, 1185}),
      each with int32 and with int64 lo / cnt;
+   * the fused range mask (kernel B3a) equal to the plain version and to
+     the host evaluator over ``tests/torch_b3a_cases.py`` (NaN and +-0.0,
+     INT64_MIN / INT64_MAX bounds, strict and non-strict bounds, float
+     bounds on int columns, nulls, 16 terms, n of 1, 31, 33 and ragged
+     tails), with aligned columns and with views off the vector
+     alignment; NEVER_MATCH cases launch nothing and the +-2^53 float
+     bounds on int columns take the general device mask;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
    IN-list filters served from the index with bucket pruning, each
-   checked against the unindexed plan row for row;
+   checked against the unindexed plan row for row (point filters take
+   the fused range mask, B3a; IN lists the general device mask);
 5. join path: an orders table in the bench.py shape (1,500,000 rows,
    8 files), its covering index on o_orderkey, then ``orders ⋈
    lineitem`` on the order key served shuffle-free from both indexes
    (phase 4's li_idx covers the lineitem columns the join uses)
-   (one warm-up and 5 timed runs, each stage's seconds), its rows equal
-   as a multiset to the unindexed plan's (also timed); then a two-key
+   (one warm-up, then 4 interleaved rounds with the pipelined serve,
+   ``hyperspace.serve.pipeline.enabled``, on and off, rows equal in order,
+   each stage's seconds; B1 and B3a launch nothing across them), its rows
+   equal as a multiset to the unindexed plan's (also timed); then a two-key
    join with about 1 % null keys on 200,000 rows a side, equal to its
    unindexed plan;
 6. B4 on phase 5's own inputs: the first B4 call of each of phase 5's
@@ -52,7 +62,19 @@ against its plain PyTorch version on the card:
    with the left side shuffled and phase 3's "row order" case (random
    left keys, which send every row to the search in global memory); a
    batched ``torch.searchsorted`` over the indexed buckets padded to
-   [B, W] (ranges only, no pairs) is timed as a yardstick.
+   [B, W] (ranges only, no pairs) is timed as a yardstick;
+7. range path: ``l_orderkey >= a AND l_orderkey < b AND l_quantity < 24``
+   over about 0.1 %, 1 % and 10 % of the orderkeys, first over li_idx
+   (200 buckets, one row group a file; pyarrow's pushdown filters thin
+   the read) with a date cut-off whose residual is the whole index, then
+   over li_rg_idx (8 buckets, about 12 row groups a file, built here):
+   each query index-served, its residual mask through B3a, equal to the
+   unindexed plan as a multiset and to the plan without range pruning in
+   order; p50 over 5 runs, files and row groups kept, zone-map sources.
+   B3a is then held against the plain version on every query's recorded
+   residual and timed on the whole-index one, the largest range one and
+   the li_idx 1 % one (cold, warm, plain, the general device mask on the
+   same device columns, and the host-to-device copy).
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -61,8 +83,9 @@ instead of from the tables, and prints the card line and the records
 under ``only_b4`` instead of ``kernels``, with null launches: the main
 path does not run.
 
-Kernel launch counts are set to 0 just before phases 4 and 5 and read
-just after each; phase 6's launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
+Kernel launch counts are set to 0 just before phases 4, 5 and 7 and read
+just after each; the kernel checks' launches are not counted as the main
+path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
 it lives in; the tables are written under build/chip_smoke/ and removed
@@ -881,8 +904,9 @@ def filter_path(work: str, device) -> dict:
         f"main path: {len(queries)} index-served queries p50_ms {p50:.3f} "
         f"p99_ms {p99:.3f} (point p50_ms {np.median(times[:n_point]):.3f}, "
         f"IN-list p50_ms {np.median(times[n_point:]):.3f}); "
-        f"B1 launches {query_launches}; device filter "
-        f"masks {stats['device_filter_evals']}; host Unsupported masks "
+        f"B1 launches {query_launches}; fused range masks (B3a) "
+        f"{stats['fused_range_masks']}; general device masks "
+        f"{stats['device_filter_evals']}; host Unsupported masks "
         f"{stats['host_filter_evals']}; bucket-pruned scans "
         f"{stats['bucket_pruned_scans']}"
     )
@@ -914,7 +938,8 @@ def filter_path(work: str, device) -> dict:
         f"({n_rows} rows); unindexed p50_ms "
         f"{np.percentile(base_times, 50):.3f}"
     )
-    return {"launches": total_launches, "session": sess, "hs": hs, "items": df}
+    return {"launches": total_launches, "all_launches": ops.launch_counts(),
+            "session": sess, "hs": hs, "items": df}
 
 
 def gen_orders(out_dir: str) -> str:
@@ -997,28 +1022,48 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
     sess.enable_hyperspace()
     index_served(hs, q(), ("o_idx", "li_idx"))
     sess.exec_stats.reset()
-    b4_before = ops.launch_counts()["bucket_match_pairs"]
+    before = ops.launch_counts()
     b4_inputs.label = "indexed"
-    q().collect()  # warm-up
-    times, stages = [], []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        got = q().collect()
-        times.append((time.perf_counter() - t0) * 1e3)
-        stages.append(dict(sess.join_stats))
-    b4_indexed = ops.launch_counts()["bucket_match_pairs"] - b4_before
+    q().collect()  # warm-up, sequential (the default route)
+    pipe = "hyperspace.serve.pipeline.enabled"
+    times = {True: [], False: []}
+    stages = {True: [], False: []}
+    got = None
+    for rnd in range(4):  # interleaved: on, off, off, on, on, off, off, on
+        for on in ((True, False) if rnd % 2 == 0 else (False, True)):
+            sess.conf.set(pipe, on)
+            t0 = time.perf_counter()
+            out = q().collect()
+            times[on].append((time.perf_counter() - t0) * 1e3)
+            stages[on].append(dict(sess.join_stats))
+            if got is None:
+                got = out
+            elif not out.equals(got):
+                raise AssertionError(f"join rows differ in order with {pipe}={on}")
+    sess.conf.set(pipe, False)
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    b4_indexed = launched["bucket_match_pairs"]
     stats = sess.exec_stats.as_dict()
-    if b4_indexed <= 0 or stats["co_bucketed_joins"] != 6 or stats["unbucketed_joins"]:
+    if b4_indexed <= 0 or stats["co_bucketed_joins"] != 9 or stats["unbucketed_joins"]:
         raise AssertionError(f"indexed join did not run co-bucketed through B4: "
                              f"{stats}, B4 launches {b4_indexed}")
+    if launched["murmur3_bucket_ids"] or launched["range_mask"]:
+        raise AssertionError(f"the join sides ran device work besides B4: {launched}")
     if got.num_rows != N_ROWS:
         raise AssertionError(f"join gave {got.num_rows} rows, want {N_ROWS}")
-    p50, p99 = np.percentile(times, [50, 99])
-    stage_p50 = {k: float(np.median([st.get(k, 0.0) for st in stages])) for k in stages[0]}
-    log(f"join path: orders ⋈ lineitem index-served x5: p50_ms {p50:.3f} p99_ms "
-        f"{p99:.3f}, {got.num_rows} rows, stage p50 s "
-        f"{ {k: round(v, 4) for k, v in stage_p50.items()} }, B4 launches {b4_indexed} "
-        f"({b4_indexed // 6} per join), co-bucketed joins {stats['co_bucketed_joins']}")
+    for on in (True, False):
+        p50, p99 = np.percentile(times[on], [50, 99])
+        stage_p50 = {k: float(np.median([st.get(k, 0.0) for st in stages[on]]))
+                     for k in stages[on][0]}
+        log(f"join path: orders ⋈ lineitem index-served, {pipe}={str(on).lower()} x4 "
+            f"(interleaved): p50_ms {p50:.3f} p99_ms {p99:.3f}, {got.num_rows} rows, "
+            f"stage p50 s { {k: round(v, 4) for k, v in stage_p50.items()} }")
+    p50, p99 = np.percentile(times[True], [50, 99])
+    log(f"join path: rows equal in order with the pipeline on and off; B4 launches "
+        f"{b4_indexed} ({b4_indexed // 9} per join), B1 and B3a launches 0 across the "
+        f"9 joins (no device work on the side threads), co-bucketed joins "
+        f"{stats['co_bucketed_joins']}")
 
     sess.disable_hyperspace()
     b4_inputs.label = "unindexed"
@@ -1068,6 +1113,358 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
     return {"launches": launches, "p50_ms": p50, "p99_ms": p99}
 
 
+# -- kernel B3a: the fused range mask -------------------------------------------
+
+
+def b3a_batch_args(batch, expr, dev, offset: bool = False):
+    """(route, RangeArgs or None) of ``expr`` over a host batch: the
+    lowering the executor takes, the columns on ``dev``. With ``offset``
+    every column and validity mask is a view one element into a fresh
+    allocation, 8 (or 1) bytes off the vector loads' alignment, so the
+    kernel's scalar instance runs."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+
+    terms = F.lower_range_terms(expr, batch)
+    if terms is None:
+        raise AssertionError(f"B3a: {expr!r} does not lower to range terms")
+    args = F.range_args(batch, terms, dev)
+    if args is None:
+        return "general", None
+    if args == F.NEVER_MATCH:
+        return "never", None
+    if offset:
+        def shifted(t):
+            buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=dev)
+            buf[1:].copy_(t)
+            return buf[1:]
+
+        args.cols = [shifted(c) for c in args.cols]
+        args.valids = [None if m is None else shifted(m) for m in args.valids]
+    return "fused", args
+
+
+def compare_b3a(args) -> int:
+    """Hold B3a against its plain version on one set of inputs; returns
+    the max abs error (0, or it raises)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+
+    got = F.range_mask_kernel(args)
+    torch.cuda.synchronize()
+    want = F.range_mask_torch(args)
+    if got.dtype != torch.bool or got.shape != want.shape or got.device != want.device:
+        raise AssertionError(f"B3a: bad output {got.dtype} {tuple(got.shape)}")
+    err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max()) if args.n else 0
+    if err != 0:
+        raise AssertionError("B3a mask differs from the plain version")
+    return err
+
+
+def check_b3a_cases(dev) -> tuple:
+    """B3a's cases (``tests/torch_b3a_cases.py``) on the card: each
+    predicate at each row count lowers by the route the case names; a
+    fused one is held against the plain version with aligned columns and
+    with views off the vector alignment, and against the host evaluator;
+    a NEVER_MATCH one gives all-False without a launch. Returns (count,
+    max abs error)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
+
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops import filter as F
+    from hyperspace_tpu_torch.plan import expressions as E
+
+    count, max_err = 0, 0
+    for n in ROWS:
+        batch = ColumnarBatch.from_arrow(b3a_table(n))
+        for label, (build, route) in B3A_PREDICATES.items():
+            expr = build(E)
+            host = E.filter_mask(expr, batch)
+            got_route, args = b3a_batch_args(batch, expr, dev)
+            if got_route != route:
+                raise AssertionError(f"B3a case {label!r} took route {got_route}, "
+                                     f"want {route}")
+            before = F.launches
+            fused = F.fused_range_mask(expr, batch, dev)
+            if route == "general":
+                if fused is not None:
+                    raise AssertionError(f"B3a case {label!r}: fused route taken")
+                continue
+            if not np.array_equal(fused, host):
+                raise AssertionError(f"B3a case {label!r}, n={n}: differs from the host")
+            if route == "never":
+                if F.launches != before or fused.any():
+                    raise AssertionError(f"B3a case {label!r}: launched or matched")
+                continue
+            max_err = max(max_err, compare_b3a(args))
+            max_err = max(max_err, compare_b3a(b3a_batch_args(batch, expr, dev, True)[1]))
+            count += 1
+    torch.cuda.synchronize()
+    log(f"kernels: B3a masks equal to plain over {count} cases, each with aligned "
+        f"columns and with views off the vector alignment, and to the host evaluator "
+        f"(max_abs_err {max_err}); NEVER_MATCH cases launch nothing; the +-2^53 float "
+        f"bounds on int columns take the general device mask")
+    return count, max_err
+
+
+class B3aInputs:
+    """Keeps the predicate and the host batch of the first fused range
+    mask each label's plans ask for (the executor's ``fused_range_mask``),
+    for the comparison with the plain version and the timing after phase
+    7. The wrapper calls straight through, so its launches count as the
+    main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.execution import executor
+
+        self.calls, self.label = {}, None
+        inner = executor.fused_range_mask
+
+        def recording(expr, batch, device):
+            if self.label is not None:
+                self.calls.setdefault(self.label, (expr, batch))
+            return inner(expr, batch, device)
+
+        executor.fused_range_mask = recording
+
+
+def check_b3a_main_path(dev, recorded: dict) -> int:
+    """B3a on the inputs phase 7's queries handed it: each recorded
+    residual held equal to the plain version; returns the max abs error."""
+    want = [f"{i} {f:.1%}" for i in ("li_idx", "li_rg_idx") for f in RANGE_FRACTIONS]
+    missing = [k for k in want + ["li_idx date cut-off"] if k not in recorded]
+    if missing:
+        raise AssertionError(f"phase 7 made no fused range mask for {missing}")
+    max_err = 0
+    for label, (expr, batch) in recorded.items():
+        route, args = b3a_batch_args(batch, expr, dev)
+        if route != "fused":
+            raise AssertionError(f"phase 7's {label} residual took route {route}")
+        max_err = max(max_err, compare_b3a(args))
+        log(f"kernels: B3a mask equal to plain on phase 7's {label} residual "
+            f"({args.n} rows, {len(args.cols)} columns, {len(args.term_col)} terms)")
+    return max_err
+
+
+def b3a_timings(dev, recorded: dict, labels) -> dict:
+    """Times B3a on phase 7's recorded residuals under ``labels``; logs each
+    beside its bound, the plain version, the general device mask and the
+    copy; returns B3a's record for the kernels line from the first."""
+    import torch
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)  # 256 MiB
+    timed = {}
+    for label in labels:
+        expr, batch = recorded[label]
+        _route, args = b3a_batch_args(batch, expr, dev)
+        timed[label] = r = time_b3a(args, batch, expr, flush)
+        log(f"kernels: B3a cold on phase 7's {label} residual, {r['n']} rows, "
+            f"{r['columns']} columns, {r['terms']} terms: ms {r['ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}; bytes {r['bytes']} -> "
+            f"{r['bytes_ms']:.4f} ms, int32 ops {r['int32_ops']} -> {r['ops_ms']:.4f} ms); "
+            f"warm ms {r['warm_ms']:.4f}; plain_ms {r['plain_ms']:.4f}; general device "
+            f"mask (B3 torch ops, columns on the card) warm ms {r['general_mask_ms']:.4f}, "
+            f"cold ms {r['general_mask_cold_ms']:.4f}; host-to-device copy of the columns "
+            f"and validity (host clock) ms {r['h2d_ms']:.4f}; library_ms n/a")
+    label = labels[0]
+    r = timed[label]
+    keys = ("n", "columns", "terms", "bytes", "ms", "warm_ms", "plain_ms", "bound_ms",
+            "general_mask_ms", "general_mask_cold_ms", "h2d_ms")
+    return {
+        "name": "range_mask",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/range_mask.cu",
+        "replaces": "hyperspace_tpu/ops/filter.py:561",
+        "launches": None,  # the main path's count, filled in by main
+        "max_abs_err": 0,
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "timing": f"cold: 256 MiB read before each run, median of 30; on phase 7's "
+                  f"{label} residual",
+        **{k: r[k] for k in ("n", "columns", "terms", "bytes", "warm_ms",
+                              "general_mask_ms", "general_mask_cold_ms", "h2d_ms")},
+        "other_residuals": {k: {x: v[x] for x in keys} for k, v in timed.items()
+                            if k != label},
+    }
+
+
+def b3a_bound(args) -> dict:
+    """Least time of B3a on one set of inputs: the larger of its bytes
+    (each distinct column read once, 8 bytes a row; each validity mask
+    once, 1 byte a row; the mask written, 1 byte a row) over HBM bandwidth
+    and its operations over the int32 peak: 6 a term and row (two 64-bit
+    compares at 2 int32 operations each, two ANDs) and 1 a validity mask
+    and row."""
+    n = args.n
+    nvalid = sum(m is not None for m in args.valids)
+    nbytes = n * (8 * len(args.cols) + nvalid + 1)
+    ops = n * (6 * len(args.term_col) + nvalid)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes,
+        "bytes_ms": bytes_ms,
+        "int32_ops": ops,
+        "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def time_b3a(args, batch, expr, flush) -> dict:
+    """B3a on one recorded set of inputs: cold, warm and the plain
+    version, beside the bound; the general device mask (B3's torch ops)
+    on the same columns already on the card; and the host-to-device copy
+    of the columns and validity masks that the fused route makes a
+    query."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+
+    med = lambda t: float(np.median(t))  # noqa: E731
+    ms = med(time_cold(lambda: F.range_mask_kernel(args), flush))
+    warm_ms = time_cuda(lambda: F.range_mask_kernel(args))
+    plain_ms = time_cuda(lambda: F.range_mask_torch(args), launches=5, repeats=3)
+    # B3's torch-op mask with its argument tensors moved once (cached)
+    prep = F._Prep(batch)
+    spec = prep.lower(expr)
+    dargs = F._Args(prep.args, args.cols[0].device)
+
+    def general():
+        vals, known = F._eval_spec(spec, dargs, batch.num_rows)
+        return vals & known
+
+    if not torch.equal(general(), F.range_mask_kernel(args)):
+        raise AssertionError("B3a and the general device mask differ on phase 7's inputs")
+    general_ms = time_cuda(general, launches=5, repeats=3)
+    general_cold_ms = med(time_cold(general, flush, iters=10))
+    h2d = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F.range_args(batch, F.lower_range_terms(expr, batch), args.cols[0].device)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    return {"n": args.n, "columns": len(args.cols), "terms": len(args.term_col),
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "general_mask_ms": general_ms, "general_mask_cold_ms": general_cold_ms,
+            "h2d_ms": med(h2d), **b3a_bound(args)}
+
+
+RANGE_FRACTIONS = (0.001, 0.01, 0.1)  # of the orderkeys a range query spans
+# a date cut-off between two ticks of the date column: it lowers exactly
+# for the mask (l_shipdate < 1996-01-02) but not for pyarrow's pushdown
+# filters, so the residual mask runs over every row of the index
+SHIP_CUTOFF = "1996-01-01T12:00"
+
+
+def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
+    """Phase 7: range filters ``l_orderkey >= a AND l_orderkey < b AND
+    l_quantity < 24`` over about 0.1 %, 1 % and 10 % of the orderkeys,
+    first over phase 4's li_idx (200 buckets, one row group a file: zone
+    maps prune nothing, pyarrow's pushdown filters thin the read), with a
+    fourth query ``l_orderkey >= 0 AND l_shipdate < SHIP_CUTOFF`` whose
+    residual mask runs over all 6,001,215 rows; then the three ranges over
+    li_rg_idx (8 buckets, about 12 row groups a file: row-group narrowing
+    keeps about one a file at the narrow end). Each query is index-served,
+    takes the fused route (B3a), equals the unindexed plan as a multiset
+    and the same plan without range pruning in order. Launch counts read
+    from 0 at its start."""
+    from hyperspace_tpu_torch import CoveringIndexConfig
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.indexes import zonemaps
+
+    sess, hs, items = ctx["session"], ctx["hs"], ctx["items"]
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(SEED + 9)
+    key, qty, ship = items["l_orderkey"], items["l_quantity"], items["l_shipdate"]
+    queries = []  # (label suffix, condition, selected columns)
+    for frac in RANGE_FRACTIONS:
+        width = int(frac * N_ORDERS)
+        a = int(rng.integers(0, N_ORDERS - width))
+        queries.append((f"{frac:.1%}", (key >= a) & (key < a + width) & (qty < 24),
+                        ("l_orderkey", "l_quantity")))
+    cutoff = ("date cut-off", (key >= 0) & (ship < np.datetime64(SHIP_CUTOFF)),
+              ("l_orderkey", "l_shipdate"))
+    results = []
+    for index in ("li_idx", "li_rg_idx"):
+        if index == "li_rg_idx":
+            sess.conf.set("hyperspace.index.num_buckets", 8)
+            t0 = time.perf_counter()
+            hs.create_index(items, CoveringIndexConfig(
+                "li_rg_idx", ["l_orderkey"], ["l_quantity"]))
+            sess.conf.set("hyperspace.index.num_buckets", N_BUCKETS)
+            files = hs.get_index("li_rg_idx").content.files
+            log(f"range path: built li_rg_idx (8 buckets) in "
+                f"{time.perf_counter() - t0:.3f}s, {len(files)} files")
+        for suffix, cond, cols in queries + ([cutoff] if index == "li_idx" else []):
+            label = f"{index} {suffix}"
+
+            def plan():
+                return items.filter(cond).select(*cols)
+
+            sess.enable_hyperspace()
+            text = hs.explain(plan())
+            with_plan, used = text.split("Plan without indexes:")[0], text.split(
+                "Indexes used:")[1]
+            if f"Name: {index}," not in with_plan or index not in used:
+                raise AssertionError(f"{label}: {index} not used:\n{text}")
+            b3a_inputs.label = label
+            plan().collect()  # warm-up
+            b3a_inputs.label = None
+            sess.exec_stats.reset()
+            before = ops.launch_counts()["range_mask"]
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = plan().collect()
+                times.append((time.perf_counter() - t0) * 1e3)
+            prune = dict(zonemaps.last_prune_stats)
+            stats = sess.exec_stats.as_dict()
+            launched = ops.launch_counts()["range_mask"] - before
+            if launched <= 0 or stats["host_filter_evals"] or stats["fused_range_masks"] != 5:
+                raise AssertionError(f"{label}: not masked by B3a: {stats}, "
+                                     f"launches {launched}")
+            sess.conf.set("hyperspace.serve.rangeprune.enabled", False)
+            unpruned = plan().collect()
+            sess.conf.set("hyperspace.serve.rangeprune.enabled", True)
+            if not got.equals(unpruned):
+                raise AssertionError(f"{label}: rows differ from the unpruned plan")
+            sess.disable_hyperspace()
+            want = plan().collect()
+            if got.num_rows == 0 or not sorted_rows(got).equals(sorted_rows(want)):
+                raise AssertionError(f"{label}: rows differ from the unindexed plan")
+            p50 = float(np.median(times))
+            residual = b3a_inputs.calls[label][1].num_rows
+            r = {"query": label, "rows": got.num_rows, "residual_rows": residual,
+                 "p50_ms": p50, "b3a_launches": launched,
+                 **{k: prune.get(k) for k in ("files_kept", "files_total",
+                                              "row_groups_kept", "row_groups_total",
+                                              "zonemap_files_sidecar",
+                                              "zonemap_files_footer")}}
+            results.append(r)
+            log(f"range path: {label}: p50_ms {p50:.3f} over 5, {got.num_rows} rows from a "
+                f"residual of {residual}; files kept {r['files_kept']}/{r['files_total']}, "
+                f"row groups kept {r['row_groups_kept']}/{r['row_groups_total']}; zone maps "
+                f"from sidecar {r['zonemap_files_sidecar']}, footer "
+                f"{r['zonemap_files_footer']}; B3a launches {launched}; equal to the "
+                f"unpruned plan in order and to the unindexed plan as a multiset")
+    narrow = next(r for r in results if r["query"] == f"li_rg_idx {RANGE_FRACTIONS[0]:.1%}")
+    if narrow["row_groups_kept"] > 2 * narrow["files_total"]:
+        raise AssertionError(f"row-group narrowing kept too much: {narrow}")
+    launches = ops.launch_counts()
+    log(f"range path: phase launches {launches}")
+    return {"launches": launches, "queries": results}
+
+
 def main() -> int:
     import argparse
 
@@ -1093,6 +1490,7 @@ def main() -> int:
         return 2
     from hyperspace_tpu_torch import kernels
 
+    started = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(
@@ -1119,6 +1517,7 @@ def main() -> int:
     dev = torch.device("cuda")
     b1 = check_kernels(dev, baseline)
     b4_cases_run, b4_case_err = check_b4_cases(dev)
+    b3a_cases_run, b3a_case_err = check_b3a_cases(dev)
     if args.only_b4:  # no main path: its launches stay null
         b4 = b4_timings(dev, b4_replica(dev))
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
@@ -1129,21 +1528,29 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    b4_inputs = B4Inputs()
+    b4_inputs, b3a_inputs = B4Inputs(), B3aInputs()
     try:
         # the default session device is cuda; the paths run it as a user would
         ctx = filter_path(work, None)
         b1["launches"] = ctx["launches"]
         b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
+        b3a_launches = (ctx["all_launches"]["range_mask"]
+                        + range_path(work, ctx, b3a_inputs)["launches"]["range_mask"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
     b4 = b4_timings(dev, {k: b4_inputs.calls[k] for k in ("indexed", "unindexed")})
     b4.update(launches=b4_launches, max_abs_err=max(b4_case_err, main_err),
               cases=b4_cases_run + 4)
+    b3a_err = check_b3a_main_path(dev, b3a_inputs.calls)
+    b3a = b3a_timings(dev, b3a_inputs.calls, ("li_idx date cut-off", "li_rg_idx 10.0%",
+                                              "li_idx 1.0%"))
+    b3a.update(launches=b3a_launches, max_abs_err=max(b3a_case_err, b3a_err),
+               cases=b3a_cases_run + len(b3a_inputs.calls))
 
+    log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a]}), flush=True)
     print(
         json.dumps(
             {

@@ -95,10 +95,14 @@ class CreateAction(Action):
             ctx, self.df, self._enriched_properties()
         )
         index.write(ctx, index_data)
-        # the zone-map and aggregate sidecars the reference writes here
-        # (_zonemaps.json, _aggstate.json; hidden from the log's content)
-        # come with the range and aggregate serve planes (ROADMAP queue A
-        # items 4 and 7); the serve path does not need them
+        # zone-map sidecar for the range serve plane (best effort: the
+        # serve path backfills from parquet footers when it is absent).
+        # The aggregate sidecars the reference writes here
+        # (_aggstate.json, _aggsample.parquet) come with the aggregate
+        # plane (ROADMAP queue A item 2.3).
+        from hyperspace_tpu_torch.indexes import zonemaps
+
+        zonemaps.capture_safely(self.index_data_path, index)
         self._index = index
 
     def _enriched_properties(self) -> Dict[str, str]:

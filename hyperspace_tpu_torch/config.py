@@ -81,3 +81,15 @@ class Config:
             C.INDEX_SUPPORT_NESTED_FIELDS,
             C.INDEX_SUPPORT_NESTED_FIELDS_DEFAULT,
         )
+
+    @property
+    def serve_rangeprune_enabled(self) -> bool:
+        return self.get_bool(
+            C.SERVE_RANGEPRUNE_ENABLED, C.SERVE_RANGEPRUNE_ENABLED_DEFAULT
+        )
+
+    @property
+    def serve_pipeline_enabled(self) -> bool:
+        return self.get_bool(
+            C.SERVE_PIPELINE_ENABLED, C.SERVE_PIPELINE_ENABLED_DEFAULT
+        )

@@ -60,6 +60,24 @@ INDEX_CACHE_EXPIRY_SECONDS_DEFAULT = 300  # CachingIndexCollectionManager.scala
 INDEX_SUPPORT_NESTED_FIELDS = "hyperspace.index.supportNestedFields"
 INDEX_SUPPORT_NESTED_FIELDS_DEFAULT = False
 
+# Range serve plane (executor._range_pruned_scan + indexes/zonemaps.py):
+# zone-map pruning of index files and row groups under range/Eq/In
+# conjuncts, and the fused range mask (kernel B3a). Superset-safe by
+# construction (pruned scan == full scan + mask); the flag restores the
+# unpruned path bit-identically.
+SERVE_RANGEPRUNE_ENABLED = "hyperspace.serve.rangeprune.enabled"
+SERVE_RANGEPRUNE_ENABLED_DEFAULT = True
+
+# Pipelined join serve (executor._prepared_join_side +
+# join_exec.prepare_join_side_pipelined): on a co-bucketed join over
+# clean index-scan shapes the two sides prepare on two threads and each
+# side's per-bucket reads overlap its per-bucket prepare. Bit-identical to
+# the sequential route. The reference defaults it on; here it is off,
+# because on the H100 host it measured slower than the sequential route
+# (PERF.md section 5, scripts/torch_join_pipeline_turns.py).
+SERVE_PIPELINE_ENABLED = "hyperspace.serve.pipeline.enabled"
+SERVE_PIPELINE_ENABLED_DEFAULT = False
+
 # ---------------------------------------------------------------------------
 # Reserved column / property names
 # ---------------------------------------------------------------------------

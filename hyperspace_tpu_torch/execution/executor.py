@@ -2,28 +2,37 @@
 
 Counterpart of ``hyperspace_tpu/execution/executor.py`` for Scan, Filter,
 Project and inner equi-Join. Column pruning and simple conjuncts are
-pushed into the parquet read; a filter over a bucketed index scan first
-drops the bucket files that cannot hold a match (murmur3 of the literals,
-kernel B1 on the session's device); the predicate mask is then evaluated
-on the session's device (``ops/filter.py``), with the host evaluator kept
-for what does not lower (``Unsupported``) and counted in
-``session.exec_stats``.
+pushed into the parquet read. A filter over an index scan first drops
+what cannot hold a match: the bucket files whose murmur3 bucket no
+literal hashes to (kernel B1 on the session's device), then the files and
+row groups whose zone maps (``indexes/zonemaps.py``) miss the
+predicate's ranges, which a narrowed scan then does not read. The
+predicate mask is evaluated on the session's device (``ops/filter.py``):
+a conjunction of numeric range terms takes the fused range mask (kernel
+B3a), the rest the general device mask, and what does not lower
+(``Unsupported``) the host evaluator; ``session.exec_stats`` counts each.
 
 A join whose two sides keep aligned bucketed index layouts (the
 JoinIndexRule rewrite) runs shuffle-free: each side is executed into
 per-bucket batches (bucket id from the file names, rows in file order)
 and ``execution/join_exec`` zips equal buckets pairwise, matching them
-with kernel B4 (``ops/join.py``) on the session's device. Any other join
-runs the unindexed ``inner_join`` through the same kernel as one segment.
-``session.exec_stats`` counts both kinds; ``session.join_stats`` holds the
-latest join's stage seconds: ``scan`` (both sides read, filtered and
-projected) here, the rest in ``join_exec``.
+with kernel B4 (``ops/join.py``) on the session's device. With the
+pipelined serve on (``hyperspace.serve.pipeline.enabled``, default off)
+and both sides clean index scans (``Project*(Scan)``), the two sides
+prepare on two threads, each streaming its per-bucket reads from the
+shared scan pool into ``join_exec.prepare_join_side_pipelined``; the rows
+are the sequential route's. Any other join runs the unindexed
+``inner_join`` through the same kernel as one segment.
+``session.join_stats`` holds the latest join's stage seconds: ``scan``
+(the sides' reads and decode, or on the pipelined route the waits for
+them) and ``prepare`` (key reps) here, each the seconds of a side's own
+thread summed over both sides; the rest in ``join_exec``.
 
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
-by bucket. Not ported yet: aggregates, sort and limit, zone-map range
-pruning, the fused serve pipeline, the serve cache, the pipelined and
-streaming join serve, and Hybrid Scan (ROADMAP queue A).
+by bucket. Not ported yet: aggregates, sort and limit, the fused serve
+pipeline, the serve cache, the streaming join serve, and Hybrid Scan
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache as _lru_cache
 from typing import Set
 
@@ -41,7 +51,11 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
-from hyperspace_tpu_torch.ops.filter import Unsupported, device_filter_mask
+from hyperspace_tpu_torch.ops.filter import (
+    Unsupported,
+    device_filter_mask,
+    fused_range_mask,
+)
 from hyperspace_tpu_torch.ops.hash import bucket_ids
 from hyperspace_tpu_torch.plan import expressions as E
 from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
@@ -58,6 +72,7 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
         return _exec_scan(plan, needed, session)
     if isinstance(plan, Filter):
         child = _bucket_pruned_scan(plan.child, plan.condition, session)
+        child = _range_pruned_scan(child, plan.condition, session)
         child_needed = set(needed) | E.references(plan.condition)
         if isinstance(child, Scan):
             batch = _exec_scan(
@@ -171,6 +186,31 @@ def _bucket_ids_of_files(files) -> tuple:
     return tuple(pio.bucket_id_of_file(f) for f in files)
 
 
+def _rangeprune_on(session) -> bool:
+    """Zone-map range pruning and the fused range mask
+    (``hyperspace.serve.rangeprune.enabled``, default on)."""
+    return session.conf.serve_rangeprune_enabled
+
+
+def _range_pruned_scan(plan: LogicalPlan, cond: E.Expr, session) -> LogicalPlan:
+    """Zone-map pruning for index scans under a Filter: drop index files
+    (and narrow survivors to matching row groups) that the predicate's
+    range/Eq/In conjuncts cannot touch, per ``indexes/zonemaps.py`` — the
+    payoff the reference gets from Spark's parquet min/max pruning, as
+    one vectorized pass over all files at once. Recurses through Project;
+    non-index relations pass through untouched."""
+    if not _rangeprune_on(session):
+        return plan
+    from hyperspace_tpu_torch.indexes import zonemaps
+
+    if isinstance(plan, Scan):
+        return zonemaps.prune_scan_relation(plan, cond)
+    if isinstance(plan, Project):
+        child = _range_pruned_scan(plan.child, cond, session)
+        return plan if child is plan.child else Project(plan.columns, child)
+    return plan
+
+
 def _pushable_literal(value, arrow_type):
     """Literal in a form pyarrow's parquet filters accept for a column of
     ``arrow_type``, or None when it must not be pushed (type-mismatched
@@ -259,8 +299,15 @@ def _pushdown_filters(cond: E.Expr, rel):
 
 
 def _filter_mask(cond: E.Expr, batch: ColumnarBatch, session) -> np.ndarray:
-    """The predicate's mask, evaluated on the session's device; the host
-    evaluator only for what the lowering refuses."""
+    """The predicate's mask, evaluated on the session's device: a
+    conjunction of numeric range terms through the fused range mask
+    (kernel B3a) when range pruning is on, else the general device mask;
+    the host evaluator only for what the lowering refuses."""
+    if _rangeprune_on(session):
+        mask = fused_range_mask(cond, batch, session.device)
+        if mask is not None:
+            session.exec_stats.fused_range_masks += 1
+            return mask
     try:
         mask = device_filter_mask(cond, batch, session.device)
     except Unsupported:
@@ -278,7 +325,17 @@ def _exec_scan(
     if not rel.files:
         empty = pa.table({c: pa.array([], type=rel.schema[c]) for c in cols})
         return ColumnarBatch.from_arrow(empty)
-    table = pio.read_table(list(rel.files), cols, rel.fmt, filters=pushdown)
+    if rel.file_row_groups is not None:
+        # zone-map row-group narrowing (_range_pruned_scan): read only the
+        # surviving row groups; the residual mask the caller applies makes
+        # over-reading harmless and under-reading impossible. Pushdown
+        # filters do not compose with explicit row-group reads, and the
+        # narrowing already did their row-group half.
+        table = pio.read_table_row_groups(
+            list(rel.files), list(rel.file_row_groups), cols, rel.fmt
+        )
+    else:
+        table = pio.read_table(list(rel.files), cols, rel.fmt, filters=pushdown)
     return ColumnarBatch.from_arrow(table).select(cols)
 
 
@@ -287,9 +344,9 @@ def _exec_scan(
 
 def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     from hyperspace_tpu_torch.execution.join_exec import (
+        _stage_add,
         co_bucketed_join_prepared,
         inner_join,
-        prepare_join_side,
     )
 
     pairs = E.equi_join_pairs(plan.condition)
@@ -304,13 +361,12 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     l_needed = (needed & lcols) | set(l_keys)
     r_needed = (needed & set(plan.right.output)) | set(r_keys)
     stats: dict = {}
-    layout = _aligned_bucket_layouts(plan, on)
-    if layout is None:
+    if _aligned_bucket_layouts(plan, on) is None:
         session.exec_stats.unbucketed_joins += 1
         t0 = time.perf_counter()
         left = _exec(plan.left, l_needed, session)
         right = _exec(plan.right, r_needed, session)
-        stats["scan"] = time.perf_counter() - t0
+        _stage_add(stats, "scan", t0)
         out = inner_join(left, right, on, session.device, stats)
         session.join_stats = stats
         return out
@@ -319,15 +375,25 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     # no Exchange, JoinIndexRule.scala:619-634): equal buckets are
     # matched pairwise by kernel B4.
     session.exec_stats.co_bucketed_joins += 1
-    _num_buckets, l_bucket_cols, r_bucket_cols = layout
-    t0 = time.perf_counter()
-    lbs = _exec_bucketed(plan.left, l_needed, session, l_bucket_cols)
-    rbs = _exec_bucketed(plan.right, r_needed, session, r_bucket_cols)
-    stats["scan"] = time.perf_counter() - t0
+    sides = ((plan.left, l_needed, l_keys), (plan.right, r_needed, r_keys))
+    if _serve_pipeline_on(session) and all(_clean_index_scan(p) for p, _, _ in sides):
+        # Pipelined serve: both sides prepare concurrently, each into its
+        # own stats. Gated on both children being clean index scans, whose
+        # execution runs no device work, so the threads share nothing.
+        side_stats = ({}, {})
+        with ThreadPoolExecutor(max_workers=2, thread_name_prefix="hs-joinside") as pool:
+            futs = [
+                pool.submit(_prepared_join_side, *side, session, st, True)
+                for side, st in zip(sides, side_stats)
+            ]
+            lp, rp = (f.result() for f in futs)
+        for st in side_stats:
+            for k, v in st.items():
+                stats[k] = stats.get(k, 0.0) + v
+    else:
+        lp, rp = (_prepared_join_side(*side, session, stats, False) for side in sides)
     joined = None
-    if lbs and rbs:
-        lp = prepare_join_side(lbs, l_keys, stats)
-        rp = prepare_join_side(rbs, r_keys, stats)
+    if lp is not None and rp is not None:
         joined = co_bucketed_join_prepared(lp, rp, on, session.device, stats)
     session.join_stats = stats
     if joined is not None:
@@ -337,6 +403,50 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     return ColumnarBatch.from_arrow(
         pa.table({c: pa.array([], type=schema[c]) for c in out_cols})
     )
+
+
+def _serve_pipeline_on(session) -> bool:
+    """Pipelined join serve (``hyperspace.serve.pipeline.enabled``,
+    default off)."""
+    return session.conf.serve_pipeline_enabled
+
+
+def _clean_index_scan(plan: LogicalPlan) -> bool:
+    """A ``Project*`` chain over a non-empty parquet index scan: the shape
+    the pipelined join serve takes (it runs no device work). The Hybrid
+    Scan union shape comes with ROADMAP queue A item 5."""
+    while isinstance(plan, Project):
+        plan = plan.child
+    if not isinstance(plan, Scan):
+        return False
+    rel = plan.relation
+    return rel.index_info is not None and rel.fmt == "parquet" and bool(rel.files)
+
+
+def _prepared_join_side(
+    plan: LogicalPlan, needed: Set[str], key_cols, session, stats, stream: bool
+):
+    """A PreparedJoinSide for one co-bucketed join child, or None for an
+    empty side: the sequential ``_bucket_fetches`` + ``prepare_join_side``,
+    or with ``stream`` the per-bucket batches flowing straight into
+    ``prepare_join_side_pipelined``, so bucket *i*'s prepare runs while
+    the scan pool still reads bucket *i+1*."""
+    from hyperspace_tpu_torch.execution.join_exec import (
+        _stage_add,
+        prepare_join_side,
+        prepare_join_side_pipelined,
+    )
+
+    t0 = time.perf_counter()
+    fetches = _bucket_fetches(plan, needed, session, stream)
+    if stream:
+        _stage_add(stats, "scan", t0)
+        return prepare_join_side_pipelined(fetches, key_cols, stats)
+    batches = {b: fetch() for b, fetch in fetches}
+    _stage_add(stats, "scan", t0)
+    if not batches:
+        return None
+    return prepare_join_side(batches, key_cols, stats)
 
 
 def _bucket_layout(plan: LogicalPlan):
@@ -372,10 +482,14 @@ def _aligned_bucket_layouts(plan: Join, on):
     return ln, tuple(lcols), tuple(rcols)
 
 
-def _exec_bucketed(plan: LogicalPlan, needed: Set[str], session, bucket_cols):
-    """Execute a linear subtree over a bucketed index scan into per-bucket
-    batches: bucket id from each file's name, a bucket's rows in file
-    order. The files are read one table each on a thread pool."""
+def _bucket_fetches(plan: LogicalPlan, needed: Set[str], session, stream: bool):
+    """Execute a linear subtree over a bucketed index scan into ordered
+    ``[(bucket, fetch)]`` pairs, ``fetch()`` giving the bucket's batch:
+    bucket id from each file's name, a bucket's rows in file order. The
+    files are read one table each on a thread pool before this returns;
+    with ``stream`` (the pipelined join serve) one read a bucket goes to
+    the shared scan pool (``io/scan.scan_pool``) instead, and each fetch
+    waits for its own. The batches are the same either way."""
     if isinstance(plan, Scan):
         rel = plan.relation
         groups: dict = {}
@@ -384,30 +498,51 @@ def _exec_bucketed(plan: LogicalPlan, needed: Set[str], session, bucket_cols):
                 raise HyperspaceException(f"Not a bucket file: {f}")
             groups.setdefault(b, []).append(f)
         cols = [c for c in rel.column_names if c in needed] or rel.column_names[:1]
-        ordered = [f for b in sorted(groups) for f in groups[b]]
-        tables = dict(zip(ordered, pio.read_tables(ordered, cols, rel.fmt)))
-        return {
-            b: ColumnarBatch.from_arrow(
-                pa.concat_tables([tables[f] for f in groups[b]])
-            ).select(cols)
-            for b in sorted(groups)
-        }
+        buckets = sorted(groups)
+        if stream:
+            from hyperspace_tpu_torch.io.scan import scan_pool
+
+            pool = scan_pool()
+            reads = [pool.submit(pio.read_tables, groups[b], cols, rel.fmt).result
+                     for b in buckets]
+        else:
+            ordered = [f for b in buckets for f in groups[b]]
+            tables = iter(pio.read_tables(ordered, cols, rel.fmt))
+            parts = [[next(tables) for _ in groups[b]] for b in buckets]
+            reads = [lambda ts=ts: ts for ts in parts]
+
+        def decode(read):
+            return lambda: ColumnarBatch.from_arrow(pa.concat_tables(read())).select(cols)
+
+        return [(b, decode(read)) for b, read in zip(buckets, reads)]
     if isinstance(plan, Filter):
         child_needed = set(needed) | E.references(plan.condition)
-        return {
-            b: batch.filter(_filter_mask(plan.condition, batch, session))
-            for b, batch in _exec_bucketed(
-                plan.child, child_needed, session, bucket_cols
-            ).items()
-        }
+
+        def filtered(fetch):
+            def run():
+                batch = fetch()
+                return batch.filter(_filter_mask(plan.condition, batch, session))
+
+            return run
+
+        return [
+            (b, filtered(fetch))
+            for b, fetch in _bucket_fetches(plan.child, child_needed, session, stream)
+        ]
     if isinstance(plan, Project):
         cols = [c for c in plan.columns if c in needed] or plan.columns
-        return {
-            b: batch.select([c for c in cols if c in batch.column_names])
-            for b, batch in _exec_bucketed(
-                plan.child, set(cols), session, bucket_cols
-            ).items()
-        }
+
+        def project(fetch):
+            def run():
+                batch = fetch()
+                return batch.select([c for c in cols if c in batch.column_names])
+
+            return run
+
+        return [
+            (b, project(fetch))
+            for b, fetch in _bucket_fetches(plan.child, set(cols), session, stream)
+        ]
     raise HyperspaceException(
         f"Node not supported in bucketed execution: {type(plan).__name__}"
     )

@@ -26,9 +26,13 @@ device, per-bucket sorts where needed, B4's count pass, scan and emit
 pass — the emit pass is the reference's separate ``expand`` stage),
 ``to_host`` (the pairs back to host memory), ``verify`` and ``assemble``.
 
-Not ported (ROADMAP queue A): the reference's thread pools and
+The pipelined prepare (:func:`prepare_join_side_pipelined`) consumes a
+side's buckets as the executor's scan pool reads them; the waits for
+those reads count as ``scan``, as the reads do on the sequential route.
+
+Not ported (ROADMAP queue A): the reference's match thread pools and
 host/device dispatch knobs (``deviceJoinMinRows``, the native presorted
-fast path and its thresholds), the pipelined, streaming and serve-cached
+fast path and its thresholds), the sharded, streaming and serve-cached
 prepares, and the sort-permutation memo. A CUDA session always matches
 with B4; a CPU session with its plain version. The outputs are identical
 on every one of the reference's routes, so the port keeps one.
@@ -38,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -277,6 +281,52 @@ def prepare_join_side(
         nulls=nulls,
         sorted_buckets=sorted_buckets,
     )
+
+
+def prepare_join_side_pipelined(
+    items: Iterable[Tuple[int, Callable[[], ColumnarBatch]]],
+    key_cols: List[str],
+    stats: Optional[Dict[str, float]] = None,
+) -> Optional[PreparedJoinSide]:
+    """Streaming twin of :func:`prepare_join_side`: consumes ``(bucket,
+    fetch)`` pairs in ascending bucket order and computes each bucket's
+    key reps, combined key, null mask and sortedness as soon as its
+    ``fetch()`` returns, while the scan pool still reads later buckets.
+    Equal field by field to ``prepare_join_side`` over the same batches:
+    reps, combined keys and nulls are per-row functions, and the
+    sortedness test ignores bucket boundaries in both. Returns None for
+    an empty stream (the executor's empty-side contract). The time each
+    ``fetch()`` takes (the wait for a read the prepare did not hide, and
+    the decode) counts as ``scan``, the rest as ``prepare``."""
+    rows = []
+    for b, fetch in items:
+        t0 = time.perf_counter()
+        batch = fetch()
+        _stage_add(stats, "scan", t0)
+        t0 = time.perf_counter()
+        reps = batch.key_reps(key_cols)
+        nulls_m = batch.null_any(key_cols)
+        combined = combine_reps(reps)
+        sorted_b = len(combined) <= 1 or bool(np.all(combined[1:] >= combined[:-1]))
+        _stage_add(stats, "prepare", t0)
+        rows.append((b, batch, reps, nulls_m, combined, sorted_b))
+    if not rows:
+        return None
+    t0 = time.perf_counter()
+    batches = [r[1] for r in rows]
+    sizes = [b.num_rows for b in batches]
+    any_nulls = any(bool(r[3].any()) for r in rows)
+    out = PreparedJoinSide(
+        buckets=tuple(r[0] for r in rows),
+        batch=ColumnarBatch.concat(batches),
+        offs=np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64),
+        reps=np.concatenate([r[2] for r in rows], axis=1),
+        combined=np.concatenate([r[4] for r in rows]),
+        nulls=np.concatenate([r[3] for r in rows]) if any_nulls else None,
+        sorted_buckets=all(r[5] for r in rows),
+    )
+    _stage_add(stats, "prepare", t0)
+    return out
 
 
 def _sentineled(prep: PreparedJoinSide, parity: int) -> np.ndarray:

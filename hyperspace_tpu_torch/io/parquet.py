@@ -171,6 +171,52 @@ def read_table(
     return pa.concat_tables(tables, promote_options="permissive")
 
 
+def read_table_row_groups(
+    paths: Sequence[str],
+    row_groups: Sequence[Optional[Sequence[int]]],
+    columns: Optional[Sequence[str]] = None,
+    fmt: str = "parquet",
+) -> pa.Table:
+    """Row-group-granular read: per file, only the listed row groups (None
+    = the whole file), concatenated in ``paths`` order — the read half of
+    zone-map pruning (``executor._range_pruned_scan``). Row order within
+    a file follows ascending row-group index, which is the file's own row
+    order, so a selection of ALL groups equals ``read_table``. Reads
+    overlap on the shared scan pool (``io/scan.scan_pool``) when more than
+    one file needs opening."""
+    if fmt != "parquet":
+        raise HyperspaceException(
+            f"Row-group reads require a parquet-like format, got {fmt!r}"
+        )
+    cols = list(columns) if columns else None
+    pairs = list(zip(paths, row_groups))
+    if len(pairs) <= 1:
+        tables = [read_file_row_groups(p, g, cols) for p, g in pairs]
+    else:
+        from hyperspace_tpu_torch.io.scan import scan_pool
+
+        futs = [scan_pool().submit(read_file_row_groups, p, g, cols) for p, g in pairs]
+        tables = [f.result() for f in futs]
+    if not tables:
+        raise HyperspaceException("No files to read")
+    return pa.concat_tables(tables, promote_options="permissive")
+
+
+def read_file_row_groups(
+    path: str, groups: Optional[Sequence[int]], cols: Optional[List[str]]
+) -> pa.Table:
+    """ONE file's row groups (None = the whole file, () = zero rows with
+    the right schema): the per-file unit of :func:`read_table_row_groups`."""
+    pf = pq.ParquetFile(path)
+    if groups is None:
+        return pf.read(columns=cols)
+    if len(groups) == 0:
+        return pf.schema_arrow.empty_table().select(
+            cols if cols is not None else pf.schema_arrow.names
+        )
+    return pf.read_row_groups(list(groups), columns=cols)
+
+
 def list_format_files(root: str, fmt: str = "parquet") -> List[str]:
     """Leaf data files of a dataset directory (recursive, with the same
     hidden-path filtering Spark's ``DataPathFilter`` applies)."""

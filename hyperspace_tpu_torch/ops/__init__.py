@@ -8,7 +8,9 @@ the plain version, a tensor on the card launches the kernel or raises.
 
 * :mod:`.hash` — murmur3 bucket ids (kernel B1, ``csrc/murmur3_bucket.cu``);
 * :mod:`.sort` — bucket-partitioned stable key sort (torch ops);
-* :mod:`.filter` — SQL three-valued predicate masks (torch ops);
+* :mod:`.filter` — SQL three-valued predicate masks (torch ops), and the
+  fused range mask of range conjunctions (kernel B3a,
+  ``csrc/range_mask.cu``);
 * :mod:`.join` — per-bucket merge-join match of co-bucketed sides
   (kernel B4, ``csrc/bucket_match.cu``).
 """
@@ -33,6 +35,12 @@ KERNEL_TWINS = {
         "match_pairs_kernel",
         "match_pairs_torch",
         "hyperspace_tpu_torch/csrc/bucket_match.cu",
+    ),
+    "range_mask": (
+        "hyperspace_tpu_torch.ops.filter",
+        "range_mask_kernel",
+        "range_mask_torch",
+        "hyperspace_tpu_torch/csrc/range_mask.cu",
     ),
 }
 

@@ -15,15 +15,34 @@ batch into a *spec* (nested tuples) plus argument arrays:
   ``(bisect_left, bisect_right)`` rank bounds, so every string predicate
   is integer arithmetic on the device.
 
+Unsigned columns take part without a loss: uint16 and uint32 values
+widen exactly to int64, and uint64 values (the common type of a uint64
+comparison) become int64 with the sign bit flipped, which keeps their
+order and equality. A comparison whose common type is float64 (a uint64
+column against a float or an int64 literal) casts on the host, as numpy
+does.
+
 The spec then evaluates with SQL three-valued logic on the device; the
 mask is ``values & known``. What cannot lower raises :class:`Unsupported`
 and the executor evaluates it on the host.
+
+A conjunction of numeric range terms (``=``, ``<``, ``<=``, ``>``, ``>=``
+against literals) over 8-byte int or float64 columns has a fused route
+instead (:func:`fused_range_mask`): its bounds lower once to exact int64
+or float64 form (:func:`native_range_bounds`) and one pass of kernel B3a
+(``csrc/range_mask.cu``) computes the AND of the bounds and validity
+over all its terms, reading each distinct column once. A CPU tensor
+takes the plain version :func:`range_mask_torch`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+import math
 import warnings
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -38,8 +57,8 @@ class Unsupported(HyperspaceException):
 
 
 # numpy dtypes the device path takes as they are (PyTorch lacks most
-# arithmetic on the wider unsigned types; those are widened on the host
-# by the common-type cast, or refused)
+# arithmetic on the wider unsigned types; those are mapped to int64 on
+# the host by :func:`_device_array`)
 _TORCH_OK = {
     np.dtype(t)
     for t in (
@@ -47,6 +66,7 @@ _TORCH_OK = {
         np.float16, np.float32, np.float64,
     )
 }
+_SIGN_BIT = np.int64(-(1 << 63))
 
 
 class _Prep:
@@ -198,8 +218,21 @@ def _literal_array(col_dtype: np.dtype, lit):
     return arr if arr.dtype.kind in "biuf" else None
 
 
+def _device_array(a: np.ndarray) -> np.ndarray:
+    """``a`` in a dtype the device compares, with order and equality kept:
+    uint16 and uint32 widen to int64; uint64 becomes int64 with the sign
+    bit flipped (u < v exactly when u ^ 2^63 < v ^ 2^63 as signed). Both
+    operands of a comparison share one dtype (the common type), so both
+    are mapped alike."""
+    if a.dtype in (np.uint16, np.uint32):
+        return a.astype(np.int64)
+    if a.dtype == np.uint64:
+        return a.view(np.int64) ^ _SIGN_BIT
+    return a
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = _device_array(np.ascontiguousarray(a))
     if a.dtype not in _TORCH_OK:
         raise Unsupported(f"dtype {a.dtype} has no device comparison")
     with warnings.catch_warnings():
@@ -355,3 +388,375 @@ def device_filter_mask(expr: E.Expr, batch, device) -> np.ndarray:
     args = _Args(p.args, torch.device(device))
     vals, known = _eval_spec(spec, args, n)
     return (vals & known).cpu().numpy()
+
+
+# -- the fused range mask (kernel B3a) ------------------------------------------
+
+
+class _BatchColTypes:
+    """Lazy ``{name: (dtype_kind, arrow_type)}`` view of a batch for
+    :func:`lower_range_terms_typed`: only the columns the condition
+    references are inspected."""
+
+    def __init__(self, batch):
+        self._batch = batch
+
+    def __contains__(self, name) -> bool:
+        return name in self._batch.columns
+
+    def __getitem__(self, name):
+        col = self._batch.columns[name]
+        return (
+            "S" if col.kind == "string" else col.values.dtype.kind,
+            col.arrow_type,
+        )
+
+
+def lower_range_terms(expr: E.Expr, batch):
+    """[(name, lo, lo_strict, hi, hi_strict, empty)] when EVERY conjunct
+    is a numeric col-vs-lit comparison in =,<,<=,>,>= with a literal the
+    engine can compare (temporal literals lowered with the same op-aware
+    snapping the host evaluator uses), else None. ``empty`` marks a
+    conjunct whose lowered literal can never match (all-False mask)."""
+    return lower_range_terms_typed(expr, _BatchColTypes(batch))
+
+
+def lower_range_terms_typed(expr: E.Expr, cols):
+    """:func:`lower_range_terms` against a ``{name: (dtype_kind,
+    arrow_type)}`` mapping instead of a batch."""
+    terms = []
+    for cj in E.split_conjuncts(expr):
+        norm = E.normalize_comparison(cj)
+        if norm is None:
+            return None
+        op, name, lit = norm
+        if op == "!=":
+            return None
+        if name not in cols:
+            return None
+        kind, arrow_type = cols[name]
+        if kind == "S":
+            return None
+        if kind not in "if":
+            return None  # uint/bool columns keep the general device mask
+        lv = E.lower_literal(lit, arrow_type, op)
+        if lv is None:
+            terms.append((name, None, False, None, False, True))
+            continue
+        if isinstance(lv, (np.integer, np.floating)):
+            pass  # engine-lowered scalar, compares exactly
+        elif isinstance(lv, bool):
+            lv = int(lv)
+        elif isinstance(lv, int):
+            if kind == "i" and not (-(2**63) <= lv < 2**63):
+                return None  # out-of-range python int: the general mask decides
+        elif not isinstance(lv, float):
+            return None  # non-numeric literal on a numeric column
+        if op == "=":
+            terms.append((name, lv, False, lv, False, False))
+        elif op == "<":
+            terms.append((name, None, False, lv, True, False))
+        elif op == "<=":
+            terms.append((name, None, False, lv, False, False))
+        elif op == ">":
+            terms.append((name, lv, True, None, False, False))
+        else:  # >=
+            terms.append((name, lv, False, None, False, False))
+    if not terms or len(terms) > MAX_RANGE_TERMS:
+        return None
+    return terms
+
+
+#: terms one B3a launch takes (``kMaxTerms`` in ``csrc/range_mask.cu``)
+MAX_RANGE_TERMS = 16
+
+NEVER_MATCH = "never"
+
+
+def native_range_bounds(terms, f64_flags):
+    """Lower range-term bounds into the exact int64/float64 form B3a
+    compares with.
+
+    ``f64_flags``: per-term bool, True when the column is float64 (else
+    an int64-view column). Returns ``(lo_i, hi_i, lo_f, hi_f, flags)``
+    lists aligned with ``terms`` (``flags`` per term: has_lo, has_hi,
+    lo_strict, hi_strict), :data:`NEVER_MATCH` when some bound can never
+    hold (all-False mask), or None when a bound is not exactly
+    representable (the general device mask must decide). Integer bounds
+    given as floats tighten to the enclosing integers (exact on integer
+    domains)."""
+    lo_i, hi_i, lo_f, hi_f, flags = [], [], [], [], []
+    for (_name, lo, lo_strict, hi, hi_strict, empty), f64 in zip(terms, f64_flags):
+        if empty:
+            return NEVER_MATCH
+
+        def int_bound(b, is_lo):
+            """(bound, strict) in exact int64, "never", "unbounded", or
+            None to refuse."""
+            strict = lo_strict if is_lo else hi_strict
+            if isinstance(b, np.integer):
+                b = int(b)
+            if isinstance(b, (float, np.floating)):
+                fb = float(b)
+                if math.isnan(fb):
+                    return "never"
+                if math.isinf(fb):
+                    # -inf lo / +inf hi: unbounded; +inf lo / -inf hi:
+                    # nothing can pass
+                    if (fb > 0) == is_lo:
+                        return "never"
+                    return "unbounded"
+                if abs(fb) >= 2.0**53:
+                    # the host compares int64 values against a FLOAT
+                    # bound by promoting the column to float64; an exact
+                    # int64 compare diverges for values beyond 2^53
+                    return None
+                if fb != int(fb):
+                    # v > 2.5 == v >= 3; v < 2.5 == v <= 2 on integers
+                    return (math.ceil(fb), False) if is_lo else (math.floor(fb), False)
+                b = int(fb)
+            if not isinstance(b, int):
+                return None
+            if not (-(2**63) <= b < 2**63):
+                return None
+            return (b, strict)
+
+        if f64:
+            def f_bound(b):
+                if isinstance(b, (int, np.integer)) and not isinstance(b, bool):
+                    fb = np.float64(b)
+                    if int(fb) != int(b):
+                        return None  # not exactly representable: refuse
+                    return float(fb)
+                return float(b)
+
+            flo = f_bound(lo) if lo is not None else None
+            fhi = f_bound(hi) if hi is not None else None
+            if (lo is not None and flo is None) or (hi is not None and fhi is None):
+                return None
+            lo_f.append(flo if flo is not None else 0.0)
+            hi_f.append(fhi if fhi is not None else 0.0)
+            lo_i.append(0)
+            hi_i.append(0)
+            flags.append((lo is not None, hi is not None, lo_strict, hi_strict))
+        else:
+            ilo = int_bound(lo, True) if lo is not None else "unbounded"
+            ihi = int_bound(hi, False) if hi is not None else "unbounded"
+            if ilo is None or ihi is None:
+                return None
+            if ilo == "never" or ihi == "never":
+                return NEVER_MATCH
+            has_lo = ilo != "unbounded"
+            has_hi = ihi != "unbounded"
+            lo_i.append(ilo[0] if has_lo else 0)
+            hi_i.append(ihi[0] if has_hi else 0)
+            lo_f.append(0.0)
+            hi_f.append(0.0)
+            flags.append(
+                (has_lo, has_hi, ilo[1] if has_lo else False, ihi[1] if has_hi else False)
+            )
+    return lo_i, hi_i, lo_f, hi_f, flags
+
+
+@dataclasses.dataclass
+class RangeArgs:
+    """B3a's inputs on one device: the distinct columns the terms read
+    (``[n]`` int64, a view of an int64 or temporal column, or float64),
+    each column's validity (``[n]`` bool, or None without nulls), and per
+    term its column's slot and exact bounds (``native_range_bounds``)."""
+
+    cols: List[torch.Tensor]
+    valids: List[Optional[torch.Tensor]]
+    term_col: List[int]
+    lo_i: List[int]
+    hi_i: List[int]
+    lo_f: List[float]
+    hi_f: List[float]
+    flags: List[tuple]
+
+    @property
+    def n(self) -> int:
+        return int(self.cols[0].shape[0])
+
+
+def range_args(batch, terms, device):
+    """:class:`RangeArgs` for ``terms`` over ``batch`` on ``device`` (each
+    distinct column moved once), :data:`NEVER_MATCH` (all-False), or None
+    when a column is not an 8-byte int or float64 array or a bound does
+    not lower exactly (the general device mask decides)."""
+    slot_of, host_cols, host_valids, is_f64, term_col = {}, [], [], [], []
+    for name, _lo, _ls, _hi, _hs, _empty in terms:
+        if name not in slot_of:
+            col = batch.columns[name]
+            v = col.values
+            if v is None or v.ndim != 1 or v.dtype.itemsize != 8:
+                return None
+            if v.dtype.kind == "f":
+                if v.dtype != np.float64:
+                    return None
+            elif v.dtype.kind in "iMm":
+                v = v.view(np.int64)
+            else:
+                return None
+            slot_of[name] = len(host_cols)
+            host_cols.append(v)
+            host_valids.append(col.validity)
+        is_f64.append(host_cols[slot_of[name]].dtype.kind == "f")
+        term_col.append(slot_of[name])
+    bounds = native_range_bounds(terms, is_f64)
+    if bounds is None or bounds == NEVER_MATCH:
+        return bounds
+    dev = torch.device(device)
+    return RangeArgs(
+        [_to_device(v, dev) for v in host_cols],
+        [None if m is None else _to_device(m, dev) for m in host_valids],
+        term_col,
+        *bounds,
+    )
+
+
+def range_mask_torch(args: RangeArgs) -> torch.Tensor:
+    """Plain PyTorch version of B3a, on the tensors' own device: per term
+    the bound compares on its column (NaN fails every compare, -0.0
+    equals 0.0), ANDed with the column's validity, ANDed over terms."""
+    out = torch.ones(args.n, dtype=torch.bool, device=args.cols[0].device)
+    for t, c in enumerate(args.term_col):
+        v = args.cols[c]
+        has_lo, has_hi, lo_strict, hi_strict = args.flags[t]
+        f64 = v.dtype == torch.float64
+        if has_lo:
+            lo = torch.tensor(args.lo_f[t] if f64 else args.lo_i[t], dtype=v.dtype)
+            out &= (v > lo) if lo_strict else (v >= lo)
+        if has_hi:
+            hi = torch.tensor(args.hi_f[t] if f64 else args.hi_i[t], dtype=v.dtype)
+            out &= (v < hi) if hi_strict else (v <= hi)
+        if args.valids[c] is not None:
+            out &= args.valids[c]
+    return out
+
+
+#: B3a launches made by :func:`range_mask_kernel` (never by the plain version)
+launches = 0
+
+
+@functools.cache
+def _kernel_fn():
+    from hyperspace_tpu_torch import kernels
+
+    fn = kernels.load("range_mask").hs_range_mask
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),  # cols [ncols]
+        ctypes.POINTER(ctypes.c_void_p),  # valids [ncols], NULL = no nulls
+        ctypes.c_int,  # ncols
+        ctypes.POINTER(ctypes.c_int),  # term_col [nterms], ascending
+        ctypes.POINTER(ctypes.c_int64),  # lo_i
+        ctypes.POINTER(ctypes.c_int64),  # hi_i
+        ctypes.POINTER(ctypes.c_double),  # lo_f
+        ctypes.POINTER(ctypes.c_double),  # hi_f
+        ctypes.POINTER(ctypes.c_int),  # flags
+        ctypes.c_int,  # nterms
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # n
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def term_flags(args: RangeArgs, t: int) -> int:
+    """Term ``t``'s flag word for the kernel: bit 0 has_lo, 1 has_hi,
+    2 lo_strict, 3 hi_strict, 4 float64 column."""
+    has_lo, has_hi, lo_strict, hi_strict = args.flags[t]
+    f64 = args.cols[args.term_col[t]].dtype == torch.float64
+    return int(has_lo) | int(has_hi) << 1 | int(lo_strict) << 2 | int(hi_strict) << 3 | int(f64) << 4
+
+
+def _check_args(args: RangeArgs) -> None:
+    n, dev = args.n, args.cols[0].device
+    if not 1 <= len(args.cols) <= MAX_RANGE_TERMS or not 1 <= len(args.term_col) <= MAX_RANGE_TERMS:
+        raise ValueError("the range mask takes 1 to 16 columns and terms")
+    if sorted(set(args.term_col)) != list(range(len(args.cols))):
+        raise ValueError("every column needs a term and every term a column")
+    for c in args.cols:
+        if c.device != dev or c.shape != (n,) or not c.is_contiguous() or c.dtype not in (
+            torch.int64, torch.float64
+        ):
+            raise ValueError("range mask columns must be contiguous [n] int64 or float64 "
+                             "tensors on one device")
+    for m in args.valids:
+        if m is not None and (m.device != dev or m.shape != (n,) or not m.is_contiguous()
+                              or m.dtype != torch.bool):
+            raise ValueError("range mask validity must be a contiguous [n] bool tensor")
+
+
+def _launch(args: RangeArgs, out: torch.Tensor, stream: int) -> None:
+    """Hand the columns, validity masks and terms (grouped by column, so
+    the kernel reads each column once a row) to the C function on
+    ``stream``; raise on any error code it returns."""
+    global launches
+    _check_args(args)
+    order = sorted(range(len(args.term_col)), key=lambda t: args.term_col[t])
+    nt, nc = len(order), len(args.cols)
+    err = _kernel_fn()(
+        (ctypes.c_void_p * nc)(*[c.data_ptr() for c in args.cols]),
+        (ctypes.c_void_p * nc)(*[None if m is None else m.data_ptr() for m in args.valids]),
+        nc,
+        (ctypes.c_int * nt)(*[args.term_col[t] for t in order]),
+        (ctypes.c_int64 * nt)(*[args.lo_i[t] for t in order]),
+        (ctypes.c_int64 * nt)(*[args.hi_i[t] for t in order]),
+        (ctypes.c_double * nt)(*[args.lo_f[t] for t in order]),
+        (ctypes.c_double * nt)(*[args.hi_f[t] for t in order]),
+        (ctypes.c_int * nt)(*[term_flags(args, t) for t in order]),
+        nt,
+        out.data_ptr(),
+        args.n,
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"range mask kernel launch failed: CUDA error {err}")
+    if args.n:  # the C side launches nothing for n = 0
+        launches += 1
+
+
+def range_mask_kernel(args: RangeArgs) -> torch.Tensor:
+    """Launch ``csrc/range_mask.cu`` on the current stream over contiguous
+    CUDA columns; returns the ``[n]`` bool mask on the card."""
+    dev = args.cols[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"range_mask_kernel needs CUDA tensors, got {dev}")
+    _check_args(args)
+    out = torch.empty(args.n, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _launch(args, out, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def range_mask(args: RangeArgs) -> torch.Tensor:
+    """The fused range mask on the columns' device: the plain version for
+    CPU tensors, kernel B3a for CUDA tensors (it raises on what it cannot
+    take; there is no fallback)."""
+    dev = args.cols[0].device
+    if dev.type == "cpu":
+        return range_mask_torch(args)
+    if dev.type == "cuda":
+        return range_mask_kernel(args)
+    raise ValueError(f"range_mask: unsupported device {dev}")
+
+
+def fused_range_mask(expr: E.Expr, batch, device) -> Optional[np.ndarray]:
+    """The executor's fused route: the host bool mask when the whole
+    predicate lowers to numeric range terms over 8-byte int or float64
+    columns with exactly representable bounds, else None (the caller
+    takes :func:`device_filter_mask`)."""
+    n = batch.num_rows
+    if n == 0:
+        return None
+    terms = lower_range_terms(expr, batch)
+    if terms is None:
+        return None
+    args = range_args(batch, terms, device)
+    if args is None:
+        return None
+    if args == NEVER_MATCH:
+        return np.zeros(n, dtype=bool)
+    return range_mask(args).cpu().numpy()

@@ -86,6 +86,12 @@ class Relation:
     options: Tuple[Tuple[str, str], ...] = ()
     index_info: Optional[Tuple[str, int, str]] = None  # (name, log_version, abbr)
     bucket_spec: Optional[Tuple[int, Tuple[str, ...]]] = None  # (numBuckets, cols)
+    # query-time row-group pruning (zone maps, executor._range_pruned_scan):
+    # aligned with ``files``; per file either None (read every row group)
+    # or the ascending row-group indices to read. None for the whole field
+    # means no narrowing anywhere. Set only by the range-pruning pass on a
+    # Filter's direct scan: the selection is query-shaped state.
+    file_row_groups: Optional[Tuple[Optional[Tuple[int, ...]], ...]] = None
 
     @property
     def schema(self) -> Dict[str, pa.DataType]:

@@ -45,13 +45,15 @@ def resolve_device(device=None) -> torch.device:
 
 class ExecStats:
     """Counts of what the executor ran, per session: predicate masks
-    evaluated on the device, masks evaluated on the host because the
-    predicate does not lower (``ops/filter.Unsupported``), bucket-pruned
-    scans, joins served shuffle-free from co-bucketed index scans, and
-    joins run unindexed."""
+    evaluated on the device by the general mask and by the fused range
+    mask (kernel B3a), masks evaluated on the host because the predicate
+    does not lower (``ops/filter.Unsupported``), bucket-pruned scans,
+    joins served shuffle-free from co-bucketed index scans, and joins run
+    unindexed."""
 
     def __init__(self):
         self.device_filter_evals = 0
+        self.fused_range_masks = 0
         self.host_filter_evals = 0
         self.bucket_pruned_scans = 0
         self.co_bucketed_joins = 0

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+from hyperspace_tpu_torch.ops import filter as F
 from hyperspace_tpu_torch.ops import hash as H
 from hyperspace_tpu_torch.ops import join as J
+from hyperspace_tpu_torch.plan import expressions as E
+from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
 from torch_b4_cases import b4_edge_cases
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +96,28 @@ def test_b1_equals_its_plain_version(cuda_device):
     ).to(cuda_device)
     got = H.bucket_ids_kernel(reps, 200)
     assert torch.equal(got, H.bucket_ids_torch(reps, 200))
+
+
+@pytest.mark.parametrize("n", ROWS)
+@pytest.mark.parametrize("case", sorted(B3A_PREDICATES))
+def test_b3a_equals_its_plain_version(cuda_device, case, n):
+    """Kernel B3a on each case's fused terms equals its plain version and
+    the host evaluator; a NEVER_MATCH case launches nothing; the +-2^53
+    float bounds on int columns do not take B3a."""
+    build, route = B3A_PREDICATES[case]
+    batch = ColumnarBatch.from_arrow(b3a_table(n))
+    expr = build(E)
+    before = F.launches
+    fused = F.fused_range_mask(expr, batch, cuda_device)
+    if route == "general":
+        assert fused is None and F.launches == before
+        return
+    assert np.array_equal(fused, E.filter_mask(expr, batch))
+    if route == "never":
+        assert F.launches == before and not fused.any()
+        return
+    assert F.launches == before + 1
+    args = F.range_args(batch, F.lower_range_terms(expr, batch), cuda_device)
+    got = F.range_mask_kernel(args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.range_mask_torch(args))

@@ -184,7 +184,8 @@ def test_point_query_is_bucket_pruned_and_masked_on_the_device(world):
     got, _ = _run(s, world["src"], "point", True)
     assert got.num_rows > 0
     assert s.exec_stats.as_dict() == {
-        "device_filter_evals": 1,
+        "device_filter_evals": 0,
+        "fused_range_masks": 1,
         "host_filter_evals": 0,
         "bucket_pruned_scans": 1,
         "co_bucketed_joins": 0,
@@ -243,3 +244,88 @@ def test_nested_struct_field_index_matches_reference(tmp_path):
         out[name] = (q.collect(), [(data / f).read_bytes() for f in files])
     assert out["port"][0].equals(out["jax"][0])
     assert out["port"][1] == out["jax"][1]
+
+
+def _key_type_table(n=3000):
+    """One column per key type of ROADMAP C.1's build probes, and the
+    included-column types (list, decimal, binary) that ride along."""
+    import decimal
+
+    rng = np.random.default_rng(29)
+    f = rng.normal(0, 5, n).round(1)
+    f[::11], f[3::13], f[5::17] = np.nan, -0.0, 0.0
+    words = np.array(["alpha", "beta", "", "gamma", "delta"])
+    return pa.table(
+        {
+            "f64": pa.array(f, mask=rng.random(n) < 0.02),
+            "f32": pa.array(rng.normal(0, 5, n).astype(np.float32)),
+            "s": pa.array(words[rng.integers(0, 5, n)], mask=rng.random(n) < 0.03),
+            "dict": pa.array(words[rng.integers(0, 5, n)]).dictionary_encode(),
+            "d": pa.array(rng.integers(18000, 18500, n).astype(np.int32)).cast(pa.date32()),
+            "ts": pa.array(rng.integers(1_600_000_000_000_000, 1_600_900_000_000_000, n),
+                           type=pa.timestamp("us")),
+            "i8": pa.array(rng.integers(-100, 100, n).astype(np.int8)),
+            "i32": pa.array(rng.integers(-10_000, 10_000, n).astype(np.int32)),
+            "u16": pa.array(rng.integers(0, 65_535, n).astype(np.uint16)),
+            "b": pa.array(rng.random(n) < 0.5, mask=rng.random(n) < 0.05),
+            "dec": pa.array([decimal.Decimal(int(x)) / 100 for x in rng.integers(0, 10**6, n)],
+                            type=pa.decimal128(12, 2)),
+            "lst": pa.array([[int(x), int(x) + 1] for x in rng.integers(0, 100, n)]),
+            "bin": pa.array([bytes([int(x) % 256, 7]) for x in rng.integers(0, 1000, n)]),
+            "v": np.arange(n, dtype=np.int64),
+        }
+    )
+
+
+KEY_TYPE_INDEXES = {
+    "float64": (["f64"], ["v"]),
+    "float32": (["f32"], ["v"]),
+    "string": (["s"], ["v"]),
+    "dictionary": (["dict"], ["v"]),
+    "date32": (["d"], ["v"]),
+    "timestamp": (["ts"], ["v"]),
+    "int8": (["i8"], ["v"]),
+    "int32": (["i32"], ["v"]),
+    "uint16": (["u16"], ["v"]),
+    "bool": (["b"], ["v"]),
+    "decimal": (["dec"], ["v"]),
+    "multi_key": (["i32", "s", "d"], ["v"]),
+    "list_decimal_binary_included": (["i32"], ["lst", "dec", "bin"]),
+}
+
+
+@pytest.mark.parametrize("config", sorted(KEY_TYPE_INDEXES))
+def test_builds_over_key_types_write_identical_bytes(tmp_path, config):
+    """Both packages build the same bucket files byte for byte, and the
+    same zone-map sidecar apart from the files' mtimes, over each key
+    type of ROADMAP C.1's probes."""
+    src = tmp_path / "src"
+    src.mkdir()
+    t = _key_type_table()
+    for i in range(2):
+        pq.write_table(t.slice(i * 1500, 1500), str(src / f"p{i}.parquet"))
+    indexed, included = KEY_TYPE_INDEXES[config]
+    files = {}
+    for name, make, hs_cls, cfg in (
+        ("port", _port_session, T.Hyperspace, TConfig),
+        ("jax", _jax_session, JHyperspace, JConfig),
+    ):
+        s = make(str(tmp_path / name))
+        hs_cls(s).create_index(s.read.parquet(str(src)), cfg("kidx", indexed, included))
+        data = tmp_path / name / "kidx" / "v__=1"
+        # the aggregate sidecars (_aggstate.json, _aggsample.parquet) come
+        # with the aggregate plane (ROADMAP C.2)
+        files[name] = {f: (data / f).read_bytes() for f in sorted(os.listdir(data))
+                       if not f.startswith("_agg")}
+    assert sorted(files["port"]) == sorted(files["jax"])
+    assert "_zonemaps.json" in files["port"]
+    assert any(f.startswith("part") for f in files["port"])
+    for f, got in files["port"].items():
+        if f == "_zonemaps.json":
+            sides = [json.loads(files[p][f]) for p in ("port", "jax")]
+            for doc in sides:
+                for entry in doc["files"].values():
+                    entry.pop("mtime_ns")
+            assert sides[0] == sides[1]
+        elif f.startswith("part"):
+            assert got == files["jax"][f], f

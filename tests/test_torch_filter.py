@@ -138,12 +138,81 @@ def test_unsupported_predicates_raise(build, batches):
 
 
 def test_wide_unsigned_column_is_unsupported():
-    t = pa.table({"u": pa.array(np.arange(10, dtype=np.uint64))})
-    with pytest.raises(TF.Unsupported):
-        TF.device_filter_mask(TE.Col("u") > np.uint64(3), TBatch.from_arrow(t), "cpu")
+    """Wide unsigned columns used to be refused here (and masked on the
+    host); they now lower: uint64 compares with its sign bit flipped, so
+    values at and above 2^63 keep their order."""
+    u = np.array([0, 3, 4, 2**63 - 1, 2**63, 2**64 - 1], dtype=np.uint64)
+    t = pa.table({"u": pa.array(u)})
+    for lit in (np.uint64(3), 2**63, 2**63 - 1):
+        got = TF.device_filter_mask(TE.Col("u") > lit, TBatch.from_arrow(t), "cpu")
+        assert np.array_equal(got, u > lit)
 
 
 def test_empty_batch():
     t = _table().slice(0, 0)
     got = TF.device_filter_mask(TE.Col("i64") == 1, TBatch.from_arrow(t), "cpu")
     assert got.shape == (0,) and got.dtype == np.bool_
+
+
+def _unsigned_table() -> pa.Table:
+    rng = np.random.default_rng(17)
+    u64 = rng.integers(0, 2**64 - 1, N, dtype=np.uint64, endpoint=True)
+    u64[:6] = [0, 1, 2**63 - 1, 2**63, 2**64 - 1, 2**53 + 1]
+    u32 = rng.integers(0, 2**32 - 1, N, dtype=np.uint32, endpoint=True)
+    u32[:4] = [0, 2**31, 2**32 - 1, 2**31 - 1]
+    u16 = rng.integers(0, 2**16 - 1, N, dtype=np.uint16, endpoint=True)
+    u16[:3] = [0, 2**15, 2**16 - 1]
+    return pa.table(
+        {
+            "u64": pa.array(u64, mask=rng.random(N) < 0.1),
+            "u32": pa.array(u32),
+            "u16": pa.array(u16, mask=rng.random(N) < 0.1),
+            "i64": pa.array(rng.integers(-(2**62), 2**62, N)),
+            "f64": pa.array(rng.normal(0, 1e19, N)),
+        }
+    )
+
+
+UNSIGNED_PREDICATES = {
+    "u32_eq_2_31": lambda E: E.Col("u32") == 2**31,
+    "u32_gt_negative": lambda E: E.Col("u32") > -1,
+    "u32_le_float": lambda E: E.Col("u32") <= 2.5e9,
+    "u32_lt_np_uint64": lambda E: E.Col("u32") < np.uint64(2**31),
+    "u16_ge": lambda E: E.Col("u16") >= 2**15,
+    "u16_ne_bool": lambda E: E.Col("u16") != True,  # noqa: E712
+    "u16_in": lambda E: E.Col("u16").isin(0, 2**15, 70_000, -3),
+    "u64_ge_2_63": lambda E: E.Col("u64") >= 2**63,
+    "u64_eq_max": lambda E: E.Col("u64") == 2**64 - 1,
+    "u64_lt_np_uint64": lambda E: E.Col("u64") < np.uint64(2**63 + 5),
+    "u64_gt_negative": lambda E: E.Col("u64") > -1,
+    "u64_gt_np_int64": lambda E: E.Col("u64") > np.int64(-1),
+    "u64_le_float": lambda E: E.Col("u64") <= 9.3e18,
+    "u64_in": lambda E: E.Col("u64").isin(1, 2**63, 2**64 - 1),
+    "u64_col_i64": lambda E: E.Col("u64") < E.Col("i64"),
+    "u64_col_f64": lambda E: E.Col("u64") >= E.Col("f64"),
+    "u16_col_u32": lambda E: E.Col("u16") > E.Col("u32"),
+    "u32_col_i64": lambda E: E.Col("u32") != E.Col("i64"),
+    "u64_and_or": lambda E: ((E.Col("u64") > 2**62) & (E.Col("u32") < 2**31))
+    | E.Col("u16").is_null(),
+    # the JAX device mask compares uint64 with an int64 literal in float64
+    # (2^63 - 1 rounds to 2^63); the port compares exactly, as the host
+    # evaluator does (ROADMAP C.3)
+    "u64_ne_2_63_minus_1": lambda E: E.Col("u64") != 2**63 - 1,
+}
+JAX_DEVICE_DIFFERS = {"u64_ne_2_63_minus_1"}
+
+
+@pytest.mark.parametrize("name", sorted(UNSIGNED_PREDICATES))
+def test_unsigned_columns_mask_on_the_device(name):
+    """uint16, uint32 and uint64 columns lower to the device mask and give
+    the host evaluator's mask, and the JAX device mask's wherever that one
+    agrees with the host."""
+    t = _unsigned_table()
+    tb, jb = TBatch.from_arrow(t), JBatch.from_arrow(t)
+    build = UNSIGNED_PREDICATES[name]
+    got = TF.device_filter_mask(build(TE), tb, "cpu")
+    host = JE.filter_mask(build(JE), jb)
+    assert np.array_equal(got, host)
+    assert np.array_equal(got, TE.filter_mask(build(TE), tb))
+    jax = jax_device_mask(build(JE), jb)
+    assert np.array_equal(got, jax) == (name not in JAX_DEVICE_DIFFERS)
