@@ -35,6 +35,15 @@ against its plain PyTorch version on the card:
      tails), with aligned columns and with views off the vector
      alignment; NEVER_MATCH cases launch nothing and the +-2^53 float
      bounds on int columns take the general device mask;
+   * the segment reductions (kernel B5): integer sum and count, the
+     ordered float fold, MIN, MAX and the count of valid rows, each
+     bit-equal to its plain version on a CPU copy over
+     ``tests/torch_b5_cases.py`` (every value type, NaN with payloads,
+     -0.0 / 0.0 ties, +-inf, nulls, wrap-around, one group of 100,000
+     rows, 10,000 groups, and group layouts across, on and beside the
+     kernel's 1,024-row ranges, empty groups and no rows); and the
+     latency of one dependent float add (``scripts/torch_chain_probe.cu``,
+     built beside the kernels), the float fold's chain bound;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -76,6 +85,24 @@ against its plain PyTorch version on the card:
    the li_idx 1 % one (cold, warm, plain, the general device mask on the
    same device columns, and the host-to-device copy).
 
+8. aggregate path: over phase 4's lineitem with li_idx, li_rg_idx and
+   o_idx active, the queries of ``aggregate_queries``: (a) an index-served
+   ``l_orderkey`` window (bench.py's agg_lo / agg_hi at SF1) with count,
+   sum, avg, min and max; (b) bench.py's q_gagg, the same window grouped
+   by l_quantity with a float64 sum (50 groups, from the source); (c)
+   sum, min and max of l_extendedprice over all 6,001,215 rows (the
+   float fold's one long chain); (d) TPC-H Q18's shape, a sum per
+   l_orderkey (1,500,000 groups) sorted descending and limited to 100,
+   rewritten by AggregateIndexRule onto the smallest covering index; (e)
+   a top-10 (Limit over Sort) and a streaming limit. Each: one warm-up,
+   p50 over 5 runs with stage seconds, rows equal bit for bit in order to
+   a ``device="cpu"`` session's, equal to the plan without Hyperspace
+   (d in order), integer columns equal to pyarrow's group_by. B5 is then
+   held against its plain version on every call the warm-ups made
+   (``B5Inputs``) and timed on b, c and d's calls, cold and warm, beside
+   the byte bound, the chain bound, the plain version, ``index_add_`` /
+   ``scatter_reduce_`` on the card and the values' host-to-device copy.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -83,8 +110,8 @@ instead of from the tables, and prints the card line and the records
 under ``only_b4`` instead of ``kernels``, with null launches: the main
 path does not run.
 
-Kernel launch counts are set to 0 just before phases 4, 5 and 7 and read
-just after each; the kernel checks' launches are not counted as the main
+Kernel launch counts are set to 0 just before phases 4, 5, 7 and 8 and
+read just after each; the kernel checks' launches are not counted as the main
 path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -939,7 +966,7 @@ def filter_path(work: str, device) -> dict:
         f"{np.percentile(base_times, 50):.3f}"
     )
     return {"launches": total_launches, "all_launches": ops.launch_counts(),
-            "session": sess, "hs": hs, "items": df}
+            "session": sess, "hs": hs, "items": df, "src": src}
 
 
 def gen_orders(out_dir: str) -> str:
@@ -1465,6 +1492,465 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
     return {"launches": launches, "queries": results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: aggregates, ORDER BY and LIMIT (kernel B5)
+# ---------------------------------------------------------------------------
+
+AGG_LO, AGG_HI = 375_000, 562_500  # bench.py's agg_lo / agg_hi at SF1
+E_SHIP_CUTOFF = "1994-02-01"
+PEAK_F64_FLOPS = 34e12  # H100 SXM FP64 outside the tensor cores (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores
+
+
+def aggregate_queries(F, df) -> dict:
+    """Phase 8's queries over a lineitem DataFrame ``df`` of either
+    session, with ``F`` the port's functions module."""
+    key, qty, ship = df["l_orderkey"], df["l_quantity"], df["l_shipdate"]
+    window = df.filter((key >= AGG_LO) & (key < AGG_HI))
+    return {
+        "a": window.agg(F.count(), F.sum("l_quantity"), F.avg("l_quantity"),
+                        F.min("l_shipdate"), F.max("l_shipdate")),
+        "b": window.group_by("l_quantity").agg(F.count(), F.sum("l_extendedprice")),
+        "c": df.agg(F.sum("l_extendedprice"), F.min("l_extendedprice"),
+                    F.max("l_extendedprice")),
+        "d": df.group_by("l_orderkey").agg(F.sum("l_quantity").alias("q"))
+        .sort(("q", False), "l_orderkey").limit(100),
+        "e_top": df.filter(ship < np.datetime64(E_SHIP_CUTOFF))
+        .sort(("l_extendedprice", False)).limit(10),
+        "e_stream": df.filter(qty == 7).limit(1000),
+    }
+
+
+def check_b5_cases(dev) -> tuple:
+    """B5's cases (``tests/torch_b5_cases.py``) on the card: every launch
+    function on each case and on each group layout around its 1,024-row
+    ranges, with and without nulls, bit-equal to the plain version on a
+    CPU copy; returns (count, max abs error)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups, layout_values
+
+    count, max_err = 0, 0.0
+    for gid, vals, valid, num in B5_CASES.values():
+        perm, offs = groups(gid, num)
+        v, unsigned = A.device_values(vals, dev)
+        ok = None if valid is None else torch.from_numpy(valid).to(dev)
+        errs = b5_kernel_errors(perm.to(dev), offs.to(dev), v, ok, unsigned)
+        max_err, count = max(max_err, *errs.values()), count + 1
+    for perm, offs in b5_layouts().values():
+        vals = layout_values(int(offs[-1]))
+        p = None if perm is None else torch.from_numpy(perm).to(dev)
+        o = torch.from_numpy(offs).to(dev)
+        for dtype in ("float64", "float32", "int64", "uint64"):
+            host = vals[dtype].view(np.int64) if dtype == "uint64" else vals[dtype]
+            v = torch.from_numpy(host).to(dev)
+            for valid in (None, torch.from_numpy(vals["valid"]).to(dev)):
+                errs = b5_kernel_errors(p, o, v, valid, unsigned=dtype == "uint64")
+                max_err, count = max(max_err, *errs.values()), count + 1
+    torch.cuda.synchronize()
+    if max_err != 0:
+        raise AssertionError(f"B5 differs from its plain version (max_abs_err {max_err})")
+    log(f"kernels: B5 (sum and count, float fold, min, max, count of valid rows) bit-equal "
+        f"to the plain version over {count} cases (max_abs_err {max_err})")
+    return count, max_err
+
+
+class B5Inputs:
+    """Keeps every B5 call the aggregate executor makes while ``label`` is
+    set (the phase's warm-up runs): the op, its device tensors and the
+    host values each column came from, for the comparison with the plain
+    version and the timing after the phase. The wrappers call straight
+    through, so their launches count as the main path's."""
+
+    OPS = ("segment_sum_count", "segment_minmax", "segment_count")
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import aggregate as A
+
+        self.calls, self.host, self.label = {}, {}, None
+        for op in self.OPS:
+            setattr(A, op, self._recording(op, getattr(A, op)))
+        inner_values = A.device_values
+
+        def values(host, device):
+            out = inner_values(host, device)
+            if self.label is not None:
+                self.host[id(out[0])] = host  # the recorded call keeps the tensor alive
+            return out
+
+        A.device_values = values
+
+    def _recording(self, op, inner):
+        def recording(*args):
+            if self.label is not None:
+                self.calls.setdefault(self.label, []).append((op, args))
+            return inner(*args)
+
+        return recording
+
+
+def compare_b5_call(op, args) -> float:
+    """One recorded B5 call: the kernel on its device tensors against the
+    plain version on CPU copies (the float fold's plain version needs the
+    CPU's ordered ``index_add_``); returns the max abs error."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
+    from torch_b5_cases import abs_err
+
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    if op == "segment_count":
+        if args[2] is None:  # group sizes: no reduction runs
+            return 0.0
+        return abs_err(A.segment_count_kernel(*args), A.segment_count_torch(*cpu))
+    if op == "segment_minmax":
+        return abs_err(A.segment_minmax_kernel(*args), A.segment_minmax_torch(*cpu))
+    got, want = A.segment_sum_count_kernel(*args), A.segment_sum_count_torch(*cpu)
+    return max(abs_err(got[0], want[0]), abs_err(got[1], want[1]))
+
+
+def b5_bound(op, args, chain_ns: dict) -> dict:
+    """Least time of one B5 call: the larger of its bytes (the permutation,
+    values and validity read once, the offsets read once, the per-group
+    outputs written once) over HBM bandwidth and its adds or compares
+    over the peak of their type; for the float fold also the chain bound,
+    the longest group's length times one dependent add's latency."""
+    perm, offs, vals, valid = args[0], args[1], args[2], args[3] if len(args) > 3 else None
+    if op == "segment_count":
+        perm, offs, valid, vals = args[0], args[1], args[2], None
+    n = int(valid.numel() if vals is None else vals.numel())
+    groups = int(offs.numel()) - 1
+    nbytes = 8 * (groups + 1) + (0 if perm is None else 8 * n) + (0 if valid is None else n)
+    out_bytes = 8 * groups
+    if vals is not None:
+        nbytes += vals.element_size() * n
+        out_bytes = (16 if op == "segment_sum_count" else vals.element_size()) * groups
+    nbytes += out_bytes
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    floats = vals is not None and vals.dtype.is_floating_point
+    if floats:
+        peak = PEAK_F64_FLOPS if vals.element_size() == 8 else PEAK_F32_FLOPS
+        ops_ms = n / peak * 1e3
+    else:  # a 64-bit add or compare (2 int32 ops) and a count add a row
+        ops_ms = 3 * n / PEAK_INT32_OPS_PER_S * 1e3
+    out = {"n": n, "groups": groups, "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if floats and op == "segment_sum_count":
+        longest = int((offs[1:] - offs[:-1]).max()) if groups else 0
+        ns = chain_ns["f64" if vals.element_size() == 8 else "f32"]
+        out.update(longest_group=longest, add_latency_ns=ns, chain_bound_ms=longest * ns * 1e-6)
+    return out
+
+
+def b5_library_call(op, args):
+    """The PyTorch call that computes the same reduction on the card
+    (``index_add_`` for sums, ``scatter_reduce_`` for MIN and MAX), on the
+    same values in row order; float sums through its atomics are not
+    bit-equal to the ordered fold. Returns a function to time."""
+    import torch
+
+    perm, offs, vals = args[0], args[1], args[2]
+    n, groups = vals.numel(), offs.numel() - 1
+    gid_sorted = torch.repeat_interleave(
+        torch.arange(groups, device=vals.device), offs[1:] - offs[:-1], output_size=n)
+    gid = gid_sorted if perm is None else torch.empty_like(gid_sorted).scatter_(0, perm, gid_sorted)
+    if op == "segment_sum_count":
+        return lambda: torch.zeros(groups, dtype=vals.dtype, device=vals.device).index_add_(
+            0, gid, vals)
+    reduce = "amin" if args[4] == "min" else "amax"
+    return lambda: torch.empty(groups, dtype=vals.dtype, device=vals.device).scatter_reduce_(
+        0, gid, vals, reduce, include_self=False)
+
+
+def time_b5(label, op, args, flush, chain_ns, host_values) -> dict:
+    """B5 on one recorded call: cold (L2 flushed) and warm, beside the
+    bound, the plain version (on the card, or for the float fold on a CPU
+    copy by the host clock), the library call, and the host-to-device
+    copy of the column's values."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
+
+    med = lambda t: float(np.median(t))  # noqa: E731
+    kernel = {"segment_sum_count": A.segment_sum_count_kernel,
+              "segment_minmax": A.segment_minmax_kernel}[op]
+    plain = {"segment_sum_count": A.segment_sum_count_torch,
+             "segment_minmax": A.segment_minmax_torch}[op]
+    fold = op == "segment_sum_count" and args[2].dtype.is_floating_point
+    slow = fold and int(args[1][-1]) > 1_000_000
+    ms = med(time_cold(lambda: kernel(*args), flush, iters=8 if slow else 30))
+    warm_ms = time_cuda(lambda: kernel(*args), launches=3 if slow else 30,
+                        repeats=3 if slow else 5)
+    if fold:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plain(*cpu)
+            t.append((time.perf_counter() - t0) * 1e3)
+        plain_ms, plain_where = med(t), "cpu (host clock)"
+    else:
+        plain_ms, plain_where = time_cuda(lambda: plain(*args), launches=3, repeats=3), "card"
+    library_ms = time_cuda(b5_library_call(op, args), launches=3 if slow else 10, repeats=3)
+    h2d = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A.device_values(host_values, args[2].device)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    r = {"query": label, "op": op if not fold else "float fold",
+         "mode": args[4] if op == "segment_minmax" else None,
+         "dtype": str(args[2].dtype).replace("torch.", ""), "identity_perm": args[0] is None,
+         "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "plain_on": plain_where,
+         "library_ms": library_ms, "h2d_ms": med(h2d), **b5_bound(op, args, chain_ns)}
+    extra = (f"; chain bound {r['chain_bound_ms']:.4f} ms (longest group {r['longest_group']} "
+             f"x {r['add_latency_ns']:.3f} ns)" if "chain_bound_ms" in r else "")
+    log(f"kernels: B5 {r['op']}{'' if r['mode'] is None else ' ' + r['mode']} cold on phase "
+        f"8's query {label} ({r['n']} rows, {r['groups']} groups, {r['dtype']}, "
+        f"perm {'identity' if r['identity_perm'] else 'given'}): ms {ms:.4f}, warm ms "
+        f"{warm_ms:.4f}; bound_ms {r['bound_ms']:.4f} ({r['bound_ms'] / ms:.1%}; bytes "
+        f"{r['bytes']}){extra}; plain_ms {plain_ms:.4f} ({plain_where}); library_ms "
+        f"{library_ms:.4f} ({'index_add_' if op == 'segment_sum_count' else 'scatter_reduce_'}"
+        f"{', not bit-equal: atomics' if fold else ''}); host-to-device copy of the values "
+        f"{r['h2d_ms']:.4f} ms (host clock)")
+    return r
+
+
+def build_chain_probe():
+    """Start nvcc on scripts/torch_chain_probe.cu beside the package build;
+    returns (process, library path)."""
+    from hyperspace_tpu_torch import kernels
+
+    out_dir = os.path.join(ROOT, "build", "chain_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libchain_probe.so")
+    src = os.path.join(ROOT, "scripts", "torch_chain_probe.cu")
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def add_latency_ns(proc, lib: str) -> dict:
+    """Nanoseconds of one dependent add (float64 and float32) on the card:
+    one thread's chain of 2^20 and 2^22 adds, each timed with CUDA events
+    (median of 3), the difference over the extra adds."""
+    import ctypes
+
+    import torch
+
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the chain probe:\n{out}")
+    fn = ctypes.CDLL(lib).hs_add_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    res = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        acc = torch.zeros(1, dtype=dtype, device="cuda")
+        x = torch.full((1,), 1e-3, dtype=dtype, device="cuda")
+
+        def run(iters):
+            err = fn(acc.data_ptr(), x.data_ptr(), iters, int(dtype == torch.float64),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"chain probe launch failed: CUDA error {err}")
+
+        ms = {}
+        for iters in (1 << 20, 1 << 22):
+            run(iters)
+            t = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                run(iters)
+                end.record()
+                end.synchronize()
+                t.append(start.elapsed_time(end))
+            ms[iters] = float(np.median(t))
+        res[name] = (ms[1 << 22] - ms[1 << 20]) * 1e6 / ((1 << 22) - (1 << 20))
+    log(f"kernels: dependent add latency (one thread's chain, chain probe): float64 "
+        f"{res['f64']:.3f} ns, float32 {res['f32']:.3f} ns")
+    return res
+
+
+def pyarrow_int_checks(label, got, src_table) -> None:
+    """The integer columns of phase 8's answers against pyarrow's own
+    group_by over the source rows."""
+    import pyarrow.compute as pc
+
+    t = src_table
+    if label in ("a", "b"):
+        k = t.column("l_orderkey")
+        t = t.filter(pc.and_(pc.greater_equal(k, AGG_LO), pc.less(k, AGG_HI)))
+    if label == "a":
+        want = {"count(*)": t.num_rows, "sum(l_quantity)": pc.sum(t["l_quantity"]).as_py(),
+                "min(l_shipdate)": pc.min(t["l_shipdate"]).as_py(),
+                "max(l_shipdate)": pc.max(t["l_shipdate"]).as_py()}
+        row = got.to_pylist()[0]
+        if any(row[k] != v for k, v in want.items()):
+            raise AssertionError(f"query a differs from pyarrow: {row} against {want}")
+    elif label == "b":
+        want = t.group_by("l_quantity").aggregate([([], "count_all")])
+        got_map = dict(zip(got["l_quantity"].to_pylist(), got["count(*)"].to_pylist()))
+        if got_map != dict(zip(want["l_quantity"].to_pylist(), want["count_all"].to_pylist())):
+            raise AssertionError("query b's counts differ from pyarrow's group_by")
+    elif label == "d":
+        want = (t.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+                .sort_by([("l_quantity_sum", "descending"), ("l_orderkey", "ascending")])
+                .slice(0, 100))
+        if (got["l_orderkey"].to_pylist() != want["l_orderkey"].to_pylist()
+                or got["q"].to_pylist() != want["l_quantity_sum"].to_pylist()):
+            raise AssertionError("query d differs from pyarrow's group_by")
+    elif label == "e_stream":
+        q = got["l_quantity"].to_numpy()
+        if got.num_rows != 1000 or not (q == 7).all():
+            raise AssertionError("query e_stream's rows are not 1000 rows of l_quantity 7")
+
+
+def aggregate_path(work: str, ctx: dict, b5_inputs: B5Inputs) -> dict:
+    """Phase 8: queries a-e over lineitem (``aggregate_queries``) through
+    the default cuda session, with li_idx (phase 4), li_rg_idx (phase 7)
+    and o_idx (phase 5) active. Each query: explain as the rules choose,
+    one warm-up (its B5 calls recorded), p50 over 5 runs with stage
+    seconds; rows equal in order, floats bit for bit, to the same query
+    in a ``device="cpu"`` session of the port; equal as a multiset to the
+    plan with Hyperspace disabled (d in order); integer columns equal to
+    pyarrow's group_by. Launch counts read from 0 at its start."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import HyperspaceSession, functions as F
+    from hyperspace_tpu_torch import ops
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    sess, hs, items, src = ctx["session"], ctx["hs"], ctx["items"], ctx["src"]
+    cpu = HyperspaceSession(device="cpu")
+    for key in ("hyperspace.system.path", "hyperspace.index.filterRule.useBucketSpec"):
+        cpu.conf.set(key, sess.conf.get(key))
+    cpu.enable_hyperspace()
+    source = pq.read_table(src)
+    ops.reset_launch_counts()
+    sess.enable_hyperspace()
+    queries = aggregate_queries(F, items)
+    cpu_queries = aggregate_queries(F, cpu.read.parquet(src))
+    sizes = {n: hs.get_index(n).content.size_in_bytes for n in ("li_idx", "li_rg_idx")}
+    smallest = min(sizes, key=lambda n: (sizes[n], n))
+    results = []
+    for label, q in queries.items():
+        text = hs.explain(q)
+        used = text.split("Indexes used:")[1].split("\n")[2].split()[0]
+        if label == "d" and used != smallest:
+            raise AssertionError(f"d: the aggregate rule took {used}, not the smallest "
+                                 f"covering index {smallest} ({sizes}):\n{text}")
+        if label == "a" and used == "(none)":
+            raise AssertionError(f"a: not index-served:\n{text}")
+        b5_inputs.label = label
+        q.collect()  # warm-up
+        b5_inputs.label = None
+        times, stages = [], []
+        before = ops.launch_counts()["segment_reduce"]
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = q.collect()
+            times.append((time.perf_counter() - t0) * 1e3)
+            stages.append(dict(sess.agg_stats))
+        launched = ops.launch_counts()["segment_reduce"] - before
+        on_cpu = cpu_queries[label].collect()
+        if not same_rows(got, on_cpu):
+            raise AssertionError(f"{label}: rows differ from the cpu session's")
+        sess.disable_hyperspace()
+        want = q.collect()
+        sess.enable_hyperspace()
+        if label != "d":
+            got_cmp, want = sorted_rows(got), sorted_rows(want)
+        else:
+            got_cmp = got
+        if got.num_rows == 0 or not same_rows(got_cmp, want):
+            raise AssertionError(f"{label}: rows differ from the plan without Hyperspace")
+        pyarrow_int_checks(label, got, source)
+        p50 = float(np.median(times))
+        stage_p50 = {k: float(np.median([s.get(k, 0.0) for s in stages]))
+                     for k in sorted({k for s in stages for k in s})}
+        results.append({"query": label, "p50_ms": p50, "rows": got.num_rows, "index": used,
+                        "b5_launches": launched, "stages_p50_s": stage_p50})
+        log(f"aggregate path: {label}: p50_ms {p50:.3f} over 5, {got.num_rows} rows, index "
+            f"{used}; stage p50 s { {k: round(v, 4) for k, v in stage_p50.items()} }; B5 "
+            f"launches {launched}; equal to the cpu session bit for bit, to the plan without "
+            f"Hyperspace{' in order' if label == 'd' else ' as a multiset'}, and to pyarrow "
+            f"in its integer columns")
+    launches = ops.launch_counts()
+    if launches["segment_reduce"] <= 0:
+        raise AssertionError("phase 8 launched B5 no time")
+    log(f"aggregate path: phase launches {launches}")
+    return {"launches": launches, "queries": results}
+
+
+def check_b5_main_path(recorded: dict) -> tuple:
+    """B5 on the inputs phase 8's queries handed it: every recorded call
+    held against the plain version; returns (calls, max abs error)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    calls, max_err = 0, 0.0
+    for label, recs in recorded.items():
+        for op, args in recs:
+            err = compare_b5_call(op, args)
+            if err != 0:
+                raise AssertionError(f"B5 {op} on query {label}'s inputs differs from the "
+                                     f"plain version (max_abs_err {err})")
+            calls += 1
+    log(f"kernels: B5 equal bit for bit to the plain version on all {calls} calls of phase "
+        f"8 (queries {sorted(recorded)})")
+    return calls, max_err
+
+
+def b5_timings(dev, recorded: dict, hosts: dict, chain_ns: dict) -> dict:
+    """Times B5 on the recorded calls of queries b (the float fold over 50
+    groups), c (the fold over one group of 6,001,215 rows, and its MIN)
+    and d (the integer SUM over 1,500,000 groups); returns B5's record
+    for the kernels line, headed by d's call."""
+    import torch
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)  # 256 MiB
+
+    def first(label, op, mode=None):
+        for o, args in recorded[label]:
+            if o == op and (mode is None or args[4] == mode):
+                return args, hosts[id(args[2])]
+        raise AssertionError(f"query {label} made no {op} call")
+
+    picks = [("d", "segment_sum_count", None), ("b", "segment_sum_count", None),
+             ("c", "segment_sum_count", None), ("c", "segment_minmax", "min")]
+    timed = []
+    for label, op, mode in picks:
+        args, host = first(label, op, mode)
+        timed.append(time_b5(label, op, args, flush, chain_ns, host))
+    head = timed[0]
+    return {
+        "name": "segment_reduce",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": "hyperspace_tpu/ops/aggregate.py:25",
+        "launches": None,  # the main path's count, filled in by main
+        "max_abs_err": 0,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timing": f"cold: 256 MiB read before each run, median; on phase 8's query d "
+                  f"(integer SUM, {head['groups']} groups)",
+        **{k: head[k] for k in ("n", "groups", "bytes", "warm_ms", "h2d_ms")},
+        "other_inputs": timed[1:],
+    }
+
+
 def main() -> int:
     import argparse
 
@@ -1506,6 +1992,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pending = build_baseline(args.baseline_src) if args.baseline_src else None
+    probe = None if args.only_b4 else build_chain_probe()
     out_dir = kernels.build_all()
     log(f"build: nvcc sm_90a in {time.perf_counter() - t0:.2f}s -> {out_dir}")
     for name in os.listdir(out_dir):
@@ -1518,6 +2005,7 @@ def main() -> int:
     b1 = check_kernels(dev, baseline)
     b4_cases_run, b4_case_err = check_b4_cases(dev)
     b3a_cases_run, b3a_case_err = check_b3a_cases(dev)
+    b5_cases_run, b5_case_err = check_b5_cases(dev)
     if args.only_b4:  # no main path: its launches stay null
         b4 = b4_timings(dev, b4_replica(dev))
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
@@ -1528,7 +2016,8 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    b4_inputs, b3a_inputs = B4Inputs(), B3aInputs()
+    b4_inputs, b3a_inputs, b5_inputs = B4Inputs(), B3aInputs(), B5Inputs()
+    chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
         ctx = filter_path(work, None)
@@ -1536,6 +2025,7 @@ def main() -> int:
         b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
         b3a_launches = (ctx["all_launches"]["range_mask"]
                         + range_path(work, ctx, b3a_inputs)["launches"]["range_mask"])
+        b5_launches = aggregate_path(work, ctx, b5_inputs)["launches"]["segment_reduce"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -1547,10 +2037,14 @@ def main() -> int:
                                               "li_idx 1.0%"))
     b3a.update(launches=b3a_launches, max_abs_err=max(b3a_case_err, b3a_err),
                cases=b3a_cases_run + len(b3a_inputs.calls))
+    b5_calls, b5_err = check_b5_main_path(b5_inputs.calls)
+    b5 = b5_timings(dev, b5_inputs.calls, b5_inputs.host, chain_ns)
+    b5.update(launches=b5_launches, max_abs_err=max(b5_case_err, b5_err),
+              cases=b5_cases_run + b5_calls)
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4, b3a]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a, b5]}), flush=True)
     print(
         json.dumps(
             {

@@ -9,8 +9,9 @@ on-disk layout and its results, and runs its device work on an NVIDIA GPU
 JAX nor the reference package.
 
 The ported slices cover building a covering index, serving a
-bucket-pruned filter from it, and serving an equi-join of two tables
-indexed on the join key bucket by bucket, without a shuffle::
+bucket-pruned filter from it, serving an equi-join of two tables
+indexed on the join key bucket by bucket, without a shuffle, and
+aggregates, ORDER BY and LIMIT over any of them::
 
     from hyperspace_tpu_torch import HyperspaceSession, Hyperspace, CoveringIndexConfig
 
@@ -23,6 +24,8 @@ indexed on the join key bucket by bucket, without a shuffle::
     other = sess.read.parquet("/data/u")
     hs.create_index(other, CoveringIndexConfig("u_idx", ["j"], ["w"]))
     df.join(other, on=df["k"] == other["j"]).select("v", "w").collect()
+    from hyperspace_tpu_torch import functions as F
+    df.group_by("k").agg(F.count(), F.sum("v")).sort(("sum(v)", False)).limit(10).collect()
 """
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException  # noqa: F401
@@ -38,6 +41,7 @@ _LAZY = {
         "hyperspace_tpu_torch.indexes.covering",
         "CoveringIndexConfig",
     ),
+    "functions": ("hyperspace_tpu_torch.functions", None),
 }
 
 
@@ -46,7 +50,8 @@ def __getattr__(name):
         import importlib
 
         mod, attr = _LAZY[name]
-        return getattr(importlib.import_module(mod), attr)
+        m = importlib.import_module(mod)
+        return m if attr is None else getattr(m, attr)
     raise AttributeError(f"module 'hyperspace_tpu_torch' has no attribute {name!r}")
 
 

@@ -93,3 +93,9 @@ class Config:
         return self.get_bool(
             C.SERVE_PIPELINE_ENABLED, C.SERVE_PIPELINE_ENABLED_DEFAULT
         )
+
+    @property
+    def index_agg_enabled(self) -> bool:
+        """The AggregateIndexRule rewrite (the reference's aggregate index
+        plane switch)."""
+        return self.get_bool(C.INDEX_AGG_ENABLED, C.INDEX_AGG_ENABLED_DEFAULT)

@@ -78,6 +78,15 @@ SERVE_RANGEPRUNE_ENABLED_DEFAULT = True
 SERVE_PIPELINE_ENABLED = "hyperspace.serve.pipeline.enabled"
 SERVE_PIPELINE_ENABLED_DEFAULT = False
 
+# Aggregate index plane: the reference's master switch for the
+# ``_aggstate.json`` / ``_aggsample.parquet`` sidecars, the metadata
+# aggregate and the AggregateIndexRule rewrite of bare Aggregate∘Scan
+# plans onto a covering index. The port has the rule only (the sidecars
+# and the metadata aggregate are ROADMAP queue A item 2.3), so here the
+# key gates the rule.
+INDEX_AGG_ENABLED = "hyperspace.index.agg.enabled"
+INDEX_AGG_ENABLED_DEFAULT = True
+
 # ---------------------------------------------------------------------------
 # Reserved column / property names
 # ---------------------------------------------------------------------------

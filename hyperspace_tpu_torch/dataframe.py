@@ -1,8 +1,9 @@
 """DataFrame API — the user-facing query surface.
 
-Counterpart of ``hyperspace_tpu/dataframe.py`` for the ported slices:
-filter, select, inner equi-join, collect and explain (group_by, sort and
-limit are ported with their slices, ROADMAP queue A). A DataFrame is a
+Counterpart of ``hyperspace_tpu/dataframe.py``: filter, select, inner
+equi-join, group_by / agg, sort and limit, collect and explain
+(``collect_approx`` comes with the aggregate index plane, ROADMAP queue A
+item 2.3). A DataFrame is a
 (session, logical plan) pair; ``collect()`` runs the session's optimizer —
 where index rewrites happen when ``enable_hyperspace()`` is on, like the
 reference's injected ``ApplyHyperspace`` rule (``package.scala:82-93``) —
@@ -11,13 +12,23 @@ then the executor.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Union
 
 import pyarrow as pa
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan import expressions as E
-from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project
+from hyperspace_tpu_torch.plan.nodes import (
+    Aggregate,
+    AggSpec,
+    Filter,
+    Join,
+    Limit,
+    LogicalPlan,
+    Project,
+    Sort,
+)
 
 
 def _resolve_plan_name(plan: LogicalPlan, name: str) -> str:
@@ -92,6 +103,51 @@ class DataFrame:
             )
         return DataFrame(self._session, Join(self._plan, other._plan, on, how))
 
+    def group_by(self, *columns: str) -> "GroupedData":
+        cols = list(
+            columns[0]
+            if len(columns) == 1 and isinstance(columns[0], (list, tuple))
+            else columns
+        )
+        cols = [self._resolve_name(c) for c in cols]
+        return GroupedData(self._session, self._plan, cols)
+
+    groupBy = group_by
+
+    def agg(self, *aggs: AggSpec) -> "DataFrame":
+        """Global aggregate (no grouping)."""
+        return GroupedData(self._session, self._plan, []).agg(*aggs)
+
+    def sort(self, *keys, ascending: Union[bool, Sequence[bool]] = True) -> "DataFrame":
+        """``sort("a", "b")`` / ``sort(("a", False), "b")`` /
+        ``sort("a", "b", ascending=[False, True])``."""
+        names = list(
+            keys[0]
+            if len(keys) == 1 and isinstance(keys[0], list)
+            else keys
+        )
+        if isinstance(ascending, bool):
+            asc = [ascending] * len(names)
+        else:
+            asc = list(ascending)
+            if len(asc) != len(names):
+                raise HyperspaceException(
+                    "ascending list length must match the number of sort keys"
+                )
+        resolved = []
+        for k, a in zip(names, asc):
+            if isinstance(k, tuple):
+                resolved.append((self._resolve_name(k[0]), bool(k[1])))
+            else:
+                resolved.append((self._resolve_name(k), a))
+        return DataFrame(self._session, Sort(resolved, self._plan))
+
+    order_by = sort
+    orderBy = sort
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self._session, Limit(n, self._plan))
+
     # -- actions ------------------------------------------------------------
     def collect(self) -> pa.Table:
         return self._session.execute(self._plan)
@@ -109,3 +165,42 @@ class DataFrame:
 
     def __repr__(self):
         return f"DataFrame[{', '.join(self.columns)}]"
+
+
+class GroupedData:
+    """Result of ``DataFrame.group_by`` — terminal ``agg(...)`` builds the
+    Aggregate node (Spark's ``RelationalGroupedDataset`` shape)."""
+
+    def __init__(self, session, plan: LogicalPlan, group_by: List[str]):
+        self._session = session
+        self._plan = plan
+        self._group_by = group_by
+
+    def agg(self, *aggs: AggSpec) -> DataFrame:
+        specs = list(
+            aggs[0]
+            if len(aggs) == 1 and isinstance(aggs[0], (list, tuple))
+            else aggs
+        )
+        for s in specs:
+            if not isinstance(s, AggSpec):
+                raise HyperspaceException(
+                    f"agg() takes AggSpec values (hyperspace_tpu_torch.functions); "
+                    f"got {s!r}"
+                )
+        specs = [
+            s
+            if s.column is None
+            else dataclasses.replace(
+                s, column=_resolve_plan_name(self._plan, s.column)
+            )
+            for s in specs
+        ]
+        return DataFrame(
+            self._session, Aggregate(self._group_by, specs, self._plan)
+        )
+
+    def count(self) -> DataFrame:
+        from hyperspace_tpu_torch import functions as F
+
+        return self.agg(F.count())

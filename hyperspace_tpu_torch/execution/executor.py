@@ -28,11 +28,23 @@ are the sequential route's. Any other join runs the unindexed
 them) and ``prepare`` (key reps) here, each the seconds of a side's own
 thread summed over both sides; the rest in ``join_exec``.
 
+An Aggregate runs ``execution/aggregate_exec`` over its child's batch:
+group keys factorized on the session's device, the reductions through
+kernel B5 (``ops/aggregate.py``). A Sort orders by
+``ops/sort.ordering_permutation`` on the device; a Limit over a Sort
+takes the first n of that permutation (top-n), passes through a Project,
+and over a Scan or Filter(Scan) reads the files in groups of 1, 2, 4, ...
+until it has n rows. ``session.agg_stats`` holds the latest query's
+stage seconds: ``scan`` (the child batches of its aggregates and sorts),
+``factorize``, ``reduce`` and ``finalize`` (``aggregate_exec``) and
+``sort``.
+
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
-by bucket. Not ported yet: aggregates, sort and limit, the fused serve
-pipeline, the serve cache, the streaming join serve, and Hybrid Scan
-(ROADMAP queue A).
+by bucket; an aggregate's groups in key-rep order. Not ported yet: the
+aggregate index plane (the metadata aggregate) and the fused serve
+pipeline, whose rows are the interpreted chain's by design, the serve
+cache, the streaming join serve, and Hybrid Scan (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -58,11 +70,21 @@ from hyperspace_tpu_torch.ops.filter import (
 )
 from hyperspace_tpu_torch.ops.hash import bucket_ids
 from hyperspace_tpu_torch.plan import expressions as E
-from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import (
+    Aggregate,
+    Filter,
+    Join,
+    Limit,
+    LogicalPlan,
+    Project,
+    Scan,
+    Sort,
+)
 
 
 def execute(plan: LogicalPlan, session):
     """Execute -> pyarrow.Table (column order = plan.output)."""
+    session.agg_stats = {}
     batch = _exec(plan, set(plan.output), session)
     return batch.select(plan.output).to_arrow()
 
@@ -89,9 +111,112 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
         return batch.select(plan.columns)
     if isinstance(plan, Join):
         return _exec_join(plan, needed, session)
-    raise NotImplementedError(
-        f"{type(plan).__name__} is not ported yet (ROADMAP queue A)"
+    if isinstance(plan, Aggregate):
+        from hyperspace_tpu_torch.execution.aggregate_exec import execute_aggregate
+
+        batch = _exec_input(plan.child, plan.input_columns, session)
+        return execute_aggregate(
+            batch, plan.group_by, plan.aggs, plan.child.schema(), session.device,
+            session.agg_stats,
+        )
+    if isinstance(plan, Sort):
+        child_needed = set(needed) | {c for c, _ in plan.keys}
+        batch = _exec_input(plan.child, child_needed, session)
+        if batch.num_rows == 0:
+            return batch
+        return _sorted_rows(batch, plan.keys, batch.num_rows, session)
+    if isinstance(plan, Limit):
+        return _exec_limit(plan.n, plan.child, needed, session)
+    raise HyperspaceException(f"Unknown plan node: {type(plan).__name__}")
+
+
+def _exec_input(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
+    """An aggregate's or sort's child batch, its seconds under the
+    ``scan`` stage unless the child records its own stages."""
+    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+
+    if isinstance(plan, (Aggregate, Sort, Limit)):
+        return _exec(plan, needed, session)
+    t0 = time.perf_counter()
+    batch = _exec(plan, needed, session)
+    _stage_add(session.agg_stats, "scan", t0)
+    return batch
+
+
+def _sorted_rows(batch: ColumnarBatch, keys, n: int, session) -> ColumnarBatch:
+    """The first ``n`` rows of ``batch`` in ``keys`` order (the ordering
+    permutation on the session's device), under the ``sort`` stage."""
+    from hyperspace_tpu_torch.execution.aggregate_exec import stage
+    from hyperspace_tpu_torch.ops.sort import ordering_permutation
+
+    with stage(session.agg_stats, "sort", session.device):
+        perm = ordering_permutation(batch, keys, session.device)[:n].cpu().numpy()
+        return batch.take(perm)
+
+
+def _exec_limit(n: int, child: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
+    """Limit execution that avoids materializing the full child.
+
+    * Limit∘Sort = top-n: sort the permutation, materialize only n rows;
+    * Limit pushes through Project (row order is the child's
+      deterministic order);
+    * Limit∘Scan / Limit∘Filter∘Scan stream file-by-file and stop as
+      soon as n rows are produced.
+    The reference gets all of this from Spark's CollectLimitExec /
+    LocalLimit pushdown. (The reference's Union case comes with Hybrid
+    Scan, ROADMAP queue A item 5.)
+    """
+    if n <= 0:
+        schema = child.schema()
+        cols = [c for c in child.output if c in needed] or child.output[:1]
+        return ColumnarBatch.from_arrow(
+            pa.table({c: pa.array([], type=schema[c]) for c in cols})
+        )
+    if isinstance(child, Sort):
+        child_needed = set(needed) | {c for c, _ in child.keys}
+        batch = _exec_input(child.child, child_needed, session)
+        if batch.num_rows == 0:
+            return batch
+        return _sorted_rows(batch, child.keys, min(n, batch.num_rows), session)
+    if isinstance(child, Project):
+        return _exec_limit(
+            n, child.child, set(child.columns), session
+        ).select(child.columns)
+    # file-by-file streaming for Scan / Filter(Scan) over parquet (the
+    # reference also streams Delta and Iceberg, ROADMAP queue A item 6)
+    scan = child.child if isinstance(child, Filter) else child
+    streamable = (
+        isinstance(scan, Scan)
+        and scan.relation.fmt == "parquet"
+        and len(scan.relation.files) > 1
     )
+    if streamable:
+        # geometric group sizes (1, 2, 4, …): a selective filter that ends
+        # up reading everything still gets the threaded multi-file read
+        # after the first few probes (log-many read_table calls total),
+        # while a satisfied limit stops after one small group
+        parts: list = []
+        got = 0
+        files = list(scan.relation.files)
+        pos = 0
+        group = 1
+        while pos < len(files) and got < n:
+            chunk = tuple(files[pos : pos + group])
+            sub_scan = Scan(dataclasses.replace(scan.relation, files=chunk))
+            sub: LogicalPlan = (
+                Filter(child.condition, sub_scan)
+                if isinstance(child, Filter)
+                else sub_scan
+            )
+            b = _exec(sub, needed, session)
+            parts.append(b)
+            got += b.num_rows
+            pos += len(chunk)
+            group *= 2
+        batch = ColumnarBatch.concat(parts)
+        return batch.take(np.arange(min(n, batch.num_rows)))
+    batch = _exec(child, needed, session)
+    return batch.take(np.arange(min(n, batch.num_rows)))
 
 
 def _literal_key_rep(value, arrow_type):

@@ -12,7 +12,9 @@ the plain version, a tensor on the card launches the kernel or raises.
   fused range mask of range conjunctions (kernel B3a,
   ``csrc/range_mask.cu``);
 * :mod:`.join` — per-bucket merge-join match of co-bucketed sides
-  (kernel B4, ``csrc/bucket_match.cu``).
+  (kernel B4, ``csrc/bucket_match.cu``);
+* :mod:`.aggregate` — per-group sum, count, min and max over sorted
+  groups (kernel B5, ``csrc/segment_reduce.cu``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from typing import Dict
 
 # Every hand-written kernel: name -> (module, wrapper that launches it,
 # plain PyTorch version it is held against, CUDA source). The wrapper's
-# module keeps a ``launches`` count that only kernel launches raise.
+# module keeps a ``launches`` count that only kernel launches raise. B5's
+# module has two more wrappers of the same source, each beside its plain
+# version: ``segment_minmax_kernel`` / ``_torch`` and
+# ``segment_count_kernel`` / ``_torch``.
 KERNEL_TWINS = {
     "murmur3_bucket_ids": (
         "hyperspace_tpu_torch.ops.hash",
@@ -41,6 +46,12 @@ KERNEL_TWINS = {
         "range_mask_kernel",
         "range_mask_torch",
         "hyperspace_tpu_torch/csrc/range_mask.cu",
+    ),
+    "segment_reduce": (
+        "hyperspace_tpu_torch.ops.aggregate",
+        "segment_sum_count_kernel",
+        "segment_sum_count_torch",
+        "hyperspace_tpu_torch/csrc/segment_reduce.cu",
     ),
 }
 

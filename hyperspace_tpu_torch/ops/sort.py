@@ -1,20 +1,24 @@
-"""Build sort — group rows by bucket, key-sorted within each bucket.
+"""Build sort, group-by sort and ORDER BY — stable permutations on the device.
 
-Counterpart of ``hyperspace_tpu/ops/sort.py`` (``sort_permutation`` and
-``partitioned_sort_permutation``). The reference sorts by
+Counterpart of ``hyperspace_tpu/ops/sort.py`` (``sort_permutation``,
+``partitioned_sort_permutation``, ``order_rep`` and
+``ordering_permutation``). The reference sorts by
 ``(bucket, key_0, key_1, ...)`` with a stable lexsort over uint32 planes
 in which each signed int64 key becomes ``(hi ^ signbit, lo)``; that plane
 pair orders exactly as the signed int64 itself. So here each key sorts
 directly as int64: stable ``torch.sort`` passes, least significant key
 first, then the bucket. Stable passes compose into the stable lexsort,
 so the permutation is identical to the reference's, not just another
-valid order.
+valid order. ORDER BY sorts the same way by value-order reps: per key,
+least significant first, the rep (complemented when descending), then
+the NaN and null placement.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -59,3 +63,80 @@ def partitioned_sort_permutation(
     if bucket.numel() and not 0 <= int(bucket.min()) <= int(bucket.max()) < num_buckets:
         raise ValueError(f"bucket ids outside [0, {num_buckets})")
     return sort_permutation(key_reps, bucket)
+
+
+# ---------------------------------------------------------------------------
+# User-facing ORDER BY (value order, not key-rep order)
+# ---------------------------------------------------------------------------
+
+
+def order_rep(col) -> np.ndarray:
+    """int64 rep whose signed order equals the column's VALUE order.
+
+    Unlike ``Column.key_rep`` (arbitrary-but-consistent order, hash for
+    strings), this is order-preserving: ints/temporal as-is, uints via
+    sign-bit xor, floats via the IEEE-754 total-order trick (NaN sorts
+    after +inf, matching numpy/pyarrow), strings via per-batch dictionary
+    rank. Null placement is handled by the caller (``ordering_permutation``
+    adds a null plane), so nulls here get an arbitrary in-band value.
+    """
+    if col.kind == "string":
+        order = sorted(range(len(col.dictionary)), key=col.dictionary.__getitem__)
+        rank = np.empty(max(len(col.dictionary), 1), dtype=np.int64)
+        for r, i in enumerate(order):
+            rank[i] = r
+        return rank[np.maximum(col.codes, 0)].astype(np.int64)
+    v = col.values
+    if v.dtype.kind == "f":
+        # IEEE-754 total order as SIGNED int64: positives keep their bit
+        # pattern; negatives complement the magnitude bits (sign bit stays,
+        # so they remain negative and larger magnitudes sort lower).
+        u = v.astype(np.float64).view(np.uint64)
+        rep = np.where(
+            u >> np.uint64(63) == 1,
+            u ^ np.uint64(0x7FFFFFFFFFFFFFFF),
+            u,
+        )
+        return rep.view(np.int64)
+    if v.dtype.kind == "u":
+        return (
+            v.astype(np.uint64) ^ np.uint64(0x8000000000000000)
+        ).view(np.int64)
+    return v.astype(np.int64)
+
+
+def ordering_permutation(
+    batch, keys: Sequence[Tuple[str, bool]], device
+) -> torch.Tensor:
+    """Stable permutation (int64, on ``device``) ordering ``batch`` by
+    ``keys`` = ((column, ascending), ...). Nulls always sort last
+    (pyarrow's ``null_placement="at_end"``), and NaN always sorts after
+    every other value but before nulls — in BOTH directions, like
+    pyarrow's sort_by. Descending flips values only, never the null/NaN
+    placement.
+
+    The reference lexsorts uint32 planes ``[null, nan, hi, lo]`` per key,
+    key 0 most significant. Here each key is one stable pass over its
+    int64 rep (``~rep`` descending: the complement reverses signed order)
+    and, where the key has nulls or NaNs, one pass over its placement
+    ``2 * null + nan``; keys from least to most significant. A key with
+    neither has a constant placement plane, which a stable sort skips."""
+    n = batch.num_rows
+    planes = []
+    for name, asc in reversed(list(keys)):
+        col = batch.column(name)
+        rep = order_rep(col)
+        if not asc:
+            rep = ~rep  # bitwise complement reverses signed order
+        planes.append(rep)
+        place = np.zeros(n, dtype=np.int64)
+        null = col.null_mask
+        if null is not None:
+            place += 2 * null
+        if col.kind == "numeric" and col.values.dtype.kind == "f":
+            place += np.isnan(col.values)
+        if place.any():
+            planes.append(place)
+    dev = torch.device(device)
+    perm = torch.arange(n, dtype=torch.int64, device=dev)
+    return _lsd_sort(perm, [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in planes])

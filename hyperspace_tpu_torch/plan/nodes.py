@@ -1,13 +1,14 @@
-"""Logical plan nodes: Scan / Filter / Project / Join.
+"""Logical plan nodes: Scan / Filter / Project / Join / Aggregate / Sort / Limit.
 
-Counterpart of ``hyperspace_tpu/plan/nodes.py``, cut to the nodes of the
-filter-serve and join-serve slices (Aggregate, Sort, Limit and Union are
-ported with their slices, ROADMAP queue A). In the reference these are
-Catalyst's ``LogicalRelation``, ``Filter``, ``Project`` and ``Join``,
-matched against in ``covering/FilterIndexRule.scala:33-55`` (Filter[→Project]
-over a relation) and ``covering/JoinIndexRule.scala:122-170`` (inner
-equi-join of linear children). Plans are immutable; rewrites build new
-trees.
+Counterpart of ``hyperspace_tpu/plan/nodes.py`` (Union is ported with
+Hybrid Scan, ROADMAP queue A item 5). In the reference these are
+Catalyst's ``LogicalRelation``, ``Filter``, ``Project``, ``Join``,
+``Aggregate``, ``Sort`` and ``GlobalLimit``, matched against in
+``covering/FilterIndexRule.scala:33-55`` (Filter[→Project] over a
+relation) and ``covering/JoinIndexRule.scala:122-170`` (inner equi-join of
+linear children). The reference delegates aggregate, sort and limit
+execution to Spark; here the engine is the serve path, so they are
+first-class plan nodes. Plans are immutable; rewrites build new trees.
 """
 
 from __future__ import annotations
@@ -228,6 +229,194 @@ class Join(LogicalPlan):
         return f"Join {self.how} on {self.condition!r}"
 
 
+_AGG_FUNCS = ("sum", "count", "min", "max", "avg")
+
+
+@dataclasses.dataclass(frozen=True)
+class AggSpec:
+    """One aggregate output: ``func(column) AS alias``. ``column`` is None
+    for ``count(*)``."""
+
+    func: str
+    column: Optional[str]
+    name: str
+
+    def __post_init__(self):
+        if self.func not in _AGG_FUNCS:
+            raise HyperspaceException(
+                f"Unknown aggregate {self.func!r}; supported: {_AGG_FUNCS}"
+            )
+        if self.column is None and self.func != "count":
+            raise HyperspaceException(f"{self.func}(*) is not defined")
+
+    def __repr__(self):
+        arg = "*" if self.column is None else self.column
+        return f"{self.func}({arg}) AS {self.name}"
+
+    def alias(self, name: str) -> "AggSpec":
+        return dataclasses.replace(self, name=name)
+
+
+def _is_string_type(t: pa.DataType) -> bool:
+    if pa.types.is_dictionary(t):
+        t = t.value_type
+    return pa.types.is_string(t) or pa.types.is_large_string(t)
+
+
+def _agg_output_type(spec: AggSpec, child_schema) -> pa.DataType:
+    """Output type, validating the input type at PLAN time (execution must
+    never be the first place an unsupported agg/type pairing surfaces)."""
+    if spec.func == "count":
+        return pa.int64()
+    t = child_schema[spec.column]
+    numeric = pa.types.is_floating(t) or pa.types.is_integer(t)
+    if spec.func == "avg":
+        # booleans are NOT summable/averageable (Spark rejects
+        # sum/avg(boolean) at analysis time); min/max(bool) stays legal
+        if not numeric:
+            raise HyperspaceException(
+                f"avg() over non-numeric column {spec.column!r} ({t})"
+            )
+        return pa.float64()
+    if spec.func == "sum":
+        if not numeric:
+            raise HyperspaceException(
+                f"sum() over non-numeric column {spec.column!r} ({t})"
+            )
+        return pa.float64() if pa.types.is_floating(t) else pa.int64()
+    numeric = numeric or pa.types.is_boolean(t)
+    # min/max preserve the input type; orderable = numeric/temporal/string
+    if not (
+        numeric
+        or pa.types.is_temporal(t)
+        or _is_string_type(t)
+    ):
+        raise HyperspaceException(
+            f"{spec.func}() over unorderable column {spec.column!r} ({t})"
+        )
+    return t
+
+
+class Aggregate(LogicalPlan):
+    """Hash aggregate: ``group_by`` key columns + aggregate outputs.
+    Output order = group columns then aggregate aliases."""
+
+    def __init__(
+        self,
+        group_by: Sequence[str],
+        aggs: Sequence[AggSpec],
+        child: LogicalPlan,
+    ):
+        if not aggs:
+            raise HyperspaceException("Aggregate needs at least one aggregate")
+        missing = [c for c in group_by if c not in child.output]
+        missing += [
+            a.column
+            for a in aggs
+            if a.column is not None and a.column not in child.output
+        ]
+        if missing:
+            raise HyperspaceException(
+                f"Cannot aggregate {missing}; child outputs {child.output}"
+            )
+        names = list(group_by) + [a.name for a in aggs]
+        if len(set(names)) != len(names):
+            raise HyperspaceException(f"Duplicate aggregate output names: {names}")
+        self.group_by = list(group_by)
+        self.aggs = list(aggs)
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    @property
+    def output(self):
+        return list(self.group_by) + [a.name for a in self.aggs]
+
+    @property
+    def input_columns(self) -> set:
+        """Child columns this aggregate consumes (keys + agg arguments)."""
+        return set(self.group_by) | {
+            a.column for a in self.aggs if a.column is not None
+        }
+
+    def schema(self):
+        s = self.child.schema()
+        out = {c: s[c] for c in self.group_by}
+        for a in self.aggs:
+            out[a.name] = _agg_output_type(a, s)
+        return out
+
+    def with_children(self, children):
+        (c,) = children
+        return Aggregate(self.group_by, self.aggs, c)
+
+    def _node_string(self):
+        keys = ", ".join(self.group_by) or "()"
+        return f"Aggregate [{keys}] [{', '.join(map(repr, self.aggs))}]"
+
+
+class Sort(LogicalPlan):
+    """Total order by ``keys`` = ((column, ascending), ...). Nulls last."""
+
+    def __init__(self, keys: Sequence[Tuple[str, bool]], child: LogicalPlan):
+        if not keys:
+            raise HyperspaceException("Sort needs at least one key")
+        missing = [c for c, _ in keys if c not in child.output]
+        if missing:
+            raise HyperspaceException(
+                f"Cannot sort by {missing}; child outputs {child.output}"
+            )
+        self.keys = [(c, bool(asc)) for c, asc in keys]
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def schema(self):
+        return self.child.schema()
+
+    def with_children(self, children):
+        (c,) = children
+        return Sort(self.keys, c)
+
+    def _node_string(self):
+        ks = ", ".join(f"{c} {'ASC' if a else 'DESC'}" for c, a in self.keys)
+        return f"Sort [{ks}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        if n < 0:
+            raise HyperspaceException(f"Limit must be >= 0, got {n}")
+        self.n = int(n)
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def schema(self):
+        return self.child.schema()
+
+    def with_children(self, children):
+        (c,) = children
+        return Limit(self.n, c)
+
+    def _node_string(self):
+        return f"Limit {self.n}"
+
+
 def prune_join_columns(plan: LogicalPlan, needed: Optional[set] = None) -> LogicalPlan:
     """Insert explicit Projects above Join children so each side carries
     only the columns used above it.
@@ -245,6 +434,20 @@ def prune_join_columns(plan: LogicalPlan, needed: Optional[set] = None) -> Logic
     if isinstance(plan, Filter):
         child_needed = needed | E.references(plan.condition)
         return Filter(plan.condition, prune_join_columns(plan.child, child_needed))
+    if isinstance(plan, Aggregate):
+        child_needed = plan.input_columns
+        pruned = prune_join_columns(plan.child, child_needed)
+        # insert the Project Catalyst's ColumnPruning would (above the
+        # child chain) so index rules see minimal required columns
+        cols = [c for c in pruned.output if c in child_needed]
+        if cols and cols != pruned.output:
+            pruned = Project(cols, pruned)
+        return Aggregate(plan.group_by, plan.aggs, pruned)
+    if isinstance(plan, Sort):
+        child_needed = needed | {c for c, _ in plan.keys}
+        return Sort(plan.keys, prune_join_columns(plan.child, child_needed))
+    if isinstance(plan, Limit):
+        return Limit(plan.n, prune_join_columns(plan.child, needed))
     if isinstance(plan, Join):
         refs = E.references(plan.condition)
         out = []

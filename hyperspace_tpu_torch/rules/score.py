@@ -4,7 +4,8 @@ Reference: ``rules/ScoreBasedIndexPlanOptimizer.scala:31-81`` — a
 recursive, memoized search: at every node, either some rule rewrites the
 subtree (its score), or the children are optimized independently (sum of
 child scores); keep the max. The reference's rule set is `:32-33`;
-the port registers FilterIndexRule, JoinIndexRule and NoOpRule.
+the port registers FilterIndexRule, JoinIndexRule, AggregateIndexRule
+and NoOpRule.
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, NoOpRu
 
 
 def _all_rules() -> List[HyperspaceRule]:
-    """The filter and join rules, in the reference's order: the z-order,
-    data-skipping and aggregate rules are ported with their slices
-    (ROADMAP queue A)."""
+    """The filter, join and aggregate rules, in the reference's order (the
+    z-order and data-skipping rules between join and aggregate come with
+    their slice, ROADMAP queue A item 4)."""
+    from hyperspace_tpu_torch.rules.agg_rule import AggregateIndexRule
     from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
     from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
 
-    return [FilterIndexRule(), JoinIndexRule(), NoOpRule()]
+    return [FilterIndexRule(), JoinIndexRule(), AggregateIndexRule(), NoOpRule()]
 
 
 class ScoreBasedIndexPlanOptimizer:

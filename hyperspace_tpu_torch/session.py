@@ -107,6 +107,9 @@ class HyperspaceSession:
         self.build_stats: dict = {}
         #: stage wall seconds of the latest join (execution/join_exec)
         self.join_stats: dict = {}
+        #: stage wall seconds of the latest query's aggregates, sorts and
+        #: limits (execution/executor, execution/aggregate_exec)
+        self.agg_stats: dict = {}
         self._hyperspace_enabled = False
         self._source_manager = None
         self._index_manager = None

@@ -18,6 +18,7 @@ from hyperspace_tpu_torch.ops import join as J
 from hyperspace_tpu_torch.plan import expressions as E
 from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
 from torch_b4_cases import b4_edge_cases
+from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups, layout_values
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +122,41 @@ def test_b3a_equals_its_plain_version(cuda_device, case, n):
     got = F.range_mask_kernel(args)
     torch.cuda.synchronize()
     assert torch.equal(got, F.range_mask_torch(args))
+
+
+B5_LAYOUTS = b5_layouts()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "uint64"])
+@pytest.mark.parametrize("layout", sorted(B5_LAYOUTS))
+def test_b5_equals_its_plain_version_over_the_layouts(cuda_device, layout, dtype):
+    """Every B5 launch function over groups across its 1,024-position
+    ranges, on their edges, empty, or with no rows at all, with and
+    without nulls: bit-equal to the plain version on a CPU copy."""
+    perm, offs = B5_LAYOUTS[layout]
+    vals = layout_values(int(offs[-1]))
+    dev = cuda_device
+    p = None if perm is None else torch.from_numpy(perm).to(dev)
+    o = torch.from_numpy(offs).to(dev)
+    v = torch.from_numpy(vals[dtype].view(np.int64) if dtype == "uint64" else vals[dtype]).to(dev)
+    for valid in (None, torch.from_numpy(vals["valid"]).to(dev)):
+        errs = b5_kernel_errors(p, o, v, valid, unsigned=dtype == "uint64")
+        torch.cuda.synchronize()
+        assert all(e == 0 for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("case", sorted(B5_CASES))
+def test_b5_equals_its_plain_version_over_the_cases(cuda_device, case):
+    """B5 on the cases the CPU tests hold the plain versions to against
+    the JAX package: bit-equal to the plain version."""
+    from hyperspace_tpu_torch.ops import aggregate as AG
+
+    gid, vals, valid, num = B5_CASES[case]
+    perm, offs = groups(gid, num)
+    v, unsigned = AG.device_values(vals, cuda_device)
+    ok = None if valid is None else torch.from_numpy(valid).to(cuda_device)
+    before = AG.launches
+    errs = b5_kernel_errors(perm.to(cuda_device), offs.to(cuda_device), v, ok, unsigned)
+    torch.cuda.synchronize()
+    assert all(e == 0 for e in errs.values()), errs
+    assert AG.launches > before

@@ -1,0 +1,199 @@
+"""Cases of kernel B5, the segment reductions (``csrc/segment_reduce.cu``),
+shared by ``test_torch_aggregate.py`` (plain versions against the JAX
+package, on the CPU), ``test_torch_cuda.py`` and ``chip_smoke.py``
+(kernel against the plain version, on the card), with the bitwise row
+comparison they use. numpy, pyarrow and torch only.
+
+Each case is (group id per row, values, validity or None, number of
+groups), the JAX package's ``segment_*`` arguments; :func:`groups` turns
+the group ids into the port's (perm, offs). The cases cover every value
+type B5 takes, NaN, -0.0 / 0.0, +-inf and NaN payloads, nulls, integer
+wrap-around, one group of 100,000 rows, 10,000 groups, and groups with no
+valid row or only NaN."""
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+NAN_PAYLOAD = np.array([0x7FF8000000000123], dtype=np.uint64).view(np.float64)[0]
+NEG_NAN = np.array([0xFFF8000000000456], dtype=np.uint64).view(np.float64)[0]
+
+
+def groups(gid: np.ndarray, num: int):
+    """The port's (perm, offs) for reference group ids."""
+    perm = np.argsort(gid, kind="stable")
+    offs = np.concatenate([[0], np.cumsum(np.bincount(gid, minlength=num))])
+    return torch.from_numpy(perm), torch.from_numpy(offs.astype(np.int64))
+
+
+def b5_cases() -> dict:
+    rng = np.random.default_rng(1)
+    n, g = 5000, 37
+    gid = rng.integers(0, g, n)
+    flts = rng.normal(size=n)
+    flts[rng.random(n) < 0.05] = np.nan
+    flts[rng.random(n) < 0.05] = 0.0
+    flts[rng.random(n) < 0.05] = -0.0
+    flts[rng.random(n) < 0.01] = np.inf
+    flts[rng.random(n) < 0.01] = -np.inf
+    valid = rng.random(n) > 0.1
+    big_gid = np.zeros(100_000, dtype=np.int64)
+    big = rng.normal(0, 1e6, 100_000)
+    many_gid = rng.integers(0, 10_000, 60_000)
+    return {
+        "int64": (gid, rng.integers(-(2**40), 2**40, n, dtype=np.int64), valid, g),
+        "int64_wrap": (gid, rng.integers(2**61, 2**62, n, dtype=np.int64), None, g),
+        "int32": (gid, rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32),
+                  valid, g),
+        "uint8": (gid, rng.integers(0, 256, n).astype(np.uint8), valid, g),
+        "uint64": (gid, rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True),
+                   valid, g),
+        "bool": (gid, rng.random(n) < 0.5, valid, g),
+        "float64": (gid, flts, valid, g),
+        "float64_no_nulls": (gid, flts, None, g),
+        "float32": (gid, flts.astype(np.float32), valid, g),
+        "one_group_of_100000": (big_gid, big, None, 1),
+        "one_group_of_100000_float32": (big_gid, big.astype(np.float32), None, 1),
+        "ten_thousand_groups": (many_gid, rng.normal(size=60_000), rng.random(60_000) > 0.3,
+                                10_000),
+        "all_null_and_nan_only_groups": (
+            np.array([0, 0, 1, 1, 2, 2, 3]),
+            np.array([np.nan, np.nan, 5.0, 7.0, np.nan, 1.0, -0.0]),
+            np.array([True, True, False, False, True, False, True]), 5),
+        "nan_payloads_and_inf_minus_inf": (
+            np.array([0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3]),
+            np.array([np.inf, -np.inf, NAN_PAYLOAD, NAN_PAYLOAD, np.inf, -np.inf,
+                      NEG_NAN, NAN_PAYLOAD, 1.0, -np.inf, 2.0]),
+            None, 4),
+    }
+
+
+B5_CASES = b5_cases()
+
+
+def b5_layouts() -> dict:
+    """Group layouts around the kernel's 1,024-position ranges: name ->
+    (perm or None for the identity, offs). Groups span ranges, end on
+    range edges, are empty at the start, inside and at the end, and there
+    may be no rows at all."""
+    rng = np.random.default_rng(9)
+    n = 5 * 1024 + 37
+
+    def shuffled(offs):
+        """Rows dealt to the groups at random, in row order within each
+        group (as the stable group sort gives them)."""
+        offs = np.asarray(offs, np.int64)
+        perm = rng.permutation(int(offs[-1])).astype(np.int64)
+        gid = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+        return perm[np.lexsort((perm, gid))], offs
+
+    edges = [0, 1023, 1024, 2048, 2049, 3072, 4000, n]
+    empties = [0, 0, 0, 5, 1024, 1024, 1024, 1030, 2500, 2500, n, n, n]
+    return {
+        "identity_one_group": (None, np.array([0, n], np.int64)),
+        "identity_range_edges": (None, np.array(edges, np.int64)),
+        "shuffled_range_edges": shuffled(edges),
+        "empty_groups_everywhere": shuffled(empties),
+        "long_group_across_ranges": shuffled([0, 100, 4900, n]),
+        "single_rows": shuffled(np.arange(n + 1)),
+        "no_rows": (np.zeros(0, np.int64), np.zeros(4, np.int64)),
+    }
+
+
+def layout_gid(perm, offs) -> np.ndarray:
+    """The reference's group id per row for a layout."""
+    n = int(offs[-1])
+    gid = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    out = np.empty(n, dtype=np.int64)
+    out[np.arange(n) if perm is None else perm] = gid
+    return out
+
+
+def layout_values(n: int, seed: int = 4) -> dict:
+    """Values for a layout's n rows, one array per B5 value type, with
+    NaN, -0.0 / 0.0, +-inf, integer extremes, and a validity mask."""
+    rng = np.random.default_rng(seed + n)
+    f = rng.normal(0, 1e3, n)
+    special = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, NAN_PAYLOAD])
+    hit = rng.random(n) < 0.05
+    f[hit] = special[rng.integers(0, len(special), int(hit.sum()))]
+    i = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+    i[::97] = np.iinfo(np.int64).min
+    i[1::89] = np.iinfo(np.int64).max
+    return {
+        "float64": f,
+        "float32": f.astype(np.float32),
+        "int64": i,
+        "uint64": i.view(np.uint64),
+        "valid": rng.random(n) > 0.2,
+    }
+
+
+def same_rows(a: pa.Table, b: pa.Table) -> bool:
+    """Rows equal in order, float columns compared bit for bit: NaN equals
+    NaN of the same bits and -0.0 differs from 0.0, where ``Table.equals``
+    fails on any NaN (ROADMAP C.4)."""
+    if a.schema != b.schema or a.num_rows != b.num_rows:
+        return False
+    for name in a.column_names:
+        x, y = a.column(name).combine_chunks(), b.column(name).combine_chunks()
+        if pa.types.is_floating(x.type):
+            if not np.array_equal(np.asarray(x.is_null()), np.asarray(y.is_null())):
+                return False
+            width = np.int64 if x.type == pa.float64() else np.int32
+            bits = [c.fill_null(0).to_numpy(zero_copy_only=False).view(width) for c in (x, y)]
+            if not np.array_equal(*bits):
+                return False
+        elif not x.equals(y):
+            return False
+    return True
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.cpu()
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """0 when the bits agree; else the largest difference among the
+    elements whose bits differ, a difference that is no number or zero
+    (NaN against a value, other NaN bits, -0.0 against 0.0) counting as
+    inf."""
+    a, b = a.cpu(), b.cpu()
+    differ = _bits(a) != _bits(b)
+    if not bool(differ.any()):
+        return 0.0
+    d = (a[differ].to(torch.float64) - b[differ].to(torch.float64)).abs()
+    d[torch.isnan(d) | (d == 0)] = float("inf")
+    return float(d.max())
+
+
+def b5_kernel_errors(perm, offs, vals, valid, unsigned=False) -> dict:
+    """Each B5 launch function on the given CUDA tensors against its plain
+    version on CPU copies of the same tensors (the float fold's plain
+    version needs the CPU's ordered ``index_add_``): op -> max abs error,
+    0 when the outputs are equal bit for bit."""
+    from hyperspace_tpu_torch.ops import aggregate as A
+
+    cpu = [None if t is None else t.cpu() for t in (perm, offs, vals, valid)]
+    out = {}
+    got = A.segment_sum_count_kernel(perm, offs, vals, valid)
+    want = A.segment_sum_count_torch(*cpu)
+    out["sum"] = abs_err(got[0], want[0])
+    out["count"] = abs_err(got[1], want[1])
+    for mode in ("min", "max"):
+        fill = None
+        if not vals.dtype.is_floating_point:
+            fill = (2**64 - 1 if mode == "min" else 0) if unsigned else (
+                2**63 - 1 if mode == "min" else -(2**63))
+        got = A.segment_minmax_kernel(perm, offs, vals, valid, mode, fill, unsigned)
+        want = A.segment_minmax_torch(*cpu, mode, fill, unsigned)
+        out[mode] = abs_err(got, want)
+    if valid is not None:
+        out["count_valid"] = abs_err(A.segment_count_kernel(perm, offs, valid),
+                                      A.segment_count_torch(cpu[0], cpu[1], cpu[3]))
+    return out
