@@ -1,6 +1,6 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-src PATH] [--only-b4]
+    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -41,7 +41,10 @@ against its plain PyTorch version on the card:
      ``tests/torch_b5_cases.py`` (every value type, NaN with payloads,
      -0.0 / 0.0 ties, +-inf, nulls, wrap-around, one group of 100,000
      rows, 10,000 groups, and group layouts across, on and beside the
-     kernel's 1,024-row ranges, empty groups and no rows); and the
+     kernel's 2,048-row ranges, Q18's groups of 1-7 rows, groups of 31,
+     32 and 33 rows on and across range edges, a long group amid short
+     ones, empty groups, no rows, and fold groups around its 256-row tile
+     with a NaN first met in a late tile); and the
      latency of one dependent float add (``scripts/torch_chain_probe.cu``,
      built beside the kernels), the float fold's chain bound;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
@@ -101,14 +104,24 @@ against its plain PyTorch version on the card:
    held against its plain version on every call the warm-ups made
    (``B5Inputs``) and timed on b, c and d's calls, cold and warm, beside
    the byte bound, the chain bound, the plain version, ``index_add_`` /
-   ``scatter_reduce_`` on the card and the values' host-to-device copy.
+   ``scatter_reduce_`` on the card and the values' host-to-device copy;
+   so are MIN, MAX and the count of valid rows on d's layout (the count
+   over a seeded validity), and each pass's own time (range pass, fix-up
+   pass) on c's MIN and d's SUM from torch.profiler's kernel records.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
 instead of from the tables, and prints the card line and the records
 under ``only_b4`` instead of ``kernels``, with null launches: the main
-path does not run.
+path does not run. ``--only-b5`` is the same for iterating on B5: phases
+1-3, then phase 8's B5 timings on device tensors shaped like its calls
+(``b5_replica``: d's permutation from l_orderkey in B1's 8 buckets,
+key-sorted within each, then the stable group sort; b's 50 groups over
+the agg window; c's identity), built on the card from phase 4's
+generators and seeds without writing Parquet, each held bit-equal to the
+plain version; records under ``only_b5``. The numbers that go into
+PERF.md come from the run without flags, which drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7 and 8 and
 read just after each; the kernel checks' launches are not counted as the main
@@ -1523,7 +1536,7 @@ def aggregate_queries(F, df) -> dict:
 
 def check_b5_cases(dev) -> tuple:
     """B5's cases (``tests/torch_b5_cases.py``) on the card: every launch
-    function on each case and on each group layout around its 1,024-row
+    function on each case and on each group layout around its 2,048-row
     ranges, with and without nulls, bit-equal to the plain version on a
     CPU copy; returns (count, max abs error)."""
     import torch
@@ -1531,7 +1544,7 @@ def check_b5_cases(dev) -> tuple:
     from hyperspace_tpu_torch.ops import aggregate as A
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups, layout_values
+    from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
 
     count, max_err = 0, 0.0
     for gid, vals, valid, num in B5_CASES.values():
@@ -1540,8 +1553,7 @@ def check_b5_cases(dev) -> tuple:
         ok = None if valid is None else torch.from_numpy(valid).to(dev)
         errs = b5_kernel_errors(perm.to(dev), offs.to(dev), v, ok, unsigned)
         max_err, count = max(max_err, *errs.values()), count + 1
-    for perm, offs in b5_layouts().values():
-        vals = layout_values(int(offs[-1]))
+    for perm, offs, vals in b5_layouts().values():
         p = None if perm is None else torch.from_numpy(perm).to(dev)
         o = torch.from_numpy(offs).to(dev)
         for dtype in ("float64", "float32", "int64", "uint64"):
@@ -1648,9 +1660,11 @@ def b5_bound(op, args, chain_ns: dict) -> dict:
 
 def b5_library_call(op, args):
     """The PyTorch call that computes the same reduction on the card
-    (``index_add_`` for sums, ``scatter_reduce_`` for MIN and MAX), on the
-    same values in row order; float sums through its atomics are not
-    bit-equal to the ordered fold. Returns a function to time."""
+    (``index_add_`` for sums and for the count of valid rows, whose
+    validity it takes as int64, converted before the timing;
+    ``scatter_reduce_`` for MIN and MAX), on the same values in row order;
+    float sums through its atomics are not bit-equal to the ordered fold.
+    Returns a function to time."""
     import torch
 
     perm, offs, vals = args[0], args[1], args[2]
@@ -1658,6 +1672,10 @@ def b5_library_call(op, args):
     gid_sorted = torch.repeat_interleave(
         torch.arange(groups, device=vals.device), offs[1:] - offs[:-1], output_size=n)
     gid = gid_sorted if perm is None else torch.empty_like(gid_sorted).scatter_(0, perm, gid_sorted)
+    if op == "segment_count":
+        ones = vals.to(torch.int64)
+        return lambda: torch.zeros(groups, dtype=torch.int64, device=vals.device).index_add_(
+            0, gid, ones)
     if op == "segment_sum_count":
         return lambda: torch.zeros(groups, dtype=vals.dtype, device=vals.device).index_add_(
             0, gid, vals)
@@ -1666,20 +1684,24 @@ def b5_library_call(op, args):
         0, gid, vals, reduce, include_self=False)
 
 
+B5_KERNELS = {"segment_sum_count": ("segment_sum_count_kernel", "segment_sum_count_torch"),
+              "segment_minmax": ("segment_minmax_kernel", "segment_minmax_torch"),
+              "segment_count": ("segment_count_kernel", "segment_count_torch")}
+B5_LIBRARY = {"segment_sum_count": "index_add_", "segment_minmax": "scatter_reduce_",
+              "segment_count": "index_add_ of the validity"}
+
+
 def time_b5(label, op, args, flush, chain_ns, host_values) -> dict:
-    """B5 on one recorded call: cold (L2 flushed) and warm, beside the
-    bound, the plain version (on the card, or for the float fold on a CPU
-    copy by the host clock), the library call, and the host-to-device
-    copy of the column's values."""
+    """B5 on one call: cold (L2 flushed) and warm, beside the bound, the
+    plain version (on the card, or for the float fold on a CPU copy by the
+    host clock), the library call, and the host-to-device copy of the
+    column's values (of the validity, for a count)."""
     import torch
 
     from hyperspace_tpu_torch.ops import aggregate as A
 
     med = lambda t: float(np.median(t))  # noqa: E731
-    kernel = {"segment_sum_count": A.segment_sum_count_kernel,
-              "segment_minmax": A.segment_minmax_kernel}[op]
-    plain = {"segment_sum_count": A.segment_sum_count_torch,
-             "segment_minmax": A.segment_minmax_torch}[op]
+    kernel, plain = (getattr(A, f) for f in B5_KERNELS[op])
     fold = op == "segment_sum_count" and args[2].dtype.is_floating_point
     slow = fold and int(args[1][-1]) > 1_000_000
     ms = med(time_cold(lambda: kernel(*args), flush, iters=8 if slow else 30))
@@ -1700,14 +1722,18 @@ def time_b5(label, op, args, flush, chain_ns, host_values) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        A.device_values(host_values, args[2].device)
+        if op == "segment_count":
+            torch.from_numpy(host_values).to(args[2].device)
+        else:
+            A.device_values(host_values, args[2].device)
         torch.cuda.synchronize()
         h2d.append((time.perf_counter() - t0) * 1e3)
     r = {"query": label, "op": op if not fold else "float fold",
          "mode": args[4] if op == "segment_minmax" else None,
          "dtype": str(args[2].dtype).replace("torch.", ""), "identity_perm": args[0] is None,
          "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "plain_on": plain_where,
-         "library_ms": library_ms, "h2d_ms": med(h2d), **b5_bound(op, args, chain_ns)}
+         "library_ms": library_ms, "library": B5_LIBRARY[op], "h2d_ms": med(h2d),
+         **b5_bound(op, args, chain_ns)}
     extra = (f"; chain bound {r['chain_bound_ms']:.4f} ms (longest group {r['longest_group']} "
              f"x {r['add_latency_ns']:.3f} ns)" if "chain_bound_ms" in r else "")
     log(f"kernels: B5 {r['op']}{'' if r['mode'] is None else ' ' + r['mode']} cold on phase "
@@ -1715,10 +1741,41 @@ def time_b5(label, op, args, flush, chain_ns, host_values) -> dict:
         f"perm {'identity' if r['identity_perm'] else 'given'}): ms {ms:.4f}, warm ms "
         f"{warm_ms:.4f}; bound_ms {r['bound_ms']:.4f} ({r['bound_ms'] / ms:.1%}; bytes "
         f"{r['bytes']}){extra}; plain_ms {plain_ms:.4f} ({plain_where}); library_ms "
-        f"{library_ms:.4f} ({'index_add_' if op == 'segment_sum_count' else 'scatter_reduce_'}"
-        f"{', not bit-equal: atomics' if fold else ''}); host-to-device copy of the values "
+        f"{library_ms:.4f} ({r['library']}{', not bit-equal: atomics' if fold else ''}); "
+        f"host-to-device copy of the {'validity' if op == 'segment_count' else 'values'} "
         f"{r['h2d_ms']:.4f} ms (host clock)")
     return r
+
+
+def b5_pass_ms(fn, flush, iters: int = 10) -> dict:
+    """Each B5 kernel that ``fn`` launches (range pass, fix-up pass, fold),
+    over ``iters`` runs each after the L2 flush, from torch.profiler's
+    kernel records: the median ms from its start to its end, and for the
+    fix-up pass also how long it runs on after the range pass ends (its
+    blocks launch early, as programmatic dependents, and wait for the
+    range pass, so its span overlaps). {} when the profiler recorded no
+    device kernel (the card's tracing unavailable)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for ev in prof.events():
+        for name in ("range_pass", "fixup_pass", "fold_sum"):
+            if name in ev.name:
+                spans.setdefault(name, []).append((ev.time_range.start, ev.time_range.end))
+    out = {f"{name}_ms": float(np.median([e - s for s, e in v])) / 1e3
+           for name, v in sorted(spans.items())}
+    if "range_pass" in spans and "fixup_pass" in spans:
+        pairs = zip(sorted(spans["range_pass"]), sorted(spans["fixup_pass"]))
+        out["fixup_after_range_ms"] = float(np.median([f[1] - r[1] for r, f in pairs])) / 1e3
+    return out
 
 
 def build_chain_probe():
@@ -1893,9 +1950,10 @@ def aggregate_path(work: str, ctx: dict, b5_inputs: B5Inputs) -> dict:
     return {"launches": launches, "queries": results}
 
 
-def check_b5_main_path(recorded: dict) -> tuple:
-    """B5 on the inputs phase 8's queries handed it: every recorded call
-    held against the plain version; returns (calls, max abs error)."""
+def check_b5_main_path(recorded: dict, where: str = "phase 8") -> tuple:
+    """B5 on the inputs phase 8's queries handed it (or ``where`` says what
+    made them): every recorded call held against the plain version;
+    returns (calls, max abs error)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     calls, max_err = 0, 0.0
     for label, recs in recorded.items():
@@ -1905,17 +1963,38 @@ def check_b5_main_path(recorded: dict) -> tuple:
                 raise AssertionError(f"B5 {op} on query {label}'s inputs differs from the "
                                      f"plain version (max_abs_err {err})")
             calls += 1
-    log(f"kernels: B5 equal bit for bit to the plain version on all {calls} calls of phase "
-        f"8 (queries {sorted(recorded)})")
+    log(f"kernels: B5 equal bit for bit to the plain version on all {calls} calls of {where} "
+        f"(queries {sorted(recorded)})")
     return calls, max_err
+
+
+def b5_small_group_calls(args, host) -> list:
+    """MIN, MAX and the count of valid rows on the layout of query d's
+    integer SUM ``args`` (its permutation and 1,472,478 groups of 1-7
+    rows): MIN and MAX over its values, as the query's column has no
+    nulls; the count over a validity with about 10 % nulls from a seed,
+    since without one no kernel runs. -> [(op, args, host values)]."""
+    import torch
+
+    perm, offs, vals = args[0], args[1], args[2]
+    fill = {"min": I64_MAX, "max": I64_MIN}
+    valid_host = np.random.default_rng(SEED + 9).random(vals.numel()) > 0.1
+    valid = torch.from_numpy(valid_host).to(vals.device)
+    return [("segment_minmax", (perm, offs, vals, None, m, fill[m], False), host)
+            for m in ("min", "max")] + [("segment_count", (perm, offs, valid), valid_host)]
 
 
 def b5_timings(dev, recorded: dict, hosts: dict, chain_ns: dict) -> dict:
     """Times B5 on the recorded calls of queries b (the float fold over 50
     groups), c (the fold over one group of 6,001,215 rows, and its MIN)
-    and d (the integer SUM over 1,500,000 groups); returns B5's record
-    for the kernels line, headed by d's call."""
+    and d (the integer SUM over 1,472,478 groups), then MIN, MAX and the
+    count of valid rows on d's layout (:func:`b5_small_group_calls`, each
+    held bit-equal to its plain version first), and each pass's own time
+    on c's MIN and d's SUM (:func:`b5_pass_ms`); returns B5's record for
+    the kernels line, headed by d's call."""
     import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
 
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)  # 256 MiB
 
@@ -1931,6 +2010,22 @@ def b5_timings(dev, recorded: dict, hosts: dict, chain_ns: dict) -> dict:
     for label, op, mode in picks:
         args, host = first(label, op, mode)
         timed.append(time_b5(label, op, args, flush, chain_ns, host))
+    d_args, d_host = first("d", "segment_sum_count")
+    for op, args, host in b5_small_group_calls(d_args, d_host):
+        err = compare_b5_call(op, args)
+        if err != 0:
+            raise AssertionError(f"B5 {op} on query d's layout differs from the plain version "
+                                 f"(max_abs_err {err})")
+        timed.append(time_b5("d", op, args, flush, chain_ns, host))
+    passes = {}
+    for label, op, mode in (("c", "segment_minmax", "min"), ("d", "segment_sum_count", None)):
+        args, _ = first(label, op, mode)
+        kernel = getattr(A, B5_KERNELS[op][0])
+        passes[f"{label} {mode or 'sum'}"] = ms = b5_pass_ms(lambda: kernel(*args), flush)
+        log(f"kernels: B5 passes on query {label}'s {mode or 'integer sum'} call, cold, "
+            f"torch.profiler's kernel records: "
+            + (", ".join(f"{k} {v:.4f}" for k, v in ms.items()) or "not measured "
+               "(no device time recorded)"))
     head = timed[0]
     return {
         "name": "segment_reduce",
@@ -1948,7 +2043,56 @@ def b5_timings(dev, recorded: dict, hosts: dict, chain_ns: dict) -> dict:
                   f"(integer SUM, {head['groups']} groups)",
         **{k: head[k] for k in ("n", "groups", "bytes", "warm_ms", "h2d_ms")},
         "other_inputs": timed[1:],
+        "passes_ms": passes,
     }
+
+
+def b5_replica(dev) -> tuple:
+    """B5's calls in phase 8's queries b, c and d, built on the card from
+    phase 4's generators and seeds without writing the tables: d's integer
+    SUM of l_quantity over li_rg_idx's rows (l_orderkey in B1's 8 buckets,
+    key-sorted within each) in the stable group sort by l_orderkey; b's
+    float fold of l_extendedprice over the agg window's source rows in 50
+    groups by l_quantity; c's fold and MIN of l_extendedprice over every
+    row (the identity). -> (recorded calls by query, host values by id of
+    the device values), as :class:`B5Inputs` keeps them."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
+    from hyperspace_tpu_torch.ops import hash as H
+    from hyperspace_tpu_torch.ops.sort import sort_permutation
+
+    cols = lineitem_columns()
+    hosts = {}
+
+    def values(host):
+        v, _ = A.device_values(host, dev)
+        hosts[id(v)] = host
+        return v
+
+    def group_sort(keys):
+        perm = sort_permutation(keys[None])
+        srt = keys[perm]
+        starts = torch.nonzero(srt[1:] != srt[:-1]).flatten() + 1
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        return perm, torch.cat([zero, starts, zero + keys.numel()])
+
+    key = torch.from_numpy(cols["l_orderkey"]).to(dev)
+    stored = sort_permutation(key[None], H.bucket_ids_kernel(key[None], 8).long())
+    d_perm, d_offs = group_sort(key[stored])
+    d_vals = values(cols["l_quantity"][stored.cpu().numpy()])
+    window = (cols["l_orderkey"] >= AGG_LO) & (cols["l_orderkey"] < AGG_HI)
+    b_perm, b_offs = group_sort(torch.from_numpy(cols["l_quantity"][window]).to(dev))
+    b_vals = values(cols["l_extendedprice"][window])
+    c_offs = torch.tensor([0, N_ROWS], dtype=torch.int64, device=dev)
+    c_vals = values(cols["l_extendedprice"])
+    recorded = {
+        "d": [("segment_sum_count", (d_perm, d_offs, d_vals, None))],
+        "b": [("segment_sum_count", (b_perm, b_offs, b_vals, None))],
+        "c": [("segment_sum_count", (None, c_offs, c_vals, None)),
+              ("segment_minmax", (None, c_offs, c_vals, None, "min", None, False))],
+    }
+    return recorded, hosts
 
 
 def main() -> int:
@@ -1969,6 +2113,13 @@ def main() -> int:
         "tensors shaped like phase 5's indexed and unindexed calls (built from the "
         "same keys without writing the tables) and print the records under "
         "only_b4 with null launches; no main path, no final ok line",
+    )
+    parser.add_argument(
+        "--only-b5", action="store_true",
+        help="for iterating on kernel B5: run phases 1-3, then time B5 on device "
+        "tensors shaped like phase 8's calls (built from the same columns without "
+        "writing the tables) and print the records under only_b5 with null "
+        "launches; no main path, no final ok line",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2011,6 +2162,14 @@ def main() -> int:
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
         print(card, flush=True)
         print(json.dumps({"only_b4": [b1, b4]}), flush=True)
+        return 0
+    if args.only_b5:
+        recorded, hosts = b5_replica(dev)
+        b5_calls, b5_err = check_b5_main_path(recorded, "the replica of phase 8")
+        b5 = b5_timings(dev, recorded, hosts, add_latency_ns(*probe))
+        b5.update(max_abs_err=max(b5_case_err, b5_err), cases=b5_cases_run + b5_calls)
+        print(card, flush=True)
+        print(json.dumps({"only_b5": [b5]}), flush=True)
         return 0
 
     work = os.path.join(ROOT, "build", "chip_smoke")

@@ -30,32 +30,66 @@
 //   NaN bits follow the x86 fold: the first NaN the fold meets stays (a
 //   NaN value, quieted, or for inf + -inf the default NaN 0xFFF8...).
 //
-// Bound: every design reads perm (8 B a row, when not the identity), the
-// values (4 or 8 B) and the validity (1 B) once and writes 8 or 16 B a
-// group: HBM bandwidth bounds the two parallel launches. The fold is
-// bound by its chain instead: the longest group's length times the
-// latency of one dependent add, because each add needs the one before.
+// Bounds on the H100 (3.35 TB/s; the add latency from
+// scripts/torch_chain_probe.cu). The range pass reads offs (8 B a group),
+// perm (8 B a row, when not the identity), the values (4 or 8 B) and the
+// validity (1 B) once and writes 8 or 16 B a group: HBM bandwidth bounds
+// it (TPC-H Q18's integer SUM, 6,001,215 rows in 1,472,478 groups: 131 MB,
+// 0.039 ms; MIN over one group of them: 48 MB, 0.014 ms). The fix-up pass
+// reads a few bytes a range and one partial a range a long group spans:
+// microseconds of L2 reads, not a bandwidth term. The fold is bound by its
+// chain instead: the longest group's length times the latency of one
+// dependent add (about 4.1 ns in float64), because each add needs the one
+// before.
 //
-// Design, a simple one for those bounds:
-// * Range pass (sum/count, min/max): each warp owns 1,024 consecutive
-//   positions. It finds the group holding its first position by binary
-//   search in offs, then walks the groups overlapping its range; for each
-//   the lanes stride over the overlap and a shuffle tree combines them.
-//   A group inside the range is written whole; a group cut at the
-//   range's start leaves a "continuation" partial, a group that starts in
-//   the range and runs past its end an "owner" partial. Empty groups are
-//   written by the warp whose range holds their position (the last warp
-//   also those at n), so every group is written exactly once.
-// * Fix-up pass: one block per range; the blocks of ranges that own a cut
-//   group combine the continuation partials of the ranges it spans with
-//   their own and write it; the others return at once. A group of 6 M
-//   rows is then 5,861 warps wide instead of one.
-// * Fold: one warp a group. All lanes load the next 256 positions (perm,
-//   value, validity; an invalid row stages +0.0, which adds nothing: the
-//   sum starts at +0.0 and never becomes -0.0) into registers, so the
-//   loads fly while lane 0 adds the tile staged in shared memory before.
-//   The adds run unguarded; a tile whose sum turns NaN is folded again
-//   with the NaN rule from the sum before it. A NaN sum stays as it is.
+// Design, against those bounds:
+// * Every kernel is instanced on whether a permutation and a validity are
+//   given (Source), so no load waits behind a branch on a null pointer.
+// * Range pass (sum/count, min/max): each warp owns kRange consecutive
+//   positions. It finds the group holding its first position by a 32-ary
+//   warp search in offs (5 dependent loads over 1.5 M groups), then walks
+//   the groups overlapping its range 32 at a time: lane k takes group
+//   g0 + k, its start from one coalesced load of offs (in flight a round
+//   ahead), its end from lane k + 1 by shuffle. A lane whose group lies
+//   wholly inside the range and has at most kShortGroup rows folds it
+//   alone, in position order, issuing the loads of kBatch positions (perm,
+//   then value and validity) before it combines them, and writes it: a
+//   warp's ~500 Q18 groups of 1-7 rows cost 16 rounds of a few loads in
+//   flight, not 500 walks. The other groups (longer, or cut at the range's
+//   start or end) go one at a time, from a ballot of their lanes, through
+//   the warp: the lanes stride over the overlap, kBatch positions' loads
+//   at once, and a shuffle tree combines them. A group inside the range is
+//   written whole; a group cut at the range's start leaves a
+//   "continuation" partial, a group that starts in the range and runs past
+//   its end an "owner" partial and the last range it reaches. Empty groups
+//   are written by the warp whose range holds their position (the last
+//   warp also those at n), so every group is written exactly once. Ranges
+//   of 2,048 positions and registers capped for 3 blocks an SM make Q18's
+//   2,931 warps one resident wave (1,024 took two; 4,096 left warps
+//   latency-bound).
+// * Fix-up pass: one block of 128 threads per range, launched as a
+//   programmatic dependent of the range pass, so its blocks are resident
+//   when that pass ends. The blocks of ranges that own a cut group combine
+//   the continuation partials of the ranges it spans with their own and
+//   write it; the others return at once. A block's first loads need
+//   nothing else (the owned group, its reach, the owner partial and one
+//   continuation a thread), then each thread issues kFixBatch partials'
+//   loads before it combines them: a group of 6 M rows (2,930 partials)
+//   costs three rounds of L2 reads.
+// * Fold: one warp a group, lane 0 adding in row order from a tile of 256
+//   values in shared memory. The loads run two tiles ahead of the adds:
+//   while lane 0 adds tile t, the lanes hold tile t + 1's values and
+//   tile t + 2's rows; each iteration they store tile t + 1 into the other
+//   of two shared buffers, gather tile t + 2's values from rows that
+//   arrived an iteration ago, and load tile t + 3's rows. No load that
+//   lane 0 waits on was issued in the same iteration, so a group gathered
+//   through a permutation adds at nearly the pace of an identity one. An
+//   invalid row stages +0.0, which adds nothing (the sum starts at +0.0
+//   and never becomes -0.0). The adds run unguarded; a tile whose sum
+//   turns NaN is folded again with the NaN rule from the sum before it.
+//   A NaN sum stays as it is. What is left above the chain is lane 0's
+//   shared-memory reads (ptxas issues each two adds ahead) and the
+//   staging instructions it runs between tiles.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,59 +97,94 @@
 namespace {
 
 constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRangeWarps = 8;  // warps a block in the range pass
-constexpr long long kRange = 1024;  // positions a warp in the range pass
+constexpr int kRangeBlocks = 3;  // blocks an SM the range pass's registers leave room for
+                                 // (2 for MIN/MAX over a validity, which spill at 3)
+constexpr long long kRange = 2048;  // positions a warp in the range pass
+constexpr int kShortGroup = 32;  // the longest group one lane of the range pass folds alone
+constexpr int kBatch = 8;  // positions whose loads a lane issues before combining them
 constexpr int kFixThreads = 128;
+constexpr int kFixBatch = 16;  // partials whose loads a fix-up thread issues together
 constexpr int kFoldWarps = 4;
 constexpr int kFoldItems = 8;  // positions a lane stages per tile
-constexpr int kTile = kWarp * kFoldItems;
+constexpr int kTile = 256;  // positions a tile of the fold
+static_assert(kTile == kWarp * kFoldItems, "a tile is one staged position a lane and item");
 
 enum ValueType { kI64 = 0, kU64 = 1, kF32 = 2, kF64 = 3 };
 
-struct Partial {
+struct alignas(16) Partial {
   long long a;  // the sum, or the value's bits
   long long b;  // the count, or the position (-1: no row took part)
 };
 
-__device__ __forceinline__ long long row_of(const long long* perm, long long i) {
-  return perm ? perm[i] : i;
-}
-
-__device__ __forceinline__ bool row_valid(const bool* valid, long long row) {
-  return valid == nullptr || valid[row];
-}
-
-// first index in offs[0 .. G] whose value is >= x
-__device__ long long lower_bound(const long long* offs, long long G, long long x) {
-  long long lo = 0, hi = G + 1;
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (offs[mid] < x) lo = mid + 1; else hi = mid;
+// Where a position's row and validity come from: the permutation or the
+// identity, the validity or every row valid. Each is fixed per instance,
+// so no load sits behind a branch on a null pointer.
+template <bool kPerm, bool kValid>
+struct Source {
+  const long long* perm;
+  const bool* valid;
+  __device__ __forceinline__ long long row(long long i) const {
+    if constexpr (kPerm) return __ldg(perm + i);
+    else return i;
   }
-  return lo;
+  __device__ __forceinline__ bool ok(long long row) const {
+    if constexpr (kValid) return __ldg(reinterpret_cast<const unsigned char*>(valid) + row) != 0;
+    else return true;
+  }
+};
+
+// The first index in offs[0 .. G] whose value is >= x, found by the
+// whole warp (every lane gets it): each step the lanes probe 32 evenly
+// spaced offsets at once and keep the 32nd of the interval that holds the
+// answer, so a search over 1.5 M groups is 5 dependent loads, not 21.
+__device__ long long warp_lower_bound(const long long* offs, long long G, long long x, int lane) {
+  long long lo = 0, hi = G + 1;  // the answer lies in [lo, hi]; offs[hi] >= x if hi <= G
+  while (hi - lo > kWarp) {
+    const long long step = (hi - lo + kWarp - 1) / kWarp;
+    const long long end = min(lo + (lane + 1) * step, hi);  // lane's piece: [end - step, end)
+    const unsigned above = __ballot_sync(kFull, __ldg(offs + end - 1) >= x);
+    if (above == 0) return hi;
+    const int k = __ffs(static_cast<int>(above)) - 1;
+    hi = min(lo + (k + 1) * step, hi) - 1;
+    lo += k * step;
+  }
+  const bool here = lo + lane < hi && __ldg(offs + lo + lane) >= x;
+  const unsigned above = __ballot_sync(kFull, here);
+  return above ? lo + __ffs(static_cast<int>(above)) - 1 : hi;
 }
 
 // ---- operations -------------------------------------------------------------
+//
+// An operation loads a row's value (V), adds a value with its validity
+// and position to an accumulator, and combines, shuffles, packs and
+// writes accumulators.
 
+template <bool kValues>  // false: count only
 struct SumCount {
-  const long long* vals;  // NULL: count only
+  const long long* vals;
   long long* sums;
   long long* counts;
 
+  using V = unsigned long long;
+  static constexpr bool kWide = false;  // its accumulator carries no position (kRangeBlocks)
   struct Acc {
     unsigned long long sum;
     long long count;
   };
   __device__ Acc identity() const { return {0ull, 0}; }
-  __device__ void add_row(Acc& a, const bool* valid, long long row, long long) const {
-    if (!row_valid(valid, row)) return;
-    if (vals) a.sum += static_cast<unsigned long long>(vals[row]);
-    a.count += 1;
+  __device__ V value(long long row) const {
+    if constexpr (kValues) return static_cast<V>(__ldg(vals + row));
+    else return 0ull;
+  }
+  __device__ void add(Acc& a, V v, bool ok, long long) const {
+    a.sum += ok ? v : 0ull;
+    a.count += ok;
   }
   __device__ Acc combine(Acc a, Acc b) const { return {a.sum + b.sum, a.count + b.count}; }
   __device__ Acc shfl_down(Acc a, int d) const {
-    return {__shfl_down_sync(0xffffffffu, a.sum, d),
-            __shfl_down_sync(0xffffffffu, a.count, d)};
+    return {__shfl_down_sync(kFull, a.sum, d), __shfl_down_sync(kFull, a.count, d)};
   }
   __device__ Partial pack(Acc a) const {
     return {static_cast<long long>(a.sum), a.count};
@@ -124,7 +193,7 @@ struct SumCount {
     return {static_cast<unsigned long long>(p.a), p.b};
   }
   __device__ void write(long long g, Acc a) const {
-    if (sums) sums[g] = static_cast<long long>(a.sum);
+    if constexpr (kValues) sums[g] = static_cast<long long>(a.sum);
     counts[g] = a.count;
   }
 };
@@ -172,6 +241,8 @@ struct MinMax {
     T v;
     long long pos;  // -1: no row took part
   };
+  using V = T;
+  static constexpr bool kWide = true;  // its accumulator carries a position (kRangeBlocks)
   __device__ Acc identity() const { return {T(0), -1}; }
   // b better than a: the larger (MAX) or smaller (MIN) value, a NaN above
   // every value for MAX, and on a tie the later position
@@ -185,17 +256,18 @@ struct MinMax {
     if (kMax ? b.v > a.v : b.v < a.v) return true;
     return b.v == a.v && b.pos > a.pos;
   }
-  __device__ void add_row(Acc& a, const bool* valid, long long row, long long pos) const {
-    if (!row_valid(valid, row)) return;
-    Acc b{vals[row], pos};
+  __device__ V value(long long row) const { return __ldg(vals + row); }
+  __device__ void add(Acc& a, V v, bool ok, long long pos) const {
+    if (!ok) return;
     if constexpr (kFloat<T> && !kMax) {
-      if (Bits<T>::is_nan(b.v)) return;  // MIN takes the non-NaN rows
+      if (Bits<T>::is_nan(v)) return;  // MIN takes the non-NaN rows
     }
+    const Acc b{v, pos};
     if (better(b, a)) a = b;
   }
   __device__ Acc combine(Acc a, Acc b) const { return better(b, a) ? b : a; }
   __device__ Acc shfl_down(Acc a, int d) const {
-    return {__shfl_down_sync(0xffffffffu, a.v, d), __shfl_down_sync(0xffffffffu, a.pos, d)};
+    return {__shfl_down_sync(kFull, a.v, d), __shfl_down_sync(kFull, a.pos, d)};
   }
   __device__ Partial pack(Acc a) const { return {Bits<T>::to(a.v), a.pos}; }
   __device__ Acc unpack(Partial p) const { return {Bits<T>::from(p.a), p.b}; }
@@ -218,6 +290,36 @@ __device__ typename Op::Acc warp_reduce(const Op& op, typename Op::Acc a) {
   return a;
 }
 
+// Adds positions start, start + stride, ... below e to acc in that order,
+// kBatch at a time: first every position's row, then every row's value and
+// validity, then the adds, so a lane keeps kBatch loads in flight.
+template <class Op, class Src>
+__device__ __forceinline__ void fold_positions(const Op& op, const Src& src,
+                                               typename Op::Acc& acc, long long start,
+                                               long long e, long long stride) {
+  for (long long i = start; i < e; i += kBatch * stride) {
+    long long rows[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const long long p = i + k * stride;
+      rows[k] = p < e ? src.row(p) : -1;
+    }
+    typename Op::V v[kBatch];
+    bool ok[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      v[k] = typename Op::V();
+      ok[k] = false;
+      if (rows[k] >= 0) {
+        v[k] = op.value(rows[k]);
+        ok[k] = src.ok(rows[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) op.add(acc, v[k], ok[k], i + k * stride);
+  }
+}
+
 struct RangeArgs {
   const long long* perm;
   const long long* offs;
@@ -226,40 +328,68 @@ struct RangeArgs {
   Partial* cont;     // [ranges] continuation partials
   Partial* own;      // [ranges] owner partials
   long long* owned;  // [ranges] the group a range owns, or -1
+  long long* reach;  // [ranges] for a range that owns a group, the last range it reaches
 };
 
-template <class Op>
-__global__ void __launch_bounds__(kRangeWarps * kWarp)
+template <class Op, bool kPerm, bool kValid>
+__global__ void __launch_bounds__(kRangeWarps * kWarp, Op::kWide && kValid ? 2 : kRangeBlocks)
 range_pass(const RangeArgs args, const Op op) {
+  // the fix-up pass may launch now; it waits for this pass to end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const Source<kPerm, kValid> src{args.perm, args.valid};
   const int lane = threadIdx.x % kWarp;
   const long long w = static_cast<long long>(blockIdx.x) * kRangeWarps + threadIdx.x / kWarp;
   if (w >= args.ranges) return;
   const long long n = args.n, G = args.G;
   const long long lo = w * kRange, hi = min(lo + kRange, n);
-  long long g = lower_bound(args.offs, G, lo);
-  if (args.offs[g] > lo) g -= 1;  // the group holding position lo began before it
+  const bool last = hi == n;  // the last range also takes the empty groups at n
+  long long g0 = warp_lower_bound(args.offs, G, lo, lane);
+  if (args.offs[g0] > lo) g0 -= 1;  // the group holding position lo began before it
+  auto start_of = [&](long long g) { return g <= G ? __ldg(args.offs + g) : n; };
+  // a round: lane k takes group g0 + k, which starts at gs; the starts of
+  // the next round's groups are in flight one round ahead
+  long long gs = start_of(g0 + lane), gs_next = start_of(g0 + kWarp + lane);
   long long owned = -1;
   while (true) {
-    const long long gs = args.offs[g], ge = args.offs[g + 1];
-    const long long s = max(gs, lo), e = min(ge, hi);
-    typename Op::Acc acc = op.identity();
-#pragma unroll 4
-    for (long long i = s + lane; i < e; i += kWarp) {
-      op.add_row(acc, args.valid, row_of(args.perm, i), i);
+    const long long g = g0 + lane;
+    const long long gs_later = start_of(g + 2 * kWarp);
+    const long long after = __shfl_sync(kFull, gs_next, 0);  // offs[g0 + 32]
+    long long ge = __shfl_down_sync(kFull, gs, 1);
+    if (lane == kWarp - 1) ge = after;
+    const bool active = g < G && (gs < hi || last);
+    const bool cut = gs < lo || ge > hi;
+    const bool alone = active && !cut && ge - gs <= kShortGroup;
+    if (alone) {
+      typename Op::Acc acc = op.identity();
+      fold_positions(op, src, acc, gs, ge, 1);
+      op.write(g, acc);
     }
-    acc = warp_reduce(op, acc);
-    if (lane == 0) {
-      if (gs < lo) {
-        args.cont[w] = op.pack(acc);
-      } else if (ge > hi) {
-        args.own[w] = op.pack(acc);
-        owned = g;
-      } else {
-        op.write(g, acc);
+    // the other groups of the round, one at a time, by the whole warp
+    unsigned together = __ballot_sync(kFull, active && !alone);
+    while (together) {
+      const int from = __ffs(static_cast<int>(together)) - 1;
+      together &= together - 1;
+      const long long tg = __shfl_sync(kFull, g, from);
+      const long long ts = __shfl_sync(kFull, gs, from), te = __shfl_sync(kFull, ge, from);
+      typename Op::Acc acc = op.identity();
+      fold_positions(op, src, acc, max(ts, lo) + lane, min(te, hi), kWarp);
+      acc = warp_reduce(op, acc);
+      if (ts < lo) {
+        if (lane == 0) args.cont[w] = op.pack(acc);
+      } else if (te > hi) {
+        if (lane == 0) {
+          args.own[w] = op.pack(acc);
+          args.reach[w] = (te - 1) / kRange;
+        }
+        owned = tg;
+      } else if (lane == 0) {
+        op.write(tg, acc);
       }
     }
-    if (g + 1 >= G || !(ge < hi || hi == n)) break;
-    ++g;
+    g0 += kWarp;
+    if (g0 >= G || !(after < hi || last)) break;
+    gs = gs_next;
+    gs_next = gs_later;
   }
   if (lane == 0) args.owned[w] = owned;
 }
@@ -268,21 +398,34 @@ template <class Op>
 __global__ void __launch_bounds__(kFixThreads)
 fixup_pass(const RangeArgs args, const Op op) {
   __shared__ Partial part[kFixThreads / kWarp];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the range pass's partials
   const long long w = blockIdx.x;
-  const long long g = args.owned[w];
+  // first the loads that need no other: the group this range owns, the
+  // last range it reaches, the owner partial and one continuation a
+  // thread (all a group of a few rows needs), whether or not it owns one
+  const long long g = args.owned[w], last = args.reach[w];
+  const long long j0 = w + 1 + threadIdx.x;
+  const Partial first = j0 < args.ranges ? args.cont[j0] : op.pack(op.identity());
+  const Partial mine = threadIdx.x == 0 ? args.own[w] : op.pack(op.identity());
   if (g < 0) return;
-  const long long last = (args.offs[g + 1] - 1) / kRange;  // the last range g reaches
-  typename Op::Acc acc = op.identity();
-  for (long long j = w + 1 + threadIdx.x; j <= last; j += kFixThreads) {
-    acc = op.combine(acc, op.unpack(args.cont[j]));
+  typename Op::Acc acc = op.combine(op.unpack(mine),
+                                    j0 <= last ? op.unpack(first) : op.identity());
+  for (long long j = j0 + kFixThreads; j <= last; j += kFixThreads * kFixBatch) {
+    Partial p[kFixBatch];
+#pragma unroll
+    for (int k = 0; k < kFixBatch; ++k) {
+      const long long jk = j + k * kFixThreads;
+      p[k] = jk <= last ? args.cont[jk] : op.pack(op.identity());
+    }
+#pragma unroll
+    for (int k = 0; k < kFixBatch; ++k) acc = op.combine(acc, op.unpack(p[k]));
   }
   acc = warp_reduce(op, acc);
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   if (lane == 0) part[warp] = op.pack(acc);
   __syncthreads();
   if (threadIdx.x == 0) {
-    acc = op.unpack(args.own[w]);
-    for (int k = 0; k < kFixThreads / kWarp; ++k) acc = op.combine(acc, op.unpack(part[k]));
+    for (int k = 1; k < kFixThreads / kWarp; ++k) acc = op.combine(acc, op.unpack(part[k]));
     op.write(g, acc);
   }
 }
@@ -296,13 +439,29 @@ int launch_ranges(const long long* perm, const long long* offs, const bool* vali
   RangeArgs args{perm, offs, valid, n, G, ranges,
                  static_cast<Partial*>(scratch),
                  static_cast<Partial*>(scratch) + ranges,
-                 reinterpret_cast<long long*>(static_cast<Partial*>(scratch) + 2 * ranges)};
-  const long long blocks = (ranges + kRangeWarps - 1) / kRangeWarps;
-  range_pass<Op><<<static_cast<unsigned>(blocks), kRangeWarps * kWarp, 0, stream>>>(args, op);
+                 reinterpret_cast<long long*>(static_cast<Partial*>(scratch) + 2 * ranges),
+                 reinterpret_cast<long long*>(static_cast<Partial*>(scratch) + 2 * ranges) + ranges};
+  const unsigned blocks = static_cast<unsigned>((ranges + kRangeWarps - 1) / kRangeWarps);
+  const unsigned threads = kRangeWarps * kWarp;
+  if (perm && valid) range_pass<Op, true, true><<<blocks, threads, 0, stream>>>(args, op);
+  else if (perm) range_pass<Op, true, false><<<blocks, threads, 0, stream>>>(args, op);
+  else if (valid) range_pass<Op, false, true><<<blocks, threads, 0, stream>>>(args, op);
+  else range_pass<Op, false, false><<<blocks, threads, 0, stream>>>(args, op);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixup_pass<Op><<<static_cast<unsigned>(ranges), kFixThreads, 0, stream>>>(args, op);
-  return static_cast<int>(cudaGetLastError());
+  // a programmatic dependent launch: the fix-up's blocks may be resident
+  // before the range pass ends, and wait for its results
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ranges));
+  cfg.blockDim = dim3(kFixThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fixup_pass<Op>, args, op);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ---- the ordered float fold ----------------------------------------------------
@@ -331,43 +490,83 @@ __device__ __forceinline__ T nan_step(T acc, T v) {
   return B::value(isnan(v) ? (B::bits(v) | B::kQuiet) : B::kDefaultNan);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFoldWarps * kWarp)
+// The fold's staging, a lane's kFoldItems positions of a tile at a time:
+// the rows of positions base + k * 32 + lane (-1 past the group), their
+// values (+0.0 past the group) and validity (a bit an item), and the store
+// of a tile's values into shared memory (+0.0 for an invalid row),
+// counting its valid rows.
+template <class Src>
+__device__ __forceinline__ void find_rows(const Src& src, long long (&rows)[kFoldItems],
+                                          long long base, long long e, int lane) {
+#pragma unroll
+  for (int k = 0; k < kFoldItems; ++k) {
+    const long long i = base + k * kWarp + lane;
+    rows[k] = i < e ? src.row(i) : -1;
+  }
+}
+
+template <typename T, class Src>
+__device__ __forceinline__ void gather(const Src& src, const T* __restrict__ vals,
+                                       const long long (&rows)[kFoldItems], T (&got)[kFoldItems],
+                                       unsigned& ok) {
+  ok = 0;
+#pragma unroll
+  for (int k = 0; k < kFoldItems; ++k) {
+    got[k] = T(0);
+    if (rows[k] >= 0) {
+      got[k] = vals[rows[k]];
+      ok |= static_cast<unsigned>(src.ok(rows[k])) << k;
+    }
+  }
+}
+
+template <bool kValid, typename T>
+__device__ __forceinline__ void stage(T* buf, const T (&got)[kFoldItems], unsigned ok,
+                                      long long& count, int lane) {
+  if constexpr (kValid) count += __popc(ok);
+#pragma unroll
+  for (int k = 0; k < kFoldItems; ++k) {
+    if constexpr (kValid) {
+      buf[k * kWarp + lane] = (ok >> k) & 1u ? got[k] : T(0);
+    } else {
+      buf[k * kWarp + lane] = got[k];
+    }
+  }
+}
+
+// __maxnreg__ rather than __launch_bounds__: with the latter ptxas kept
+// the fold near 64 registers and spilled values the loop reloads every tile
+template <typename T, bool kPerm, bool kValid>
+__global__ void __maxnreg__(128)
 fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
          const T* __restrict__ vals, const bool* __restrict__ valid, long long G,
          T* __restrict__ sums, long long* __restrict__ counts) {
-  __shared__ T tile[kFoldWarps][kTile];
+  __shared__ T tile[kFoldWarps][2][kTile];
+  const Source<kPerm, kValid> src{perm, valid};
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const long long g = static_cast<long long>(blockIdx.x) * kFoldWarps + warp;
   if (g >= G) return;
   const long long s = offs[g], e = offs[g + 1];
-  T* buf = tile[warp];
-  T staged[kFoldItems];
-  long long count = 0;
-  auto load = [&](long long base) {
-#pragma unroll
-    for (int k = 0; k < kFoldItems; ++k) {
-      const long long i = base + k * kWarp + lane;
-      T v = T(0);
-      if (i < e) {
-        const long long row = row_of(perm, i);
-        if (row_valid(valid, row)) {
-          v = vals[row];
-          ++count;
-        }
-      }
-      staged[k] = v;
-    }
-  };
+  long long rows[kFoldItems];  // a later tile's rows
+  T got[kFoldItems];           // the next tile's values
+  unsigned ok;                 // ... bit k: item k is a valid row of the group
+  long long count = 0;         // valid rows this lane staged
+  // tile 0 staged; tile 1's values and tile 2's rows in flight
+  find_rows(src, rows, s, e, lane);
+  gather(src, vals, rows, got, ok);
+  find_rows(src, rows, s + kTile, e, lane);
+  stage<kValid>(tile[warp][0], got, ok, count, lane);
+  gather(src, vals, rows, got, ok);
+  find_rows(src, rows, s + 2 * kTile, e, lane);
   T acc = T(0);
-  if (s < e) load(s);
-  for (long long base = s; base < e; base += kTile) {
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < kFoldItems; ++k) buf[k * kWarp + lane] = staged[k];
-    __syncwarp();
-    if (base + kTile < e) load(base + kTile);  // in flight while lane 0 adds
+  int cur = 0;
+  for (long long base = s; base < e; base += kTile, cur ^= 1) {
+    __syncwarp();  // tile cur is whole; lane 0 is done with the other buffer
+    stage<kValid>(tile[warp][cur ^ 1], got, ok, count, lane);  // tile t + 1, gathered before
+    gather(src, vals, rows, got, ok);               // tile t + 2, from rows found before
+    find_rows(src, rows, base + 3 * kTile, e, lane);  // tile t + 3
     if (lane == 0 && !isnan(acc)) {
+      const T* buf = tile[warp][cur];
       const int len = static_cast<int>(min(static_cast<long long>(kTile), e - base));
       const T before = acc;
       int j = 0;
@@ -385,11 +584,34 @@ fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
       }
     }
   }
+  if constexpr (kValid) {
 #pragma unroll
-  for (int d = kWarp / 2; d > 0; d >>= 1) count += __shfl_down_sync(0xffffffffu, count, d);
+    for (int d = kWarp / 2; d > 0; d >>= 1) count += __shfl_down_sync(kFull, count, d);
+  } else {
+    count = e - s;
+  }
   if (lane == 0) {
     sums[g] = acc;
     counts[g] = count;
+  }
+}
+
+template <typename T>
+void launch_fold(const long long* perm, const long long* offs, const void* vals,
+                 const bool* valid, long long G, void* sums, long long* counts,
+                 cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((G + kFoldWarps - 1) / kFoldWarps);
+  const unsigned threads = kFoldWarps * kWarp;
+  const T* v = static_cast<const T*>(vals);
+  T* out = static_cast<T*>(sums);
+  if (perm && valid) {
+    fold_sum<T, true, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+  } else if (perm) {
+    fold_sum<T, true, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+  } else if (valid) {
+    fold_sum<T, false, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+  } else {
+    fold_sum<T, false, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
   }
 }
 
@@ -397,10 +619,10 @@ fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
 
 extern "C" {
 
-// Bytes of scratch the range pass needs for n rows: two partials and an
-// owned-group slot a range.
+// Bytes of scratch the range pass needs for n rows: two partials, the
+// owned group and the last range it reaches, a range.
 long long hs_seg_scratch_bytes(long long n) {
-  return num_ranges(n) * static_cast<long long>(2 * sizeof(Partial) + sizeof(long long));
+  return num_ranges(n) * static_cast<long long>(2 * sizeof(Partial) + 2 * sizeof(long long));
 }
 
 // Integer sum (vals int64 or uint64 bits; NULL with sums NULL for a
@@ -409,8 +631,10 @@ int hs_seg_sum_count(const long long* perm, const long long* offs, const long lo
                      const bool* valid, long long n, long long G, long long* sums,
                      long long* counts, void* scratch, void* stream) {
   if (G <= 0) return 0;
-  SumCount op{vals, sums, counts};
-  return launch_ranges(perm, offs, valid, n, G, op, scratch, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sums) return launch_ranges(perm, offs, valid, n, G, SumCount<true>{vals, sums, counts},
+                                 scratch, st);
+  return launch_ranges(perm, offs, valid, n, G, SumCount<false>{vals, sums, counts}, scratch, st);
 }
 
 // MIN (is_max 0) or MAX (is_max 1) per group; fill_bits is an integer
@@ -444,17 +668,9 @@ int hs_seg_fold_sum(const long long* perm, const long long* offs, const void* va
                     const bool* valid, long long G, int is_f64, void* sums, long long* counts,
                     void* stream) {
   if (G <= 0) return 0;
-  const long long blocks = (G + kFoldWarps - 1) / kFoldWarps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64) {
-    fold_sum<double><<<static_cast<unsigned>(blocks), kFoldWarps * kWarp, 0, st>>>(
-        perm, offs, static_cast<const double*>(vals), valid, G, static_cast<double*>(sums),
-        counts);
-  } else {
-    fold_sum<float><<<static_cast<unsigned>(blocks), kFoldWarps * kWarp, 0, st>>>(
-        perm, offs, static_cast<const float*>(vals), valid, G, static_cast<float*>(sums),
-        counts);
-  }
+  if (is_f64) launch_fold<double>(perm, offs, vals, valid, G, sums, counts, st);
+  else launch_fold<float>(perm, offs, vals, valid, G, sums, counts, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -203,7 +203,12 @@ def segment_count_torch(perm, offs, valid):
 def _lib():
     from hyperspace_tpu_torch import kernels
 
-    lib = kernels.load("segment_reduce")
+    return bind(kernels.load("segment_reduce"))
+
+
+def bind(lib):
+    """Declare the C interface of a library built from
+    ``csrc/segment_reduce.cu`` on its ctypes functions; returns ``lib``."""
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.hs_seg_sum_count.argtypes = [p, p, p, p, i64, i64, p, p, p, p]
     lib.hs_seg_minmax.argtypes = [p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_int,

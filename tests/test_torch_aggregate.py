@@ -6,6 +6,9 @@ versions equal the reference's ``segment_*`` functions on its host route
 and, for integers, counts and the NaN rules, on its jitted route; and
 each package serves aggregates over the indexes the other built."""
 
+import os
+import re
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -23,9 +26,9 @@ from hyperspace_tpu_torch import functions as TF
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig as TConfig
 from hyperspace_tpu_torch.ops import aggregate as A
+import torch_b5_cases
 from torch_b5_cases import B5_CASES as CASES
-from torch_b5_cases import NAN_PAYLOAD, NEG_NAN, b5_layouts, groups, layout_gid
-from torch_b5_cases import layout_values, same_rows
+from torch_b5_cases import NAN_PAYLOAD, NEG_NAN, b5_layouts, groups, layout_gid, same_rows
 
 N_BUCKETS = 4
 
@@ -347,12 +350,13 @@ LAYOUTS = b5_layouts()
 @pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "uint64"])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_b5_plain_versions_over_the_kernel_layouts(layout, dtype):
-    """The group layouts that test B5's ranges (groups across ranges, on
-    their edges, empty ones, no rows), plain versions against the host
-    route, with and without nulls."""
-    perm, offs = LAYOUTS[layout]
+    """The group layouts that test B5's ranges, lane path and fold tiles
+    (groups across ranges, on their edges, empty ones, no rows, Q18's
+    groups of 1-7 rows, groups around the lane path's longest, a late NaN
+    in a long fold), plain versions against the host route, with and
+    without nulls."""
+    perm, offs, vals = LAYOUTS[layout]
     gid, num = layout_gid(perm, offs), len(offs) - 1
-    vals = layout_values(len(gid))
     for valid in (None, vals["valid"]):
         ws, wc = JA.segment_sum_count(gid, vals[dtype], valid, num)
         gs, gc = _port_sum_count(gid, vals[dtype], valid, num)
@@ -360,6 +364,19 @@ def test_b5_plain_versions_over_the_kernel_layouts(layout, dtype):
         for mode in ("min", "max"):
             want = JA.segment_minmax(gid, vals[dtype], valid, num, mode)
             assert _bits_equal(_port_minmax(gid, vals[dtype], valid, num, mode), want), mode
+
+
+@pytest.mark.parametrize("name, value", [("kRange", "RANGE"), ("kShortGroup", "SHORT_GROUP"),
+                                         ("kTile", "FOLD_TILE")])
+def test_b5_layouts_sit_at_the_kernels_widths(name, value):
+    """The layouts' widths are the kernel's own (``csrc/segment_reduce.cu``):
+    the groups placed on and across range edges, at the lane path's
+    longest group and around the fold's tile stay there if one changes."""
+    from hyperspace_tpu_torch import kernels as port_kernels
+
+    with open(os.path.join(port_kernels.CSRC_DIR, "segment_reduce.cu")) as fh:
+        found = re.search(rf"constexpr (?:int|long long) {name} = (\d+);", fh.read())
+    assert found and int(found.group(1)) == getattr(torch_b5_cases, value)
 
 
 @pytest.mark.parametrize("case", ["int64", "int64_wrap", "float64", "float32",

@@ -18,7 +18,7 @@ from hyperspace_tpu_torch.ops import join as J
 from hyperspace_tpu_torch.plan import expressions as E
 from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
 from torch_b4_cases import b4_edge_cases
-from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups, layout_values
+from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
 
 pytestmark = pytest.mark.cuda
 
@@ -130,11 +130,11 @@ B5_LAYOUTS = b5_layouts()
 @pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "uint64"])
 @pytest.mark.parametrize("layout", sorted(B5_LAYOUTS))
 def test_b5_equals_its_plain_version_over_the_layouts(cuda_device, layout, dtype):
-    """Every B5 launch function over groups across its 1,024-position
-    ranges, on their edges, empty, or with no rows at all, with and
-    without nulls: bit-equal to the plain version on a CPU copy."""
-    perm, offs = B5_LAYOUTS[layout]
-    vals = layout_values(int(offs[-1]))
+    """Every B5 launch function over groups across its 2,048-position
+    ranges, on their edges, empty, or with no rows at all, at and around
+    the lane path's longest group and the fold's tile, with and without
+    nulls: bit-equal to the plain version on a CPU copy."""
+    perm, offs, vals = B5_LAYOUTS[layout]
     dev = cuda_device
     p = None if perm is None else torch.from_numpy(perm).to(dev)
     o = torch.from_numpy(offs).to(dev)

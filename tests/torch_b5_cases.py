@@ -71,13 +71,83 @@ def b5_cases() -> dict:
 B5_CASES = b5_cases()
 
 
+# widths of csrc/segment_reduce.cu (test_torch_aggregate.py holds them to
+# kRange, kShortGroup and kTile in the source)
+RANGE = 2048  # positions a warp of the range pass owns
+SHORT_GROUP = 32  # the longest group one lane of the range pass folds alone
+FOLD_TILE = 256  # positions a tile of the float fold
+
+
+def _offsets(lengths) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+def _fill(rng, n: int, lo: int = 1, hi: int = 7) -> list:
+    """Random group lengths in [lo, hi] that sum to n (the last one cut)."""
+    out = []
+    while n > 0:
+        k = min(int(rng.integers(lo, hi, endpoint=True)), n)
+        out.append(k)
+        n -= k
+    return out
+
+
+def _pinned(rng, n: int, pins) -> np.ndarray:
+    """Offsets of n positions holding the groups ``pins`` ([(start,
+    length)], ascending, apart), the rest in groups of 1-7 rows."""
+    lengths, at = [], 0
+    for start, length in pins:
+        lengths += _fill(rng, start - at) + [length]
+        at = start + length
+    return _offsets(lengths + _fill(rng, n - at))
+
+
+def _q18_runs(rng, keys: int):
+    """TPC-H Q18's shape: keys of 1-7 rows, stored in 8 buckets of a
+    key-sorted index, so the stable group sort's permutation is made of
+    runs of consecutive rows."""
+    sizes = rng.integers(1, 8, keys)
+    key = np.repeat(np.arange(keys), sizes)
+    bucket = (key * 2654435761) % 8
+    stored = key[np.lexsort((key, bucket))]  # the rows in index order
+    return np.argsort(stored, kind="stable").astype(np.int64), _offsets(sizes)
+
+
+def _fold_tiles() -> np.ndarray:
+    """Float fold groups of 1, 255, 256, 257, 511 and 3 x 256 + 17 rows, an
+    empty one, and two that reuse both tile buffers several times."""
+    t = FOLD_TILE
+    return _offsets([1, t - 1, t, t + 1, 2 * t - 1, 3 * t + 17, 0, 9 * t + 100, 11 * t + 3])
+
+
+def _late_specials(perm, offs, vals: dict) -> dict:
+    """The fold layout's values: no NaN or inf anywhere, then in group 7 a
+    NaN with a payload first in tile 6, and in group 8 +inf in tile 5 and
+    -inf in tile 8 (``inf + -inf`` first there); those rows valid."""
+    f = vals["float64"]
+    f[~np.isfinite(f)] = 1.5
+    t = FOLD_TILE
+    for g, at, value in ((7, 6 * t + 11, NAN_PAYLOAD), (8, 5 * t + 7, np.inf),
+                         (8, 8 * t + 200, -np.inf)):
+        row = perm[offs[g] + at]
+        f[row] = value
+        vals["valid"][row] = True
+    vals["float32"] = f.astype(np.float32)
+    return vals
+
+
 def b5_layouts() -> dict:
-    """Group layouts around the kernel's 1,024-position ranges: name ->
-    (perm or None for the identity, offs). Groups span ranges, end on
-    range edges, are empty at the start, inside and at the end, and there
-    may be no rows at all."""
+    """Group layouts around the kernel's widths: name -> (perm or None for
+    the identity, offs, values as :func:`layout_values` gives them). Groups
+    span ranges, end on range edges, are empty at the start, inside and at
+    the end, and there may be no rows at all; groups of 1-7 rows as Q18
+    makes them; groups of SHORT_GROUP - 1, SHORT_GROUP and SHORT_GROUP + 1
+    rows on and across range edges; a long group amid a round of short
+    ones; empty groups inside rounds and on range edges; float fold groups
+    around the tile width, with a NaN and an ``inf + -inf`` first met in a
+    late tile."""
     rng = np.random.default_rng(9)
-    n = 5 * 1024 + 37
+    n = 5 * RANGE + 37
 
     def shuffled(offs):
         """Rows dealt to the groups at random, in row order within each
@@ -87,17 +157,52 @@ def b5_layouts() -> dict:
         gid = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
         return perm[np.lexsort((perm, gid))], offs
 
-    edges = [0, 1023, 1024, 2048, 2049, 3072, 4000, n]
-    empties = [0, 0, 0, 5, 1024, 1024, 1024, 1030, 2500, 2500, n, n, n]
-    return {
+    r = RANGE
+    edges = [0, r - 1, r, 2 * r, 2 * r + 1, 3 * r, 4 * r - 96, n]
+    mid = 2 * r + r // 2 - 60
+    empties = [0, 0, 0, 5, r, r, r, r + 6, mid, mid, n, n, n]
+    layouts = {
         "identity_one_group": (None, np.array([0, n], np.int64)),
         "identity_range_edges": (None, np.array(edges, np.int64)),
         "shuffled_range_edges": shuffled(edges),
         "empty_groups_everywhere": shuffled(empties),
-        "long_group_across_ranges": shuffled([0, 100, 4900, n]),
+        "long_group_across_ranges": shuffled([0, 100, 5 * r - 220, n]),
         "single_rows": shuffled(np.arange(n + 1)),
         "no_rows": (np.zeros(0, np.int64), np.zeros(4, np.int64)),
     }
+    s = SHORT_GROUP
+    short_pins = [(r - (s - 1), s - 1), (r, s), (2 * r - (s + 1), s + 1), (2 * r, s - 1),
+                  (3 * r - s, s), (3 * r, s + 1), (4 * r - 9, s - 1), (5 * r - 20, s),
+                  (6 * r - 13, s + 1)]
+    short_offs = _pinned(rng, 6 * r + 37, short_pins)
+    # range 1 starts a round at its first position: 15 groups of 3 rows, one
+    # of 200, 16 of 3; range 2 likewise with one of SHORT_GROUP + 1 and one
+    # of SHORT_GROUP amid them
+    mid_round = [3] * 15 + [200] + [3] * 16
+    mid_lengths = (_fill(rng, r) + mid_round + _fill(rng, r - sum(mid_round))
+                   + [3] * 10 + [s + 1] + [3] * 10 + [s] + [3] * 10 + _fill(rng, 50))
+    empty_lengths = []
+    for edge in range(r, 5 * r + 1, r):  # small groups, some empty; three empty on each edge
+        empty_lengths += _fill(rng, edge - sum(empty_lengths), lo=0, hi=4) + [0, 0, 0]
+    empty_lengths += _fill(rng, 37, lo=0, hi=4) + [0, 0]
+    layouts.update({
+        "q18_runs": _q18_runs(rng, 3 * r // 2),
+        "identity_q18_sizes": (None, _offsets(_fill(rng, n))),
+        "short_groups_on_range_edges": shuffled(short_offs),
+        "identity_short_groups_on_range_edges": (None, short_offs),
+        "long_group_amid_a_round": shuffled(_offsets(mid_lengths)),
+        "empty_groups_in_rounds": shuffled(_offsets(empty_lengths)),
+        "fold_tiles": shuffled(_fold_tiles()),
+        "identity_fold_tiles": (None, _fold_tiles()),
+    })
+    out = {}
+    for name, (perm, offs) in layouts.items():
+        vals = layout_values(int(offs[-1]))
+        if name.endswith("fold_tiles"):
+            ident = np.arange(int(offs[-1])) if perm is None else perm
+            vals = _late_specials(ident, offs, vals)
+        out[name] = (perm, offs, vals)
+    return out
 
 
 def layout_gid(perm, offs) -> np.ndarray:
