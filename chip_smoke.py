@@ -44,9 +44,19 @@ against its plain PyTorch version on the card:
      kernel's 2,048-row ranges, Q18's groups of 1-7 rows, groups of 31,
      32 and 33 rows on and across range edges, a long group amid short
      ones, empty groups, no rows, and fold groups around its 256-row tile
-     with a NaN first met in a late tile); and the
+     with a NaN first met in a late tile), and the fold from a carried
+     start (``B5_START_CASES``); the
      latency of one dependent float add (``scripts/torch_chain_probe.cu``,
      built beside the kernels), the float fold's chain bound;
+   * the fused select (kernel B3b) and the fused filter→aggregate
+     (kernel B5f) over ``tests/torch_b5f_cases.py`` (an empty chunk, no
+     row passing, NEVER_MATCH, one group and no groups, 1,025 and 100,000
+     groups in a chunk, NaN, -0.0 and null keys, int64 wrap, groups of
+     only NaN or only nulls, -0.0 / 0.0 ties across two chunks, three
+     chunks whose float sum depends on the carry): B3b's indices equal
+     the plain version's and ``np.nonzero``, B5f's carried state equal
+     bit for bit to the plain version's on the CPU after every chunk,
+     each case timed cold;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -109,6 +119,34 @@ against its plain PyTorch version on the card:
    over a seeded validity), and each pass's own time (range pass, fix-up
    pass) on c's MIN and d's SUM from torch.profiler's kernel records.
 
+   Phase 7 runs each query with ``hyperspace.serve.fusedpipeline.enabled``
+   off, so its residuals take the mask route (B3a) it measures, then 5
+   times on the default route (the fused select, B3b, for residuals of
+   32,768 rows or more), rows equal in order.
+
+9. aggregate index plane: every create above captured ``_aggstate.json``
+   and ``_aggsample.parquet`` on the card (their ``sidecar_capture``
+   seconds are logged beside each build's stages). Over phase 4's
+   lineitem: (m1) ``l_orderkey >= 0`` grouped by l_quantity with count,
+   min, max and sum of l_orderkey over li_rg_idx, answered from the
+   sidecar with 0 row groups read (96 of 96 from metadata); (m2) the agg
+   window's count, sum, min and max of l_quantity over li_rg_idx, its
+   boundary row groups through B5f; (f1) phase 8's query a and (f2) the
+   window grouped by l_quantity over li_idx on the fused aggregate
+   (B5f); (s1) the window and ``l_quantity < 24`` selecting l_shipdate
+   on the fused select (B3b). Each: the explain names its index, one
+   warm-up, 5 rounds with its route on and off in turns, rows equal bit
+   for bit in order to the route off, to a ``device="cpu"`` session and
+   to the plan without Hyperspace (s1 as a multiset). li_rg_idx's
+   ``_aggstate.json`` equals the doc a cpu session computes over its
+   files. B5f is then held against its plain version on f1's and f2's
+   inputs (li_idx's three columns as one chunk of 6,001,215 rows) and
+   timed (the whole call, the group pass alone where there are keys, its
+   kernels' device time) beside the byte bound, the plain version and the interpreted
+   chain on the same device columns; B3b on f1's terms and s1's
+   recorded batch beside its bound, the plain version and B3a +
+   ``torch.nonzero``.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -123,8 +161,8 @@ generators and seeds without writing Parquet, each held bit-equal to the
 plain version; records under ``only_b5``. The numbers that go into
 PERF.md come from the run without flags, which drives every phase.
 
-Kernel launch counts are set to 0 just before phases 4, 5, 7 and 8 and
-read just after each; the kernel checks' launches are not counted as the main
+Kernel launch counts are set to 0 just before phases 4, 5, 7, 8 and 9
+and read just after each; the kernel checks' launches are not counted as the main
 path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -153,6 +191,8 @@ SEED = 7
 # HBM3 bandwidth, and 32-bit integer ALU operations (132 SMs x 64 INT32
 # lanes x 1.98 GHz boost; outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
+AGG_SWITCH = "hyperspace.index.agg.enabled"
+FUSED_SWITCH = "hyperspace.serve.fusedpipeline.enabled"
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
@@ -1053,6 +1093,7 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
         orders, CoveringIndexConfig("o_idx", ["o_orderkey"], ["o_custkey", "o_totalprice"])
     )
     log(f"join path: built o_idx over {N_ORDERS} rows in {time.perf_counter() - t0:.3f}s, "
+        f"stages { {k: round(v, 4) for k, v in sess.build_stats.items()} }, "
         f"B1 launches {ops.launch_counts()['murmur3_bucket_ids']}")
 
     def q():
@@ -1125,8 +1166,11 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
     a_src = gen_null_keyed(work, "nk_a", ("k1", "k2", "va"), SEED + 5)
     b_src = gen_null_keyed(work, "nk_b", ("j1", "j2", "vb"), SEED + 6)
     a, b = sess.read.parquet(a_src), sess.read.parquet(b_src)
-    hs.create_index(a, CoveringIndexConfig("nk_a_idx", ["k1", "k2"], ["va"]))
-    hs.create_index(b, CoveringIndexConfig("nk_b_idx", ["j1", "j2"], ["vb"]))
+    for df, name, cols in ((a, "nk_a_idx", (["k1", "k2"], ["va"])),
+                           (b, "nk_b_idx", (["j1", "j2"], ["vb"]))):
+        hs.create_index(df, CoveringIndexConfig(name, *cols))
+        log(f"join path: built {name}, stages "
+            f"{ {k: round(v, 4) for k, v in sess.build_stats.items()} }")
 
     def q2():
         return a.join(b, on=(a["k1"] == b["j1"]) & (a["k2"] == b["j2"])).select(
@@ -1415,15 +1459,22 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
     residual mask runs over all 6,001,215 rows; then the three ranges over
     li_rg_idx (8 buckets, about 12 row groups a file: row-group narrowing
     keeps about one a file at the narrow end). Each query is index-served,
-    takes the fused route (B3a), equals the unindexed plan as a multiset
-    and the same plan without range pruning in order. Launch counts read
-    from 0 at its start."""
+    takes the fused route (B3a) with the fused pipeline off, equals the
+    unindexed plan as a multiset and the same plan without range pruning
+    in order; then 5 runs on the default route (the fused pipeline on: the
+    fused select, B3b, for residuals of 32,768 rows or more), rows equal
+    in order, with its route, p50 and B3b / B3a launches. Launch counts
+    read from 0 at its start."""
     from hyperspace_tpu_torch import CoveringIndexConfig
     from hyperspace_tpu_torch import ops
     from hyperspace_tpu_torch.indexes import zonemaps
 
     sess, hs, items = ctx["session"], ctx["hs"], ctx["items"]
     ops.reset_launch_counts()
+    # the mask route (B3a) first, with the fused pipeline off; then the
+    # default route, where residuals of 32,768 rows or more take the fused
+    # select (B3b)
+    sess.conf.set(FUSED_SWITCH, False)
     rng = np.random.default_rng(SEED + 9)
     key, qty, ship = items["l_orderkey"], items["l_quantity"], items["l_shipdate"]
     queries = []  # (label suffix, condition, selected columns)
@@ -1444,7 +1495,8 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
             sess.conf.set("hyperspace.index.num_buckets", N_BUCKETS)
             files = hs.get_index("li_rg_idx").content.files
             log(f"range path: built li_rg_idx (8 buckets) in "
-                f"{time.perf_counter() - t0:.3f}s, {len(files)} files")
+                f"{time.perf_counter() - t0:.3f}s, {len(files)} files, stages "
+                f"{ {k: round(v, 4) for k, v in sess.build_stats.items()} }")
         for suffix, cond, cols in queries + ([cutoff] if index == "li_idx" else []):
             label = f"{index} {suffix}"
 
@@ -1482,10 +1534,37 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
             want = plan().collect()
             if got.num_rows == 0 or not sorted_rows(got).equals(sorted_rows(want)):
                 raise AssertionError(f"{label}: rows differ from the unindexed plan")
+            # the default route: residuals of 32,768 rows or more take the
+            # fused select (B3b), smaller ones stay on B3a
+            sess.enable_hyperspace()
+            sess.conf.set(FUSED_SWITCH, True)
+            sess.exec_stats.reset()
+            before = ops.launch_counts()
+            default_times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                default_got = plan().collect()
+                default_times.append((time.perf_counter() - t0) * 1e3)
+            dstats = sess.exec_stats.as_dict()
+            after = ops.launch_counts()
+            sess.conf.set(FUSED_SWITCH, False)
+            sess.disable_hyperspace()
+            if not default_got.equals(got):
+                raise AssertionError(f"{label}: the default route's rows differ from B3a's")
+            if dstats["fused_selects"] == 5:
+                default_route = "fused select (B3b)"
+            elif dstats["fused_range_masks"] == 5:
+                default_route = "mask (B3a)"
+            else:
+                raise AssertionError(f"{label}: the default route took no single route: {dstats}")
             p50 = float(np.median(times))
             residual = b3a_inputs.calls[label][1].num_rows
             r = {"query": label, "rows": got.num_rows, "residual_rows": residual,
                  "p50_ms": p50, "b3a_launches": launched,
+                 "default_route": default_route,
+                 "default_p50_ms": float(np.median(default_times)),
+                 "default_b3b_launches": after["fused_select"] - before["fused_select"],
+                 "default_b3a_launches": after["range_mask"] - before["range_mask"],
                  **{k: prune.get(k) for k in ("files_kept", "files_total",
                                               "row_groups_kept", "row_groups_total",
                                               "zonemap_files_sidecar",
@@ -1496,10 +1575,15 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
                 f"row groups kept {r['row_groups_kept']}/{r['row_groups_total']}; zone maps "
                 f"from sidecar {r['zonemap_files_sidecar']}, footer "
                 f"{r['zonemap_files_footer']}; B3a launches {launched}; equal to the "
-                f"unpruned plan in order and to the unindexed plan as a multiset")
+                f"unpruned plan in order and to the unindexed plan as a multiset; default "
+                f"route (fused pipeline on) {default_route}: p50_ms "
+                f"{r['default_p50_ms']:.3f} over 5, B3b launches "
+                f"{r['default_b3b_launches']}, B3a launches {r['default_b3a_launches']}, rows "
+                f"equal in order")
     narrow = next(r for r in results if r["query"] == f"li_rg_idx {RANGE_FRACTIONS[0]:.1%}")
     if narrow["row_groups_kept"] > 2 * narrow["files_total"]:
         raise AssertionError(f"row-group narrowing kept too much: {narrow}")
+    sess.conf.set(FUSED_SWITCH, True)
     launches = ops.launch_counts()
     log(f"range path: phase launches {launches}")
     return {"launches": launches, "queries": results}
@@ -2095,6 +2179,512 @@ def b5_replica(dev) -> tuple:
     return recorded, hosts
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (B3b, B5f) and phase 9: the aggregate index plane and the fused
+# filter→aggregate / filter→select (kernels B5f and B3b)
+# ---------------------------------------------------------------------------
+
+
+def check_b3b_b5f_cases(dev) -> tuple:
+    """B3b's and B5f's cases (``tests/torch_b5f_cases.py``) on the card,
+    each bit-equal to its plain version (B3b's indices against
+    ``torch.nonzero`` of the plain mask on the same device columns, B5f's
+    carried state after every chunk against the plain version's on the
+    CPU), each timed cold (host clock around a synchronised call after the
+    L2 flush: both read their counts back); NEVER_MATCH launches nothing.
+    Returns (count, max abs error)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5f_cases import B3B_CASES, B5F_CASES, fused_kernel_errors, port_plan
+    from torch_b5f_cases import select_kernel_errors
+
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops import filter as F
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    count, times = 0, {}
+    for name, (table, terms) in B3B_CASES.items():
+        before = F.select_launches
+        if select_kernel_errors(table, terms, dev) != 0:
+            raise AssertionError(f"B3b case {name!r} differs from its plain version")
+        batch = ColumnarBatch.from_arrow(table)
+        got = F.fused_filter_select(list(terms), batch, dev)
+        if not np.array_equal(got, np.nonzero(F.range_mask_numpy(batch, list(terms)))[0]):
+            raise AssertionError(f"B3b case {name!r} differs from np.nonzero of the mask")
+        if name in ("never_match", "empty") and F.select_launches != before:
+            raise AssertionError(f"B3b case {name!r} launched")
+        args = F.range_args(batch, list(terms), dev)
+        if args is not None and args != F.NEVER_MATCH and batch.num_rows:
+            times[f"b3b {name}"] = host_cold_ms(lambda: F.select_kernel(args), flush)
+        count += 1
+    for name, case in B5F_CASES.items():
+        errs = fused_kernel_errors(case, dev)
+        if any(errs.values()):
+            raise AssertionError(f"B5f case {name!r} differs from its plain version: {errs}")
+        plan = port_plan(case)
+        batches = [ColumnarBatch.from_arrow(t) for t in case["chunks"]]
+
+        def run():
+            st = PC.AggState(plan, dev)
+            for b in batches:
+                st.accumulate(b)
+
+        times[f"b5f {name}"] = host_cold_ms(run, flush)
+        count += 1
+    torch.cuda.synchronize()
+    log(f"kernels: B3b indices and B5f states equal bit for bit to their plain versions over "
+        f"{count} cases (tests/torch_b5f_cases.py); NEVER_MATCH launches nothing; cold ms "
+        f"(host clock, synchronised, L2 flushed) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return count, 0
+
+
+def host_cold_ms(fn, flush, iters: int = 5) -> float:
+    """Median host-clock milliseconds of ``fn`` followed by a
+    synchronise, each run after reading ``flush``: for a call that reads a
+    count back from the card mid-way, so the device events would time the
+    host's round trip anyway."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(iters):
+        flush.sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+class B3bInputs:
+    """Keeps the terms and host batch of the first fused select each label's
+    plans ask for (``ops/filter.fused_filter_select``, as the executor's
+    fused Filter calls it), for the timing after phase 9. Calls straight
+    through, so its launches count as the main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import filter as F
+
+        self.calls, self.label = {}, None
+        inner = F.fused_filter_select
+
+        def recording(terms, batch, device):
+            if self.label is not None:
+                self.calls.setdefault(self.label, (list(terms), batch))
+            return inner(terms, batch, device)
+
+        F.fused_filter_select = recording
+
+
+def agg_plane_queries(F, df) -> dict:
+    """Phase 9's queries over a lineitem DataFrame of either session:
+    label -> (plan, the index the rules should take, the switch of the
+    route under test)."""
+    key, qty = df["l_orderkey"], df["l_quantity"]
+    window = (key >= AGG_LO) & (key < AGG_HI)
+    return {
+        "m1": (df.filter(key >= 0).group_by("l_quantity").agg(
+            F.count().alias("n"), F.min("l_orderkey").alias("mn"),
+            F.max("l_orderkey").alias("mx"), F.sum("l_orderkey").alias("s")),
+            "li_rg_idx", AGG_SWITCH),
+        "m2": (df.filter(window).agg(F.count(), F.sum("l_quantity"), F.min("l_quantity"),
+                                     F.max("l_quantity")), "li_rg_idx", AGG_SWITCH),
+        "f1": (aggregate_queries(F, df)["a"], "li_idx", FUSED_SWITCH),
+        "f2": (df.filter(window).group_by("l_quantity").agg(
+            F.count(), F.sum("l_quantity"), F.min("l_shipdate"), F.max("l_shipdate")),
+            "li_idx", FUSED_SWITCH),
+        "s1": (df.filter(window & (qty < 24)).select("l_shipdate"), "li_idx", FUSED_SWITCH),
+    }
+
+
+def aggplane_path(work: str, ctx: dict, b3b_inputs: B3bInputs) -> dict:
+    """Phase 9: the aggregate index plane and the fused routes over phase
+    4's lineitem, li_idx and li_rg_idx with the sidecars their creates
+    captured (``agg_plane_queries``): m1 from metadata alone, m2 with its
+    boundary row groups through B5f, f1 and f2 on the fused aggregate,
+    s1 on the fused select. Each: explain names its index; one warm-up;
+    5 rounds of the route on and off in turns (p50 of each, the route's
+    stats); rows equal bit for bit in order to the route off, to a
+    ``device="cpu"`` session's and to the plan without Hyperspace (s1 as a
+    multiset: index rows come bucket by bucket). Then li_rg_idx's
+    ``_aggstate.json`` against the doc a cpu session computes over the
+    same files. Launch counts read from 0 at its start."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import HyperspaceSession, functions as F
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.indexes import aggindex
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    sess, hs, items, src = ctx["session"], ctx["hs"], ctx["items"], ctx["src"]
+    cpu = HyperspaceSession(device="cpu")
+    for key in ("hyperspace.system.path", "hyperspace.index.filterRule.useBucketSpec"):
+        cpu.conf.set(key, sess.conf.get(key))
+    cpu.enable_hyperspace()
+    ops.reset_launch_counts()
+    sess.enable_hyperspace()
+    queries = agg_plane_queries(F, items)
+    cpu_queries = agg_plane_queries(F, cpu.read.parquet(src))
+    results = []
+    for label, (q, index, switch) in queries.items():
+        text = hs.explain(q)
+        if f"Name: {index}," not in text.split("Plan without indexes:")[0]:
+            raise AssertionError(f"{label}: {index} not used:\n{text}")
+        b3b_inputs.label = label
+        q.collect()  # warm-up
+        b3b_inputs.label = None
+        on_ms, off_ms, stages, got = [], [], [], None
+        for _ in range(5):
+            for route in (True, False):
+                sess.conf.set(switch, route)
+                PC.last_aggplane_stats, PC.last_fused_stats = {}, {}
+                sess.exec_stats.reset()
+                t0 = time.perf_counter()
+                out = q.collect()
+                (on_ms if route else off_ms).append((time.perf_counter() - t0) * 1e3)
+                if route:
+                    got, stats = out, (dict(PC.last_aggplane_stats), dict(PC.last_fused_stats),
+                                       sess.exec_stats.as_dict())
+                    stages.append(dict(sess.agg_stats))
+                elif not same_rows(got, out):
+                    raise AssertionError(f"{label}: rows differ with {switch} off")
+        sess.conf.set(switch, True)
+        plane, fused, counts = stats
+        if label == "m1" and not (plane.get("mode") == "agg_metadata"
+                                  and plane["row_groups_scanned"] == 0
+                                  and plane["row_groups_metadata"] == plane["row_groups_total"]
+                                  == 96):
+            raise AssertionError(f"m1: not answered from metadata alone: {plane}")
+        if label == "m2" and not (plane.get("mode") == "agg_metadata"
+                                  and plane["row_groups_metadata"] > 0):
+            raise AssertionError(f"m2: not answered from metadata: {plane}")
+        if label in ("f1", "f2") and fused.get("mode") != "agg":
+            raise AssertionError(f"{label}: not on the fused aggregate: {fused}")
+        if label == "s1" and fused.get("mode") != "select":
+            raise AssertionError(f"s1: not on the fused select: {fused}")
+        if not same_rows(got, cpu_queries[label][0].collect()):
+            raise AssertionError(f"{label}: rows differ from the cpu session's")
+        sess.disable_hyperspace()
+        want = q.collect()
+        sess.enable_hyperspace()
+        got_cmp, want = (sorted_rows(got), sorted_rows(want)) if label == "s1" else (got, want)
+        if got.num_rows == 0 or not same_rows(got_cmp, want):
+            raise AssertionError(f"{label}: rows differ from the plan without Hyperspace")
+        stage_p50 = {k: float(np.median([s.get(k, 0.0) for s in stages]))
+                     for k in sorted({k for s in stages for k in s})}
+        r = {"query": label, "index": index, "rows": got.num_rows,
+             "p50_ms": float(np.median(on_ms)), "off_p50_ms": float(np.median(off_ms)),
+             "stages_p50_s": stage_p50,
+             "aggplane": {k: v for k, v in plane.items() if k != "wall_s"},
+             "fused": {k: v for k, v in fused.items() if k != "wall_s"},
+             "routes": {k: counts[k] for k in ("metadata_aggregates", "fused_aggregates",
+                                               "fused_selects", "fused_range_masks")}}
+        results.append(r)
+        log(f"aggplane path: {label} over {index}: p50_ms {r['p50_ms']:.3f} with the route, "
+            f"{r['off_p50_ms']:.3f} with {switch} off (5 each, in turns); {got.num_rows} rows; "
+            f"routes {r['routes']}; metadata {r['aggplane']}; fused {r['fused']}; stage p50 s "
+            f"{ {k: round(v, 4) for k, v in stage_p50.items()} }; equal bit for bit to the "
+            f"route off, to the cpu session and to the plan without Hyperspace"
+            f"{' as a multiset' if label == 's1' else ''}")
+    launches = ops.launch_counts()
+    if launches["fused_select"] <= 0 or launches["fused_filter_agg"] <= 0:
+        raise AssertionError(f"phase 9 launched B3b or B5f no time: {launches}")
+    log(f"aggplane path: phase launches {launches}")
+
+    files = hs.get_index("li_rg_idx").content.files
+    with open(os.path.join(os.path.dirname(files[0]), aggindex.SIDECAR_NAME)) as fh:
+        stored = json.load(fh)["files"]
+    t0 = time.perf_counter()
+    for f, (entry, _sample) in zip(files, aggindex.file_agg_docs(files, device="cpu")):
+        mine = dict(stored[os.path.basename(f)])
+        mine.pop("size")
+        mine.pop("mtime_ns")
+        if mine != entry:
+            raise AssertionError(f"li_rg_idx's _aggstate.json differs from the cpu doc for {f}")
+    groups = sum(pq.ParquetFile(f).metadata.num_row_groups for f in files)
+    log(f"aggplane path: li_rg_idx's _aggstate.json (captured on the card) equals the doc a "
+        f"cpu session computes over its {len(files)} files and {groups} row groups apart "
+        f"from mtime_ns ({time.perf_counter() - t0:.2f}s on the cpu)")
+    return {"launches": launches, "queries": results}
+
+
+def f_inputs(dev, ctx) -> dict:
+    """f1's and f2's inputs on the card: li_idx's columns l_orderkey,
+    l_shipdate and l_quantity over all its files in file order (the rows
+    the fused route reads, as one chunk of 6,001,215 rows), with each
+    query's lowered plan. -> label -> (plan, chunk, host batch)."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch import functions as F
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.io import parquet as pio
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+
+    files = ctx["hs"].get_index("li_idx").content.files
+    cols = ["l_orderkey", "l_shipdate", "l_quantity"]
+    batch = ColumnarBatch.from_arrow(pa.concat_tables(pio.read_tables(files, cols)))
+    schema = {c: batch.column(c).arrow_type for c in cols}
+    out = {}
+    for label, (q, _index, _switch) in agg_plane_queries(F, ctx["items"]).items():
+        if label not in ("f1", "f2"):
+            continue
+        plan = q.logical_plan
+        cond = plan.child.condition
+        fplan = PC._lower_fused_agg(cond, plan.group_by, plan.aggs, schema, cols)
+        chunk = PC.AggState(fplan, dev)._chunk(batch)
+        out[label] = (fplan, chunk, batch)
+    return out
+
+
+def fused_agg_bound(chunk) -> dict:
+    """Least time of B5f on one chunk: the bytes of its inputs, each
+    distinct column read once (8 bytes a row) and each validity once (1
+    byte a row), over HBM bandwidth; the outputs (a few words a group)
+    and its operations (a few a row and column) are below that."""
+    seen, nbytes = set(), 0
+    tensors = []
+    if chunk.terms is not None:
+        tensors += list(chunk.terms.cols) + [v for v in chunk.terms.valids if v is not None]
+    tensors += [t for b, v, _f in chunk.keys for t in (b, v) if t is not None]
+    tensors += [t for _op, x, v in chunk.aggs for t in (x, v) if t is not None]
+    for t in tensors:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": ms, "bound_by": "bytes"}
+
+
+def interpreted_chain(fplan, chunk):
+    """The port's interpreted chain on the same device columns: B3a's
+    mask, the passing rows gathered, the group keys factorized (a stable
+    device sort of the rep planes and the boundaries) and B5 per
+    aggregate, as ``aggregate_exec`` runs it; the B5f yardstick."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate as A
+    from hyperspace_tpu_torch.ops import filter as F
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+    from hyperspace_tpu_torch.ops.sort import sort_permutation
+
+    mask = F.range_mask_kernel(chunk.terms)
+    rows = torch.nonzero(mask).flatten()
+    n = rows.numel()
+    dev = rows.device
+    perm, offs = None, torch.tensor([0, n], dtype=torch.int64, device=dev)
+    if chunk.keys:
+        planes = []
+        for bits, valid, f64 in chunk.keys:
+            rep, nul = FA.key_rep_torch(bits[rows], None if valid is None else valid[rows], f64)
+            planes += [rep, nul.to(torch.int64)]
+        reps = torch.stack(planes)
+        perm = sort_permutation(reps)
+        srt = reps[:, perm]
+        neq = (srt[:, 1:] != srt[:, :-1]).any(dim=0)
+        starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.nonzero(neq).flatten() + 1])
+        offs = torch.cat([starts, torch.full((1,), n, dtype=torch.int64, device=dev)])
+    out = []
+    for op, vals, valid in chunk.aggs:
+        if vals is None:
+            out.append(A.segment_count(perm, offs, None if valid is None else valid[rows]))
+            continue
+        v = vals[rows]
+        ok = None if valid is None else valid[rows]
+        if op in (FA.OP_SUM_I64, FA.OP_SUM_F64):
+            out.append(A.segment_sum_count_kernel(perm, offs, v, ok))
+        else:
+            mode = "min" if op in (FA.OP_MIN_I64, FA.OP_MIN_F64) else "max"
+            fill = None if v.dtype == torch.float64 else (I64_MAX if mode == "min" else I64_MIN)
+            out.append(A.segment_minmax_kernel(perm, offs, v, ok, mode, fill))
+    return out
+
+
+def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
+    """B5f and B3b on phase 9's inputs: B5f on f1's and f2's (one chunk of
+    6,001,215 rows), first held bit-equal to the plain version on the CPU,
+    then timed cold on the card: the whole call (B3b's compaction, group
+    pass, numbering, B5; CUDA events around it, so host round trips
+    between its launches count), the group pass alone over the passing
+    rows (its C function launched directly; f2 only, f1 has no keys) and,
+    warm (back to back), the device time of its kernels (torch.profiler),
+    beside the byte bound, the plain version (host clock) and the
+    interpreted chain on the same device columns. B3b on f1's terms over the same l_orderkey column
+    and on s1's recorded batch: its three kernels launched directly (no
+    count read back), cold, beside its bound, the plain version on the
+    card, and B3a plus ``torch.nonzero``. Returns (B3b record, B5f
+    record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5f_cases import _state_bits
+
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.ops import filter as F
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    med = lambda t: float(np.median(t))  # noqa: E731
+    b5f = {}
+    for label, (fplan, chunk, batch) in inputs.items():
+        empty = lambda: PC.AggState(fplan, dev).state  # noqa: E731
+        got = FA.fused_filter_agg_kernel(empty(), chunk)
+        cpu_state = PC.AggState(fplan, "cpu")
+        cpu_chunk = cpu_state._chunk(batch)
+        t0 = time.perf_counter()
+        want = FA.fused_filter_agg_torch(cpu_state.state, cpu_chunk)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        a, b = _state_bits(got), _state_bits(want)
+        bad = {k: int((a[k] != b[k]).sum()) for k in a if a[k].shape == b[k].shape}
+        if any(bad.values()) or any(a[k].shape != b[k].shape for k in a):
+            raise AssertionError(f"B5f on {label}'s inputs differs from its plain version: {bad}")
+        ms = med(time_cold(lambda: FA.fused_filter_agg_kernel(empty(), chunk), flush, iters=10))
+        gp = group_pass_launcher(chunk, empty())
+        gp_ms = None if gp is None else med(time_cold(gp, flush, iters=10))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                FA.fused_filter_agg_kernel(empty(), chunk)
+            torch.cuda.synchronize()
+        kernel_us = sum(ev.device_time_total for ev in prof.key_averages())
+        chain_ms = med(time_cold(lambda: interpreted_chain(fplan, chunk), flush, iters=10))
+        r = {"n": chunk.n, "groups": got.n_groups, "rows_passed": got.rows_passed, "ms": ms,
+             "group_pass_ms": gp_ms,
+             "kernels_warm_ms": kernel_us / 5e3 if kernel_us > 0 else None,
+             "plain_ms": plain_ms, "interpreted_chain_ms": chain_ms, **fused_agg_bound(chunk)}
+        b5f[label] = r
+        log(f"kernels: B5f on {label}'s inputs ({r['n']} rows, {r['groups']} groups, "
+            f"{r['rows_passed']} passing) equal bit for bit to its plain version; cold ms "
+            f"{ms:.4f} the whole call (device timeline, host syncs included), group pass "
+            f"alone {'none (no keys)' if gp_ms is None else format(gp_ms, '.4f')}, device "
+            f"kernel time warm "
+            f"{'not measured' if r['kernels_warm_ms'] is None else format(r['kernels_warm_ms'], '.4f')} "
+            f"(torch.profiler, back to back); bound_ms {r['bound_ms']:.4f} (bytes "
+            f"{r['bytes']}); plain_ms {plain_ms:.2f} (cpu, host clock); interpreted chain on "
+            f"the same device columns (B3a, gather, factorize, B5) {chain_ms:.4f}")
+    b3b = {}
+    f1_terms = inputs["f1"][1].terms
+    sources = {"f1": f1_terms}
+    for label, (terms, batch) in b3b_calls.items():
+        sources[label] = F.range_args(batch, terms, dev)
+    for label, args in sources.items():
+        launch = select_launcher(args)
+        idx = F.select_kernel(args)
+        if not torch.equal(idx, F.select_torch(args)):
+            raise AssertionError(f"B3b on {label}'s inputs differs from its plain version")
+        ms = med(time_cold(launch, flush))
+        plain_ms = med(time_cold(lambda: F.select_torch(args), flush, iters=10))
+        yard_ms = med(time_cold(lambda: torch.nonzero(F.range_mask_kernel(args)), flush,
+                                iters=10))
+        n = args.n
+        nbytes = sum(c.numel() * 8 for c in args.cols) + sum(
+            v.numel() for v in args.valids if v is not None) + 8 * idx.numel()
+        b3b[label] = r = {"n": n, "passing": int(idx.numel()), "ms": ms, "plain_ms": plain_ms,
+                          "b3a_nonzero_ms": yard_ms, "bytes": nbytes,
+                          "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(f"kernels: B3b on {label}'s inputs ({n} rows, {r['passing']} passing) equal to its "
+            f"plain version; cold ms {ms:.4f} (count, scan, emit), bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / ms:.1%}; bytes {nbytes}); plain_ms "
+            f"{plain_ms:.4f} (torch mask and nonzero on the card); B3a + torch.nonzero "
+            f"{yard_ms:.4f}")
+    head3, head5 = b3b["f1"], b5f["f1"]
+    b3b_rec = {
+        "name": "fused_select", "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/fused_select.cu",
+        "replaces": "hyperspace_tpu/native/hs_native.cpp:542",
+        "launches": None, "max_abs_err": 0,
+        "ms": head3["ms"], "plain_ms": head3["plain_ms"], "bound_ms": head3["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timing": "cold: 256 MiB read before each run, median of 30; on f1's window terms "
+                  "over li_idx's l_orderkey column",
+        "b3a_nonzero_ms": head3["b3a_nonzero_ms"],
+        "other_inputs": {k: v for k, v in b3b.items() if k != "f1"},
+    }
+    b5f_rec = {
+        "name": "fused_filter_agg", "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/fused_agg.cu",
+        "replaces": "hyperspace_tpu/native/hs_native.cpp:632",
+        "launches": None, "max_abs_err": 0,
+        "ms": head5["ms"], "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timing": "cold: 256 MiB read before each run, median of 10; the whole call on f1's "
+                  "inputs as one chunk (B3b's compaction, B5; no keys, so no group pass), "
+                  "host syncs included",
+        **{k: head5[k] for k in ("n", "groups", "rows_passed", "group_pass_ms", "kernels_warm_ms",
+                                 "interpreted_chain_ms", "bytes")},
+        "other_inputs": {k: v for k, v in b5f.items() if k != "f1"},
+    }
+    return b3b_rec, b5f_rec
+
+
+def select_launcher(args):
+    """B3b's C function on ``args`` with its buffers allocated once: the
+    three launches without the count's read back, for event timing."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+
+    lib = F._select_lib()
+    dev = args.cols[0].device
+    out = torch.empty(args.n, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(int(lib.hs_select_scratch_bytes(args.n)), dtype=torch.uint8, device=dev)
+    arrays = F.term_arrays(args)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.hs_fused_select(*arrays, args.n, out.data_ptr(), total.data_ptr(),
+                                  scratch.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B3b launch failed: CUDA error {err}")
+
+    return launch
+
+
+def group_pass_launcher(chunk, state):
+    """B5f's group pass (``hs_fused_group``) over ``chunk``'s passing rows
+    (compacted by B3b once, beforehand) with its buffers allocated once,
+    for event timing; None for a chunk without keys (no group pass)."""
+    import ctypes
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    nk, G = len(chunk.keys), state.n_groups
+    if not nk:
+        return None
+    lib = FA._lib()
+    dev = chunk.device
+    rows = F.select_kernel(chunk.terms) if chunk.terms is not None else None
+    m = chunk.n if rows is None else rows.numel()
+    T = FA.table_size(G, m)
+    table = torch.empty(T, dtype=torch.int64, device=dev)
+    slot = torch.empty(max(m, 1), dtype=torch.int64, device=dev)
+    keys = (ctypes.c_void_p * nk)(*[b.data_ptr() for b, _v, _f in chunk.keys])
+    valids = (ctypes.c_void_p * nk)(
+        *[None if v is None else v.data_ptr() for _b, v, _f in chunk.keys])
+    f64 = sum(1 << j for j, (_b, _v, f) in enumerate(chunk.keys) if f)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.hs_fused_group(keys, valids, f64, nk, None, None, 0,
+                                 None if rows is None else rows.data_ptr(), m,
+                                 table.data_ptr(), T, slot.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B5f group pass failed: CUDA error {err}")
+
+    return launch
+
+
 def main() -> int:
     import argparse
 
@@ -2157,6 +2747,7 @@ def main() -> int:
     b4_cases_run, b4_case_err = check_b4_cases(dev)
     b3a_cases_run, b3a_case_err = check_b3a_cases(dev)
     b5_cases_run, b5_case_err = check_b5_cases(dev)
+    fused_cases_run, _ = check_b3b_b5f_cases(dev)
     if args.only_b4:  # no main path: its launches stay null
         b4 = b4_timings(dev, b4_replica(dev))
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
@@ -2176,6 +2767,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     b4_inputs, b3a_inputs, b5_inputs = B4Inputs(), B3aInputs(), B5Inputs()
+    b3b_inputs = B3bInputs()
     chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
@@ -2185,6 +2777,8 @@ def main() -> int:
         b3a_launches = (ctx["all_launches"]["range_mask"]
                         + range_path(work, ctx, b3a_inputs)["launches"]["range_mask"])
         b5_launches = aggregate_path(work, ctx, b5_inputs)["launches"]["segment_reduce"]
+        fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
+        f_in = f_inputs(dev, ctx)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -2200,10 +2794,13 @@ def main() -> int:
     b5 = b5_timings(dev, b5_inputs.calls, b5_inputs.host, chain_ns)
     b5.update(launches=b5_launches, max_abs_err=max(b5_case_err, b5_err),
               cases=b5_cases_run + b5_calls)
+    b3b, b5f = fused_timings(dev, f_in, b3b_inputs.calls)
+    b3b.update(launches=fused_launches["fused_select"])
+    b5f.update(launches=fused_launches["fused_filter_agg"], cases=fused_cases_run)
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4, b3a, b5]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f]}), flush=True)
     print(
         json.dumps(
             {

@@ -11,6 +11,8 @@ reference's apart from timestamps and ids.
 
 from __future__ import annotations
 
+import time
+
 from typing import Dict
 
 from hyperspace_tpu_torch import constants as C
@@ -95,14 +97,19 @@ class CreateAction(Action):
             ctx, self.df, self._enriched_properties()
         )
         index.write(ctx, index_data)
-        # zone-map sidecar for the range serve plane (best effort: the
-        # serve path backfills from parquet footers when it is absent).
-        # The aggregate sidecars the reference writes here
-        # (_aggstate.json, _aggsample.parquet) come with the aggregate
-        # plane (ROADMAP queue A item 2.3).
-        from hyperspace_tpu_torch.indexes import zonemaps
+        # sidecars (best effort: the serve path backfills without them):
+        # zone maps for the range serve plane, then the aggregate index
+        # plane's _aggstate.json and _aggsample.parquet, computed on the
+        # session's device; the latter's seconds are the build stage
+        # "sidecar_capture"
+        from hyperspace_tpu_torch.indexes import aggindex, zonemaps
 
         zonemaps.capture_safely(self.index_data_path, index)
+        t0 = time.perf_counter()
+        aggindex.capture_safely(
+            self.index_data_path, index, self.session.conf, self.session.device
+        )
+        self.session.build_stats["sidecar_capture"] = time.perf_counter() - t0
         self._index = index
 
     def _enriched_properties(self) -> Dict[str, str]:

@@ -96,6 +96,27 @@ class Config:
 
     @property
     def index_agg_enabled(self) -> bool:
-        """The AggregateIndexRule rewrite (the reference's aggregate index
-        plane switch)."""
+        """The aggregate index plane: sidecar capture at create, the
+        metadata aggregate and the AggregateIndexRule rewrite."""
         return self.get_bool(C.INDEX_AGG_ENABLED, C.INDEX_AGG_ENABLED_DEFAULT)
+
+    @property
+    def index_agg_max_groups(self) -> int:
+        """Per-row-group distinct-value cap for grouped-partial capture."""
+        return max(
+            0, self.get_int(C.INDEX_AGG_MAX_GROUPS, C.INDEX_AGG_MAX_GROUPS_DEFAULT)
+        )
+
+    @property
+    def index_agg_sample_rows(self) -> int:
+        """Stratified-sample rows captured per row group (0 = none)."""
+        return max(
+            0, self.get_int(C.INDEX_AGG_SAMPLE_ROWS, C.INDEX_AGG_SAMPLE_ROWS_DEFAULT)
+        )
+
+    @property
+    def serve_fusedpipeline_enabled(self) -> bool:
+        """The fused filter→aggregate and filter→select routes."""
+        return self.get_bool(
+            C.SERVE_FUSEDPIPELINE_ENABLED, C.SERVE_FUSEDPIPELINE_ENABLED_DEFAULT
+        )

@@ -78,14 +78,40 @@ SERVE_RANGEPRUNE_ENABLED_DEFAULT = True
 SERVE_PIPELINE_ENABLED = "hyperspace.serve.pipeline.enabled"
 SERVE_PIPELINE_ENABLED_DEFAULT = False
 
-# Aggregate index plane: the reference's master switch for the
-# ``_aggstate.json`` / ``_aggsample.parquet`` sidecars, the metadata
-# aggregate and the AggregateIndexRule rewrite of bare Aggregate∘Scan
-# plans onto a covering index. The port has the rule only (the sidecars
-# and the metadata aggregate are ROADMAP queue A item 2.3), so here the
-# key gates the rule.
+# Aggregate index plane (indexes/aggindex.py): the master switch for the
+# ``_aggstate.json`` / ``_aggsample.parquet`` sidecars written at create,
+# the metadata aggregate (execution/pipeline_compiler.
+# try_metadata_aggregate) and the AggregateIndexRule rewrite of bare
+# Aggregate∘Scan plans onto a covering index. Off: no capture, no
+# metadata route, no rewrite.
 INDEX_AGG_ENABLED = "hyperspace.index.agg.enabled"
 INDEX_AGG_ENABLED_DEFAULT = True
+
+# Grouped-partial capture cap: per row group, single-column grouped
+# partials are captured only for fusable columns with at most this many
+# distinct values there. A cap, never a correctness knob: a row group
+# without a grouped entry is scanned at serve time.
+INDEX_AGG_MAX_GROUPS = "hyperspace.index.agg.maxGroupsPerRowGroup"
+INDEX_AGG_MAX_GROUPS_DEFAULT = 256
+
+# Rows sampled per row group (seeded by file and row group) into the
+# ``_aggsample.parquet`` sidecar of the approximate plane; 0 disables it.
+INDEX_AGG_SAMPLE_ROWS = "hyperspace.index.agg.sampleRowsPerGroup"
+INDEX_AGG_SAMPLE_ROWS_DEFAULT = 128
+
+# Fused serve pipeline (execution/pipeline_compiler.py): a
+# Filter(→Project)→Aggregate over a pruned index scan runs as one fused
+# pass per row-group chunk (kernel B5f on the card), and a Filter over a
+# scan compacts its passing rows in one pass (kernel B3b). Rows equal the
+# interpreted chain's; False restores it.
+SERVE_FUSEDPIPELINE_ENABLED = "hyperspace.serve.fusedpipeline.enabled"
+SERVE_FUSEDPIPELINE_ENABLED_DEFAULT = True
+
+# Scanned rows at or above which the fused routes dispatch. The reference
+# calibrates this per machine and keeps this value as the fallback; the
+# port has no calibration probe (ROADMAP queue A item 10) and uses it as
+# it is (pipeline_compiler._NATIVE_FUSED_PIPELINE_MIN_ROWS).
+NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT = 1 << 15
 
 # ---------------------------------------------------------------------------
 # Reserved column / property names

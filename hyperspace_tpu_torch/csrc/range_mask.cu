@@ -22,6 +22,9 @@
 // columns without nulls over 6,001,215 rows move 102.0 MB, 30.5 us at the
 // 3.35 TB/s of an H100 SXM (700 W part).
 //
+// The predicate (Term, Args, holds, row_mask) lives in range_terms.cuh,
+// shared with B3b and B5f.
+//
 // Design, a simple one for that bound:
 // * The terms arrive grouped by column (the wrapper sorts them), so each
 //   thread loads a column's value once and tests every term on it: two
@@ -43,52 +46,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "range_terms.cuh"
+
 namespace {
 
-constexpr int kMaxTerms = 16;
+using hs_terms::Args;
+using hs_terms::holds;
+using hs_terms::row_mask;
+using hs_terms::Term;
+
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // row pairs in flight per thread
 constexpr unsigned kMaxBlocks = 132 * 16;
-
-constexpr int kHasLo = 1, kHasHi = 2, kLoStrict = 4, kHiStrict = 8, kF64 = 16;
-
-struct Term {
-  int64_t lo_i, hi_i;
-  double lo_f, hi_f;
-  int flags;
-};
-
-struct Args {
-  const int64_t* cols[kMaxTerms];
-  const uint8_t* valid[kMaxTerms];  // nullptr: the column has no nulls
-  int term_begin[kMaxTerms + 1];    // terms of column c: [begin[c], begin[c+1])
-  int ncols;
-  Term terms[kMaxTerms];
-};
-
-__device__ __forceinline__ bool holds(const Term& t, int64_t bits) {
-  bool ok = true;
-  if (t.flags & kF64) {
-    const double v = __longlong_as_double(bits);
-    if (t.flags & kHasLo) ok &= (t.flags & kLoStrict) ? v > t.lo_f : v >= t.lo_f;
-    if (t.flags & kHasHi) ok &= (t.flags & kHiStrict) ? v < t.hi_f : v <= t.hi_f;
-  } else {
-    if (t.flags & kHasLo) ok &= (t.flags & kLoStrict) ? bits > t.lo_i : bits >= t.lo_i;
-    if (t.flags & kHasHi) ok &= (t.flags & kHiStrict) ? bits < t.hi_i : bits <= t.hi_i;
-  }
-  return ok;
-}
-
-// one row, every term: the odd last row and nothing else
-__device__ __forceinline__ uint8_t row_mask(const Args& a, int64_t row) {
-  bool ok = true;
-  for (int c = 0; c < a.ncols; ++c) {
-    const int64_t v = __ldg(a.cols[c] + row);
-    if (a.valid[c] != nullptr) ok &= __ldg(a.valid[c] + row) != 0;
-    for (int t = a.term_begin[c]; t < a.term_begin[c + 1]; ++t) ok &= holds(a.terms[t], v);
-  }
-  return ok ? 1 : 0;
-}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -179,28 +148,15 @@ extern "C" int hs_range_mask(const void* const* cols, const void* const* valids,
                              const int* term_col, const int64_t* lo_i, const int64_t* hi_i,
                              const double* lo_f, const double* hi_f, const int* flags,
                              int nterms, void* out, int64_t n, void* stream) {
-  if (ncols < 1 || ncols > kMaxTerms || nterms < 1 || nterms > kMaxTerms || n < 0)
-    return (int)cudaErrorInvalidValue;
-  Args a = {};
-  a.ncols = ncols;
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  Args a;
+  const cudaError_t packed =
+      hs_terms::pack_args(a, cols, valids, ncols, term_col, lo_i, hi_i, lo_f, hi_f, flags,
+                          nterms, /*allow_empty=*/false);
+  if (packed != cudaSuccess) return (int)packed;
   bool vec = aligned(out, 2);
-  for (int c = 0; c < ncols; ++c) {
-    a.cols[c] = static_cast<const int64_t*>(cols[c]);
-    a.valid[c] = static_cast<const uint8_t*>(valids[c]);
-    if (a.cols[c] == nullptr) return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < ncols; ++c)
     vec = vec && aligned(a.cols[c], 16) && (a.valid[c] == nullptr || aligned(a.valid[c], 2));
-  }
-  int t = 0;
-  for (int c = 0; c < ncols; ++c) {
-    a.term_begin[c] = t;
-    while (t < nterms && term_col[t] == c) {
-      a.terms[t] = Term{lo_i[t], hi_i[t], lo_f[t], hi_f[t], flags[t]};
-      ++t;
-    }
-    if (t == a.term_begin[c]) return (int)cudaErrorInvalidValue;  // a column without terms
-  }
-  if (t != nterms) return (int)cudaErrorInvalidValue;  // not grouped by column
-  a.term_begin[ncols] = t;
   if (n == 0) return (int)cudaGetLastError();
   const int64_t pairs = n >> 1;
   const int64_t want = (pairs + (int64_t)kThreads * kUnroll - 1) / ((int64_t)kThreads * kUnroll);

@@ -29,6 +29,11 @@
 //   atomic can meet it: one lane of a warp adds the group's rows in order.
 //   NaN bits follow the x86 fold: the first NaN the fold meets stays (a
 //   NaN value, quieted, or for inf + -inf the default NaN 0xFFF8...).
+//   An optional start vector ([G], the column's type) replaces +0.0 as
+//   group g's first operand: the fused filter-aggregate (fused_agg.cu,
+//   B5f) carries its float sums across chunks this way, as the
+//   reference's row sweep carries acc_f. A NaN start stays, quieted once
+//   the group has a row to add, as the x86 add of a NaN first operand.
 //
 // Bounds on the H100 (3.35 TB/s; the add latency from
 // scripts/torch_chain_probe.cu). The range pass reads offs (8 B a group),
@@ -84,12 +89,14 @@
 //   arrived an iteration ago, and load tile t + 3's rows. No load that
 //   lane 0 waits on was issued in the same iteration, so a group gathered
 //   through a permutation adds at nearly the pace of an identity one. An
-//   invalid row stages +0.0, which adds nothing (the sum starts at +0.0
-//   and never becomes -0.0). The adds run unguarded; a tile whose sum
-//   turns NaN is folded again with the NaN rule from the sum before it.
+//   invalid row stages +0.0, which the fold adds as the reference adds
+//   0.0 for a null row (from a -0.0 start that add gives +0.0). The adds
+//   run unguarded; a tile whose sum turns NaN is folded again with the
+//   NaN rule from the sum before it.
 //   A NaN sum stays as it is. What is left above the chain is lane 0's
 //   shared-memory reads (ptxas issues each two adds ahead) and the
-//   staging instructions it runs between tiles.
+//   staging instructions it runs between tiles. A start, when given, is
+//   one load a group before the first tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -539,8 +546,9 @@ __device__ __forceinline__ void stage(T* buf, const T (&got)[kFoldItems], unsign
 template <typename T, bool kPerm, bool kValid>
 __global__ void __maxnreg__(128)
 fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
-         const T* __restrict__ vals, const bool* __restrict__ valid, long long G,
-         T* __restrict__ sums, long long* __restrict__ counts) {
+         const T* __restrict__ vals, const bool* __restrict__ valid,
+         const T* __restrict__ start, long long G, T* __restrict__ sums,
+         long long* __restrict__ counts) {
   __shared__ T tile[kFoldWarps][2][kTile];
   const Source<kPerm, kValid> src{perm, valid};
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -558,7 +566,7 @@ fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
   stage<kValid>(tile[warp][0], got, ok, count, lane);
   gather(src, vals, rows, got, ok);
   find_rows(src, rows, s + 2 * kTile, e, lane);
-  T acc = T(0);
+  T acc = start != nullptr ? start[g] : T(0);
   int cur = 0;
   for (long long base = s; base < e; base += kTile, cur ^= 1) {
     __syncwarp();  // tile cur is whole; lane 0 is done with the other buffer
@@ -591,6 +599,10 @@ fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
     count = e - s;
   }
   if (lane == 0) {
+    if (e > s && isnan(acc)) {  // a NaN start, as the first add leaves it: quieted
+      using B = FoldBits<T>;
+      acc = B::value(B::bits(acc) | B::kQuiet);
+    }
     sums[g] = acc;
     counts[g] = count;
   }
@@ -598,20 +610,21 @@ fold_sum(const long long* __restrict__ perm, const long long* __restrict__ offs,
 
 template <typename T>
 void launch_fold(const long long* perm, const long long* offs, const void* vals,
-                 const bool* valid, long long G, void* sums, long long* counts,
-                 cudaStream_t stream) {
+                 const bool* valid, const void* start_v, long long G, void* sums,
+                 long long* counts, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((G + kFoldWarps - 1) / kFoldWarps);
   const unsigned threads = kFoldWarps * kWarp;
   const T* v = static_cast<const T*>(vals);
+  const T* start = static_cast<const T*>(start_v);
   T* out = static_cast<T*>(sums);
   if (perm && valid) {
-    fold_sum<T, true, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+    fold_sum<T, true, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, start, G, out, counts);
   } else if (perm) {
-    fold_sum<T, true, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+    fold_sum<T, true, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, start, G, out, counts);
   } else if (valid) {
-    fold_sum<T, false, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+    fold_sum<T, false, true><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, start, G, out, counts);
   } else {
-    fold_sum<T, false, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, G, out, counts);
+    fold_sum<T, false, false><<<blocks, threads, 0, stream>>>(perm, offs, v, valid, start, G, out, counts);
   }
 }
 
@@ -663,14 +676,15 @@ int hs_seg_minmax(const long long* perm, const long long* offs, const void* vals
 }
 
 // Float SUM (is_f64: double, else float) as the ordered left fold, and the
-// count of valid rows, per group. Returns a CUDA error code.
+// count of valid rows, per group; start ([G], NULL for +0.0) is each
+// group's first operand. Returns a CUDA error code.
 int hs_seg_fold_sum(const long long* perm, const long long* offs, const void* vals,
                     const bool* valid, long long G, int is_f64, void* sums, long long* counts,
-                    void* stream) {
+                    void* stream, const void* start) {
   if (G <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64) launch_fold<double>(perm, offs, vals, valid, G, sums, counts, st);
-  else launch_fold<float>(perm, offs, vals, valid, G, sums, counts, st);
+  if (is_f64) launch_fold<double>(perm, offs, vals, valid, start, G, sums, counts, st);
+  else launch_fold<float>(perm, offs, vals, valid, start, G, sums, counts, st);
   return static_cast<int>(cudaGetLastError());
 }
 

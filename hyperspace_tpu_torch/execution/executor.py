@@ -28,23 +28,34 @@ are the sequential route's. Any other join runs the unindexed
 them) and ``prepare`` (key reps) here, each the seconds of a side's own
 thread summed over both sides; the rest in ``join_exec``.
 
-An Aggregate runs ``execution/aggregate_exec`` over its child's batch:
-group keys factorized on the session's device, the reductions through
-kernel B5 (``ops/aggregate.py``). A Sort orders by
+A Filter over a scan whose predicate is a conjunction of numeric range
+terms, on a batch of at least ``pipeline_compiler.
+_NATIVE_FUSED_PIPELINE_MIN_ROWS`` rows, takes the fused select instead of
+the mask: the passing rows' indices in one pass (kernel B3b), the rows
+gathered through them (``hyperspace.serve.fusedpipeline.enabled``).
+
+An Aggregate first tries the metadata plane (``pipeline_compiler.
+try_metadata_aggregate``: row groups the predicate covers answered from
+``_aggstate.json``, the boundary ones scanned), then the fused
+filter→aggregate over the pruned index scan (``try_fused_aggregate``:
+kernel B5f and B5 a chunk), then the interpreted chain:
+``execution/aggregate_exec`` over its child's batch, group keys
+factorized on the session's device, the reductions through kernel B5
+(``ops/aggregate.py``). A Sort orders by
 ``ops/sort.ordering_permutation`` on the device; a Limit over a Sort
 takes the first n of that permutation (top-n), passes through a Project,
 and over a Scan or Filter(Scan) reads the files in groups of 1, 2, 4, ...
 until it has n rows. ``session.agg_stats`` holds the latest query's
 stage seconds: ``scan`` (the child batches of its aggregates and sorts),
-``factorize``, ``reduce`` and ``finalize`` (``aggregate_exec``) and
-``sort``.
+``factorize``, ``reduce`` and ``finalize`` (``aggregate_exec``),
+``sort``, and the wall seconds of a metadata (``metadata``) or fused
+(``fused``) answer, whose reads are under ``scan``.
 
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
-by bucket; an aggregate's groups in key-rep order. Not ported yet: the
-aggregate index plane (the metadata aggregate) and the fused serve
-pipeline, whose rows are the interpreted chain's by design, the serve
-cache, the streaming join serve, and Hybrid Scan (ROADMAP queue A).
+by bucket; an aggregate's groups in key-rep order, on every route. Not
+ported yet: the serve cache, the streaming join serve, and Hybrid Scan
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -105,6 +116,13 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
             )
         else:
             batch = _exec(child, child_needed, session)
+        if isinstance(child, Scan) and session.conf.serve_fusedpipeline_enabled:
+            from hyperspace_tpu_torch.execution.pipeline_compiler import fused_filter_batch
+
+            fused = fused_filter_batch(plan.condition, batch, session)
+            if fused is not None:
+                session.exec_stats.fused_selects += 1
+                return fused
         return batch.filter(_filter_mask(plan.condition, batch, session))
     if isinstance(plan, Project):
         batch = _exec(plan.child, set(plan.columns), session)
@@ -112,8 +130,20 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     if isinstance(plan, Join):
         return _exec_join(plan, needed, session)
     if isinstance(plan, Aggregate):
+        from hyperspace_tpu_torch.execution import pipeline_compiler as PC
         from hyperspace_tpu_torch.execution.aggregate_exec import execute_aggregate
+        from hyperspace_tpu_torch.execution.join_exec import _stage_add
 
+        for route, counter, stage_name in (
+            (PC.try_metadata_aggregate, "metadata_aggregates", "metadata"),
+            (PC.try_fused_aggregate, "fused_aggregates", "fused"),
+        ):
+            t0 = time.perf_counter()
+            served = route(plan, session)
+            if served is not None:
+                setattr(session.exec_stats, counter, getattr(session.exec_stats, counter) + 1)
+                _stage_add(session.agg_stats, stage_name, t0)
+                return served
         batch = _exec_input(plan.child, plan.input_columns, session)
         return execute_aggregate(
             batch, plan.group_by, plan.aggs, plan.child.schema(), session.device,
@@ -536,16 +566,21 @@ def _serve_pipeline_on(session) -> bool:
     return session.conf.serve_pipeline_enabled
 
 
+def _cacheable_scan(rel) -> bool:
+    """A clean index scan: index data in parquet with files to read (the
+    reference also excludes delete compensation and injected partition
+    values, which come with Hybrid Scan and the lake sources). The fused
+    and metadata routes take only such scans."""
+    return rel.index_info is not None and rel.fmt == "parquet" and bool(rel.files)
+
+
 def _clean_index_scan(plan: LogicalPlan) -> bool:
     """A ``Project*`` chain over a non-empty parquet index scan: the shape
     the pipelined join serve takes (it runs no device work). The Hybrid
     Scan union shape comes with ROADMAP queue A item 5."""
     while isinstance(plan, Project):
         plan = plan.child
-    if not isinstance(plan, Scan):
-        return False
-    rel = plan.relation
-    return rel.index_info is not None and rel.fmt == "parquet" and bool(rel.files)
+    return isinstance(plan, Scan) and _cacheable_scan(plan.relation)
 
 
 def _prepared_join_side(

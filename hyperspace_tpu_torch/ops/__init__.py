@@ -14,7 +14,11 @@ the plain version, a tensor on the card launches the kernel or raises.
 * :mod:`.join` — per-bucket merge-join match of co-bucketed sides
   (kernel B4, ``csrc/bucket_match.cu``);
 * :mod:`.aggregate` — per-group sum, count, min and max over sorted
-  groups (kernel B5, ``csrc/segment_reduce.cu``).
+  groups (kernel B5, ``csrc/segment_reduce.cu``);
+* :mod:`.filter` also holds the fused select, the passing rows' indices
+  of a range conjunction (kernel B3b, ``csrc/fused_select.cu``);
+* :mod:`.fused_agg` — the fused filter→aggregate over one chunk: the
+  group pass (kernel B5f, ``csrc/fused_agg.cu``), then B5.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ from typing import Dict
 
 # Every hand-written kernel: name -> (module, wrapper that launches it,
 # plain PyTorch version it is held against, CUDA source). The wrapper's
-# module keeps a ``launches`` count that only kernel launches raise. B5's
-# module has two more wrappers of the same source, each beside its plain
+# module keeps a launch count that only kernel launches raise: the
+# attribute ``launches``, or the one LAUNCH_COUNTERS names. B5's module
+# has two more wrappers of the same source, each beside its plain
 # version: ``segment_minmax_kernel`` / ``_torch`` and
-# ``segment_count_kernel`` / ``_torch``.
+# ``segment_count_kernel`` / ``_torch``. B5f's wrapper launches B5 too.
 KERNEL_TWINS = {
     "murmur3_bucket_ids": (
         "hyperspace_tpu_torch.ops.hash",
@@ -53,17 +58,32 @@ KERNEL_TWINS = {
         "segment_sum_count_torch",
         "hyperspace_tpu_torch/csrc/segment_reduce.cu",
     ),
+    "fused_select": (
+        "hyperspace_tpu_torch.ops.filter",
+        "select_kernel",
+        "select_torch",
+        "hyperspace_tpu_torch/csrc/fused_select.cu",
+    ),
+    "fused_filter_agg": (
+        "hyperspace_tpu_torch.ops.fused_agg",
+        "fused_filter_agg_kernel",
+        "fused_filter_agg_torch",
+        "hyperspace_tpu_torch/csrc/fused_agg.cu",
+    ),
 }
+
+#: kernels whose module counts them under another attribute than ``launches``
+LAUNCH_COUNTERS = {"fused_select": "select_launches"}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel name -> launches since the last :func:`reset_launch_counts`."""
     return {
-        name: importlib.import_module(mod).launches
+        name: getattr(importlib.import_module(mod), LAUNCH_COUNTERS.get(name, "launches"))
         for name, (mod, _w, _p, _s) in KERNEL_TWINS.items()
     }
 
 
 def reset_launch_counts() -> None:
-    for mod, _w, _p, _s in KERNEL_TWINS.values():
-        importlib.import_module(mod).launches = 0
+    for name, (mod, _w, _p, _s) in KERNEL_TWINS.items():
+        setattr(importlib.import_module(mod), LAUNCH_COUNTERS.get(name, "launches"), 0)

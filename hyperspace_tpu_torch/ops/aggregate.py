@@ -18,7 +18,15 @@ Groups come as the group-sorted row permutation ``perm`` (None for the
 identity) and offsets ``offs`` ([G + 1], ``offs[0] = 0``, ``offs[G] = n``,
 nondecreasing), as ``execution/aggregate_exec._factorize`` produces them:
 group g is rows ``perm[offs[g]:offs[g + 1]]``, in row order, because the
-sort is stable.
+sort is stable. ``n`` is the number of positions: ``perm``'s length, or
+the values' when ``perm`` is None. A ``perm`` may select some rows only
+(the fused filter-aggregate passes the rows that pass its predicate).
+
+The float sum takes an optional ``start`` ([G], the values' type): group
+g then folds its rows onto ``start[g]`` instead of +0.0, in row order,
+with the same NaN rule (a NaN start stays, quieted once the group has a
+row), which is how the fused filter-aggregate carries its float sums
+across chunks.
 
 Each function takes tensors on one device. On the CPU it runs the plain
 PyTorch version; on CUDA it launches ``csrc/segment_reduce.cu`` or raises.
@@ -83,6 +91,10 @@ def device_values(values: np.ndarray, device) -> Tuple[torch.Tensor, bool]:
     return t, unsigned
 
 
+def _positions(perm, vals) -> int:
+    return perm.numel() if perm is not None else vals.numel()
+
+
 def _positions_gid(offs: torch.Tensor, n: int) -> torch.Tensor:
     """Group id of each position of the group-sorted order."""
     lengths = offs[1:] - offs[:-1]
@@ -101,30 +113,34 @@ def _from_bits(bits: int, dtype) -> torch.Tensor:
 # -- plain versions -------------------------------------------------------------
 
 
-def segment_sum_count_torch(perm, offs, vals, valid):
-    """Plain version: ``index_add_`` over the rows in group order (on a
-    1-D CPU tensor the same left fold as ``np.add.at``), then the NaN
-    bits the numpy fold keeps for each group whose sum is NaN."""
-    n, num = vals.numel(), offs.numel() - 1
+def segment_sum_count_torch(perm, offs, vals, valid, start=None):
+    """Plain version: ``index_add_`` over the rows in group order onto
+    +0.0 or ``start`` (on a 1-D CPU tensor the same left fold as
+    ``np.add.at``), then the NaN bits the numpy fold keeps for each group
+    whose sum is NaN."""
+    n, num = _positions(perm, vals), offs.numel() - 1
     gid = _positions_gid(offs, n)
     vp, ok = _in_order(vals, perm), _in_order(valid, perm)
     v = vp if ok is None else torch.where(ok, vp, torch.zeros((), dtype=vp.dtype))
-    sums = torch.zeros(num, dtype=vals.dtype, device=vals.device).index_add_(0, gid, v)
+    init = (torch.zeros(num, dtype=vals.dtype, device=vals.device) if start is None
+            else start.clone())
+    sums = init.index_add_(0, gid, v)
     if ok is None:
         counts = offs[1:] - offs[:-1]
     else:
         counts = torch.zeros(num, dtype=torch.int64, device=vals.device).index_add_(
             0, gid, ok.to(torch.int64))
     if vals.dtype.is_floating_point:
-        sums = _numpy_nan_bits(sums, gid, v, ok)
+        sums = _numpy_nan_bits(sums, gid, v, ok, start, offs)
     return sums, counts
 
 
-def _numpy_nan_bits(sums, gid, v, ok):
+def _numpy_nan_bits(sums, gid, v, ok, start=None, offs=None):
     """The bits ``np.add.at`` leaves in each NaN sum: the first NaN event
-    of the group's fold decides. If a valid NaN value comes before any
-    ``inf + -inf`` (the fold of the rows before it is not NaN), that
-    value quieted; otherwise the x86 default NaN."""
+    of the group's fold decides. A NaN start stays, quieted when the group
+    has a row. Else, if a valid NaN value comes before any ``inf + -inf``
+    (the fold of the start and the rows before it is not NaN), that value
+    quieted; otherwise the x86 default NaN."""
     bad = torch.isnan(sums)
     if not bool(bad.any()):
         return sums
@@ -134,11 +150,16 @@ def _numpy_nan_bits(sums, gid, v, ok):
     first = torch.full_like(sums, n, dtype=torch.int64).scatter_reduce_(
         0, gid[isn], pos[isn], "amin")
     before = pos < first[gid]
-    prefix = torch.zeros_like(sums).index_add_(
-        0, gid, torch.where(before, v, torch.zeros((), dtype=dt)))
+    init = torch.zeros_like(sums) if start is None else start.clone()
+    prefix = init.index_add_(0, gid, torch.where(before, v, torch.zeros((), dtype=dt)))
     quiet = v[first.clamp(max=max(n - 1, 0))].view(_BITS[dt]) | _QUIET[dt]
     bits = torch.where((first < n) & ~torch.isnan(prefix), quiet,
                        _from_bits(_DEFAULT_NAN[dt], dt).view(_BITS[dt]))
+    if start is not None:
+        has_rows = offs[1:] > offs[:-1]
+        start_bits = start.view(_BITS[dt])
+        kept = torch.where(has_rows, start_bits | _QUIET[dt], start_bits)
+        bits = torch.where(torch.isnan(start), kept, bits)
     return torch.where(bad, bits.view(dt), sums)
 
 
@@ -148,7 +169,7 @@ def segment_minmax_torch(perm, offs, vals, valid, mode, fill=None, unsigned=Fals
     last such row holding a value equal to it, whose bits are the result
     (ties keep the later row, so -0.0 against 0.0 keeps the later sign);
     then the NaN rules, or ``fill`` where no row took part."""
-    n, num = vals.numel(), offs.numel() - 1
+    n, num = _positions(perm, vals), offs.numel() - 1
     gid = _positions_gid(offs, n)
     vp, ok = _in_order(vals, perm), _in_order(valid, perm)
     flt = vals.dtype.is_floating_point
@@ -189,7 +210,7 @@ def segment_count_torch(perm, offs, valid):
     row is valid)."""
     if valid is None:
         return offs[1:] - offs[:-1]
-    n = valid.numel()
+    n = _positions(perm, valid)
     gid = _positions_gid(offs, n)
     ok = _in_order(valid, perm).to(torch.int64)
     return torch.zeros(offs.numel() - 1, dtype=torch.int64, device=valid.device).index_add_(
@@ -213,7 +234,7 @@ def bind(lib):
     lib.hs_seg_sum_count.argtypes = [p, p, p, p, i64, i64, p, p, p, p]
     lib.hs_seg_minmax.argtypes = [p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_int,
                                   i64, p, p, p]
-    lib.hs_seg_fold_sum.argtypes = [p, p, p, p, i64, ctypes.c_int, p, p, p]
+    lib.hs_seg_fold_sum.argtypes = [p, p, p, p, i64, ctypes.c_int, p, p, p, p]
     for fn in (lib.hs_seg_sum_count, lib.hs_seg_minmax, lib.hs_seg_fold_sum):
         fn.restype = ctypes.c_int
     lib.hs_seg_scratch_bytes.argtypes = [i64]
@@ -224,11 +245,13 @@ def bind(lib):
 def _check(perm, offs, vals, valid, dtypes) -> torch.device:
     ref = vals if vals is not None else valid
     dev = offs.device
-    n = ref.numel() if ref is not None else perm.numel()
+    rows = ref.numel() if ref is not None else perm.numel()
     if offs.dtype != torch.int64 or offs.dim() != 1 or offs.numel() < 1:
         raise ValueError("offs must be a [G + 1] int64 tensor")
-    for name, t, want in (("perm", perm, (torch.int64,)), ("vals", vals, dtypes),
-                          ("valid", valid, (torch.bool,))):
+    if perm is not None and (perm.dim() != 1 or perm.numel() > rows):
+        raise ValueError(f"perm must be a [m <= {rows}] tensor")
+    for name, t, want, n in (("perm", perm, (torch.int64,), _positions(perm, ref)),
+                             ("vals", vals, dtypes, rows), ("valid", valid, (torch.bool,), rows)):
         if t is None:
             continue
         if t.device != dev or t.shape != (n,) or not t.is_contiguous() or t.dtype not in want:
@@ -251,14 +274,26 @@ def _scratch(n: int, dev) -> torch.Tensor:
     return torch.empty(int(_lib().hs_seg_scratch_bytes(n)), dtype=torch.uint8, device=dev)
 
 
-def segment_sum_count_kernel(perm, offs, vals, valid):
+def _check_start(start, vals, num: int) -> None:
+    if start is None:
+        return
+    if not vals.dtype.is_floating_point:
+        raise ValueError("a start vector is for the float fold only")
+    if (start.dtype != vals.dtype or start.shape != (num,) or not start.is_contiguous()
+            or start.device != vals.device):
+        raise ValueError(f"start must be a contiguous [{num}] {vals.dtype} tensor on {vals.device}")
+
+
+def segment_sum_count_kernel(perm, offs, vals, valid, start=None):
     """B5's sum and count on CUDA tensors: integers (int64, or uint64 as
-    int64 bits) by the parallel range pass, floats by the ordered fold."""
+    int64 bits) by the parallel range pass, floats by the ordered fold
+    (from ``start`` when given)."""
     global launches
     dev = _check(perm, offs, vals, valid, (torch.int64, torch.float32, torch.float64))
     if dev.type != "cuda":
         raise ValueError(f"segment_sum_count_kernel needs CUDA tensors, got {dev}")
-    n, num = vals.numel(), offs.numel() - 1
+    n, num = _positions(perm, vals), offs.numel() - 1
+    _check_start(start, vals, num)
     sums = torch.empty(num, dtype=vals.dtype, device=dev)
     counts = torch.empty(num, dtype=torch.int64, device=dev)
     if num == 0:
@@ -269,7 +304,7 @@ def segment_sum_count_kernel(perm, offs, vals, valid):
         if vals.dtype.is_floating_point:
             err = lib.hs_seg_fold_sum(_ptr(perm), offs.data_ptr(), vals.data_ptr(),
                                       _ptr(valid), num, int(vals.dtype == torch.float64),
-                                      sums.data_ptr(), counts.data_ptr(), stream)
+                                      sums.data_ptr(), counts.data_ptr(), stream, _ptr(start))
             _raise_on(err, "B5 float fold")
             launches += 1
         else:
@@ -289,7 +324,7 @@ def segment_count_kernel(perm, offs, valid):
     dev = _check(perm, offs, None, valid, ())
     if dev.type != "cuda":
         raise ValueError(f"segment_count_kernel needs CUDA tensors, got {dev}")
-    n, num = valid.numel(), offs.numel() - 1
+    n, num = _positions(perm, valid), offs.numel() - 1
     counts = torch.empty(num, dtype=torch.int64, device=dev)
     if num == 0:
         return counts
@@ -319,7 +354,7 @@ def segment_minmax_kernel(perm, offs, vals, valid, mode, fill=None, unsigned=Fal
         raise ValueError(f"segment_minmax_kernel needs CUDA tensors, got {dev}")
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
-    n, num = vals.numel(), offs.numel() - 1
+    n, num = _positions(perm, vals), offs.numel() - 1
     out = torch.empty(num, dtype=vals.dtype, device=dev)
     if num == 0:
         return out
@@ -345,12 +380,14 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def segment_sum_count(perm, offs, vals, valid):
-    """(per-group sum over valid rows, per-group count of valid rows): the
-    plain version for CPU tensors, kernel B5 for CUDA tensors."""
+def segment_sum_count(perm, offs, vals, valid, start=None):
+    """(per-group sum over valid rows, from ``start`` for a float sum when
+    given, per-group count of valid rows): the plain version for CPU
+    tensors, kernel B5 for CUDA tensors."""
     if _route(offs) == "cpu":
-        return segment_sum_count_torch(perm, offs, vals, valid)
-    return segment_sum_count_kernel(perm, offs, vals, valid)
+        _check_start(start, vals, offs.numel() - 1)
+        return segment_sum_count_torch(perm, offs, vals, valid, start)
+    return segment_sum_count_kernel(perm, offs, vals, valid, start)
 
 
 def segment_minmax(perm, offs, vals, valid, mode, fill=None, unsigned=False):

@@ -33,6 +33,11 @@ or float64 form (:func:`native_range_bounds`) and one pass of kernel B3a
 (``csrc/range_mask.cu``) computes the AND of the bounds and validity
 over all its terms, reading each distinct column once. A CPU tensor
 takes the plain version :func:`range_mask_torch`.
+
+The fused select (:func:`fused_filter_select`) lowers the same terms and
+returns the passing rows' indices in ascending order, ``np.nonzero`` of
+that mask, in one pass of kernel B3b (``csrc/fused_select.cu``) on the
+card; a CPU tensor takes the plain version :func:`select_torch`.
 """
 
 from __future__ import annotations
@@ -615,6 +620,31 @@ def range_args(batch, terms, device):
     )
 
 
+def range_mask_numpy(batch, terms) -> np.ndarray:
+    """The host mask of ``terms`` over ``batch``: per term the comparisons
+    the host evaluator runs (numpy promotion, NaN and uint semantics),
+    ANDed, validity included. The interpreted twin of the fused routes
+    (``execution/pipeline_compiler``), as the JAX package's own."""
+    n = batch.num_rows
+    out = np.ones(n, dtype=bool)
+    with np.errstate(invalid="ignore"):
+        for name, lo, lo_strict, hi, hi_strict, empty in terms:
+            col = batch.columns[name]
+            if empty:
+                vals = np.zeros(n, dtype=bool)
+            else:
+                v = col.values
+                vals = np.ones(n, dtype=bool)
+                if lo is not None:
+                    vals &= (v > lo) if lo_strict else (v >= lo)
+                if hi is not None:
+                    vals &= (v < hi) if hi_strict else (v <= hi)
+            if col.validity is not None:
+                vals = vals & col.validity
+            out &= vals
+    return out
+
+
 def range_mask_torch(args: RangeArgs) -> torch.Tensor:
     """Plain PyTorch version of B3a, on the tensors' own device: per term
     the bound compares on its column (NaN fails every compare, -0.0
@@ -637,6 +667,9 @@ def range_mask_torch(args: RangeArgs) -> torch.Tensor:
 
 #: B3a launches made by :func:`range_mask_kernel` (never by the plain version)
 launches = 0
+
+#: B3b kernel launches made by :func:`select_kernel` (three a call with rows)
+select_launches = 0
 
 
 @functools.cache
@@ -661,6 +694,45 @@ def _kernel_fn():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _select_lib():
+    from hyperspace_tpu_torch import kernels
+
+    lib = kernels.load("fused_select")
+    p = ctypes.c_void_p
+    lib.hs_fused_select.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_int64, p, p, p, p,
+    ]
+    lib.hs_fused_select.restype = ctypes.c_int
+    lib.hs_select_scratch_bytes.argtypes = [ctypes.c_int64]
+    lib.hs_select_scratch_bytes.restype = ctypes.c_int64
+    return lib
+
+
+def term_arrays(args: RangeArgs):
+    """The C interface's term arrays, terms grouped by column (so a kernel
+    reads each column once a row): (cols, valids, ncols, term_col, lo_i,
+    hi_i, lo_f, hi_f, flags, nterms), shared by B3a, B3b and B5f."""
+    order = sorted(range(len(args.term_col)), key=lambda t: args.term_col[t])
+    nt, nc = len(order), len(args.cols)
+    return (
+        (ctypes.c_void_p * nc)(*[c.data_ptr() for c in args.cols]),
+        (ctypes.c_void_p * nc)(*[None if m is None else m.data_ptr() for m in args.valids]),
+        nc,
+        (ctypes.c_int * nt)(*[args.term_col[t] for t in order]),
+        (ctypes.c_int64 * nt)(*[args.lo_i[t] for t in order]),
+        (ctypes.c_int64 * nt)(*[args.hi_i[t] for t in order]),
+        (ctypes.c_double * nt)(*[args.lo_f[t] for t in order]),
+        (ctypes.c_double * nt)(*[args.hi_f[t] for t in order]),
+        (ctypes.c_int * nt)(*[term_flags(args, t) for t in order]),
+        nt,
+    )
 
 
 def term_flags(args: RangeArgs, t: int) -> int:
@@ -695,23 +767,7 @@ def _launch(args: RangeArgs, out: torch.Tensor, stream: int) -> None:
     ``stream``; raise on any error code it returns."""
     global launches
     _check_args(args)
-    order = sorted(range(len(args.term_col)), key=lambda t: args.term_col[t])
-    nt, nc = len(order), len(args.cols)
-    err = _kernel_fn()(
-        (ctypes.c_void_p * nc)(*[c.data_ptr() for c in args.cols]),
-        (ctypes.c_void_p * nc)(*[None if m is None else m.data_ptr() for m in args.valids]),
-        nc,
-        (ctypes.c_int * nt)(*[args.term_col[t] for t in order]),
-        (ctypes.c_int64 * nt)(*[args.lo_i[t] for t in order]),
-        (ctypes.c_int64 * nt)(*[args.hi_i[t] for t in order]),
-        (ctypes.c_double * nt)(*[args.lo_f[t] for t in order]),
-        (ctypes.c_double * nt)(*[args.hi_f[t] for t in order]),
-        (ctypes.c_int * nt)(*[term_flags(args, t) for t in order]),
-        nt,
-        out.data_ptr(),
-        args.n,
-        stream,
-    )
+    err = _kernel_fn()(*term_arrays(args), out.data_ptr(), args.n, stream)
     if err != 0:
         raise RuntimeError(f"range mask kernel launch failed: CUDA error {err}")
     if args.n:  # the C side launches nothing for n = 0
@@ -760,3 +816,66 @@ def fused_range_mask(expr: E.Expr, batch, device) -> Optional[np.ndarray]:
     if args == NEVER_MATCH:
         return np.zeros(n, dtype=bool)
     return range_mask(args).cpu().numpy()
+
+
+# -- the fused select (kernel B3b) -----------------------------------------------
+
+
+def select_torch(args: RangeArgs) -> torch.Tensor:
+    """Plain version of B3b, on the tensors' own device: the indices of
+    the rows :func:`range_mask_torch` passes, ascending, as int64."""
+    return torch.nonzero(range_mask_torch(args)).flatten()
+
+
+def select_kernel(args: RangeArgs) -> torch.Tensor:
+    """Launch ``csrc/fused_select.cu`` on the current stream over
+    contiguous CUDA columns; returns the passing rows' indices
+    (``[count]`` int64 on the card, ascending). Reads the count back to
+    size the result."""
+    global select_launches
+    dev = args.cols[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"select_kernel needs CUDA tensors, got {dev}")
+    _check_args(args)
+    n = args.n
+    lib = _select_lib()
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        scratch = torch.empty(int(lib.hs_select_scratch_bytes(n)), dtype=torch.uint8, device=dev)
+        err = lib.hs_fused_select(*term_arrays(args), n, out.data_ptr(), total.data_ptr(),
+                                  scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused select kernel launch failed: CUDA error {err}")
+    if n:  # count, scan, emit; nothing for n = 0
+        select_launches += 3
+    return out[: int(total.item())]
+
+
+def select_rows(args: RangeArgs) -> torch.Tensor:
+    """The passing rows' indices on the columns' device: the plain version
+    for CPU tensors, kernel B3b for CUDA tensors (no fallback)."""
+    dev = args.cols[0].device
+    if dev.type == "cpu":
+        return select_torch(args)
+    if dev.type == "cuda":
+        return select_kernel(args)
+    raise ValueError(f"select_rows: unsupported device {dev}")
+
+
+def fused_filter_select(terms, batch, device) -> Optional[np.ndarray]:
+    """The passing row indices of ``terms`` over ``batch`` (host int64,
+    ascending: exactly ``np.nonzero`` of their mask), computed on
+    ``device``; an empty array when a bound can never hold
+    (:data:`NEVER_MATCH`, before any launch), or None when a term column
+    is not an 8-byte int or float64 array or a bound does not lower
+    exactly (the caller takes the mask route)."""
+    n = batch.num_rows
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    args = range_args(batch, terms, device)
+    if args is None:
+        return None
+    if args == NEVER_MATCH:
+        return np.zeros(0, dtype=np.int64)
+    return select_rows(args).cpu().numpy()

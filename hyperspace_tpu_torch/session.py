@@ -49,7 +49,9 @@ class ExecStats:
     mask (kernel B3a), masks evaluated on the host because the predicate
     does not lower (``ops/filter.Unsupported``), bucket-pruned scans,
     joins served shuffle-free from co-bucketed index scans, and joins run
-    unindexed."""
+    unindexed; filters served by the fused select (kernel B3b), and
+    aggregates answered by the metadata plane and by the fused
+    filter→aggregate (kernel B5f)."""
 
     def __init__(self):
         self.device_filter_evals = 0
@@ -58,6 +60,9 @@ class ExecStats:
         self.bucket_pruned_scans = 0
         self.co_bucketed_joins = 0
         self.unbucketed_joins = 0
+        self.fused_selects = 0
+        self.metadata_aggregates = 0
+        self.fused_aggregates = 0
 
     def reset(self) -> None:
         self.__init__()

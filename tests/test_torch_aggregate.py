@@ -465,3 +465,36 @@ def test_b5_wrappers_refuse_other_devices_and_shapes():
         A.segment_minmax_kernel(None, offs, torch.zeros(3, dtype=torch.int16), None, "min", 0)
     with pytest.raises(ValueError, match="float32 and float64"):
         A.device_values(np.zeros(2, dtype=np.float16), "cpu")
+
+
+@pytest.mark.parametrize("case", sorted(torch_b5_cases.B5_START_CASES))
+def test_b5_fold_from_a_start_equals_np_add_at(case):
+    """The float fold from a carried start (the fused filter-aggregate's
+    chunk carry): group g folds its rows onto ``start[g]`` in row order,
+    bit for bit ``np.add.at`` onto the start, as the reference's sweep
+    carries ``acc_f``: -0.0 starts under +0.0 rows, NaN payload and
+    signalling NaN starts (quieted once the group has a row), infinite
+    starts, and empty groups that keep their start's bits."""
+    gid, vals, valid, num, start = torch_b5_cases.B5_START_CASES[case]
+    perm, offs = groups(gid, num)
+    ok = None if valid is None else torch.from_numpy(valid)
+    got, counts = A.segment_sum_count(perm, offs, torch.from_numpy(vals), ok,
+                                      torch.from_numpy(np.asarray(start, dtype=vals.dtype)))
+    want = torch_b5_cases.fold_from_start_numpy(gid, vals, valid, num, start)
+    width = np.int64 if vals.dtype == np.float64 else np.int32
+    assert np.array_equal(got.numpy().view(width), want.view(width))
+    valid_rows = np.ones(len(gid), bool) if valid is None else valid
+    assert counts.tolist() == np.bincount(gid[valid_rows], minlength=num).tolist()
+    # without a start the fold is the one from +0.0, as before
+    plain, _ = A.segment_sum_count(perm, offs, torch.from_numpy(vals), ok)
+    zero = torch_b5_cases.fold_from_start_numpy(gid, vals, valid, num, np.zeros(num))
+    assert np.array_equal(plain.numpy().view(width), zero.view(width))
+
+
+def test_b5_start_is_for_the_float_fold_only():
+    offs = torch.tensor([0, 2], dtype=torch.int64)
+    with pytest.raises(ValueError, match="float fold"):
+        A.segment_sum_count(None, offs, torch.zeros(2, dtype=torch.int64), None,
+                            torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="start"):
+        A.segment_sum_count(None, offs, torch.zeros(2), None, torch.zeros(2))

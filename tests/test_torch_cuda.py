@@ -18,6 +18,8 @@ from hyperspace_tpu_torch.ops import join as J
 from hyperspace_tpu_torch.plan import expressions as E
 from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
 from torch_b4_cases import b4_edge_cases
+import torch_b5_cases
+import torch_b5f_cases
 from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +162,56 @@ def test_b5_equals_its_plain_version_over_the_cases(cuda_device, case):
     torch.cuda.synchronize()
     assert all(e == 0 for e in errs.values()), errs
     assert AG.launches > before
+
+
+B5_START = torch_b5_cases.B5_START_CASES
+
+
+@pytest.mark.parametrize("case", sorted(B5_START))
+def test_b5_fold_from_a_start_equals_its_plain_version(cuda_device, case):
+    """B5's fold from a carried start on the card: bit-equal to the plain
+    version on a CPU copy."""
+    from hyperspace_tpu_torch.ops import aggregate as AG
+
+    gid, vals, valid, num, start = B5_START[case]
+    perm, offs = groups(gid, num)
+    st = torch.from_numpy(np.asarray(start, dtype=vals.dtype))
+    v = torch.from_numpy(vals)
+    ok = None if valid is None else torch.from_numpy(valid)
+    dev = cuda_device
+    got = AG.segment_sum_count_kernel(perm.to(dev), offs.to(dev), v.to(dev),
+                                      None if ok is None else ok.to(dev), st.to(dev))
+    torch.cuda.synchronize()
+    want = AG.segment_sum_count_torch(perm, offs, v, ok, st)
+    assert torch_b5_cases.abs_err(got[0], want[0]) == 0
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("case", sorted(torch_b5f_cases.B3B_CASES))
+def test_b3b_equals_its_plain_version(cuda_device, case):
+    """The fused select's indices on the card equal ``torch.nonzero`` of
+    the plain mask, in order."""
+    from hyperspace_tpu_torch.ops import filter as F
+
+    table, terms = torch_b5f_cases.B3B_CASES[case]
+    before = F.select_launches
+    assert torch_b5f_cases.select_kernel_errors(table, terms, cuda_device) == 0
+    torch.cuda.synchronize()
+    lowers = table.num_rows and not any(t[5] for t in terms)
+    assert F.select_launches == before + (3 if lowers else 0)
+
+
+@pytest.mark.parametrize("case", sorted(torch_b5f_cases.B5F_CASES))
+def test_b5f_equals_its_plain_version(cuda_device, case):
+    """The fused filter→aggregate on the card, chunk by chunk with the
+    state carried: every state array bit-equal to the plain version's on
+    the CPU, and B5f launched as often as the case's grouped chunks with
+    a passing row ask."""
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    before = FA.launches
+    c = torch_b5f_cases.B5F_CASES[case]
+    errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
+    torch.cuda.synchronize()
+    assert all(e == 0 for e in errs.values()), errs
+    assert FA.launches == before + torch_b5f_cases.group_pass_launches(c)

@@ -190,6 +190,9 @@ def test_point_query_is_bucket_pruned_and_masked_on_the_device(world):
         "bucket_pruned_scans": 1,
         "co_bucketed_joins": 0,
         "unbucketed_joins": 0,
+        "fused_selects": 0,
+        "metadata_aggregates": 0,
+        "fused_aggregates": 0,
     }
 
 
@@ -296,9 +299,10 @@ KEY_TYPE_INDEXES = {
 
 @pytest.mark.parametrize("config", sorted(KEY_TYPE_INDEXES))
 def test_builds_over_key_types_write_identical_bytes(tmp_path, config):
-    """Both packages build the same bucket files byte for byte, and the
-    same zone-map sidecar apart from the files' mtimes, over each key
-    type of ROADMAP C.1's probes."""
+    """Both packages build the same bucket files byte for byte, the same
+    zone-map and aggregate-state sidecars apart from the files' mtimes,
+    and the same sample sidecar byte for byte, over each key type of
+    ROADMAP C.1's probes."""
     src = tmp_path / "src"
     src.mkdir()
     t = _key_type_table()
@@ -313,19 +317,16 @@ def test_builds_over_key_types_write_identical_bytes(tmp_path, config):
         s = make(str(tmp_path / name))
         hs_cls(s).create_index(s.read.parquet(str(src)), cfg("kidx", indexed, included))
         data = tmp_path / name / "kidx" / "v__=1"
-        # the aggregate sidecars (_aggstate.json, _aggsample.parquet) come
-        # with the aggregate plane (ROADMAP C.2)
-        files[name] = {f: (data / f).read_bytes() for f in sorted(os.listdir(data))
-                       if not f.startswith("_agg")}
+        files[name] = {f: (data / f).read_bytes() for f in sorted(os.listdir(data))}
     assert sorted(files["port"]) == sorted(files["jax"])
     assert "_zonemaps.json" in files["port"]
     assert any(f.startswith("part") for f in files["port"])
     for f, got in files["port"].items():
-        if f == "_zonemaps.json":
+        if f in ("_zonemaps.json", "_aggstate.json"):
             sides = [json.loads(files[p][f]) for p in ("port", "jax")]
             for doc in sides:
                 for entry in doc["files"].values():
                     entry.pop("mtime_ns")
-            assert sides[0] == sides[1]
-        elif f.startswith("part"):
+            assert sides[0] == sides[1], f
+        else:
             assert got == files["jax"][f], f

@@ -70,6 +70,52 @@ def b5_cases() -> dict:
 
 B5_CASES = b5_cases()
 
+SNAN = np.array([0x7FF0000000000001], dtype=np.uint64).view(np.float64)[0]
+
+
+def b5_start_cases() -> dict:
+    """Cases of the float fold from a carried start: (group id per row,
+    values, validity or None, number of groups, start per group). The
+    reference is ``np.add.at`` onto a copy of the start."""
+    rng = np.random.default_rng(5)
+    n, g = 3000, 11
+    gid = rng.integers(0, g - 1, n)  # the last group has no row
+    vals = rng.normal(0, 1e3, n)
+    valid = rng.random(n) > 0.1
+    start = rng.normal(0, 1e16, g)
+    return {
+        "neg_zero_start_pos_zero_rows": (
+            np.array([0, 0, 1, 2]), np.array([0.0, 0.0, 0.0, -0.0]),
+            np.array([True, False, True, True]), 4, np.full(4, -0.0)),
+        "nan_payload_start": (
+            np.array([0, 0, 1, 1, 2]), np.array([1.0, NAN_PAYLOAD, 2.0, np.inf, 3.0]), None, 4,
+            np.array([SNAN, NEG_NAN, -np.inf, NAN_PAYLOAD])),
+        "inf_start": (
+            np.array([0, 0, 1, 1, 2, 3]), np.array([1.0, -np.inf, 5.0, -7.0, np.inf, np.nan]),
+            None, 4, np.array([np.inf, -np.inf, -np.inf, np.inf])),
+        "empty_groups_keep_their_start": (
+            np.array([1, 1]), np.array([1.0, 2.0]), None, 4,
+            np.array([SNAN, 4.0, -0.0, NAN_PAYLOAD])),
+        "start_decides_the_bits": (gid, vals, valid, g, start),
+        "float32": (gid, vals.astype(np.float32), valid, g, start.astype(np.float32)),
+        "long_groups_through_tiles": (
+            np.repeat(np.arange(3), [700, 1, 2049]), rng.normal(size=2750), None, 3,
+            np.array([1e17, -3.5, 2.0**60])),
+    }
+
+
+B5_START_CASES = b5_start_cases()
+
+
+def fold_from_start_numpy(gid, vals, valid, num, start) -> np.ndarray:
+    """The reference fold: ``np.add.at`` onto a copy of the start, null
+    rows adding 0.0."""
+    out = np.array(start, dtype=vals.dtype, copy=True)
+    v = vals if valid is None else np.where(valid, vals, vals.dtype.type(0))
+    with np.errstate(invalid="ignore"):
+        np.add.at(out, gid, v)
+    return out
+
 
 # widths of csrc/segment_reduce.cu (test_torch_aggregate.py holds them to
 # kRange, kShortGroup and kTile in the source)
