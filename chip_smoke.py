@@ -1,6 +1,6 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5]
+    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5 | --only-b5f]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -53,10 +53,12 @@ against its plain PyTorch version on the card:
      row passing, NEVER_MATCH, one group and no groups, 1,025 and 100,000
      groups in a chunk, NaN, -0.0 and null keys, int64 wrap, groups of
      only NaN or only nulls, -0.0 / 0.0 ties across two chunks, three
-     chunks whose float sum depends on the carry): B3b's indices equal
-     the plain version's and ``np.nonzero``, B5f's carried state equal
-     bit for bit to the plain version's on the CPU after every chunk,
-     each case timed cold;
+     chunks whose float sum depends on the carry; the ``int_`` cases take
+     B5f's one-pass route, including blocks that overflow their tables,
+     the others its ordered route): B3b's indices equal the plain
+     version's and ``np.nonzero``, B5f's carried state equal bit for bit
+     to the plain version's on the CPU after every chunk, each case timed
+     cold;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -139,13 +141,23 @@ against its plain PyTorch version on the card:
    for bit in order to the route off, to a ``device="cpu"`` session and
    to the plan without Hyperspace (s1 as a multiset). li_rg_idx's
    ``_aggstate.json`` equals the doc a cpu session computes over its
-   files. B5f is then held against its plain version on f1's and f2's
-   inputs (li_idx's three columns as one chunk of 6,001,215 rows) and
-   timed (the whole call, the group pass alone where there are keys, its
-   kernels' device time) beside the byte bound, the plain version and the interpreted
-   chain on the same device columns; B3b on f1's terms and s1's
-   recorded batch beside its bound, the plain version and B3a +
-   ``torch.nonzero``.
+   files. Each create's ``sidecar_capture`` seconds are logged split
+   into its row-group reads and its folds, with the folds' fused passes
+   and their chunks that overflowed B5f's one pass. li_idx's and o_idx's
+   captures are then computed again under torch.profiler: the fold's
+   device time by part (B5f's kernels, B3b, B5, copies, the rest)
+   beside its host clock. B5f is then held against its
+   plain version on f1's and f2's inputs (li_idx's three columns as one
+   chunk of 6,001,215 rows) on its route (one pass for both) and on the
+   ordered route, and timed: the whole call (CUDA events and host clock),
+   its synchronisations (torch's sync debug mode), every kernel of one
+   call by torch.profiler (cold), the ordered route and the group pass
+   alone, beside its byte bound (the bytes the inputs need: term columns
+   whole, the 32-byte sectors of passing rows of the others) and the
+   whole-column one, the plain version and the interpreted chain on the
+   same device columns; B3b (one launch) on f1's terms and s1's recorded
+   batch, 21 calls each equal to the plain version, timed cold beside
+   its bound, the plain version and B3a + ``torch.nonzero``.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -158,8 +170,13 @@ path does not run. ``--only-b5`` is the same for iterating on B5: phases
 key-sorted within each, then the stable group sort; b's 50 groups over
 the agg window; c's identity), built on the card from phase 4's
 generators and seeds without writing Parquet, each held bit-equal to the
-plain version; records under ``only_b5``. The numbers that go into
-PERF.md come from the run without flags, which drives every phase.
+plain version; records under ``only_b5``. ``--only-b5f`` does the same
+for B5f and B3b: phases 1-3, then phase 9's B5f/B3b timings on inputs
+built on the card from phase 4's generators (``b5f_replica``: li_idx's
+rows, l_orderkey in B1's 200 buckets and key-sorted within each, as one
+chunk; f1's and f2's plans; s1's batch); records under ``only_b5f``. The
+numbers that go into PERF.md come from the run without flags, which
+drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8 and 9
 and read just after each; the kernel checks' launches are not counted as the main
@@ -2314,6 +2331,7 @@ def aggplane_path(work: str, ctx: dict, b3b_inputs: B3bInputs) -> dict:
     ``_aggstate.json`` against the doc a cpu session computes over the
     same files. Launch counts read from 0 at its start."""
     import pyarrow.parquet as pq
+    import torch
 
     from hyperspace_tpu_torch import HyperspaceSession, functions as F
     from hyperspace_tpu_torch import ops
@@ -2412,7 +2430,60 @@ def aggplane_path(work: str, ctx: dict, b3b_inputs: B3bInputs) -> dict:
     log(f"aggplane path: li_rg_idx's _aggstate.json (captured on the card) equals the doc a "
         f"cpu session computes over its {len(files)} files and {groups} row groups apart "
         f"from mtime_ns ({time.perf_counter() - t0:.2f}s on the cpu)")
-    return {"launches": launches, "queries": results}
+    return {"launches": launches, "queries": results,
+            "capture": capture_profile(torch.device("cuda"), hs)}
+
+
+#: kernel names of each part of a capture's fold, as torch.profiler
+#: names them (B5f's one pass and ordered route, B3b, B5)
+FOLD_PARTS = {
+    "b5f": ("agg_block_pass", "merge_init", "insert_carried", "merge_records",
+            "finish_groups", "group_pass", "insert_groups"),
+    "b3b": ("select_tiles",),
+    "b5": ("range_pass", "fixup_pass", "fold_sum"),
+    "copies": ("Memcpy", "Memset"),
+}
+
+
+def capture_profile(dev, hs, names=("li_idx", "o_idx")) -> dict:
+    """Each named index's sidecar folds computed again, as its create's
+    capture computes them (``aggindex.file_agg_docs`` over the index's
+    files on the card): the host clock of one run, then one run under
+    torch.profiler, its device time split by :data:`FOLD_PARTS` (the
+    rest: torch's own kernels), and the capture's passes and overflowed
+    chunks. -> name -> record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperspace_tpu_torch.indexes import aggindex
+
+    out = {}
+    for name in names:
+        files = hs.get_index(name).content.files
+        torch.cuda.synchronize()
+        aggindex.capture_stats.update(read=0.0, fold=0.0, passes=0, overflowed=0)
+        t0 = time.perf_counter()
+        aggindex.file_agg_docs(files, device=dev)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        stats = dict(aggindex.capture_stats)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            aggindex.file_agg_docs(files, device=dev)
+            torch.cuda.synchronize()
+        parts = {k: 0.0 for k in (*FOLD_PARTS, "other")}
+        for ev in prof.key_averages():
+            part = next((k for k, keys in FOLD_PARTS.items()
+                         if any(x in ev.key for x in keys)), "other")
+            parts[part] += ev.device_time_total / 1e3
+        out[name] = r = {"host_s": host_s, "read_s": stats["read"], "fold_s": stats["fold"],
+                         "passes": stats["passes"], "overflowed": stats["overflowed"],
+                         "device_ms": parts, "device_ms_total": sum(parts.values())}
+        log(f"capture profile: {name}'s sidecar folds over {len(files)} files: host "
+            f"{host_s:.4f} s (reads {stats['read']:.4f}, folds {stats['fold']:.4f}), "
+            f"{stats['passes']} fused passes, {stats['overflowed']} overflowed to the ordered "
+            f"route; device ms {r['device_ms_total']:.4f} in all: "
+            f"{ {k: round(v, 4) for k, v in parts.items()} } (torch.profiler, one run)")
+    return out
 
 
 def f_inputs(dev, ctx) -> dict:
@@ -2444,22 +2515,39 @@ def f_inputs(dev, ctx) -> dict:
 
 
 def fused_agg_bound(chunk) -> dict:
-    """Least time of B5f on one chunk: the bytes of its inputs, each
-    distinct column read once (8 bytes a row) and each validity once (1
-    byte a row), over HBM bandwidth; the outputs (a few words a group)
-    and its operations (a few a row and column) are below that."""
-    seen, nbytes = set(), 0
-    tensors = []
+    """Least time of B5f on one chunk over HBM bandwidth: the least bytes
+    its inputs need, the term columns whole and, of the key and value
+    columns (and their validity), only the 32-byte sectors that hold a
+    passing row (the one pass reads no other). Beside it, as commit
+    2396f04's kernel table counted it, the bytes of every distinct input column
+    read whole once (8 bytes a row) and each validity once (1 byte a
+    row). The outputs (a few words a group) and its operations (a few a
+    row and column) are below either."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import filter as F
+
+    terms, others, seen = [], [], set()
     if chunk.terms is not None:
-        tensors += list(chunk.terms.cols) + [v for v in chunk.terms.valids if v is not None]
-    tensors += [t for b, v, _f in chunk.keys for t in (b, v) if t is not None]
-    tensors += [t for _op, x, v in chunk.aggs for t in (x, v) if t is not None]
-    for t in tensors:
-        if t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            nbytes += t.numel() * t.element_size()
-    ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {"bytes": nbytes, "bound_ms": ms, "bound_by": "bytes"}
+        terms = list(chunk.terms.cols) + [v for v in chunk.terms.valids if v is not None]
+    others = [t for b, v, _f in chunk.keys for t in (b, v) if t is not None]
+    others += [t for _op, x, v in chunk.aggs for t in (x, v) if t is not None]
+    rows = (torch.nonzero(F.range_mask_kernel(chunk.terms)).flatten() if chunk.terms is not None
+            else torch.arange(chunk.n, device=chunk.device))
+    whole = least = 0
+    for t in terms + others:
+        if t.data_ptr() in seen:
+            continue
+        seen.add(t.data_ptr())
+        nbytes = t.numel() * t.element_size()
+        whole += nbytes
+        if any(t is x for x in terms):
+            least += nbytes
+        else:  # the sectors of passing rows: 4 rows of 8 bytes, 32 of 1 byte
+            least += 32 * int(torch.unique(rows // (32 // t.element_size())).numel())
+    return {"bytes": least, "bound_ms": least / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "whole_column_bytes": whole,
+            "whole_column_bound_ms": whole / PEAK_BYTES_PER_S * 1e3}
 
 
 def interpreted_chain(fplan, chunk):
@@ -2507,20 +2595,72 @@ def interpreted_chain(fplan, chunk):
     return out
 
 
+def device_ms_per_call(fn, flush, calls: int = 5) -> tuple:
+    """(device milliseconds of one call of ``fn``: every kernel, memset
+    and copy it launched, from torch.profiler's records, cold: ``flush``
+    read before each call and its own kernels left out; the same per
+    kernel name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(body):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+
+    f32 = flush.view(torch.float32)  # one reduction kernel, no conversion copy
+    flush_keys = {ev.key for ev in names(f32.sum) if ev.device_time_total > 0}
+    fn()
+
+    def cold():
+        for _ in range(calls):
+            f32.sum()
+            fn()
+
+    per = {}
+    for ev in names(cold):
+        if ev.device_time_total > 0 and ev.key not in flush_keys:
+            per[ev.key[:60]] = per.get(ev.key[:60], 0.0) + ev.device_time_total / calls / 1e3
+    total = sum(per.values())
+    return (total if total > 0 else None), per
+
+
+def synchronisations(fn) -> int:
+    """The synchronising calls one run of ``fn`` makes, as torch's sync
+    debug mode warns of them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+               for w in seen)
+
+
 def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
     """B5f and B3b on phase 9's inputs: B5f on f1's and f2's (one chunk of
     6,001,215 rows), first held bit-equal to the plain version on the CPU,
-    then timed cold on the card: the whole call (B3b's compaction, group
-    pass, numbering, B5; CUDA events around it, so host round trips
-    between its launches count), the group pass alone over the passing
-    rows (its C function launched directly; f2 only, f1 has no keys) and,
-    warm (back to back), the device time of its kernels (torch.profiler),
-    beside the byte bound, the plain version (host clock) and the
-    interpreted chain on the same device columns. B3b on f1's terms over the same l_orderkey column
-    and on s1's recorded batch: its three kernels launched directly (no
-    count read back), cold, beside its bound, the plain version on the
-    card, and B3a plus ``torch.nonzero``. Returns (B3b record, B5f
-    record)."""
+    then timed cold on the card: the whole call on its route (CUDA events
+    around it, so the host's round trips between its launches count, and
+    the host clock), its synchronisations (torch's sync debug mode), the
+    device time of every kernel of one call (torch.profiler, cold, and
+    warm, 5 calls back to back), the ordered route on the
+    same chunk, the group pass alone (f2; its C function launched
+    directly) beside both byte bounds, the plain version (host clock)
+    and the interpreted chain on the same device columns. B3b on f1's
+    terms over the same l_orderkey column and on s1's recorded batch: its
+    one kernel launched directly (no count read back), cold, beside its
+    bound, the plain version on the card, and B3a plus
+    ``torch.nonzero``. Returns (B3b record, B5f record)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2536,40 +2676,61 @@ def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
     b5f = {}
     for label, (fplan, chunk, batch) in inputs.items():
         empty = lambda: PC.AggState(fplan, dev).state  # noqa: E731
-        got = FA.fused_filter_agg_kernel(empty(), chunk)
+        start = empty()  # the calls fold into a new state and leave this one as it was
+        call = lambda: FA.fused_filter_agg_kernel(start, chunk)  # noqa: E731
+        ordered = lambda: FA._fold(start, chunk, FA.group_ids_kernel, plain=False)  # noqa: E731
+        got = call()
         cpu_state = PC.AggState(fplan, "cpu")
         cpu_chunk = cpu_state._chunk(batch)
         t0 = time.perf_counter()
         want = FA.fused_filter_agg_torch(cpu_state.state, cpu_chunk)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        a, b = _state_bits(got), _state_bits(want)
-        bad = {k: int((a[k] != b[k]).sum()) for k in a if a[k].shape == b[k].shape}
-        if any(bad.values()) or any(a[k].shape != b[k].shape for k in a):
-            raise AssertionError(f"B5f on {label}'s inputs differs from its plain version: {bad}")
-        ms = med(time_cold(lambda: FA.fused_filter_agg_kernel(empty(), chunk), flush, iters=10))
+        for name, st in (("its route", got), ("the ordered route", ordered())):
+            a, b = _state_bits(st), _state_bits(want)
+            bad = {k: int((a[k] != b[k]).sum()) for k in a if a[k].shape == b[k].shape}
+            if any(bad.values()) or any(a[k].shape != b[k].shape for k in a):
+                raise AssertionError(f"B5f on {label}'s inputs by {name} differs from its plain "
+                                     f"version: {bad}")
+        route = FA.route(got.ops)
+        syncs = synchronisations(call)
+        ms = med(time_cold(call, flush, iters=10))
+        host_ms = host_cold_ms(call, flush, iters=10)
+        ordered_ms = med(time_cold(ordered, flush, iters=10))
+        dev_ms, per_kernel = device_ms_per_call(call, flush)
         gp = group_pass_launcher(chunk, empty())
         gp_ms = None if gp is None else med(time_cold(gp, flush, iters=10))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
-                FA.fused_filter_agg_kernel(empty(), chunk)
+                call()
             torch.cuda.synchronize()
         kernel_us = sum(ev.device_time_total for ev in prof.key_averages())
         chain_ms = med(time_cold(lambda: interpreted_chain(fplan, chunk), flush, iters=10))
-        r = {"n": chunk.n, "groups": got.n_groups, "rows_passed": got.rows_passed, "ms": ms,
-             "group_pass_ms": gp_ms,
+        before = FA.launches
+        call()
+        r = {"n": chunk.n, "groups": got.n_groups, "rows_passed": got.rows_passed,
+             "route": route, "overflowed": got.overflowed, "launches_per_call": FA.launches - before,
+             "syncs_per_call": syncs, "ms": ms, "host_ms": host_ms,
+             "device_ms": dev_ms, "device_ms_by_kernel": per_kernel,
              "kernels_warm_ms": kernel_us / 5e3 if kernel_us > 0 else None,
+             "ordered_route_ms": ordered_ms, "group_pass_ms": gp_ms,
              "plain_ms": plain_ms, "interpreted_chain_ms": chain_ms, **fused_agg_bound(chunk)}
         b5f[label] = r
+        fmt = lambda v: "not measured" if v is None else format(v, ".4f")  # noqa: E731
         log(f"kernels: B5f on {label}'s inputs ({r['n']} rows, {r['groups']} groups, "
-            f"{r['rows_passed']} passing) equal bit for bit to its plain version; cold ms "
-            f"{ms:.4f} the whole call (device timeline, host syncs included), group pass "
-            f"alone {'none (no keys)' if gp_ms is None else format(gp_ms, '.4f')}, device "
-            f"kernel time warm "
-            f"{'not measured' if r['kernels_warm_ms'] is None else format(r['kernels_warm_ms'], '.4f')} "
-            f"(torch.profiler, back to back); bound_ms {r['bound_ms']:.4f} (bytes "
-            f"{r['bytes']}); plain_ms {plain_ms:.2f} (cpu, host clock); interpreted chain on "
-            f"the same device columns (B3a, gather, factorize, B5) {chain_ms:.4f}")
+            f"{r['rows_passed']} passing) equal bit for bit to its plain version on its route "
+            f"({route}, {r['overflowed']} overflowed, {r['launches_per_call']} launches, "
+            f"{syncs} synchronisations a call) and on the ordered route; cold ms {ms:.4f} the "
+            f"whole call (device timeline, host syncs included; host clock {host_ms:.4f}), "
+            f"device time of its kernels {fmt(dev_ms)} cold, {fmt(r['kernels_warm_ms'])} warm "
+            f"(torch.profiler); by kernel { {k: round(v, 4) for k, v in per_kernel.items()} }; "
+            f"bound_ms {r['bound_ms']:.4f} the sectors of passing rows ({r['bytes']} B; "
+            f"{r['bound_ms'] / dev_ms if dev_ms else 0:.1%} of the device time), "
+            f"{r['whole_column_bound_ms']:.4f} whole columns ({r['whole_column_bytes']} B; "
+            f"{r['whole_column_bound_ms'] / dev_ms if dev_ms else 0:.1%}); "
+            f"ordered route {ordered_ms:.4f}; group pass alone {fmt(gp_ms)}; plain_ms "
+            f"{plain_ms:.2f} (cpu, host clock); interpreted chain on the same device columns "
+            f"(B3a, gather, factorize, B5) {chain_ms:.4f}")
     b3b = {}
     f1_terms = inputs["f1"][1].terms
     sources = {"f1": f1_terms}
@@ -2577,9 +2738,14 @@ def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
         sources[label] = F.range_args(batch, terms, dev)
     for label, args in sources.items():
         launch = select_launcher(args)
+        before = F.select_launches
         idx = F.select_kernel(args)
+        launches = F.select_launches - before
         if not torch.equal(idx, F.select_torch(args)):
             raise AssertionError(f"B3b on {label}'s inputs differs from its plain version")
+        for _ in range(20):  # the look-back, again and again
+            if not torch.equal(F.select_kernel(args), idx):
+                raise AssertionError(f"B3b on {label}'s inputs differs on a repeat")
         ms = med(time_cold(launch, flush))
         plain_ms = med(time_cold(lambda: F.select_torch(args), flush, iters=10))
         yard_ms = med(time_cold(lambda: torch.nonzero(F.range_mask_kernel(args)), flush,
@@ -2587,11 +2753,12 @@ def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
         n = args.n
         nbytes = sum(c.numel() * 8 for c in args.cols) + sum(
             v.numel() for v in args.valids if v is not None) + 8 * idx.numel()
-        b3b[label] = r = {"n": n, "passing": int(idx.numel()), "ms": ms, "plain_ms": plain_ms,
+        b3b[label] = r = {"n": n, "passing": int(idx.numel()), "launches_per_call": launches,
+                          "ms": ms, "plain_ms": plain_ms,
                           "b3a_nonzero_ms": yard_ms, "bytes": nbytes,
                           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
         log(f"kernels: B3b on {label}'s inputs ({n} rows, {r['passing']} passing) equal to its "
-            f"plain version; cold ms {ms:.4f} (count, scan, emit), bound_ms "
+            f"plain version in 21 calls; cold ms {ms:.4f} ({launches} launch a call), bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_ms'] / ms:.1%}; bytes {nbytes}); plain_ms "
             f"{plain_ms:.4f} (torch mask and nonzero on the card); B3a + torch.nonzero "
             f"{yard_ms:.4f}")
@@ -2616,13 +2783,60 @@ def fused_timings(dev, inputs: dict, b3b_calls: dict) -> tuple:
         "ms": head5["ms"], "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "timing": "cold: 256 MiB read before each run, median of 10; the whole call on f1's "
-                  "inputs as one chunk (B3b's compaction, B5; no keys, so no group pass), "
-                  "host syncs included",
-        **{k: head5[k] for k in ("n", "groups", "rows_passed", "group_pass_ms", "kernels_warm_ms",
-                                 "interpreted_chain_ms", "bytes")},
+                  "inputs as one chunk on its route (one pass: block pass, merge, one read "
+                  "back, next state), host syncs included",
+        "fused_route": head5["route"],
+        **{k: head5[k] for k in ("n", "groups", "rows_passed", "syncs_per_call",
+                                 "launches_per_call", "device_ms", "kernels_warm_ms",
+                                 "ordered_route_ms", "interpreted_chain_ms", "bytes",
+                                 "whole_column_bytes", "whole_column_bound_ms")},
         "other_inputs": {k: v for k, v in b5f.items() if k != "f1"},
     }
     return b3b_rec, b5f_rec
+
+
+def b5f_replica(dev) -> tuple:
+    """Phase 9's B5f and B3b inputs built on the card from phase 4's
+    generators without writing the tables: li_idx's rows (l_orderkey in
+    B1's 200 buckets, key-sorted within each) as one chunk of l_orderkey,
+    l_shipdate and l_quantity; f1's and f2's plans lowered from their
+    terms and aggregates; s1's batch, the rows of the agg window with
+    l_quantity < 24. -> (label -> (plan, chunk, host batch), {"s1":
+    (terms, batch)}), as :func:`f_inputs` and :class:`B3bInputs` give."""
+    import pyarrow as pa
+    import torch
+
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops import hash as H
+    from hyperspace_tpu_torch.ops.filter import range_mask_numpy
+    from hyperspace_tpu_torch.ops.sort import sort_permutation
+    from hyperspace_tpu_torch.plan.nodes import AggSpec
+
+    cols = lineitem_columns()
+    key = torch.from_numpy(cols["l_orderkey"]).to(dev)
+    stored = sort_permutation(key[None], H.bucket_ids_kernel(key[None], 200).long()).cpu().numpy()
+    names = ["l_orderkey", "l_shipdate", "l_quantity"]
+    table = pa.table({c: pa.array(cols[c][stored]) for c in names})
+    batch = ColumnarBatch.from_arrow(table)
+    schema = {c: table.schema.field(c).type for c in names}
+    window = (("l_orderkey", AGG_LO, False, None, False, False),
+              ("l_orderkey", None, False, AGG_HI, True, False))
+    plans = {
+        "f1": ((), [AggSpec("count", None, "n"), AggSpec("sum", "l_quantity", "s"),
+                    AggSpec("avg", "l_quantity", "a"), AggSpec("min", "l_shipdate", "mn"),
+                    AggSpec("max", "l_shipdate", "mx")]),
+        "f2": (("l_quantity",), [AggSpec("count", None, "n"), AggSpec("sum", "l_quantity", "s"),
+                                 AggSpec("min", "l_shipdate", "mn"),
+                                 AggSpec("max", "l_shipdate", "mx")]),
+    }
+    out = {}
+    for label, (group_by, aggs) in plans.items():
+        fplan = PC._lower_from_terms(list(window), list(group_by), aggs, schema, names)
+        out[label] = (fplan, PC.AggState(fplan, dev)._chunk(batch), batch)
+    s1_terms = list(window) + [("l_quantity", None, False, 24, True, False)]
+    keep = np.nonzero(range_mask_numpy(batch, s1_terms))[0]
+    return out, {"s1": (s1_terms, ColumnarBatch.from_arrow(table.take(keep)))}
 
 
 def select_launcher(args):
@@ -2705,6 +2919,14 @@ def main() -> int:
         "only_b4 with null launches; no main path, no final ok line",
     )
     parser.add_argument(
+        "--only-b5f", action="store_true",
+        help="for iterating on kernels B5f and B3b: run phases 1-3, then time them on "
+        "device inputs shaped like phase 9's (li_idx's rows of l_orderkey, l_shipdate and "
+        "l_quantity as one chunk, f1's and f2's plans, s1's batch; built without writing "
+        "the tables) and print the records under only_b5f with null launches; no main "
+        "path, no final ok line",
+    )
+    parser.add_argument(
         "--only-b5", action="store_true",
         help="for iterating on kernel B5: run phases 1-3, then time B5 on device "
         "tensors shaped like phase 8's calls (built from the same columns without "
@@ -2733,7 +2955,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pending = build_baseline(args.baseline_src) if args.baseline_src else None
-    probe = None if args.only_b4 else build_chain_probe()
+    probe = None if args.only_b4 or args.only_b5f else build_chain_probe()
     out_dir = kernels.build_all()
     log(f"build: nvcc sm_90a in {time.perf_counter() - t0:.2f}s -> {out_dir}")
     for name in os.listdir(out_dir):
@@ -2753,6 +2975,12 @@ def main() -> int:
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
         print(card, flush=True)
         print(json.dumps({"only_b4": [b1, b4]}), flush=True)
+        return 0
+    if args.only_b5f:
+        b3b, b5f = fused_timings(dev, *b5f_replica(dev))
+        b5f.update(cases=fused_cases_run)
+        print(card, flush=True)
+        print(json.dumps({"only_b5f": [b3b, b5f]}), flush=True)
         return 0
     if args.only_b5:
         recorded, hosts = b5_replica(dev)

@@ -101,7 +101,8 @@ class CreateAction(Action):
         # zone maps for the range serve plane, then the aggregate index
         # plane's _aggstate.json and _aggsample.parquet, computed on the
         # session's device; the latter's seconds are the build stage
-        # "sidecar_capture"
+        # "sidecar_capture", split into its row-group reads and its folds
+        # (with the folds' fused passes and their overflowed chunks)
         from hyperspace_tpu_torch.indexes import aggindex, zonemaps
 
         zonemaps.capture_safely(self.index_data_path, index)
@@ -110,6 +111,8 @@ class CreateAction(Action):
             self.index_data_path, index, self.session.conf, self.session.device
         )
         self.session.build_stats["sidecar_capture"] = time.perf_counter() - t0
+        for k in ("read", "fold", "passes", "overflowed"):
+            self.session.build_stats[f"sidecar_capture_{k}"] = aggindex.capture_stats[k]
         self._index = index
 
     def _enriched_properties(self) -> Dict[str, str]:

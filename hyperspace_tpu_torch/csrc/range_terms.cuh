@@ -62,6 +62,73 @@ __device__ __forceinline__ uint8_t row_mask(const Args& a, int64_t row) {
   return ok ? 1 : 0;
 }
 
+// kU row pairs at once, as B3b and B5f's block pass read them: pair u is
+// rows 2p and 2p + 1 with p = pair0 + u * stride; a row at or past n
+// fails. kVec loads a pair with one 16-byte load per column and one
+// 2-byte load per validity (every column 16-byte aligned, every validity
+// 2-byte aligned); a pair cut by n takes scalar loads. All kU pairs'
+// loads of a column are issued before its terms are tested.
+template <bool kVec, int kU>
+__device__ __forceinline__ void pair_masks(const Args& a, int64_t pair0, int64_t stride,
+                                           int64_t n, bool (&ok0)[kU], bool (&ok1)[kU]) {
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int64_t r = 2 * (pair0 + u * stride);
+    ok0[u] = r < n;
+    ok1[u] = r + 1 < n;
+  }
+  for (int c = 0; c < a.ncols; ++c) {
+    const int64_t* col = a.cols[c];
+    int64_t v0[kU], v1[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int64_t r = 2 * (pair0 + u * stride);
+      v0[u] = v1[u] = 0;
+      if (kVec && r + 1 < n) {
+        const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(col + r));
+        v0[u] = x.x;
+        v1[u] = x.y;
+      } else {
+        if (r < n) v0[u] = __ldg(col + r);
+        if (r + 1 < n) v1[u] = __ldg(col + r + 1);
+      }
+    }
+    const uint8_t* valid = a.valid[c];
+    if (valid != nullptr) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int64_t r = 2 * (pair0 + u * stride);
+        if (kVec && r + 1 < n) {
+          const unsigned short w = __ldg(reinterpret_cast<const unsigned short*>(valid + r));
+          ok0[u] &= (w & 0xFF) != 0;
+          ok1[u] &= (w >> 8) != 0;
+        } else {
+          if (r < n) ok0[u] &= __ldg(valid + r) != 0;
+          if (r + 1 < n) ok1[u] &= __ldg(valid + r + 1) != 0;
+        }
+      }
+    }
+    for (int t = a.term_begin[c]; t < a.term_begin[c + 1]; ++t) {
+      const Term term = a.terms[t];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        ok0[u] &= holds(term, v0[u]);
+        ok1[u] &= holds(term, v1[u]);
+      }
+    }
+  }
+}
+
+// Whether every term column is 16-byte aligned and every validity 2-byte
+// aligned, so pair_masks<true> may take vector loads.
+inline bool vec_aligned(const Args& a) {
+  for (int c = 0; c < a.ncols; ++c) {
+    if (reinterpret_cast<uintptr_t>(a.cols[c]) % 16 != 0) return false;
+    if (a.valid[c] != nullptr && reinterpret_cast<uintptr_t>(a.valid[c]) % 2 != 0) return false;
+  }
+  return true;
+}
+
 // Packs the C interface's term arrays into `a` (see hs_range_mask in
 // range_mask.cu for their layout). ncols = nterms = 0 is accepted only
 // with allow_empty. Returns cudaSuccess or cudaErrorInvalidValue (counts

@@ -800,6 +800,10 @@ def _agg_stats(state: AggState, t0: float) -> Dict[str, Any]:
         "rows_materialized": int(state.n_groups if state.plan.group_by else 1),
         "groups": int(state.n_groups),
         "chunks": state.chunks,
+        # the port's own: the plan's route on the card, and the chunks a
+        # block's table overflow sent from the one pass to the ordered route
+        "fused_route": FA.route(state.state.ops),
+        "overflowed_chunks": state.state.overflowed,
         "wall_s": time.perf_counter() - t0,
     }
 
@@ -940,8 +944,8 @@ _METADATA_MERGE_OPS = frozenset(
 _CELL = "__hs_cell"
 
 
-def partials_per_chunk(plan, tables: List[pa.Table], device,
-                       group_order: bool = False) -> Optional[List[AggPartials]]:
+def partials_per_chunk(plan, tables: List[pa.Table], device, group_order: bool = False,
+                       stats: Optional[dict] = None) -> Optional[List[AggPartials]]:
     """Each table's partials as a fused pass over it alone gives them
     (``plan``: a FusedAggPlan or a ``_PartialsSpec``), from few fused
     passes on ``device``: the tables joined, up to ``_FUSED_FOLD_ROWS``
@@ -952,8 +956,11 @@ def partials_per_chunk(plan, tables: List[pa.Table], device,
     apart, which on the card costs a few host round trips a chunk. Groups
     in first-occurrence order, or with ``group_order`` in ``_factorize``'s
     (as :func:`partials_from_batch`). A table without a passing row has no
-    group. None when a column falls outside the fused set. Shared by the
-    metadata route's boundary chunks and the sidecar capture."""
+    group. None when a column falls outside the fused set. ``stats``,
+    when given, gains the fused passes ("passes") and their chunks a
+    block's table overflow sent to B5f's ordered route ("overflowed").
+    Shared by the metadata route's boundary chunks and the sidecar
+    capture."""
     spec = _PartialsSpec((_CELL,) + tuple(plan.group_by),
                          tuple(plan.agg_ops) + ((_OP_COUNT_STAR, None),),
                          getattr(plan, "terms", ()), getattr(plan, "term_f64", ()),
@@ -973,6 +980,9 @@ def partials_per_chunk(plan, tables: List[pa.Table], device,
         state = AggState(spec, device)
         if not state.accumulate(ColumnarBatch.from_arrow(joined)):
             return None
+        if stats is not None:
+            stats["passes"] += 1
+            stats["overflowed"] += state.state.overflowed
         pt = state.partials()
         for c, t in enumerate(take):
             sel = np.nonzero(pt.g_reps[0] == c)[0]

@@ -43,6 +43,7 @@ import json
 import logging
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -59,6 +60,14 @@ from hyperspace_tpu_torch.utils.files import fsync_dir
 from hyperspace_tpu_torch.utils.hashing import murmur3_64_bytes
 
 _log = logging.getLogger("hyperspace_tpu_torch.aggindex")
+
+#: the last capture (:func:`capture_index_dir`): seconds spent reading
+#: and decoding row groups ("read") and folding them into partials on the
+#: device ("fold": B5f's passes and the copies of their partials back);
+#: its fused passes ("passes") and the chunks of them that a block's
+#: table overflow sent from B5f's one pass to its ordered route
+#: ("overflowed")
+capture_stats: Dict[str, float] = {"read": 0.0, "fold": 0.0, "passes": 0, "overflowed": 0}
 
 SIDECAR_NAME = "_aggstate.json"
 SAMPLE_NAME = "_aggsample.parquet"
@@ -257,6 +266,7 @@ def _run_docs(run, max_groups, sample_rows, group_keys, device):
         wanted = {k.lower() for k in group_keys}
         key_candidates = [c for c in key_candidates if c.lower() in wanted]
     entries, samples, cells = [], [], []
+    t_read = time.perf_counter()
     for fi, (path, pf) in enumerate(run):
         entry: dict = {"rg_rows": [], "cols": {c: {"cnt": []} for c in count_only},
                        "groups": {c: [] for c in key_candidates}}
@@ -280,7 +290,11 @@ def _run_docs(run, max_groups, sample_rows, group_keys, device):
                 file_samples.append(sampled)
         samples.append(pa.concat_tables(file_samples, promote_options="permissive")
                        if file_samples else None)
-    for cell, pt in zip(cells, _cell_partials(cells, None, ops, device)):
+    t_fold = time.perf_counter()
+    capture_stats["read"] += t_fold - t_read
+    parts = _cell_partials(cells, None, ops, device)
+    capture_stats["fold"] += time.perf_counter() - t_fold
+    for cell, pt in zip(cells, parts):
         dst = entries[cell.file]["cols"]
         for c, cell_cols in _partials_to_cols(pt, slots).items():
             for k, vals in cell_cols.items():
@@ -297,7 +311,9 @@ def _run_docs(run, max_groups, sample_rows, group_keys, device):
             probe = cell.batch.column(kc).take(np.arange(min(n, 4 * max_groups))).key_rep()
             if len(np.unique(probe)) <= max_groups:
                 eligible.append(cell)
+        t_fold = time.perf_counter()
         grouped = dict(zip(map(id, eligible), _cell_partials(eligible, kc, ops, device)))
+        capture_stats["fold"] += time.perf_counter() - t_fold
         for cell in cells:
             gpt = grouped.get(id(cell))
             if gpt is None or gpt.n_groups > max_groups:
@@ -325,7 +341,8 @@ def _cell_partials(cells, key: Optional[str], ops, device) -> list:
     one group)."""
     spec = _CaptureSpec(() if key is None else (key,), ops)
     full = [c for c in cells if c.table.num_rows]
-    parts = PC.partials_per_chunk(spec, [c.table for c in full], device, group_order=True)
+    parts = PC.partials_per_chunk(spec, [c.table for c in full], device, group_order=True,
+                                  stats=capture_stats)
     if parts is None:
         raise ValueError("uncapturable column set")
     got = dict(zip(map(id, full), parts))
@@ -344,6 +361,7 @@ def capture_index_dir(dir_path: str, index, conf=None, device=None) -> bool:
     maps; the z-order index comes with queue A item 4), each through a
     temporary file and an atomic replace, the partials computed on
     ``device`` (None is cuda). Returns True when written."""
+    capture_stats.update(read=0.0, fold=0.0, passes=0, overflowed=0)
     kind = getattr(index, "kind", "")
     if kind != "CoveringIndex":
         return False

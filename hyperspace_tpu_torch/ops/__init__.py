@@ -17,8 +17,9 @@ the plain version, a tensor on the card launches the kernel or raises.
   groups (kernel B5, ``csrc/segment_reduce.cu``);
 * :mod:`.filter` also holds the fused select, the passing rows' indices
   of a range conjunction (kernel B3b, ``csrc/fused_select.cu``);
-* :mod:`.fused_agg` — the fused filter→aggregate over one chunk: the
-  group pass (kernel B5f, ``csrc/fused_agg.cu``), then B5.
+* :mod:`.fused_agg` — the fused filter→aggregate over one chunk (kernel
+  B5f, ``csrc/fused_agg.cu``): one pass for order-free aggregates, else
+  B3b, the group pass and B5.
 """
 
 from __future__ import annotations

@@ -668,7 +668,7 @@ def range_mask_torch(args: RangeArgs) -> torch.Tensor:
 #: B3a launches made by :func:`range_mask_kernel` (never by the plain version)
 launches = 0
 
-#: B3b kernel launches made by :func:`select_kernel` (three a call with rows)
+#: B3b kernel launches made by :func:`select_kernel` (one a call with rows)
 select_launches = 0
 
 
@@ -847,8 +847,8 @@ def select_kernel(args: RangeArgs) -> torch.Tensor:
                                   scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused select kernel launch failed: CUDA error {err}")
-    if n:  # count, scan, emit; nothing for n = 0
-        select_launches += 3
+    if n:  # one kernel (decoupled look-back); nothing for n = 0
+        select_launches += 1
     return out[: int(total.item())]
 
 

@@ -22,29 +22,47 @@ The same chunks in the same order give the reference kernel's
 ``AggPartials``: the same groups in the same first-occurrence order, the
 same first key values, accumulators and ``rows_passed``.
 
-Three steps a chunk:
+On CUDA tensors a chunk takes one of two routes, chosen from the plan
+before any launch (:func:`route`):
 
-1. group ids: the passing rows (ascending), each one's group, and the
-   chunk's new groups' first rows, ascending. On the card kernel B3b
-   (``ops/filter.select_kernel``) compacts the passing rows, then kernel
-   B5f's group pass (``csrc/fused_agg.cu``: an open-addressing table
-   sized from the passing count, claimed with atomicCAS, each new key's
-   slot naming its least row) and a pass over the passing rows that
-   numbers the rows their slots name; the plain version
-   (:func:`group_ids_torch`) finds the distinct tuples by a stable sort
-   of the rep planes.
-2. the new groups' reps, null flags, raw key bits and validity, gathered
-   at their first rows.
-3. the reductions: the passing rows sorted stably by group, then kernel
-   B5 (``ops/aggregate.py``) per aggregate, combined with the carried
-   state by the accumulators' rules above, which are exact for COUNT, int
-   SUM and MIN/MAX (a chunk's replace-on-equal extreme combined with the
-   carried one equals the row sweep, ±0 ties included). The float SUM
-   folds from the carried sums (B5's start), never a chunk sum added
-   afterwards, which would reassociate.
+* **one pass** (``csrc/fused_agg.cu``, ``hs_agg_one_pass``), for plans
+  whose aggregates are exact in any order of combination: COUNT(*),
+  COUNT(col), int SUM (wrapping) and int MIN/MAX. Kernel B5f's block
+  pass tests the terms and folds each block of :data:`BLOCK_ROWS` rows
+  into a shared-memory table of its groups (first row, accumulators);
+  the blocks' groups merge into a global table with the carried groups;
+  one read back of four counters (passing rows, block groups, overflow,
+  new groups); the new groups numbered by first row (ranked in the last
+  kernel, or one ``torch.sort`` past :data:`RANK_MAX` of them); one
+  launch writes the next state. A block whose groups overflow its
+  table sends the chunk to the ordered route (the two give equal bits),
+  counted in ``FusedAggState.overflowed``.
+  :func:`fused_filter_agg_blocked_torch` is its plain model, block by
+  block.
+* **ordered**, for plans with a float SUM, MIN or MAX (a left fold in row
+  order; ties between -0.0 and 0.0 keep the later row), in three steps:
 
-:func:`fused_filter_agg_kernel` runs these with B3b, B5f and B5 on CUDA
-tensors; :func:`fused_filter_agg_torch`, the plain version, with
+  1. group ids: the passing rows (ascending), each one's group, and the
+     chunk's new groups' first rows, ascending. Kernel B3b
+     (``ops/filter.select_kernel``) compacts the passing rows, then
+     B5f's group pass (``hs_fused_group``: an open-addressing table sized
+     from the passing count, claimed with atomicCAS, each new key's slot
+     naming its least row) and a pass over the passing rows that numbers
+     the rows their slots name; the plain version
+     (:func:`group_ids_torch`) finds the distinct tuples by a stable sort
+     of the rep planes.
+  2. the new groups' reps, null flags, raw key bits and validity,
+     gathered at their first rows.
+  3. the reductions: the passing rows sorted stably by group, then
+     kernel B5 (``ops/aggregate.py``) per aggregate, combined with the
+     carried state by the accumulators' rules above, which are exact for
+     COUNT, int SUM and MIN/MAX (a chunk's replace-on-equal extreme
+     combined with the carried one equals the row sweep, ±0 ties
+     included). The float SUM folds from the carried sums (B5's start),
+     never a chunk sum added afterwards, which would reassociate.
+
+:func:`fused_filter_agg_kernel` runs either route on CUDA tensors;
+:func:`fused_filter_agg_torch`, the plain version, steps 1-3 with
 :func:`group_ids_torch` and B5's plain versions on CPU tensors.
 """
 
@@ -61,9 +79,12 @@ from hyperspace_tpu_torch.ops import aggregate as AG
 from hyperspace_tpu_torch.ops import filter as F
 from hyperspace_tpu_torch.ops.sort import sort_permutation
 
-#: B5f kernel launches made by :func:`group_ids_kernel`: the group pass,
-#: and the insert of the carried groups when there are some (none for a
-#: chunk without keys or without a passing row)
+#: B5f kernel launches: on the one-pass route the block pass, the merge
+#: table's fill, the insert of the carried groups (when there are some),
+#: the merge and, when a row passed, the write of the next state; on the
+#: ordered route the group pass and the carried insert
+#: (:func:`group_ids_kernel`; none for a chunk without keys or without a
+#: passing row)
 launches = 0
 
 OP_COUNT_STAR = 0
@@ -76,6 +97,12 @@ OP_MIN_F64 = 6
 OP_MAX_F64 = 7
 
 MAX_KEYS = 16  # kMaxKeys in csrc/fused_agg.cu
+MAX_PLANES = 32  # kMaxPlanes: count planes and value planes, each
+ONE_PASS_OPS = frozenset({OP_COUNT_STAR, OP_COUNT_COL, OP_SUM_I64, OP_MIN_I64, OP_MAX_I64})
+#: rows a block of the one-pass route owns (a multiple of 64, at most
+#: kMaxBlockRows = 16,384); the kernel sizes each keyed block's table
+BLOCK_ROWS = 2048
+RANK_MAX = 1024  # kRankMax: new groups of a chunk the finish kernel ranks itself
 NULL_REP = -0x7FFF_FFFF_FFFF_FF13  # io/columnar.NULL_KEY_REP
 NAN_REP = 0x7FF8_0000_0000_0000
 _I64_MAX = (1 << 63) - 1
@@ -119,6 +146,9 @@ class FusedAggState:
     acc_cnt: torch.Tensor
     acc_aux: torch.Tensor
     rows_passed: int = 0
+    #: chunks of a one-pass plan folded by the ordered route because a
+    #: block's table overflowed
+    overflowed: int = 0
 
     @staticmethod
     def empty(nk: int, ops, device) -> "FusedAggState":
@@ -156,6 +186,34 @@ def _identity(ops, G: int, dev):
             torch.zeros((na, G), dtype=torch.int64, device=dev))
 
 
+def route(ops) -> str:
+    """The route a plan's chunks take on the card: ``"one_pass"`` when
+    every aggregate is exact in any order of combination (COUNT(*),
+    COUNT(col), int SUM, int MIN/MAX) and the aggregates fit the kernel's
+    planes, else ``"ordered"``."""
+    ok = len(ops) < MAX_PLANES and all(op in ONE_PASS_OPS for op in ops)
+    return "one_pass" if ok else "ordered"
+
+
+def block_slots(ncnt: int, nval: int) -> int:
+    """Slots of a keyed block's table on the card for ``ncnt`` count
+    planes and ``nval`` value planes, as the kernel sizes it
+    (``hs_agg_block_slots``)."""
+    return int(_lib().hs_agg_block_slots(ncnt, nval))
+
+
+def chunk_slots(chunk: FusedChunk) -> int:
+    """:func:`block_slots` of the chunk's planes."""
+    pl = _planes(chunk)
+    return block_slots(len(pl.cnt_valid), len(pl.vals))
+
+
+def fill_limit(slots: int) -> int:
+    """Groups a block's table of ``slots`` slots holds before the chunk
+    overflows: 3/4 of them, rounded up."""
+    return slots - slots // 4
+
+
 def key_rep_torch(bits: torch.Tensor, valid: Optional[torch.Tensor], f64: bool):
     """(canonical int64 rep, uint8 null flag) of key bits, as
     ``Column.key_rep`` and the reference kernel compute them."""
@@ -180,6 +238,20 @@ def _passing(chunk: FusedChunk, mask_fn) -> torch.Tensor:
 # -- step 1: group ids ------------------------------------------------------------
 
 
+def _tuple_ids(allp: torch.Tensor):
+    """(id of each column's tuple, number of distinct tuples) of ``[k, m]``
+    planes, m >= 1: a stable sort of the planes, then the runs of equal
+    columns (torch.unique(dim=1) gives the same, far slower on the CPU)."""
+    order = sort_permutation(allp)
+    srt = allp[:, order]
+    run_start = torch.ones(srt.shape[1], dtype=torch.int64, device=allp.device)
+    run_start[1:] = (srt[:, 1:] != srt[:, :-1]).any(dim=0).to(torch.int64)
+    sorted_uid = torch.cumsum(run_start, 0) - 1
+    inv = torch.empty_like(sorted_uid)
+    inv[order] = sorted_uid
+    return inv, int(sorted_uid[-1]) + 1
+
+
 def group_ids_torch(state: FusedAggState, chunk: FusedChunk):
     """Plain version of step 1: (the passing rows, ascending; the group id
     of each; the chunk's new groups' first rows, ascending). The distinct
@@ -199,17 +271,7 @@ def group_ids_torch(state: FusedAggState, chunk: FusedChunk):
         rep, nul = key_rep_torch(bits[rows], None if valid is None else valid[rows], f64)
         planes.append(torch.cat([state.g_reps[j], rep]))
         planes.append(torch.cat([state.g_nulls[j].to(torch.int64), nul.to(torch.int64)]))
-    # distinct tuples: a stable sort of the planes, then the runs of equal
-    # columns (torch.unique(dim=1) gives the same, far slower on the CPU)
-    allp = torch.stack(planes)
-    order = sort_permutation(allp)
-    srt = allp[:, order]
-    run_start = torch.ones(srt.shape[1], dtype=torch.int64, device=dev)
-    run_start[1:] = (srt[:, 1:] != srt[:, :-1]).any(dim=0).to(torch.int64)
-    sorted_uid = torch.cumsum(run_start, 0) - 1
-    inv = torch.empty_like(sorted_uid)
-    inv[order] = sorted_uid
-    U = int(sorted_uid[-1]) + 1
+    inv, U = _tuple_ids(torch.stack(planes))
     uid_gid = torch.full((U,), -1, dtype=torch.int64, device=dev)
     uid_gid[inv[:G]] = torch.arange(G, dtype=torch.int64, device=dev)
     row_uid = inv[G:]
@@ -232,6 +294,21 @@ def _lib():
         p, p, i64, p, i64, p, i64, p, p,
     ]
     lib.hs_fused_group.restype = c_int
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.hs_agg_one_pass.argtypes = [
+        pp, pp, c_int, pi, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), pi, c_int,
+        pp, pp, c_int, c_int, c_int, pp, c_int, pp, pp, pi, i64, c_int,
+        p, p, i64, p, p, i64, p, i64, p, p, p,
+    ]
+    lib.hs_agg_one_pass.restype = c_int
+    lib.hs_agg_block_slots.argtypes = [c_int, c_int]
+    lib.hs_agg_block_slots.restype = c_int
+    lib.hs_agg_finish.argtypes = [
+        pp, pp, c_int, c_int, c_int, c_int, pi, pi, pi, p, i64, p, p, p, i64, i64, pp, pp, p,
+    ]
+    lib.hs_agg_finish.restype = c_int
     return lib
 
 
@@ -437,18 +514,235 @@ def fused_filter_agg_torch(state: FusedAggState, chunk: FusedChunk) -> FusedAggS
     return _fold(state, chunk, group_ids_torch, plain=True)
 
 
+# -- the one-pass route ---------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Planes:
+    """A chunk's accumulator planes (``Planes`` in csrc/fused_agg.cu):
+    count plane 0 counts passing rows, each other one the rows valid in
+    one validity; a value plane is one (column, validity, op). Aggregates
+    over the same validity share a count plane, equal (column, validity,
+    op) share a value plane (AVG's SUM and SUM, say). ``agg_cnt`` and
+    ``agg_val`` give each aggregate's planes (-1: no value)."""
+
+    cnt_valid: List[Optional[torch.Tensor]]
+    vals: List[Tuple[torch.Tensor, Optional[torch.Tensor], int]]
+    agg_cnt: List[int]
+    agg_val: List[int]
+
+
+def _planes(chunk: FusedChunk) -> _Planes:
+    cnt_valid: List[Optional[torch.Tensor]] = [None]
+    vals: List[Tuple[torch.Tensor, Optional[torch.Tensor], int]] = []
+    cnt_of, val_of = {}, {}
+    agg_cnt, agg_val = [], []
+    for op, v, valid in chunk.aggs:
+        c = 0
+        if valid is not None and op != OP_COUNT_STAR:
+            c = cnt_of.setdefault(valid.data_ptr(), len(cnt_valid))
+            if c == len(cnt_valid):
+                cnt_valid.append(valid)
+        agg_cnt.append(c)
+        q = -1
+        if op in (OP_SUM_I64, OP_MIN_I64, OP_MAX_I64):
+            key = (v.data_ptr(), None if valid is None else valid.data_ptr(), op)
+            q = val_of.setdefault(key, len(vals))
+            if q == len(vals):
+                vals.append((v, valid, op))
+        agg_val.append(q)
+    return _Planes(cnt_valid, vals, agg_cnt, agg_val)
+
+
+def _check_aggs(chunk: FusedChunk, dev) -> None:
+    for op, v, valid in chunk.aggs:
+        for t, dtype in ((v, torch.int64), (valid, torch.bool)):
+            if t is not None and (t.device != dev or t.dtype != dtype or t.shape != (chunk.n,)
+                                  or not t.is_contiguous()):
+                raise ValueError("aggregate values and validity must be contiguous [n] int64 "
+                                 "and bool tensors on the chunk's device")
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << (max(x, 1) - 1).bit_length()
+
+
+def _one_pass(state: FusedAggState, chunk: FusedChunk) -> FusedAggState:
+    """One chunk by the one-pass route: ``hs_agg_one_pass`` (block pass,
+    merge), one read back of its counters, ``hs_agg_finish`` (which
+    numbers the new groups by first row, given their order by one
+    ``torch.sort`` past :data:`RANK_MAX` of them). A block's overflow
+    sends the chunk to the ordered route. The record and merge-table
+    buffers are sized from upper bounds (the caching allocator hands them
+    out without touching them); the kernels fill what the counts need."""
+    global launches
+    dev = state.device
+    _check_chunk(state, chunk, dev)
+    _check_aggs(chunk, dev)
+    n, nk, G, na = chunk.n, len(chunk.keys), state.n_groups, len(chunk.aggs)
+    pl = _planes(chunk)
+    ncnt, nval = len(pl.cnt_valid), len(pl.vals)
+    lib = _lib()
+    blocks = -(-n // BLOCK_ROWS)
+    cap = min(n, blocks * fill_limit(block_slots(ncnt, nval))) if nk else blocks
+    width = 1 + ncnt + nval
+    tcap = _pow2_at_least(2 * (G + cap))
+    i64 = dict(dtype=torch.int64, device=dev)
+    counters = torch.empty(4, **i64)
+    rec = torch.empty(cap * width, **i64)
+    table = torch.empty(tcap * width, **i64)
+    carried_slot = torch.empty(max(G, 1), **i64)
+    new_slot = torch.empty(cap, **i64)
+    reps, nulls = state.g_reps.contiguous(), state.g_nulls.contiguous()
+    terms = F.term_arrays(chunk.terms) if chunk.terms is not None else (
+        None, None, 0, None, None, None, None, None, None, 0)
+    vp = ctypes.c_void_p
+    key_cols = (vp * MAX_KEYS)(*[b.data_ptr() for b, _v, _f in chunk.keys])
+    key_valids = (vp * MAX_KEYS)(*[None if v is None else v.data_ptr() for _b, v, _f in chunk.keys])
+    key_f64 = sum(1 << j for j, (_b, _v, f64) in enumerate(chunk.keys) if f64)
+    cnt_valids = (vp * MAX_PLANES)(*[None if v is None else v.data_ptr() for v in pl.cnt_valid])
+    val_cols = (vp * MAX_PLANES)(*[v.data_ptr() for v, _ok, _op in pl.vals])
+    val_valids = (vp * MAX_PLANES)(*[None if ok is None else ok.data_ptr()
+                                     for _v, ok, _op in pl.vals])
+    val_ops = (ctypes.c_int * MAX_PLANES)(*[op for _v, _ok, op in pl.vals])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hs_agg_one_pass(
+            *terms, key_cols, key_valids, key_f64, nk, ncnt, cnt_valids, nval, val_cols,
+            val_valids, val_ops, n, BLOCK_ROWS,
+            reps.data_ptr() if G and nk else None, nulls.data_ptr() if G and nk else None, G,
+            counters.data_ptr(), rec.data_ptr(), cap, table.data_ptr(), tcap,
+            carried_slot.data_ptr(), new_slot.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"B5f one-pass launch failed: CUDA error {err}")
+        launches += 3 + int(G > 0)
+        passing, _records, overflow, g_new = counters.tolist()  # the chunk's one read back
+        if overflow:
+            folded = _fold(state, chunk, group_ids_kernel, plain=False)
+            return dataclasses.replace(folded, overflowed=state.overflowed + 1)
+        if passing == 0:
+            return state
+        G2 = G + g_new
+        order = None  # up to RANK_MAX new groups: hs_agg_finish ranks them by first row
+        if g_new > RANK_MAX:  # the slot refs are -2 - first row
+            order = torch.sort(table[new_slot[:g_new]], descending=True).indices
+        new = FusedAggState(
+            state.ops, G2,
+            torch.empty((nk, G2), **i64), torch.empty((nk, G2), dtype=torch.uint8, device=dev),
+            torch.empty((nk, G2), **i64), torch.empty((nk, G2), dtype=torch.uint8, device=dev),
+            torch.empty((na, G2), **i64), torch.empty((na, G2), dtype=torch.float64, device=dev),
+            torch.empty((na, G2), **i64), torch.empty((na, G2), **i64),
+            rows_passed=state.rows_passed + passing, overflowed=state.overflowed)
+
+        def ptrs(st):  # the State struct's order; the state's arrays are contiguous
+            arrs = (st.g_reps, st.g_nulls, st.g_kvals, st.g_kvalid, st.acc_i, st.acc_f,
+                    st.acc_cnt, st.acc_aux)
+            return (vp * 8)(*[a.data_ptr() if a.numel() else None for a in arrs])
+
+        ci = ctypes.c_int * max(na, 1)
+        err = lib.hs_agg_finish(
+            key_cols, key_valids, key_f64, nk, ncnt, na, ci(*state.ops), ci(*pl.agg_cnt),
+            ci(*pl.agg_val), table.data_ptr(), tcap, carried_slot.data_ptr() if G else None,
+            new_slot.data_ptr(), None if order is None else order.data_ptr(), G, g_new,
+            ptrs(state), ptrs(new), stream)
+        if err != 0:
+            raise RuntimeError(f"B5f finish launch failed: CUDA error {err}")
+        launches += 1
+    return new
+
+
 def fused_filter_agg_kernel(state: FusedAggState, chunk: FusedChunk) -> FusedAggState:
-    """The chunk folded into a new state on CUDA tensors: B3b's compaction,
+    """The chunk folded into a new state on CUDA tensors, by the plan's
+    route (:func:`route`): kernel B5f's one pass, or B3b's compaction,
     B5f's group pass and B5's kernels."""
     if state.device.type != "cuda":
         raise ValueError(f"fused_filter_agg_kernel needs CUDA tensors, got {state.device}")
+    if chunk.n and route(state.ops) == "one_pass":
+        return _one_pass(state, chunk)
     return _fold(state, chunk, group_ids_kernel, plain=False)
+
+
+def fused_filter_agg_blocked_torch(state: FusedAggState, chunk: FusedChunk, block_rows: int,
+                                   slots: int, seed: int = 0) -> FusedAggState:
+    """Plain model of the one-pass route on any tensors, block by block:
+    the chunk cut into blocks of ``block_rows`` rows; each block's groups
+    (first row, accumulators) over its passing rows, its table of
+    ``slots`` slots (the card's: :func:`chunk_slots`) overflowing past
+    :func:`fill_limit` groups, which sends the chunk to
+    :func:`fused_filter_agg_torch` (``overflowed`` + 1); the blocks'
+    groups merged in an order drawn from ``seed``; new groups numbered by
+    their least first row. A plan with a float aggregate takes
+    :func:`fused_filter_agg_torch` (the ordered route)."""
+    if route(state.ops) != "one_pass":
+        return fused_filter_agg_torch(state, chunk)
+    if chunk.n == 0:
+        return state
+    rows = torch.nonzero(_passing(chunk, F.range_mask_torch)).flatten()
+    m = rows.numel()
+    if m == 0:
+        return state
+    dev, n, nk, G = rows.device, chunk.n, len(chunk.keys), state.n_groups
+    i64 = dict(dtype=torch.int64, device=dev)
+    # tuple ids of the carried groups and the passing rows (as group_ids_torch)
+    if nk:
+        planes = []
+        for j, (bits, valid, f64) in enumerate(chunk.keys):
+            rep, nul = key_rep_torch(bits[rows], None if valid is None else valid[rows], f64)
+            planes.append(torch.cat([state.g_reps[j], rep]))
+            planes.append(torch.cat([state.g_nulls[j].to(torch.int64), nul.to(torch.int64)]))
+        inv, U = _tuple_ids(torch.stack(planes))
+        carried_uid, row_uid = inv[:G], inv[G:]
+    else:  # one group, carried
+        U, carried_uid, row_uid = 1, torch.zeros(1, **i64), torch.zeros(m, **i64)
+    # the blocks' groups: one record a (block, tuple)
+    rec_key, rec_of_row = torch.unique((rows // block_rows) * U + row_uid, return_inverse=True)
+    if nk:
+        per_block = torch.bincount(rec_key // U)
+        if int(per_block.max()) > fill_limit(slots):
+            folded = fused_filter_agg_torch(state, chunk)
+            return dataclasses.replace(folded, overflowed=state.overflowed + 1)
+    R = rec_key.numel()
+    rec_uid = rec_key % U
+    rec_first = torch.full((R,), n, **i64).scatter_reduce_(0, rec_of_row, rows, "amin")
+    # numbering: new tuples by their least first row
+    uid_gid = torch.full((U,), -1, **i64)
+    uid_gid[carried_uid] = torch.arange(G, **i64)
+    t_first = torch.full((U,), n, **i64).scatter_reduce_(0, rec_uid, rec_first, "amin")
+    present = torch.unique(rec_uid)
+    new_u = present[uid_gid[present] < 0]
+    new_first, o = torch.sort(t_first[new_u])
+    uid_gid[new_u[o]] = G + torch.arange(new_u.numel(), **i64)
+    st = _with_new_groups(state, chunk, new_first)
+    gids = uid_gid[present]
+    # the merge: the records in a drawn order, folded per tuple
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(seed)).to(dev)
+    ru = rec_uid[perm]
+    acc_i, acc_cnt = st.acc_i.clone(), st.acc_cnt.clone()
+    for a, (op, vals, valid) in enumerate(chunk.aggs):
+        ok = (torch.ones(m, dtype=torch.bool, device=dev)
+              if valid is None or op == OP_COUNT_STAR else valid[rows])
+        rec_cnt = torch.zeros(R, **i64).index_add_(0, rec_of_row, ok.to(torch.int64))
+        acc_cnt[a, gids] += torch.zeros(U, **i64).index_add_(0, ru, rec_cnt[perm])[present]
+        if op in (OP_SUM_I64, OP_MIN_I64, OP_MAX_I64):
+            if op == OP_SUM_I64:
+                v = torch.where(ok, vals[rows], 0)
+                rec_v = torch.zeros(R, **i64).index_add_(0, rec_of_row, v)
+                t_v = torch.zeros(U, **i64).index_add_(0, ru, rec_v[perm])[present]
+                acc_i[a, gids] += t_v
+            else:
+                fill, how = (_I64_MAX, "amin") if op == OP_MIN_I64 else (_I64_MIN, "amax")
+                v = torch.where(ok, vals[rows], fill)
+                rec_v = torch.full((R,), fill, **i64).scatter_reduce_(0, rec_of_row, v, how)
+                t_v = torch.full((U,), fill, **i64).scatter_reduce_(0, ru, rec_v[perm], how)
+                pick = torch.minimum if op == OP_MIN_I64 else torch.maximum
+                acc_i[a, gids] = pick(acc_i[a, gids], t_v[present])
+    return dataclasses.replace(st, acc_i=acc_i, acc_cnt=acc_cnt, rows_passed=state.rows_passed + m)
 
 
 def fused_filter_agg(state: FusedAggState, chunk: FusedChunk) -> FusedAggState:
     """One chunk folded into the state on its device: the plain version
-    for CPU tensors, kernels B3b, B5f and B5 for CUDA tensors (no
-    fallback)."""
+    for CPU tensors, kernel B5f (by the plan's route, with B3b and B5 on
+    the ordered one) for CUDA tensors (no fallback)."""
     dev = state.device
     if dev.type == "cpu":
         return fused_filter_agg_torch(state, chunk)

@@ -320,6 +320,22 @@ def test_agg_plane_off_writes_no_sidecar(tmp_path):
     assert "_zonemaps.json" in names and "sidecar_capture" in t.build_stats
 
 
+def test_create_records_the_captures_reads_folds_and_passes(tmp_path):
+    """A create splits ``sidecar_capture`` into its reads and folds and
+    counts the folds' fused passes and their chunks that overflowed B5f's
+    one pass (none on the CPU, which folds by the plain version)."""
+    rng = np.random.default_rng(4)
+    src = _write_files(tmp_path, "stats", pa.table({
+        "c": pa.array(rng.integers(0, 99, 900)), "p": pa.array(rng.integers(0, 5, 900))}))
+    t = _port(tmp_path / "port")
+    T.Hyperspace(t).create_index(t.read.parquet(src), TConfig("idx", ["c"], ["p"]))
+    st = t.build_stats
+    assert "_aggstate.json" in os.listdir(_data_dir(tmp_path, "port", "idx"))
+    assert st["sidecar_capture_read"] >= 0 and st["sidecar_capture_fold"] > 0
+    assert st["sidecar_capture_read"] + st["sidecar_capture_fold"] <= st["sidecar_capture"]
+    assert st["sidecar_capture_passes"] >= 1 and st["sidecar_capture_overflowed"] == 0
+
+
 def _default_device_calls(tmp_path):
     """Each entry point of the aggregate plane, called without a device."""
     from types import SimpleNamespace

@@ -198,15 +198,16 @@ def test_b3b_equals_its_plain_version(cuda_device, case):
     assert torch_b5f_cases.select_kernel_errors(table, terms, cuda_device) == 0
     torch.cuda.synchronize()
     lowers = table.num_rows and not any(t[5] for t in terms)
-    assert F.select_launches == before + (3 if lowers else 0)
+    assert F.select_launches == before + (1 if lowers else 0)
 
 
 @pytest.mark.parametrize("case", sorted(torch_b5f_cases.B5F_CASES))
 def test_b5f_equals_its_plain_version(cuda_device, case):
     """The fused filter→aggregate on the card, chunk by chunk with the
-    state carried: every state array bit-equal to the plain version's on
-    the CPU, and B5f launched as often as the case's grouped chunks with
-    a passing row ask."""
+    state carried, on the route its plan takes (one pass for the ``int_``
+    cases, ordered for the others): every state array bit-equal to the
+    plain version's on the CPU, and B5f launched as often as the route
+    asks."""
     from hyperspace_tpu_torch.ops import fused_agg as FA
 
     before = FA.launches
@@ -214,4 +215,122 @@ def test_b5f_equals_its_plain_version(cuda_device, case):
     errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
     torch.cuda.synchronize()
     assert all(e == 0 for e in errs.values()), errs
-    assert FA.launches == before + torch_b5f_cases.group_pass_launches(c)
+    assert FA.launches == before + torch_b5f_cases.b5f_launches(c)
+
+
+def _int_case(n, groups, seed=5, terms=None):
+    """A one-pass case of ``n`` rows in ``groups`` groups, most rows passing."""
+    rng = np.random.default_rng(seed)
+    t = torch_b5f_cases._int_table(rng, n, g=rng.integers(0, groups, n))
+    return dict(chunks=[t], group_by=["g"], aggs=torch_b5f_cases.INT_AGGS,
+                terms=torch_b5f_cases.window(1, n) if terms is None else terms)
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2049, 8192, 8193])
+def test_b5f_one_pass_at_block_edges(cuda_device, n):
+    """One row, exactly one block (2,048 rows) and one row past it, 8,192
+    and 8,193 rows: the one-pass route bit-equal to the plain version,
+    grouped and not."""
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    for group_by in (["g"], []):
+        c = dict(_int_case(n, 50, terms=() if n == 1 else None), group_by=group_by)
+        before = FA.launches
+        errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
+        torch.cuda.synchronize()
+        assert all(e == 0 for e in errs.values()), (group_by, errs)
+        assert FA.launches == before + torch_b5f_cases.b5f_launches(c)
+
+
+def test_b5f_one_pass_over_tens_of_thousands_of_blocks(cuda_device, monkeypatch):
+    """Blocks of 64 rows over 2,000,000 rows (31,250 blocks) with 3,000
+    groups: every block's groups merged, bit-equal to the plain version."""
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    monkeypatch.setattr(FA, "BLOCK_ROWS", 64)
+    c = _int_case(2_000_000, 3_000)
+    errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
+    torch.cuda.synchronize()
+    assert all(e == 0 for e in errs.values()), errs
+
+
+def test_b5f_one_pass_numbers_more_new_groups_than_it_ranks(cuda_device):
+    """5,000 new groups in one chunk (past the 1,024 the finish kernel
+    ranks itself: one torch.sort numbers them), 50 to a block, none
+    overflowing: bit-equal to the plain version, and carried into a
+    second chunk."""
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    rng = np.random.default_rng(9)
+    tables = [torch_b5f_cases._int_table(rng, 200_000, g=np.repeat(np.arange(5_000), 40)[::-1])
+              for _ in range(2)]
+    c = dict(chunks=tables, group_by=["g"], aggs=torch_b5f_cases.INT_AGGS,
+             terms=torch_b5f_cases.window(0, 200_000))
+    assert 5_000 > FA.RANK_MAX
+    errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
+    torch.cuda.synchronize()
+    assert all(e == 0 for e in errs.values()), errs
+
+
+def test_b5f_overflowing_blocks_take_the_ordered_route(cuda_device):
+    """100,000 groups over 150,000 rows overflow every block's table: the
+    chunk is folded by the ordered route, counted, and bit-equal."""
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    c = torch_b5f_cases.B5F_CASES["int_groups_100000"]
+    errs = torch_b5f_cases.fused_kernel_errors(c, cuda_device)
+    assert all(e == 0 for e in errs.values()), errs
+    st = PC.AggState(torch_b5f_cases.port_plan(c), cuda_device)
+    st.accumulate(ColumnarBatch.from_arrow(c["chunks"][0]))
+    torch.cuda.synchronize()
+    assert st.state.overflowed == 1
+
+
+def test_b5f_one_pass_synchronises_once_a_chunk(cuda_device):
+    """Under torch's sync debug mode, a one-pass chunk (grouped, with
+    carried groups, and ungrouped) warns of one synchronising call: the
+    read back of its counters."""
+    import warnings
+
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    for group_by in (["g"], []):
+        c = dict(torch_b5f_cases.B5F_CASES["int_three_chunks_new_groups_later"],
+                 group_by=group_by)
+        st = PC.AggState(torch_b5f_cases.port_plan(c), cuda_device)
+        chunks = [st._chunk(ColumnarBatch.from_arrow(t)) for t in c["chunks"]]
+        torch.cuda.synchronize()
+        for chunk in chunks:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    st.state = FA.fused_filter_agg_kernel(st.state, chunk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in seen if "synchroniz" in str(w.message)]
+            assert len(syncs) == 1, [str(w.message) for w in syncs]
+        assert st.state.overflowed == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8191, 8192, 8193, 6_001_215])
+def test_b3b_equals_nonzero_in_repeated_launches(cuda_device, n):
+    """B3b's decoupled look-back at round edges (2,048 rows), tile edges
+    and over hundreds of tiles: 50 launches, each equal to np.nonzero of
+    the mask, in order."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(n)
+    valid = rng.random(n) > 0.05
+    batch = ColumnarBatch.from_arrow(pa.table({
+        "k": rng.integers(0, 1000, n), "v": pa.array(rng.normal(size=n), mask=~valid)}))
+    terms = [("k", 100, False, 700, True, False), ("v", None, False, 1.0, True, False)]
+    want = np.nonzero(F.range_mask_numpy(batch, terms))[0]
+    args = F.range_args(batch, terms, cuda_device)
+    before = F.select_launches
+    for _ in range(50):
+        assert np.array_equal(F.select_kernel(args).cpu().numpy(), want)
+    assert F.select_launches == before + (50 if n else 0)

@@ -282,7 +282,9 @@ def _build(t, j, src, name, indexed, included):
 
 
 def _stats(d):
-    return {k: v for k, v in d.items() if k != "wall_s"}
+    """Fused stats as the reference keeps them: without the wall seconds
+    and the port's own route keys (``fused_route``, ``overflowed_chunks``)."""
+    return {k: v for k, v in d.items() if k not in ("wall_s", "fused_route", "overflowed_chunks")}
 
 
 def _four_way(t, j, src, query, mode):
@@ -293,6 +295,9 @@ def _four_way(t, j, src, query, mode):
     t.enable_hyperspace()
     TPC.last_fused_stats = {}
     on = query(tdf, TF).collect()
+    if TPC.last_fused_stats.get("mode") == "agg":
+        assert TPC.last_fused_stats["fused_route"] in ("one_pass", "ordered")
+        assert TPC.last_fused_stats["overflowed_chunks"] == 0  # no blocks on the CPU
     t_stats = _stats(TPC.last_fused_stats)
     t.conf.set(FUSED, False)
     TPC.last_fused_stats = {}

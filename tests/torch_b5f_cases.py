@@ -13,7 +13,12 @@ failing, one group and no groups, 1,025 groups (past the reference's
 1,024-slot first table) and 100,000 groups in one chunk, NaN, -0.0 and
 null keys, int64 wrap, groups of only NaN or only nulls, -0.0/0.0 ties
 across two chunks, and three chunks whose float sum's bits depend on the
-carried start. A B3b case is (table, terms), NEVER_MATCH included."""
+carried start. The ``int_`` cases take only aggregates that are exact in
+any order of combination (COUNT, int SUM, int and date MIN/MAX), so B5f
+folds them by its one-pass route on the card (the others, with a float
+aggregate, by the ordered route): the same shapes, plus int nulls,
+int64 extremes and wrap-around, and groups first met in later chunks. A
+B3b case is (table, terms), NEVER_MATCH included."""
 
 import numpy as np
 import pyarrow as pa
@@ -128,6 +133,80 @@ def b5f_cases() -> dict:
     }
 
 
+INT_AGGS = (
+    ("count", None, "n"),
+    ("count", "j", "nj"),
+    ("count", "s", "ns"),
+    ("sum", "j", "sj"),
+    ("avg", "j", "aj"),
+    ("min", "j", "mnj"),
+    ("max", "j", "mxj"),
+    ("sum", "i", "si"),
+    ("min", "d", "mnd"),
+    ("max", "d", "mxd"),
+)
+
+
+def _int_table(rng, n, g=None, f=None, f_valid=None, g_valid=None, i=None, j=None,
+               j_valid=None):
+    """A chunk for the ``int_`` cases: ``_table``'s columns plus an int64
+    ``j`` with nulls and a date32 ``d``."""
+    t = _table(rng, n, g=g, f=f, f_valid=f_valid, g_valid=g_valid, i=i)
+    j = rng.integers(-(2**40), 2**40, n) if j is None else j
+    j_valid = rng.random(n) > 0.1 if j_valid is None else j_valid
+    d = rng.integers(8000, 11000, n).astype(np.int32)
+    t = t.append_column("j", pa.array(np.asarray(j, dtype=np.int64), mask=~j_valid))
+    return t.append_column("d", pa.array(d, type=pa.date32()))
+
+
+def b5f_int_cases() -> dict:
+    rng = np.random.default_rng(11)
+    base = _int_table(rng, 3000)
+    fkeys = rng.normal(size=4000).round(0)
+    fkeys[rng.random(4000) < 0.1] = np.nan
+    fkeys[::13] = NAN_PAYLOAD
+    fkeys[::17] = -0.0
+    fkeys[::19] = 0.0
+    fvalid = rng.random(4000) > 0.1
+    many = rng.permutation(np.repeat(np.arange(100_000), 2))[:150_000]
+    ext = rng.choice(np.array([-(2**63), 2**63 - 1, -1, 0, 1], dtype=np.int64), 3000)
+
+    def later(lo, hi, n=2000):  # groups lo..hi-1, each first met in this chunk's later rows
+        return _int_table(rng, n, g=np.sort(rng.integers(lo, hi, n))[::-1].copy())
+
+    return {
+        "int_empty_chunk": dict(chunks=[base.slice(0, 0), base, base.slice(0, 0)],
+                                group_by=["g"], aggs=INT_AGGS, terms=window(100, 2500)),
+        "int_all_rows_failing": dict(chunks=[base], group_by=["g"], aggs=INT_AGGS,
+                                     terms=window(5000, 6000)),
+        "int_no_groups": dict(chunks=[base, base.slice(1000, 1500)], group_by=[],
+                              aggs=INT_AGGS, terms=window(100, 2900)),
+        "int_no_terms_grouped": dict(chunks=[base], group_by=["g"], aggs=INT_AGGS, terms=()),
+        "int_one_group": dict(chunks=[_int_table(rng, 2000, g=np.full(2000, 7))],
+                              group_by=["g"], aggs=INT_AGGS, terms=window(10, 1990)),
+        "int_groups_1025": dict(chunks=[_int_table(rng, 5125, g=np.arange(5125) % 1025)],
+                                group_by=["g"], aggs=INT_AGGS, terms=window(3, 5120)),
+        "int_groups_100000": dict(chunks=[_int_table(rng, 150_000, g=many)], group_by=["g"],
+                                  aggs=(("count", None, "n"), ("sum", "i", "si"),
+                                        ("max", "j", "mxj")), terms=window(0, 149_000)),
+        "int_nan_negzero_null_float_keys": dict(
+            chunks=[_int_table(rng, 4000, f=fkeys, f_valid=fvalid)], group_by=["f"],
+            aggs=INT_AGGS, terms=window(0, 3900)),
+        "int_two_keys_with_null_int_key": dict(
+            chunks=[_int_table(rng, 4000, f=fkeys, f_valid=fvalid, g=rng.integers(0, 3, 4000),
+                               g_valid=rng.random(4000) > 0.2)],
+            group_by=["f", "g"], aggs=INT_AGGS, terms=window(50, 3950)),
+        "int_wrap": dict(chunks=[_int_table(rng, 3000, i=rng.integers(2**61, 2**62, 3000),
+                                            j=rng.integers(2**61, 2**62, 3000))] * 2,
+                         group_by=["g"], aggs=INT_AGGS, terms=window(0, 3000)),
+        "int_extremes": dict(chunks=[_int_table(rng, 3000, i=ext, j=ext[::-1].copy())],
+                             group_by=["g"], aggs=INT_AGGS, terms=()),
+        "int_three_chunks_new_groups_later": dict(
+            chunks=[later(0, 10), later(5, 20), later(15, 30)], group_by=["g"],
+            aggs=INT_AGGS, terms=window(100, 1900)),
+    }
+
+
 def b3b_cases() -> dict:
     rng = np.random.default_rng(8)
     t = _table(rng, 100_003, v=np.where(np.arange(100_003) % 11 == 0, np.nan,
@@ -145,7 +224,7 @@ def b3b_cases() -> dict:
     }
 
 
-B5F_CASES = b5f_cases()
+B5F_CASES = {**b5f_cases(), **b5f_int_cases()}
 B3B_CASES = b3b_cases()
 
 
@@ -192,23 +271,38 @@ def fused_kernel_errors(case, device) -> dict:
     return {k: int((a[k] != b[k]).sum()) if a[k].shape == b[k].shape else -1 for k in a}
 
 
-def group_pass_launches(case) -> int:
-    """B5f's launches over the case's chunks: for each chunk with group
-    keys and a passing row, the group pass, and the insert of the carried
-    groups once an earlier chunk had one."""
+def b5f_launches(case) -> int:
+    """B5f's launches over the case's chunks on the card, by the plan's
+    route (``ops/fused_agg.route``). One pass, for each chunk with rows:
+    the block pass, the merge table's fill and the merge, the carried
+    groups' insert when there are some, and the next state's write when a
+    row passed; a chunk whose block tables overflow (found by the plain
+    model, ``fused_filter_agg_blocked_torch``, with the card's block rows
+    and slots) adds the ordered route's.
+    Ordered, for each chunk with group keys and a passing row: the group
+    pass, and the carried insert once an earlier chunk had a group."""
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
     from hyperspace_tpu_torch.io.columnar import ColumnarBatch
-    from hyperspace_tpu_torch.ops.filter import range_mask_numpy
+    from hyperspace_tpu_torch.ops import fused_agg as FA
 
-    if not case["group_by"]:
-        return 0
-    launches, carried = 0, False
+    plan = port_plan(case)
+    one_pass = FA.route([op for op, _c in plan.agg_ops]) == "one_pass"
+    st = PC.AggState(plan, "cpu")
+    launches = 0
     for table in case["chunks"]:
         batch = ColumnarBatch.from_arrow(table)
         if batch.num_rows == 0:
             continue
-        if not case["terms"] or range_mask_numpy(batch, list(case["terms"])).any():
-            launches += 1 + int(carried)
-            carried = True
+        before = st.state
+        chunk = st._chunk(batch)
+        st.state = FA.fused_filter_agg_blocked_torch(before, chunk, FA.BLOCK_ROWS,
+                                                     FA.chunk_slots(chunk))
+        passed = st.state.rows_passed > before.rows_passed
+        ordered = not one_pass or st.state.overflowed > before.overflowed
+        if one_pass:
+            launches += 3 + int(before.n_groups > 0) + int(passed and not ordered)
+        if ordered and case["group_by"] and passed:
+            launches += 1 + int(before.n_groups > 0)
     return launches
 
 
