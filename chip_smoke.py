@@ -59,6 +59,12 @@ against its plain PyTorch version on the card:
      version's and ``np.nonzero``, B5f's carried state equal bit for bit
      to the plain version's on the CPU after every chunk, each case timed
      cold;
+   * the z-order interleave (kernel B6) bit-equal to the plain version on
+     a CPU copy over ``tests/torch_b6_cases.py`` (n from 0 to 6,001,215,
+     k in {1, 2, 3, 4}, bits in {1, 8, 11, 16, 31, 32}, words at 0, at
+     2^bits - 1 and random, views 4 bytes past a 16-byte boundary); timed
+     cold at 6,001,215 rows of 16-bit words for k = 1, 2, 3 beside each
+     byte bound and the plain version on the card;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -159,6 +165,26 @@ against its plain PyTorch version on the card:
    batch, 21 calls each equal to the plain version, timed cold beside
    its bound, the plain version and B3a + ``torch.nonzero``.
 
+10. z-order path: in a session of its own over phase 4's lineitem files,
+   bench.py's two z-order covering indexes, agg_idx on l_orderkey
+   (including l_quantity, l_extendedprice) and z_idx on (l_shipdate,
+   l_quantity) (including l_orderkey), each create's stage seconds
+   (scan, z_address, sort, write, zonemap_capture, sidecar_capture) and
+   rows/s, B6 launched by its build and its z-span capture; then (m1)
+   bench.py's q_meta over agg_idx, answered from its ``_aggstate.json``,
+   and bench.py's q_zrange (``l_shipdate`` in [1995-06-01, 1995-06-30],
+   ``l_quantity <= 5``) over z_idx with its files' and row groups' z-spans
+   pruning the read. Each: the explain names its index (``ZOCI``); one
+   warm-up; 5 rounds with its route (metadata plane, range pruning) on and
+   off in turns; rows equal in order to the route off and to a
+   ``device="cpu"`` session's, and to the plan without Hyperspace (m1 bit
+   for bit, q_zrange as a multiset). Each index's ``_zonemaps.json`` (with
+   ``rg_zspans`` and the ``zorder`` spec) and ``_aggstate.json`` equal the
+   docs a cpu session computes over its files apart from ``mtime_ns``.
+   Every B6 call of the phase is recorded (``B6Inputs``) and held
+   bit-equal to the plain version on a CPU copy; the z-order lexsort is
+   timed cold on each build's planes.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -178,8 +204,8 @@ chunk; f1's and f2's plans; s1's batch); records under ``only_b5f``. The
 numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
-Kernel launch counts are set to 0 just before phases 4, 5, 7, 8 and 9
-and read just after each; the kernel checks' launches are not counted as the main
+Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9 and
+10 and read just after each; the kernel checks' launches are not counted as the main
 path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -2899,6 +2925,342 @@ def group_pass_launcher(chunk, state):
     return launch
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (B6) and phase 10: the z-order covering index (kernel B6)
+# ---------------------------------------------------------------------------
+
+#: bench.py's z-range window (q_zrange) and the index configurations of
+#: its aggregate plane (agg_idx) and z-range query (z_idx)
+ZLO, ZHI = "1995-06-01", "1995-06-30"
+Z_INDEXES = {
+    "agg_idx": (["l_orderkey"], ["l_quantity", "l_extendedprice"]),
+    "z_idx": (["l_shipdate", "l_quantity"], ["l_orderkey"]),
+}
+PRUNE_SWITCH = "hyperspace.serve.rangeprune.enabled"
+
+
+def b6_ops_per_row(k: int) -> int:
+    """32-bit integer operations per row of B6's specialised route (16 bits
+    a column). k = 1 shifts its word into place (1). k = 2 stays in 32
+    bits: each word takes the mask and four shift-or-and steps of the
+    spread (13) and its shift and or into the address (2), then the
+    padding shift (2 in all: 32). k >= 3 works on 64 bits, two 32-bit
+    operations each: 30 a word, then the padding shift and the split into
+    two planes (4)."""
+    if k == 1:
+        return 1
+    if k == 2:
+        return 32
+    return 30 * k + 4
+
+
+def b6_bound(n: int, k: int, bits: int = 16) -> dict:
+    """Least time of B6 on [k, n] words: the larger of its bytes (k words
+    read and the planes written, 4 bytes each) over HBM bandwidth and its
+    integer operations over the int32 peak."""
+    nplanes = (k * bits + 31) // 32
+    nbytes = 4 * (k + nplanes) * n
+    ops = n * b6_ops_per_row(k)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "int32_ops": ops, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def check_b6_cases(dev) -> tuple:
+    """B6 bit-equal to the plain version on a CPU copy over
+    ``tests/torch_b6_cases.py`` (phase 3); views 4 bytes past a 16-byte
+    boundary where a case asks for one. Returns (cases, max abs error)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_b6_cases as B6
+
+    t0 = time.perf_counter()
+    for case in B6.CASES:
+        n, _k, bits, _fill, offset = case
+        words = B6.words_tensor(case, dev)
+        if offset and n and words.data_ptr() % 16 != 4:
+            raise AssertionError(f"B6 case {B6.case_id(case)}: not 4 bytes off 16")
+        got = Z.interleave_kernel(words, bits).cpu()
+        if not torch.equal(got, Z.interleave_torch(words.cpu(), bits)):
+            raise AssertionError(f"B6 differs from its plain version on {B6.case_id(case)}")
+    log(f"kernels: B6 bit-equal to plain on a CPU copy over {len(B6.CASES)} cases "
+        f"(max_abs_err 0; {time.perf_counter() - t0:.1f}s)")
+    return len(B6.CASES), 0
+
+
+def b6_timings(dev) -> dict:
+    """B6 cold at 6,001,215 rows of 16-bit words for k = 1, 2, 3 (phase
+    3) beside its bound and the plain version on the same device words."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    rng = np.random.default_rng(SEED + 21)
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    cold = []
+    for k in (1, 2, 3):
+        words = torch.from_numpy(
+            rng.integers(0, 1 << 16, size=(k, N_ROWS), dtype=np.int64).astype(np.int32)
+        ).to(dev)
+        ms = float(np.median(time_cold(lambda: Z.interleave_kernel(words, 16), flush)))
+        plain_ms = time_cuda(lambda: Z.interleave_torch(words, 16), launches=5)
+        b = b6_bound(N_ROWS, k)
+        cold.append({"k": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"], "bytes": b["bytes"],
+                     "share_of_bound": b["bound_ms"] / ms})
+        log(f"kernels: B6 cold at {N_ROWS} rows, k={k}, 16 bits: ms {ms:.4f} bound_ms "
+            f"{b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%}; bytes {b['bytes']} -> "
+            f"{b['bytes_ms']:.4f} ms, int32 ops {b['int32_ops']} -> {b['ops_ms']:.4f} ms); "
+            f"plain_ms {plain_ms:.4f}; library_ms none (no PyTorch call interleaves bits)")
+    k1 = cold[0]
+    return {
+        "name": "zorder_interleave",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/zorder_interleave.cu",
+        "replaces": "hyperspace_tpu/ops/zorder.py:60",
+        "launches": None,  # phase 10's count, filled in by main
+        "max_abs_err": None,
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
+        "timing": "cold: 256 MiB read before each run, median of 30; k = 1, 16 bits, "
+                  f"{N_ROWS} rows (agg_idx's shape)",
+        "cold_by_k": cold,
+    }
+
+
+class B6Inputs:
+    """Keeps every B6 call phase 10 makes (``ops.zorder.interleave_kernel``),
+    its words and bits under the current label, for the comparison with
+    the plain version after the phase. The wrapper calls straight through,
+    so its launches count as the main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import zorder as Z
+
+        self.calls, self.label = [], None
+        inner = Z.interleave_kernel
+
+        def recording(words, bits):
+            out = inner(words, bits)
+            if self.label is not None:
+                self.calls.append((self.label, words, bits, out))
+            return out
+
+        Z.interleave_kernel = recording
+
+
+def check_b6_main_path(recorded: list) -> int:
+    """Every B6 call of phase 10 held bit-equal to the plain version on a
+    CPU copy of its words; each create made at least one."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    labels = sorted({label for label, *_ in recorded})
+    for name in Z_INDEXES:
+        if not any(label.startswith(name) for label in labels):
+            raise AssertionError(f"phase 10's {name} create launched B6 no time")
+    rows = 0
+    for label, words, bits, out in recorded:
+        if not torch.equal(out.cpu(), Z.interleave_torch(words.cpu(), bits)):
+            raise AssertionError(f"B6 differs from its plain version on phase 10's {label}")
+        rows += words.shape[1]
+    log(f"kernels: B6 planes bit-equal to plain on all {len(recorded)} calls of phase 10 "
+        f"({rows} rows in all; {', '.join(labels)})")
+    return len(recorded)
+
+
+def lexsort_timings(recorded: list) -> dict:
+    """The z-order sort (stable torch.sort passes, ``lexsort_permutation``)
+    cold on the planes of each create's build call."""
+    import torch
+
+    from hyperspace_tpu_torch.ops.sort import lexsort_permutation
+
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device="cuda")
+    out = {}
+    for label, words, _bits, planes in recorded:
+        if not label.endswith(" build"):
+            continue
+        ms = float(np.median(time_cold(lambda: lexsort_permutation(planes), flush,
+                                       iters=10)))
+        out[label] = {"planes": planes.shape[0], "rows": planes.shape[1], "ms": ms}
+        log(f"kernels: z-order lexsort (torch.sort passes) cold on {label}'s "
+            f"{planes.shape[0]} plane(s) x {planes.shape[1]} rows: ms {ms:.4f}")
+    return out
+
+
+def zorder_queries(df) -> dict:
+    """Phase 10's queries over a lineitem DataFrame of either session:
+    bench.py's q_meta over agg_idx and q_zrange over z_idx."""
+    from hyperspace_tpu_torch import functions as F
+
+    ship, qty = df["l_shipdate"], df["l_quantity"]
+    return {
+        "m1": (df.filter(df["l_orderkey"] >= 0).group_by("l_quantity").agg(
+            F.count().alias("n"), F.min("l_orderkey").alias("kmin"),
+            F.max("l_orderkey").alias("kmax"), F.sum("l_orderkey").alias("ksum")),
+            "agg_idx", AGG_SWITCH),
+        "q_zrange": (df.filter((ship >= np.datetime64(ZLO)) & (ship <= np.datetime64(ZHI))
+                               & (qty <= 5)).select("l_shipdate", "l_quantity", "l_orderkey"),
+                     "z_idx", PRUNE_SWITCH),
+    }
+
+
+def zorder_path(work: str, ctx: dict, b6_inputs: B6Inputs) -> dict:
+    """Phase 10: the z-order covering index over phase 4's lineitem, as
+    bench.py builds it, in a session of its own (so the covering indexes of
+    the phases before do not take its queries): agg_idx on l_orderkey and
+    z_idx on (l_shipdate, l_quantity), each create's stage seconds and
+    rows/s; then m1 over agg_idx from its ``_aggstate.json`` and q_zrange
+    over z_idx with z-span pruning. Each: the explain names its index
+    (ZOCI); one warm-up; 5 rounds with its route (the metadata plane, range
+    pruning) on and off in turns; m1's rows equal bit for bit in order to
+    the route off, a ``device="cpu"`` session's and the plan without
+    Hyperspace, q_zrange's equal in order to pruning off and to a cpu
+    session's and as a multiset to the plan without Hyperspace. Then each
+    index's ``_zonemaps.json`` and ``_aggstate.json`` against the docs a
+    cpu session computes over its files. Launch counts read from 0 at its
+    start; every B6 call is recorded in ``b6_inputs``."""
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch import ZOrderCoveringIndexConfig
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.indexes import aggindex, zonemaps
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    src = ctx["src"]
+    system = os.path.join(work, "zindexes")
+    sess = HyperspaceSession()
+    sess.conf.set("hyperspace.system.path", system)
+    hs = Hyperspace(sess)
+    items = sess.read.parquet(src)
+    ops.reset_launch_counts()
+    creates = {}
+    for name, (indexed, included) in Z_INDEXES.items():
+        before = ops.launch_counts()["zorder_interleave"]
+        b6_inputs.label = name
+        t0 = time.perf_counter()
+        hs.create_index(items, ZOrderCoveringIndexConfig(name, indexed, included))
+        build_s = time.perf_counter() - t0
+        b6_inputs.label = None
+        # the create's first B6 call is its build's; the z-span capture's follow
+        mine = [i for i, c in enumerate(b6_inputs.calls) if c[0] == name]
+        for i in mine:
+            part = "build" if i == mine[0] else "capture"
+            b6_inputs.calls[i] = (f"{name} {part}",) + b6_inputs.calls[i][1:]
+        launches = ops.launch_counts()["zorder_interleave"] - before
+        files = hs.get_index(name).content.files
+        stages = dict(sess.build_stats)
+        creates[name] = {"seconds": build_s, "rows_per_s": N_ROWS / build_s, "files": len(files),
+                         "b6_launches": launches,
+                         "stages_s": {k: v for k, v in stages.items()
+                                      if isinstance(v, float)}}
+        log(f"zorder path: built {name} on {indexed} in {build_s:.3f}s, "
+            f"{N_ROWS / build_s:,.0f} rows/s, {len(files)} file(s), B6 launches {launches}, "
+            f"stages { {k: round(v, 4) if isinstance(v, float) else v for k, v in stages.items()} }")
+        if launches < 2:
+            raise AssertionError(f"{name}: the build and its z-span capture launched B6 "
+                                 f"{launches} times")
+
+    cpu = HyperspaceSession(device="cpu")
+    cpu.conf.set("hyperspace.system.path", system)
+    cpu.enable_hyperspace()
+    sess.enable_hyperspace()
+    queries = zorder_queries(items)
+    cpu_queries = zorder_queries(cpu.read.parquet(src))
+    results = []
+    for label, (q, index, switch) in queries.items():
+        text = hs.explain(q)
+        if f"Hyperspace(Type: ZOCI, Name: {index}," not in text.split("Plan without indexes:")[0]:
+            raise AssertionError(f"{label}: {index} not used:\n{text}")
+        q.collect()  # warm-up
+        on_ms, off_ms, got = [], [], None
+        for _ in range(5):
+            for route in (True, False):
+                sess.conf.set(switch, route)
+                PC.last_aggplane_stats = {}
+                zonemaps.last_prune_stats = {}
+                t0 = time.perf_counter()
+                out = q.collect()
+                (on_ms if route else off_ms).append((time.perf_counter() - t0) * 1e3)
+                if route:
+                    got = out
+                    stats = (dict(PC.last_aggplane_stats), dict(zonemaps.last_prune_stats))
+                elif not same_rows(got, out):
+                    raise AssertionError(f"{label}: rows differ with {switch} off")
+        sess.conf.set(switch, True)
+        plane, prune = stats
+        if label == "m1" and not (plane.get("mode") == "agg_metadata"
+                                  and plane["row_groups_scanned"] == 0
+                                  and plane["row_groups_metadata"] == plane["row_groups_total"]):
+            raise AssertionError(f"m1: not answered from metadata alone: {plane}")
+        if label == "q_zrange" and not (prune.get("z_pruned") and prune["row_groups_kept"]
+                                        < prune["row_groups_total"]):
+            raise AssertionError(f"q_zrange: z-spans pruned nothing: {prune}")
+        if not same_rows(got, cpu_queries[label][0].collect()):
+            raise AssertionError(f"{label}: rows differ from the cpu session's")
+        sess.disable_hyperspace()
+        want = q.collect()
+        sess.enable_hyperspace()
+        got_cmp, want = (sorted_rows(got), sorted_rows(want)) if label == "q_zrange" else (
+            got, want)
+        if got.num_rows == 0 or not same_rows(got_cmp, want):
+            raise AssertionError(f"{label}: rows differ from the plan without Hyperspace")
+        r = {"query": label, "index": index, "rows": got.num_rows,
+             "p50_ms": float(np.median(on_ms)), "off_p50_ms": float(np.median(off_ms)),
+             "aggplane": {k: v for k, v in plane.items() if k != "wall_s"},
+             "prune": prune}
+        results.append(r)
+        log(f"zorder path: {label} over {index}: p50_ms {r['p50_ms']:.3f} with the route, "
+            f"{r['off_p50_ms']:.3f} with {switch} off (5 each, in turns); {got.num_rows} rows; "
+            f"metadata {r['aggplane']}; pruning {prune}; equal to the route off and to the "
+            f"cpu session in order, to the plan without Hyperspace"
+            f"{' as a multiset' if label == 'q_zrange' else ' bit for bit'}")
+    launches = ops.launch_counts()
+    log(f"zorder path: phase launches {launches}")
+
+    for name in Z_INDEXES:
+        entry = hs.get_index(name)
+        files = entry.content.files
+        d = os.path.dirname(files[0])
+        t0 = time.perf_counter()
+        with open(os.path.join(d, zonemaps.SIDECAR_NAME)) as fh:
+            stored = json.load(fh)
+        mine = zonemaps.zonemap_doc(d, entry.derived_dataset, "cpu")
+        for doc in (stored, mine):
+            for e in doc["files"].values():
+                e.pop("mtime_ns")
+        if stored != mine or "zorder" not in stored:
+            raise AssertionError(f"{name}'s _zonemaps.json differs from the cpu doc")
+        with open(os.path.join(d, aggindex.SIDECAR_NAME)) as fh:
+            agg = json.load(fh)["files"]
+        for f, (doc, _sample) in zip(files, aggindex.file_agg_docs(files, device="cpu")):
+            kept = dict(agg[os.path.basename(f)])
+            kept.pop("size")
+            kept.pop("mtime_ns")
+            if kept != doc:
+                raise AssertionError(f"{name}'s _aggstate.json differs from the cpu doc for {f}")
+        spans = sum(len(e["rg_zspans"]) for e in stored["files"].values())
+        log(f"zorder path: {name}'s _zonemaps.json ({spans} row-group z-spans, "
+            f"{stored['zorder']['nplanes']} plane(s)) and _aggstate.json, captured on the "
+            f"card, equal the docs a cpu session computes over its {len(files)} file(s) apart "
+            f"from mtime_ns ({time.perf_counter() - t0:.2f}s on the cpu)")
+    torch.cuda.synchronize()
+    return {"launches": launches, "creates": creates, "queries": results}
+
+
 def main() -> int:
     import argparse
 
@@ -2970,6 +3332,7 @@ def main() -> int:
     b3a_cases_run, b3a_case_err = check_b3a_cases(dev)
     b5_cases_run, b5_case_err = check_b5_cases(dev)
     fused_cases_run, _ = check_b3b_b5f_cases(dev)
+    b6_cases_run, b6_case_err = check_b6_cases(dev)
     if args.only_b4:  # no main path: its launches stay null
         b4 = b4_timings(dev, b4_replica(dev))
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
@@ -2994,8 +3357,9 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    b6 = b6_timings(dev)
     b4_inputs, b3a_inputs, b5_inputs = B4Inputs(), B3aInputs(), B5Inputs()
-    b3b_inputs = B3bInputs()
+    b3b_inputs, b6_inputs = B3bInputs(), B6Inputs()
     chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
@@ -3007,6 +3371,7 @@ def main() -> int:
         b5_launches = aggregate_path(work, ctx, b5_inputs)["launches"]["segment_reduce"]
         fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
         f_in = f_inputs(dev, ctx)
+        zpath = zorder_path(work, ctx, b6_inputs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -3025,10 +3390,14 @@ def main() -> int:
     b3b, b5f = fused_timings(dev, f_in, b3b_inputs.calls)
     b3b.update(launches=fused_launches["fused_select"])
     b5f.update(launches=fused_launches["fused_filter_agg"], cases=fused_cases_run)
+    b6_calls = check_b6_main_path(b6_inputs.calls)
+    b6.update(launches=zpath["launches"]["zorder_interleave"], max_abs_err=b6_case_err,
+              cases=b6_cases_run + b6_calls, lexsort=lexsort_timings(b6_inputs.calls),
+              creates=zpath["creates"], queries=zpath["queries"])
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6]}), flush=True)
     print(
         json.dumps(
             {

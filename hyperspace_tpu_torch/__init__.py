@@ -10,8 +10,10 @@ JAX nor the reference package.
 
 The ported slices cover building a covering index, serving a
 bucket-pruned filter from it, serving an equi-join of two tables
-indexed on the join key bucket by bucket, without a shuffle, and
-aggregates, ORDER BY and LIMIT over any of them::
+indexed on the join key bucket by bucket, without a shuffle,
+aggregates, ORDER BY and LIMIT over any of them, and the z-order
+covering index (``ZOrderCoveringIndexConfig``), whose filters on any
+indexed column are pruned by the files' z-address spans::
 
     from hyperspace_tpu_torch import HyperspaceSession, Hyperspace, CoveringIndexConfig
 
@@ -40,6 +42,10 @@ _LAZY = {
     "CoveringIndexConfig": (
         "hyperspace_tpu_torch.indexes.covering",
         "CoveringIndexConfig",
+    ),
+    "ZOrderCoveringIndexConfig": (
+        "hyperspace_tpu_torch.indexes.zorder",
+        "ZOrderCoveringIndexConfig",
     ),
     "functions": ("hyperspace_tpu_torch.functions", None),
 }

@@ -98,14 +98,18 @@ class CreateAction(Action):
         )
         index.write(ctx, index_data)
         # sidecars (best effort: the serve path backfills without them):
-        # zone maps for the range serve plane, then the aggregate index
-        # plane's _aggstate.json and _aggsample.parquet, computed on the
-        # session's device; the latter's seconds are the build stage
-        # "sidecar_capture", split into its row-group reads and its folds
-        # (with the folds' fused passes and their overflowed chunks)
+        # zone maps for the range serve plane (with a z-order index's
+        # z-spans, interleaved on the session's device), their seconds the
+        # build stage "zonemap_capture"; then the aggregate index plane's
+        # _aggstate.json and _aggsample.parquet, computed on the session's
+        # device, their seconds the build stage "sidecar_capture", split
+        # into its row-group reads and its folds (with the folds' fused
+        # passes and their overflowed chunks)
         from hyperspace_tpu_torch.indexes import aggindex, zonemaps
 
-        zonemaps.capture_safely(self.index_data_path, index)
+        t0 = time.perf_counter()
+        zonemaps.capture_safely(self.index_data_path, index, self.session.device)
+        self.session.build_stats["zonemap_capture"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         aggindex.capture_safely(
             self.index_data_path, index, self.session.conf, self.session.device

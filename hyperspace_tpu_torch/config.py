@@ -41,6 +41,9 @@ class Config:
     def get_str(self, key: str, default: str = "") -> str:
         return str(self._values.get(key, default))
 
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        return float(self._values.get(key, default))
+
     # -- typed accessors (HyperspaceConf.scala) -----------------------------
     @property
     def apply_enabled(self) -> bool:
@@ -119,4 +122,24 @@ class Config:
         """The fused filter→aggregate and filter→select routes."""
         return self.get_bool(
             C.SERVE_FUSEDPIPELINE_ENABLED, C.SERVE_FUSEDPIPELINE_ENABLED_DEFAULT
+        )
+
+    @property
+    def zorder_target_source_bytes_per_partition(self) -> int:
+        return self.get_int(
+            C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION,
+            C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT,
+        )
+
+    @property
+    def zorder_quantile_enabled(self) -> bool:
+        return self.get_bool(
+            C.ZORDER_QUANTILE_ENABLED, C.ZORDER_QUANTILE_ENABLED_DEFAULT
+        )
+
+    @property
+    def zorder_quantile_relative_error(self) -> float:
+        return self.get_float(
+            C.ZORDER_QUANTILE_RELATIVE_ERROR,
+            C.ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT,
         )

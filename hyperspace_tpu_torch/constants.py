@@ -113,6 +113,18 @@ SERVE_FUSEDPIPELINE_ENABLED_DEFAULT = True
 # it is (pipeline_compiler._NATIVE_FUSED_PIPELINE_MIN_ROWS).
 NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT = 1 << 15
 
+# Z-order covering index (IndexConstants.scala:59-74): the build splits
+# the z-sorted rows into ceil(bytes / target) files; quantile scaling
+# replaces min/max scaling of the z-address words.
+ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION = (
+    "hyperspace.index.zorder.targetSourceBytesPerPartition"
+)
+ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT = 1024 * 1024 * 1024
+ZORDER_QUANTILE_ENABLED = "hyperspace.index.zorder.quantile.enabled"
+ZORDER_QUANTILE_ENABLED_DEFAULT = False
+ZORDER_QUANTILE_RELATIVE_ERROR = "hyperspace.index.zorder.quantile.relativeError"
+ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT = 0.01
+
 # ---------------------------------------------------------------------------
 # Reserved column / property names
 # ---------------------------------------------------------------------------

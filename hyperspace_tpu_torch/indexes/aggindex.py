@@ -357,13 +357,13 @@ def _cell_partials(cells, key: Optional[str], ops, device) -> list:
 
 def capture_index_dir(dir_path: str, index, conf=None, device=None) -> bool:
     """Write ``_aggstate.json`` and ``_aggsample.parquet`` for one freshly
-    written index version directory (covering indexes only, as the zone
-    maps; the z-order index comes with queue A item 4), each through a
+    written index version directory (covering and z-order covering
+    indexes, as the zone maps), each through a
     temporary file and an atomic replace, the partials computed on
     ``device`` (None is cuda). Returns True when written."""
     capture_stats.update(read=0.0, fold=0.0, passes=0, overflowed=0)
     kind = getattr(index, "kind", "")
-    if kind != "CoveringIndex":
+    if kind not in ("CoveringIndex", "ZOrderCoveringIndex"):
         return False
     if conf is not None and not conf.index_agg_enabled:
         return False

@@ -49,6 +49,11 @@ class Index(abc.ABC):
     def write(self, ctx, index_data) -> None:
         """Write ``index_data`` into ``ctx.index_data_path``."""
 
+    @abc.abstractmethod
+    def statistics(self, extended: bool = False) -> dict:
+        """String-valued statistics of the index (Index.statistics),
+        read by ``plananalysis/statistics.py``."""
+
 
 class IndexConfigTrait(abc.ABC):
     """User-supplied index definition (IndexConfigTrait.scala:32-59)."""

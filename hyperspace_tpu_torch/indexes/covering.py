@@ -102,6 +102,16 @@ class CoveringIndex(Index):
             ctx, index_data, self._indexed_columns, self.num_buckets
         )
 
+    def statistics(self, extended: bool = False) -> Dict[str, str]:
+        """The index's own columns of ``hs.indexes()`` / ``hs.index(name)``
+        (CoveringIndex.statistics)."""
+        return {
+            "indexedColumns": ",".join(self._indexed_columns),
+            "includedColumns": ",".join(self._included_columns),
+            "numBuckets": str(self.num_buckets),
+            "schema": self.schema_json if extended else "",
+        }
+
 
 class CoveringIndexConfig(IndexConfigTrait):
     """name + indexedColumns + includedColumns

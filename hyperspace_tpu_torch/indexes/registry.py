@@ -26,9 +26,12 @@ def _ensure_builtin_kinds_loaded() -> None:
     # failures inside an existing module must propagate.
     import importlib
 
-    # z-order and data-skipping indexes are ported with their slice
-    # (ROADMAP queue A item 8); their entries parse as "Unknown index kind"
-    for mod in ("hyperspace_tpu_torch.indexes.covering",):
+    # the data-skipping index is ported with its slice (ROADMAP queue A
+    # item 4b); its entries parse as "Unknown index kind"
+    for mod in (
+        "hyperspace_tpu_torch.indexes.covering",
+        "hyperspace_tpu_torch.indexes.zorder",
+    ):
         try:
             importlib.import_module(mod)
         except ModuleNotFoundError as e:

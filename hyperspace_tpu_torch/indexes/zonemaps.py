@@ -1,14 +1,17 @@
 """Zone maps: per-file and per-row-group min/max (and null counts) of
 index data files, and the serve-side pruning pass built on them.
 
-Counterpart of ``hyperspace_tpu/indexes/zonemaps.py`` for covering
-indexes; both packages write and read one sidecar format, so an index
-built by either is pruned the same way by the other:
+Counterpart of ``hyperspace_tpu/indexes/zonemaps.py`` for covering and
+z-order covering indexes; both packages write and read one sidecar
+format, so an index built by either is pruned the same way by the other:
 
 * **capture** — at create time ``actions/create.py`` writes a
   ``_zonemaps.json`` sidecar into the version directory (underscore
   prefix: invisible to the log's content scan) holding per-file,
-  per-row-group min/max and null counts;
+  per-row-group min/max and null counts; a z-order index's sidecar also
+  holds each row group's z-address span (``rg_zspans``) under an encoder
+  spec frozen over the directory's own data (``zorder``), its planes
+  interleaved on the session's device (kernel B6);
 * **lazy backfill** — an index without a sidecar (or a file whose entry
   is stale) reads the same statistics from the parquet footers,
   memoized per file identity (path, size, mtime_ns), so a rewritten file
@@ -17,7 +20,9 @@ built by either is pruned the same way by the other:
   from the predicate's range/Eq/In conjuncts with the zone maps in one
   vectorized pass on the host, drops dead files, and narrows kept files
   to matching row groups (``Relation.file_row_groups``; read by
-  ``io/parquet.read_table_row_groups``).
+  ``io/parquet.read_table_row_groups``); over a z-order index the query
+  box also decomposes into z-address ranges (``ops/zorder.z_box_ranges``)
+  and a row group whose captured span misses every range is dropped.
 
 Soundness contract: every decision is SUPERSET-safe — a file or row
 group is dropped only when no row in it can satisfy the conjunction
@@ -27,9 +32,8 @@ converted to a float64 comparable domain with OUTWARD directed rounding,
 so rounding can only over-keep. The executor re-applies the full mask on
 whatever survives.
 
-Not ported yet (ROADMAP queue A): the z-order spans of z-order indexes
-(item 4), the serve-cache entry kind (item 8) and the trace spans
-(item 10).
+Not ported yet (ROADMAP queue A): the serve-cache entry kind (item 8)
+and the trace spans (item 10).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import logging
 import math
 import os
 import threading
+from bisect import bisect_left
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -412,22 +417,24 @@ def _sidecar_for_dir(dirpath: str) -> Optional[dict]:
 # ---------------------------------------------------------------------------
 
 
-def capture_index_dir(dir_path: str, index) -> bool:
-    """Write the ``_zonemaps.json`` sidecar for one freshly written index
-    version directory. Covering indexes only (the z-order spans of a
-    z-order index come with that index kind). Returns True when a sidecar
-    was written; a failure only costs the lazy-backfill path."""
+def zonemap_doc(dir_path: str, index, device=None) -> Optional[dict]:
+    """The ``_zonemaps.json`` document of one index version directory, or
+    None when nothing is to be captured (another index kind, no files).
+    Covering and z-order covering indexes; a z-order index also gets
+    per-row-group z-address spans under an encoder spec frozen over the
+    directory's own data, its planes interleaved on ``device`` (None is
+    cuda)."""
     kind = getattr(index, "kind", "")
-    if kind != "CoveringIndex":
-        return False
+    if kind not in ("CoveringIndex", "ZOrderCoveringIndex"):
+        return None
     from hyperspace_tpu_torch.io import parquet as pio
 
     try:
         files = pio.list_format_files(dir_path, "parquet")
     except (OSError, KeyError):
-        return False
+        return None
     if not files:
-        return False
+        return None
     footers = {}
     for f in files:
         fz = footer_zones(f)
@@ -450,6 +457,27 @@ def capture_index_dir(dir_path: str, index) -> bool:
                 for name, entries in fz["cols"].items()
             },
         }
+    if kind == "ZOrderCoveringIndex":
+        from hyperspace_tpu_torch.session import resolve_device
+
+        dev = resolve_device(device)
+        try:
+            _capture_zspans(doc, files, footers, list(index.indexed_columns), dev)
+        # a fault of the data leaves the min/max sidecar usable; a kernel
+        # that fails to build or launch fails the create
+        except (OSError, ValueError, pa.ArrowException) as exc:
+            _log.warning("z-span capture failed for %s: %s", dir_path, exc)
+    return doc
+
+
+def capture_index_dir(dir_path: str, index, device=None) -> bool:
+    """Write :func:`zonemap_doc` as the ``_zonemaps.json`` sidecar of one
+    freshly written index version directory, through a temporary file and
+    an atomic replace. Returns True when a sidecar was written; a failure
+    only costs the lazy-backfill path."""
+    doc = zonemap_doc(dir_path, index, device)
+    if doc is None:
+        return False
     tmp = os.path.join(dir_path, f".{SIDECAR_NAME}.tmp.{os.getpid()}")
     try:
         with open(tmp, "w", encoding="utf-8") as f:
@@ -464,14 +492,91 @@ def capture_index_dir(dir_path: str, index) -> bool:
     return True
 
 
-def capture_safely(dir_path: str, index) -> None:
+def capture_safely(dir_path: str, index, device=None) -> None:
     """The create action's capture entry: a zone-map sidecar is a
     precomputed optimization (the serve path backfills from footers
-    without it), so no capture failure may ever fail a build."""
+    without it), so a fault of the data (``OSError``, ``ValueError``,
+    pyarrow's errors) never fails a build. A kernel build or launch error
+    of the z-span capture does."""
     try:
-        capture_index_dir(dir_path, index)
-    except Exception as exc:  # noqa: BLE001 — best effort by contract
+        capture_index_dir(dir_path, index, device)
+    except (OSError, ValueError, pa.ArrowException) as exc:
         _log.warning("zone-map capture failed for %s: %s", dir_path, exc)
+
+
+#: z-address bits a column of the captured spans
+_Z_BITS = 16
+
+
+def _capture_zspans(doc, files, footers, zcols: List[str], device) -> None:
+    """Per-row-group z-address spans for a z-order version dir, two passes
+    bounded by the largest file: (1) fit a frozen range/dict encoder spec
+    over the directory's data, (2) per file, interleave its planes on
+    ``device`` and record each row group's packed (z_lo, z_hi). The
+    reference's order of reads, which the spec and so the spans follow."""
+    from hyperspace_tpu_torch.io import parquet as pio
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops.zorder import (
+        ZOrderEncoder,
+        order_u64_np,
+        planes_to_numpy,
+        planes_z_minmax,
+    )
+
+    k = len(zcols)
+    mins: List[Optional[int]] = [None] * k
+    maxs: List[Optional[int]] = [None] * k
+    dicts: List[Optional[set]] = [None] * k
+    # pass 1 (spec fit) reads a file at a time and discards it, pass 2
+    # reads each again: peak memory stays bounded by the largest file's
+    # indexed columns, not the whole index
+    for f in files:
+        batch = ColumnarBatch.from_arrow(pio.read_table([f], zcols))
+        for j, c in enumerate(zcols):
+            col = batch.column(c)
+            if col.kind == "string":
+                if dicts[j] is None:
+                    dicts[j] = set()
+                dicts[j].update(col.dictionary)
+                continue
+            e = order_u64_np(col)
+            if not len(e):
+                continue
+            lo, hi = int(e.min()), int(e.max())
+            mins[j] = lo if mins[j] is None else min(mins[j], lo)
+            maxs[j] = hi if maxs[j] is None else max(maxs[j], hi)
+    specs = []
+    for j in range(k):
+        if dicts[j] is not None:
+            specs.append(("dict", sorted(dicts[j])))
+        else:
+            specs.append(("range", np.uint64(mins[j] or 0), np.uint64(maxs[j] or 0)))
+    encoder = ZOrderEncoder(_Z_BITS, specs)
+    nplanes = None
+    for f in files:
+        fz = footers.get(f)
+        entry = doc["files"].get(os.path.basename(f))
+        if fz is None or entry is None:
+            continue
+        batch = ColumnarBatch.from_arrow(pio.read_table([f], zcols))
+        planes = planes_to_numpy(encoder.planes([batch.column(c) for c in zcols], device))
+        nplanes = planes.shape[0]
+        spans = []
+        pos = 0
+        for rows in fz["rg_rows"]:
+            mm = planes_z_minmax(planes, pos, pos + rows)
+            spans.append(None if mm is None else [format(mm[0], "x"), format(mm[1], "x")])
+            pos += rows
+        entry["rg_zspans"] = spans
+    doc["zorder"] = {
+        "columns": list(zcols),
+        "bits": _Z_BITS,
+        "nplanes": int(nplanes or 1),
+        "specs": [
+            ["dict", s[1]] if s[0] == "dict" else ["range", str(int(s[1])), str(int(s[2]))]
+            for s in specs
+        ],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +603,9 @@ class ZoneData:
     rg_index: np.ndarray  # row group ordinal within its file
     opaque: np.ndarray  # per FILE: stats unreadable, never narrow it
     cols: Dict[str, ColZones]
+    zspans: list  # per row group: (z_lo, z_hi) python ints or None
+    zspecs: Dict[str, dict]  # dir path -> zorder spec doc
+    rg_spec: list  # per row group: dir path (zspecs key) or None
     sidecar_files: int
     footer_files: int
 
@@ -529,7 +637,13 @@ def _file_stats_from_sidecar(path: str, side: Optional[dict]):
         ]
         for name, entries in entry.get("cols", {}).items()
     }
-    return {"rg_rows": list(entry.get("rg_rows", [])), "cols": cols}
+    out = {"rg_rows": list(entry.get("rg_rows", [])), "cols": cols}
+    if entry.get("rg_zspans") is not None:
+        out["rg_zspans"] = [
+            None if s is None else (int(s[0], 16), int(s[1], 16))
+            for s in entry["rg_zspans"]
+        ]
+    return out
 
 
 def column_zones(cells, t: pa.DataType) -> "ColZones":
@@ -584,6 +698,9 @@ def assemble_zone_data(
     rg_file: List[int] = []
     rg_index: List[int] = []
     opaque = np.zeros(len(files), dtype=bool)
+    zspans: list = []
+    rg_spec: list = []
+    zspecs: Dict[str, dict] = {}
     sidecar_n = footer_n = 0
     side_by_dir: Dict[str, Optional[dict]] = {}
     # per-column cell lists — the ONLY per-row-group state that survives
@@ -614,7 +731,8 @@ def assemble_zone_data(
             d = os.path.dirname(path)
             if d not in side_by_dir:
                 side_by_dir[d] = _sidecar_for_dir(d)
-            stats = _file_stats_from_sidecar(path, side_by_dir[d])
+            side = side_by_dir[d]
+            stats = _file_stats_from_sidecar(path, side)
             if stats is not None:
                 sidecar_n += 1
             else:
@@ -626,7 +744,13 @@ def assemble_zone_data(
                 rg_file.append(fi)
                 rg_index.append(0)
                 _fold(None, None)
+                zspans.append(None)
+                rg_spec.append(None)
                 continue
+            spans = stats.get("rg_zspans")
+            spec = side.get("zorder") if side else None
+            if spec is not None and spans is not None:
+                zspecs.setdefault(d, spec)
             for gi in range(len(stats["rg_rows"])):
                 rg_file.append(fi)
                 rg_index.append(gi)
@@ -638,6 +762,12 @@ def assemble_zone_data(
                         if gi < len(entries)
                     },
                 )
+                if spans is not None and spec is not None and gi < len(spans):
+                    zspans.append(spans[gi])
+                    rg_spec.append(d)
+                else:
+                    zspans.append(None)
+                    rg_spec.append(None)
     cols: Dict[str, ColZones] = {}
     for name, t in schema.items():
         if col_seen[name]:
@@ -648,6 +778,9 @@ def assemble_zone_data(
         rg_index=np.asarray(rg_index, dtype=np.int64),
         opaque=opaque,
         cols=cols,
+        zspans=zspans,
+        zspecs=zspecs,
+        rg_spec=rg_spec,
         sidecar_files=sidecar_n,
         footer_files=footer_n,
     )
@@ -730,7 +863,8 @@ def invalidate_local_cache() -> None:
 # ---------------------------------------------------------------------------
 
 #: the latest evaluated scan's pruning counts (files and row groups kept
-#: and total, zone-map sources, cache hit); last-writer-wins diagnostics
+#: and total, zone-map sources, cache hit, whether z-spans dropped a row
+#: group); last-writer-wins diagnostics
 last_prune_stats: Dict[str, Any] = {}
 
 
@@ -759,6 +893,139 @@ def zone_keep_mask(cz: ColZones, iv: ColInterval) -> np.ndarray:
     return (~cz.allnull) & (overlap | ~cz.has)
 
 
+def _encode_box_bound(iv: ColInterval, kind: str, sorted_dict):
+    """(enc_lo, enc_hi) uint64 box bounds of one column's interval for
+    z-space pruning, rounded OUTWARD; None abstains (full range), "empty"
+    prunes the whole spec group."""
+    from hyperspace_tpu_torch.ops.zorder import order_u64_scalar
+
+    if iv.empty:
+        return "empty"
+
+    def enc(v, up: bool):
+        if sorted_dict is not None:
+            if not isinstance(v, str):
+                return None
+            return bisect_left(sorted_dict, v) + 1
+        if kind != "f" and isinstance(v, float):
+            if math.isinf(v):
+                return "inf_pos" if v > 0 else "inf_neg"
+            # a low bound rounds up to the next integer and a high bound
+            # down: tighter, and sound, as an integer column holds no
+            # value between two integers
+            v = math.ceil(v) if up is False else math.floor(v)
+        try:
+            return order_u64_scalar(v, kind)
+        except (OverflowError, ValueError, TypeError):
+            return None
+
+    enc_lo = 0 if iv.lo is None else enc(iv.lo, up=False)
+    enc_hi = (1 << 64) - 1 if iv.hi is None else enc(iv.hi, up=True)
+    if enc_lo == "inf_neg":
+        enc_lo = 0
+    if enc_hi == "inf_pos":
+        enc_hi = (1 << 64) - 1
+    if enc_lo == "inf_pos" or enc_hi == "inf_neg":
+        return "empty"  # e.g. col >= +inf on an integer column
+    if enc_lo is None or enc_hi is None:
+        return None
+    enc_hi = max(int(enc_hi), 1)  # null slot 0: data encodings clamp to >= 1
+    return int(enc_lo), int(enc_hi)
+
+
+def _z_keep_mask(zd: ZoneData, intervals, schema) -> Optional[np.ndarray]:
+    """Z-space keep-mask over row groups (None = no z metadata). Only
+    groups with captured spans narrow; everything else stays kept. The
+    words of the box are the data words' own float64 scaling, rounded
+    outward, and that scaling is monotone, so no matching row's group is
+    dropped at any magnitude."""
+    from hyperspace_tpu_torch.ops.zorder import (
+        pack_box_ranges,
+        spec_word_bounds,
+        z_box_ranges,
+    )
+
+    if not zd.zspecs:
+        return None
+    n = len(zd.rg_file)
+    keep = np.ones(n, dtype=bool)
+    lower_schema = {c.lower(): c for c in schema}
+    ranges_by_spec: Dict[str, Optional[list]] = {}
+    for spec_key, spec in zd.zspecs.items():
+        bits = int(spec.get("bits", _Z_BITS))
+        zcols = spec.get("columns", [])
+        specs = spec.get("specs", [])
+        k = len(zcols)
+        if k == 0 or len(specs) != k:
+            ranges_by_spec[spec_key] = None
+            continue
+        word_lo, word_hi = [], []
+        empty = False
+        abstain = False
+        top = (1 << bits) - 1
+        for j, cname in enumerate(zcols):
+            sname = lower_schema.get(cname.lower())
+            iv = intervals.get(sname) if sname else None
+            if iv is None:
+                word_lo.append(0)
+                word_hi.append(top)
+                continue
+            t = schema[sname]
+            if _is_string_type(t):
+                kind = "s"
+                sorted_dict = specs[j][1] if specs[j][0] == "dict" else None
+                if sorted_dict is None:
+                    abstain = True
+                    break
+            else:
+                sorted_dict = None
+                if pa.types.is_floating(t):
+                    kind = "f"
+                elif pa.types.is_boolean(t):
+                    kind = "b"
+                elif pa.types.is_unsigned_integer(t):
+                    kind = "u"
+                else:
+                    kind = "i"
+            eb = _encode_box_bound(iv, kind, sorted_dict)
+            if eb == "empty":
+                empty = True
+                break
+            if eb is None:
+                abstain = True
+                break
+            sp = specs[j]
+            sp_t = ("dict", sp[1]) if sp[0] == "dict" else ("range", int(sp[1]), int(sp[2]))
+            wb = spec_word_bounds(sp_t, eb[0], eb[1], bits)
+            if wb is None:
+                abstain = True
+                break
+            word_lo.append(wb[0])
+            word_hi.append(wb[1])
+        if empty:
+            ranges_by_spec[spec_key] = []
+            continue
+        if abstain:
+            ranges_by_spec[spec_key] = None
+            continue
+        ranges = z_box_ranges(word_lo, word_hi, bits)
+        ranges_by_spec[spec_key] = pack_box_ranges(
+            ranges, bits, k, int(spec.get("nplanes", 1))
+        )
+    for gi in range(n):
+        spec_key = zd.rg_spec[gi]
+        span = zd.zspans[gi]
+        if spec_key is None or span is None:
+            continue
+        ranges = ranges_by_spec.get(spec_key)
+        if ranges is None:
+            continue
+        a, b = span
+        if not any(a <= rhi and b >= rlo for rlo, rhi in ranges):
+            keep[gi] = False
+    return keep
+
+
 def prune_scan_relation(scan, cond: E.Expr):
     """The range-pruning pass over one index Scan: returns a Scan over
     the surviving files with ``file_row_groups`` narrowing (the same
@@ -775,6 +1042,7 @@ def prune_scan_relation(scan, cond: E.Expr):
         "zonemap_files_sidecar": 0,
         "zonemap_files_footer": 0,
         "zonemap_cache_hit": False,
+        "z_pruned": False,
     }
     global last_prune_stats
     if (
@@ -810,6 +1078,12 @@ def prune_scan_relation(scan, cond: E.Expr):
                 keep[:] = False
             continue
         keep &= zone_keep_mask(cz, iv)
+    if rel.index_info[2] == "ZOCI":
+        before = int(keep.sum())
+        zk = _z_keep_mask(zd, intervals, rel.schema)
+        if zk is not None:
+            keep &= zk
+            stats["z_pruned"] = int(keep.sum()) < before
     # opaque files (unreadable stats) are never narrowed
     keep |= zd.opaque[zd.rg_file]
     stats["row_groups_kept"] = int(keep.sum())

@@ -407,3 +407,16 @@ def write_bucket_files(
             )
         )
     return written
+
+
+def write_table(path: str, table: pa.Table) -> None:
+    """One index data file with the bucket files' 64k-row groups and the
+    encoding decision made on ``table`` itself (the z-order index's files;
+    the reference's ``write_table``)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    pq.write_table(
+        table,
+        path,
+        row_group_size=INDEX_ROW_GROUP_SIZE,
+        use_dictionary=_dictionary_columns(table),
+    )

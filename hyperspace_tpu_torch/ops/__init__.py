@@ -19,7 +19,10 @@ the plain version, a tensor on the card launches the kernel or raises.
   of a range conjunction (kernel B3b, ``csrc/fused_select.cu``);
 * :mod:`.fused_agg` — the fused filter→aggregate over one chunk (kernel
   B5f, ``csrc/fused_agg.cu``): one pass for order-free aggregates, else
-  B3b, the group pass and B5.
+  B3b, the group pass and B5;
+* :mod:`.zorder` — z-addresses: the host order encodings and word
+  scaling, the bit interleave (kernel B6, ``csrc/zorder_interleave.cu``),
+  and the z-order sort through :mod:`.sort`'s ``lexsort_permutation``.
 """
 
 from __future__ import annotations
@@ -70,6 +73,12 @@ KERNEL_TWINS = {
         "fused_filter_agg_kernel",
         "fused_filter_agg_torch",
         "hyperspace_tpu_torch/csrc/fused_agg.cu",
+    ),
+    "zorder_interleave": (
+        "hyperspace_tpu_torch.ops.zorder",
+        "interleave_kernel",
+        "interleave_torch",
+        "hyperspace_tpu_torch/csrc/zorder_interleave.cu",
     ),
 }
 

@@ -1,7 +1,8 @@
-"""Build sort, group-by sort and ORDER BY — stable permutations on the device.
+"""Build sort, group-by sort, z-order sort and ORDER BY — stable
+permutations on the device.
 
 Counterpart of ``hyperspace_tpu/ops/sort.py`` (``sort_permutation``,
-``partitioned_sort_permutation``, ``order_rep`` and
+``partitioned_sort_permutation``, ``lexsort_perm``, ``order_rep`` and
 ``ordering_permutation``). The reference sorts by
 ``(bucket, key_0, key_1, ...)`` with a stable lexsort over uint32 planes
 in which each signed int64 key becomes ``(hi ^ signbit, lo)``; that plane
@@ -47,6 +48,25 @@ def sort_permutation(
     if bucket is not None:
         planes.append(bucket)
     return _lsd_sort(perm, planes)
+
+
+def lexsort_permutation(planes: torch.Tensor) -> torch.Tensor:
+    """Stable lexsort of [m, n] uint32 planes (as int32 bits), plane 0
+    primary -> [n] int64 permutation on the planes' device: the
+    reference's ``lexsort_indices`` / ``lexsort_perm``
+    (``ops/sort.py:100-151``) under the z-order build. One stable pass a
+    plane, least significant first, each plane widened to int64
+    zero-extended (a signed sort of the bits would put every word with its
+    top bit set first)."""
+    if planes.dim() != 2 or planes.dtype != torch.int32:
+        raise ValueError(
+            f"planes must be [m, n] int32 (uint32 bits), got {tuple(planes.shape)} "
+            f"{planes.dtype}"
+        )
+    n = planes.shape[1]
+    perm = torch.arange(n, dtype=torch.int64, device=planes.device)
+    widened = [planes[j].to(torch.int64) & 0xFFFFFFFF for j in reversed(range(planes.shape[0]))]
+    return _lsd_sort(perm, widened)
 
 
 def partitioned_sort_permutation(

@@ -50,6 +50,14 @@ def no_first_indexed_col_cond(first_indexed: str, condition_cols: str) -> Filter
     )
 
 
+def no_indexed_col_cond(indexed: str, condition_cols: str) -> FilterReason:
+    return FilterReason(
+        "NO_INDEXED_COL_COND",
+        (("indexedCols", indexed), ("conditionCols", condition_cols)),
+        "The filter constrains none of the index's indexed columns.",
+    )
+
+
 def not_eligible_join(reason: str) -> FilterReason:
     return FilterReason(
         "NOT_ELIGIBLE_JOIN",

@@ -5,10 +5,9 @@ fire under a Filter node, so a full-table aggregate
 (``df.group_by(k).agg(count())``, ``df.agg(min(c))``) never reaches an
 index scan. This rule closes that gap: an ``Aggregate`` whose child is a
 plain source ``Scan`` (under Projects) rewrites onto the smallest ACTIVE
-covering index that covers all of its input columns. In the reference the
-rewrite is what lets the aggregate index plane answer from its sidecars;
-the port has no sidecars yet (ROADMAP queue A item 2.3), so the rewritten
-plan reads the index, which holds the same rows in another order.
+covering or z-order covering index that covers all of its input columns,
+after which the metadata aggregate can answer its row groups from the
+index's sidecars.
 
 Correctness gate: the rewrite changes ROW ORDER (index data is
 bucketed/sorted), so only order-insensitive aggregates are eligible —

@@ -39,6 +39,8 @@ class FilterIndexRule(HyperspaceRule):
 
     # which index kinds this rule consumes (IndexTypeFilter)
     index_kind = "CoveringIndex"
+    # first indexed column must appear in the predicate (z-order relaxes it)
+    require_first_indexed_col = True
     base_score = 50
 
     def apply(self, session, plan, candidates: CandidateMap):
@@ -90,14 +92,18 @@ class FilterIndexRule(HyperspaceRule):
             index = e.derived_dataset
             indexed = [c.lower() for c in index.indexed_columns]
             covered = {c.lower() for c in index.referenced_columns()}
-            if indexed[0] not in cond_cols:
-                tag_filter_reason(
-                    e,
-                    scan,
-                    FR.no_first_indexed_col_cond(
-                        indexed[0], ",".join(sorted(cond_cols))
-                    ),
+            if self.require_first_indexed_col:
+                ok_pred = indexed[0] in cond_cols
+                reason = FR.no_first_indexed_col_cond(
+                    indexed[0], ",".join(sorted(cond_cols))
                 )
+            else:
+                ok_pred = bool(set(indexed) & cond_cols)
+                reason = FR.no_indexed_col_cond(
+                    ",".join(indexed), ",".join(sorted(cond_cols))
+                )
+            if not ok_pred:
+                tag_filter_reason(e, scan, reason)
                 continue
             if not required <= covered:
                 tag_filter_reason(

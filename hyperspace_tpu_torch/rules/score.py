@@ -4,8 +4,8 @@ Reference: ``rules/ScoreBasedIndexPlanOptimizer.scala:31-81`` — a
 recursive, memoized search: at every node, either some rule rewrites the
 subtree (its score), or the children are optimized independently (sum of
 child scores); keep the max. The reference's rule set is `:32-33`;
-the port registers FilterIndexRule, JoinIndexRule, AggregateIndexRule
-and NoOpRule.
+the port registers FilterIndexRule, JoinIndexRule,
+ZOrderFilterIndexRule, AggregateIndexRule and NoOpRule.
 """
 
 from __future__ import annotations
@@ -17,14 +17,21 @@ from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, NoOpRu
 
 
 def _all_rules() -> List[HyperspaceRule]:
-    """The filter, join and aggregate rules, in the reference's order (the
-    z-order and data-skipping rules between join and aggregate come with
-    their slice, ROADMAP queue A item 4)."""
+    """The filter, join, z-order filter and aggregate rules, in the
+    reference's order (the data-skipping rule between z-order and
+    aggregate comes with its slice, ROADMAP queue A item 4b)."""
     from hyperspace_tpu_torch.rules.agg_rule import AggregateIndexRule
     from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
     from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
+    from hyperspace_tpu_torch.rules.zorder_rule import ZOrderFilterIndexRule
 
-    return [FilterIndexRule(), JoinIndexRule(), AggregateIndexRule(), NoOpRule()]
+    return [
+        FilterIndexRule(),
+        JoinIndexRule(),
+        ZOrderFilterIndexRule(),
+        AggregateIndexRule(),
+        NoOpRule(),
+    ]
 
 
 class ScoreBasedIndexPlanOptimizer:

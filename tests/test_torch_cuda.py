@@ -20,6 +20,7 @@ from torch_b3a_cases import B3A_PREDICATES, ROWS, b3a_table
 from torch_b4_cases import b4_edge_cases
 import torch_b5_cases
 import torch_b5f_cases
+import torch_b6_cases
 from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
 
 pytestmark = pytest.mark.cuda
@@ -334,3 +335,62 @@ def test_b3b_equals_nonzero_in_repeated_launches(cuda_device, n):
     for _ in range(50):
         assert np.array_equal(F.select_kernel(args).cpu().numpy(), want)
     assert F.select_launches == before + (50 if n else 0)
+
+
+@pytest.mark.parametrize("case", torch_b6_cases.CASES, ids=torch_b6_cases.case_id)
+def test_b6_equals_its_plain_version(cuda_device, case):
+    """B6's planes bit-equal to the plain version on a CPU copy of the
+    words, one launch a call (none for n = 0); views 4 bytes past a
+    16-byte boundary included."""
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    n, _k, bits, _fill, offset = case
+    words = torch_b6_cases.words_tensor(case, cuda_device)
+    if offset and n:
+        assert words.data_ptr() % 16 == 4
+    before = Z.launches
+    got = Z.interleave_kernel(words, bits)
+    torch.cuda.synchronize()
+    assert Z.launches == before + (1 if n else 0)
+    assert torch.equal(got.cpu(), Z.interleave_torch(words.cpu(), bits))
+
+
+def test_zorder_create_launches_b6_and_writes_the_cpu_bytes(cuda_device, tmp_path):
+    """A z-order create on the card launches B6 for its build and its
+    z-span capture and writes the files and zone maps a cpu session
+    writes."""
+    import json
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.indexes.zorder import ZOrderCoveringIndexConfig
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    rng = np.random.default_rng(3)
+    src = tmp_path / "src"
+    src.mkdir()
+    pq.write_table(pa.table({"a": rng.integers(0, 10_000, 50_000),
+                             "b": rng.normal(size=50_000),
+                             "c": rng.integers(0, 50, 50_000)}), str(src / "p.parquet"))
+    docs, data = [], []
+    for device in (cuda_device, "cpu"):
+        sess = HyperspaceSession(device=device)
+        sess.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        before = Z.launches
+        Hyperspace(sess).create_index(sess.read.parquet(str(src)),
+                                      ZOrderCoveringIndexConfig("z", ["a", "c"], ["b"]))
+        if device != "cpu":
+            assert Z.launches - before >= 2  # the build's and the capture's
+        d = os.path.join(str(tmp_path / str(device)), "z", "v__=1")
+        with open(os.path.join(d, "_zonemaps.json")) as fh:
+            doc = json.load(fh)
+        for e in doc["files"].values():
+            e.pop("mtime_ns")
+        docs.append(doc)
+        with open(os.path.join(d, "part-00000-zorder.parquet"), "rb") as fh:
+            data.append(fh.read())
+    assert docs[0] == docs[1] and "zorder" in docs[0]
+    assert data[0] == data[1]

@@ -196,20 +196,63 @@ def test_point_query_is_bucket_pruned_and_masked_on_the_device(world):
     }
 
 
+def _without_location(table):
+    rows = table.to_pylist()
+    for r in rows:
+        r.pop("indexLocation")
+    return rows
+
+
 def test_indexes_lists_the_built_index(world):
-    got = T.Hyperspace(world["t"]).indexes().to_pylist()
-    assert got == [
-        {
-            "name": "li_idx",
-            "indexedColumns": ["l_orderkey"],
-            "includedColumns": ["l_shipdate", "l_quantity"],
-            "numBuckets": N_BUCKETS,
-            "state": "ACTIVE",
-            "logVersion": 2,
-        }
+    """``hs.indexes()`` is the JAX package's table, column for column and
+    row for row, apart from ``indexLocation``: each package's own path."""
+    got = T.Hyperspace(world["t"]).indexes()
+    want = JHyperspace(world["j"]).indexes()
+    assert got.schema == want.schema
+    assert _without_location(got) == _without_location(want)
+    assert got.column("indexLocation").to_pylist() == [
+        os.path.join(world["tsys"], INDEX[0])
     ]
+    assert want.column("indexLocation").to_pylist() == [
+        os.path.join(world["jsys"], INDEX[0])
+    ]
+    row = _without_location(got)[0]
+    assert (row["name"], row["numBuckets"], row["state"]) == ("li_idx", N_BUCKETS, "ACTIVE")
     df = world["t"].read.parquet(world["src"])
     assert df.count() == N_ITEMS
+
+
+def test_index_statistics_equal_the_reference(tmp_path):
+    """``hs.index(name)``: the reference's extended row for a covering and
+    a z-order index (``numBuckets`` 0), apart from ``indexLocation``; a
+    missing name raises in both packages. ``hs.indexes()`` lists both
+    kinds as the reference does."""
+    from hyperspace_tpu.exceptions import HyperspaceException as JHyperspaceException
+    from hyperspace_tpu.indexes.zorder import ZOrderCoveringIndexConfig as JZConfig
+    from hyperspace_tpu_torch.indexes.zorder import ZOrderCoveringIndexConfig as TZConfig
+
+    src = str(tmp_path / "lineitem")
+    _gen(src)
+    t = _port_session(str(tmp_path / "port"))
+    j = _jax_session(str(tmp_path / "jax"))
+    ths, jhs = T.Hyperspace(t), JHyperspace(j)
+    z = ("z_idx", ["l_shipdate", "l_quantity"], ["l_orderkey"])
+    ths.create_index(t.read.parquet(src), TConfig(*INDEX))
+    jhs.create_index(j.read.parquet(src), JConfig(*INDEX))
+    ths.create_index(t.read.parquet(src), TZConfig(*z))
+    jhs.create_index(j.read.parquet(src), JZConfig(*z))
+    assert _without_location(ths.indexes()) == _without_location(jhs.indexes())
+    for name in (INDEX[0], z[0]):
+        got, want = ths.index(name), jhs.index(name)
+        assert got.schema == want.schema
+        assert _without_location(got) == _without_location(want)
+        assert got.column("indexLocation").to_pylist() == [str(tmp_path / "port" / name)]
+    zrow = _without_location(ths.index(z[0]))[0]
+    assert zrow["numBuckets"] == 0 and "targetBytesPerPartition" in zrow["additionalStats"]
+    with pytest.raises(T.HyperspaceException, match="Index not found"):
+        ths.index("no_such_index")
+    with pytest.raises(JHyperspaceException, match="Index not found"):
+        jhs.index("no_such_index")
 
 
 def test_nested_struct_field_index_matches_reference(tmp_path):
