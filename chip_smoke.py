@@ -65,6 +65,15 @@ against its plain PyTorch version on the card:
      2^bits - 1 and random, views 4 bytes past a 16-byte boundary); timed
      cold at 6,001,215 rows of 16-bit words for k = 1, 2, 3 beside each
      byte bound and the plain version on the card;
+   * the Bloom filter bit indices (kernel B7), both C entries (the
+     indices, and the build's packed words) bit-equal to the plain
+     version on a CPU copy over ``tests/torch_b7_cases.py`` (n from 0 to
+     65,537, INT64_MIN / INT64_MAX, uint64 bit-views, string reps and
+     duplicates, m from 64 to 2^31 - 64 where h1 + j*h2 wraps at 2^32, k in
+     {1, 7, 16}); each timed cold at a source file's 750,152 rows and at
+     6,001,215 in one launch with phase 11's m = 5,751,040 and k = 7,
+     beside its byte and int32-operation bounds and the plain version on
+     the card;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -145,9 +154,11 @@ against its plain PyTorch version on the card:
    on the fused select (B3b). Each: the explain names its index, one
    warm-up, 5 rounds with its route on and off in turns, rows equal bit
    for bit in order to the route off, to a ``device="cpu"`` session and
-   to the plan without Hyperspace (s1 as a multiset). li_rg_idx's
-   ``_aggstate.json`` equals the doc a cpu session computes over its
-   files. Each create's ``sidecar_capture`` seconds are logged split
+   to the plan without Hyperspace (s1 as a multiset). The
+   ``_aggstate.json`` of li_rg_idx, li_idx (whose l_orderkey pass
+   overflows to the ordered route) and o_idx (a float SUM on the ordered
+   route) each equals the doc a cpu session computes over its files,
+   file and row-group counts logged. Each create's ``sidecar_capture`` seconds are logged split
    into its row-group reads and its folds, with the folds' fused passes
    and their chunks that overflowed B5f's one pass. li_idx's and o_idx's
    captures are then computed again under torch.profiler: the fold's
@@ -185,6 +196,25 @@ against its plain PyTorch version on the card:
    bit-equal to the plain version on a CPU copy; the z-order lexsort is
    timed cold on each build's planes.
 
+11. data-skipping path: in a session of its own over phase 4's lineitem
+   files (in ship-date order), ds_idx with a min/max sketch on
+   l_shipdate and a Bloom filter sketch on l_orderkey (fpp 0.01, 600,000
+   expected items a file: m = 5,751,040, k = 7); the create's seconds
+   split into file reads and sketching, one B7 build a file, its sketch
+   file byte-equal to the one a ``device="cpu"`` session writes. Then
+   (d1) bench.py's q_zrange, pruned by the min/max sketch; (d2) phase
+   4's 32 point keys and 4 keys no file holds, pruned by the Bloom
+   filter sketch (B7 probes the literals); (d3) phase 4's 4 IN-lists.
+   Each: the explain names ``Type: DS``; the files kept equal the cpu
+   session's; one warm-up, 3 rounds with Hyperspace on and off in turns
+   (p50 and p99, and the p50 of each query's on-off difference); then
+   at least 20 more runs a side in turns (2 rounds of d2) split by stage
+   (optimizer, range-pruning pass, file reads, filter, rest) with the
+   routes each side took (``ds_stage_split``); rows equal as a multiset
+   to the plan without Hyperspace and in order to the cpu session's.
+   Every B7 call of the phase is recorded (``B7Inputs``) and held
+   bit-equal to the plain version on a CPU copy.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -204,8 +234,8 @@ chunk; f1's and f2's plans; s1's batch); records under ``only_b5f``. The
 numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
-Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9 and
-10 and read just after each; the kernel checks' launches are not counted as the main
+Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10
+and 11 and read just after each; the kernel checks' launches are not counted as the main
 path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -409,7 +439,7 @@ def build_baseline(src: str):
     out_dir = os.path.join(ROOT, "build", "baseline_b1")
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libbaseline_b1.so")
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC_DIR, "-o", lib, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, lib
@@ -958,6 +988,15 @@ def gen_lineitem(out_dir: str) -> str:
     return src
 
 
+def phase4_keys() -> tuple:
+    """Phase 4's 32 point keys and 4 IN-lists of 8 keys (phase 11 filters
+    on them too)."""
+    rng = np.random.default_rng(SEED + 1)
+    point_keys = [int(k) for k in rng.integers(0, N_ORDERS, 32)]
+    in_lists = [[int(k) for k in rng.integers(0, N_ORDERS, 8)] for _ in range(4)]
+    return point_keys, in_lists
+
+
 def filter_path(work: str, device) -> dict:
     import pyarrow.parquet as pq
     import torch
@@ -994,9 +1033,7 @@ def filter_path(work: str, device) -> dict:
     if rows != N_ROWS or len(files) != 200 or build_launches <= 0:
         raise AssertionError("build did not index every row through B1")
 
-    rng = np.random.default_rng(SEED + 1)
-    point_keys = [int(k) for k in rng.integers(0, N_ORDERS, 32)]
-    in_lists = [[int(k) for k in rng.integers(0, N_ORDERS, 8)] for _ in range(4)]
+    point_keys, in_lists = phase4_keys()
     queries = [df["l_orderkey"] == k for k in point_keys] + [
         df["l_orderkey"].isin(keys) for keys in in_lists
     ]
@@ -2353,9 +2390,10 @@ def aggplane_path(work: str, ctx: dict, b3b_inputs: B3bInputs) -> dict:
     5 rounds of the route on and off in turns (p50 of each, the route's
     stats); rows equal bit for bit in order to the route off, to a
     ``device="cpu"`` session's and to the plan without Hyperspace (s1 as a
-    multiset: index rows come bucket by bucket). Then li_rg_idx's
-    ``_aggstate.json`` against the doc a cpu session computes over the
-    same files. Launch counts read from 0 at its start."""
+    multiset: index rows come bucket by bucket). Then the
+    ``_aggstate.json`` of li_rg_idx, li_idx and o_idx against the doc a
+    cpu session computes over the same files. Launch counts read from 0
+    at its start."""
     import pyarrow.parquet as pq
     import torch
 
@@ -2442,21 +2480,29 @@ def aggplane_path(work: str, ctx: dict, b3b_inputs: B3bInputs) -> dict:
         raise AssertionError(f"phase 9 launched B3b or B5f no time: {launches}")
     log(f"aggplane path: phase launches {launches}")
 
-    files = hs.get_index("li_rg_idx").content.files
-    with open(os.path.join(os.path.dirname(files[0]), aggindex.SIDECAR_NAME)) as fh:
-        stored = json.load(fh)["files"]
-    t0 = time.perf_counter()
-    for f, (entry, _sample) in zip(files, aggindex.file_agg_docs(files, device="cpu")):
-        mine = dict(stored[os.path.basename(f)])
-        mine.pop("size")
-        mine.pop("mtime_ns")
-        if mine != entry:
-            raise AssertionError(f"li_rg_idx's _aggstate.json differs from the cpu doc for {f}")
-    groups = sum(pq.ParquetFile(f).metadata.num_row_groups for f in files)
-    log(f"aggplane path: li_rg_idx's _aggstate.json (captured on the card) equals the doc a "
-        f"cpu session computes over its {len(files)} files and {groups} row groups apart "
-        f"from mtime_ns ({time.perf_counter() - t0:.2f}s on the cpu)")
-    return {"launches": launches, "queries": results,
+    # every captured sidecar: li_rg_idx's, li_idx's (whose l_orderkey pass
+    # overflows B5f's one pass to the ordered route) and o_idx's (a float
+    # SUM folded on the ordered route)
+    sidecars = {}
+    for name in ("li_rg_idx", "li_idx", "o_idx"):
+        files = hs.get_index(name).content.files
+        with open(os.path.join(os.path.dirname(files[0]), aggindex.SIDECAR_NAME)) as fh:
+            stored = json.load(fh)["files"]
+        t0 = time.perf_counter()
+        groups = 0
+        for f, (entry, _sample) in zip(files, aggindex.file_agg_docs(files, device="cpu")):
+            mine = dict(stored[os.path.basename(f)])
+            mine.pop("size")
+            mine.pop("mtime_ns")
+            if mine != entry:
+                raise AssertionError(f"{name}'s _aggstate.json differs from the cpu doc for {f}")
+            groups += pq.ParquetFile(f).metadata.num_row_groups
+        sidecars[name] = {"files": len(files), "row_groups": groups,
+                          "cpu_s": time.perf_counter() - t0}
+        log(f"aggplane path: {name}'s _aggstate.json (captured on the card) equals the doc a "
+            f"cpu session computes over its {len(files)} files and {groups} row groups apart "
+            f"from mtime_ns ({sidecars[name]['cpu_s']:.2f}s on the cpu)")
+    return {"launches": launches, "queries": results, "sidecars": sidecars,
             "capture": capture_profile(torch.device("cuda"), hs)}
 
 
@@ -3261,6 +3307,411 @@ def zorder_path(work: str, ctx: dict, b6_inputs: B6Inputs) -> dict:
     return {"launches": launches, "creates": creates, "queries": results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (B7) and phase 11: the data-skipping index (kernel B7)
+# ---------------------------------------------------------------------------
+
+#: phase 11's Bloom filter sketch on l_orderkey: about the distinct keys of
+#: one source file (the seeded generator gives 589,933-590,691 a file;
+#: upstream's expectedDistinctCountPerFile) at fpp 0.01
+DS_EXPECTED, DS_FPP = 600_000, 0.01
+#: the rows of the largest source file, what one create launch of B7 takes
+FILE_ROWS = -(-N_ROWS // N_FILES)
+
+
+def b7_ops_per_row(k: int, build: bool) -> int:
+    """32-bit integer operations per row of B7, counted from
+    ``csrc/bloom_bits.cu``: the two murmur3 hashes of the rep's two words
+    (21 each, as :func:`murmur3_ops_per_row` counts one key: 12 for the
+    word mixes, 9 for fmix), less the word's own transform that both
+    hashes share (k *= c1, rotl 15, k *= c2: 3 a word, computed once, as
+    the force-inlined ``row_hashes`` lets the compiler do), and h2's OR
+    (37 in all); then each of the k indices takes the remainder by the
+    precomputed constant (6) and the next sum's add (1); the build adds
+    the word index's shift, the bit's mask and its 64-bit shift (two
+    32-bit operations), 4 an index."""
+    return 37 + (11 if build else 7) * k
+
+
+def b7_bound(n: int, m: int, k: int, build: bool) -> dict:
+    """Least time of one B7 call on n reps: the larger of its bytes (the
+    reps read, then the [k, n] int32 indices or the m / 8 bytes of one
+    filter written) over HBM bandwidth and its integer operations over the
+    int32 peak."""
+    nbytes = 8 * n + (m // 8 if build else 4 * k * n)
+    ops = n * b7_ops_per_row(k, build)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "int32_ops": ops, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def b7_cases_module():
+    """``tests/torch_b7_cases.py``, imported once."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_b7_cases
+
+    return torch_b7_cases
+
+
+def compare_b7(entry: str, reps, m: int, k: int, out) -> None:
+    """One B7 result held bit-equal to the plain version on a CPU copy of
+    its reps (a build over the wrap case's 2^31 - 64 bits against the
+    words of the plain indices: its plain plane would take 2 GiB)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    B7 = b7_cases_module()
+    host = reps.cpu()
+    if entry == "indices":
+        ok = torch.equal(out.cpu(), B.bit_indices_torch(host, m, k))
+    elif m <= B7.PHASE_M:
+        ok = torch.equal(out.cpu(), B.build_bloom_torch(host, m, k))
+    else:
+        want = B7.words_from_indices(B.bit_indices_torch(host, m, k).numpy(), m)
+        ok = np.array_equal(out.cpu().numpy().view(np.uint64), want)
+    if not ok:
+        raise AssertionError(f"B7's {entry} differs from its plain version (n {len(host)}, "
+                             f"m {m}, k {k})")
+
+
+def check_b7_cases(dev) -> tuple:
+    """B7's two entries bit-equal to the plain version on a CPU copy over
+    ``tests/torch_b7_cases.py`` (phase 3): the indices on every case, the
+    build on every case whose m is a filter's (a multiple of 64). Returns
+    (calls checked, max abs error)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    B7 = b7_cases_module()
+    t0 = time.perf_counter()
+    calls = 0
+    for case in B7.CASES:
+        n, m, k, _fill = case
+        reps = torch.from_numpy(B7.reps_for(case)).to(dev)
+        compare_b7("indices", reps, m, k, B.bit_indices_kernel(reps, m, k))
+        compare_b7("build", reps, m, k, B.build_bloom_kernel(reps, m, k))
+        calls += 2
+    log(f"kernels: B7 indices and build bit-equal to plain on a CPU copy over "
+        f"{len(B7.CASES)} cases, {calls} calls (max_abs_err 0; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    return calls, 0
+
+
+def b7_timings(dev) -> dict:
+    """B7's two entries cold (phase 3) at a source file's rows and at all
+    6,001,215 in one launch, phase 11's m and k, l_orderkey-like reps,
+    beside each bound and the plain version on the same device reps; the
+    record's top-level numbers are the build at a file's rows, the call
+    each create makes once a file."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    m, k = B.optimal_params(DS_EXPECTED, DS_FPP)
+    rng = np.random.default_rng(SEED + 31)
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    cold = []
+    for n in (FILE_ROWS, N_ROWS):
+        reps = torch.from_numpy(rng.integers(0, N_ORDERS, n, dtype=np.int64)).to(dev)
+        for entry, fn, plain in (("indices", B.bit_indices_kernel, B.bit_indices_torch),
+                                 ("build", B.build_bloom_kernel, B.build_bloom_torch)):
+            ms = float(np.median(time_cold(lambda: fn(reps, m, k), flush)))
+            plain_ms = time_cuda(lambda: plain(reps, m, k), launches=3, repeats=3)
+            b = b7_bound(n, m, k, entry == "build")
+            cold.append({"entry": entry, "n": n, "m": m, "k": k, "ms": ms, "plain_ms": plain_ms,
+                         **b, "share_of_bound": b["bound_ms"] / ms})
+            log(f"kernels: B7 {entry} cold at {n} rows, m={m}, k={k}: ms {ms:.4f} bound_ms "
+                f"{b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%}; bytes {b['bytes']} -> "
+                f"{b['bytes_ms']:.4f} ms, int32 ops {b['int32_ops']} -> {b['ops_ms']:.4f} ms); "
+                f"plain_ms {plain_ms:.4f}; library_ms none (no PyTorch call computes murmur3)")
+    top = next(c for c in cold if c["entry"] == "build" and c["n"] == FILE_ROWS)
+    return {
+        "name": "bloom_bits",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/bloom_bits.cu",
+        "replaces": "hyperspace_tpu/ops/bloom.py:34",
+        "launches": None,  # phase 11's count, filled in by main
+        "max_abs_err": None,
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "timing": f"cold: 256 MiB read before each run, median of 30; hs_bloom_build at "
+                  f"{FILE_ROWS} rows (one source file), m = {m}, k = {k}",
+        "cold": cold,
+    }
+
+
+class B7Inputs:
+    """Keeps every B7 call phase 11 makes (``ops.bloom.bit_indices_kernel``
+    and ``build_bloom_kernel``), its reps, m, k and result under the
+    current label, for the comparison with the plain version after the
+    phase. The wrappers call straight through, so their launches count as
+    the main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import bloom as B
+
+        self.calls, self.label = [], None
+        for entry, name in (("indices", "bit_indices_kernel"), ("build", "build_bloom_kernel")):
+            inner = getattr(B, name)
+
+            def recording(reps, m, k, inner=inner, entry=entry):
+                out = inner(reps, m, k)
+                if self.label is not None:
+                    self.calls.append((self.label, entry, reps, m, k, out))
+                return out
+
+            setattr(B, name, recording)
+
+
+def check_b7_main_path(recorded: list) -> int:
+    """Every B7 call of phase 11 held bit-equal to the plain version on a
+    CPU copy of its reps; the create built one filter a source file and
+    the queries probed."""
+    builds = [c for c in recorded if c[1] == "build"]
+    probes = [c for c in recorded if c[1] == "indices"]
+    if len(builds) != N_FILES or not probes:
+        raise AssertionError(f"phase 11 made {len(builds)} B7 builds and {len(probes)} probes")
+    t0 = time.perf_counter()
+    for label, entry, reps, m, k, out in recorded:
+        compare_b7(entry, reps, m, k, out)
+    log(f"kernels: B7 bit-equal to plain on all {len(recorded)} calls of phase 11 "
+        f"({len(builds)} builds of {sum(len(c[2]) for c in builds)} reps, {len(probes)} probes "
+        f"of {sum(len(c[2]) for c in probes)} literal reps; {time.perf_counter() - t0:.1f}s on "
+        f"the cpu)")
+    return len(recorded)
+
+
+def ds_queries(df) -> dict:
+    """Phase 11's queries over a lineitem DataFrame of either session: (d1)
+    bench.py's q_zrange, pruned by the min/max sketch; (d2) phase 4's 32
+    point keys and 4 keys no file holds, pruned by the Bloom filter
+    sketch; (d3) phase 4's 4 IN-lists of 8 keys."""
+    point_keys, in_lists = phase4_keys()
+    absent = [N_ORDERS + 17 * i for i in range(4)]
+    ship, qty, key = df["l_shipdate"], df["l_quantity"], df["l_orderkey"]
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    return {
+        "d1": [df.filter((ship >= np.datetime64(ZLO)) & (ship <= np.datetime64(ZHI))
+                         & (qty <= 5)).select("l_shipdate", "l_quantity", "l_orderkey")],
+        "d2": [df.filter(key == k).select(*cols) for k in point_keys + absent],
+        "d3": [df.filter(key.isin(keys)).select(*cols) for keys in in_lists],
+    }
+
+
+def ds_stage_split(sess, plans, rounds: int = 2) -> dict:
+    """Phase 11's stage split: each query run ``rounds`` times with
+    Hyperspace on and off in turns, its host ms split into the optimizer
+    (the rewrite, the sketches' probe included), the range-pruning pass,
+    the scan's file reads, the filter (the fused select or the mask) and
+    the rest (batch assembly and the result's arrow table), by timing the
+    executor's functions of those stages while they run. Returns each
+    stage's p50 over queries x rounds for either side, and the routes of
+    the last query: the ``exec_stats`` counters it moved and the
+    range-pruning stats."""
+    from hyperspace_tpu_torch.execution import executor as X
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.indexes import zonemaps
+
+    acc: dict = {}
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[stage] = acc.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+        return run
+
+    stages = {(X, "_range_pruned_scan"): "range_prune", (X, "_exec_scan"): "scan_read",
+              (X, "_filter_mask"): "filter", (PC, "fused_filter_batch"): "filter"}
+    saved = {key: getattr(*key) for key in stages}
+    rows = {"on": [], "off": []}
+    routes = {}
+    try:
+        for (mod, attr), stage in stages.items():
+            setattr(mod, attr, timed(stage, saved[(mod, attr)]))
+        for _ in range(rounds):
+            for q in plans:
+                for side in ("on", "off"):
+                    (sess.enable_hyperspace if side == "on" else sess.disable_hyperspace)()
+                    acc.clear()
+                    zonemaps.last_prune_stats = {}
+                    before = sess.exec_stats.as_dict()
+                    t0 = time.perf_counter()
+                    plan = sess.optimize(q.logical_plan)
+                    t1 = time.perf_counter()
+                    X.execute(plan, sess)
+                    total = (time.perf_counter() - t0) * 1e3
+                    row = {"optimize": (t1 - t0) * 1e3, **acc}
+                    row["rest"] = total - sum(row.values())
+                    row["total"] = total
+                    rows[side].append(row)
+                    after = sess.exec_stats.as_dict()
+                    routes[side] = {"exec_stats": {k: v - before[k] for k, v in after.items()
+                                                   if v != before[k]},
+                                    "prune": dict(zonemaps.last_prune_stats)}
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+        sess.enable_hyperspace()
+    names = ("optimize", "range_prune", "scan_read", "filter", "rest", "total")
+    return {side: {"p50_ms": {n: float(np.median([r.get(n, 0.0) for r in rows[side]]))
+                              for n in names},
+                   "routes": routes[side]} for side in rows}
+
+
+def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
+    """Phase 11: the data-skipping index over phase 4's lineitem in a
+    session of its own (a covering index on the same filter would outrank
+    it): ds_idx with a min/max sketch on l_shipdate and a Bloom filter
+    sketch on l_orderkey, its create's seconds split into file reads and
+    sketching and its B7 launches (one a file), its sketch file against
+    the one a ``device="cpu"`` session writes; then d1, d2 and d3
+    (``ds_queries``). Each query: the explain names ``Type: DS``; the files
+    kept equal the cpu session's; one warm-up, 3 rounds with Hyperspace on
+    and off in turns; rows equal as a multiset to the plan without
+    Hyperspace and in order to the cpu session's. Launch counts read from
+    0 at its start; every B7 call is recorded in ``b7_inputs``."""
+    import torch
+
+    from hyperspace_tpu_torch import DataSkippingIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.indexes import zonemaps
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
+
+    src = ctx["src"]
+
+    def config():
+        return DataSkippingIndexConfig("ds_idx", MinMaxSketch("l_shipdate"),
+                                       BloomFilterSketch("l_orderkey", DS_FPP, DS_EXPECTED))
+
+    sess = HyperspaceSession()
+    sess.conf.set("hyperspace.system.path", os.path.join(work, "dsindexes"))
+    hs = Hyperspace(sess)
+    items = sess.read.parquet(src)
+    ops.reset_launch_counts()
+    b7_inputs.label = "create"
+    t0 = time.perf_counter()
+    hs.create_index(items, config())
+    build_s = time.perf_counter() - t0
+    b7_inputs.label = None
+    launches = ops.launch_counts()["bloom_bits"]
+    stages = {k: v for k, v in sess.build_stats.items() if isinstance(v, float)}
+    sketch_file = hs.get_index("ds_idx").content.files
+    log(f"dataskipping path: built ds_idx over {N_FILES} files in {build_s:.3f}s, "
+        f"{N_ROWS / build_s:,.0f} rows/s, file reads {stages.get('sketch_read', 0.0):.4f}s, "
+        f"sketching {stages.get('sketch', 0.0):.4f}s, B7 launches {launches}")
+    if launches != N_FILES or len(sketch_file) != 1:
+        raise AssertionError(f"ds_idx: {launches} B7 launches for {N_FILES} files, "
+                             f"{len(sketch_file)} sketch files")
+
+    cpu = HyperspaceSession(device="cpu")
+    cpu.conf.set("hyperspace.system.path", os.path.join(work, "dsindexes_cpu"))
+    t0 = time.perf_counter()
+    Hyperspace(cpu).create_index(cpu.read.parquet(src), config())
+    cpu_s = time.perf_counter() - t0
+    cpu_file = Hyperspace(cpu).get_index("ds_idx").content.files
+    with open(sketch_file[0], "rb") as a, open(cpu_file[0], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("ds_idx's sketch file differs from the cpu session's")
+    log(f"dataskipping path: ds_idx's sketch file ({os.path.getsize(sketch_file[0])} bytes) "
+        f"equals the one a cpu session writes (its create {cpu_s:.2f}s)")
+
+    sess.enable_hyperspace()
+    cpu.enable_hyperspace()
+    queries = ds_queries(items)
+    cpu_queries = ds_queries(cpu.read.parquet(src))
+    results = {}
+    for label, plans in queries.items():
+        kept = []
+        for q, cq in zip(plans, cpu_queries[label]):
+            text = hs.explain(q)
+            if "Hyperspace(Type: DS, Name: ds_idx" not in text.split("Plan without indexes:")[0]:
+                raise AssertionError(f"{label}: ds_idx not used:\n{text}")
+            files = tuple(os.path.basename(f) for f in
+                          sess.optimize(q.logical_plan).collect_leaves()[0].relation.files)
+            cpu_files = tuple(os.path.basename(f) for f in
+                              cpu.optimize(cq.logical_plan).collect_leaves()[0].relation.files)
+            if files != cpu_files:
+                raise AssertionError(f"{label}: files kept {files}, the cpu session's {cpu_files}")
+            kept.append(len(files))
+        b7_inputs.label = label
+        for q in plans:
+            q.collect()  # warm-up
+        rewrite_ms = []
+        for q in plans:
+            t0 = time.perf_counter()
+            sess.optimize(q.logical_plan)
+            rewrite_ms.append((time.perf_counter() - t0) * 1e3)
+        on_ms, off_ms, got = [], [], [None] * len(plans)
+        for _ in range(3):
+            for i, q in enumerate(plans):
+                for enabled in (True, False):
+                    (sess.enable_hyperspace if enabled else sess.disable_hyperspace)()
+                    zonemaps.last_prune_stats = {}
+                    t0 = time.perf_counter()
+                    out = q.collect()
+                    (on_ms if enabled else off_ms).append((time.perf_counter() - t0) * 1e3)
+                    if enabled:
+                        got[i] = out
+                    elif not sorted_rows(got[i]).equals(sorted_rows(out)):
+                        raise AssertionError(f"{label}[{i}]: rows differ from the plan without "
+                                             f"Hyperspace")
+        split = ds_stage_split(sess, plans, rounds=max(2, 20 // len(plans)))
+        b7_inputs.label = None
+        sess.enable_hyperspace()
+        rows = []
+        for i, cq in enumerate(cpu_queries[label]):
+            if not got[i].equals(cq.collect()):
+                raise AssertionError(f"{label}[{i}]: rows differ from the cpu session's")
+            rows.append(got[i].num_rows)
+        r = {"queries": len(plans), "rows": rows, "files_kept": kept,
+             "p50_ms": float(np.percentile(on_ms, 50)), "p99_ms": float(np.percentile(on_ms, 99)),
+             "off_p50_ms": float(np.percentile(off_ms, 50)),
+             "off_p99_ms": float(np.percentile(off_ms, 99)),
+             "paired_gap_p50_ms": float(np.median(np.subtract(on_ms, off_ms))),
+             "rewrite_p50_ms": float(np.median(rewrite_ms)), "stages": split}
+        if label == "d2":
+            r["files_kept_present_mean"] = float(np.mean(kept[:32]))
+            r["files_kept_absent"] = kept[32:]
+            if any(rows[32:]) or not sum(rows[:32]):
+                raise AssertionError(f"d2: rows {rows}")
+        elif sum(rows) == 0:
+            raise AssertionError(f"{label}: no row matched")
+        results[label] = r
+        log(f"dataskipping path: {label} ({len(plans)} quer{'y' if len(plans) == 1 else 'ies'}) "
+            f"over ds_idx: p50_ms {r['p50_ms']:.3f} p99_ms {r['p99_ms']:.3f} with Hyperspace, "
+            f"{r['off_p50_ms']:.3f} / {r['off_p99_ms']:.3f} without (3 rounds each, in turns; "
+            f"p50 of each query's on-off difference {r['paired_gap_p50_ms']:.3f}); "
+            f"the rewrite (optimizer with the sketches' probe) p50_ms {r['rewrite_p50_ms']:.3f}; "
+            f"files kept of {N_FILES} {kept}; rows {sum(rows)}; last prune "
+            f"{zonemaps.last_prune_stats}; equal as a multiset to the plan without Hyperspace, "
+            f"in order to the cpu session's, the same files kept")
+        log(f"dataskipping path: {label} stage split, p50 ms over {len(plans)} quer"
+            f"{'y' if len(plans) == 1 else 'ies'} x {max(2, 20 // len(plans))} rounds in turns: "
+            f"with Hyperspace "
+            f"{split['on']['p50_ms']}, routes {split['on']['routes']}; without "
+            f"{split['off']['p50_ms']}, routes {split['off']['routes']}")
+    launches = ops.launch_counts()
+    log(f"dataskipping path: phase launches {launches}")
+    torch.cuda.synchronize()
+    return {"launches": launches,
+            "create": {"seconds": build_s, "rows_per_s": N_ROWS / build_s, "b7_launches": N_FILES,
+                       "stages_s": stages, "sketch_bytes": os.path.getsize(sketch_file[0]),
+                       "cpu_create_s": cpu_s},
+            "queries": results}
+
+
 def main() -> int:
     import argparse
 
@@ -3333,6 +3784,7 @@ def main() -> int:
     b5_cases_run, b5_case_err = check_b5_cases(dev)
     fused_cases_run, _ = check_b3b_b5f_cases(dev)
     b6_cases_run, b6_case_err = check_b6_cases(dev)
+    b7_cases_run, b7_case_err = check_b7_cases(dev)
     if args.only_b4:  # no main path: its launches stay null
         b4 = b4_timings(dev, b4_replica(dev))
         b4.update(max_abs_err=b4_case_err, cases=b4_cases_run)
@@ -3358,8 +3810,9 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     b6 = b6_timings(dev)
+    b7 = b7_timings(dev)
     b4_inputs, b3a_inputs, b5_inputs = B4Inputs(), B3aInputs(), B5Inputs()
-    b3b_inputs, b6_inputs = B3bInputs(), B6Inputs()
+    b3b_inputs, b6_inputs, b7_inputs = B3bInputs(), B6Inputs(), B7Inputs()
     chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
@@ -3372,6 +3825,7 @@ def main() -> int:
         fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
         f_in = f_inputs(dev, ctx)
         zpath = zorder_path(work, ctx, b6_inputs)
+        dspath = dataskipping_path(work, ctx, b7_inputs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -3394,10 +3848,13 @@ def main() -> int:
     b6.update(launches=zpath["launches"]["zorder_interleave"], max_abs_err=b6_case_err,
               cases=b6_cases_run + b6_calls, lexsort=lexsort_timings(b6_inputs.calls),
               creates=zpath["creates"], queries=zpath["queries"])
+    b7_calls = check_b7_main_path(b7_inputs.calls)
+    b7.update(launches=dspath["launches"]["bloom_bits"], max_abs_err=b7_case_err,
+              cases=b7_cases_run + b7_calls, create=dspath["create"], queries=dspath["queries"])
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)
     print(
         json.dumps(
             {

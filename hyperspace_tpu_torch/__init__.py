@@ -11,9 +11,12 @@ JAX nor the reference package.
 The ported slices cover building a covering index, serving a
 bucket-pruned filter from it, serving an equi-join of two tables
 indexed on the join key bucket by bucket, without a shuffle,
-aggregates, ORDER BY and LIMIT over any of them, and the z-order
+aggregates, ORDER BY and LIMIT over any of them, the z-order
 covering index (``ZOrderCoveringIndexConfig``), whose filters on any
-indexed column are pruned by the files' z-address spans::
+indexed column are pruned by the files' z-address spans, and the
+data-skipping index (``DataSkippingIndexConfig`` over the sketches of
+``indexes/sketches.py``), whose filters read only the source files
+their sketches cannot rule out::
 
     from hyperspace_tpu_torch import HyperspaceSession, Hyperspace, CoveringIndexConfig
 
@@ -46,6 +49,10 @@ _LAZY = {
     "ZOrderCoveringIndexConfig": (
         "hyperspace_tpu_torch.indexes.zorder",
         "ZOrderCoveringIndexConfig",
+    ),
+    "DataSkippingIndexConfig": (
+        "hyperspace_tpu_torch.indexes.dataskipping",
+        "DataSkippingIndexConfig",
     ),
     "functions": ("hyperspace_tpu_torch.functions", None),
 }

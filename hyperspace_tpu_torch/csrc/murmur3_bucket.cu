@@ -7,11 +7,11 @@
 // tensor and splits lo/hi in registers, so the word planes never exist in
 // device memory.
 //
-// Arithmetic: murmur3_32 body per 32-bit word (c1 0xCC9E2D51,
-// c2 0x1B873593, rotl 15/13, h*5 + 0xE6546B64), words in the order
-// lo(key0), hi(key0), lo(key1), ... starting from `seed`; fmix with
-// length 4 * 2k; then h % num_buckets as int32. Bit-identical to
-// ops/hash.py::bucket_ids_torch (the plain PyTorch version).
+// Arithmetic (murmur3.cuh, shared with kernel B7): murmur3_32 body per
+// 32-bit word, words in the order lo(key0), hi(key0), lo(key1), ...
+// starting from `seed`; fmix with length 4 * 2k; then h % num_buckets as
+// int32. Bit-identical to ops/hash.py::bucket_ids_torch (the plain
+// PyTorch version).
 //
 // Bound: it moves 8k + 4 bytes per row (k reps read, one int32 written)
 // and reuses nothing, so HBM bandwidth bounds it: at 6,001,215 rows and
@@ -33,11 +33,9 @@
 //   those take 16-byte loads, the others 8-byte loads of the same rows.
 //   The host side checks the bits against the pointers before launching.
 // * The remainder without a division: the wrapper passes
-//   m = floor((2^64 - 1) / d) + 1 (mod 2^64) and h % d is
-//   floor(((m * h) mod 2^64) * d / 2^64) (Lemire, Kaser and Kurz, "Faster
-//   Remainder by Direct Computation", 2019), exact for every 32-bit h and
-//   d in [1, 2^31]; d = 1 gives m = 0 and 0. Four integer multiplies
-//   replace the generic 32-bit division sequence.
+//   m = floor((2^64 - 1) / d) + 1 (mod 2^64), and murmur3.cuh's fastmod
+//   takes four integer multiplies instead of the generic 32-bit division
+//   sequence.
 // * Specialised on k: k = 1, 2, 3 unroll fully; a runtime loop serves
 //   larger k.
 // * One resident wave: the grid is the device's SM count times the
@@ -58,43 +56,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur3.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileRows = 128;  // rows per warp and tile: 4 per lane
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, unsigned r) {
-  return __funnelshift_l(x, x, r);
-}
+using hs_murmur3::mix_rep;
 
-__device__ __forceinline__ uint32_t mix_word(uint32_t h, uint32_t k) {
-  k *= 0xCC9E2D51u;
-  k = rotl32(k, 15);
-  k *= 0x1B873593u;
-  h ^= k;
-  h = rotl32(h, 13);
-  return h * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ uint32_t mix_rep(uint32_t h, uint64_t u) {
-  h = mix_word(h, (uint32_t)u);
-  return mix_word(h, (uint32_t)(u >> 32));
-}
-
-// fmix, then h % d through m (see the note at the top)
+// fmix, then h % d through m (murmur3.cuh)
 __device__ __forceinline__ int32_t finish(uint32_t h, uint32_t len,
                                           uint64_t m, uint32_t d) {
-  h ^= len;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  const uint64_t low = m * (uint64_t)h;  // mod 2^64
-  const uint64_t t =
-      (uint64_t)(uint32_t)(low >> 32) * d + __umulhi((uint32_t)low, d);
-  return (int32_t)(t >> 32);
+  return (int32_t)hs_murmur3::fastmod(hs_murmur3::fmix(h, len), m, d);
 }
 
 __device__ __forceinline__ void load_pair16(const int64_t* p, uint64_t& a,

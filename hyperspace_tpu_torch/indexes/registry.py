@@ -26,11 +26,10 @@ def _ensure_builtin_kinds_loaded() -> None:
     # failures inside an existing module must propagate.
     import importlib
 
-    # the data-skipping index is ported with its slice (ROADMAP queue A
-    # item 4b); its entries parse as "Unknown index kind"
     for mod in (
         "hyperspace_tpu_torch.indexes.covering",
         "hyperspace_tpu_torch.indexes.zorder",
+        "hyperspace_tpu_torch.indexes.dataskipping",
     ):
         try:
             importlib.import_module(mod)

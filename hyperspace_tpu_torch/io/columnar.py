@@ -290,6 +290,32 @@ class Column:
         )
 
 
+def column_value_range(col: "Column"):
+    """(min, max) of the column's valid values, or (None, None) when none.
+
+    Floats are NaN-aware: NaN rows are excluded from the range entirely.
+    This matches the engine's comparison semantics (IEEE): a NaN row can
+    never satisfy an =, range or IN predicate, so excluding it from
+    min/max sketches is exact, not approximate. (Spark instead orders NaN
+    greatest; the engine diverges deliberately and consistently.) Strings
+    use lexical order over present dictionary entries.
+    """
+    if col.kind == "string":
+        mask = col.codes >= 0
+        if not mask.any():
+            return None, None
+        present = sorted({col.dictionary[c] for c in col.codes[mask]})
+        return present[0], present[-1]
+    v = col.values
+    if col.validity is not None:
+        v = v[col.validity]
+    if len(v) and v.dtype.kind == "f":
+        v = v[~np.isnan(v)]
+    if len(v) == 0:
+        return None, None
+    return v.min().item(), v.max().item()
+
+
 def remap_codes(target_dictionary: List[str], col: "Column") -> np.ndarray:
     """A string column's codes re-expressed in another dictionary's space.
 

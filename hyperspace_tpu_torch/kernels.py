@@ -40,6 +40,17 @@ class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error code (every wrapper in
+    ``ops/`` raises this one), or, where a wrapper reads its kernel's
+    output back (``ops/bloom.to_host``), the kernel faulted while it ran."""
+
+
+#: the faults of a hand-written kernel: the optimizer re-raises them
+#: rather than serving the plan without its rewrite (``rules/apply.py``)
+KERNEL_FAULTS = (KernelBuildError, KernelLaunchError)
+
+
 def sources() -> List[str]:
     return sorted(
         os.path.join(CSRC_DIR, f)

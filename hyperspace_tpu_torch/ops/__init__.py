@@ -22,7 +22,9 @@ the plain version, a tensor on the card launches the kernel or raises.
   B3b, the group pass and B5;
 * :mod:`.zorder` — z-addresses: the host order encodings and word
   scaling, the bit interleave (kernel B6, ``csrc/zorder_interleave.cu``),
-  and the z-order sort through :mod:`.sort`'s ``lexsort_permutation``.
+  and the z-order sort through :mod:`.sort`'s ``lexsort_permutation``;
+* :mod:`.bloom` — Bloom filter bit indices, build and probe of the
+  data-skipping index (kernel B7, ``csrc/bloom_bits.cu``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from typing import Dict
 # has two more wrappers of the same source, each beside its plain
 # version: ``segment_minmax_kernel`` / ``_torch`` and
 # ``segment_count_kernel`` / ``_torch``. B5f's wrapper launches B5 too.
+# B7's module has a second wrapper of its source, ``build_bloom_kernel``
+# beside ``build_bloom_torch``, counted in the same ``launches``.
 KERNEL_TWINS = {
     "murmur3_bucket_ids": (
         "hyperspace_tpu_torch.ops.hash",
@@ -79,6 +83,12 @@ KERNEL_TWINS = {
         "interleave_kernel",
         "interleave_torch",
         "hyperspace_tpu_torch/csrc/zorder_interleave.cu",
+    ),
+    "bloom_bits": (
+        "hyperspace_tpu_torch.ops.bloom",
+        "bit_indices_kernel",
+        "bit_indices_torch",
+        "hyperspace_tpu_torch/csrc/bloom_bits.cu",
     ),
 }
 

@@ -45,6 +45,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.kernels import KernelLaunchError
+
 #: B5 kernel launches made by the ``*_kernel`` functions (never by the plain versions)
 launches = 0
 
@@ -267,7 +269,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
+        raise KernelLaunchError(f"{what} failed: CUDA error {err}")
 
 
 def _scratch(n: int, dev) -> torch.Tensor:

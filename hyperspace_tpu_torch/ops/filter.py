@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.kernels import KernelLaunchError
 from hyperspace_tpu_torch.plan import expressions as E
 
 
@@ -769,7 +770,7 @@ def _launch(args: RangeArgs, out: torch.Tensor, stream: int) -> None:
     _check_args(args)
     err = _kernel_fn()(*term_arrays(args), out.data_ptr(), args.n, stream)
     if err != 0:
-        raise RuntimeError(f"range mask kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"range mask kernel launch failed: CUDA error {err}")
     if args.n:  # the C side launches nothing for n = 0
         launches += 1
 
@@ -846,7 +847,7 @@ def select_kernel(args: RangeArgs) -> torch.Tensor:
         err = lib.hs_fused_select(*term_arrays(args), n, out.data_ptr(), total.data_ptr(),
                                   scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused select kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"fused select kernel launch failed: CUDA error {err}")
     if n:  # one kernel (decoupled look-back); nothing for n = 0
         select_launches += 1
     return out[: int(total.item())]

@@ -75,6 +75,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from hyperspace_tpu_torch.kernels import KernelLaunchError
 from hyperspace_tpu_torch.ops import aggregate as AG
 from hyperspace_tpu_torch.ops import filter as F
 from hyperspace_tpu_torch.ops.sort import sort_permutation
@@ -374,7 +375,7 @@ def group_ids_kernel(state: FusedAggState, chunk: FusedChunk):
             rows.data_ptr() if chunk.terms is not None else None, m,
             table.data_ptr(), T, slot.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"B5f group pass failed: CUDA error {err}")
+        raise KernelLaunchError(f"B5f group pass failed: CUDA error {err}")
     launches += 1 + int(G > 0)
     held = table[slot]
     new_pos = torch.nonzero(held == -2 - rows).flatten()
@@ -614,7 +615,7 @@ def _one_pass(state: FusedAggState, chunk: FusedChunk) -> FusedAggState:
             counters.data_ptr(), rec.data_ptr(), cap, table.data_ptr(), tcap,
             carried_slot.data_ptr(), new_slot.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"B5f one-pass launch failed: CUDA error {err}")
+            raise KernelLaunchError(f"B5f one-pass launch failed: CUDA error {err}")
         launches += 3 + int(G > 0)
         passing, _records, overflow, g_new = counters.tolist()  # the chunk's one read back
         if overflow:
@@ -646,7 +647,7 @@ def _one_pass(state: FusedAggState, chunk: FusedChunk) -> FusedAggState:
             new_slot.data_ptr(), None if order is None else order.data_ptr(), G, g_new,
             ptrs(state), ptrs(new), stream)
         if err != 0:
-            raise RuntimeError(f"B5f finish launch failed: CUDA error {err}")
+            raise KernelLaunchError(f"B5f finish launch failed: CUDA error {err}")
         launches += 1
     return new
 

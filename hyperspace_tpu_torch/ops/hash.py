@@ -13,10 +13,12 @@ fmix with length 8k, then ``% num_buckets``. The result equals
 * :func:`bucket_ids` is the entry point: a CPU tensor takes the plain
   version, a CUDA tensor launches the hand-written kernel
   (``csrc/murmur3_bucket.cu``) and counts the launch.
-* :func:`bucket_ids_torch` is the plain PyTorch version. PyTorch on the
-  CPU has no uint32 shifts, adds or remainders, so it computes in int64
-  with every value kept in [0, 2^32): products with the 32-bit constants
-  go through the constants' 16-bit halves, so nothing overflows int64.
+* :func:`bucket_ids_torch` is the plain PyTorch version, the remainder
+  of :func:`hash_words_torch`'s raw hash (which the Bloom filters of
+  ``ops/bloom.py`` share). PyTorch on the CPU has no uint32 shifts, adds
+  or remainders, so it computes in int64 with every value kept in
+  [0, 2^32): products with the 32-bit constants go through the
+  constants' 16-bit halves, so nothing overflows int64.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import ctypes
 import functools
 
 import torch
+
+from hyperspace_tpu_torch.kernels import KernelLaunchError
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -77,19 +81,27 @@ def _check(key_reps: torch.Tensor, num_buckets: int) -> None:
         raise ValueError(f"num_buckets must be in [1, 2^31], got {num_buckets}")
 
 
-def bucket_ids_torch(
-    key_reps: torch.Tensor, num_buckets: int, seed: int = 42
-) -> torch.Tensor:
-    """Plain PyTorch version: [k, n] int64 key reps -> [n] int32 bucket
-    ids, on the tensor's own device."""
-    _check(key_reps, num_buckets)
+def hash_words_torch(key_reps: torch.Tensor, seed: int) -> torch.Tensor:
+    """Raw murmur3-32 of [k, n] int64 key reps, each as its two words (lo,
+    then hi), before any remainder: [n] int64 holding uint32 values, on
+    the tensor's own device (``hash_words`` of the JAX package over the
+    split words)."""
     k, n = key_reps.shape
     h = torch.full((n,), int(seed) & _M32, dtype=torch.int64, device=key_reps.device)
     for j in range(k):
         rep = key_reps[j]
         h = _mix_word(h, rep & _M32)
         h = _mix_word(h, (rep >> 32) & _M32)
-    h = _fmix(h, 8 * k)
+    return _fmix(h, 8 * k)
+
+
+def bucket_ids_torch(
+    key_reps: torch.Tensor, num_buckets: int, seed: int = 42
+) -> torch.Tensor:
+    """Plain PyTorch version: [k, n] int64 key reps -> [n] int32 bucket
+    ids, on the tensor's own device."""
+    _check(key_reps, num_buckets)
+    h = hash_words_torch(key_reps, seed)
     return torch.remainder(h, int(num_buckets)).to(torch.int32)
 
 
@@ -154,7 +166,7 @@ def _launch(
         stream,
     )
     if err != 0:
-        raise RuntimeError(f"murmur3 bucket kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"murmur3 bucket kernel launch failed: CUDA error {err}")
     if n:  # the C side launches nothing for n = 0
         launches += 1
 

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.kernels import KernelLaunchError
 from hyperspace_tpu_torch.ops.sort import sort_permutation
 
 #: kernel launches made by :func:`match_pairs` on CUDA tensors (count
@@ -219,7 +220,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"bucket match {what} launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"bucket match {what} launch failed: CUDA error {err}")
 
 
 def index_dtype(m: int, int64_index: bool = False) -> torch.dtype:

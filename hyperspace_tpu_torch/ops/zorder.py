@@ -38,6 +38,8 @@ from typing import List
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.kernels import KernelLaunchError
+
 #: kernel launches made by :func:`interleave` (never by the plain version)
 launches = 0
 
@@ -148,7 +150,7 @@ def interleave_kernel(words: torch.Tensor, bits: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = _kernel_fn()(words.data_ptr(), out.data_ptr(), n, k, int(bits), stream)
     if err != 0:
-        raise RuntimeError(f"z-order interleave kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"z-order interleave kernel launch failed: CUDA error {err}")
     if n:  # the C side launches nothing for n = 0
         launches += 1
     return out

@@ -72,3 +72,11 @@ def another_index_applied(applied: str) -> FilterReason:
         (("appliedIndex", applied),),
         "A different index scored higher for this subtree.",
     )
+
+
+def ineligible_predicate(reason: str) -> FilterReason:
+    return FilterReason(
+        "INELIGIBLE_FILTER_CONDITION",
+        (("reason", reason),),
+        "The filter condition cannot be translated for this index.",
+    )

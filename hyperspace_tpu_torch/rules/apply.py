@@ -4,7 +4,13 @@ Reference: ``rules/ApplyHyperspace.scala:32-76``: gated by config and a
 thread-local maintenance disable (`:43`; index-maintenance scans must not
 be rewritten to read the index being maintained); fetches ACTIVE log
 entries, collects candidates, runs the score-based optimizer; **any
-exception falls back to the original plan** (`:60-64`).
+exception falls back to the original plan** (`:60-64`), apart from a
+fault of a hand-written kernel (``kernels.KERNEL_FAULTS``: a build
+failure, or an error code that a wrapper turns into
+``KernelLaunchError``), which raises instead of hiding the kernel behind
+the unindexed plan. The one kernel a rule runs is the data-skipping
+rule's Bloom probe (B7); its wrapper reads the indices back through
+``ops/bloom.to_host``, so a fault while B7 runs raises the same way.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import logging
 import threading
 
 from hyperspace_tpu_torch.constants import States
+from hyperspace_tpu_torch.kernels import KERNEL_FAULTS
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, prune_join_columns
 from hyperspace_tpu_torch.rules.candidate import collect_candidates
 from hyperspace_tpu_torch.rules.score import ScoreBasedIndexPlanOptimizer
@@ -51,6 +58,8 @@ def apply_hyperspace(
         if not candidates:
             return plan
         return ScoreBasedIndexPlanOptimizer(session).apply(plan, candidates)
+    except KERNEL_FAULTS:
+        raise
     # catch-all is the contract (reference ApplyHyperspace :60-64): a
     # rewrite failure must degrade to the original plan, never the query
     except Exception:

@@ -5,7 +5,8 @@ recursive, memoized search: at every node, either some rule rewrites the
 subtree (its score), or the children are optimized independently (sum of
 child scores); keep the max. The reference's rule set is `:32-33`;
 the port registers FilterIndexRule, JoinIndexRule,
-ZOrderFilterIndexRule, AggregateIndexRule and NoOpRule.
+ZOrderFilterIndexRule, ApplyDataSkippingIndex, AggregateIndexRule and
+NoOpRule, the reference's order.
 """
 
 from __future__ import annotations
@@ -17,10 +18,10 @@ from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, NoOpRu
 
 
 def _all_rules() -> List[HyperspaceRule]:
-    """The filter, join, z-order filter and aggregate rules, in the
-    reference's order (the data-skipping rule between z-order and
-    aggregate comes with its slice, ROADMAP queue A item 4b)."""
+    """The filter, join, z-order filter, data-skipping and aggregate
+    rules, in the reference's order."""
     from hyperspace_tpu_torch.rules.agg_rule import AggregateIndexRule
+    from hyperspace_tpu_torch.rules.dataskipping_rule import ApplyDataSkippingIndex
     from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
     from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
     from hyperspace_tpu_torch.rules.zorder_rule import ZOrderFilterIndexRule
@@ -29,6 +30,7 @@ def _all_rules() -> List[HyperspaceRule]:
         FilterIndexRule(),
         JoinIndexRule(),
         ZOrderFilterIndexRule(),
+        ApplyDataSkippingIndex(),
         AggregateIndexRule(),
         NoOpRule(),
     ]

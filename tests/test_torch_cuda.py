@@ -21,6 +21,7 @@ from torch_b4_cases import b4_edge_cases
 import torch_b5_cases
 import torch_b5f_cases
 import torch_b6_cases
+import torch_b7_cases
 from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
 
 pytestmark = pytest.mark.cuda
@@ -394,3 +395,117 @@ def test_zorder_create_launches_b6_and_writes_the_cpu_bytes(cuda_device, tmp_pat
             data.append(fh.read())
     assert docs[0] == docs[1] and "zorder" in docs[0]
     assert data[0] == data[1]
+
+
+@pytest.mark.parametrize("case", torch_b7_cases.CASES, ids=torch_b7_cases.case_id)
+def test_b7_equals_its_plain_version(cuda_device, case):
+    """B7's two entries on the card: the bit indices element by element
+    and the built filter's words equal to the plain version's on a CPU
+    copy (the wrap case's words against the plain indices, since its
+    plain build would need a 2 GiB plane); one launch a call, none for
+    n = 0."""
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    n, m, k, _fill = case
+    reps = torch.from_numpy(torch_b7_cases.reps_for(case))
+    dev = reps.to(cuda_device)
+    before = B.launches
+    idx = B.bit_indices_kernel(dev, m, k)
+    words = B.build_bloom_kernel(dev, m, k) if m % 64 == 0 else None
+    torch.cuda.synchronize()
+    assert B.launches == before + (0 if n == 0 else 1 if words is None else 2)
+    want = B.bit_indices_torch(reps, m, k)
+    assert torch.equal(idx.cpu(), want)
+    if case in torch_b7_cases.BUILD_CASES:
+        assert torch.equal(words.cpu(), B.build_bloom_torch(reps, m, k))
+    else:
+        got = words.cpu().numpy().view(np.uint64)
+        assert np.array_equal(got, torch_b7_cases.words_from_indices(want.numpy(), m))
+
+
+def _ds_source(tmp_path, n_files=4, rows=20_000):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(9)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(n_files):
+        pq.write_table(pa.table({"k": rng.integers(0, 50_000, rows),
+                                 "d": np.sort(rng.integers(i * 1000, (i + 1) * 1000, rows)),
+                                 "s": [f"v{x}" for x in rng.integers(0, 300, rows)]}),
+                       str(src / f"p{i}.parquet"))
+    return str(src)
+
+
+def test_dataskipping_create_and_probe_launch_b7(cuda_device, tmp_path):
+    """A create on the card launches B7 once a source file (the Bloom
+    sketches of an int and a string column: twice a file) and writes the
+    sketch file a cpu session writes; a probe launches B7 once a rule
+    try, and the files kept and the rows equal the cpu session's."""
+    import os
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.indexes.dataskipping import DataSkippingIndexConfig
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    src = _ds_source(tmp_path)
+    data, kept, rows = [], [], []
+    for device in (cuda_device, "cpu"):
+        sess = HyperspaceSession(device=device)
+        sess.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        hs = Hyperspace(sess)
+        df = sess.read.parquet(src)
+        before = B.launches
+        hs.create_index(df, DataSkippingIndexConfig(
+            "ds", MinMaxSketch("d"), BloomFilterSketch("k", 0.01, 20_000),
+            BloomFilterSketch("s", 0.01, 300)))
+        if device != "cpu":
+            assert B.launches - before == 2 * 4
+        with open(os.path.join(str(tmp_path / str(device)), "ds", "v__=1",
+                               "part-00000-sketch.parquet"), "rb") as fh:
+            data.append(fh.read())
+        sess.enable_hyperspace()
+        q = df.filter(df["k"].isin([5, 77, 123_456]) | (df["s"] == "v7")).select("k", "d")
+        before = B.launches
+        leaves = sess.optimize(q.logical_plan).collect_leaves()
+        if device != "cpu":
+            assert B.launches - before == 2 * 2  # two probes at each of two nodes
+        assert leaves[0].relation.index_info[2] == "DS"
+        kept.append(leaves[0].relation.files)
+        rows.append(q.collect())
+    assert data[0] == data[1]
+    assert kept[0] == kept[1]
+    assert rows[0].equals(rows[1])
+
+
+def test_b7_launch_failure_fails_the_query_and_does_not_abstain(cuda_device, tmp_path,
+                                                                 monkeypatch):
+    """An error code from B7's C entry raises KernelLaunchError through the
+    create and through the optimizer, never an unrewritten plan."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.indexes.dataskipping import DataSkippingIndexConfig
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    src = _ds_source(tmp_path, n_files=2, rows=1000)
+    sess = HyperspaceSession(device=cuda_device)
+    sess.conf.set("hyperspace.system.path", str(tmp_path / "idx"))
+    hs = Hyperspace(sess)
+    df = sess.read.parquet(src)
+    config = DataSkippingIndexConfig("ds", BloomFilterSketch("k", 0.01, 1000))
+    real = B._kernel_fns()
+    monkeypatch.setattr(B, "_kernel_fns", lambda: (real[0], lambda *a: 700))
+    with pytest.raises(KernelLaunchError):
+        hs.create_index(df, config)
+    monkeypatch.setattr(B, "_kernel_fns", lambda: real)
+    hs.create_index(df, DataSkippingIndexConfig("ds2", BloomFilterSketch("k", 0.01, 1000)))
+    monkeypatch.setattr(B, "_kernel_fns", lambda: (lambda *a: 700, real[1]))
+    sess.enable_hyperspace()
+    q = df.filter(df["k"] == 5).select("k")
+    with pytest.raises(KernelLaunchError):
+        sess.optimize(q.logical_plan)
+    with pytest.raises(KernelLaunchError):
+        q.collect()

@@ -296,8 +296,9 @@ def test_join_rows_match_reference_in_order(world, query, enabled):
     assert stats["co_bucketed_joins"] == (1 if enabled else 0)
     assert stats["unbucketed_joins"] == (0 if enabled else 1)
     if enabled:
-        assert _index_scans(T.Hyperspace(s).explain(tq)) == 2
-        assert _index_scans(JHyperspace(world["j"]).explain(jq)) == 2
+        text = T.Hyperspace(s).explain(tq).replace(world["tsys"], "<sys>")
+        assert text == JHyperspace(world["j"]).explain(jq).replace(world["jsys"], "<sys>")
+        assert _index_scans(text) == 2
     if query == "disjoint_buckets":
         assert got.num_rows == 0 and got.column_names == ["d_a", "va", "vc"]
     elif query == "lineage":
