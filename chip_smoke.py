@@ -70,10 +70,16 @@ against its plain PyTorch version on the card:
      version on a CPU copy over ``tests/torch_b7_cases.py`` (n from 0 to
      65,537, INT64_MIN / INT64_MAX, uint64 bit-views, string reps and
      duplicates, m from 64 to 2^31 - 64 where h1 + j*h2 wraps at 2^32, k in
-     {1, 7, 16}); each timed cold at a source file's 750,152 rows and at
-     6,001,215 in one launch with phase 11's m = 5,751,040 and k = 7,
-     beside its byte and int32-operation bounds and the plain version on
-     the card;
+     {1, 7, 16}) and the build's route boundaries (m at the last word the
+     block and the binned routes take, and one word past each), the build
+     by the route m gives (one block's shared memory up to 2^20 bits,
+     8 KiB slices of binned indices up to 2^24, global atomics beyond), counted
+     by route, its plan on the card equal to ``ops/bloom.build_plan``;
+     each timed cold at a source file's 750,152
+     rows and at 6,001,215 in one launch (the indices at phase 11's
+     m = 5,751,040, the build at m = 95,872, 5,751,040 and 2^31 - 64;
+     k = 7), beside its byte and int32-operation bounds and the plain
+     version on the card; the indices also at the probe's 1 and 8 reps;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets, then 32 point and 4
@@ -213,7 +219,9 @@ against its plain PyTorch version on the card:
    routes each side took (``ds_stage_split``); rows equal as a multiset
    to the plan without Hyperspace and in order to the cpu session's.
    Every B7 call of the phase is recorded (``B7Inputs``) and held
-   bit-equal to the plain version on a CPU copy.
+   bit-equal to the plain version on a CPU copy; the create's 8 builds
+   take the binned route; the build is timed cold on the first file's
+   own l_orderkey reps.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -3369,7 +3377,7 @@ def compare_b7(entry: str, reps, m: int, k: int, out) -> None:
     host = reps.cpu()
     if entry == "indices":
         ok = torch.equal(out.cpu(), B.bit_indices_torch(host, m, k))
-    elif m <= B7.PHASE_M:
+    elif m != B7.WRAP_M:
         ok = torch.equal(out.cpu(), B.build_bloom_torch(host, m, k))
     else:
         want = B7.words_from_indices(B.bit_indices_torch(host, m, k).numpy(), m)
@@ -3382,55 +3390,112 @@ def compare_b7(entry: str, reps, m: int, k: int, out) -> None:
 def check_b7_cases(dev) -> tuple:
     """B7's two entries bit-equal to the plain version on a CPU copy over
     ``tests/torch_b7_cases.py`` (phase 3): the indices on every case, the
-    build on every case whose m is a filter's (a multiple of 64). Returns
-    (calls checked, max abs error)."""
+    build on every case (all of whose m are a filter's, multiples of 64)
+    and on the build's route boundaries (``BOUNDARY_CASES``), each by the
+    route its m takes, counted by route; the build's plan on the card
+    (``hs_bloom_build_plan``) equal to ``ops/bloom.build_plan`` at every
+    case's m. Returns (calls checked, max abs error)."""
     import torch
 
+    from hyperspace_tpu_torch import ops
     from hyperspace_tpu_torch.ops import bloom as B
 
     B7 = b7_cases_module()
     t0 = time.perf_counter()
     calls = 0
-    for case in B7.CASES:
+    ops.reset_launch_counts()
+    for case in B7.CASES + B7.BOUNDARY_CASES:
         n, m, k, _fill = case
         reps = torch.from_numpy(B7.reps_for(case)).to(dev)
         compare_b7("indices", reps, m, k, B.bit_indices_kernel(reps, m, k))
         compare_b7("build", reps, m, k, B.build_bloom_kernel(reps, m, k))
         calls += 2
+    routes = {r: ops.launch_counts()[f"bloom_bits.build_{r}"] for r in B.ROUTES}
+    builds = [c for c in B7.CASES + B7.BOUNDARY_CASES if c[0]]
+    want = {r: sum(1 for c in builds if B.build_route(c[1]) == r) for r in B.ROUTES}
+    if routes != want:
+        raise AssertionError(f"B7's builds took the routes {routes}, want {want}")
+    plans = {}
+    for m in sorted({c[1] for c in B7.CASES + B7.BOUNDARY_CASES}):
+        for n in (0, 1, 65_537, FILE_ROWS, N_ROWS):
+            for k in (1, 7, 16):
+                plan, resident = B.kernel_build_plan(n, m, k, dev)
+                if plan != B.build_plan(m, n, k, resident):
+                    raise AssertionError(f"B7's plan on the card {plan} differs from build_plan "
+                                         f"at m {m}, n {n}, k {k} (resident {resident})")
+                plans[(m, n, k)] = (plan, resident)
+    for m in sorted({m for m, _n, _k in plans}):
+        plan, resident = plans[(m, FILE_ROWS, 7)]
+        log(f"kernels: B7 build plan at m={m}, k=7: {plan.route} route"
+            + (f", {plan.partials} blocks at {FILE_ROWS} rows, "
+               f"{plans[(m, N_ROWS, 7)][0].partials} at {N_ROWS} (the card holds {resident})"
+               if plan.route == "block" else "")
+            + (f", {-(-m >> B.SLICE_SHIFT)} slices, {plan.partials} copies a slice (the "
+               f"card holds {resident} blocks), {plan.scratch_bytes} B of scratch at "
+               f"{FILE_ROWS} rows" if plan.route == "binned" else ""))
     log(f"kernels: B7 indices and build bit-equal to plain on a CPU copy over "
-        f"{len(B7.CASES)} cases, {calls} calls (max_abs_err 0; "
-        f"{time.perf_counter() - t0:.1f}s)")
+        f"{len(B7.CASES)} cases and {len(B7.BOUNDARY_CASES)} route boundaries, {calls} "
+        f"calls, builds by route {routes}; plans equal build_plan at {len(plans)} shapes "
+        f"(max_abs_err 0; {time.perf_counter() - t0:.1f}s)")
     return calls, 0
 
 
 def b7_timings(dev) -> dict:
     """B7's two entries cold (phase 3) at a source file's rows and at all
-    6,001,215 in one launch, phase 11's m and k, l_orderkey-like reps,
-    beside each bound and the plain version on the same device reps; the
-    record's top-level numbers are the build at a file's rows, the call
-    each create makes once a file."""
+    6,001,215 in one launch, l_orderkey-like reps, beside each bound and
+    the plain version on the same device reps: the indices at phase 11's
+    m and k, the build by route at m = 95,872 (the block route), phase
+    11's m (binned) and 2^31 - 64 (global), k = 7 (its plain
+    version not timed there: a 2 GiB plane of bits, 16 GiB as int64
+    words); then the indices at the probe's own shape, 1 and 8 reps, cold
+    and back to back. The record's top-level numbers are the build at a
+    file's rows and phase 11's m, the call each create makes once a
+    file."""
     import torch
 
     from hyperspace_tpu_torch.ops import bloom as B
 
+    B7 = b7_cases_module()
     m, k = B.optimal_params(DS_EXPECTED, DS_FPP)
     rng = np.random.default_rng(SEED + 31)
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     cold = []
     for n in (FILE_ROWS, N_ROWS):
         reps = torch.from_numpy(rng.integers(0, N_ORDERS, n, dtype=np.int64)).to(dev)
-        for entry, fn, plain in (("indices", B.bit_indices_kernel, B.bit_indices_torch),
-                                 ("build", B.build_bloom_kernel, B.build_bloom_torch)):
-            ms = float(np.median(time_cold(lambda: fn(reps, m, k), flush)))
-            plain_ms = time_cuda(lambda: plain(reps, m, k), launches=3, repeats=3)
-            b = b7_bound(n, m, k, entry == "build")
-            cold.append({"entry": entry, "n": n, "m": m, "k": k, "ms": ms, "plain_ms": plain_ms,
-                         **b, "share_of_bound": b["bound_ms"] / ms})
-            log(f"kernels: B7 {entry} cold at {n} rows, m={m}, k={k}: ms {ms:.4f} bound_ms "
-                f"{b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%}; bytes {b['bytes']} -> "
+        runs = [("indices", m, B.bit_indices_kernel, B.bit_indices_torch)]
+        runs += [("build", bm, B.build_bloom_kernel, B.build_bloom_torch)
+                 for bm in (95_872, m, B7.WRAP_M)]
+        for entry, em, fn, plain in runs:
+            ms = float(np.median(time_cold(lambda: fn(reps, em, k), flush)))
+            plain_ms = (None if em == B7.WRAP_M else
+                        time_cuda(lambda: plain(reps, em, k), launches=3, repeats=3))
+            b = b7_bound(n, em, k, entry == "build")
+            route = "indices"
+            if entry == "build":
+                plan, resident = B.kernel_build_plan(n, em, k, dev)
+                route = {"block": f"block route: {plan.partials} blocks (the card holds "
+                                  f"{resident})",
+                         "binned": f"binned route: {-(-em >> B.SLICE_SHIFT)} slices, "
+                                   f"{plan.partials} copies a slice, {plan.scratch_bytes} B "
+                                   f"of scratch",
+                         "global": "global route"}[plan.route]
+            cold.append({"entry": entry, "route": route, "n": n, "m": em, "k": k, "ms": ms,
+                         "plain_ms": plain_ms, **b, "share_of_bound": b["bound_ms"] / ms})
+            log(f"kernels: B7 {entry} cold at {n} rows, m={em}, k={k} ({route}): ms {ms:.4f} "
+                f"bound_ms {b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%}; bytes {b['bytes']} -> "
                 f"{b['bytes_ms']:.4f} ms, int32 ops {b['int32_ops']} -> {b['ops_ms']:.4f} ms); "
-                f"plain_ms {plain_ms:.4f}; library_ms none (no PyTorch call computes murmur3)")
-    top = next(c for c in cold if c["entry"] == "build" and c["n"] == FILE_ROWS)
+                f"plain_ms {'not measured' if plain_ms is None else f'{plain_ms:.4f}'}; "
+                f"library_ms none (no PyTorch call computes murmur3)")
+    probe = []
+    for n in (1, 8):
+        reps = torch.from_numpy(rng.integers(0, N_ORDERS, n, dtype=np.int64)).to(dev)
+        ms = float(np.median(time_cold(lambda: B.bit_indices_kernel(reps, m, k), flush)))
+        warm = time_cuda(lambda: B.bit_indices_kernel(reps, m, k))
+        b = b7_bound(n, m, k, False)
+        probe.append({"n": n, "ms": ms, "warm_ms": warm, "bound_ms": b["bound_ms"]})
+        log(f"kernels: B7 indices at the probe's shape, {n} rep(s), m={m}, k={k}: cold ms "
+            f"{ms:.4f}, back to back {warm:.4f} ms a launch; bound_ms {b['bound_ms']:.2e}")
+    top = next(c for c in cold if c["entry"] == "build" and c["n"] == FILE_ROWS and c["m"] == m)
     return {
         "name": "bloom_bits",
         "route": "cuda",
@@ -3444,9 +3509,32 @@ def b7_timings(dev) -> dict:
         "bound_by": top["bound_by"],
         "library_ms": None,
         "timing": f"cold: 256 MiB read before each run, median of 30; hs_bloom_build at "
-                  f"{FILE_ROWS} rows (one source file), m = {m}, k = {k}",
+                  f"{FILE_ROWS} rows (one source file), m = {m}, k = {k}, binned route",
         "cold": cold,
+        "probe": probe,
     }
+
+
+def b7_real_timing(dev, recorded: list) -> dict:
+    """The build cold on the reps of phase 11's first recorded build (one
+    source file's l_orderkey, duplicates included), beside its bound and
+    the plain version on the same device reps."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    _label, _entry, reps, m, k, _out = next(c for c in recorded if c[1] == "build")
+    n = len(reps)
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    ms = float(np.median(time_cold(lambda: B.build_bloom_kernel(reps, m, k), flush)))
+    plain_ms = time_cuda(lambda: B.build_bloom_torch(reps, m, k), launches=3, repeats=3)
+    b = b7_bound(n, m, k, True)
+    distinct = int(torch.unique(reps).numel())
+    log(f"kernels: B7 build cold on phase 11's first file's l_orderkey ({n} reps, {distinct} "
+        f"distinct), m={m}, k={k}: ms {ms:.4f} bound_ms {b['bound_ms']:.4f} "
+        f"({b['bound_ms'] / ms:.1%}); plain_ms {plain_ms:.4f}")
+    return {"n": n, "distinct": distinct, "m": m, "k": k, "ms": ms, "plain_ms": plain_ms, **b,
+            "share_of_bound": b["bound_ms"] / ms}
 
 
 class B7Inputs:
@@ -3605,15 +3693,18 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
     hs.create_index(items, config())
     build_s = time.perf_counter() - t0
     b7_inputs.label = None
-    launches = ops.launch_counts()["bloom_bits"]
+    counts = ops.launch_counts()
+    launches = counts["bloom_bits"]
+    routes = tuple(counts[f"bloom_bits.build_{r}"] for r in ("block", "binned", "global"))
     stages = {k: v for k, v in sess.build_stats.items() if isinstance(v, float)}
     sketch_file = hs.get_index("ds_idx").content.files
     log(f"dataskipping path: built ds_idx over {N_FILES} files in {build_s:.3f}s, "
         f"{N_ROWS / build_s:,.0f} rows/s, file reads {stages.get('sketch_read', 0.0):.4f}s, "
-        f"sketching {stages.get('sketch', 0.0):.4f}s, B7 launches {launches}")
-    if launches != N_FILES or len(sketch_file) != 1:
-        raise AssertionError(f"ds_idx: {launches} B7 launches for {N_FILES} files, "
-                             f"{len(sketch_file)} sketch files")
+        f"sketching {stages.get('sketch', 0.0):.4f}s, B7 launches {launches} (builds by "
+        f"route: block {routes[0]}, binned {routes[1]}, global {routes[2]})")
+    if launches != N_FILES or routes != (0, N_FILES, 0) or len(sketch_file) != 1:
+        raise AssertionError(f"ds_idx: {launches} B7 launches for {N_FILES} files (routes "
+                             f"{routes}), {len(sketch_file)} sketch files")
 
     cpu = HyperspaceSession(device="cpu")
     cpu.conf.set("hyperspace.system.path", os.path.join(work, "dsindexes_cpu"))
@@ -3850,7 +3941,10 @@ def main() -> int:
               creates=zpath["creates"], queries=zpath["queries"])
     b7_calls = check_b7_main_path(b7_inputs.calls)
     b7.update(launches=dspath["launches"]["bloom_bits"], max_abs_err=b7_case_err,
-              cases=b7_cases_run + b7_calls, create=dspath["create"], queries=dspath["queries"])
+              cases=b7_cases_run + b7_calls, create=dspath["create"], queries=dspath["queries"],
+              real_reps=b7_real_timing(dev, b7_inputs.calls),
+              launches_by_route={r: dspath["launches"][f"bloom_bits.build_{r}"]
+                                 for r in ("block", "binned", "global")})
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)

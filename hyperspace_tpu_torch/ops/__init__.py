@@ -40,7 +40,8 @@ from typing import Dict
 # version: ``segment_minmax_kernel`` / ``_torch`` and
 # ``segment_count_kernel`` / ``_torch``. B5f's wrapper launches B5 too.
 # B7's module has a second wrapper of its source, ``build_bloom_kernel``
-# beside ``build_bloom_torch``, counted in the same ``launches``.
+# beside ``build_bloom_torch``, counted in the same ``launches`` and by
+# route in ``ROUTE_COUNTERS``.
 KERNEL_TWINS = {
     "murmur3_bucket_ids": (
         "hyperspace_tpu_torch.ops.hash",
@@ -95,15 +96,29 @@ KERNEL_TWINS = {
 #: kernels whose module counts them under another attribute than ``launches``
 LAUNCH_COUNTERS = {"fused_select": "select_launches"}
 
+#: launches by route of a kernel entry with more than one route, each also
+#: counted in its kernel's own count: name -> (module, attribute)
+ROUTE_COUNTERS = {
+    "bloom_bits.build_block": ("hyperspace_tpu_torch.ops.bloom", "block_launches"),
+    "bloom_bits.build_binned": ("hyperspace_tpu_torch.ops.bloom", "binned_launches"),
+    "bloom_bits.build_global": ("hyperspace_tpu_torch.ops.bloom", "global_launches"),
+}
+
+
+def _counters():
+    for name, (mod, _w, _p, _s) in KERNEL_TWINS.items():
+        yield name, mod, LAUNCH_COUNTERS.get(name, "launches")
+    for name, (mod, attr) in ROUTE_COUNTERS.items():
+        yield name, mod, attr
+
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
-    return {
-        name: getattr(importlib.import_module(mod), LAUNCH_COUNTERS.get(name, "launches"))
-        for name, (mod, _w, _p, _s) in KERNEL_TWINS.items()
-    }
+    """Kernel (and route) name -> launches since the last
+    :func:`reset_launch_counts`."""
+    return {name: getattr(importlib.import_module(mod), attr)
+            for name, mod, attr in _counters()}
 
 
 def reset_launch_counts() -> None:
-    for name, (mod, _w, _p, _s) in KERNEL_TWINS.items():
-        setattr(importlib.import_module(mod), LAUNCH_COUNTERS.get(name, "launches"), 0)
+    for _name, mod, attr in _counters():
+        setattr(importlib.import_module(mod), attr, 0)

@@ -24,6 +24,17 @@ uint32 arithmetic).
   ``np.packbits(..., bitorder="little").view(np.uint64)`` on a
   little-endian host). PyTorch has no uint64, so the words travel as
   int64 tensors holding the same bits.
+* The build takes one of three routes, chosen by m alone
+  (:func:`build_plan`), the first two setting the bits in shared memory:
+  ``block`` (a filter of at most :data:`BLOCK_MAX_BITS`: one block holds
+  it all, one partial filter a block, ORed into the output), ``binned``
+  (at most :data:`BINNED_MAX_BITS`: each tile's indices sorted by 8 KiB
+  slice into scratch this module allocates, then each slice built in
+  shared memory, a few copies ORed into the output) and ``global`` (a
+  larger filter: global atomics). :func:`build_bloom_routes_torch` is the
+  plain model of the two shared-memory routes, copy by copy. Each route
+  counts its launches (:data:`block_launches`, :data:`binned_launches`,
+  :data:`global_launches`).
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,8 +54,30 @@ SEED2 = 0x85EBCA6B
 #: the largest m the int32 indices can address
 MAX_BITS = 1 << 31
 
+#: the build's routes, shared with ``csrc/bloom_bits.cu`` (a CPU test
+#: reads them there). block: filters of at most BLOCK_MAX_BITS bits, one
+#: block of BLOCK_THREADS threads for each ROWS_PER_BLOCK rows, at most
+#: what the card holds at once. binned: filters of at most BINNED_MAX_BITS
+#: bits, slices of 2^SLICE_SHIFT bits; tiles of TILE_ROWS rows and at most
+#: CHUNK indices a row, TILE_ENTRIES 16-bit entries of scratch each, then
+#: slices + 1 16-bit offsets each; BIN_THREADS threads a block. Larger
+#: filters take the global route.
+BLOCK_MAX_BITS = 1 << 20
+BLOCK_THREADS = 512
+ROWS_PER_BLOCK = 4096
+BINNED_MAX_BITS = 1 << 24
+SLICE_SHIFT = 16
+BIN_THREADS = 512
+TILE_ROWS = 2 * BIN_THREADS
+CHUNK = 8
+TILE_ENTRIES = TILE_ROWS * CHUNK
+ROUTES = ("block", "binned", "global")
+
 #: kernel launches made by the wrappers (never by the plain versions)
 launches = 0
+#: the build's calls that launched, by route (each also counted in
+#: ``launches``)
+block_launches = binned_launches = global_launches = 0
 
 
 def optimal_params(expected_items: int, fpp: float) -> Tuple[int, int]:
@@ -95,42 +128,158 @@ def build_bloom_torch(reps: torch.Tensor, m: int, k: int) -> torch.Tensor:
     return (bits.view(m // 64, 64).to(torch.int64) << shifts).sum(dim=1)
 
 
+class BuildPlan(NamedTuple):
+    """The build's route for one call and its launch shape."""
+
+    route: str  #: "block", "binned" or "global"
+    block_bits: int  #: bits a block holds (the filter, or a slice; 0 on the global route)
+    partials: int  #: copies ORed into each output word
+    scratch_bytes: int  #: device scratch the call needs (binned)
+
+
+def build_route(m: int) -> str:
+    """The build's route for a filter of m bits."""
+    m = int(m)
+    return "block" if m <= BLOCK_MAX_BITS else "binned" if m <= BINNED_MAX_BITS else "global"
+
+
+def build_plan(m: int, n: int, k: int, resident: int) -> BuildPlan:
+    """The build's plan for n reps into a filter of m bits, k indices a
+    rep, as ``csrc/bloom_bits.cu`` computes it; ``resident`` is the
+    blocks of the route's kernel the card holds at once
+    (:func:`kernel_build_plan` reads it on the card). The block route
+    launches one block for each ROWS_PER_BLOCK rows, at most ``resident``;
+    the binned route launches ``resident`` blocks, so each slice has
+    resident // slices copies (at least 1)."""
+    m, n, k, resident = int(m), int(n), int(k), int(resident)
+    route = build_route(m)
+    if route == "global":
+        return BuildPlan(route, 0, 0, 0)
+    if route == "block":
+        return BuildPlan(route, m, min(-(-n // ROWS_PER_BLOCK), resident), 0)
+    slices = -(-m >> SLICE_SHIFT)
+    tiles = -(-n // TILE_ROWS) * -(-k // CHUNK)
+    scratch = tiles * TILE_ENTRIES * 2 + -(-tiles * (slices + 1) * 2 // 16) * 16
+    return BuildPlan(route, 1 << SLICE_SHIFT, max(resident // slices, 1), scratch)
+
+
+def build_bloom_routes_torch(reps: torch.Tensor, m: int, k: int,
+                             resident: int) -> torch.Tensor:
+    """Plain model of the build's shared-memory routes, copy by copy:
+    [m / 64] packed words (int64 holding the uint64 bits), equal to
+    :func:`build_bloom_torch`'s.
+
+    * block: the kernel's grid-stride loop gives row r to block
+      (r // BLOCK_THREADS) mod partials; each block sets its rows' bits in
+      its own copy of the filter, and the copies are ORed.
+    * binned: tile t holds rows [t // chunks * TILE_ROWS, + TILE_ROWS) and
+      their indices j in [CHUNK * (t % chunks), + CHUNK); slice s's copy
+      p < partials takes the tiles t = p mod partials and sets each entry
+      (idx mod 2^SLICE_SHIFT) of the slice; the copies of each slice are
+      ORed, the slices laid end to end."""
+    _check(reps, m, k, build=True)
+    m, k, n = int(m), int(k), reps.shape[0]
+    plan = build_plan(m, n, k, resident)
+    if plan.route == "global":
+        raise ValueError(f"m = {m} takes the global route, which holds no copy in shared memory")
+    shifts = torch.arange(64, dtype=torch.int64, device=reps.device)
+    if n == 0:
+        return torch.zeros(m // 64, dtype=torch.int64, device=reps.device)
+    idx = bit_indices_torch(reps, m, k).long()  # [k, n]
+    rows = torch.arange(n, device=reps.device)
+    if plan.route == "block":
+        copies = torch.zeros((plan.partials, m), dtype=torch.bool, device=reps.device)
+        block = (rows // BLOCK_THREADS) % plan.partials
+        copies[block.expand(k, n).reshape(-1), idx.reshape(-1)] = True
+        filt = copies.any(dim=0)
+    else:
+        chunks = -(-k // CHUNK)
+        tile = (rows // TILE_ROWS)[None, :] * chunks + (
+            torch.arange(k, device=reps.device) // CHUNK)[:, None]  # [k, n]
+        slices = -(-m >> SLICE_SHIFT)
+        copies = torch.zeros((slices, plan.partials, 1 << SLICE_SHIFT), dtype=torch.bool,
+                             device=reps.device)
+        copies[(idx >> SLICE_SHIFT).reshape(-1), (tile % plan.partials).reshape(-1),
+               (idx & ((1 << SLICE_SHIFT) - 1)).reshape(-1)] = True
+        filt = copies.any(dim=1).reshape(-1)[:m]
+    return (filt.view(m // 64, 64).to(torch.int64) << shifts).sum(dim=1)
+
+
 @functools.cache
 def _kernel_fns():
     from hyperspace_tpu_torch import kernels
 
     lib = kernels.load("bloom_bits")
-    fns = (lib.hs_bloom_bit_indices, lib.hs_bloom_build)
-    for fn in fns:
-        fn.argtypes = [
-            ctypes.c_void_p,  # reps
-            ctypes.c_void_p,  # out (indices) / words (build)
-            ctypes.c_int64,  # n
-            ctypes.c_int64,  # m
-            ctypes.c_int,  # k
-            ctypes.c_void_p,  # stream
-        ]
+    indices, build, plan = lib.hs_bloom_bit_indices, lib.hs_bloom_build, lib.hs_bloom_build_plan
+    indices.argtypes = [
+        ctypes.c_void_p,  # reps
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # n
+        ctypes.c_int64,  # m
+        ctypes.c_int,  # k
+        ctypes.c_void_p,  # stream
+    ]
+    build.argtypes = [
+        ctypes.c_void_p,  # reps
+        ctypes.c_void_p,  # words
+        ctypes.c_void_p,  # scratch
+        ctypes.c_int64,  # scratch bytes
+        ctypes.c_int64,  # n
+        ctypes.c_int64,  # m
+        ctypes.c_int,  # k
+        ctypes.c_void_p,  # stream
+    ]
+    plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                     ctypes.POINTER(ctypes.c_int64)]
+    for fn in (indices, build, plan):
         fn.restype = ctypes.c_int
-    return fns
+    return indices, build, plan
+
+
+def kernel_build_plan(n: int, m: int, k: int, device=None) -> Tuple[BuildPlan, int]:
+    """The build's plan as ``hs_bloom_build`` computes it on the card
+    (``device``, default the current one), and the route's blocks the
+    card holds at once (0 on the global route): what a test holds
+    :func:`build_plan` against."""
+    out = (ctypes.c_int64 * 5)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = _kernel_fns()[2](int(n), int(m), int(k), out)
+    if err != 0:
+        raise KernelLaunchError(f"Bloom build plan failed: CUDA error {err}")
+    route, block_words, partials, scratch, resident = list(out)
+    return BuildPlan(ROUTES[route], 32 * block_words, partials, scratch), resident
 
 
 def _launch(entry: int, reps: torch.Tensor, out: torch.Tensor, m: int, k: int) -> None:
     """Hand contiguous CUDA reps and the output to C entry ``entry`` (0:
-    indices, 1: build) on the current stream; raise on any error code it
-    returns."""
-    global launches
+    indices, 1: build, with the scratch its plan needs) on the current
+    stream; raise on any error code it returns."""
+    global launches, block_launches, binned_launches, global_launches
     if reps.device.type != "cuda":
         raise ValueError(f"the B7 kernel needs a CUDA tensor, got {reps.device}")
     if not reps.is_contiguous():
         raise ValueError("reps must be contiguous")
     n = reps.shape[0]
+    route = build_route(m) if entry == 1 else None
     with torch.cuda.device(reps.device):
         stream = torch.cuda.current_stream(reps.device).cuda_stream
-        err = _kernel_fns()[entry](reps.data_ptr(), out.data_ptr(), n, int(m), int(k), stream)
+        if entry == 0:
+            err = _kernel_fns()[0](reps.data_ptr(), out.data_ptr(), n, int(m), int(k), stream)
+        else:
+            need = build_plan(m, n, k, 0).scratch_bytes
+            scratch = torch.empty(need, dtype=torch.uint8, device=reps.device)
+            err = _kernel_fns()[1](reps.data_ptr(), out.data_ptr(), scratch.data_ptr(), need, n,
+                                   int(m), int(k), stream)
     if err != 0:
         raise KernelLaunchError(f"Bloom bit-index kernel launch failed: CUDA error {err}")
     if n:  # the C side launches nothing for n = 0
         launches += 1
+        if route == "block":
+            block_launches += 1
+        elif route == "binned":
+            binned_launches += 1
+        elif route == "global":
+            global_launches += 1
 
 
 def bit_indices_kernel(reps: torch.Tensor, m: int, k: int) -> torch.Tensor:
@@ -144,7 +293,9 @@ def bit_indices_kernel(reps: torch.Tensor, m: int, k: int) -> torch.Tensor:
 
 def build_bloom_kernel(reps: torch.Tensor, m: int, k: int) -> torch.Tensor:
     """Launch ``hs_bloom_build``: [n] int64 CUDA reps -> the filter's
-    [m / 64] packed words (int64 holding the uint64 bits)."""
+    [m / 64] packed words (int64 holding the uint64 bits), by the route m
+    gives (:func:`build_plan`); the binned route's scratch is allocated
+    here, the kernel allocates nothing."""
     _check(reps, m, k, build=True)
     words = torch.empty(int(m) // 64, dtype=torch.int64, device=reps.device)
     _launch(1, reps, words, m, k)

@@ -397,30 +397,87 @@ def test_zorder_create_launches_b6_and_writes_the_cpu_bytes(cuda_device, tmp_pat
     assert data[0] == data[1]
 
 
-@pytest.mark.parametrize("case", torch_b7_cases.CASES, ids=torch_b7_cases.case_id)
+@pytest.mark.parametrize("case", torch_b7_cases.CASES + torch_b7_cases.BOUNDARY_CASES,
+                         ids=torch_b7_cases.case_id)
 def test_b7_equals_its_plain_version(cuda_device, case):
-    """B7's two entries on the card: the bit indices element by element
-    and the built filter's words equal to the plain version's on a CPU
-    copy (the wrap case's words against the plain indices, since its
-    plain build would need a 2 GiB plane); one launch a call, none for
-    n = 0."""
+    """B7's two entries on the card, the build by the route m gives (block
+    up to 2^20 bits, binned up to 2^24, global beyond): the bit indices
+    element by element and the built filter's words equal to the plain
+    version's on a CPU copy (the wrap case's words against the plain
+    indices, since its plain build would need a 2 GiB plane); one launch
+    a call, counted by route, none for n = 0."""
     from hyperspace_tpu_torch.ops import bloom as B
 
     n, m, k, _fill = case
     reps = torch.from_numpy(torch_b7_cases.reps_for(case))
     dev = reps.to(cuda_device)
-    before = B.launches
+    routes = ("block_launches", "binned_launches", "global_launches")
+    before = B.launches, [getattr(B, r) for r in routes]
     idx = B.bit_indices_kernel(dev, m, k)
-    words = B.build_bloom_kernel(dev, m, k) if m % 64 == 0 else None
+    words = B.build_bloom_kernel(dev, m, k)
     torch.cuda.synchronize()
-    assert B.launches == before + (0 if n == 0 else 1 if words is None else 2)
+    assert B.launches == before[0] + (2 if n else 0)
+    want_routes = [c + (1 if n and r.startswith(B.build_route(m)) else 0)
+                   for r, c in zip(routes, before[1])]
+    assert [getattr(B, r) for r in routes] == want_routes
     want = B.bit_indices_torch(reps, m, k)
     assert torch.equal(idx.cpu(), want)
-    if case in torch_b7_cases.BUILD_CASES:
+    if m != torch_b7_cases.WRAP_M:
         assert torch.equal(words.cpu(), B.build_bloom_torch(reps, m, k))
     else:
         got = words.cpu().numpy().view(np.uint64)
         assert np.array_equal(got, torch_b7_cases.words_from_indices(want.numpy(), m))
+
+
+@pytest.mark.parametrize("m", torch_b7_cases.BITS + tuple(
+    c[1] for c in torch_b7_cases.BOUNDARY_CASES))
+def test_b7_build_plan_on_the_card_equals_the_python_plan(cuda_device, m):
+    """``hs_bloom_build``'s plan (route, bits a block holds, copies ORed,
+    scratch bytes) equals ``build_plan`` given the route's blocks the card
+    holds at once, at every row count the main path and the cases use."""
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    for n in (0, 1, 65_537, 750_152, 6_001_215):
+        for k in (1, 7, 16):
+            plan, resident = B.kernel_build_plan(n, m, k, cuda_device)
+            assert plan == B.build_plan(m, n, k, resident)
+            assert (resident > 0) == (plan.route != "global")
+
+
+def test_b7_build_refuses_too_little_scratch(cuda_device):
+    """The binned route's C entry returns an error code for scratch
+    smaller than its plan's (the wrapper always hands it the plan's)."""
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    m, k, n = torch_b7_cases.PHASE_M, 7, 5000
+    reps = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+    words = torch.empty(m // 64, dtype=torch.int64, device=cuda_device)
+    need = B.build_plan(m, n, k, 0).scratch_bytes
+    scratch = torch.empty(need, dtype=torch.uint8, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    build = B._kernel_fns()[1]
+    assert build(reps.data_ptr(), words.data_ptr(), scratch.data_ptr(), need - 16, n, m, k,
+                 stream) == 1  # cudaErrorInvalidValue
+    assert build(reps.data_ptr(), words.data_ptr(), scratch.data_ptr(), need, n, m, k,
+                 stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(words.cpu(), B.build_bloom_torch(reps.cpu(), m, k))
+
+
+def test_b7_phase_11_filter_takes_the_binned_route(cuda_device):
+    """phase 11's sketch (m = 5,751,040, k = 7, a file's 750,152 reps) is
+    built on the binned route, equal to the plain version."""
+    from hyperspace_tpu_torch.ops import bloom as B
+
+    m, k, n = torch_b7_cases.PHASE_M, torch_b7_cases.PHASE_K, 750_152
+    plan, resident = B.kernel_build_plan(n, m, k, cuda_device)
+    assert plan.route == "binned" and resident >= 88 and plan.partials >= 1
+    reps = torch.from_numpy(np.random.default_rng(3).integers(0, 1_500_000, n, dtype=np.int64))
+    before = (B.block_launches, B.binned_launches, B.global_launches)
+    words = B.build_bloom_kernel(reps.to(cuda_device), m, k)
+    assert (B.block_launches, B.binned_launches, B.global_launches) == (
+        before[0], before[1] + 1, before[2])
+    assert torch.equal(words.cpu(), B.build_bloom_torch(reps, m, k))
 
 
 def _ds_source(tmp_path, n_files=4, rows=20_000):

@@ -108,7 +108,10 @@ def test_kernel_registry_names_wrapper_plain_version_and_source():
     import importlib
     import os
 
-    assert set(port_ops.launch_counts()) == set(port_ops.KERNEL_TWINS)
+    assert set(port_ops.launch_counts()) == set(port_ops.KERNEL_TWINS) | set(
+        port_ops.ROUTE_COUNTERS)
+    for mod, attr in port_ops.ROUTE_COUNTERS.values():
+        assert isinstance(getattr(importlib.import_module(mod), attr), int)
     for mod, wrapper, plain, source in port_ops.KERNEL_TWINS.values():
         m = importlib.import_module(mod)
         assert callable(getattr(m, wrapper)) and callable(getattr(m, plain))

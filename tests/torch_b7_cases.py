@@ -20,6 +20,18 @@ phase 11's l_orderkey sketch (``optimal_params(600_000, 0.01)``:
 passes 2^32 for about half the rows while 2^32 is no multiple of m, so
 only the sum wrapped at 2^32 before the remainder gives the reference's
 indices. k covers 1, 7 and optimal_params' cap, 16.
+
+``BOUNDARY_CASES`` hold the build's route edges (``ops/bloom.build_plan``)
+at 65,537 random reps and k = 7, apart from ``CASES``' product so the CPU
+suite's time stays flat: m at the last word one block holds (2^20 bits,
+the block route), one word past it (the binned route: 17 slices of
+2^16 bits, the last of 64), the last word the binned route holds
+(``BINNED_MAX_BITS`` = 2^24: 256 slices) and one word past it (the
+global route). At 65,537 rows the block route's case builds 17 partial
+filters and the binned route's 65 tiles, more than the copies of a slice
+on an H100 (264 blocks, 15 a slice of 17), so every copy takes tiles. The
+slices hold 2^16 bits, a multiple of 64, so no slice edge splits a 64-bit
+word's halves.
 """
 
 import itertools
@@ -38,6 +50,10 @@ CASES = list(itertools.product(SIZES, BITS, KS, FILLS))
 #: the wrap case (2 GiB) is held through the indices, and on the card by
 #: :func:`words_from_indices`
 BUILD_CASES = [c for c in CASES if c[1] != WRAP_M]
+#: the route boundaries: the most bits the block and the binned routes take
+BLOCK_BITS, BINNED_BITS = 1 << 20, 1 << 24
+BOUNDARY_CASES = [(65_537, m, 7, "random")
+                  for m in (BLOCK_BITS, BLOCK_BITS + 64, BINNED_BITS, BINNED_BITS + 64)]
 
 EDGE_REPS = np.array(
     [
