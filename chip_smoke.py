@@ -223,6 +223,36 @@ against its plain PyTorch version on the card:
    take the binned route; the build is timed cold on the first file's
    own l_orderkey reps.
 
+12. lifecycle path (``lifecycle_path``): over a copy of phase 4's 8
+   lineitem files, lineage on, lc_idx (li_idx's config, beside phase
+   5's o_idx), lc_z (phase 10's z_idx) and lc_ds (phase 11's ds_idx, in a
+   system path of its own), each step run on the card and then in a
+   ``device="cpu"`` session. TPC-H's refresh functions at lake
+   granularity: (1) RF1's batch (1,500 new orders of 1-7 lines) and an
+   incremental refresh of all three; (2) a day's file of 750,152 rows,
+   incremental; (3) RF2 as the delete of source file 0, incremental (the
+   lineage rewrite of about 5.25 M rows through B1 and B2); (4) a second
+   RF1 batch, incremental, lc_idx optimized full then quick (a no-op), a
+   third batch recorded by a quick refresh, then an incremental one; (5)
+   a fourth batch, full refreshes and vacuums of the outdated versions,
+   delete, restore, delete, vacuum, and a cancel over a transient entry.
+   After each step every index file (bucket, z-order and sketch files
+   byte for byte, ``_zonemaps.json`` and ``_aggstate.json`` without
+   mtime_ns) and log entry (without ids and timestamps) equals the cpu
+   session's; before step 1 and after steps 1-5 phase 4's 36 filters
+   with 4 new keys (lc_idx), d2's point keys (lc_ds) and q_zrange (lc_z)
+   name their index in the explain (none in the quick-refresh state),
+   and their rows equal the plan without Hyperspace and, in order, the
+   cpu session's; phase 5's join over o_idx and lc_idx is timed before
+   step 1 and after steps 2-4 and held to the unindexed plan and the cpu
+   session after steps 3 and 4. Each action's seconds, stages, rows written and launches,
+   files a bucket around optimize and versions around vacuum are logged.
+   Every B1, B6 and B7 call is recorded (``B1Inputs``, ``B6Inputs``,
+   ``B7Inputs``) and held bit-equal to the plain version on a CPU copy;
+   every B5f call of the captures (``B5fInputs``; B3b and B5 on its
+   ordered route) equals, call by call, the plain version's call the cpu
+   session makes on the same inputs.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -242,9 +272,10 @@ chunk; f1's and f2's plans; s1's batch); records under ``only_b5f``. The
 numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
-Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10
-and 11 and read just after each; the kernel checks' launches are not counted as the main
-path's. Any failure raises and exits non-zero. The last two
+Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
+11 and 12 and read just after each; each kernel's count in the JSON
+line adds phase 12's. The kernel checks' launches are not counted as
+the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
 it lives in; the tables are written under build/chip_smoke/ and removed
@@ -1173,7 +1204,7 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
     from hyperspace_tpu_torch import ops
 
     sess, hs, items = ctx["session"], ctx["hs"], ctx["items"]
-    src = gen_orders(work)
+    src = ctx["orders_src"] = gen_orders(work)
     ops.reset_launch_counts()
     orders = sess.read.parquet(src)
     t0 = time.perf_counter()
@@ -3803,6 +3834,686 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
             "queries": results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the index lifecycle (B1, B2, B5f/B5, B6 and B7 on its paths)
+# ---------------------------------------------------------------------------
+
+#: TPC-H's refresh function RF1 at SF1: SF x 1,500 new orders of 1-7 lines
+RF1_ORDERS = 1_500
+#: phase 12's indexes: lc_idx is li_idx's covering config, lc_z phase 10's
+#: z_idx, lc_ds phase 11's ds_idx
+LC_MAIN = ("lc_idx", "lc_z")
+LC_ALL = ("lc_idx", "lc_z", "lc_ds")
+
+
+def lc_config(name):
+    from hyperspace_tpu_torch import (
+        CoveringIndexConfig,
+        DataSkippingIndexConfig,
+        ZOrderCoveringIndexConfig,
+    )
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
+
+    if name == "lc_idx":
+        return CoveringIndexConfig(name, ["l_orderkey"], ["l_shipdate", "l_quantity"])
+    if name == "lc_z":
+        return ZOrderCoveringIndexConfig(name, *Z_INDEXES["z_idx"])
+    return DataSkippingIndexConfig(name, MinMaxSketch("l_shipdate"),
+                                   BloomFilterSketch("l_orderkey", DS_FPP, DS_EXPECTED))
+
+
+def lc_batch(path: str, first_key: int, n_orders: int, seed: int, rows=None) -> int:
+    """A lineitem file of new orders ``first_key ..``: 1-7 lines an order
+    (RF1's), or ``rows`` lines over the orders; the other columns drawn
+    as the generator draws them. Returns its rows."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    if rows is None:
+        keys = np.repeat(np.arange(first_key, first_key + n_orders, dtype=np.int64),
+                         rng.integers(1, 8, n_orders))
+    else:
+        keys = np.sort(rng.integers(first_key, first_key + n_orders, rows, dtype=np.int64))
+    n = len(keys)
+    ship = np.datetime64("1994-01-01") + rng.integers(0, 2400, n).astype("timedelta64[D]")
+    pq.write_table(pa.table({
+        "l_orderkey": keys,
+        "l_shipdate": pa.array(ship.astype("datetime64[D]")),
+        "l_quantity": rng.integers(1, 51, n, dtype=np.int64),
+        "l_extendedprice": rng.normal(30000, 8000, n),
+    }), path)
+    return n
+
+
+class B1Inputs:
+    """Keeps every B1 call (``ops.hash.bucket_ids_kernel``) under the
+    current label: reps, bucket count, seed and ids, for the comparison
+    with the plain version after the phase. The wrapper calls straight
+    through, so its launches count as the main path's."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import hash as H
+
+        self.calls, self.label = [], None
+        inner = H.bucket_ids_kernel
+
+        def recording(key_reps, num_buckets, seed=42):
+            out = inner(key_reps, num_buckets, seed)
+            if self.label is not None:
+                self.calls.append((self.label, key_reps, num_buckets, seed, out))
+            return out
+
+        H.bucket_ids_kernel = recording
+
+
+def to_cpu(x):
+    """A copy of ``x`` (tensors, devices, dataclasses, lists and tuples of
+    them) on the CPU."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu().clone()
+    if isinstance(x, torch.device):
+        return torch.device("cpu")
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+class B5fInputs:
+    """Every B5f call (``ops.fused_agg.fused_filter_agg_kernel``, which
+    launches B3b and B5 on its ordered route) made under ``label``, held
+    against the plain version's call (``fused_filter_agg_torch``) that the
+    cpu session makes under ``plain_label`` for the same action on the same
+    files: call by call, the inputs equal and the returned states equal bit
+    for bit. The recorders keep references only (a call returns a new
+    state and changes neither input), so an action's timed window holds no
+    copy; ``settle``, after each action, copies the card's calls to the
+    cpu, compares and drops both sides' (its seconds in ``settle_s``)."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.ops import fused_agg as FA
+
+        self.calls, self.plain, self.label, self.plain_label = [], [], None, None
+        self.held, self.rows, self.settle_s = {}, 0, 0.0
+        inner, plain = FA.fused_filter_agg_kernel, FA.fused_filter_agg_torch
+
+        def recording(state, chunk):
+            out = inner(state, chunk)
+            if self.label is not None:
+                self.calls.append((self.label, state, chunk, out))
+            return out
+
+        def recording_plain(state, chunk):
+            out = plain(state, chunk)
+            if self.plain_label is not None:
+                self.plain.append((self.plain_label, state, chunk, out))
+            return out
+
+        FA.fused_filter_agg_kernel = recording
+        FA.fused_filter_agg_torch = recording_plain
+
+    def settle(self) -> None:
+        """Hold the recorded card calls against the cpu session's, pair by
+        pair in order, and drop both."""
+        t0 = time.perf_counter()
+        if len(self.calls) != len(self.plain):
+            raise AssertionError(f"B5f: {len(self.calls)} calls on the card, "
+                                 f"{len(self.plain)} plain calls in the cpu session")
+        for card_call, (plabel, pst, pch, pout) in zip(self.calls, self.plain):
+            label, st, ch, out = to_cpu(card_call)
+            if label != plabel:
+                raise AssertionError(f"B5f: call of {label} paired with {plabel}")
+            same_in = states_equal(st, pst) and chunks_equal(ch, pch)
+            if not same_in or not states_equal(out, pout):
+                raise AssertionError(f"B5f differs from its plain version on phase 12's {label}"
+                                     f" ({'inputs' if not same_in else 'states'} differ)")
+            self.held[label] = self.held.get(label, 0) + 1
+            self.rows += ch.n
+        self.calls, self.plain = [], []
+        self.settle_s += time.perf_counter() - t0
+
+
+def states_equal(a, b) -> bool:
+    """Two B5f states equal bit for bit (float accumulators by their bits)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5f_cases import _state_bits
+
+    x, y = _state_bits(a), _state_bits(b)
+    return a.ops == b.ops and all(x[k].shape == y[k].shape and torch.equal(x[k], y[k]) for k in x)
+
+
+def chunks_equal(a, b) -> bool:
+    """Two B5f chunks hold the same rows (keys, aggregate inputs, terms)."""
+    import torch
+
+    def flat(c):
+        out = [c.n]
+        for bits, valid, f64 in c.keys:
+            out += [bits, valid, f64]
+        for op, vals, valid in c.aggs:
+            out += [op, vals, valid]
+        if c.terms is not None:
+            out += [*c.terms.cols, *c.terms.valids, c.terms.term_col, c.terms.lo_i,
+                    c.terms.hi_i, c.terms.lo_f, c.terms.hi_f, c.terms.flags]
+        return out
+
+    fa, fb = flat(a), flat(b)
+    if len(fa) != len(fb):
+        return False
+    for x, y in zip(fa, fb):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def check_lifecycle_kernels(rec: dict) -> dict:
+    """Every B1, B6, B7 and B5f call of phase 12 held bit-equal to its plain
+    version on CPU copies of its inputs: B1's bucket ids, B6's planes, B7's
+    indices and filters, B5f's carried state (its ordered route's B3b and
+    B5 within). -> kernel -> calls held."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import hash as H
+    from hyperspace_tpu_torch.ops import zorder as Z
+
+    t0 = time.perf_counter()
+    for label, reps, nb, seed, out in rec["b1"].calls:
+        if not torch.equal(out.cpu(), H.bucket_ids_torch(reps.cpu(), nb, seed)):
+            raise AssertionError(f"B1 differs from its plain version on phase 12's {label}")
+    for label, words, bits, out in rec["b6"].calls:
+        if not torch.equal(out.cpu(), Z.interleave_torch(words.cpu(), bits)):
+            raise AssertionError(f"B6 differs from its plain version on phase 12's {label}")
+    for label, entry, reps, m, k, out in rec["b7"].calls:
+        compare_b7(entry, reps, m, k, out)
+    rec["b5f"].settle()
+    held = {k: len(rec[k].calls) for k in ("b1", "b6", "b7")}
+    held["b5f"] = sum(rec["b5f"].held.values())
+    rows = {k: sum(c[1].shape[-1] if k in ("b1", "b6") else len(c[2]) for c in rec[k].calls)
+            for k in ("b1", "b6", "b7")}
+    rows["b5f"] = rec["b5f"].rows
+    log(f"kernels: phase 12's calls bit-equal to their plain versions: B1 {held['b1']} calls "
+        f"({rows['b1']} rows), B6 {held['b6']} ({rows['b6']} rows), B7 {held['b7']} "
+        f"({rows['b7']} reps), capture B5f {held['b5f']} ({rows['b5f']} rows) "
+        f"({time.perf_counter() - t0:.1f}s on the cpu; B5f's, settled after each action "
+        f"outside its timed window, {rec['b5f'].settle_s:.1f}s)")
+    by_action = {k: {} for k in rec}
+    for k in ("b1", "b6", "b7"):
+        for c in rec[k].calls:
+            by_action[k][c[0]] = by_action[k].get(c[0], 0) + 1
+    by_action["b5f"] = dict(rec["b5f"].held)
+    for k, counts in by_action.items():
+        log(f"kernels: phase 12 {k} calls by action: "
+            + ", ".join(f"{lab} {n}" for lab, n in sorted(counts.items())))
+    for k, kind in (("b1", "refresh incremental lc_idx"), ("b1", "optimize full lc_idx"),
+                    ("b6", "refresh incremental lc_z"), ("b7", "refresh incremental lc_ds"),
+                    ("b5f", "refresh incremental lc_idx")):
+        if not by_action[k].get(kind):
+            raise AssertionError(f"phase 12's {kind} made no {k.upper()} call")
+    return held
+
+
+class LcSide:
+    """One device's sessions of phase 12: ``main`` (lc_idx and lc_z, beside
+    an o_idx) and ``ds`` (lc_ds, in a system path of its own: a covering
+    index on the same filter would outrank it), both with lineage on."""
+
+    def __init__(self, device, main_path: str, ds_path: str):
+        from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+
+        self.main, self.ds = HyperspaceSession(device=device), HyperspaceSession(device=device)
+        for s, p in ((self.main, main_path), (self.ds, ds_path)):
+            s.conf.set("hyperspace.system.path", p)
+            s.conf.set("hyperspace.index.lineage.enabled", True)
+        self.hs = {"main": Hyperspace(self.main), "ds": Hyperspace(self.ds)}
+
+    def of(self, name):
+        key = "ds" if name == "lc_ds" else "main"
+        return getattr(self, key), self.hs[key]
+
+    def index_path(self, name) -> str:
+        sess, _hs = self.of(name)
+        return os.path.join(sess.conf.get("hyperspace.system.path"), name)
+
+
+def lc_tree(root: str) -> dict:
+    """Relative path -> (size, mtime_ns) of every file of an index but
+    its log."""
+    from torch_index_files import index_paths
+
+    return {rel: (st.st_size, st.st_mtime_ns)
+            for rel, st in ((r, os.stat(os.path.join(root, r))) for r in index_paths(root))}
+
+
+class LcCompare:
+    """Phase 12's index files and log entries, the card's against the cpu
+    session's, in the form ``tests/torch_index_files.py`` gives them; a
+    file already held equal and unchanged on both sides is not read
+    again."""
+
+    def __init__(self, cuda: LcSide, cpu: LcSide):
+        self.cuda, self.cpu, self.seen = cuda, cpu, {}
+
+    def __call__(self, names, step: str) -> int:
+        from torch_index_files import index_file, normalized_log
+
+        read = 0
+        for name in names:
+            a, b = self.cuda.index_path(name), self.cpu.index_path(name)
+            ta, tb = lc_tree(a), lc_tree(b)
+            if sorted(ta) != sorted(tb):
+                raise AssertionError(f"{step}: {name}'s files differ from the cpu session's: "
+                                     f"{sorted(set(ta) ^ set(tb))}")
+            for rel in sorted(ta):
+                key = (name, rel)
+                if self.seen.get(key) == (ta[rel], tb[rel]):
+                    continue
+                if index_file(os.path.join(a, rel)) != index_file(os.path.join(b, rel)):
+                    raise AssertionError(f"{step}: {name}/{rel} differs from the cpu session's")
+                self.seen[key] = (ta[rel], tb[rel])
+                read += 1
+            sa, sb = (s.of(name)[0].conf.get("hyperspace.system.path") for s in (self.cuda, self.cpu))
+            if normalized_log(a, sa) != normalized_log(b, sb):
+                raise AssertionError(f"{step}: {name}'s log entries differ from the cpu session's")
+        return read
+
+
+def lc_rows_written(path: str) -> int:
+    import pyarrow.parquet as pq
+
+    if not os.path.isdir(path):
+        return 0
+    return sum(pq.ParquetFile(os.path.join(path, f)).metadata.num_rows
+               for f in sorted(os.listdir(path)) if f.startswith("part"))
+
+
+def lc_versions(side: LcSide, name: str) -> list:
+    p = side.index_path(name)
+    return sorted((d for d in os.listdir(p) if d.startswith("v__=")),
+                  key=lambda d: int(d.split("=")[1])) if os.path.isdir(p) else []
+
+
+def lc_buckets(side: LcSide, name: str) -> dict:
+    """Files a bucket of an index's content: the most and the mean."""
+    from collections import Counter
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    sess, hs = side.of(name)
+    per = Counter(bucket_id_of_file(f) for f in hs.get_index(name).content.files)
+    return {"buckets": len(per), "max": max(per.values()), "mean": float(np.mean(list(per.values())))}
+
+
+def lc_action(card, cuda, cpu, rec, actions, name, op, *args) -> dict:
+    """``hs.<op>(name, *args)`` on the card, its kernel calls recorded under
+    ``"<op> <args> <name>"``, then in the cpu session; its seconds, stages
+    (``build_stats``), rows written and rows/s, and launches by kernel
+    logged and kept in ``actions``."""
+    import torch
+
+    from hyperspace_tpu_torch import ops
+
+    label = " ".join([op.replace("_index", ""), *map(str, args), name])
+    if op == "create_index":  # args: the source directory
+        label = f"create {name}"
+    out = {"action": label}
+    for side in (cuda, cpu):
+        sess, hs = side.of(name)
+        sess.build_stats.clear()
+        before_v = lc_versions(side, name)
+        on_card = side is cuda
+        if on_card:
+            before = ops.launch_counts()
+            for r in rec.values():
+                r.label = label
+        else:
+            rec["b5f"].plain_label = label
+        t0 = time.perf_counter()
+        try:
+            if op == "create_index":
+                hs.create_index(sess.read.parquet(args[0]), lc_config(name))
+            else:
+                getattr(hs, op)(name, *args)
+            torch.cuda.synchronize()
+        finally:
+            for r in rec.values():
+                r.label = None
+            rec["b5f"].plain_label = None
+        secs = time.perf_counter() - t0
+        after_v = lc_versions(side, name)
+        new = [v for v in after_v if v not in before_v]
+        rows = lc_rows_written(os.path.join(side.index_path(name), new[-1])) if new else 0
+        if on_card:
+            after = ops.launch_counts()
+            out.update(seconds=secs, rows_written=rows, versions_before=before_v,
+                       rows_per_s=rows / secs if rows else 0.0,
+                       stages={k: v for k, v in sess.build_stats.items()},
+                       launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+                       versions=after_v)
+        else:
+            out["cpu_seconds"] = secs
+    rec["b5f"].settle()
+    actions.append(out)
+    rate = f" at {out['rows_per_s']:,.0f} rows/s" if out["rows_written"] else ""
+    stages = {k: round(v, 4) if isinstance(v, float) else v for k, v in out["stages"].items()}
+    log(f"lifecycle path [{card}]: {label}: {out['seconds']:.3f}s on the card "
+        f"({out['cpu_seconds']:.3f}s in the cpu session), rows written "
+        f"{out['rows_written']}{rate}, stages {stages}, launches {out['launches']}, "
+        f"versions {out['versions']}")
+    return out
+
+
+def lc_keys():
+    """Phase 4's 32 point keys and 4 IN-lists, and d2's 4 keys absent from
+    phase 4's files, which phase 12's first append makes present."""
+    point_keys, in_lists = phase4_keys()
+    return point_keys, in_lists, [N_ORDERS + 17 * i for i in range(4)]
+
+
+def lc_filters(df):
+    point_keys, in_lists, new_keys = lc_keys()
+    key = df["l_orderkey"]
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    return ([df.filter(key == k).select(*cols) for k in point_keys + new_keys]
+            + [df.filter(key.isin(keys)).select(*cols) for keys in in_lists])
+
+
+def lc_check(card, cuda, cpu, rec, src, orders_src, step: str, served: dict,
+             join: bool) -> dict:
+    """One checkpoint of phase 12. The filters (``lc_filters``) over the
+    main session; d2's 36 point keys over the ds session (lc_ds); bench's
+    q_zrange (lc_z): each explain names the index ``served`` gives for its
+    set (None: no index), one warm-up, one timed run a query, rows equal as
+    a multiset to the plan without Hyperspace and in order to the cpu
+    session's; with ``join`` also the join (``lc_join``).
+    The queries' kernel calls are recorded in ``rec`` under the step."""
+    out = {"step": step}
+    unindexed = {}
+
+    def run(label, sess, hs, cpu_sess, plans, cpu_plans, index, kind):
+        text = [hs.explain(q).split("Plan without indexes:")[0] for q in plans]
+        for t in text:
+            if index is None and "Hyperspace(" in t:
+                raise AssertionError(f"{step} {label}: an index served:\n{t}")
+            if index is not None and f"Hyperspace(Type: {kind}, Name: {index}," not in t:
+                raise AssertionError(f"{step} {label}: {index} not used:\n{t}")
+        sess.enable_hyperspace()
+        plans[0].collect()  # warm-up
+        times, got = [], []
+        for q in plans:
+            t0 = time.perf_counter()
+            got.append(q.collect())
+            times.append((time.perf_counter() - t0) * 1e3)
+        sess.disable_hyperspace()
+        cpu_sess.enable_hyperspace()
+        for i, (q, cq) in enumerate(zip(plans, cpu_plans)):
+            # d2's point keys are the filters' first 36, in order
+            key = ("filters" if label == "d2" else label, i)
+            if key not in unindexed:
+                unindexed[key] = sorted_rows(q.collect())
+            if not sorted_rows(got[i]).equals(unindexed[key]):
+                raise AssertionError(f"{step} {label}[{i}]: rows differ from the plan without "
+                                     f"Hyperspace")
+            if not got[i].equals(cq.collect()):
+                raise AssertionError(f"{step} {label}[{i}]: rows differ from the cpu session's")
+        cpu_sess.disable_hyperspace()
+        p50, p99 = np.percentile(times, [50, 99])
+        out[label] = {"p50_ms": float(p50), "p99_ms": float(p99), "queries": len(plans),
+                      "rows": int(sum(g.num_rows for g in got)), "index": index}
+        log(f"lifecycle path [{card}]: {step}: {label} ({len(plans)} queries) p50_ms {p50:.3f} "
+            f"p99_ms {p99:.3f}, {out[label]['rows']} rows, served by {index}; equal to the plan "
+            f"without Hyperspace and in order to the cpu session's")
+
+    for r in rec.values():
+        r.label = f"{step} queries"
+    try:
+        _lc_check_sets(run, cuda, cpu, src, served)
+        if join:
+            out["join"] = lc_join(card, cuda, cpu, src, orders_src, step)
+    finally:
+        for r in rec.values():
+            r.label = None
+    return out
+
+
+def _lc_check_sets(run, cuda, cpu, src, served) -> None:
+    items = cuda.main.read.parquet(src)
+    citems = cpu.main.read.parquet(src)
+    run("filters", cuda.main, cuda.hs["main"], cpu.main, lc_filters(items), lc_filters(citems),
+        served.get("lc_idx"), "CI")
+    if "lc_z" in served:
+        zq = [zorder_queries(d)["q_zrange"][0] for d in (items, citems)]
+        run("q_zrange", cuda.main, cuda.hs["main"], cpu.main, [zq[0]], [zq[1]],
+            served["lc_z"], "ZOCI")
+    if "lc_ds" in served:
+        d2 = [ds_queries(s.ds.read.parquet(src))["d2"] for s in (cuda, cpu)]
+        run("d2", cuda.ds, cuda.hs["ds"], cpu.ds, d2[0], d2[1], served["lc_ds"], "DS")
+
+
+def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
+    """Phase 5's orders ⋈ lineitem over phase 12's lineitem: o_idx and
+    lc_idx both serve it; 3 timed runs after a warm-up, rows equal in order
+    across runs, equal as a multiset to the unindexed plan and in order to
+    the cpu session's."""
+    def q(sess):
+        orders, items = sess.read.parquet(orders_src), sess.read.parquet(src)
+        return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+            "o_orderkey", "o_custkey", "l_quantity")
+
+    sess, hs = cuda.main, cuda.hs["main"]
+    index_served(hs, q(sess), ("o_idx", "lc_idx"))
+    sess.enable_hyperspace()
+    q(sess).collect()  # warm-up
+    times, got = [], None
+    sess.exec_stats.reset()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = q(sess).collect()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if got is None:
+            got = res
+        elif not res.equals(got):
+            raise AssertionError(f"{step}: join rows differ between runs")
+    stats = sess.exec_stats.as_dict()
+    stages = dict(sess.join_stats)
+    sess.disable_hyperspace()
+    if stats["co_bucketed_joins"] != 3:
+        raise AssertionError(f"{step}: the join did not run co-bucketed: {stats}")
+    want = q(sess).collect()
+    if not sorted_rows(got).equals(sorted_rows(want)):
+        raise AssertionError(f"{step}: index-served join rows differ from the unindexed plan")
+    cpu.main.enable_hyperspace()
+    if not got.equals(q(cpu.main).collect()):
+        raise AssertionError(f"{step}: join rows differ from the cpu session's")
+    cpu.main.disable_hyperspace()
+    p50 = float(np.median(times))
+    log(f"lifecycle path [{card}]: {step}: join p50_ms {p50:.3f} (3 runs), {got.num_rows} rows, "
+        f"stages s { {k: round(v, 4) for k, v in stages.items()} }; equal to the unindexed "
+        f"plan and in order to the cpu session's")
+    return {"p50_ms": p50, "rows": got.num_rows, "stages_s": stages}
+
+
+def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
+    """Phase 12: the index lifecycle over a copy of phase 4's 8 lineitem
+    files, lineage on, in sessions of its own on the card and, step for
+    step, on the cpu: lc_idx (li_idx's config) and
+    lc_z (phase 10's z_idx) in phase 4's system path beside phase 5's
+    o_idx, which stays unchanged; lc_ds (phase 11's ds_idx) in one of its
+    own. The steps follow TPC-H's refresh functions at lake granularity:
+    (1) RF1's batch, 1,500 new orders of 1-7 lines, then an incremental
+    refresh of all three; (2) a day's file of FILE_ROWS rows of new orders,
+    incremental again; (3) RF2 as the delete of source file 0, incremental
+    (the lineage rewrite, which leaves one file a bucket); (4) a second RF1
+    batch indexed incrementally by all three (two files a bucket again),
+    lc_idx optimized full (compacted), then quick (a no-op), a third RF1
+    batch recorded by a quick refresh of lc_idx (no index serves), then
+    indexed by an incremental one; (5) a fourth RF1 batch, a full refresh
+    and a vacuum of the outdated versions of all three, delete, restore,
+    delete and vacuum, and a cancel over a transient entry written through
+    the log manager. After each of steps 1-4 (and before step 1) every
+    index file and log entry equals the cpu session's and the checkpoint
+    queries run (``lc_check``); the join runs before step 1 and after
+    steps 2-4, each time held to the unindexed plan and the cpu session's.
+    Every
+    B1, B6, B7 and B5f call on the card is recorded in ``rec`` under its
+    action. Launch counts read from 0 at its start."""
+    import shutil as _shutil
+
+    import torch
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, ops
+    from hyperspace_tpu_torch.constants import States
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+    t_phase = time.perf_counter()
+    src = os.path.join(work, "lc_lineitem")
+    _shutil.copytree(ctx["src"], src)
+    orders_src = ctx["orders_src"]
+    cuda = LcSide(None, ctx["session"].conf.get("hyperspace.system.path"),
+                  os.path.join(work, "lc_ds_indexes"))
+    # system paths of one depth on both sides: the log entries' directory
+    # trees then differ only in the names normalized_log replaces
+    cpu = LcSide("cpu", os.path.join(work, "lc_cpu_main"), os.path.join(work, "lc_cpu_ds"))
+    compare = LcCompare(cuda, cpu)
+    ops.reset_launch_counts()
+    actions, checks = [], []
+    # the cpu session's o_idx, phase 5's config over phase 5's orders
+    cpu.hs["main"].create_index(cpu.main.read.parquet(orders_src), CoveringIndexConfig(
+        "o_idx", ["o_orderkey"], ["o_custkey", "o_totalprice"]))
+    for side in (cuda, cpu):
+        side.main.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+    for name in LC_ALL:
+        lc_action(card, cuda, cpu, rec, actions, name, "create_index", src)
+    compare(LC_ALL, "create")
+    all_served = {n: n for n in LC_ALL}
+    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "before step 1", all_served, True))
+
+    def refresh_all(mode="incremental"):
+        for name in LC_ALL:
+            lc_action(card, cuda, cpu, rec, actions, name, "refresh_index", mode)
+
+    # (1) RF1's batch: 1,500 new orders above phase 4's keys
+    n1 = lc_batch(os.path.join(src, "rf1_a.parquet"), N_ORDERS, RF1_ORDERS, SEED + 20)
+    log(f"lifecycle path [{card}]: step 1: appended RF1's batch, {RF1_ORDERS} orders, {n1} rows")
+    refresh_all()
+    read = compare(LC_ALL, "step 1")
+    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 1", all_served, False))
+    # (2) a day's file of new orders
+    n2 = lc_batch(os.path.join(src, "day_a.parquet"), N_ORDERS + RF1_ORDERS, FILE_ROWS // 4,
+                  SEED + 21, rows=FILE_ROWS)
+    log(f"lifecycle path [{card}]: step 2: appended a day's file, {n2} rows")
+    refresh_all()
+    read += compare(LC_ALL, "step 2")
+    before_opt = lc_buckets(cuda, "lc_idx")
+    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 2", all_served, True))
+    # (3) RF2 at file granularity: source file 0 deleted
+    os.remove(os.path.join(src, "part0.parquet"))
+    log(f"lifecycle path [{card}]: step 3: deleted source file part0.parquet")
+    refresh_all()
+    read += compare(LC_ALL, "step 3")
+    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 3", all_served, True))
+    # (4) RF2's rewrite left one file a bucket: a second RF1 batch indexed
+    # incrementally gives lc_idx two again, then optimize full compacts them
+    # (quick after it is a no-op); a third batch is recorded by a quick
+    # refresh (no index serves) and indexed by an incremental one
+    next_key = N_ORDERS + RF1_ORDERS + FILE_ROWS // 4
+    n4 = lc_batch(os.path.join(src, "rf1_b.parquet"), next_key, RF1_ORDERS, SEED + 22)
+    next_key += RF1_ORDERS
+    log(f"lifecycle path [{card}]: step 4: appended RF1's second batch, {n4} rows")
+    refresh_all()
+    read += compare(LC_ALL, "step 4 incremental")
+    pre = lc_buckets(cuda, "lc_idx")
+    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "optimize_index", "full")
+    post = lc_buckets(cuda, "lc_idx")
+    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "optimize_index", "quick")
+    if actions[-2]["versions"] == actions[-2]["versions_before"] or \
+            actions[-1]["versions"] != actions[-2]["versions"]:
+        raise AssertionError("optimize full wrote no version, or quick after it wrote one")
+    log(f"lifecycle path [{card}]: step 4: lc_idx files a bucket after step 2 {before_opt}, "
+        f"before optimize {pre}, after {post}")
+    if pre["max"] < 2 or post["max"] != 1:
+        raise AssertionError(f"optimize full did not compact: before {pre}, after {post}")
+    read += compare(("lc_idx",), "step 4 optimize")
+    n4q = lc_batch(os.path.join(src, "rf1_c.parquet"), next_key, RF1_ORDERS, SEED + 23)
+    next_key += RF1_ORDERS
+    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "refresh_index", "quick")
+    read += compare(("lc_idx",), "step 4 quick")
+    quick = lc_check(card, cuda, cpu, rec, src, orders_src, "step 4, quick refresh",
+                     {"lc_idx": None}, False)
+    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "refresh_index", "incremental")
+    read += compare(("lc_idx",), "step 4")
+    log(f"lifecycle path [{card}]: step 4: appended RF1's third batch ({n4q} rows), recorded by "
+        f"a quick refresh (no index served the filters), indexed by an incremental one")
+    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 4",
+                           {"lc_idx": "lc_idx"}, True))
+    # (5) full refresh after a third RF1 batch, vacuum, delete / restore,
+    # vacuum, cancel
+    n5 = lc_batch(os.path.join(src, "rf1_d.parquet"), next_key, RF1_ORDERS, SEED + 24)
+    refresh_all("full")
+    read += compare(LC_ALL, "step 5 full")
+    versions = {n: lc_versions(cuda, n) for n in LC_ALL}
+    for name in LC_ALL:
+        lc_action(card, cuda, cpu, rec, actions, name, "vacuum_index")
+    vacuumed = {n: lc_versions(cuda, n) for n in LC_ALL}
+    log(f"lifecycle path [{card}]: step 5: RF1's fourth batch ({n5} rows), full refreshes; "
+        f"versions on disk before vacuum {versions}, after {vacuumed}")
+    if any(len(v) != 1 for v in vacuumed.values()):
+        raise AssertionError(f"vacuum left outdated versions: {vacuumed}")
+    read += compare(LC_ALL, "step 5 vacuum")
+    after5 = lc_check(card, cuda, cpu, rec, src, orders_src, "after step 5", all_served, False)
+    for name in LC_ALL:
+        for op in ("delete_index", "restore_index", "delete_index", "vacuum_index"):
+            lc_action(card, cuda, cpu, rec, actions, name, op)
+        if lc_versions(cuda, name) or cuda.of(name)[1].get_index(name).state != States.DOESNOTEXIST:
+            raise AssertionError(f"{name}: the hard vacuum left data or state")
+    for side in (cuda, cpu):
+        sess, hs = side.of("lc_idx")
+        log_mgr = sess.index_manager._managers("lc_idx")[0]
+        tip = log_mgr.get_latest_id()
+        transient = log_mgr.get_log(tip).with_state(States.CREATING)
+        if not log_mgr.write_log(tip + 1, transient):
+            raise AssertionError("the transient entry was not written")
+        hs.cancel("lc_idx")
+        if log_mgr.get_latest_log().state != States.DOESNOTEXIST:
+            raise AssertionError("cancel did not roll the transient entry back")
+    compare(LC_ALL, "step 5 delete, vacuum, cancel")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    secs = time.perf_counter() - t_phase
+    log(f"lifecycle path [{card}]: all steps ran; {read} index files held equal to the cpu "
+        f"session's, log entries equal; phase launches {launches}; {secs:.1f}s in all")
+    return {"launches": launches, "actions": actions, "checks": checks, "quick_state": quick,
+            "after_step_5": after5, "files_compared": read, "seconds": secs,
+            "buckets": {"after_step_2": before_opt, "before_optimize": pre,
+                        "after_optimize": post}}
+
+
+class PhaseClock:
+    """Logs the seconds since the last call (or ``start``) under a phase's
+    name, and the script's seconds so far."""
+
+    def __init__(self, start: float):
+        self.start = self.last = start
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - self.last:.1f}s (the script so far {now - self.start:.1f}s)")
+        self.last = now
+
+
 def main() -> int:
     import argparse
 
@@ -3907,16 +4618,27 @@ def main() -> int:
     chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
+        phase = PhaseClock(started)
         ctx = filter_path(work, None)
         b1["launches"] = ctx["launches"]
+        phase("4")
         b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
+        phase("5")
         b3a_launches = (ctx["all_launches"]["range_mask"]
                         + range_path(work, ctx, b3a_inputs)["launches"]["range_mask"])
+        phase("7")
         b5_launches = aggregate_path(work, ctx, b5_inputs)["launches"]["segment_reduce"]
+        phase("8")
         fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
         f_in = f_inputs(dev, ctx)
+        phase("9")
         zpath = zorder_path(work, ctx, b6_inputs)
+        phase("10")
         dspath = dataskipping_path(work, ctx, b7_inputs)
+        phase("11")
+        lc_rec = {"b1": B1Inputs(), "b6": B6Inputs(), "b7": B7Inputs(), "b5f": B5fInputs()}
+        lcpath = lifecycle_path(work, ctx, lc_rec, card)
+        phase("12")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -3946,6 +4668,21 @@ def main() -> int:
               launches_by_route={r: dspath["launches"][f"bloom_bits.build_{r}"]
                                  for r in ("block", "binned", "global")})
 
+    lc_held = check_lifecycle_kernels(lc_rec)
+    lc_launches = lcpath["launches"]
+    for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
+                           (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
+                           (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
+                           (b7, "bloom_bits")):
+        record["launches"] += lc_launches[kernel]
+    for r in ("block", "binned", "global"):
+        b7["launches_by_route"][r] += lc_launches[f"bloom_bits.build_{r}"]
+    for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
+        record["cases"] = record.get("cases", 0) + lc_held[key]
+    b5f["lifecycle_capture_calls"] = lc_held["b5f"]
+    log(json.dumps({"lifecycle": {k: lcpath[k] for k in (
+        "seconds", "actions", "checks", "quick_state", "after_step_5", "buckets",
+        "files_compared", "launches")}}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)

@@ -16,7 +16,9 @@ covering index (``ZOrderCoveringIndexConfig``), whose filters on any
 indexed column are pruned by the files' z-address spans, and the
 data-skipping index (``DataSkippingIndexConfig`` over the sketches of
 ``indexes/sketches.py``), whose filters read only the source files
-their sketches cannot rule out::
+their sketches cannot rule out, and the index lifecycle over all three
+kinds: refresh (full, incremental, quick), optimize (quick, full),
+delete, restore, vacuum and cancel::
 
     from hyperspace_tpu_torch import HyperspaceSession, Hyperspace, CoveringIndexConfig
 
@@ -31,6 +33,10 @@ their sketches cannot rule out::
     df.join(other, on=df["k"] == other["j"]).select("v", "w").collect()
     from hyperspace_tpu_torch import functions as F
     df.group_by("k").agg(F.count(), F.sum("v")).sort(("sum(v)", False)).limit(10).collect()
+    # ... files land in /data/t ...
+    hs.refresh_index("idx", "incremental")   # index the appended files
+    hs.optimize_index("idx", "full")         # one file a bucket again
+    hs.vacuum_index("idx")                   # drop the outdated versions
 """
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException  # noqa: F401
@@ -46,6 +52,7 @@ _LAZY = {
         "hyperspace_tpu_torch.indexes.covering",
         "CoveringIndexConfig",
     ),
+    "IndexConfig": ("hyperspace_tpu_torch.indexes.covering", "CoveringIndexConfig"),
     "ZOrderCoveringIndexConfig": (
         "hyperspace_tpu_torch.indexes.zorder",
         "ZOrderCoveringIndexConfig",

@@ -9,9 +9,11 @@ and recreates the ``latestStable`` pointer. A concurrent writer loses the
 :class:`ConcurrentWriteException`. ``NoChangesException`` from
 ``validate`` makes the whole action a graceful no-op.
 
-Not ported yet: crash recovery and writer leases, the OCC retry loop,
-multi-process coordination, fleet events and tracing (ROADMAP queue A
-items 6, 9 and 10).
+Not ported yet: crash recovery and writer leases, the OCC retry loop
+(ROADMAP A.3b), multi-process coordination (A.9), fleet events and tracing
+(A.10). Without recovery an action that fails after its begin entry
+leaves that transient entry at the log tip, and every later action on
+the index refuses to run until ``cancel`` rolls it back.
 """
 
 from __future__ import annotations
@@ -60,6 +62,12 @@ class Action(abc.ABC):
 
     # -- protocol run (Action.run:84-105) -----------------------------------
     def run(self) -> None:
+        self._run_protocol()
+
+    def _run_protocol(self) -> None:
+        """validate, begin entry, op, final entry and latestStable: the
+        reference's single-process protocol without recovery and retries
+        (an action that writes no begin entry, cancel, overrides it)."""
         self._resnapshot()
         try:
             self.validate()

@@ -32,6 +32,28 @@ from hyperspace_tpu_torch.signatures import IndexSignatureProvider
 from hyperspace_tpu_torch.utils import resolver
 
 
+def capture_sidecars(session, index_data_path: str, index) -> None:
+    """The sidecars of a freshly written version directory (best effort:
+    the serve path backfills without them): zone maps for the range serve
+    plane (with a z-order index's z-spans, interleaved on the session's
+    device), their seconds the build stage "zonemap_capture"; then the
+    aggregate index plane's _aggstate.json and _aggsample.parquet,
+    computed on the session's device, their seconds the build stage
+    "sidecar_capture", split into its row-group reads and its folds (with
+    the folds' fused passes and their overflowed chunks). Create, refresh
+    and optimize each run it over their new directory alone."""
+    from hyperspace_tpu_torch.indexes import aggindex, zonemaps
+
+    t0 = time.perf_counter()
+    zonemaps.capture_safely(index_data_path, index, session.device)
+    session.build_stats["zonemap_capture"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aggindex.capture_safely(index_data_path, index, session.conf, session.device)
+    session.build_stats["sidecar_capture"] = time.perf_counter() - t0
+    for k in ("read", "fold", "passes", "overflowed"):
+        session.build_stats[f"sidecar_capture_{k}"] = aggindex.capture_stats[k]
+
+
 class CreateAction(Action):
     transient_state = States.CREATING
     final_state = States.ACTIVE
@@ -97,26 +119,7 @@ class CreateAction(Action):
             ctx, self.df, self._enriched_properties()
         )
         index.write(ctx, index_data)
-        # sidecars (best effort: the serve path backfills without them):
-        # zone maps for the range serve plane (with a z-order index's
-        # z-spans, interleaved on the session's device), their seconds the
-        # build stage "zonemap_capture"; then the aggregate index plane's
-        # _aggstate.json and _aggsample.parquet, computed on the session's
-        # device, their seconds the build stage "sidecar_capture", split
-        # into its row-group reads and its folds (with the folds' fused
-        # passes and their overflowed chunks)
-        from hyperspace_tpu_torch.indexes import aggindex, zonemaps
-
-        t0 = time.perf_counter()
-        zonemaps.capture_safely(self.index_data_path, index, self.session.device)
-        self.session.build_stats["zonemap_capture"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        aggindex.capture_safely(
-            self.index_data_path, index, self.session.conf, self.session.device
-        )
-        self.session.build_stats["sidecar_capture"] = time.perf_counter() - t0
-        for k in ("read", "fold", "passes", "overflowed"):
-            self.session.build_stats[f"sidecar_capture_{k}"] = aggindex.capture_stats[k]
+        capture_sidecars(self.session, self.index_data_path, index)
         self._index = index
 
     def _enriched_properties(self) -> Dict[str, str]:

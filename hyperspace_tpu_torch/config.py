@@ -66,6 +66,12 @@ class Config:
         )
 
     @property
+    def optimize_file_size_threshold(self) -> int:
+        return self.get_int(
+            C.OPTIMIZE_FILE_SIZE_THRESHOLD, C.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT
+        )
+
+    @property
     def filter_rule_use_bucket_spec(self) -> bool:
         return self.get_bool(
             C.INDEX_FILTER_RULE_USE_BUCKET_SPEC,

@@ -28,6 +28,17 @@ class States:
 
     STABLE_STATES = frozenset({ACTIVE, DELETED, DOESNOTEXIST})
 
+    # transient state -> stable state it rolls back to on cancel()
+    ROLLBACK = {
+        CREATING: DOESNOTEXIST,
+        REFRESHING: ACTIVE,
+        OPTIMIZING: ACTIVE,
+        VACUUMINGOUTDATED: ACTIVE,
+        DELETING: ACTIVE,
+        RESTORING: DELETED,
+        VACUUMING: DELETED,
+    }
+
 
 # ---------------------------------------------------------------------------
 # Config keys (index/IndexConstants.scala) — flat string keys
@@ -50,6 +61,21 @@ INDEX_LINEAGE_ENABLED_DEFAULT = False  # IndexConstants.scala:105-106
 
 INDEX_FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
 INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = False  # IndexConstants.scala:56-57
+
+# Lifecycle modes (Hyperspace.refreshIndex / optimizeIndex): optimize
+# compacts the files of a bucket below the size threshold (quick) or all
+# of them (full); refresh rebuilds (full), indexes the source's changes
+# (incremental) or records them in the log alone (quick).
+OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
+OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024  # 256MB, :116-117
+OPTIMIZE_MODE_QUICK = "quick"
+OPTIMIZE_MODE_FULL = "full"
+OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
+
+REFRESH_MODE_FULL = "full"
+REFRESH_MODE_INCREMENTAL = "incremental"
+REFRESH_MODE_QUICK = "quick"
+REFRESH_MODES = (REFRESH_MODE_FULL, REFRESH_MODE_INCREMENTAL, REFRESH_MODE_QUICK)
 
 INDEX_CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
 INDEX_CACHE_EXPIRY_SECONDS_DEFAULT = 300  # CachingIndexCollectionManager.scala
@@ -134,6 +160,8 @@ DATA_FILE_NAME_ID = "_data_file_id"
 
 # Index log directory + data-version prefix (IndexDataManager.scala:24-37)
 HYPERSPACE_LOG_DIR = "_hyperspace_log"
+# the reference's serve tier pins snapshots here; a vacuum keeps it
+HYPERSPACE_PINS_DIR = "_hyperspace_pins"
 INDEX_VERSION_DIR_PREFIX = "v__"
 LATEST_STABLE_LOG_NAME = "latestStable"
 

@@ -2,15 +2,15 @@
 
 Reference: ``Hyperspace.scala:27-193`` and its Python binding
 (``python/hyperspace/hyperspace.py:9-192``). Counterpart of
-``hyperspace_tpu/hyperspace.py`` for the ported slices: create, list,
+``hyperspace_tpu/hyperspace.py`` for the ported slices: create, the
+lifecycle (delete, restore, vacuum, refresh, optimize, cancel), list,
 one index's statistics and explain.
 Index maintenance runs with the query-rewrite rule disabled so
 maintenance scans never get rewritten to use the index being maintained
 (``ApplyHyperspace.withHyperspaceRuleDisabled``,
-rules/ApplyHyperspace.scala:68-75). Delete, restore, vacuum, refresh,
-optimize, cancel and recover are ported with the rest of the lifecycle
-(ROADMAP queue A); explain's verbose and mode arguments and whyNot with
-the tooling (item A.7).
+rules/ApplyHyperspace.scala:68-75). ``recover`` comes with crash recovery
+(ROADMAP A.3b); explain's verbose and mode arguments and whyNot with the
+tooling (item A.7).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 
 import pyarrow as pa
 
+from hyperspace_tpu_torch import constants as C
 from hyperspace_tpu_torch.constants import States
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
@@ -29,12 +30,51 @@ class Hyperspace:
         self.session = session
         self._manager = session.index_manager
 
+    # -- index CRUD (Hyperspace.scala:43-151) -------------------------------
     def create_index(self, df, index_config) -> None:
         """Build an index over ``df`` (Hyperspace.scala:43-52)."""
+        with self._maintenance():
+            self._manager.create(df, index_config)
+
+    def delete_index(self, index_name: str) -> None:
+        """Soft delete: queries stop using the index, its data stays."""
+        with self._maintenance():
+            self._manager.delete(index_name)
+
+    def restore_index(self, index_name: str) -> None:
+        """Undo a soft delete."""
+        with self._maintenance():
+            self._manager.restore(index_name)
+
+    def vacuum_index(self, index_name: str) -> None:
+        """Hard-delete a deleted index, or drop an active index's outdated
+        version directories."""
+        with self._maintenance():
+            self._manager.vacuum(index_name)
+
+    def refresh_index(self, index_name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
+        """Bring the index up to date with its source: ``full`` rebuilds,
+        ``incremental`` indexes the appended files and drops the deleted
+        ones, ``quick`` records the change in the log alone."""
+        with self._maintenance():
+            self._manager.refresh(index_name, mode)
+
+    def optimize_index(self, index_name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
+        """Compact each bucket's index files into one: those below
+        ``hyperspace.index.optimize.fileSizeThreshold`` (``quick``) or all
+        of them (``full``)."""
+        with self._maintenance():
+            self._manager.optimize(index_name, mode)
+
+    def cancel(self, index_name: str) -> None:
+        """Roll an interrupted action back to the last stable state."""
+        with self._maintenance():
+            self._manager.cancel(index_name)
+
+    def _maintenance(self):
         from hyperspace_tpu_torch.rules.apply import hyperspace_rule_disabled
 
-        with hyperspace_rule_disabled():
-            self._manager.create(df, index_config)
+        return hyperspace_rule_disabled()
 
     def indexes(self) -> pa.Table:
         """Summary table of all indexes: name, indexed and included

@@ -3,8 +3,10 @@
 Counterpart of ``hyperspace_tpu/indexes/aggindex.py``; both packages read
 and write the same sidecars.
 
-* capture: at create, ``actions/create.py`` writes ``_aggstate.json`` into
-  the version directory: per file and row group the partial-aggregate
+* capture: at create, refresh and optimize, the action writes
+  ``_aggstate.json`` into the new version directory (covering only its
+  own files; a merge refresh leaves earlier directories' sidecars as they
+  are): per file and row group the partial-aggregate
   state of every column (valid counts, wrapped int64 sums, float sums,
   replace-on-equal min/max with clean/NaN counts), plus single-key grouped
   partials for every fusable column whose distinct count in a row group
@@ -13,6 +15,8 @@ and write the same sidecars.
   partials come from ``pipeline_compiler.partials_from_batch`` on the
   session's device (kernel B5f on the card), the same layer the serve
   path folds, so capture and serve share one state layout.
+* vacuum: ``prune_missing`` drops the entries and sample rows of files
+  deleted from a retained version directory.
 * lazy backfill: an index without a fresh sidecar entry (by size and
   mtime_ns) computes the same per-file doc by reading the file once,
   memoized per file identity; a rewritten file never serves stale
@@ -29,10 +33,10 @@ nulls and no NaN in any conjunct column, interval bounds compared with
 inward rounding (which can only demote full to partial). EMPTY needs
 provable non-overlap (outward rounding). Everything else is scanned.
 
-Not ported yet (``ROADMAP.md``): ``prune_missing`` (vacuum, queue A item
-3), the fleet fanout (item 10), and the sample reader of the approximate
-plane (``sample_data_for``, ``execution/approx_exec.py``; item 2.4), so
-the serve path writes samples but reads none.
+Not ported yet (``ROADMAP.md``): the fleet fanout (item A.10), and the
+sample reader of the approximate plane (``sample_data_for``,
+``execution/approx_exec.py``; item A.2.4), so the serve path writes
+samples but reads none.
 """
 
 from __future__ import annotations
@@ -351,7 +355,7 @@ def _cell_partials(cells, key: Optional[str], ops, device) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Capture (create time)
+# Capture (create, refresh and optimize time) and vacuum
 # ---------------------------------------------------------------------------
 
 
@@ -417,7 +421,7 @@ def capture_index_dir(dir_path: str, index, conf=None, device=None) -> bool:
 
 
 def capture_safely(dir_path: str, index, conf=None, device=None) -> None:
-    """The create action's capture entry on ``device`` (None is cuda): the
+    """The lifecycle actions' capture entry on ``device`` (None is cuda): the
     sidecars are a precomputed optimization (the serve path backfills
     without them), so a fault of the data (``_DATA_FAULTS``) logs and
     writes none. A kernel that fails to build or launch fails the build,
@@ -427,6 +431,53 @@ def capture_safely(dir_path: str, index, conf=None, device=None) -> None:
         capture_index_dir(dir_path, index, conf, device)
     except _DATA_FAULTS as exc:
         _log.warning("aggstate capture failed for %s: %s", dir_path, exc)
+
+
+def prune_missing(dir_path: str) -> None:
+    """Vacuum support: rewrite the sidecars of a RETAINED version dir to
+    drop the entries and sample rows of files that no longer exist (the
+    sidecar travels with the files it describes; a whole dir's sidecars
+    go with the dir). Best effort: a stale entry is also defused by the
+    per-file (size, mtime_ns) check at assembly. The rewrite is the
+    reference's, byte for byte (indented, sorted keys, temp file, fsync,
+    atomic replace)."""
+    side_path = os.path.join(dir_path, SIDECAR_NAME)
+    try:
+        with open(side_path, "r", encoding="utf-8") as fh:
+            doc = json.load(fh)
+        kept = {
+            base: entry
+            for base, entry in doc.get("files", {}).items()
+            if os.path.exists(os.path.join(dir_path, base))
+        }
+        if len(kept) != len(doc.get("files", {})):
+            if kept:
+                doc["files"] = kept
+                tmp = f"{side_path}.tmp.{os.getpid()}"
+                with open(tmp, "w", encoding="utf-8") as fh:
+                    json.dump(doc, fh, indent=2, sort_keys=True)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+                os.replace(tmp, side_path)
+            else:
+                os.unlink(side_path)
+    except (OSError, ValueError):
+        pass
+    sample_path = os.path.join(dir_path, SAMPLE_NAME)
+    try:
+        if os.path.exists(sample_path):
+            table = pq.read_table(sample_path)
+            bases = table.column("__file").to_pylist()
+            keep = np.array([os.path.exists(os.path.join(dir_path, b)) for b in bases])
+            if not keep.all():
+                if keep.any():
+                    tmp = sample_path + f".tmp.{os.getpid()}"
+                    pq.write_table(table.filter(pa.array(keep)), tmp)
+                    os.replace(tmp, sample_path)
+                else:
+                    os.unlink(sample_path)
+    except (OSError, ValueError, KeyError, pa.ArrowInvalid):
+        pass
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,18 @@ returns the index object plus its data).
 from __future__ import annotations
 
 import abc
+import enum
 from typing import Dict, List
+
+from hyperspace_tpu_torch.constants import LINEAGE_PROPERTY
+
+
+class UpdateMode(enum.Enum):
+    """How refreshed index data combines with the previous version
+    (Index.scala:162-168)."""
+
+    MERGE = "merge"  # new version dir adds to previous content
+    OVERWRITE = "overwrite"  # new version dir replaces previous content
 
 
 class Index(abc.ABC):
@@ -43,11 +54,41 @@ class Index(abc.ABC):
     def referenced_columns(self) -> List[str]:
         return list(self.indexed_columns) + list(self.included_columns)
 
-    # -- data-plane operations (Index.scala write; optimize/refresh are
-    # ported with the lifecycle, ROADMAP queue A item 6) ----------------
+    # -- data-plane operations (Index.scala write/optimize/refresh*) --------
     @abc.abstractmethod
     def write(self, ctx, index_data) -> None:
         """Write ``index_data`` into ``ctx.index_data_path``."""
+
+    @abc.abstractmethod
+    def optimize(self, ctx, files_to_optimize: List[str]) -> None:
+        """Rewrite ``files_to_optimize`` (index files of the previous
+        version) compacted into ``ctx.index_data_path``."""
+
+    @abc.abstractmethod
+    def refresh_incremental(
+        self, ctx, appended_df, deleted_source_file_ids, previous_content
+    ):
+        """Index the appended source files (``appended_df``, or None) and
+        drop the rows of the deleted ones (lineage ids) into
+        ``ctx.index_data_path``; returns ``(index, UpdateMode)``."""
+
+    @abc.abstractmethod
+    def refresh_full(self, ctx, df) -> "Index":
+        """Rebuild from the current source; returns the rebuilt Index (its
+        schema may differ if source types changed)."""
+
+    @property
+    def lineage_enabled(self) -> bool:
+        """Whether the index data carries the lineage column (the
+        ``lineage`` property recorded at create)."""
+        props = getattr(self, "properties", {})
+        return str(props.get(LINEAGE_PROPERTY, "false")).lower() == "true"
+
+    @property
+    def can_handle_deleted_files(self) -> bool:
+        """Whether an incremental refresh can drop a deleted source file's
+        rows (Index.canHandleDeletedFiles)."""
+        return False
 
     @abc.abstractmethod
     def statistics(self, extended: bool = False) -> dict:

@@ -17,16 +17,16 @@ saveWithBuckets``, CoveringIndex.scala:56-71), single device:
       → stable sort by (bucket, key)             (ops/sort, torch.sort)
       → host write: one parquet file per bucket under v__=N/
 
-Optimize and refresh are ported with the rest of the lifecycle (ROADMAP
-queue A item 6).
+Optimize and refresh (CoveringIndexTrait.scala:57-134) run the same
+pipeline over the rows they rewrite, into a new version directory.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
-from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait
+from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait, UpdateMode
 from hyperspace_tpu_torch.indexes.registry import register_index
 
 
@@ -71,6 +71,12 @@ class CoveringIndex(Index):
     def included_columns(self) -> List[str]:
         return list(self._included_columns)
 
+    @property
+    def can_handle_deleted_files(self) -> bool:
+        # deletes are compensated through the lineage column
+        # (CoveringIndexTrait)
+        return self.lineage_enabled
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
         return {
@@ -101,6 +107,36 @@ class CoveringIndex(Index):
         covering_build.write_bucketed(
             ctx, index_data, self._indexed_columns, self.num_buckets
         )
+
+    def optimize(self, ctx, files_to_optimize: List[str]) -> None:
+        """Read the listed index files and rewrite them bucketed
+        (CoveringIndexTrait.optimize:130-134)."""
+        from hyperspace_tpu_torch.indexes import covering_build
+
+        covering_build.rewrite_files(
+            ctx, files_to_optimize, self._indexed_columns, self.num_buckets
+        )
+
+    def refresh_incremental(
+        self, ctx, appended_df, deleted_source_file_ids, previous_content
+    ) -> Tuple["CoveringIndex", UpdateMode]:
+        """Index the appended source files' rows into the new version dir
+        (MERGE, co-bucketed with the previous files), or, when source files
+        were deleted, rewrite the previous index data minus their lineage
+        ids together with them (OVERWRITE)
+        (CoveringIndexTrait.refreshIncremental:57-106)."""
+        from hyperspace_tpu_torch.indexes import covering_build
+
+        return covering_build.refresh_incremental(
+            ctx, self, appended_df, deleted_source_file_ids, previous_content
+        )
+
+    def refresh_full(self, ctx, df) -> "CoveringIndex":
+        """Full rebuild from the current source state
+        (CoveringIndexTrait.refreshFull:108-126)."""
+        from hyperspace_tpu_torch.indexes import covering_build
+
+        return covering_build.refresh_full(ctx, self, df)
 
     def statistics(self, extended: bool = False) -> Dict[str, str]:
         """The index's own columns of ``hs.indexes()`` / ``hs.index(name)``

@@ -14,8 +14,16 @@ The bucket files are byte-identical to the reference's: the same rows in
 the same order, written with the same encoding decision (computed once on
 the pre-sort input). The reference's mesh exchange, streaming waves under
 a memory budget and pipelined per-bucket writer are not ported yet
-(ROADMAP queue A items 3 and 9); the last one writes the same bytes as the
-``bucketize`` → ``write_bucket_files`` route taken here.
+(ROADMAP queue A items A.9, A.8 and A.1.3); the last one writes the same
+bytes as the ``bucketize`` → ``write_bucket_files`` route taken here.
+
+Optimize and refresh (CoveringIndexTrait:32-135) run the same tail: an
+incremental refresh hashes and sorts the appended source files' rows, or,
+when source files were deleted, the previous index data minus the rows
+whose lineage id is among the deleted (``SourceScan.excluded_lineage_ids``)
+together with the appended rows; a full refresh rebuilds from the source;
+optimize rewrites the listed index files. Every input is materialized
+whole (the reference streams it beyond its memory budget, A.8).
 
 Stage wall times of the latest build (scan / hash_shuffle / sort / write)
 land in ``session.build_stats``; the hash and sort stages include the
@@ -35,6 +43,7 @@ import torch
 
 from hyperspace_tpu_torch.constants import DATA_FILE_NAME_ID, LINEAGE_PROPERTY
 from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.indexes.base import UpdateMode
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.ops.hash import bucket_ids
@@ -81,13 +90,56 @@ class SourceScan:
 
     files: Tuple[str, ...]
     fmt: str
-    columns: Tuple[str, ...]
+    columns: Tuple[str, ...]  # projection to read
     file_ids: Optional[Dict[str, int]]  # lineage ids (None = lineage off)
+    select_cols: Optional[Tuple[str, ...]] = None  # output column order
+    # rows whose stored lineage id is listed are dropped at materialize
+    # time: a refresh's delete compensation over previous index data
+    excluded_lineage_ids: Optional[Tuple[int, ...]] = None
 
     def materialize(self) -> ColumnarBatch:
-        return _scan_with_lineage(
+        batch = _scan_with_lineage(
             self.files, self.fmt, list(self.columns), self.file_ids
         )
+        if self.excluded_lineage_ids:
+            lineage = batch.column(DATA_FILE_NAME_ID).values
+            keep = ~np.isin(
+                lineage, np.array(self.excluded_lineage_ids, dtype=np.int64)
+            )
+            batch = batch.filter(keep)
+        if self.select_cols is not None:
+            batch = batch.select(list(self.select_cols))
+        return batch
+
+    def select(self, cols: Sequence[str]) -> "SourceScan":
+        return dataclasses.replace(self, select_cols=tuple(cols))
+
+
+def materialize(ctx, scans: Sequence[SourceScan]) -> ColumnarBatch:
+    """The scans' rows as one batch, in order, their read timed as the
+    build stage ``scan``: the materialized branch of the reference's
+    ``lazy_or_materialized`` (covering_build.py:466; its streamed branch
+    past the build memory budget is A.8)."""
+    t0 = _time.perf_counter()
+    parts = [s.materialize() for s in scans]
+    out = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+    _stage_add(ctx, "scan", t0)
+    return out
+
+
+def previous_index_scan(
+    previous_content, schema_cols: Sequence[str], deleted_source_file_ids
+) -> SourceScan:
+    """Scan of a previous index version's data files minus the rows of the
+    deleted source files (the refresh's delete compensation input)."""
+    return SourceScan(
+        files=tuple(previous_content.files),
+        fmt="parquet",
+        columns=tuple(schema_cols),
+        file_ids=None,
+        select_cols=tuple(schema_cols),
+        excluded_lineage_ids=tuple(deleted_source_file_ids),
+    )
 
 
 def resolve_index_schema(rel, config, properties: Dict[str, str]):
@@ -176,10 +228,7 @@ def create_covering_index(ctx, source_df, config, properties: Dict[str, str]):
     """(CoveringIndex, index_data batch) — the reference's
     ``CoveringIndexConfig.createIndex:43-61``."""
     index, scan = prepare_covering_index(ctx, source_df, config, properties)
-    t0 = _time.perf_counter()
-    batch = scan.materialize()
-    _stage_add(ctx, "scan", t0)
-    return index, batch
+    return index, materialize(ctx, [scan])
 
 
 def source_file_infos(session, plan_relation) -> List[Tuple[str, int, int]]:
@@ -260,3 +309,89 @@ def write_bucketed(
     )
     _stage_add(ctx, "write", t0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Optimize / refresh data plane (CoveringIndexTrait:57-134)
+# ---------------------------------------------------------------------------
+
+
+def rewrite_files(
+    ctx, files_to_optimize: List[str], indexed_cols: List[str], num_buckets: int
+) -> List[str]:
+    """Optimize: read the listed index files and rewrite them compacted
+    (CoveringIndexTrait.optimize:130-134, 'read files, then write')."""
+    ctx.session.build_stats.clear()
+    t0 = _time.perf_counter()
+    batch = ColumnarBatch.from_arrow(pio.read_table(files_to_optimize, None))
+    _stage_add(ctx, "scan", t0)
+    return write_bucketed(ctx, batch, indexed_cols, num_buckets)
+
+
+def refresh_scans(
+    ctx, index, config, appended_df, deleted_source_file_ids, previous_content
+):
+    """The inputs of an incremental refresh of a covering-family index, as
+    scans of the index's columns (lineage last): the appended source files
+    resolved through ``config`` (their lineage ids registered in
+    ``ctx.file_id_tracker``) and, when
+    source files were deleted, the previous index data minus their rows.
+    Returns ``(scans, UpdateMode)``."""
+    schema_cols = list(index.indexed_columns) + list(index.included_columns)
+    if index.lineage_enabled:
+        schema_cols.append(DATA_FILE_NAME_ID)
+    scans = []
+    if appended_df is not None:
+        _covering, scan = prepare_covering_index(
+            ctx, appended_df, config, dict(index.properties)
+        )
+        scans.append(scan.select(schema_cols))
+    if deleted_source_file_ids:
+        if not index.lineage_enabled:
+            raise HyperspaceException(
+                "Cannot handle deleted source files without lineage"
+            )
+        scans.append(
+            previous_index_scan(previous_content, schema_cols, deleted_source_file_ids)
+        )
+        return scans, UpdateMode.OVERWRITE
+    return scans, UpdateMode.MERGE
+
+
+def refresh_incremental(
+    ctx, index, appended_df, deleted_source_file_ids: List[int], previous_content
+):
+    """CoveringIndexTrait.refreshIncremental:57-106: the appended source
+    files' rows, and for deleted source files the previous index data
+    minus their lineage ids, hashed, sorted and written into the new
+    version dir. Returns ``(index, UpdateMode.MERGE | OVERWRITE)``."""
+    ctx.session.build_stats.clear()
+    scans, mode = refresh_scans(
+        ctx, index, _config_of(index), appended_df, deleted_source_file_ids,
+        previous_content,
+    )
+    if scans:
+        batch = materialize(ctx, scans)
+        write_bucketed(ctx, batch, index.indexed_columns, index.num_buckets)
+    return index, mode
+
+
+def refresh_full(ctx, index, df):
+    """Rebuild the whole index from the current source
+    (CoveringIndexTrait.refreshFull:108-126). Returns the REBUILT index:
+    its schema_json reflects the current source types, which may have
+    changed since the original build."""
+    new_index, batch = create_covering_index(
+        ctx, df, _config_of(index), dict(index.properties)
+    )
+    write_bucketed(ctx, batch, new_index.indexed_columns, new_index.num_buckets)
+    return new_index
+
+
+def _config_of(index, config_cls=None):
+    """The config a refresh of ``index`` builds through: ``config_cls``
+    (CoveringIndexConfig by default) over its columns."""
+    if config_cls is None:
+        from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig as config_cls
+
+    return config_cls("__refresh__", index.indexed_columns, index.included_columns)

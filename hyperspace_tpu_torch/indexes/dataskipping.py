@@ -10,8 +10,10 @@ files (``DataSkippingFileIndex.scala:32-74``).
 
 The sketches run on the session's device (the Bloom filter sketch
 through kernel B7). The sketch table is written as the reference writes
-it, byte for byte. Optimize and incremental or full refresh wait for the
-lifecycle (ROADMAP queue A item 3).
+it, byte for byte. An incremental refresh sketches only the appended
+files (a deleted file's row is dropped, no lineage needed), a full
+refresh sketches every file again, optimize rewrites the listed tables
+as one.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import pyarrow as pa
 
 from hyperspace_tpu_torch.constants import DATA_FILE_NAME_ID
 from hyperspace_tpu_torch.exceptions import HyperspaceException
-from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait
+from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait, UpdateMode
 from hyperspace_tpu_torch.indexes.registry import register_index
 from hyperspace_tpu_torch.indexes.sketches import Sketch, sketch_from_dict
 from hyperspace_tpu_torch.io import parquet as pio
@@ -73,6 +75,11 @@ class DataSkippingIndex(Index):
     @property
     def included_columns(self) -> List[str]:
         return []
+
+    @property
+    def can_handle_deleted_files(self) -> bool:
+        # one sketch row a file: a deletion drops rows (no lineage needed)
+        return True
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
@@ -135,6 +142,38 @@ class DataSkippingIndex(Index):
     def write(self, ctx, index_data: pa.Table) -> None:
         os.makedirs(ctx.index_data_path, exist_ok=True)
         pio.write_table(os.path.join(ctx.index_data_path, SKETCH_FILE_NAME), index_data)
+
+    def optimize(self, ctx, files_to_optimize: List[str]) -> None:
+        self.write(ctx, pio.read_table(files_to_optimize, None))
+
+    def refresh_incremental(
+        self, ctx, appended_df, deleted_source_file_ids, previous_content
+    ) -> Tuple["DataSkippingIndex", UpdateMode]:
+        """The appended files' sketch rows (MERGE), or, when source files
+        were deleted, the previous sketch rows without theirs followed by
+        the appended ones (OVERWRITE)."""
+        ctx.session.build_stats.clear()
+        parts = []
+        if appended_df is not None:
+            rel = appended_df.logical_plan.collect_leaves()[0].relation
+            parts.append(self.build_sketch_rows(ctx, rel))
+        if deleted_source_file_ids:
+            old = pio.read_table(list(previous_content.files), None)
+            ids = np.asarray(old.column(DATA_FILE_NAME_ID))
+            keep = ~np.isin(ids, np.array(deleted_source_file_ids, dtype=np.int64))
+            parts.append(old.filter(pa.array(keep)))
+            mode = UpdateMode.OVERWRITE
+        else:
+            mode = UpdateMode.MERGE
+        if parts:
+            self.write(ctx, pa.concat_tables(parts, promote_options="permissive"))
+        return self, mode
+
+    def refresh_full(self, ctx, df) -> "DataSkippingIndex":
+        ctx.session.build_stats.clear()
+        rel = df.logical_plan.collect_leaves()[0].relation
+        self.write(ctx, self.build_sketch_rows(ctx, rel))
+        return self
 
     # -- query-time translation (translateFilterCondition:143-185) ----------
     def translate_filter(

@@ -493,7 +493,7 @@ def capture_index_dir(dir_path: str, index, device=None) -> bool:
 
 
 def capture_safely(dir_path: str, index, device=None) -> None:
-    """The create action's capture entry: a zone-map sidecar is a
+    """The lifecycle actions' capture entry: a zone-map sidecar is a
     precomputed optimization (the serve path backfills from footers
     without it), so a fault of the data (``OSError``, ``ValueError``,
     pyarrow's errors) never fails a build. A kernel build or launch error

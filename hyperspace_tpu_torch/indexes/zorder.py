@@ -14,12 +14,14 @@ row groups. Build:
          ceil(bytes / targetSourceBytesPerPartition) files
          ``part-{i:05d}-zorder.parquet``
 
-The files are byte-identical to the reference's. Its streamed two-pass
-build for sources past the memory budget waits for the streaming build
-(ROADMAP A.8); optimize and incremental or full refresh wait for the
-lifecycle (A.3). Stage wall times (scan / z_address / sort /
-write) land in ``session.build_stats``; z_address and sort include the
-transfers to and from the device.
+The files are byte-identical to the reference's. An incremental refresh
+z-sorts only its new data (the appended files' rows, or, after a delete,
+the previous index data minus the deleted files' lineage ids with them),
+as the reference does; optimize rewrites the listed files, a full refresh
+rebuilds. Its streamed two-pass build for sources past the memory budget
+waits for the streaming build (ROADMAP A.8). Stage wall times (scan /
+z_address / sort / write) land in ``session.build_stats``; z_address and
+sort include the transfers to and from the device.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ from __future__ import annotations
 import math
 import os
 import time as _time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
-from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait
+from hyperspace_tpu_torch.indexes.base import Index, IndexConfigTrait, UpdateMode
 from hyperspace_tpu_torch.indexes.registry import register_index
 from hyperspace_tpu_torch.io import parquet as pio
 
@@ -78,6 +80,10 @@ class ZOrderCoveringIndex(Index):
     def included_columns(self) -> List[str]:
         return list(self._included_columns)
 
+    @property
+    def can_handle_deleted_files(self) -> bool:
+        return self.lineage_enabled
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
         return {
@@ -107,6 +113,56 @@ class ZOrderCoveringIndex(Index):
         write_zordered(
             ctx, index_data, self._indexed_columns, self.target_bytes_per_partition
         )
+
+    def optimize(self, ctx, files_to_optimize: List[str]) -> None:
+        from hyperspace_tpu_torch.indexes.covering_build import _stage_add
+        from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+
+        ctx.session.build_stats.clear()
+        t0 = _time.perf_counter()
+        batch = ColumnarBatch.from_arrow(pio.read_table(files_to_optimize, None))
+        _stage_add(ctx, "scan", t0)
+        write_zordered(ctx, batch, self._indexed_columns, self.target_bytes_per_partition)
+
+    def refresh_incremental(
+        self, ctx, appended_df, deleted_source_file_ids, previous_content
+    ) -> Tuple["ZOrderCoveringIndex", UpdateMode]:
+        """Like the covering index, but the new data is z-sorted on its own
+        (a merged global re-sort would be a full rebuild; the reference
+        likewise z-sorts only the delta)."""
+        from hyperspace_tpu_torch.indexes import covering_build
+
+        ctx.session.build_stats.clear()
+        config = covering_build._config_of(self, ZOrderCoveringIndexConfig)
+        scans, mode = covering_build.refresh_scans(
+            ctx, self, config, appended_df, deleted_source_file_ids, previous_content
+        )
+        if scans:
+            write_zordered(
+                ctx,
+                covering_build.materialize(ctx, scans),
+                self._indexed_columns,
+                self.target_bytes_per_partition,
+            )
+        return self, mode
+
+    def refresh_full(self, ctx, df) -> "ZOrderCoveringIndex":
+        from hyperspace_tpu_torch.indexes import covering_build
+
+        config = covering_build._config_of(self, ZOrderCoveringIndexConfig)
+        covering, batch = covering_build.create_covering_index(
+            ctx, df, config, dict(self.properties)
+        )
+        # create_covering_index builds a CoveringIndex; re-wrap with our kind
+        rebuilt = ZOrderCoveringIndex(
+            covering.indexed_columns,
+            covering.included_columns,
+            covering.schema_json,
+            self.target_bytes_per_partition,
+            dict(self.properties),
+        )
+        rebuilt.write(ctx, batch)
+        return rebuilt
 
     def statistics(self, extended: bool = False) -> Dict[str, str]:
         return {

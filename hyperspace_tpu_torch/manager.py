@@ -1,11 +1,11 @@
 """Index collection manager: dispatches lifecycle operations to Actions.
 
 Reference: ``index/IndexCollectionManager.scala:28-206`` (per-index
-log/data managers via PathResolver, action dispatch) and
+log/data managers via PathResolver and the factories, action dispatch
+with refresh-mode and vacuum-state branching) and
 ``index/CachingIndexCollectionManager.scala`` (TTL read-cache of all log
-entries, invalidated on any mutation). This slice dispatches create; the
-other actions and recovery are ported with the lifecycle (ROADMAP queue A
-item 6).
+entries, invalidated on any mutation). Recovery (``recover``) comes with
+ROADMAP A.3b.
 """
 
 from __future__ import annotations
@@ -13,9 +13,10 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from hyperspace_tpu_torch.metadata.data_manager import IndexDataManager
+from hyperspace_tpu_torch import constants as C
+from hyperspace_tpu_torch.constants import States
+from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
-from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
 from hyperspace_tpu_torch.metadata.path_resolver import PathResolver
 
 
@@ -25,8 +26,13 @@ class IndexCollectionManager:
         self.path_resolver = PathResolver(session.conf)
 
     def _managers(self, index_name: str):
+        from hyperspace_tpu_torch import factories
+
         path = self.path_resolver.get_index_path(index_name)
-        return IndexLogManager(path), IndexDataManager(path)
+        return (
+            factories.create_log_manager(path),
+            factories.create_data_manager(path),
+        )
 
     # -- operations (IndexManager trait, index/IndexManager.scala:24-127) ---
     def create(self, df, index_config) -> None:
@@ -35,20 +41,90 @@ class IndexCollectionManager:
         log_mgr, data_mgr = self._managers(index_config.index_name)
         CreateAction(self.session, df, index_config, log_mgr, data_mgr).run()
 
+    def delete(self, index_name: str) -> None:
+        from hyperspace_tpu_torch.actions.delete import DeleteAction
+
+        log_mgr, _ = self._managers(index_name)
+        DeleteAction(self.session, index_name, log_mgr).run()
+
+    def restore(self, index_name: str) -> None:
+        from hyperspace_tpu_torch.actions.delete import RestoreAction
+
+        log_mgr, _ = self._managers(index_name)
+        RestoreAction(self.session, index_name, log_mgr).run()
+
+    def vacuum(self, index_name: str) -> None:
+        """State-dependent: DELETED -> hard delete everything; ACTIVE ->
+        vacuum outdated versions (IndexCollectionManager.vacuum:62-81)."""
+        from hyperspace_tpu_torch.actions.vacuum import (
+            VacuumAction,
+            VacuumOutdatedAction,
+        )
+
+        log_mgr, data_mgr = self._managers(index_name)
+        entry = log_mgr.get_latest_log()
+        if entry is None:
+            raise HyperspaceException(f"Index not found: {index_name!r}")
+        if entry.state == States.DELETED:
+            VacuumAction(self.session, index_name, log_mgr).run()
+        elif entry.state == States.ACTIVE:
+            VacuumOutdatedAction(self.session, index_name, log_mgr, data_mgr).run()
+        else:
+            raise HyperspaceException(f"Cannot vacuum index in state {entry.state}")
+
+    def refresh(self, index_name: str, mode: str) -> None:
+        from hyperspace_tpu_torch.actions.refresh import (
+            RefreshAction,
+            RefreshIncrementalAction,
+            RefreshQuickAction,
+        )
+
+        mode = (mode or C.REFRESH_MODE_FULL).lower()
+        if mode not in C.REFRESH_MODES:
+            raise HyperspaceException(f"Unsupported refresh mode: {mode!r}")
+        log_mgr, data_mgr = self._managers(index_name)
+        cls = {
+            C.REFRESH_MODE_FULL: RefreshAction,
+            C.REFRESH_MODE_INCREMENTAL: RefreshIncrementalAction,
+            C.REFRESH_MODE_QUICK: RefreshQuickAction,
+        }[mode]
+        cls(self.session, index_name, log_mgr, data_mgr).run()
+
+    def optimize(self, index_name: str, mode: str) -> None:
+        from hyperspace_tpu_torch.actions.optimize import OptimizeAction
+
+        mode = (mode or C.OPTIMIZE_MODE_QUICK).lower()
+        if mode not in C.OPTIMIZE_MODES:
+            raise HyperspaceException(f"Unsupported optimize mode: {mode!r}")
+        log_mgr, data_mgr = self._managers(index_name)
+        OptimizeAction(self.session, index_name, log_mgr, data_mgr, mode).run()
+
+    def cancel(self, index_name: str) -> None:
+        from hyperspace_tpu_torch.actions.cancel import CancelAction
+
+        log_mgr, _ = self._managers(index_name)
+        CancelAction(self.session, index_name, log_mgr).run()
+
     # -- introspection ------------------------------------------------------
     def get_index_log_entry(self, index_name: str) -> Optional[IndexLogEntry]:
         log_mgr, _ = self._managers(index_name)
         return log_mgr.get_latest_stable_log()
 
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        from hyperspace_tpu_torch import factories
+
         out = []
         for path in self.path_resolver.all_index_paths():
-            entry = IndexLogManager(path).get_latest_stable_log()
+            entry = factories.create_log_manager(path).get_latest_stable_log()
             if entry is None:
                 continue
             if states is None or entry.state in states:
                 out.append(entry)
         return sorted(out, key=lambda e: e.name)
+
+    def get_index_versions(self, index_name: str, states: List[str]) -> List[int]:
+        log_mgr, _ = self._managers(index_name)
+        return log_mgr.get_index_versions(states)
 
 
 class CachingIndexCollectionManager(IndexCollectionManager):
@@ -89,3 +165,21 @@ class CachingIndexCollectionManager(IndexCollectionManager):
 
     def create(self, df, index_config) -> None:
         self._mutate(super().create, df, index_config)
+
+    def delete(self, index_name: str) -> None:
+        self._mutate(super().delete, index_name)
+
+    def restore(self, index_name: str) -> None:
+        self._mutate(super().restore, index_name)
+
+    def vacuum(self, index_name: str) -> None:
+        self._mutate(super().vacuum, index_name)
+
+    def refresh(self, index_name: str, mode: str) -> None:
+        self._mutate(super().refresh, index_name, mode)
+
+    def optimize(self, index_name: str, mode: str) -> None:
+        self._mutate(super().optimize, index_name, mode)
+
+    def cancel(self, index_name: str) -> None:
+        self._mutate(super().cancel, index_name)

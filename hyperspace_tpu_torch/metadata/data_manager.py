@@ -8,9 +8,19 @@ written (what later makes refresh, restore and time travel cheap).
 from __future__ import annotations
 
 import os
+import re
 from typing import List, Optional
 
 from hyperspace_tpu_torch.constants import INDEX_VERSION_DIR_PREFIX
+from hyperspace_tpu_torch.utils import files as file_utils
+
+_VERSION_RE = re.compile(rf"{re.escape(INDEX_VERSION_DIR_PREFIX)}=(\d+)(?:/|$)")
+
+
+def version_from_path(path: str) -> Optional[int]:
+    """The ``N`` of the ``v__=N`` directory a path lies in, or None."""
+    m = _VERSION_RE.search(path.replace("\\", "/"))
+    return int(m.group(1)) if m else None
 
 
 class IndexDataManager:
@@ -38,3 +48,6 @@ class IndexDataManager:
     def get_latest_version_id(self) -> Optional[int]:
         versions = self.get_all_versions()
         return versions[-1] if versions else None
+
+    def delete(self, version: int) -> None:
+        file_utils.delete(self.get_path(version))

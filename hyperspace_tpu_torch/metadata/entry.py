@@ -559,6 +559,26 @@ class IndexLogEntry(LogEntry):
     def copy(self) -> "IndexLogEntry":
         return IndexLogEntry.from_dict(self.to_dict())
 
+    def copy_with_update(
+        self, appended: Content, deleted: Content, fingerprint: LogicalPlanFingerprint
+    ) -> "IndexLogEntry":
+        """Quick refresh: record the delta and the new fingerprint without
+        touching index data (IndexLogEntry.copyWithUpdate, used by
+        RefreshQuickAction:70-79)."""
+        out = self.copy()
+        rel = out.relation
+        prev = rel.update
+        if prev:
+            if prev.appended_files:
+                appended = prev.appended_files.merge(appended)
+            if prev.deleted_files:
+                deleted = prev.deleted_files.merge(deleted)
+        rel.update = Update(
+            appended if appended.files else None, deleted if deleted.files else None
+        )
+        out.fingerprint = fingerprint
+        return out
+
     # -- tags (IndexLogEntry.scala:537-589) ---------------------------------
     def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
         self._tags[(plan_key, tag)] = value

@@ -14,7 +14,7 @@ actions conflict at their ``begin()`` write and exactly one proceeds.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 from hyperspace_tpu_torch.constants import (
     HYPERSPACE_LOG_DIR,
@@ -98,6 +98,35 @@ class IndexLogManager:
                 return entry
         return None
 
+    def get_index_versions(self, states: List[str]) -> List[int]:
+        """Log ids whose entry state is in ``states``
+        (getIndexVersions:129-142), newest first."""
+        latest = self.get_latest_id()
+        if latest is None:
+            return []
+        out = []
+        for log_id in range(latest, -1, -1):
+            try:
+                entry = self.get_log(log_id)
+            except LogCorruptedError:
+                continue
+            if entry is not None and entry.state in states:
+                out.append(log_id)
+        return out
+
+    def get_latest_stable_pointer_id(self) -> Optional[int]:
+        """The id the latestStable POINTER file records, without the
+        backward-scan fallback: None when the pointer is missing, torn, or
+        names a non-stable entry."""
+        p = self._latest_stable_path
+        if not os.path.isfile(p):
+            return None
+        try:
+            entry = _parse_entry(p)
+        except LogCorruptedError:
+            return None
+        return entry.id if entry.state in States.STABLE_STATES else None
+
     # -- writes -------------------------------------------------------------
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
         """Create log file ``log_id``; False on OCC conflict (writeLog:178-194).
@@ -124,3 +153,10 @@ class IndexLogManager:
             self._latest_stable_path, json_utils.to_json(entry.to_dict(), indent=2)
         )
         return True
+
+    def delete_latest_stable_log(self) -> None:
+        file_utils.delete(self._latest_stable_path)
+
+    def delete_log(self) -> None:
+        """Remove the whole log dir (vacuum)."""
+        file_utils.delete(self.log_dir)

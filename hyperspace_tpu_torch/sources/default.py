@@ -55,6 +55,18 @@ class DefaultFileBasedRelation(FileBasedRelation):
             options=dict(self.plan_relation.options),
         )
 
+    def refresh(self) -> "DefaultFileBasedRelation":
+        """The relation over the files its root paths hold now."""
+        import dataclasses
+
+        from hyperspace_tpu_torch.io.parquet import expand_path
+
+        files: List[str] = []
+        for p in self.plan_relation.root_paths:
+            files.extend(expand_path(p, self.plan_relation.fmt))
+        rel = dataclasses.replace(self.plan_relation, files=tuple(files))
+        return DefaultFileBasedRelation(self.session, rel)
+
 
 class DefaultFileBasedSource(FileBasedSourceProvider):
     name = "default"

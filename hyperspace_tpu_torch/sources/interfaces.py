@@ -46,6 +46,11 @@ class FileBasedRelation(abc.ABC):
         (DefaultFileBasedRelation.createRelationMetadata:129-191)."""
 
     # -- lifecycle hooks ----------------------------------------------------
+    def refresh(self) -> "FileBasedRelation":
+        """Re-list the current state of the source (used by the refresh
+        actions)."""
+        return self
+
     def enrich_index_properties(
         self, properties: Dict[str, str], log_version: Optional[int] = None
     ) -> Dict[str, str]:

@@ -10,6 +10,7 @@ concurrency (``index/IndexLogManager.scala:178-194``).
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 from typing import List, Tuple
 
@@ -114,6 +115,17 @@ def atomic_overwrite(path: str, text: str) -> None:
         except FileNotFoundError:
             pass
         raise
+
+
+def delete(path: str) -> None:
+    """Recursive delete, ignore-missing (FileUtils.delete)."""
+    if os.path.isdir(path) and not os.path.islink(path):
+        shutil.rmtree(path, ignore_errors=True)
+    else:
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            pass
 
 
 def list_leaf_files(

@@ -14,9 +14,10 @@ bit), with the reference's ``last_aggplane_stats``. An index built by
 either package is answered from metadata by the other. The lazy backfill
 covers an index without a sidecar and a sidecar entry gone stale, and a
 file rewritten under the same name is read again, never served stale.
-Cases kept for later items: incremental refresh and vacuum (queue A
-item 3), the serve cache's ``aggstate`` kind (item 8), the approximate
-plane (item 2.4)."""
+The lifecycle's cases (incremental refresh, vacuum) are in
+``tests/test_torch_lifecycle_indexes.py``. Cases kept for later items:
+the serve cache's ``aggstate`` kind (item 8), the approximate plane
+(item 2.4)."""
 
 import json
 import os

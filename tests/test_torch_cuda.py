@@ -23,6 +23,7 @@ import torch_b5f_cases
 import torch_b6_cases
 import torch_b7_cases
 from torch_b5_cases import B5_CASES, b5_kernel_errors, b5_layouts, groups
+from torch_index_files import index_files
 
 pytestmark = pytest.mark.cuda
 
@@ -566,3 +567,132 @@ def test_b7_launch_failure_fails_the_query_and_does_not_abstain(cuda_device, tmp
         sess.optimize(q.logical_plan)
     with pytest.raises(KernelLaunchError):
         q.collect()
+
+
+# -- the index lifecycle on the card ------------------------------------------
+
+
+def _lifecycle_source(root, rows=20_000):
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    d = root / "lc_src"
+    d.mkdir()
+    rng = np.random.default_rng(12)
+    for i in range(3):
+        pq.write_table(pa.table({"k": rng.integers(0, 5000, rows), "p": rng.integers(0, 50, rows),
+                                 "v": rng.normal(0, 5, rows)}), str(d / f"part{i}.parquet"))
+    return str(d), os.path.join(str(d), "part{}.parquet")
+
+
+def _lifecycle_config(kind):
+    from hyperspace_tpu_torch import (
+        CoveringIndexConfig,
+        DataSkippingIndexConfig,
+        ZOrderCoveringIndexConfig,
+    )
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
+
+    return {
+        "covering": lambda: CoveringIndexConfig("lc", ["k"], ["p", "v"]),
+        "zorder": lambda: ZOrderCoveringIndexConfig("lc", ["k", "p"], ["v"]),
+        "dataskipping": lambda: DataSkippingIndexConfig(
+            "lc", MinMaxSketch("k"), BloomFilterSketch("p", 0.01, 50)),
+    }[kind]()
+
+
+@pytest.mark.parametrize("kind", ["covering", "zorder", "dataskipping"])
+def test_lifecycle_on_the_card_equals_a_cpu_session(cuda_device, tmp_path, kind):
+    """An append and an incremental refresh, a full optimize (it compacts
+    the covering index's two files a bucket), a delete with an append (the
+    lineage rewrite) and a full refresh in a cuda and a cpu session over
+    one source: each action on the card launches its
+    kind's kernel (B1 for the covering index's hash, B6 for the z-order
+    interleave, B7 for the Bloom builds; the captures' B5f), and every
+    index file equals the cpu session's."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ops
+
+    src, part = _lifecycle_source(tmp_path)
+    kernel = {"covering": "murmur3_bucket_ids", "zorder": "zorder_interleave",
+              "dataskipping": "bloom_bits"}[kind]
+    sides = []
+    for device in (cuda_device, "cpu"):
+        sess = HyperspaceSession(device=device)
+        sess.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        sess.conf.set("hyperspace.index.num_buckets", 16)
+        sess.conf.set("hyperspace.index.lineage.enabled", True)
+        hs = Hyperspace(sess)
+        hs.create_index(sess.read.parquet(src), _lifecycle_config(kind))
+        sides.append((device, sess, hs))
+    rng = np.random.default_rng(4)
+
+    def append(name, n):
+        pq.write_table(pa.table({"k": rng.integers(0, 6000, n), "p": rng.integers(0, 50, n),
+                                 "v": rng.normal(0, 5, n)}), os.path.join(src, name))
+
+    steps = [
+        (lambda: append("part3.parquet", 500), ("refresh_index", "incremental")),
+        (lambda: None, ("optimize_index", "full")),
+        (lambda: (os.remove(part.format(0)), append("part4.parquet", 700)),
+         ("refresh_index", "incremental")),
+        (lambda: append("part5.parquet", 300), ("refresh_index", "full")),
+    ]
+    for change, (op, mode) in steps:
+        change()
+        for device, sess, hs in sides:
+            ops.reset_launch_counts()
+            getattr(hs, op)("lc", mode)
+            counts = ops.launch_counts()
+            if device != "cpu" and not (op == "optimize_index" and kind != "covering"):
+                assert counts[kernel] > 0, (op, mode, counts)
+                if kind != "dataskipping":
+                    assert counts["fused_filter_agg"] > 0, (op, mode, counts)
+            if device == "cpu":
+                assert not any(counts.values()), counts
+        got, want = (index_files(str(tmp_path / str(d) / "lc")) for d, _s, _h in sides)
+        assert got == want, (op, mode)
+    for device, sess, _hs in sides:
+        sess.enable_hyperspace()
+    q = [s.read.parquet(src) for _d, s, _h in sides]
+    rows = [df.filter((df["k"] >= 100) & (df["k"] < 400)).select("k", "p", "v").collect()
+            for df in q]
+    assert rows[0].equals(rows[1]) and rows[0].num_rows > 0
+
+
+def test_a_b1_fault_during_refresh_on_the_card_fails_it_and_leaves_the_transient_entry(
+    cuda_device, tmp_path, monkeypatch
+):
+    """An error code from B1's C entry on a CUDA tensor during a refresh
+    raises KernelLaunchError out of the action: the REFRESHING entry stays
+    at the log tip until cancel, and the refresh then runs."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+
+    src, _part = _lifecycle_source(tmp_path, rows=2000)
+    sess = HyperspaceSession(device=cuda_device)
+    sess.conf.set("hyperspace.system.path", str(tmp_path / "idx"))
+    hs = Hyperspace(sess)
+    hs.create_index(sess.read.parquet(src), CoveringIndexConfig("lc", ["k"], ["v"]))
+    pq.write_table(pa.table({"k": np.arange(10), "p": np.arange(10), "v": np.ones(10)}),
+                   os.path.join(src, "part9.parquet"))
+    monkeypatch.setattr(H, "_kernel_fn", lambda: (lambda *a: 700))
+    with pytest.raises(KernelLaunchError):
+        hs.refresh_index("lc", "incremental")
+    log = sess.index_manager._managers("lc")[0]
+    assert log.get_latest_log().state == "REFRESHING"
+    monkeypatch.undo()
+    hs.cancel("lc")
+    hs.refresh_index("lc", "incremental")
+    assert log.get_latest_log().state == "ACTIVE"
