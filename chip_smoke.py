@@ -60,7 +60,7 @@ against its plain PyTorch version on the card:
      to the plain version's on the CPU after every chunk, each case timed
      cold;
    * the z-order interleave (kernel B6) bit-equal to the plain version on
-     a CPU copy over ``tests/torch_b6_cases.py`` (n from 0 to 6,001,215,
+     the same card tensor over ``tests/torch_b6_cases.py`` (n from 0 to 6,001,215,
      k in {1, 2, 3, 4}, bits in {1, 8, 11, 16, 31, 32}, words at 0, at
      2^bits - 1 and random, views 4 bytes past a 16-byte boundary); timed
      cold at 6,001,215 rows of 16-bit words for k = 1, 2, 3 beside each
@@ -198,9 +198,9 @@ against its plain PyTorch version on the card:
    for bit, q_zrange as a multiset). Each index's ``_zonemaps.json`` (with
    ``rg_zspans`` and the ``zorder`` spec) and ``_aggstate.json`` equal the
    docs a cpu session computes over its files apart from ``mtime_ns``.
-   Every B6 call of the phase is recorded (``B6Inputs``) and held
-   bit-equal to the plain version on a CPU copy; the z-order lexsort is
-   timed cold on each build's planes.
+   Every B6 and B5f call of the creates is recorded (``KernelCalls``,
+   the one recorder of phases 10-13) and held bit-equal to the plain
+   version; the z-order lexsort is timed cold on each build's planes.
 
 11. data-skipping path: in a session of its own over phase 4's lineitem
    files (in ship-date order), ds_idx with a min/max sketch on
@@ -218,8 +218,8 @@ against its plain PyTorch version on the card:
    (optimizer, range-pruning pass, file reads, filter, rest) with the
    routes each side took (``ds_stage_split``); rows equal as a multiset
    to the plan without Hyperspace and in order to the cpu session's.
-   Every B7 call of the phase is recorded (``B7Inputs``) and held
-   bit-equal to the plain version on a CPU copy; the create's 8 builds
+   Every B7 call of the phase is recorded (``KernelCalls``) and held
+   bit-equal to the plain version; the create's 8 builds
    take the binned route; the build is timed cold on the first file's
    own l_orderkey reps.
 
@@ -239,19 +239,48 @@ against its plain PyTorch version on the card:
    After each step every index file (bucket, z-order and sketch files
    byte for byte, ``_zonemaps.json`` and ``_aggstate.json`` without
    mtime_ns) and log entry (without ids and timestamps) equals the cpu
-   session's; before step 1 and after steps 1-5 phase 4's 36 filters
+   session's; before step 1, after steps 2, 3 and 5 and in the
+   quick-refresh state phase 4's 36 filters
    with 4 new keys (lc_idx), d2's point keys (lc_ds) and q_zrange (lc_z)
    name their index in the explain (none in the quick-refresh state),
    and their rows equal the plan without Hyperspace and, in order, the
    cpu session's; phase 5's join over o_idx and lc_idx is timed before
-   step 1 and after steps 2-4 and held to the unindexed plan and the cpu
-   session after steps 3 and 4. Each action's seconds, stages, rows written and launches,
-   files a bucket around optimize and versions around vacuum are logged.
-   Every B1, B6 and B7 call is recorded (``B1Inputs``, ``B6Inputs``,
-   ``B7Inputs``) and held bit-equal to the plain version on a CPU copy;
-   every B5f call of the captures (``B5fInputs``; B3b and B5 on its
-   ordered route) equals, call by call, the plain version's call the cpu
-   session makes on the same inputs.
+   step 1, after step 2 (buckets of two files) and after step 3 (one
+   file a bucket) and held to the unindexed plan and the cpu session
+   each time (no checkpoint after steps 1 and 4, for the script's time
+   since phase 13). Each action's seconds, stages, rows written and
+   launches, files a bucket around optimize and versions around vacuum
+   are logged. Every B1, B6, B7 and B5f call (B3b and B5 on its ordered
+   route) is recorded (``KernelCalls``) and held bit-equal to the plain
+   version after each action.
+
+13. recovery path (``recovery_path``): over a fresh copy of phase 4's 8
+   lineitem files, lineage on, a 2,000 ms writer lease and orphan grace 0,
+   rc_idx (li_idx's config), rc_z (z_idx's) and rc_ds (ds_idx's), beside a
+   crash-free run of every action in system paths of their own. In-process
+   crashes (``raise``): rc_idx's create at after_begin_log, mid_data_write
+   (at=101: 100 of 200 bucket files landed), after_data_write,
+   mid_sidecar_publish and after_end_log; a day's file refreshed
+   incrementally at mid_data_write (at=101); optimize full at
+   mid_data_write (at=101); RF2's rewrite at after_data_write; a vacuum of
+   the outdated versions at mid_vacuum_delete (at=2); rc_z's create at
+   mid_data_write; rc_ds's at after_data_write. Each: the crash fired once
+   and left a transient tip (committed for after_end_log); after the lease
+   ``hs.recover`` rolled back (healed the pointer); the data files equal
+   the set before (a subset for the vacuum), no orphan, a second GC moves
+   nothing; the index's queries (phase 4's 36 filters, q_zrange, d2) equal
+   the unindexed plan; the retried action's files and entries equal the
+   crash-free run's, and it launched each kernel it runs. A child
+   interpreter creating rc_idx dies at its 101st bucket file (``exit``,
+   code 86): before its lease ``recover`` reports a live writer and
+   changes nothing, after it rolls back the child's 100 files, and the
+   create runs here. A full refresh on a thread while a second session
+   attaches and recovers: live writer, nothing touched; the heartbeat's
+   renewals and longest gap (below the lease). Costs: recover's seconds
+   after each lease, GC's ms, ``ensure_recovered`` on a clean tip, each
+   retry's seconds, RF1's refresh with recovery on and off in turns. Every
+   B1, B6, B7 and B5f call is held bit-equal to its plain version
+   (``KernelCalls``).
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -273,8 +302,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11 and 12 and read just after each; each kernel's count in the JSON
-line adds phase 12's. The kernel checks' launches are not counted as
+11, 12 and 13 and read just after each; each kernel's count in the JSON
+line adds phases 12 and 13's. The kernel checks' launches are not counted as
 the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -3054,9 +3083,12 @@ def b6_bound(n: int, k: int, bits: int = 16) -> dict:
 
 
 def check_b6_cases(dev) -> tuple:
-    """B6 bit-equal to the plain version on a CPU copy over
-    ``tests/torch_b6_cases.py`` (phase 3); views 4 bytes past a 16-byte
-    boundary where a case asks for one. Returns (cases, max abs error)."""
+    """B6 bit-equal to the plain version over ``tests/torch_b6_cases.py``
+    (phase 3); views 4 bytes past a 16-byte boundary where a case asks for
+    one. The plain version runs on the same card tensor: its integer bit
+    operations are exact on either device, and on the card its one pass a
+    z-bit takes seconds where the CPU took a minute. Returns (cases, max
+    abs error)."""
     import torch
 
     from hyperspace_tpu_torch.ops import zorder as Z
@@ -3070,10 +3102,10 @@ def check_b6_cases(dev) -> tuple:
         words = B6.words_tensor(case, dev)
         if offset and n and words.data_ptr() % 16 != 4:
             raise AssertionError(f"B6 case {B6.case_id(case)}: not 4 bytes off 16")
-        got = Z.interleave_kernel(words, bits).cpu()
-        if not torch.equal(got, Z.interleave_torch(words.cpu(), bits)):
+        got = Z.interleave_kernel(words, bits)
+        if not torch.equal(got, Z.interleave_torch(words, bits)):
             raise AssertionError(f"B6 differs from its plain version on {B6.case_id(case)}")
-    log(f"kernels: B6 bit-equal to plain on a CPU copy over {len(B6.CASES)} cases "
+    log(f"kernels: B6 bit-equal to plain over {len(B6.CASES)} cases "
         f"(max_abs_err 0; {time.perf_counter() - t0:.1f}s)")
     return len(B6.CASES), 0
 
@@ -3121,49 +3153,113 @@ def b6_timings(dev) -> dict:
     }
 
 
-class B6Inputs:
-    """Keeps every B6 call phase 10 makes (``ops.zorder.interleave_kernel``),
-    its words and bits under the current label, for the comparison with
-    the plain version after the phase. The wrapper calls straight through,
-    so its launches count as the main path's."""
+class KernelCalls:
+    """Every call of B1, B6, B7 (its indices and its build) and B5f that
+    phases 10-13 make while ``label`` is set, kept with its kind, label,
+    inputs and result. The wrappers are replaced once by recording ones
+    that call straight through, so their launches count as the main
+    path's. ``settle``, outside any timed window, holds each kept call
+    against its plain version on the same inputs and drops it. B1, B6 and
+    B7 compute integer functions, and a B5f chunk of counts, int64 sums,
+    min and max folds integers, which any order computes exactly: their
+    plain versions run on the card's tensors. A B5f chunk with a float
+    aggregate is held on CPU copies, where the ordered float fold's plain
+    version is bit-exact."""
+
+    FLOAT_OPS = (3, 6, 7)  # ops.fused_agg OP_SUM_F64, OP_MIN_F64, OP_MAX_F64
 
     def __init__(self):
+        from hyperspace_tpu_torch.ops import bloom as B
+        from hyperspace_tpu_torch.ops import fused_agg as FA
+        from hyperspace_tpu_torch.ops import hash as H
         from hyperspace_tpu_torch.ops import zorder as Z
 
-        self.calls, self.label = [], None
-        inner = Z.interleave_kernel
+        self.label, self.calls, self.settle_s = None, [], 0.0
+        self.totals()
+        self.plain = {"b1": H.bucket_ids_torch, "b6": Z.interleave_torch,
+                      "b7 indices": B.bit_indices_torch, "b7 build": B.build_bloom_torch,
+                      "b5f": FA.fused_filter_agg_torch}
+        for mod, name, kind in ((H, "bucket_ids_kernel", "b1"), (Z, "interleave_kernel", "b6"),
+                                (B, "bit_indices_kernel", "b7 indices"),
+                                (B, "build_bloom_kernel", "b7 build"),
+                                (FA, "fused_filter_agg_kernel", "b5f")):
+            inner = getattr(mod, name)
 
-        def recording(words, bits):
-            out = inner(words, bits)
-            if self.label is not None:
-                self.calls.append((self.label, words, bits, out))
-            return out
+            def recording(*args, inner=inner, kind=kind):
+                out = inner(*args)
+                if self.label is not None:
+                    self.calls.append((kind, self.label, args, out))
+                return out
 
-        Z.interleave_kernel = recording
+            setattr(mod, name, recording)
+
+    def settle(self) -> list:
+        """Hold every kept call against its plain version (the first that
+        differs raises), count it and its rows under its kind and label,
+        and drop it. Returns the calls held."""
+        import torch
+
+        t0 = time.perf_counter()
+        calls, self.calls = self.calls, []
+        for kind, label, args, out in calls:
+            plain = self.plain[kind]
+            if kind != "b5f":
+                ok = torch.equal(out, plain(*args))
+                rows = args[0].shape[-1]
+            elif any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs):
+                ok = states_equal(to_cpu(out), plain(*to_cpu(args)))
+                rows = args[1].n
+            else:
+                ok = states_equal(out, plain(*args))
+                rows = args[1].n
+            if not ok:
+                raise AssertionError(f"{kind} differs from its plain version on {label}")
+            key = kind.split()[0]
+            self.held.setdefault(key, {})
+            self.held[key][label] = self.held[key].get(label, 0) + 1
+            self.rows[key] = self.rows.get(key, 0) + rows
+        self.settle_s += time.perf_counter() - t0
+        return calls
+
+    def totals(self) -> tuple:
+        """(kernel -> label -> calls held, kernel -> rows held) since the
+        last ``totals``, which starts them anew."""
+        out = getattr(self, "held", {}), getattr(self, "rows", {})
+        self.held, self.rows = {}, {}
+        return out
+
+    def summary(self, where: str, required=()) -> dict:
+        """Log the calls held since the last ``totals`` by kernel and label
+        and start them anew; each (kernel, label) in ``required`` must have
+        been held at least once. Returns kernel -> calls held."""
+        held, rows = self.totals()
+        for key, label in required:
+            if not held.get(key, {}).get(label):
+                raise AssertionError(f"{where}'s {label} made no {key.upper()} call")
+        counts = {k: sum(v.values()) for k, v in held.items()}
+        log(f"kernels: {where}'s calls bit-equal to their plain versions: "
+            + ", ".join(f"{k.upper()} {counts[k]} calls ({rows[k]} rows)" for k in sorted(held))
+            + f" (held after each action, outside its timed window; {self.settle_s:.1f}s so far)")
+        for k in sorted(held):
+            log(f"kernels: {where} {k} calls by label: "
+                + ", ".join(f"{lab} {n}" for lab, n in sorted(held[k].items())))
+        return counts
 
 
-def check_b6_main_path(recorded: list) -> int:
-    """Every B6 call of phase 10 held bit-equal to the plain version on a
-    CPU copy of its words; each create made at least one."""
-    import torch
-
-    from hyperspace_tpu_torch.ops import zorder as Z
-
-    labels = sorted({label for label, *_ in recorded})
+def check_b6_main_path(calls: list) -> int:
+    """Phase 10's B6 calls, each already held bit-equal to the plain
+    version (``KernelCalls.settle``): each create made at least one."""
+    b6 = [c for c in calls if c[0] == "b6"]
+    labels = sorted({c[1] for c in b6})
     for name in Z_INDEXES:
         if not any(label.startswith(name) for label in labels):
             raise AssertionError(f"phase 10's {name} create launched B6 no time")
-    rows = 0
-    for label, words, bits, out in recorded:
-        if not torch.equal(out.cpu(), Z.interleave_torch(words.cpu(), bits)):
-            raise AssertionError(f"B6 differs from its plain version on phase 10's {label}")
-        rows += words.shape[1]
-    log(f"kernels: B6 planes bit-equal to plain on all {len(recorded)} calls of phase 10 "
-        f"({rows} rows in all; {', '.join(labels)})")
-    return len(recorded)
+    log(f"kernels: B6 planes bit-equal to plain on all {len(b6)} calls of phase 10 "
+        f"({sum(c[2][0].shape[1] for c in b6)} rows in all; {', '.join(labels)})")
+    return len(b6)
 
 
-def lexsort_timings(recorded: list) -> dict:
+def lexsort_timings(calls: list) -> dict:
     """The z-order sort (stable torch.sort passes, ``lexsort_permutation``)
     cold on the planes of each create's build call."""
     import torch
@@ -3172,8 +3268,8 @@ def lexsort_timings(recorded: list) -> dict:
 
     flush = torch.zeros(1 << 26, dtype=torch.int32, device="cuda")
     out = {}
-    for label, words, _bits, planes in recorded:
-        if not label.endswith(" build"):
+    for kind, label, _args, planes in calls:
+        if kind != "b6" or not label.endswith(" build"):
             continue
         ms = float(np.median(time_cold(lambda: lexsort_permutation(planes), flush,
                                        iters=10)))
@@ -3200,7 +3296,7 @@ def zorder_queries(df) -> dict:
     }
 
 
-def zorder_path(work: str, ctx: dict, b6_inputs: B6Inputs) -> dict:
+def zorder_path(work: str, ctx: dict, kernels: KernelCalls) -> dict:
     """Phase 10: the z-order covering index over phase 4's lineitem, as
     bench.py builds it, in a session of its own (so the covering indexes of
     the phases before do not take its queries): agg_idx on l_orderkey and
@@ -3214,7 +3310,7 @@ def zorder_path(work: str, ctx: dict, b6_inputs: B6Inputs) -> dict:
     session's and as a multiset to the plan without Hyperspace. Then each
     index's ``_zonemaps.json`` and ``_aggstate.json`` against the docs a
     cpu session computes over its files. Launch counts read from 0 at its
-    start; every B6 call is recorded in ``b6_inputs``."""
+    start; every B6 and B5f call is recorded in ``kernels``."""
     import torch
 
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ops
@@ -3235,16 +3331,17 @@ def zorder_path(work: str, ctx: dict, b6_inputs: B6Inputs) -> dict:
     creates = {}
     for name, (indexed, included) in Z_INDEXES.items():
         before = ops.launch_counts()["zorder_interleave"]
-        b6_inputs.label = name
+        kernels.label = name
         t0 = time.perf_counter()
         hs.create_index(items, ZOrderCoveringIndexConfig(name, indexed, included))
         build_s = time.perf_counter() - t0
-        b6_inputs.label = None
+        kernels.label = None
         # the create's first B6 call is its build's; the z-span capture's follow
-        mine = [i for i, c in enumerate(b6_inputs.calls) if c[0] == name]
+        mine = [i for i, c in enumerate(kernels.calls) if c[:2] == ("b6", name)]
         for i in mine:
             part = "build" if i == mine[0] else "capture"
-            b6_inputs.calls[i] = (f"{name} {part}",) + b6_inputs.calls[i][1:]
+            kind, _label, args, out = kernels.calls[i]
+            kernels.calls[i] = (kind, f"{name} {part}", args, out)
         launches = ops.launch_counts()["zorder_interleave"] - before
         files = hs.get_index(name).content.files
         stages = dict(sess.build_stats)
@@ -3554,7 +3651,7 @@ def b7_real_timing(dev, recorded: list) -> dict:
 
     from hyperspace_tpu_torch.ops import bloom as B
 
-    _label, _entry, reps, m, k, _out = next(c for c in recorded if c[1] == "build")
+    reps, m, k = next(c for c in recorded if c[0] == "b7 build")[2]
     n = len(reps)
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     ms = float(np.median(time_cold(lambda: B.build_bloom_kernel(reps, m, k), flush)))
@@ -3568,45 +3665,18 @@ def b7_real_timing(dev, recorded: list) -> dict:
             "share_of_bound": b["bound_ms"] / ms}
 
 
-class B7Inputs:
-    """Keeps every B7 call phase 11 makes (``ops.bloom.bit_indices_kernel``
-    and ``build_bloom_kernel``), its reps, m, k and result under the
-    current label, for the comparison with the plain version after the
-    phase. The wrappers call straight through, so their launches count as
-    the main path's."""
-
-    def __init__(self):
-        from hyperspace_tpu_torch.ops import bloom as B
-
-        self.calls, self.label = [], None
-        for entry, name in (("indices", "bit_indices_kernel"), ("build", "build_bloom_kernel")):
-            inner = getattr(B, name)
-
-            def recording(reps, m, k, inner=inner, entry=entry):
-                out = inner(reps, m, k)
-                if self.label is not None:
-                    self.calls.append((self.label, entry, reps, m, k, out))
-                return out
-
-            setattr(B, name, recording)
-
-
-def check_b7_main_path(recorded: list) -> int:
-    """Every B7 call of phase 11 held bit-equal to the plain version on a
-    CPU copy of its reps; the create built one filter a source file and
-    the queries probed."""
-    builds = [c for c in recorded if c[1] == "build"]
-    probes = [c for c in recorded if c[1] == "indices"]
+def check_b7_main_path(calls: list) -> int:
+    """Phase 11's B7 calls, each already held bit-equal to the plain
+    version (``KernelCalls.settle``): the create built one filter a
+    source file and the queries probed."""
+    builds = [c for c in calls if c[0] == "b7 build"]
+    probes = [c for c in calls if c[0] == "b7 indices"]
     if len(builds) != N_FILES or not probes:
         raise AssertionError(f"phase 11 made {len(builds)} B7 builds and {len(probes)} probes")
-    t0 = time.perf_counter()
-    for label, entry, reps, m, k, out in recorded:
-        compare_b7(entry, reps, m, k, out)
-    log(f"kernels: B7 bit-equal to plain on all {len(recorded)} calls of phase 11 "
-        f"({len(builds)} builds of {sum(len(c[2]) for c in builds)} reps, {len(probes)} probes "
-        f"of {sum(len(c[2]) for c in probes)} literal reps; {time.perf_counter() - t0:.1f}s on "
-        f"the cpu)")
-    return len(recorded)
+    log(f"kernels: B7 bit-equal to plain on all {len(builds) + len(probes)} calls of phase 11 "
+        f"({len(builds)} builds of {sum(len(c[2][0]) for c in builds)} reps, {len(probes)} "
+        f"probes of {sum(len(c[2][0]) for c in probes)} literal reps)")
+    return len(builds) + len(probes)
 
 
 def ds_queries(df) -> dict:
@@ -3689,7 +3759,7 @@ def ds_stage_split(sess, plans, rounds: int = 2) -> dict:
                    "routes": routes[side]} for side in rows}
 
 
-def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
+def dataskipping_path(work: str, ctx: dict, kernels: KernelCalls) -> dict:
     """Phase 11: the data-skipping index over phase 4's lineitem in a
     session of its own (a covering index on the same filter would outrank
     it): ds_idx with a min/max sketch on l_shipdate and a Bloom filter
@@ -3700,7 +3770,7 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
     kept equal the cpu session's; one warm-up, 3 rounds with Hyperspace on
     and off in turns; rows equal as a multiset to the plan without
     Hyperspace and in order to the cpu session's. Launch counts read from
-    0 at its start; every B7 call is recorded in ``b7_inputs``."""
+    0 at its start; every B7 call is recorded in ``kernels``."""
     import torch
 
     from hyperspace_tpu_torch import DataSkippingIndexConfig, Hyperspace, HyperspaceSession
@@ -3719,11 +3789,11 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
     hs = Hyperspace(sess)
     items = sess.read.parquet(src)
     ops.reset_launch_counts()
-    b7_inputs.label = "create"
+    kernels.label = "create"
     t0 = time.perf_counter()
     hs.create_index(items, config())
     build_s = time.perf_counter() - t0
-    b7_inputs.label = None
+    kernels.label = None
     counts = ops.launch_counts()
     launches = counts["bloom_bits"]
     routes = tuple(counts[f"bloom_bits.build_{r}"] for r in ("block", "binned", "global"))
@@ -3767,7 +3837,7 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
             if files != cpu_files:
                 raise AssertionError(f"{label}: files kept {files}, the cpu session's {cpu_files}")
             kept.append(len(files))
-        b7_inputs.label = label
+        kernels.label = label
         for q in plans:
             q.collect()  # warm-up
         rewrite_ms = []
@@ -3790,7 +3860,7 @@ def dataskipping_path(work: str, ctx: dict, b7_inputs: B7Inputs) -> dict:
                         raise AssertionError(f"{label}[{i}]: rows differ from the plan without "
                                              f"Hyperspace")
         split = ds_stage_split(sess, plans, rounds=max(2, 20 // len(plans)))
-        b7_inputs.label = None
+        kernels.label = None
         sess.enable_hyperspace()
         rows = []
         for i, cq in enumerate(cpu_queries[label]):
@@ -3854,9 +3924,9 @@ def lc_config(name):
     )
     from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
 
-    if name == "lc_idx":
+    if name.endswith("_idx"):  # lc_idx, rc_idx
         return CoveringIndexConfig(name, ["l_orderkey"], ["l_shipdate", "l_quantity"])
-    if name == "lc_z":
+    if name.endswith("_z"):
         return ZOrderCoveringIndexConfig(name, *Z_INDEXES["z_idx"])
     return DataSkippingIndexConfig(name, MinMaxSketch("l_shipdate"),
                                    BloomFilterSketch("l_orderkey", DS_FPP, DS_EXPECTED))
@@ -3886,27 +3956,6 @@ def lc_batch(path: str, first_key: int, n_orders: int, seed: int, rows=None) -> 
     return n
 
 
-class B1Inputs:
-    """Keeps every B1 call (``ops.hash.bucket_ids_kernel``) under the
-    current label: reps, bucket count, seed and ids, for the comparison
-    with the plain version after the phase. The wrapper calls straight
-    through, so its launches count as the main path's."""
-
-    def __init__(self):
-        from hyperspace_tpu_torch.ops import hash as H
-
-        self.calls, self.label = [], None
-        inner = H.bucket_ids_kernel
-
-        def recording(key_reps, num_buckets, seed=42):
-            out = inner(key_reps, num_buckets, seed)
-            if self.label is not None:
-                self.calls.append((self.label, key_reps, num_buckets, seed, out))
-            return out
-
-        H.bucket_ids_kernel = recording
-
-
 def to_cpu(x):
     """A copy of ``x`` (tensors, devices, dataclasses, lists and tuples of
     them) on the CPU."""
@@ -3926,60 +3975,6 @@ def to_cpu(x):
     return x
 
 
-class B5fInputs:
-    """Every B5f call (``ops.fused_agg.fused_filter_agg_kernel``, which
-    launches B3b and B5 on its ordered route) made under ``label``, held
-    against the plain version's call (``fused_filter_agg_torch``) that the
-    cpu session makes under ``plain_label`` for the same action on the same
-    files: call by call, the inputs equal and the returned states equal bit
-    for bit. The recorders keep references only (a call returns a new
-    state and changes neither input), so an action's timed window holds no
-    copy; ``settle``, after each action, copies the card's calls to the
-    cpu, compares and drops both sides' (its seconds in ``settle_s``)."""
-
-    def __init__(self):
-        from hyperspace_tpu_torch.ops import fused_agg as FA
-
-        self.calls, self.plain, self.label, self.plain_label = [], [], None, None
-        self.held, self.rows, self.settle_s = {}, 0, 0.0
-        inner, plain = FA.fused_filter_agg_kernel, FA.fused_filter_agg_torch
-
-        def recording(state, chunk):
-            out = inner(state, chunk)
-            if self.label is not None:
-                self.calls.append((self.label, state, chunk, out))
-            return out
-
-        def recording_plain(state, chunk):
-            out = plain(state, chunk)
-            if self.plain_label is not None:
-                self.plain.append((self.plain_label, state, chunk, out))
-            return out
-
-        FA.fused_filter_agg_kernel = recording
-        FA.fused_filter_agg_torch = recording_plain
-
-    def settle(self) -> None:
-        """Hold the recorded card calls against the cpu session's, pair by
-        pair in order, and drop both."""
-        t0 = time.perf_counter()
-        if len(self.calls) != len(self.plain):
-            raise AssertionError(f"B5f: {len(self.calls)} calls on the card, "
-                                 f"{len(self.plain)} plain calls in the cpu session")
-        for card_call, (plabel, pst, pch, pout) in zip(self.calls, self.plain):
-            label, st, ch, out = to_cpu(card_call)
-            if label != plabel:
-                raise AssertionError(f"B5f: call of {label} paired with {plabel}")
-            same_in = states_equal(st, pst) and chunks_equal(ch, pch)
-            if not same_in or not states_equal(out, pout):
-                raise AssertionError(f"B5f differs from its plain version on phase 12's {label}"
-                                     f" ({'inputs' if not same_in else 'states'} differ)")
-            self.held[label] = self.held.get(label, 0) + 1
-            self.rows += ch.n
-        self.calls, self.plain = [], []
-        self.settle_s += time.perf_counter() - t0
-
-
 def states_equal(a, b) -> bool:
     """Two B5f states equal bit for bit (float accumulators by their bits)."""
     import torch
@@ -3989,80 +3984,6 @@ def states_equal(a, b) -> bool:
 
     x, y = _state_bits(a), _state_bits(b)
     return a.ops == b.ops and all(x[k].shape == y[k].shape and torch.equal(x[k], y[k]) for k in x)
-
-
-def chunks_equal(a, b) -> bool:
-    """Two B5f chunks hold the same rows (keys, aggregate inputs, terms)."""
-    import torch
-
-    def flat(c):
-        out = [c.n]
-        for bits, valid, f64 in c.keys:
-            out += [bits, valid, f64]
-        for op, vals, valid in c.aggs:
-            out += [op, vals, valid]
-        if c.terms is not None:
-            out += [*c.terms.cols, *c.terms.valids, c.terms.term_col, c.terms.lo_i,
-                    c.terms.hi_i, c.terms.lo_f, c.terms.hi_f, c.terms.flags]
-        return out
-
-    fa, fb = flat(a), flat(b)
-    if len(fa) != len(fb):
-        return False
-    for x, y in zip(fa, fb):
-        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
-            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
-                    and x.dtype == y.dtype and torch.equal(x, y)):
-                return False
-        elif x != y:
-            return False
-    return True
-
-
-def check_lifecycle_kernels(rec: dict) -> dict:
-    """Every B1, B6, B7 and B5f call of phase 12 held bit-equal to its plain
-    version on CPU copies of its inputs: B1's bucket ids, B6's planes, B7's
-    indices and filters, B5f's carried state (its ordered route's B3b and
-    B5 within). -> kernel -> calls held."""
-    import torch
-
-    from hyperspace_tpu_torch.ops import hash as H
-    from hyperspace_tpu_torch.ops import zorder as Z
-
-    t0 = time.perf_counter()
-    for label, reps, nb, seed, out in rec["b1"].calls:
-        if not torch.equal(out.cpu(), H.bucket_ids_torch(reps.cpu(), nb, seed)):
-            raise AssertionError(f"B1 differs from its plain version on phase 12's {label}")
-    for label, words, bits, out in rec["b6"].calls:
-        if not torch.equal(out.cpu(), Z.interleave_torch(words.cpu(), bits)):
-            raise AssertionError(f"B6 differs from its plain version on phase 12's {label}")
-    for label, entry, reps, m, k, out in rec["b7"].calls:
-        compare_b7(entry, reps, m, k, out)
-    rec["b5f"].settle()
-    held = {k: len(rec[k].calls) for k in ("b1", "b6", "b7")}
-    held["b5f"] = sum(rec["b5f"].held.values())
-    rows = {k: sum(c[1].shape[-1] if k in ("b1", "b6") else len(c[2]) for c in rec[k].calls)
-            for k in ("b1", "b6", "b7")}
-    rows["b5f"] = rec["b5f"].rows
-    log(f"kernels: phase 12's calls bit-equal to their plain versions: B1 {held['b1']} calls "
-        f"({rows['b1']} rows), B6 {held['b6']} ({rows['b6']} rows), B7 {held['b7']} "
-        f"({rows['b7']} reps), capture B5f {held['b5f']} ({rows['b5f']} rows) "
-        f"({time.perf_counter() - t0:.1f}s on the cpu; B5f's, settled after each action "
-        f"outside its timed window, {rec['b5f'].settle_s:.1f}s)")
-    by_action = {k: {} for k in rec}
-    for k in ("b1", "b6", "b7"):
-        for c in rec[k].calls:
-            by_action[k][c[0]] = by_action[k].get(c[0], 0) + 1
-    by_action["b5f"] = dict(rec["b5f"].held)
-    for k, counts in by_action.items():
-        log(f"kernels: phase 12 {k} calls by action: "
-            + ", ".join(f"{lab} {n}" for lab, n in sorted(counts.items())))
-    for k, kind in (("b1", "refresh incremental lc_idx"), ("b1", "optimize full lc_idx"),
-                    ("b6", "refresh incremental lc_z"), ("b7", "refresh incremental lc_ds"),
-                    ("b5f", "refresh incremental lc_idx")):
-        if not by_action[k].get(kind):
-            raise AssertionError(f"phase 12's {kind} made no {k.upper()} call")
-    return held
 
 
 class LcSide:
@@ -4080,7 +4001,7 @@ class LcSide:
         self.hs = {"main": Hyperspace(self.main), "ds": Hyperspace(self.ds)}
 
     def of(self, name):
-        key = "ds" if name == "lc_ds" else "main"
+        key = "ds" if name.endswith("_ds") else "main"
         return getattr(self, key), self.hs[key]
 
     def index_path(self, name) -> str:
@@ -4156,11 +4077,12 @@ def lc_buckets(side: LcSide, name: str) -> dict:
     return {"buckets": len(per), "max": max(per.values()), "mean": float(np.mean(list(per.values())))}
 
 
-def lc_action(card, cuda, cpu, rec, actions, name, op, *args) -> dict:
+def lc_action(card, cuda, cpu, kernels, actions, name, op, *args) -> dict:
     """``hs.<op>(name, *args)`` on the card, its kernel calls recorded under
-    ``"<op> <args> <name>"``, then in the cpu session; its seconds, stages
-    (``build_stats``), rows written and rows/s, and launches by kernel
-    logged and kept in ``actions``."""
+    ``"<op> <args> <name>"``, then in the cpu session, then the calls held
+    to their plain versions; its seconds, stages (``build_stats``), rows
+    written and rows/s, and launches by kernel logged and kept in
+    ``actions``."""
     import torch
 
     from hyperspace_tpu_torch import ops
@@ -4176,10 +4098,7 @@ def lc_action(card, cuda, cpu, rec, actions, name, op, *args) -> dict:
         on_card = side is cuda
         if on_card:
             before = ops.launch_counts()
-            for r in rec.values():
-                r.label = label
-        else:
-            rec["b5f"].plain_label = label
+            kernels.label = label
         t0 = time.perf_counter()
         try:
             if op == "create_index":
@@ -4188,9 +4107,7 @@ def lc_action(card, cuda, cpu, rec, actions, name, op, *args) -> dict:
                 getattr(hs, op)(name, *args)
             torch.cuda.synchronize()
         finally:
-            for r in rec.values():
-                r.label = None
-            rec["b5f"].plain_label = None
+            kernels.label = None
         secs = time.perf_counter() - t0
         after_v = lc_versions(side, name)
         new = [v for v in after_v if v not in before_v]
@@ -4204,7 +4121,7 @@ def lc_action(card, cuda, cpu, rec, actions, name, op, *args) -> dict:
                        versions=after_v)
         else:
             out["cpu_seconds"] = secs
-    rec["b5f"].settle()
+    kernels.settle()
     actions.append(out)
     rate = f" at {out['rows_per_s']:,.0f} rows/s" if out["rows_written"] else ""
     stages = {k: round(v, 4) if isinstance(v, float) else v for k, v in out["stages"].items()}
@@ -4230,7 +4147,7 @@ def lc_filters(df):
             + [df.filter(key.isin(keys)).select(*cols) for keys in in_lists])
 
 
-def lc_check(card, cuda, cpu, rec, src, orders_src, step: str, served: dict,
+def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
              join: bool) -> dict:
     """One checkpoint of phase 12. The filters (``lc_filters``) over the
     main session; d2's 36 point keys over the ds session (lc_ds); bench's
@@ -4238,7 +4155,8 @@ def lc_check(card, cuda, cpu, rec, src, orders_src, step: str, served: dict,
     set (None: no index), one warm-up, one timed run a query, rows equal as
     a multiset to the plan without Hyperspace and in order to the cpu
     session's; with ``join`` also the join (``lc_join``).
-    The queries' kernel calls are recorded in ``rec`` under the step."""
+    The queries' kernel calls are recorded in ``kernels`` under the step
+    and held to their plain versions after it."""
     out = {"step": step}
     unindexed = {}
 
@@ -4276,15 +4194,14 @@ def lc_check(card, cuda, cpu, rec, src, orders_src, step: str, served: dict,
             f"p99_ms {p99:.3f}, {out[label]['rows']} rows, served by {index}; equal to the plan "
             f"without Hyperspace and in order to the cpu session's")
 
-    for r in rec.values():
-        r.label = f"{step} queries"
+    kernels.label = f"{step} queries"
     try:
         _lc_check_sets(run, cuda, cpu, src, served)
         if join:
             out["join"] = lc_join(card, cuda, cpu, src, orders_src, step)
     finally:
-        for r in rec.values():
-            r.label = None
+        kernels.label = None
+    kernels.settle()
     return out
 
 
@@ -4345,7 +4262,7 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
     return {"p50_ms": p50, "rows": got.num_rows, "stages_s": stages}
 
 
-def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
+def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     """Phase 12: the index lifecycle over a copy of phase 4's 8 lineitem
     files, lineage on, in sessions of its own on the card and, step for
     step, on the cpu: lc_idx (li_idx's config) and
@@ -4362,13 +4279,17 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     indexed by an incremental one; (5) a fourth RF1 batch, a full refresh
     and a vacuum of the outdated versions of all three, delete, restore,
     delete and vacuum, and a cancel over a transient entry written through
-    the log manager. After each of steps 1-4 (and before step 1) every
-    index file and log entry equals the cpu session's and the checkpoint
-    queries run (``lc_check``); the join runs before step 1 and after
-    steps 2-4, each time held to the unindexed plan and the cpu session's.
-    Every
-    B1, B6, B7 and B5f call on the card is recorded in ``rec`` under its
-    action. Launch counts read from 0 at its start."""
+    the log manager. After each step every index file and log entry
+    equals the cpu session's; the checkpoint queries (``lc_check``) run
+    before step 1, after steps 2, 3 and 5 and in the quick-refresh state;
+    the join before step 1, after step 2 (buckets of two files: the
+    device re-sort route) and after step 3 (one file a bucket), each time
+    held to the unindexed plan and the cpu session's. (Fewer checkpoints
+    than PR 14's, for the script's time since phase 13: none after steps 1
+    and 4, whose indexes' layouts steps 2 and 3 already query.) Every B1,
+    B6, B7 and B5f call on the card is recorded in ``kernels`` under its
+    action and held to its plain version after it. Launch counts read
+    from 0 at its start."""
     import shutil as _shutil
 
     import torch
@@ -4396,21 +4317,20 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     for side in (cuda, cpu):
         side.main.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
     for name in LC_ALL:
-        lc_action(card, cuda, cpu, rec, actions, name, "create_index", src)
+        lc_action(card, cuda, cpu, kernels, actions, name, "create_index", src)
     compare(LC_ALL, "create")
     all_served = {n: n for n in LC_ALL}
-    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "before step 1", all_served, True))
+    checks.append(lc_check(card, cuda, cpu, kernels, src, orders_src, "before step 1", all_served, True))
 
     def refresh_all(mode="incremental"):
         for name in LC_ALL:
-            lc_action(card, cuda, cpu, rec, actions, name, "refresh_index", mode)
+            lc_action(card, cuda, cpu, kernels, actions, name, "refresh_index", mode)
 
     # (1) RF1's batch: 1,500 new orders above phase 4's keys
     n1 = lc_batch(os.path.join(src, "rf1_a.parquet"), N_ORDERS, RF1_ORDERS, SEED + 20)
     log(f"lifecycle path [{card}]: step 1: appended RF1's batch, {RF1_ORDERS} orders, {n1} rows")
     refresh_all()
     read = compare(LC_ALL, "step 1")
-    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 1", all_served, False))
     # (2) a day's file of new orders
     n2 = lc_batch(os.path.join(src, "day_a.parquet"), N_ORDERS + RF1_ORDERS, FILE_ROWS // 4,
                   SEED + 21, rows=FILE_ROWS)
@@ -4418,13 +4338,13 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     refresh_all()
     read += compare(LC_ALL, "step 2")
     before_opt = lc_buckets(cuda, "lc_idx")
-    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 2", all_served, True))
+    checks.append(lc_check(card, cuda, cpu, kernels, src, orders_src, "after step 2", all_served, True))
     # (3) RF2 at file granularity: source file 0 deleted
     os.remove(os.path.join(src, "part0.parquet"))
     log(f"lifecycle path [{card}]: step 3: deleted source file part0.parquet")
     refresh_all()
     read += compare(LC_ALL, "step 3")
-    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 3", all_served, True))
+    checks.append(lc_check(card, cuda, cpu, kernels, src, orders_src, "after step 3", all_served, True))
     # (4) RF2's rewrite left one file a bucket: a second RF1 batch indexed
     # incrementally gives lc_idx two again, then optimize full compacts them
     # (quick after it is a no-op); a third batch is recorded by a quick
@@ -4436,9 +4356,9 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     refresh_all()
     read += compare(LC_ALL, "step 4 incremental")
     pre = lc_buckets(cuda, "lc_idx")
-    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "optimize_index", "full")
+    lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "optimize_index", "full")
     post = lc_buckets(cuda, "lc_idx")
-    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "optimize_index", "quick")
+    lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "optimize_index", "quick")
     if actions[-2]["versions"] == actions[-2]["versions_before"] or \
             actions[-1]["versions"] != actions[-2]["versions"]:
         raise AssertionError("optimize full wrote no version, or quick after it wrote one")
@@ -4449,34 +4369,32 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     read += compare(("lc_idx",), "step 4 optimize")
     n4q = lc_batch(os.path.join(src, "rf1_c.parquet"), next_key, RF1_ORDERS, SEED + 23)
     next_key += RF1_ORDERS
-    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "refresh_index", "quick")
+    lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "refresh_index", "quick")
     read += compare(("lc_idx",), "step 4 quick")
-    quick = lc_check(card, cuda, cpu, rec, src, orders_src, "step 4, quick refresh",
+    quick = lc_check(card, cuda, cpu, kernels, src, orders_src, "step 4, quick refresh",
                      {"lc_idx": None}, False)
-    lc_action(card, cuda, cpu, rec, actions, "lc_idx", "refresh_index", "incremental")
+    lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "refresh_index", "incremental")
     read += compare(("lc_idx",), "step 4")
     log(f"lifecycle path [{card}]: step 4: appended RF1's third batch ({n4q} rows), recorded by "
         f"a quick refresh (no index served the filters), indexed by an incremental one")
-    checks.append(lc_check(card, cuda, cpu, rec, src, orders_src, "after step 4",
-                           {"lc_idx": "lc_idx"}, True))
-    # (5) full refresh after a third RF1 batch, vacuum, delete / restore,
+    # (5) full refresh after a fourth RF1 batch, vacuum, delete / restore,
     # vacuum, cancel
     n5 = lc_batch(os.path.join(src, "rf1_d.parquet"), next_key, RF1_ORDERS, SEED + 24)
     refresh_all("full")
     read += compare(LC_ALL, "step 5 full")
     versions = {n: lc_versions(cuda, n) for n in LC_ALL}
     for name in LC_ALL:
-        lc_action(card, cuda, cpu, rec, actions, name, "vacuum_index")
+        lc_action(card, cuda, cpu, kernels, actions, name, "vacuum_index")
     vacuumed = {n: lc_versions(cuda, n) for n in LC_ALL}
     log(f"lifecycle path [{card}]: step 5: RF1's fourth batch ({n5} rows), full refreshes; "
         f"versions on disk before vacuum {versions}, after {vacuumed}")
     if any(len(v) != 1 for v in vacuumed.values()):
         raise AssertionError(f"vacuum left outdated versions: {vacuumed}")
     read += compare(LC_ALL, "step 5 vacuum")
-    after5 = lc_check(card, cuda, cpu, rec, src, orders_src, "after step 5", all_served, False)
+    after5 = lc_check(card, cuda, cpu, kernels, src, orders_src, "after step 5", all_served, False)
     for name in LC_ALL:
         for op in ("delete_index", "restore_index", "delete_index", "vacuum_index"):
-            lc_action(card, cuda, cpu, rec, actions, name, op)
+            lc_action(card, cuda, cpu, kernels, actions, name, op)
         if lc_versions(cuda, name) or cuda.of(name)[1].get_index(name).state != States.DOESNOTEXIST:
             raise AssertionError(f"{name}: the hard vacuum left data or state")
     for side in (cuda, cpu):
@@ -4495,10 +4413,626 @@ def lifecycle_path(work: str, ctx: dict, rec: dict, card: str) -> dict:
     secs = time.perf_counter() - t_phase
     log(f"lifecycle path [{card}]: all steps ran; {read} index files held equal to the cpu "
         f"session's, log entries equal; phase launches {launches}; {secs:.1f}s in all")
+    held = kernels.summary("phase 12", (
+        ("b1", "refresh incremental lc_idx"), ("b1", "optimize full lc_idx"),
+        ("b6", "refresh incremental lc_z"), ("b6", "refresh full lc_z"),
+        ("b7", "refresh incremental lc_ds"), ("b5f", "refresh incremental lc_idx")))
     return {"launches": launches, "actions": actions, "checks": checks, "quick_state": quick,
-            "after_step_5": after5, "files_compared": read, "seconds": secs,
+            "after_step_5": after5, "files_compared": read, "seconds": secs, "held": held,
             "buckets": {"after_step_2": before_opt, "before_optimize": pre,
                         "after_optimize": post}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: crash recovery (B1, B5f, B6 and B7 on the recovered and retried
+# actions)
+# ---------------------------------------------------------------------------
+
+#: phase 13's writer lease: short, so a crashed writer's entry ages out in
+#: seconds; the orphan grace is 0 (GC purges at once)
+RC_LEASE_MS = 2_000
+
+
+class RcSide(LcSide):
+    """One system-path pair of phase 13 (``main`` for rc_idx and rc_z, ``ds``
+    for rc_ds), lineage on, the lease at ``RC_LEASE_MS``, orphan grace 0;
+    the filters bucket-pruned, as in phases 4 and 12."""
+
+    def __init__(self, device, main_path: str, ds_path: str):
+        super().__init__(device, main_path, ds_path)
+        for s in (self.main, self.ds):
+            s.conf.set("hyperspace.recovery.leaseMs", RC_LEASE_MS)
+            s.conf.set("hyperspace.recovery.orphanGraceMs", 0)
+        self.main.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+
+
+class RcClock:
+    """The recovery plane's own costs in phase 13: each ``ensure_recovered``
+    and ``gc_orphans`` call's seconds and report (the module functions
+    wrapped, so the manager's and the actions' calls are timed too), and
+    each lease heartbeat's renewals (``IndexLogManager.overwrite_log``, its
+    one caller) between its start and its stop."""
+
+    def __init__(self):
+        from hyperspace_tpu_torch.metadata import log_manager, recovery
+
+        self.calls, self.beats, self.renewals = [], [], []
+        for name in ("ensure_recovered", "gc_orphans"):
+            inner = getattr(recovery, name)
+
+            def timed(*args, inner=inner, name=name, **kw):
+                t0 = time.perf_counter()
+                out = inner(*args, **kw)
+                self.calls.append((name, time.perf_counter() - t0, out))
+                return out
+
+            setattr(recovery, name, timed)
+        overwrite = log_manager.IndexLogManager.overwrite_log
+
+        def renewal(lm, log_id, entry):
+            overwrite(lm, log_id, entry)
+            self.renewals.append((lm.index_path, log_id, time.perf_counter()))
+
+        log_manager.IndexLogManager.overwrite_log = renewal
+        start, stop = recovery.LeaseHeartbeat.start, recovery.LeaseHeartbeat.stop
+
+        def started(hb):
+            hb.started_at = time.perf_counter()
+            return start(hb)
+
+        def stopped(hb):
+            stop(hb)
+            self.beats.append((hb._log_manager.index_path, hb._log_id, hb.started_at,
+                               time.perf_counter()))
+
+        recovery.LeaseHeartbeat.start, recovery.LeaseHeartbeat.stop = started, stopped
+
+    def gaps(self, beats=None) -> dict:
+        """Renewals and the longest gap (ms) between the start, each renewal
+        and the stop of each heartbeat."""
+        longest, renewals = 0.0, 0
+        for path, log_id, t0, t1 in beats if beats is not None else self.beats:
+            ts = sorted(t for p, i, t in self.renewals if p == path and i == log_id and t0 <= t <= t1)
+            renewals += len(ts)
+            marks = [t0, *ts, t1]
+            longest = max([longest] + [b - a for a, b in zip(marks, marks[1:])])
+        return {"heartbeats": len(beats if beats is not None else self.beats),
+                "renewals": renewals, "longest_gap_ms": longest * 1e3}
+
+
+def rc_data_files(path: str) -> set:
+    """Relative paths of the data files under an index's version dirs."""
+    from hyperspace_tpu_torch.utils.files import list_leaf_files
+    from hyperspace_tpu_torch.utils.paths import is_data_path
+
+    out = set()
+    for name in sorted(os.listdir(path)) if os.path.isdir(path) else ():
+        root = os.path.join(path, name)
+        if not name.startswith("_") and os.path.isdir(root):
+            out.update(os.path.relpath(p, path) for p, _s, _m in list_leaf_files(root)
+                       if is_data_path(p))
+    return out
+
+
+def rc_entries(side: RcSide, name: str) -> list:
+    """The last action's begin and end entries of ``name`` as
+    ``torch_index_files.normalized_entry`` gives them (the writer lease
+    compared by its presence); the begin entry must carry the lease, the end
+    entry not."""
+    from torch_index_files import LEASE_PROPS, normalized_entry, read_log
+
+    sess, _hs = side.of(name)
+    log = read_log(side.index_path(name))
+    ids = sorted(int(f) for f in log if f.isdigit())
+    out = []
+    for i in ids[-2:]:
+        entry = log[str(i)]
+        leased = all(p in entry.get("properties", {}) for p in LEASE_PROPS)
+        if (entry["state"] not in ("ACTIVE", "DELETED", "DOESNOTEXIST")) != leased:
+            raise AssertionError(f"{name}: entry {i} ({entry['state']}) leased {leased}")
+        out.append(normalized_entry(entry, sess.conf.get("hyperspace.system.path")))
+    return out
+
+
+def rc_same(rc: RcSide, ref: RcSide, name: str, label: str) -> int:
+    """``name``'s index files (``torch_index_files.index_file``: bytes, the
+    JSON sidecars without mtime_ns) and its last action's entries equal the
+    crash-free run's. Version dirs are matched in order: a crash before an
+    action's first data file leaves its version dir empty, which GC keeps
+    (as the reference's does), so the retry writes the next version.
+    Returns the files compared."""
+    import json as _json
+
+    from torch_index_files import index_files
+
+    got, want = index_files(rc.index_path(name)), index_files(ref.index_path(name))
+
+    def versions(files):
+        return sorted({r.split("/")[0] for r in files if r.startswith("v__=")},
+                      key=lambda v: int(v.split("=")[1]))
+
+    renamed = dict(zip(versions(got), versions(want)))
+    if any(a != b for a, b in renamed.items()):
+        log(f"recovery path: {label}: the retry's version dirs {sorted(renamed)} match the "
+            f"crash-free run's {sorted(renamed.values())}")
+    got = {"/".join([renamed.get(r.split("/")[0], r.split("/")[0])] + r.split("/")[1:]): v
+           for r, v in got.items()}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: {name}'s files differ from the crash-free run's: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    for rel in got:
+        if got[rel] != want[rel]:
+            raise AssertionError(f"{label}: {name}/{rel} differs from the crash-free run's")
+    text = _json.dumps(rc_entries(rc, name))
+    for a, b in renamed.items():
+        text = text.replace(f'"{a}"', f'"{b}"')
+    if _json.loads(text) != rc_entries(ref, name):
+        raise AssertionError(f"{label}: {name}'s entries differ from the crash-free run's")
+    return len(got)
+
+
+class RcQueries:
+    """The queries each cell runs after its recovery: phase 4's 36 filters
+    over rc_idx, q_zrange over rc_z, d2 over rc_ds. Where the index serves
+    them, their rows equal as a multiset the plan without Hyperspace's,
+    computed once a source state; where it serves none (rolled back, or
+    stale after a source change), each plan is the unindexed one and is
+    not run again. Their kernel calls (B1 on the literals, B7's probes) go
+    to ``kernels``."""
+
+    def __init__(self, rc, src: str, kernels: KernelCalls):
+        self.rc, self.src, self.kernels = rc, src, kernels
+        self.unindexed, self.state = {}, "initial"
+
+    def plans(self, name):
+        if name.endswith("_idx"):
+            return lc_filters(self.rc.main.read.parquet(self.src))[:36]
+        if name.endswith("_z"):
+            return [zorder_queries(self.rc.main.read.parquet(self.src))["q_zrange"][0]]
+        return ds_queries(self.rc.ds.read.parquet(self.src))["d2"]
+
+    def __call__(self, name: str, label: str) -> dict:
+        sess, hs = self.rc.of(name)
+        plans = self.plans(name)
+        self.kernels.label = f"{label}, queries"
+        try:
+            served = any(f"Name: {name}," in hs.explain(q).split("Plan without indexes:")[0]
+                         for q in plans)
+            if not served:
+                return {"queries": len(plans), "rows": None, "served": False, "seconds": 0.0}
+            sess.enable_hyperspace()
+            t0 = time.perf_counter()
+            got = [q.collect() for q in plans]
+            secs = time.perf_counter() - t0
+        finally:
+            self.kernels.label = None
+            sess.disable_hyperspace()
+        for i, q in enumerate(plans):
+            key = (self.state, name, i)
+            if key not in self.unindexed:
+                self.unindexed[key] = sorted_rows(q.collect())
+            if not sorted_rows(got[i]).equals(self.unindexed[key]):
+                raise AssertionError(f"{label}: {name}'s query {i} differs from the plan without "
+                                     f"Hyperspace")
+        return {"queries": len(plans), "rows": sum(g.num_rows for g in got), "served": served,
+                "seconds": secs}
+
+
+def rc_run(side, name, op, *args):
+    """``hs.<op>(name, *args)``; ``create_index`` takes the source dir."""
+    sess, hs = side.of(name)
+    if op == "create_index":
+        hs.create_index(sess.read.parquet(args[0]), lc_config(name))
+    else:
+        getattr(hs, op)(name, *args)
+
+
+#: the kernels each index's creates, refreshes and optimizes run
+RC_KERNELS = {"_idx": ("murmur3_bucket_ids", "fused_filter_agg"),
+              "_z": ("zorder_interleave", "fused_filter_agg"), "_ds": ("bloom_bits",)}
+
+
+def rc_kernels(name: str):
+    return next(k for suffix, k in RC_KERNELS.items() if name.endswith(suffix))
+
+
+def rc_timed(kernels: KernelCalls, label: str, fn) -> tuple:
+    """``fn()`` with its kernel calls recorded under ``label``: (seconds,
+    launches by kernel, the exception it raised or None)."""
+    import torch
+
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.testing.faults import SimulatedCrash
+
+    before = ops.launch_counts()
+    kernels.label = label
+    t0 = time.perf_counter()
+    err = None
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (SimulatedCrash, Exception) as e:  # the cell decides what it expects
+        err = e
+    finally:
+        kernels.label = None
+    secs = time.perf_counter() - t0
+    after = ops.launch_counts()
+    return secs, {k: after[k] - before[k] for k in after if after[k] != before[k]}, err
+
+
+def rc_wait_lease(log_mgr) -> float:
+    """Sleep until the tip's writer lease has expired; returns its expiry
+    (epoch seconds). A committed tip (no lease) returns now."""
+    tip = log_mgr.get_latest_log()
+    raw = tip.properties.get("recovery.leaseExpiresAtMs") if tip is not None else None
+    if raw is None:
+        return time.time()
+    expires = int(raw) / 1000.0
+    time.sleep(max(0.0, expires - time.time()) + 0.01)
+    return expires
+
+
+def rc_cell(card, ctx: dict, name: str, label: str, point: str, spec: str, op, *args,
+            ref_op=True) -> dict:
+    """One crash cell of phase 13: ``op`` on rc crashes at ``point`` (spec
+    ``spec``, in-process ``raise``); then (1) the crash fired once and the
+    tip is transient (committed for after_end_log); (2) after the lease,
+    ``hs.recover`` reports rolled_back (healed_pointer); (3) the data files
+    equal the set before (a subset, for a vacuum), no orphan is left and a
+    second GC moves nothing; (4) the index's queries give the unindexed
+    plan's rows; (5) the retried action's index files and entries equal the
+    crash-free run's (the same action on ref, unless ``ref_op`` is False:
+    ref is already there), and it made a call of each kernel it runs."""
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+    from hyperspace_tpu_torch.metadata import recovery
+    from hyperspace_tpu_torch.testing import faults
+
+    rc, ref, kernels, clock = ctx["rc"], ctx["ref"], ctx["kernels"], ctx["clock"]
+    sess, hs = rc.of(name)
+    log_mgr = sess.index_manager._managers(name)[0]
+    path = rc.index_path(name)
+    committed = point == "after_end_log"
+    before = rc_data_files(path)
+    faults.reset()
+    faults.set_crash(point, spec)
+    crash_s, crash_launches, err = rc_timed(kernels, f"{label}, crashed",
+                                            lambda: rc_run(rc, name, op, *args))
+    if not isinstance(err, faults.SimulatedCrash) or faults.stats() != {f"crash.{point}": 1}:
+        raise AssertionError(f"{label}: expected one crash at {point}, got {err!r}, "
+                             f"{faults.stats()}")
+    tip = log_mgr.get_latest_log()
+    if (tip.state in ("ACTIVE", "DELETED", "DOESNOTEXIST")) != committed:
+        raise AssertionError(f"{label}: the tip after the crash is {tip.state}")
+    landed = rc_data_files(path) - before
+    expires = rc_wait_lease(log_mgr)
+    n_calls = len(clock.calls)
+    rep = hs.recover(name)
+    recover_s = time.time() - expires
+    timed = {n: s for n, s, _r in clock.calls[n_calls:]}
+    if rep["rolled_back"] == committed or rep["healed_pointer"] != committed:
+        raise AssertionError(f"{label}: recover reported {rep}")
+    after = rc_data_files(path)
+    if committed:
+        before = before | landed
+    if not (after <= before if op == "vacuum_index" else after == before):
+        raise AssertionError(f"{label}: data files after recovery differ from before: "
+                             f"{sorted(after ^ before)[:8]}")
+    if recovery.find_orphans(path):
+        raise AssertionError(f"{label}: orphans left after recovery")
+    gc2 = recovery.gc_orphans(path, 0)
+    if gc2["quarantined_files"] or gc2["quarantined_dirs"]:
+        raise AssertionError(f"{label}: a second GC moved files: {gc2}")
+    queries = ctx["queries"](name, label)
+    retry_s, retry_launches, retry_err = rc_timed(kernels, f"{label}, retried",
+                                                  lambda: rc_run(rc, name, op, *args))
+    if retry_err is not None and not (committed and isinstance(retry_err, HyperspaceException)):
+        raise retry_err
+    if op != "vacuum_index" and not committed:
+        missing = [k for k in rc_kernels(name) if not retry_launches.get(k)]
+        if missing:
+            raise AssertionError(f"{label}: the retried action launched no {missing}")
+    ref_s = None
+    if ref_op:
+        ref_s, _l, err = rc_timed(kernels, f"{label}, crash-free", lambda: rc_run(ref, name, op, *args))
+        if err is not None:
+            raise err
+    files = rc_same(rc, ref, name, label)
+    kernels.settle()
+    out = {"cell": label, "point": point, "spec": spec, "crash_s": crash_s,
+           "crashed_files": len(landed), "tip": tip.state,
+           "report": {k: rep[k] for k in ("rolled_back", "healed_pointer", "live_writer",
+                                          "latest_state")},
+           "gc": rep["gc"], "recover_s_after_lease": recover_s,
+           "ensure_recovered_ms": timed.get("ensure_recovered", 0.0) * 1e3,
+           "gc_ms": timed.get("gc_orphans", 0.0) * 1e3, "queries": queries,
+           "retry_s": retry_s, "crash_free_s": ref_s,
+           "retry_outcome": type(retry_err).__name__ if retry_err else "ran",
+           "retry_launches": retry_launches, "crash_launches": crash_launches,
+           "files_equal_crash_free": files}
+    log(f"recovery path [{card}]: {label}: crashed at {point} ({spec}) after {crash_s:.3f}s, "
+        f"{len(landed)} new data files, tip {tip.state}; recover {recover_s:.3f}s after the "
+        f"lease (ensure_recovered {out['ensure_recovered_ms']:.1f} ms, gc {out['gc_ms']:.1f} ms, "
+        f"{rep['gc']['quarantined_files']} files / {rep['gc']['quarantined_dirs']} dirs "
+        f"quarantined); {queries['queries']} queries "
+        f"{'served, equal to the unindexed plan' if queries['served'] else 'not served by it'}; "
+        f"retried in {retry_s:.3f}s ({out['retry_outcome']}, launches "
+        f"{retry_launches}; the crash-free run "
+        f"{'at the phase start' if ref_s is None else f'{ref_s:.3f}s'}); {files} files and the "
+        f"entries equal the crash-free run's")
+    return out
+
+
+RC_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+from hyperspace_tpu_torch.testing import faults
+
+s = HyperspaceSession()
+s.conf.set("hyperspace.system.path", {sys_path!r})
+s.conf.set("hyperspace.index.lineage.enabled", True)
+s.conf.set("hyperspace.recovery.leaseMs", {lease!r})
+hs = Hyperspace(s)
+faults.set_crash("mid_data_write", "exit;at=101")
+hs.create_index(s.read.parquet({src!r}), chip_smoke.lc_config("rc_idx"))
+raise SystemExit(7)  # never reached: the crash point exits first
+"""
+
+
+def rc_child_death(card, ctx: dict) -> dict:
+    """A fresh interpreter on the card creates rc_idx and dies at its 101st
+    bucket file (``os._exit``, no CUDA teardown, no heartbeat stop). Before
+    its lease expires ``recover`` reports a live writer and changes nothing;
+    after, it rolls back and quarantines the child's 100 files; the create
+    then runs in this process, equal to the crash-free run's."""
+    rc, ref, kernels, clock = ctx["rc"], ctx["ref"], ctx["kernels"], ctx["clock"]
+    sess, hs = rc.of("rc_idx")
+    log_mgr = sess.index_manager._managers("rc_idx")[0]
+    path = rc.index_path("rc_idx")
+    code = RC_CHILD.format(root=ROOT, sys_path=sess.conf.get("hyperspace.system.path"),
+                           lease=RC_LEASE_MS, src=ctx["rc_src"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 86:
+        raise AssertionError(f"the child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    files, last = rc_data_files(path), log_mgr.get_latest_id()
+    live = hs.recover("rc_idx")
+    if not (live["live_writer"] and live["gc"]["skipped_live_writer"]) or \
+            rc_data_files(path) != files or log_mgr.get_latest_id() != last:
+        raise AssertionError(f"recover before the child's lease expired: {live}")
+    if len(files) != 100:
+        raise AssertionError(f"the child left {len(files)} files, not 100")
+    expires = rc_wait_lease(log_mgr)
+    n_calls = len(clock.calls)
+    rep = hs.recover("rc_idx")
+    recover_s = time.time() - expires
+    timed = {n: s for n, s, _r in clock.calls[n_calls:]}
+    if not rep["rolled_back"] or rep["gc"]["quarantined_dirs"] != 1 or rc_data_files(path):
+        raise AssertionError(f"recover after the child's lease: {rep}")
+    retry_s, launches, err = rc_timed(kernels, "child death, retried",
+                                      lambda: rc_run(rc, "rc_idx", "create_index", ctx["rc_src"]))
+    if err is not None:
+        raise err
+    files_equal = rc_same(rc, ref, "rc_idx", "child death")
+    kernels.settle()
+    out = {"cell": "rc_idx create, a child killed at mid_data_write (exit;at=101)",
+           "child_s": child_s, "exit_code": proc.returncode, "child_files": len(files),
+           "live_report": {k: live[k] for k in ("live_writer", "rolled_back")},
+           "report": {k: rep[k] for k in ("rolled_back", "healed_pointer", "latest_state")},
+           "gc": rep["gc"], "recover_s_after_lease": recover_s,
+           "gc_ms": timed.get("gc_orphans", 0.0) * 1e3, "retry_s": retry_s,
+           "retry_launches": launches, "files_equal_crash_free": files_equal}
+    log(f"recovery path [{card}]: the child exited 86 after {child_s:.1f}s leaving "
+        f"{len(files)} bucket files; recover before its lease: live writer, nothing changed; "
+        f"after: rolled back, {rep['gc']['quarantined_dirs']} dir of 100 files quarantined "
+        f"(gc {out['gc_ms']:.1f} ms), {recover_s:.3f}s after the lease; the create then ran in "
+        f"{retry_s:.3f}s, equal to the crash-free run's")
+    return out
+
+
+def rc_live_writer(card, ctx: dict) -> dict:
+    """While a full refresh of rc_idx runs on the card in a thread, a second
+    session (its attach sweep, then ``recover``) reports the live writer and
+    touches nothing; the refresh then commits. Its heartbeat's renewals and
+    longest gap are logged, and the gap must stay below the lease."""
+    import threading
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+
+    rc, kernels, clock = ctx["rc"], ctx["kernels"], ctx["clock"]
+    sess, hs = rc.of("rc_idx")
+    log_mgr = sess.index_manager._managers("rc_idx")[0]
+    path = rc.index_path("rc_idx")
+    lc_batch(os.path.join(ctx["rc_src"], "rc_rf1_live.parquet"), ctx["next_key"], RF1_ORDERS,
+             SEED + 40)
+    ctx["next_key"] += RF1_ORDERS
+    ctx["queries"].state = "live"
+    first = log_mgr.get_latest_id()
+    beats = len(clock.beats)
+    box = {}
+
+    def refresh():
+        box["s"], box["launches"], box["err"] = rc_timed(
+            kernels, "live writer refresh", lambda: hs.refresh_index("rc_idx", "full"))
+
+    t = threading.Thread(target=refresh)
+    t.start()
+    deadline = time.time() + 60
+    while log_mgr.get_latest_id() == first and time.time() < deadline:
+        time.sleep(0.005)
+    if log_mgr.get_latest_log().state != "REFRESHING":
+        raise AssertionError("the refresh's begin entry did not appear")
+    s2 = HyperspaceSession()
+    s2.conf.set("hyperspace.system.path", sess.conf.get("hyperspace.system.path"))
+    s2.conf.set("hyperspace.recovery.leaseMs", RC_LEASE_MS)
+    s2.conf.set("hyperspace.recovery.orphanGraceMs", 0)
+    hs2 = Hyperspace(s2)  # the attach sweep
+    rep = hs2.recover("rc_idx")
+    tip_id = log_mgr.get_latest_id()
+    quarantine = os.path.isdir(os.path.join(path, "_hyperspace_quarantine"))
+    t.join(120)
+    if t.is_alive():
+        raise AssertionError("the live writer's refresh did not end in 120 s")
+    if box["err"] is not None:
+        raise box["err"]
+    if not (rep["live_writer"] and rep["gc"]["skipped_live_writer"]) or quarantine or \
+            tip_id != first + 1:
+        raise AssertionError(f"the second session touched the live writer's index: {rep}")
+    if log_mgr.get_latest_log().state != "ACTIVE" or log_mgr.get_latest_id() != first + 2:
+        raise AssertionError("the refresh did not commit after the second session's recover")
+    gaps = clock.gaps(clock.beats[beats:])
+    if gaps["longest_gap_ms"] >= RC_LEASE_MS:
+        raise AssertionError(f"a heartbeat gap of {gaps['longest_gap_ms']:.1f} ms reached the lease")
+    queries = ctx["queries"]("rc_idx", "live writer")
+    kernels.settle()
+    out = {"refresh_s": box["s"], "launches": box["launches"], "second_session": {
+        k: rep[k] for k in ("live_writer", "rolled_back", "healed_pointer")},
+        "skipped_live_writer": rep["gc"]["skipped_live_writer"], "heartbeat": gaps,
+        "queries": queries}
+    log(f"recovery path [{card}]: live writer: a full refresh of rc_idx ({box['s']:.3f}s) while "
+        f"a second session attached and recovered: live_writer {rep['live_writer']}, "
+        f"skipped_live_writer {rep['gc']['skipped_live_writer']}, nothing touched; heartbeat "
+        f"{gaps['renewals']} renewals, longest gap {gaps['longest_gap_ms']:.1f} ms (lease "
+        f"{RC_LEASE_MS} ms)")
+    return out
+
+
+def rc_overhead(card, ctx: dict) -> dict:
+    """RF1's incremental refresh of rc_idx with recovery on and off, three
+    times each, in turns (on, off, on, ...), each over a batch of its own."""
+    rc, kernels = ctx["rc"], ctx["kernels"]
+    sess, hs = rc.of("rc_idx")
+    secs = {True: [], False: []}
+    for i in range(6):
+        on = i % 2 == 0
+        lc_batch(os.path.join(ctx["rc_src"], f"rc_rf1_{i}.parquet"), ctx["next_key"], RF1_ORDERS,
+                 SEED + 50 + i)
+        ctx["next_key"] += RF1_ORDERS
+        sess.conf.set("hyperspace.recovery.enabled", on)
+        s, _launches, err = rc_timed(kernels, f"overhead refresh, recovery {on}",
+                                     lambda: hs.refresh_index("rc_idx", "incremental"))
+        if err is not None:
+            raise err
+        secs[on].append(s)
+    sess.conf.set("hyperspace.recovery.enabled", True)
+    kernels.settle()
+    out = {"on_s": secs[True], "off_s": secs[False],
+           "median_on_s": float(np.median(secs[True])), "median_off_s": float(np.median(secs[False]))}
+    log(f"recovery path [{card}]: RF1's refresh of rc_idx, recovery on {secs[True]} s, off "
+        f"{secs[False]} s (in turns); medians {out['median_on_s']:.3f} / {out['median_off_s']:.3f}")
+    return out
+
+
+def recovery_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 13: crash recovery at SF1. Over a fresh copy of phase 4's 8
+    lineitem files, lineage on, the lease at RC_LEASE_MS and the orphan
+    grace 0: rc_idx (li_idx's config), rc_z (z_idx's) and rc_ds (ds_idx's,
+    a system path of its own), and beside them a crash-free run (``ref``) of
+    every action in system paths of their own. In-process crash cells
+    (``rc_cell``): rc_idx's create at after_begin_log, mid_data_write
+    (at=101: 100 of its 200 bucket files landed), after_data_write,
+    mid_sidecar_publish and after_end_log; a real death (``rc_child_death``);
+    an incremental refresh of a day's file at mid_data_write (at=101);
+    optimize full at mid_data_write (at=101); RF2's rewrite (source file 0
+    deleted) at after_data_write; a vacuum of the outdated versions at
+    mid_vacuum_delete (at=2); rc_z's create at mid_data_write; rc_ds's at
+    after_data_write. Then a live writer (``rc_live_writer``), the cost of
+    ``ensure_recovered`` on a clean tip, and recovery's overhead on RF1's
+    refresh (``rc_overhead``). Every B1, B6, B7 and B5f call is recorded in
+    ``kernels`` and held to its plain version after each action. Launch
+    counts read from 0 at its start."""
+    import shutil as _shutil
+
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.metadata import recovery
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    t_phase = time.perf_counter()
+    src = os.path.join(work, "rc_lineitem")
+    _shutil.copytree(ctx["src"], src)
+    # system paths of one depth, so the entries' directory names normalize
+    # alike; each rc_idx create cell takes a fresh rc side (``fresh``)
+    ref = RcSide(None, os.path.join(work, "rc_refm"), os.path.join(work, "rc_refd"))
+    clock = RcClock()
+    c = {"ref": ref, "kernels": kernels, "clock": clock, "rc_src": src,
+         "queries": RcQueries(None, src, kernels), "next_key": N_ORDERS + 1_000_000}
+    ops.reset_launch_counts()
+    cells = []
+    ref_s, _l, err = rc_timed(kernels, "rc_idx create, crash-free",
+                              lambda: rc_run(ref, "rc_idx", "create_index", src))
+    if err is not None:
+        raise err
+
+    def fresh(k: int) -> None:
+        """rc_idx's next create cell in a system path of its own: a hard
+        vacuum would leave the earlier versions' file names in the log's
+        stable entries, which the orphan GC reads as referenced
+        (ROADMAP C.12)."""
+        c["rc"] = c["queries"].rc = RcSide(None, os.path.join(work, f"rc_c{k}"),
+                                           os.path.join(work, "rc_dsys"))
+
+    for k, (point, spec) in enumerate((("after_begin_log", "raise"),
+                                       ("mid_data_write", "raise;at=101"),
+                                       ("after_data_write", "raise"),
+                                       ("mid_sidecar_publish", "raise"),
+                                       ("after_end_log", "raise"))):
+        fresh(k)
+        cells.append(rc_cell(card, c, "rc_idx", f"rc_idx create at {point}", point, spec,
+                             "create_index", src, ref_op=False))
+    fresh(len(cells))
+    child = rc_child_death(card, c)
+    rc = c["rc"]
+    # a day's file, refreshed incrementally: two files a bucket after it
+    lc_batch(os.path.join(src, "rc_day.parquet"), N_ORDERS, FILE_ROWS // 4, SEED + 31,
+             rows=FILE_ROWS)
+    c["queries"].state = "day"
+    cells.append(rc_cell(card, c, "rc_idx", "rc_idx refresh incremental (a day's file) at "
+                         "mid_data_write", "mid_data_write", "raise;at=101",
+                         "refresh_index", "incremental"))
+    cells.append(rc_cell(card, c, "rc_idx", "rc_idx optimize full at mid_data_write",
+                         "mid_data_write", "raise;at=101", "optimize_index", "full"))
+    os.remove(os.path.join(src, "part0.parquet"))
+    c["queries"].state = "rf2"
+    cells.append(rc_cell(card, c, "rc_idx", "rc_idx refresh incremental (RF2, file 0 deleted) "
+                         "at after_data_write", "after_data_write", "raise",
+                         "refresh_index", "incremental"))
+    versions = lc_versions(rc, "rc_idx")
+    cells.append(rc_cell(card, c, "rc_idx", "rc_idx vacuum outdated at mid_vacuum_delete",
+                         "mid_vacuum_delete", "raise;at=2", "vacuum_index"))
+    log(f"recovery path [{card}]: rc_idx versions before the vacuum {versions}, after "
+        f"{lc_versions(rc, 'rc_idx')}")
+    cells.append(rc_cell(card, c, "rc_z", "rc_z create at mid_data_write", "mid_data_write",
+                         "raise", "create_index", src))
+    cells.append(rc_cell(card, c, "rc_ds", "rc_ds create at after_data_write",
+                         "after_data_write", "raise", "create_index", src))
+    live = rc_live_writer(card, c)
+    clean_log = rc.main.index_manager._managers("rc_idx")[0]
+    clean_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        recovery.ensure_recovered(clean_log, RC_LEASE_MS)
+        clean_ms.append((time.perf_counter() - t0) * 1e3)
+    overhead = rc_overhead(card, c)
+    launches = ops.launch_counts()
+    held = kernels.summary("phase 13")
+    for k in ("b1", "b6", "b7", "b5f"):
+        if not held.get(k):
+            raise AssertionError(f"phase 13 held no {k} call")
+    gaps = clock.gaps()
+    secs = time.perf_counter() - t_phase
+    log(f"recovery path [{card}]: ensure_recovered on a clean tip p50 "
+        f"{float(np.median(clean_ms)):.3f} ms (20 calls); every heartbeat of the phase: "
+        f"{gaps['heartbeats']} heartbeats, {gaps['renewals']} renewals, longest gap "
+        f"{gaps['longest_gap_ms']:.1f} ms; crash-free rc_idx create {ref_s:.3f}s; launches "
+        f"{launches}; {secs:.1f}s in all")
+    return {"launches": launches, "cells": cells, "child": child, "live_writer": live,
+            "clean_tip_ensure_recovered_ms": float(np.median(clean_ms)), "overhead": overhead,
+            "heartbeats": gaps, "held": held, "crash_free_create_s": ref_s,
+            "seconds": secs}
+
 
 
 class PhaseClock:
@@ -4614,7 +5148,7 @@ def main() -> int:
     b6 = b6_timings(dev)
     b7 = b7_timings(dev)
     b4_inputs, b3a_inputs, b5_inputs = B4Inputs(), B3aInputs(), B5Inputs()
-    b3b_inputs, b6_inputs, b7_inputs = B3bInputs(), B6Inputs(), B7Inputs()
+    b3b_inputs, kernels = B3bInputs(), KernelCalls()
     chain_ns = add_latency_ns(*probe)
     try:
         # the default session device is cuda; the paths run it as a user would
@@ -4632,13 +5166,17 @@ def main() -> int:
         fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
         f_in = f_inputs(dev, ctx)
         phase("9")
-        zpath = zorder_path(work, ctx, b6_inputs)
+        zpath = zorder_path(work, ctx, kernels)
+        z_calls = [c for c in kernels.settle() if c[0] == "b6"]
         phase("10")
-        dspath = dataskipping_path(work, ctx, b7_inputs)
+        dspath = dataskipping_path(work, ctx, kernels)
+        ds_calls = kernels.settle()
+        kernels.totals()  # phases 10 and 11 count their calls themselves
         phase("11")
-        lc_rec = {"b1": B1Inputs(), "b6": B6Inputs(), "b7": B7Inputs(), "b5f": B5fInputs()}
-        lcpath = lifecycle_path(work, ctx, lc_rec, card)
+        lcpath = lifecycle_path(work, ctx, kernels, card)
         phase("12")
+        rcpath = recovery_path(work, ctx, kernels, card)
+        phase("13")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -4657,32 +5195,38 @@ def main() -> int:
     b3b, b5f = fused_timings(dev, f_in, b3b_inputs.calls)
     b3b.update(launches=fused_launches["fused_select"])
     b5f.update(launches=fused_launches["fused_filter_agg"], cases=fused_cases_run)
-    b6_calls = check_b6_main_path(b6_inputs.calls)
+    b6_calls = check_b6_main_path(z_calls)
     b6.update(launches=zpath["launches"]["zorder_interleave"], max_abs_err=b6_case_err,
-              cases=b6_cases_run + b6_calls, lexsort=lexsort_timings(b6_inputs.calls),
+              cases=b6_cases_run + b6_calls, lexsort=lexsort_timings(z_calls),
               creates=zpath["creates"], queries=zpath["queries"])
-    b7_calls = check_b7_main_path(b7_inputs.calls)
+    b7_calls = check_b7_main_path(ds_calls)
     b7.update(launches=dspath["launches"]["bloom_bits"], max_abs_err=b7_case_err,
               cases=b7_cases_run + b7_calls, create=dspath["create"], queries=dspath["queries"],
-              real_reps=b7_real_timing(dev, b7_inputs.calls),
+              real_reps=b7_real_timing(dev, ds_calls),
               launches_by_route={r: dspath["launches"][f"bloom_bits.build_{r}"]
                                  for r in ("block", "binned", "global")})
 
-    lc_held = check_lifecycle_kernels(lc_rec)
-    lc_launches = lcpath["launches"]
+    lc_held, rc_held = lcpath["held"], rcpath["held"]
+    lc_launches, rc_launches = lcpath["launches"], rcpath["launches"]
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
                            (b7, "bloom_bits")):
-        record["launches"] += lc_launches[kernel]
+        record["launches"] += lc_launches[kernel] + rc_launches[kernel]
     for r in ("block", "binned", "global"):
-        b7["launches_by_route"][r] += lc_launches[f"bloom_bits.build_{r}"]
+        b7["launches_by_route"][r] += (lc_launches[f"bloom_bits.build_{r}"]
+                                       + rc_launches[f"bloom_bits.build_{r}"])
     for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
-        record["cases"] = record.get("cases", 0) + lc_held[key]
+        record["cases"] = record.get("cases", 0) + lc_held[key] + rc_held[key]
     b5f["lifecycle_capture_calls"] = lc_held["b5f"]
+    b5f["recovery_calls"] = rc_held["b5f"]
     log(json.dumps({"lifecycle": {k: lcpath[k] for k in (
         "seconds", "actions", "checks", "quick_state", "after_step_5", "buckets",
         "files_compared", "launches")}}, default=str))
+    log(json.dumps({"recovery": {k: rcpath[k] for k in (
+        "seconds", "cells", "child", "live_writer", "clean_tip_ensure_recovered_ms",
+        "overhead", "heartbeats", "held", "crash_free_create_s", "launches")},
+        "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)

@@ -4,15 +4,15 @@ state.
 Reference: ``actions/CancelAction.scala`` (validates the index is stuck in
 a transient state, then appends a copy of the last stable entry so every
 operation sees the pre-failure state again; ``Hyperspace.scala:139-151``).
-Counterpart of ``hyperspace_tpu/actions/cancel.py``, whose rollback write
-(``metadata/recovery.rollback`` there) is inlined here: the rest of the
-recovery plane comes with ROADMAP A.3b. It writes exactly one log entry,
-so it overrides ``_run_protocol``.
+Counterpart of ``hyperspace_tpu/actions/cancel.py``. It writes exactly one
+log entry, so it overrides ``_run_protocol``. The write is
+``metadata/recovery.rollback``, shared with the automatic recovery; cancel
+is the manual override on top of it and does not consult the writer lease
+(a live writer racing a cancel loses its end commit at ``base_id + 2``,
+the id the rollback takes, and aborts).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 from hyperspace_tpu_torch.actions.base import Action
 from hyperspace_tpu_torch.constants import States
@@ -22,8 +22,6 @@ from hyperspace_tpu_torch.exceptions import (
     LogCorruptedError,
 )
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
-from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
-from hyperspace_tpu_torch.utils import files as file_utils
 
 
 class CancelAction(Action):
@@ -56,9 +54,11 @@ class CancelAction(Action):
         raise NotImplementedError
 
     def _run_protocol(self) -> None:
+        from hyperspace_tpu_torch.metadata import recovery
+
         self._resnapshot()
         self.validate()
-        _tip, we_wrote = rollback(self.log_manager, self.base_id)
+        _tip, we_wrote = recovery.rollback(self.log_manager, self.base_id)
         if not we_wrote:
             # our rollback write lost the race (perhaps to the writer's
             # own end commit): a cancel that did not cancel says so
@@ -66,55 +66,3 @@ class CancelAction(Action):
                 f"Concurrent write at log id {self.base_id + 1}"
             )
 
-
-def _latest_stable_by_scan(
-    log_manager: IndexLogManager, below_id: int
-) -> Optional[IndexLogEntry]:
-    """Newest parseable stable entry with id < ``below_id``, from the
-    numbered entries (never the pointer, which may be stale or torn)."""
-    for log_id in range(below_id - 1, -1, -1):
-        try:
-            entry = log_manager.get_log(log_id)
-        except LogCorruptedError:
-            continue
-        if entry is not None and entry.state in States.STABLE_STATES:
-            return entry
-    return None
-
-
-def rollback(log_manager: IndexLogManager, latest_id: Optional[int] = None):
-    """Roll the log back from a transient or torn latest entry to its
-    stable predecessor along ``States.ROLLBACK``: append a copy of the
-    last stable entry (or, when none ever existed, the transient entry
-    restamped with its rollback state) at ``latest_id + 1`` and republish
-    latestStable. Returns ``(tip_entry, we_wrote)``; ``we_wrote`` is False
-    when another write took the id first (reference
-    ``metadata/recovery.py:206-262``)."""
-    if latest_id is None:
-        latest_id = log_manager.get_latest_id()
-    if latest_id is None:
-        return None, False
-    try:
-        latest = log_manager.get_log(latest_id)
-    except LogCorruptedError:
-        latest = None
-    if latest is not None and latest.state in States.STABLE_STATES:
-        return latest, False
-    stable = _latest_stable_by_scan(log_manager, latest_id)
-    if stable is not None:
-        entry = stable.copy()
-    elif latest is not None:
-        entry = latest.with_state(States.ROLLBACK.get(latest.state, States.DOESNOTEXIST))
-    else:
-        # one torn entry and no stable history: clear it so the name is
-        # reusable
-        file_utils.delete(log_manager._path_for(latest_id))
-        log_manager.delete_latest_stable_log()
-        return None, True
-    if not log_manager.write_log(latest_id + 1, entry):
-        try:
-            return log_manager.get_log(log_manager.get_latest_id()), False
-        except LogCorruptedError:
-            return None, False
-    log_manager.create_latest_stable_log(latest_id + 1)
-    return entry, True

@@ -44,6 +44,13 @@ class Config:
     def get_float(self, key: str, default: float = 0.0) -> float:
         return float(self._values.get(key, default))
 
+    def prefixed(self, prefix: str) -> dict:
+        """All ``{key: value}`` pairs whose key starts with ``prefix`` (the
+        fault registry, ``testing/faults.configure``, scans
+        ``hyperspace.faults.*`` through this), over a snapshot of the
+        values."""
+        return {k: v for k, v in list(self._values.items()) if k.startswith(prefix)}
+
     # -- typed accessors (HyperspaceConf.scala) -----------------------------
     @property
     def apply_enabled(self) -> bool:
@@ -148,4 +155,46 @@ class Config:
         return self.get_float(
             C.ZORDER_QUANTILE_RELATIVE_ERROR,
             C.ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT,
+        )
+
+    # -- crash recovery (metadata/recovery.py) ------------------------------
+    @property
+    def recovery_enabled(self) -> bool:
+        """Writer leases, stranded-entry rollback, stale-pointer healing
+        and the OCC retry loop of Action.run."""
+        return self.get_bool(C.RECOVERY_ENABLED, C.RECOVERY_ENABLED_DEFAULT)
+
+    @property
+    def recovery_lease_ms(self) -> int:
+        return max(1, self.get_int(C.RECOVERY_LEASE_MS, C.RECOVERY_LEASE_MS_DEFAULT))
+
+    @property
+    def recovery_orphan_grace_ms(self) -> int:
+        return max(
+            0,
+            self.get_int(C.RECOVERY_ORPHAN_GRACE_MS, C.RECOVERY_ORPHAN_GRACE_MS_DEFAULT),
+        )
+
+    @property
+    def recovery_retry_max_attempts(self) -> int:
+        return max(
+            1,
+            self.get_int(
+                C.RECOVERY_RETRY_MAX_ATTEMPTS, C.RECOVERY_RETRY_MAX_ATTEMPTS_DEFAULT
+            ),
+        )
+
+    @property
+    def recovery_retry_backoff_ms(self) -> int:
+        return max(
+            0,
+            self.get_int(C.RECOVERY_RETRY_BACKOFF_MS, C.RECOVERY_RETRY_BACKOFF_MS_DEFAULT),
+        )
+
+    @property
+    def serve_spill_orphan_ttl_ms(self) -> int:
+        """Age after which an orphaned spill file is reaped."""
+        return max(
+            1,
+            self.get_int(C.SERVE_SPILL_ORPHAN_TTL_MS, C.SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT),
         )

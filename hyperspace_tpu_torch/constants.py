@@ -160,8 +160,15 @@ DATA_FILE_NAME_ID = "_data_file_id"
 
 # Index log directory + data-version prefix (IndexDataManager.scala:24-37)
 HYPERSPACE_LOG_DIR = "_hyperspace_log"
-# the reference's serve tier pins snapshots here; a vacuum keeps it
+# durable cross-process pins (metadata/recovery.register_pins): one
+# lease-stamped file a pinning process and index root; a vacuum keeps it
 HYPERSPACE_PINS_DIR = "_hyperspace_pins"
+# orphan GC's quarantine, underscore-prefixed like the log dir so data
+# scans never see it
+HYPERSPACE_QUARANTINE_DIR = "_hyperspace_quarantine"
+# the serve cache's spill tier under the system path (ROADMAP A.8); the
+# recovery plane reaps expired spill files and GC skips the directory
+HYPERSPACE_SPILL_DIR = "_hyperspace_spill"
 INDEX_VERSION_DIR_PREFIX = "v__"
 LATEST_STABLE_LOG_NAME = "latestStable"
 
@@ -171,3 +178,56 @@ HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY = "hasParquetAsSourceFormat"
 
 # Nested-column prefix (util/ResolverUtils.scala `__hs_nested.`)
 NESTED_FIELD_PREFIX = "__hs_nested."
+
+
+# ---------------------------------------------------------------------------
+# Fault and crash injection (testing/faults.py) and crash recovery
+# (metadata/recovery.py); keys and defaults as in the reference
+# (hyperspace_tpu/constants.py:411-470)
+# ---------------------------------------------------------------------------
+
+# ``hyperspace.faults.<point>`` names an injection point with a spec such as
+# "transient", "transient:3", "persistent" or "persistent;match=v__=". The
+# keys arm nothing until ``faults.configure(session.conf)`` reads them.
+FAULTS_KEY_PREFIX = "hyperspace.faults."
+
+# ``hyperspace.faults.crash.<point>`` with "raise[;at=N][;match=substr]" (an
+# in-process SimulatedCrash) or "exit[...]" (os._exit mid-protocol).
+CRASH_KEY_PREFIX = "hyperspace.faults.crash."
+
+# Master switch for the recovery plane: writer leases stamped into the
+# transient log entries, stranded-entry rollback at action start and at
+# session attach, latestStable healing and the OCC retry loop of
+# Action.run. Off: a crashed writer strands the index until cancel().
+RECOVERY_ENABLED = "hyperspace.recovery.enabled"
+RECOVERY_ENABLED_DEFAULT = True
+
+# Writer lease: a live action re-stamps its transient entry every
+# leaseMs/3; an entry whose lease has expired belongs to a dead writer.
+# Entries without lease properties fall back to timestamp + leaseMs.
+RECOVERY_LEASE_MS = "hyperspace.recovery.leaseMs"
+RECOVERY_LEASE_MS_DEFAULT = 60_000
+
+# Orphan GC: unreferenced index data files move into
+# <index>/_hyperspace_quarantine/<stamp>/ and are deleted once the stamp is
+# older than this grace period.
+RECOVERY_ORPHAN_GRACE_MS = "hyperspace.recovery.orphanGraceMs"
+RECOVERY_ORPHAN_GRACE_MS_DEFAULT = 10 * 60_000
+
+# An action that loses the write_log OCC race re-snapshots the log tip and
+# retries, with exponential backoff from backoffMs, up to maxAttempts tries.
+RECOVERY_RETRY_MAX_ATTEMPTS = "hyperspace.recovery.retry.maxAttempts"
+RECOVERY_RETRY_MAX_ATTEMPTS_DEFAULT = 3
+RECOVERY_RETRY_BACKOFF_MS = "hyperspace.recovery.retry.backoffMs"
+RECOVERY_RETRY_BACKOFF_MS_DEFAULT = 10
+
+# Durable pin lease (register_pins(durable=True)): renewed every leaseMs/3;
+# an expired pin file belongs to a dead reader and is reaped by GC/vacuum.
+# Its key, hyperspace.fleet.pin.leaseMs, comes with the serve tier that sets
+# it (ROADMAP A.10).
+FLEET_PIN_LEASE_MS_DEFAULT = 30_000
+
+# Age after which recovery's spill reaper deletes a spill file no live
+# cache indexes.
+SERVE_SPILL_ORPHAN_TTL_MS = "hyperspace.serve.spill.orphanTtlMs"
+SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT = 10 * 60 * 1000

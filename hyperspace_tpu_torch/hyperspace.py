@@ -3,14 +3,14 @@
 Reference: ``Hyperspace.scala:27-193`` and its Python binding
 (``python/hyperspace/hyperspace.py:9-192``). Counterpart of
 ``hyperspace_tpu/hyperspace.py`` for the ported slices: create, the
-lifecycle (delete, restore, vacuum, refresh, optimize, cancel), list,
+lifecycle (delete, restore, vacuum, refresh, optimize, cancel, recover), list,
 one index's statistics and explain.
 Index maintenance runs with the query-rewrite rule disabled so
 maintenance scans never get rewritten to use the index being maintained
 (``ApplyHyperspace.withHyperspaceRuleDisabled``,
-rules/ApplyHyperspace.scala:68-75). ``recover`` comes with crash recovery
-(ROADMAP A.3b); explain's verbose and mode arguments and whyNot with the
-tooling (item A.7).
+rules/ApplyHyperspace.scala:68-75). ``recover`` repairs a crashed writer's
+leavings (``metadata/recovery.py``). Explain's verbose and mode arguments
+and whyNot come with the tooling (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -70,6 +70,15 @@ class Hyperspace:
         """Roll an interrupted action back to the last stable state."""
         with self._maintenance():
             self._manager.cancel(index_name)
+
+    def recover(self, index_name: str, gc: bool = True) -> dict:
+        """Repair a crashed writer's leavings on one index: roll back a
+        stranded transient log entry (lease expired, or torn), heal a stale
+        latestStable pointer and garbage-collect orphan data files
+        (quarantine, then delete after the grace period). Idempotent;
+        returns the report."""
+        with self._maintenance():
+            return self._manager.recover(index_name, gc=gc)
 
     def _maintenance(self):
         from hyperspace_tpu_torch.rules.apply import hyperspace_rule_disabled

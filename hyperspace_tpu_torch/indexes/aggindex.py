@@ -60,6 +60,7 @@ from hyperspace_tpu_torch.execution import pipeline_compiler as PC
 from hyperspace_tpu_torch.indexes.zonemaps import f64_down, f64_up, file_fingerprint
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
+from hyperspace_tpu_torch.testing import faults
 from hyperspace_tpu_torch.utils.files import fsync_dir
 from hyperspace_tpu_torch.utils.hashing import murmur3_64_bytes
 
@@ -398,6 +399,9 @@ def capture_index_dir(dir_path: str, index, conf=None, device=None) -> bool:
             json.dump(doc, fh)
             fh.flush()
             os.fsync(fh.fileno())
+        # crash seam: a publish that dies here leaves the sidecar absent,
+        # never torn (SimulatedCrash is no OSError and fails the action)
+        faults.crash("mid_sidecar_publish", side_path)
         os.replace(tmp, side_path)
     except OSError:
         try:
@@ -410,6 +414,7 @@ def capture_index_dir(dir_path: str, index, conf=None, device=None) -> bool:
         stmp = os.path.join(dir_path, f".{SAMPLE_NAME}.tmp.{os.getpid()}")
         try:
             pq.write_table(pa.concat_tables(sample_tables, promote_options="permissive"), stmp)
+            faults.crash("mid_sidecar_publish", sample_path)
             os.replace(stmp, sample_path)
         except OSError:
             try:

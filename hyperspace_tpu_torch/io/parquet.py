@@ -23,6 +23,7 @@ import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+from hyperspace_tpu_torch.testing import faults
 
 _BUCKET_FILE_RE = re.compile(r"part-\d+-bucket_(\d+)\.parquet$")
 
@@ -52,6 +53,7 @@ def read_tables(
     paths = list(paths)
     if fmt != "parquet" or not paths or _resolve_nested_columns(paths, columns, fmt)[1]:
         return _pool_map(lambda p: read_table([p], columns, fmt), paths)
+    faults.check("parquet_read", paths)
     return _pool_map(lambda p: pq.ParquetFile(p).read(columns=list(columns)), paths)
 
 
@@ -122,6 +124,9 @@ def read_table(
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet (ROADMAP queue A item 10)"
         )
+    # fault-injection seam (testing/faults.py "parquet_read"): every data
+    # read funnels through here, read_tables or read_file_row_groups
+    faults.check("parquet_read", paths)
     if columns:
         read_cols, extract = _resolve_nested_columns(paths, columns, fmt)
         if extract:
@@ -207,6 +212,7 @@ def read_file_row_groups(
 ) -> pa.Table:
     """ONE file's row groups (None = the whole file, () = zero rows with
     the right schema): the per-file unit of :func:`read_table_row_groups`."""
+    faults.check("parquet_read", path)
     pf = pq.ParquetFile(path)
     if groups is None:
         return pf.read(columns=cols)
@@ -361,6 +367,10 @@ def write_bucket_file(
     """One bucket's parquet file from rows ``idx`` of ``table`` — the
     per-bucket unit of work of :func:`write_bucket_files`."""
     path = os.path.join(out_dir, bucket_file_name(file_idx_offset + bucket, bucket))
+    # crash seam (testing/faults.py "mid_data_write", at=N picks the Nth
+    # file): a build that dies here leaves a partly written version dir
+    # under a transient log entry, the orphans recovery's GC quarantines
+    faults.crash("mid_data_write", path)
     if (
         len(idx)
         and len(idx) == int(idx[-1]) - int(idx[0]) + 1
@@ -413,6 +423,7 @@ def write_table(path: str, table: pa.Table) -> None:
     """One index data file with the bucket files' 64k-row groups and the
     encoding decision made on ``table`` itself (the z-order index's files;
     the reference's ``write_table``)."""
+    faults.crash("mid_data_write", path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     pq.write_table(
         table,

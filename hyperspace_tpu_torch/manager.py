@@ -4,8 +4,9 @@ Reference: ``index/IndexCollectionManager.scala:28-206`` (per-index
 log/data managers via PathResolver and the factories, action dispatch
 with refresh-mode and vacuum-state branching) and
 ``index/CachingIndexCollectionManager.scala`` (TTL read-cache of all log
-entries, invalidated on any mutation). Recovery (``recover``) comes with
-ROADMAP A.3b.
+entries, invalidated on any mutation). Counterpart of
+``hyperspace_tpu/manager.py``, with its crash recovery: the attach sweep
+and ``recover`` / ``recover_all`` (``metadata/recovery.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,68 @@ class IndexCollectionManager:
     def __init__(self, session):
         self.session = session
         self.path_resolver = PathResolver(session.conf)
+        # session attach is the stranded-entry sweep point: a writer that
+        # died in an earlier process left transient entries whose leases
+        # have expired. Best effort (attach never fails on another
+        # writer's wreckage); an index a live writer holds is left alone.
+        if session.conf.recovery_enabled:
+            try:
+                self.recover_all(gc=False)
+            except OSError:
+                pass
+
+    # -- recovery (metadata/recovery.py) ------------------------------------
+    def recover(self, index_name: str, gc: bool = True) -> dict:
+        """Repair one index: roll back a stranded transient entry, heal a
+        stale latestStable pointer and (``gc=True``) quarantine, then
+        delete, orphan data files. Returns the combined report."""
+        from hyperspace_tpu_torch.metadata import recovery
+
+        log_mgr, _ = self._managers(index_name)
+        conf = self.session.conf
+        report = recovery.ensure_recovered(log_mgr, conf.recovery_lease_ms)
+        if gc:
+            report["gc"] = recovery.gc_orphans(
+                log_mgr.index_path,
+                conf.recovery_orphan_grace_ms,
+                lease_ms=conf.recovery_lease_ms,
+            )
+            report["spill_gc"] = recovery.reap_spill_orphans(
+                self.path_resolver.system_path, conf.serve_spill_orphan_ttl_ms
+            )
+        return report
+
+    def recover_all(self, gc: bool = False) -> List[dict]:
+        """Stranded-entry sweep over every index under the system path."""
+        from hyperspace_tpu_torch import factories
+        from hyperspace_tpu_torch.metadata import recovery
+
+        conf = self.session.conf
+        out = []
+        for path in self.path_resolver.all_index_paths():
+            log_mgr = factories.create_log_manager(path)
+            report = recovery.ensure_recovered(log_mgr, conf.recovery_lease_ms)
+            if gc:
+                report["gc"] = recovery.gc_orphans(
+                    path,
+                    conf.recovery_orphan_grace_ms,
+                    lease_ms=conf.recovery_lease_ms,
+                )
+            report["index_path"] = path
+            out.append(report)
+        if gc:
+            # one lake-level row for the spill tier, which has no index
+            out.append(
+                {
+                    "index_path": None,
+                    "rolled_back": False,
+                    "spill_gc": recovery.reap_spill_orphans(
+                        self.path_resolver.system_path,
+                        conf.serve_spill_orphan_ttl_ms,
+                    ),
+                }
+            )
+        return out
 
     def _managers(self, index_name: str):
         from hyperspace_tpu_torch import factories
@@ -183,3 +246,19 @@ class CachingIndexCollectionManager(IndexCollectionManager):
 
     def cancel(self, index_name: str) -> None:
         self._mutate(super().cancel, index_name)
+
+    def recover(self, index_name: str, gc: bool = True) -> dict:
+        self.clear_cache()
+        try:
+            return super().recover(index_name, gc)
+        finally:
+            self.clear_cache()
+
+    def recover_all(self, gc: bool = False) -> List[dict]:
+        # clear_cache only assigns, so the call from the base __init__'s
+        # attach sweep, before this class's __init__ body, is safe
+        self.clear_cache()
+        try:
+            return super().recover_all(gc)
+        finally:
+            self.clear_cache()

@@ -23,13 +23,15 @@ from hyperspace_tpu_torch.constants import (
 )
 from hyperspace_tpu_torch.exceptions import LogCorruptedError
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
+from hyperspace_tpu_torch.testing import faults
 from hyperspace_tpu_torch.utils import files as file_utils
 from hyperspace_tpu_torch.utils import json_utils
 
 
 def _parse_entry(path: str) -> IndexLogEntry:
     """Parse one on-disk log entry; typed LogCorruptedError on torn or
-    unparseable JSON (a crash artifact, not a caller bug)."""
+    unparseable JSON (a crash artifact, not a caller bug; the recovery
+    plane treats it as a stranded entry)."""
     text = file_utils.read_text(path)
     try:
         return IndexLogEntry.from_dict(json_utils.from_json(text))
@@ -55,6 +57,8 @@ class IndexLogManager:
     # -- reads --------------------------------------------------------------
     def get_log(self, log_id: int) -> Optional[IndexLogEntry]:
         p = self._path_for(log_id)
+        # fault-injection seam (testing/faults.py, "log_read")
+        faults.check("log_read", p)
         if not os.path.isfile(p):
             return None
         return _parse_entry(p)
@@ -74,6 +78,7 @@ class IndexLogManager:
         """latestStable pointer, else scan ids backwards for a stable state
         (getLatestStableLog:102-127)."""
         p = self._latest_stable_path
+        faults.check("log_read", p)
         if os.path.isfile(p):
             try:
                 entry = _parse_entry(p)
@@ -160,3 +165,15 @@ class IndexLogManager:
     def delete_log(self) -> None:
         """Remove the whole log dir (vacuum)."""
         file_utils.delete(self.log_dir)
+
+    def overwrite_log(self, log_id: int, entry: IndexLogEntry) -> None:
+        """Atomically REPLACE log file ``log_id``, outside the OCC
+        create-if-absent protocol. Its one use is a live writer's lease
+        heartbeat re-stamping its own transient entry
+        (``metadata/recovery.LeaseHeartbeat``); final entries are only ever
+        created through :meth:`write_log`."""
+        payload = entry.to_dict()
+        payload["id"] = log_id
+        file_utils.atomic_overwrite(
+            self._path_for(log_id), json_utils.to_json(payload, indent=2)
+        )

@@ -670,8 +670,9 @@ def test_a_b1_fault_during_refresh_on_the_card_fails_it_and_leaves_the_transient
     cuda_device, tmp_path, monkeypatch
 ):
     """An error code from B1's C entry on a CUDA tensor during a refresh
-    raises KernelLaunchError out of the action: the REFRESHING entry stays
-    at the log tip until cancel, and the refresh then runs."""
+    raises KernelLaunchError out of the action, on its first attempt: the
+    leased REFRESHING entry stays at the log tip (its lease is live, so no
+    recovery takes it) until cancel, and the refresh then runs."""
     import os
 
     import pyarrow as pa
@@ -691,8 +692,51 @@ def test_a_b1_fault_during_refresh_on_the_card_fails_it_and_leaves_the_transient
     with pytest.raises(KernelLaunchError):
         hs.refresh_index("lc", "incremental")
     log = sess.index_manager._managers("lc")[0]
-    assert log.get_latest_log().state == "REFRESHING"
+    tip = log.get_latest_log()
+    assert tip.state == "REFRESHING"
+    assert len(tip.properties["recovery.leaseOwner"]) == 32
     monkeypatch.undo()
     hs.cancel("lc")
     hs.refresh_index("lc", "incremental")
     assert log.get_latest_log().state == "ACTIVE"
+
+
+def test_a_b1_fault_at_a_short_lease_is_rolled_back_by_the_next_refresh(
+    cuda_device, tmp_path, monkeypatch
+):
+    """The same fault at a 50 ms lease: B1 was launched once (never
+    retried), and once the lease has expired the next refresh rolls the
+    REFRESHING entry back by itself, with no cancel, and then runs B1 on
+    the card."""
+    import os
+    import time
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+
+    src, _part = _lifecycle_source(tmp_path, rows=2000)
+    sess = HyperspaceSession(device=cuda_device)
+    sess.conf.set("hyperspace.system.path", str(tmp_path / "idx"))
+    sess.conf.set("hyperspace.recovery.leaseMs", 50)
+    hs = Hyperspace(sess)
+    hs.create_index(sess.read.parquet(src), CoveringIndexConfig("lc", ["k"], ["v"]))
+    pq.write_table(pa.table({"k": np.arange(10), "p": np.arange(10), "v": np.ones(10)}),
+                   os.path.join(src, "part9.parquet"))
+    calls = []
+    monkeypatch.setattr(H, "_kernel_fn", lambda: (lambda *a: calls.append(1) or 700))
+    with pytest.raises(KernelLaunchError):
+        hs.refresh_index("lc", "incremental")
+    assert len(calls) == 1
+    log = sess.index_manager._managers("lc")[0]
+    assert log.get_latest_log().state == "REFRESHING"
+    monkeypatch.undo()
+    time.sleep(0.15)
+    ops.reset_launch_counts()
+    hs.refresh_index("lc", "incremental")
+    assert ops.launch_counts()["murmur3_bucket_ids"] > 0
+    states = [log.get_log(i).state for i in range(log.get_latest_id() + 1)
+              if log.get_log(i) is not None]
+    assert states[-4:] == ["REFRESHING", "ACTIVE", "REFRESHING", "ACTIVE"]

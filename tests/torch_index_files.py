@@ -7,8 +7,9 @@ phase 12. Imports neither JAX nor either package.
   (``_zonemaps.json``, ``_aggstate.json``) as parsed docs without their
   files' ``mtime_ns``, which each side's own writes set.
 * Log entries are compared without the entry's id and timestamp, without
-  the index files' ``modifiedTime``, and with the directory names of the
-  system path replaced by ``<sys>``.
+  the index files' ``modifiedTime``, with the directory names of the
+  system path replaced by ``<sys>``, and with a begin entry's writer lease
+  (a random owner and a time) compared by its presence.
 """
 
 import json
@@ -16,6 +17,8 @@ import os
 
 #: the index's log directory, left out of :func:`index_paths`
 LOG_DIR = "_hyperspace_log"
+#: the writer lease a begin entry carries while crash recovery is on
+LEASE_PROPS = ("recovery.leaseOwner", "recovery.leaseExpiresAtMs")
 #: sidecars compared as JSON without their files' mtime_ns
 JSON_SIDECARS = ("_zonemaps.json", "_aggstate.json")
 
@@ -61,10 +64,17 @@ def read_log(root: str) -> dict:
 
 def normalized_entry(entry: dict, sys_path: str) -> dict:
     """The entry without its id and timestamp and without the index files'
-    mtimes, the system path's directory names replaced."""
+    mtimes, the system path's directory names replaced, and the writer
+    lease's two values (a random owner, a time) replaced by placeholders,
+    so entries compare by the lease's presence."""
     entry = dict(entry)
     entry.pop("id", None)
     entry.pop("timestamp", None)
+    props = dict(entry.get("properties", {}))
+    for p in LEASE_PROPS:
+        if p in props:
+            props[p] = f"<{p}>"
+    entry["properties"] = props
 
     def drop_mtimes(x):
         if isinstance(x, dict):

@@ -9,10 +9,10 @@ the checks hold the port to the JAX package:
 
 * log entries, every numbered one and ``latestStable``, equal apart from
   the entry's id and timestamp, the index files' mtimes and the system
-  path; the JAX package's begin entries carry two writer-lease
-  properties (its crash recovery is on by default) that the port's will
-  not have until crash recovery is ported, so those two are dropped
-  there, and only there;
+  path. Crash recovery is on by default in both packages, so their begin
+  entries carry the two writer-lease properties: each side's are checked
+  well formed (:func:`check_lease`) and then compared by presence, since
+  the owner is random and the expiry a time;
 * index files equal byte for byte, ``_zonemaps.json`` and
   ``_aggstate.json`` apart from their files' ``mtime_ns``;
 * query rows equal in order, and the explain text equal apart from the
@@ -23,16 +23,39 @@ import os
 
 import pyarrow as pa
 import pyarrow.parquet as pq
-from torch_index_files import index_files, normalized_entry, read_log
+from torch_index_files import LEASE_PROPS, index_files, normalized_entry, read_log
 
 import hyperspace_tpu_torch as T
+from hyperspace_tpu_torch.constants import States
 from hyperspace_tpu import constants as JC
 from hyperspace_tpu.exceptions import HyperspaceException as JHyperspaceException
 from hyperspace_tpu.hyperspace import Hyperspace as JHyperspace
 from hyperspace_tpu.session import HyperspaceSession as JSession
 
-#: the JAX package's writer lease, stamped into its begin entries only
-LEASE_PROPS = ("recovery.leaseOwner", "recovery.leaseExpiresAtMs")
+TRANSIENT_STATES = frozenset(States.ROLLBACK)
+
+#: how far a begin entry's lease expiry may lie past its timestamp plus the
+#: lease: the time from the entry's making to its stamp, and the heartbeat's
+#: renewals while the action ran
+LEASE_SLACK_MS = 30_000
+
+
+def check_lease(entry: dict, lease_ms: int) -> bool:
+    """True when ``entry`` (a parsed log entry) carries the writer lease,
+    after asserting it well formed: an owner of 32 hex digits and an expiry,
+    an int string, within ``LEASE_SLACK_MS`` past ``timestamp + lease_ms``.
+    (``normalized_entry`` then compares the lease by its presence.)"""
+    props = entry.get("properties", {})
+    present = [p in props for p in LEASE_PROPS]
+    assert all(present) or not any(present), props
+    if not any(present):
+        return False
+    owner, expires = props[LEASE_PROPS[0]], props[LEASE_PROPS[1]]
+    assert len(owner) == 32 and int(owner, 16) >= 0, owner
+    assert isinstance(expires, str) and str(int(expires)) == expires, expires
+    late = int(expires) - (int(entry["timestamp"]) + lease_ms)
+    assert 0 <= late <= LEASE_SLACK_MS, (expires, entry["timestamp"], lease_ms)
+    return True
 
 
 def append_file(src, name="extra", clicks=(9001, 9002, 9003)):
@@ -134,15 +157,17 @@ class Twin:
         assert self.index_files(name, "port") == self.index_files(name, "jax")
 
     def log_entries(self, name: str, pkg: str) -> dict:
+        """Normalized log entries of ``name``; with recovery on a transient
+        entry carries the writer lease (checked by :func:`check_lease`), a
+        stable one never does."""
+        s = self.t if pkg == "port" else self.j
         sys_path = self.tsys if pkg == "port" else self.jsys
+        lease_ms, recovery_on = s.conf.recovery_lease_ms, s.conf.recovery_enabled
         out = {}
         for f, entry in read_log(os.path.join(sys_path, name)).items():
-            props = entry.get("properties", {})
-            if pkg == "port":
-                assert not set(LEASE_PROPS) & set(props), f
-            else:
-                for p in LEASE_PROPS:
-                    props.pop(p, None)
+            leased = check_lease(entry, lease_ms)
+            transient = entry["state"] in TRANSIENT_STATES
+            assert leased == (transient and recovery_on), (pkg, f, entry["state"])
             out[f] = normalized_entry(entry, sys_path)
         return out
 
