@@ -82,7 +82,10 @@ against its plain PyTorch version on the card:
      version on the card; the indices also at the probe's 1 and 8 reps;
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
-   covering index with the default 200 buckets, then 32 point and 4
+   covering index with the default 200 buckets through the pipelined
+   partition-first writer (built once more with
+   ``hyperspace.index.build.partitionFirst`` off: its 200 bucket files
+   byte-equal, both builds' stages logged side by side), then 32 point and 4
    IN-list filters served from the index with bucket pruning, each
    checked against the unindexed plan row for row (point filters take
    the fused range mask, B3a; IN lists the general device mask);
@@ -242,8 +245,8 @@ against its plain PyTorch version on the card:
    session's; before step 1, after steps 2, 3 and 5 and in the
    quick-refresh state phase 4's 36 filters
    with 4 new keys (lc_idx), d2's point keys (lc_ds) and q_zrange (lc_z)
-   name their index in the explain (none in the quick-refresh state),
-   and their rows equal the plan without Hyperspace and, in order, the
+   name their index in the explain (in the quick-refresh state lc_idx
+   through a Union with the recorded batch), and their rows equal the plan without Hyperspace and, in order, the
    cpu session's; phase 5's join over o_idx and lc_idx is timed before
    step 1, after step 2 (buckets of two files) and after step 3 (one
    file a bucket) and held to the unindexed plan and the cpu session
@@ -259,7 +262,8 @@ against its plain PyTorch version on the card:
    rc_idx (li_idx's config), rc_z (z_idx's) and rc_ds (ds_idx's), beside a
    crash-free run of every action in system paths of their own. In-process
    crashes (``raise``): rc_idx's create at after_begin_log, mid_data_write
-   (at=101: 100 of 200 bucket files landed), after_data_write,
+   (at=101, in the pipelined writer's thread: the 199 bucket files other
+   than the crashed one land, as in the reference), after_data_write,
    mid_sidecar_publish and after_end_log; a day's file refreshed
    incrementally at mid_data_write (at=101); optimize full at
    mid_data_write (at=101); RF2's rewrite at after_data_write; a vacuum of
@@ -270,7 +274,9 @@ against its plain PyTorch version on the card:
    the set before (a subset for the vacuum), no orphan, a second GC moves
    nothing; the index's queries (phase 4's 36 filters, q_zrange, d2) equal
    the unindexed plan; the retried action's files and entries equal the
-   crash-free run's, and it launched each kernel it runs. A child
+   crash-free run's, and it launched each kernel it runs; a
+   mid_data_write cell at=101 left every file of the retried version but
+   one. A child
    interpreter creating rc_idx dies at its 101st bucket file (``exit``,
    code 86): before its lease ``recover`` reports a live writer and
    changes nothing, after it rolls back the child's 100 files, and the
@@ -281,6 +287,30 @@ against its plain PyTorch version on the card:
    retry's seconds, RF1's refresh with recovery on and off in turns. Every
    B1, B6, B7 and B5f call is held bit-equal to its plain version
    (``KernelCalls``).
+
+14. hybrid path (``hybrid_path``): over a copy of phase 4's 8 lineitem
+   files and phase 5's orders files, lineage on, hs_idx (li_idx's config)
+   and ho_idx (o_idx's), served by a session on the card and a
+   ``device="cpu"`` session over the same system path, with
+   ``hyperspace.index.hybridscan.enabled`` on: (1) bench.py's hybrid file
+   (n_items // 32 = 187,537 rows) appended: phase 4's 32 point and 4
+   IN-list filters and phase 5's ``orders ⋈ lineitem`` (one warm-up, 4
+   interleaved rounds of the sequential and pipelined routes), each plan
+   a ``Union`` with the ``hybridDelta`` scan and both join sides
+   index-served, the appended rows hashed into the index's 200 buckets
+   by B1; (2) source file 0 deleted (the lineage NOT-IN), the same
+   queries; (3) appends past the 0.3 appended ratio: the index refused
+   with TOO_MUCH_APPENDED, the query reads the source; (4) Hybrid Scan
+   off, a quick refresh, the filters served in exact mode through the
+   recorded delta, then an incremental refresh and no Union. Rows equal
+   the unindexed plan as a multiset and the cpu session's in order. (5)
+   The approximate plane over ha_idx (li_rg_idx's layout, l_extendedprice
+   included, 8 buckets, 128 sample rows a row group): an ungrouped COUNT
+   and SUM over a 10 % l_orderkey window, the same grouped by l_quantity,
+   one at max_rel_error 0.001 and one over a hybrid state, which raise
+   ApproximationError on both sessions; the card's tables equal the cpu
+   session's bit for bit. Every B1 call is held bit-equal to its plain
+   version (``KernelCalls``).
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -302,8 +332,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12 and 13 and read just after each; each kernel's count in the JSON
-line adds phases 12 and 13's. The kernel checks' launches are not counted as
+11, 12, 13 and 14 and read just after each; each kernel's count in the
+JSON line adds phases 12, 13 and 14's. The kernel checks' launches are not counted as
 the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -1100,6 +1130,8 @@ def filter_path(work: str, device) -> dict:
     )
     if rows != N_ROWS or len(files) != 200 or build_launches <= 0:
         raise AssertionError("build did not index every row through B1")
+    legacy = legacy_build(work, device, src, files, build_s, dict(sess.build_stats))
+    build_launches = ops.launch_counts()["murmur3_bucket_ids"]
 
     point_keys, in_lists = phase4_keys()
     queries = [df["l_orderkey"] == k for k in point_keys] + [
@@ -1167,7 +1199,57 @@ def filter_path(work: str, device) -> dict:
         f"{np.percentile(base_times, 50):.3f}"
     )
     return {"launches": total_launches, "all_launches": ops.launch_counts(),
-            "session": sess, "hs": hs, "items": df, "src": src}
+            "session": sess, "hs": hs, "items": df, "src": src, "legacy_build": legacy,
+            "p50_ms": float(p50), "p99_ms": float(p99)}
+
+
+def file_sha(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def legacy_build(work: str, device, src: str, files, build_s: float, stages: dict) -> dict:
+    """li_idx built once more, in a session of its own, with
+    ``hyperspace.index.build.partitionFirst`` off (the legacy route: the
+    whole sorted batch gathered, then written): its 200 bucket files must
+    equal the pipelined build's byte for byte. Both builds' seconds and
+    stages are logged side by side; the copy is removed after."""
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+
+    root = os.path.join(work, "indexes_legacy")
+    sess = HyperspaceSession(device=device)
+    sess.conf.set("hyperspace.system.path", root)
+    sess.conf.set("hyperspace.index.build.partitionFirst", False)
+    hs = Hyperspace(sess)
+    t0 = time.perf_counter()
+    hs.create_index(sess.read.parquet(src), CoveringIndexConfig(
+        "li_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"]))
+    legacy_s = time.perf_counter() - t0
+    legacy_files = hs.get_index("li_idx").content.files
+    names = sorted(os.path.basename(f) for f in files)
+    if sorted(os.path.basename(f) for f in legacy_files) != names:
+        raise AssertionError("the legacy build wrote other bucket files")
+    by_name = {os.path.basename(f): f for f in legacy_files}
+    for f in files:
+        if file_sha(f) != file_sha(by_name[os.path.basename(f)]):
+            raise AssertionError(f"{os.path.basename(f)} differs between the two build routes")
+    keys = ("scan", "hash_shuffle", "sort", "write", "zonemap_capture", "sidecar_capture")
+    out = {"pipelined_s": build_s, "legacy_s": legacy_s,
+           "pipelined_stages": {k: stages.get(k) for k in keys},
+           "legacy_stages": {k: sess.build_stats.get(k) for k in keys}, "files_equal": len(files)}
+    shutil.rmtree(root, ignore_errors=True)
+    tails = [(st.get("sort") or 0.0) + (st.get("write") or 0.0)
+             for st in (out["pipelined_stages"], out["legacy_stages"])]
+    out["sort_write_s"] = {"pipelined": tails[0], "legacy": tails[1]}
+    log(f"main path: li_idx pipelined (partitionFirst on) {build_s:.3f}s against legacy "
+        f"(off, the source files read warm) {legacy_s:.3f}s; sort + write "
+        f"{tails[0]:.4f} / {tails[1]:.4f}s; stages s "
+        + ", ".join(f"{k} {out['pipelined_stages'][k] or 0:.4f} / "
+                    f"{out['legacy_stages'][k] or 0:.4f}" for k in keys)
+        + f"; all {len(files)} bucket files byte-equal")
+    return out
 
 
 def gen_orders(out_dir: str) -> str:
@@ -1270,6 +1352,8 @@ def join_path(work: str, ctx: dict, b4_inputs: B4Inputs) -> dict:
             elif not out.equals(got):
                 raise AssertionError(f"join rows differ in order with {pipe}={on}")
     sess.conf.set(pipe, False)
+    ctx["join_p50_ms"] = {"sequential": float(np.median(times[False])),
+                          "pipelined": float(np.median(times[True]))}
     after = ops.launch_counts()
     launched = {k: after[k] - before[k] for k in after}
     b4_indexed = launched["bucket_match_pairs"]
@@ -4132,6 +4216,13 @@ def lc_action(card, cuda, cpu, kernels, actions, name, op, *args) -> dict:
     return out
 
 
+#: the quick-refresh checkpoint's filters (indices into ``lc_filters``):
+#: 8 of the 32 point keys, the 4 new keys and the 4 IN-lists. Each filter
+#: reads the whole index side through the Union (about 0.4 s on the card),
+#: so the 40 of the other checkpoints would cost the script about 20 s more.
+LC_QUICK_FILTERS = tuple(range(8)) + tuple(range(32, 40))
+
+
 def lc_keys():
     """Phase 4's 32 point keys and 4 IN-lists, and d2's 4 keys absent from
     phase 4's files, which phase 12's first append makes present."""
@@ -4148,7 +4239,7 @@ def lc_filters(df):
 
 
 def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
-             join: bool) -> dict:
+             join: bool, filters=None) -> dict:
     """One checkpoint of phase 12. The filters (``lc_filters``) over the
     main session; d2's 36 point keys over the ds session (lc_ds); bench's
     q_zrange (lc_z): each explain names the index ``served`` gives for its
@@ -4156,7 +4247,8 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
     a multiset to the plan without Hyperspace and in order to the cpu
     session's; with ``join`` also the join (``lc_join``).
     The queries' kernel calls are recorded in ``kernels`` under the step
-    and held to their plain versions after it."""
+    and held to their plain versions after it. ``filters`` (indices into
+    ``lc_filters``) runs a subset of the filters."""
     out = {"step": step}
     unindexed = {}
 
@@ -4196,7 +4288,7 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
 
     kernels.label = f"{step} queries"
     try:
-        _lc_check_sets(run, cuda, cpu, src, served)
+        _lc_check_sets(run, cuda, cpu, src, served, filters)
         if join:
             out["join"] = lc_join(card, cuda, cpu, src, orders_src, step)
     finally:
@@ -4205,10 +4297,13 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
     return out
 
 
-def _lc_check_sets(run, cuda, cpu, src, served) -> None:
+def _lc_check_sets(run, cuda, cpu, src, served, filters=None) -> None:
     items = cuda.main.read.parquet(src)
     citems = cpu.main.read.parquet(src)
-    run("filters", cuda.main, cuda.hs["main"], cpu.main, lc_filters(items), lc_filters(citems),
+    plans, cpu_plans = lc_filters(items), lc_filters(citems)
+    if filters is not None:
+        plans, cpu_plans = [plans[i] for i in filters], [cpu_plans[i] for i in filters]
+    run("filters", cuda.main, cuda.hs["main"], cpu.main, plans, cpu_plans,
         served.get("lc_idx"), "CI")
     if "lc_z" in served:
         zq = [zorder_queries(d)["q_zrange"][0] for d in (items, citems)]
@@ -4275,8 +4370,9 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     (the lineage rewrite, which leaves one file a bucket); (4) a second RF1
     batch indexed incrementally by all three (two files a bucket again),
     lc_idx optimized full (compacted), then quick (a no-op), a third RF1
-    batch recorded by a quick refresh of lc_idx (no index serves), then
-    indexed by an incremental one; (5) a fourth RF1 batch, a full refresh
+    batch recorded by a quick refresh of lc_idx (lc_idx serves the filters
+    through a Union with the batch read from the source), then indexed by
+    an incremental one; (5) a fourth RF1 batch, a full refresh
     and a vacuum of the outdated versions of all three, delete, restore,
     delete and vacuum, and a cancel over a transient entry written through
     the log manager. After each step every index file and log entry
@@ -4348,7 +4444,7 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     # (4) RF2's rewrite left one file a bucket: a second RF1 batch indexed
     # incrementally gives lc_idx two again, then optimize full compacts them
     # (quick after it is a no-op); a third batch is recorded by a quick
-    # refresh (no index serves) and indexed by an incremental one
+    # refresh (lc_idx serves through a Union) and indexed by an incremental one
     next_key = N_ORDERS + RF1_ORDERS + FILE_ROWS // 4
     n4 = lc_batch(os.path.join(src, "rf1_b.parquet"), next_key, RF1_ORDERS, SEED + 22)
     next_key += RF1_ORDERS
@@ -4371,12 +4467,18 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     next_key += RF1_ORDERS
     lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "refresh_index", "quick")
     read += compare(("lc_idx",), "step 4 quick")
+    # the quick-refreshed entry serves in exact mode, its recorded batch
+    # read from the source beside the index through a Union
+    quick_text = cuda.hs["main"].explain(lc_filters(cuda.main.read.parquet(src))[0])
+    if "Union" not in quick_text.split("Plan without indexes:")[0]:
+        raise AssertionError(f"the quick-refreshed lc_idx served no Union:\n{quick_text}")
     quick = lc_check(card, cuda, cpu, kernels, src, orders_src, "step 4, quick refresh",
-                     {"lc_idx": None}, False)
+                     {"lc_idx": "lc_idx"}, False, filters=LC_QUICK_FILTERS)
     lc_action(card, cuda, cpu, kernels, actions, "lc_idx", "refresh_index", "incremental")
     read += compare(("lc_idx",), "step 4")
     log(f"lifecycle path [{card}]: step 4: appended RF1's third batch ({n4q} rows), recorded by "
-        f"a quick refresh (no index served the filters), indexed by an incremental one")
+        f"a quick refresh (lc_idx served the filters through a Union with the batch), "
+        f"indexed by an incremental one")
     # (5) full refresh after a fourth RF1 batch, vacuum, delete / restore,
     # vacuum, cancel
     n5 = lc_batch(os.path.join(src, "rf1_d.parquet"), next_key, RF1_ORDERS, SEED + 24)
@@ -4731,6 +4833,13 @@ def rc_cell(card, ctx: dict, name: str, label: str, point: str, spec: str, op, *
         missing = [k for k in rc_kernels(name) if not retry_launches.get(k)]
         if missing:
             raise AssertionError(f"{label}: the retried action launched no {missing}")
+    if point == "mid_data_write" and ";at=" in spec:
+        # the crash fired in the pipelined writer's thread: every bucket
+        # queued behind the crashed file still landed, as in the reference
+        wrote = len(rc_data_files(path) - before)
+        if len(landed) != wrote - 1:
+            raise AssertionError(f"{label}: {len(landed)} files landed before the crash, "
+                                 f"not the {wrote - 1} of the reference's pipelined writer")
     ref_s = None
     if ref_op:
         ref_s, _l, err = rc_timed(kernels, f"{label}, crash-free", lambda: rc_run(ref, name, op, *args))
@@ -5035,6 +5144,437 @@ def recovery_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: Hybrid Scan, the quick refresh's serve and the approximate plane
+# ---------------------------------------------------------------------------
+
+#: bench.py's hybrid file (bench.py:939-955): n_items // 32 appended rows
+HY_EXTRA = N_ROWS // 32
+HYBRID = "hyperspace.index.hybridscan.enabled"
+
+
+def hy_append(path: str) -> int:
+    """bench.py's hybrid file, as one parquet file: random order keys over
+    the orders, one ship date, l_quantity 7, l_extendedprice 1.0."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = HY_EXTRA
+    pq.write_table(pa.table({
+        "l_orderkey": np.random.default_rng(9).integers(0, N_ORDERS, n),
+        "l_shipdate": pa.array(np.full(n, np.datetime64("1998-01-01"))),
+        "l_quantity": np.full(n, 7, dtype=np.int64),
+        "l_extendedprice": np.full(n, 1.0),
+    }), path)
+    return n
+
+
+def hy_filters(df):
+    """Phase 4's 32 point and 4 IN-list filters."""
+    point_keys, in_lists = phase4_keys()
+    key = df["l_orderkey"]
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    return ([df.filter(key == k).select(*cols) for k in point_keys]
+            + [df.filter(key.isin(keys)).select(*cols) for keys in in_lists])
+
+
+def hy_shape(sess, df) -> dict:
+    """What the rewrite made of ``df``'s plan: its Unions, its scans of
+    appended files (``hybridDelta``), its index scans with a lineage NOT-IN
+    (``excluded_file_ids``) and the indexes it reads."""
+    from hyperspace_tpu_torch.plan.nodes import Scan, Union
+
+    sess.enable_hyperspace()
+    try:
+        plan = sess.optimize(df.logical_plan)
+    finally:
+        sess.disable_hyperspace()
+    out = {"unions": 0, "delta_scans": 0, "excluded": 0, "indexes": set()}
+
+    def walk(node):
+        if isinstance(node, Union):
+            out["unions"] += 1
+        if isinstance(node, Scan):
+            rel = node.relation
+            out["delta_scans"] += ("hybridDelta", "1") in rel.options
+            out["excluded"] += bool(rel.excluded_file_ids)
+            if rel.index_info:
+                out["indexes"].add(rel.index_info[0])
+        for child in node.children:
+            walk(child)
+
+    walk(plan)
+    return out
+
+
+def hy_expect(shape: dict, want: dict, indexes, label: str) -> None:
+    got = {"unions": shape["unions"], "delta_scans": shape["delta_scans"],
+           "excluded": shape["excluded"]}
+    if got != want or shape["indexes"] != set(indexes):
+        raise AssertionError(f"{label}: plan {shape}, expected {want} over {set(indexes)}")
+
+
+#: phase 14's depth (PERF.md section 4): a filter over the Union reads
+#: every index file's matching row groups and the appended file (about
+#: 0.4-0.7 s on the card, as long in the cpu session), so only the first
+#: state holds all 36 against the cpu session; the others hold 8 point
+#: filters and the 4 IN-lists, and the quick-refresh state and the refused
+#: one run just those 12
+HY_SHORT = tuple(range(8)) + tuple(range(32, 36))
+
+
+def hy_filter_set(c: dict, step: str, want: dict, indexes=("hs_idx",), run=None,
+                  held=None) -> dict:
+    """Phase 4's filters (``run``: the indices of those to run, all by
+    default) in one source state (``c["state"]``): each plan's shape as
+    ``want`` (Unions, delta scans, NOT-INs) over ``indexes``; one warm-up,
+    one timed run a query on the card; rows equal as a multiset to the
+    plan without Hyperspace (computed once a source state) and, for the
+    filters in ``held`` (all by default), in order to the cpu session's."""
+    cs, ps, src = c["card_s"], c["cpu_s"], c["src"]
+    plans, cpu_plans = hy_filters(cs.read.parquet(src)), hy_filters(ps.read.parquet(src))
+    run = range(len(plans)) if run is None else run
+    held = run if held is None else held
+    for i in run:
+        hy_expect(hy_shape(cs, plans[i]), want, indexes, f"{step} filter {i}")
+    c["kernels"].label = f"hybrid {step} filters"
+    cs.enable_hyperspace()
+    try:
+        plans[run[0]].collect()  # warm-up
+        times, got = [], {}
+        for i in run:
+            t0 = time.perf_counter()
+            got[i] = plans[i].collect()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        cs.disable_hyperspace()
+        c["kernels"].label = None
+    ps.enable_hyperspace()
+    for i in held:
+        if not got[i].equals(cpu_plans[i].collect()):
+            raise AssertionError(f"{step} filter {i}: rows differ from the cpu session's")
+    ps.disable_hyperspace()
+    rows = 0
+    for i in run:
+        key = (c["state"], i)
+        if key not in c["unindexed"]:
+            c["unindexed"][key] = sorted_rows(plans[i].collect())
+        if not sorted_rows(got[i]).equals(c["unindexed"][key]):
+            raise AssertionError(f"{step} filter {i}: rows differ from the plan without Hyperspace")
+        rows += got[i].num_rows
+    c["kernels"].settle()
+    p50, p99 = np.percentile(times, [50, 99])
+    out = {"p50_ms": float(p50), "p99_ms": float(p99), "queries": len(run), "rows": rows,
+           "held_against_cpu": len(held), "shape": want}
+    log(f"hybrid path [{c['card']}]: {step}: {len(run)} filters p50_ms {p50:.3f} p99_ms "
+        f"{p99:.3f} (phase 4 on the exact index: {c['p4_p50']:.3f} / {c['p4_p99']:.3f}), "
+        f"{rows} rows; plans {want} over {sorted(indexes)}; equal to the plan without "
+        f"Hyperspace, {len(held)} of them in order to the cpu session's")
+    return out
+
+
+def hy_join(c: dict, step: str, want: dict) -> dict:
+    """Phase 5's ``orders ⋈ lineitem`` in one source state: both sides
+    index-served, the lineitem side's plan as ``want``; one warm-up, then
+    4 interleaved rounds of the sequential and pipelined routes (rows equal
+    in order across all runs), each run's ``join_stats``; rows equal as a
+    multiset to the unindexed plan and in order to the cpu session's."""
+    cs, ps, hs = c["card_s"], c["cpu_s"], c["card_hs"]
+    pipe = "hyperspace.serve.pipeline.enabled"
+
+    def q(sess):
+        orders, items = sess.read.parquet(c["osrc"]), sess.read.parquet(c["src"])
+        return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+            "o_orderkey", "o_custkey", "l_quantity")
+
+    index_served(hs, q(cs), ("ho_idx", "hs_idx"))
+    hy_expect(hy_shape(cs, q(cs)), want, ("ho_idx", "hs_idx"), f"{step} join")
+    times, stages, got = {True: [], False: []}, {True: [], False: []}, None
+    c["kernels"].label = f"hybrid {step} join"
+    cs.enable_hyperspace()
+    cs.exec_stats.reset()
+    try:
+        q(cs).collect()  # warm-up, the default (sequential) route
+        for rnd in range(4):
+            for on in ((True, False) if rnd % 2 == 0 else (False, True)):
+                cs.conf.set(pipe, on)
+                t0 = time.perf_counter()
+                out = q(cs).collect()
+                times[on].append((time.perf_counter() - t0) * 1e3)
+                stages[on].append(dict(cs.join_stats))
+                if got is None:
+                    got = out
+                elif not out.equals(got):
+                    raise AssertionError(f"{step}: join rows differ in order with {pipe}={on}")
+    finally:
+        cs.conf.set(pipe, False)
+        cs.disable_hyperspace()
+        c["kernels"].label = None
+    if cs.exec_stats.co_bucketed_joins != 9:
+        raise AssertionError(f"{step}: the join did not run co-bucketed: "
+                             f"{cs.exec_stats.as_dict()}")
+    ps.enable_hyperspace()
+    if not got.equals(q(ps).collect()):
+        raise AssertionError(f"{step}: join rows differ from the cpu session's")
+    ps.disable_hyperspace()
+    t0 = time.perf_counter()
+    want_rows = q(cs).collect()
+    unindexed_ms = (time.perf_counter() - t0) * 1e3
+    if not sorted_rows(got).equals(sorted_rows(want_rows)):
+        raise AssertionError(f"{step}: join rows differ from the unindexed plan")
+    c["kernels"].settle()
+    out = {"rows": got.num_rows, "unindexed_ms": unindexed_ms}
+    for on, route in ((False, "sequential"), (True, "pipelined")):
+        p50, p99 = np.percentile(times[on], [50, 99])
+        stage_p50 = {k: float(np.median([st.get(k, 0.0) for st in stages[on]]))
+                     for k in stages[on][0]}
+        out[route] = {"p50_ms": float(p50), "p99_ms": float(p99), "stages_s": stage_p50}
+        log(f"hybrid path [{c['card']}]: {step}: join, {route} x4 (interleaved) p50_ms "
+            f"{p50:.3f} p99_ms {p99:.3f} (phase 5 on the exact indexes: "
+            f"{c['p5'][route]:.3f}), {got.num_rows} rows, stage p50 s "
+            f"{ {k: round(v, 4) for k, v in stage_p50.items()} }")
+    fallback = (" (under delete compensation the pipelined route runs the sequential one, "
+                "as in the reference)" if want["excluded"] else "")
+    log(f"hybrid path [{c['card']}]: {step}: join rows equal across routes, to the unindexed "
+        f"plan ({unindexed_ms:.1f} ms) and in order to the cpu session's{fallback}")
+    return out
+
+
+def hy_approx(c: dict, work: str) -> dict:
+    """Step 5, the approximate plane: ha_idx with li_rg_idx's layout (8
+    buckets, about 12 row groups a file, 128 sample rows a row group) and
+    l_extendedprice included, over the source as step 4 left it. An
+    ungrouped COUNT and SUM(l_extendedprice) over a 10 % l_orderkey window
+    and the same grouped by l_quantity, each at the first budget of a
+    ladder at which it answers, equal bit for bit between the card and
+    the cpu session; the ungrouped one at max_rel_error 0.001 and over a
+    hybrid state raises ApproximationError on both. collect_approx p50
+    beside the exact collect() p50 (5 runs each); the share of groups
+    whose interval holds the exact answer."""
+    from hyperspace_tpu_torch import CoveringIndexConfig
+    from hyperspace_tpu_torch import functions as F
+    from hyperspace_tpu_torch.exceptions import ApproximationError
+    from torch_b5_cases import same_rows
+
+    cs, ps, hs = c["card_s"], c["cpu_s"], c["card_hs"]
+    cs.conf.set("hyperspace.index.num_buckets", 8)
+    t0 = time.perf_counter()
+    c["kernels"].label = "hybrid create ha_idx"
+    try:
+        hs.create_index(cs.read.parquet(c["src"]), CoveringIndexConfig(
+            "ha_idx", ["l_orderkey"], ["l_quantity", "l_extendedprice"]))
+    finally:
+        c["kernels"].label = None
+        cs.conf.set("hyperspace.index.num_buckets", N_BUCKETS)
+    create_s = time.perf_counter() - t0
+    c["kernels"].settle()
+    ps.index_manager.clear_cache()
+    a = int(np.random.default_rng(SEED + 60).integers(0, N_ORDERS - N_ORDERS // 10))
+    w = N_ORDERS // 10
+
+    def window(df):
+        k = df["l_orderkey"]
+        return df.filter((k >= a) & (k < a + w))
+
+    queries = {
+        "ungrouped": lambda df: window(df).agg(
+            F.count().alias("n"), F.sum("l_extendedprice").alias("s")),
+        "by l_quantity": lambda df: window(df).group_by("l_quantity").agg(
+            F.count().alias("n"), F.sum("l_extendedprice").alias("s")),
+    }
+    ladder = (None, 0.2, 1.0, 1e9)
+    for sess in (cs, ps):
+        sess.conf.set("hyperspace.serve.approx.enabled", True)
+        sess.enable_hyperspace()
+    out = {"create_s": create_s}
+    try:
+        for label, q in queries.items():
+            tables, budget = {}, None
+            for b in ladder:
+                try:
+                    tables["card"] = q(cs.read.parquet(c["src"])).collect_approx(b)
+                except ApproximationError:
+                    continue
+                budget = b
+                break
+            if budget is None and "card" not in tables:
+                raise AssertionError(f"approx {label}: no budget of {ladder} answered")
+            tables["cpu"] = q(ps.read.parquet(c["src"])).collect_approx(budget)
+            if not same_rows(tables["card"], tables["cpu"]):
+                raise AssertionError(f"approx {label}: the card's table differs from the cpu's")
+            approx_ms, exact_ms = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                q(cs.read.parquet(c["src"])).collect_approx(budget)
+                approx_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                exact = q(cs.read.parquet(c["src"])).collect()
+                exact_ms.append((time.perf_counter() - t0) * 1e3)
+            est = tables["card"].to_pydict()
+            truth = exact.to_pydict()
+            if label == "ungrouped":
+                pairs = [(0, 0)]
+            else:
+                pos = {v: i for i, v in enumerate(truth["l_quantity"])}
+                pairs = [(i, pos[v]) for i, v in enumerate(est["l_quantity"]) if v in pos]
+            held = {m: sum(est[m + "_lo"][i] <= truth[m][j] <= est[m + "_hi"][i]
+                           for i, j in pairs) / max(len(pairs), 1) for m in ("n", "s")}
+            out[label] = {"budget": budget, "groups": len(pairs),
+                          "approx_p50_ms": float(np.median(approx_ms)),
+                          "exact_p50_ms": float(np.median(exact_ms)), "held": held}
+            log(f"hybrid path [{c['card']}]: approx {label}: answered at max_rel_error "
+                f"{budget} ({len(pairs)} groups), equal bit for bit to the cpu session's; "
+                f"collect_approx p50_ms {out[label]['approx_p50_ms']:.3f} against exact "
+                f"collect() {out[label]['exact_p50_ms']:.3f}; intervals holding the exact "
+                f"answer: COUNT {held['n']:.1%}, SUM {held['s']:.1%}")
+        raised = {}
+        for side, sess in (("card", cs), ("cpu", ps)):
+            try:
+                queries["ungrouped"](sess.read.parquet(c["src"])).collect_approx(0.001)
+            except ApproximationError:
+                raised[side] = True
+        extra = os.path.join(c["src"], "hy_approx_batch.parquet")
+        lc_batch(extra, N_ORDERS + 5_000_000, RF1_ORDERS, SEED + 61)
+        for sess in (cs, ps):
+            sess.conf.set(HYBRID, True)
+            sess.index_manager.clear_cache()
+        for side, sess in (("card", cs), ("cpu", ps)):
+            try:
+                queries["ungrouped"](sess.read.parquet(c["src"])).collect_approx(1e9)
+            except ApproximationError:
+                raised[side + " hybrid"] = True
+        os.remove(extra)
+    finally:
+        for sess in (cs, ps):
+            sess.conf.set("hyperspace.serve.approx.enabled", False)
+            sess.conf.set(HYBRID, False)
+            sess.disable_hyperspace()
+    if len(raised) != 4:
+        raise AssertionError(f"approx: ApproximationError expected on both sessions at 0.001 "
+                             f"and over the hybrid state, raised {raised}")
+    out["raised"] = sorted(raised)
+    log(f"hybrid path [{c['card']}]: approx: ha_idx created in {create_s:.3f}s; "
+        f"ApproximationError at max_rel_error 0.001 and over a hybrid state on both sessions")
+    return out
+
+
+def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 14: Hybrid Scan at SF1 (module docstring, item 14). Launch
+    counts read from 0 at its start."""
+    import shutil as _shutil
+
+    import torch
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch.rules import candidate, tags
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    t_phase = time.perf_counter()
+    src, osrc = os.path.join(work, "hy_lineitem"), os.path.join(work, "hy_orders")
+    _shutil.copytree(ctx["src"], src)
+    _shutil.copytree(ctx["orders_src"], osrc)
+    sys_path = os.path.join(work, "hy_indexes")
+    card_s, cpu_s = HyperspaceSession(), HyperspaceSession(device="cpu")
+    for s in (card_s, cpu_s):  # one index lake, served by both sessions
+        s.conf.set("hyperspace.system.path", sys_path)
+        s.conf.set("hyperspace.index.lineage.enabled", True)
+        s.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+    card_hs = Hyperspace(card_s)
+    c = {"card_s": card_s, "cpu_s": cpu_s, "card_hs": card_hs, "src": src, "osrc": osrc,
+         "kernels": kernels, "card": card, "p4_p50": ctx["p50_ms"], "p4_p99": ctx["p99_ms"],
+         "p5": ctx["join_p50_ms"], "state": "append", "unindexed": {}}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernels.label = "hybrid create hs_idx"
+    card_hs.create_index(card_s.read.parquet(src), CoveringIndexConfig(
+        "hs_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"]))
+    kernels.label = "hybrid create ho_idx"
+    card_hs.create_index(card_s.read.parquet(osrc), CoveringIndexConfig(
+        "ho_idx", ["o_orderkey"], ["o_custkey", "o_totalprice"]))
+    kernels.label = None
+    torch.cuda.synchronize()
+    kernels.settle()
+    out = {"create_s": time.perf_counter() - t0, "steps": {}}
+    log(f"hybrid path [{card}]: hs_idx and ho_idx created in {out['create_s']:.3f}s")
+
+    def step(name, *, filters=None, join=None, indexes=("hs_idx",), run=None, held=None):
+        res = {}
+        if filters is not None:
+            res["filters"] = hy_filter_set(c, name, filters, indexes, run, held)
+        if join is not None:
+            res["join"] = hy_join(c, name, join)
+        out["steps"][name] = res
+
+    # (1) bench.py's hybrid file appended, Hybrid Scan on
+    n_extra = hy_append(os.path.join(src, "appended.parquet"))
+    for s in (card_s, cpu_s):
+        s.conf.set(HYBRID, True)
+    log(f"hybrid path [{card}]: step 1: appended {n_extra} rows in one file")
+    union = {"unions": 1, "delta_scans": 1, "excluded": 0}
+    step("append", filters=union, join=union)
+    # (2) source file 0 deleted: the lineage NOT-IN joins the Union
+    os.remove(os.path.join(src, "part0.parquet"))
+    c["state"] = "append and delete"
+    log(f"hybrid path [{card}]: step 2: deleted source file part0.parquet")
+    both = {"unions": 1, "delta_scans": 1, "excluded": 1}
+    step("append and delete", filters=both, join=both, held=HY_SHORT)
+    # (3) appends past the 0.3 appended ratio: the index is refused
+    copies = []
+    for i in range(1, 5):
+        copies.append(os.path.join(src, f"big{i}.parquet"))
+        _shutil.copyfile(os.path.join(src, f"part{i}.parquet"), copies[-1])
+    entry = card_s.index_manager.get_index_log_entry("hs_idx")
+    entry.set_tag(None, tags.INDEX_PLAN_ANALYSIS_ENABLED, True)
+    scan = card_s.read.parquet(src).logical_plan.collect_leaves()[0]
+    kept = candidate.file_signature_filter(card_s, scan, [entry])
+    reasons = [(r.code, dict(r.args)) for r in entry.get_tag(scan, tags.FILTER_REASONS) or []]
+    if kept or [code for code, _a in reasons] != ["TOO_MUCH_APPENDED"]:
+        raise AssertionError(f"too much appended: kept {kept}, reasons {reasons}")
+    entry.set_tag(None, tags.INDEX_PLAN_ANALYSIS_ENABLED, None)
+    log(f"hybrid path [{card}]: step 3: 4 more files appended; hs_idx refused: {reasons}")
+    c["state"] = "too much appended"
+    step("too much appended", filters={"unions": 0, "delta_scans": 0, "excluded": 0},
+         indexes=(), run=HY_SHORT)
+    for f in copies:
+        os.remove(f)
+    c["state"] = "append and delete"
+    # (4) Hybrid Scan off; a quick refresh serves in exact mode through the
+    # recorded delta; an incremental refresh indexes it
+    for s in (card_s, cpu_s):
+        s.conf.set(HYBRID, False)
+    refresh = {}
+    for mode, want in (("quick", both), ("incremental", {"unions": 0, "delta_scans": 0,
+                                                         "excluded": 0})):
+        kernels.label = f"hybrid refresh {mode} hs_idx"
+        card_s.build_stats.clear()
+        t0 = time.perf_counter()
+        card_hs.refresh_index("hs_idx", mode)
+        torch.cuda.synchronize()
+        kernels.label = None
+        refresh[mode] = {"seconds": time.perf_counter() - t0,
+                         "stages": dict(card_s.build_stats)}
+        kernels.settle()
+        cpu_s.index_manager.clear_cache()
+        log(f"hybrid path [{card}]: step 4: refresh {mode} of hs_idx in "
+            f"{refresh[mode]['seconds']:.3f}s, stages "
+            f"{ {k: round(v, 4) for k, v in refresh[mode]['stages'].items()} }")
+        step(f"after the {mode} refresh", filters=want,
+             run=HY_SHORT if mode == "quick" else None)
+    out["refresh"] = refresh
+    # (5) the approximate plane
+    out["approx"] = hy_approx(c, work)
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    held = kernels.summary("phase 14", (("b1", "hybrid append join"),
+                                        ("b1", "hybrid append and delete join"),
+                                        ("b1", "hybrid refresh incremental hs_idx")))
+    out["held"] = held
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"hybrid path [{card}]: all steps ran; launches {out['launches']}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -5177,6 +5717,8 @@ def main() -> int:
         phase("12")
         rcpath = recovery_path(work, ctx, kernels, card)
         phase("13")
+        hypath = hybrid_path(work, ctx, kernels, card)
+        phase("14")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -5206,18 +5748,20 @@ def main() -> int:
               launches_by_route={r: dspath["launches"][f"bloom_bits.build_{r}"]
                                  for r in ("block", "binned", "global")})
 
-    lc_held, rc_held = lcpath["held"], rcpath["held"]
-    lc_launches, rc_launches = lcpath["launches"], rcpath["launches"]
+    lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
+    late = (lcpath["launches"], rcpath["launches"], hypath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
                            (b7, "bloom_bits")):
-        record["launches"] += lc_launches[kernel] + rc_launches[kernel]
+        record["launches"] += sum(counts[kernel] for counts in late)
     for r in ("block", "binned", "global"):
-        b7["launches_by_route"][r] += (lc_launches[f"bloom_bits.build_{r}"]
-                                       + rc_launches[f"bloom_bits.build_{r}"])
+        b7["launches_by_route"][r] += sum(counts[f"bloom_bits.build_{r}"] for counts in late)
     for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
-        record["cases"] = record.get("cases", 0) + lc_held[key] + rc_held[key]
+        record["cases"] = (record.get("cases", 0) + lc_held[key] + rc_held[key]
+                           + hy_held.get(key, 0))
+    b1["phase_14_launches"] = hypath["launches"]["murmur3_bucket_ids"]
+    b1["phase_4_launches"] = ctx["launches"]
     b5f["lifecycle_capture_calls"] = lc_held["b5f"]
     b5f["recovery_calls"] = rc_held["b5f"]
     log(json.dumps({"lifecycle": {k: lcpath[k] for k in (
@@ -5227,6 +5771,9 @@ def main() -> int:
         "seconds", "cells", "child", "live_writer", "clean_tip_ensure_recovered_ms",
         "overhead", "heartbeats", "held", "crash_free_create_s", "launches")},
         "card": card}, default=str))
+    log(json.dumps({"hybrid": {k: hypath[k] for k in (
+        "seconds", "create_s", "steps", "refresh", "approx", "held", "launches")},
+        "legacy_build": ctx["legacy_build"], "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)

@@ -9,10 +9,11 @@ anti-filter for deletes, Directory.merge content),
 new fingerprint). Counterpart of ``hyperspace_tpu/actions/refresh.py``;
 the entries it commits are the reference's apart from timestamps and ids.
 
-A quick-refreshed index is not served by the port until Hybrid Scan's
-compensating ``Union`` is ported (ROADMAP A.5): its queries read the
-source, with the same rows. A later incremental or full refresh indexes
-the recorded files and the index serves again.
+A quick-refreshed index serves as the reference's does: the candidate
+filter tags the recorded ``Update`` delta and the rewrite compensates for
+it through Hybrid Scan's ``Union`` (appended files) and lineage NOT-IN
+(deleted files), Hybrid Scan on or off. A later incremental or full
+refresh indexes the recorded files.
 """
 
 from __future__ import annotations

@@ -99,6 +99,50 @@ class Config:
         )
 
     @property
+    def hybrid_scan_enabled(self) -> bool:
+        return self.get_bool(
+            C.INDEX_HYBRID_SCAN_ENABLED, C.INDEX_HYBRID_SCAN_ENABLED_DEFAULT
+        )
+
+    @property
+    def hybrid_scan_max_appended_ratio(self) -> float:
+        return self.get_float(
+            C.INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO,
+            C.INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO_DEFAULT,
+        )
+
+    @property
+    def hybrid_scan_max_deleted_ratio(self) -> float:
+        return self.get_float(
+            C.INDEX_HYBRID_SCAN_MAX_DELETED_RATIO,
+            C.INDEX_HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT,
+        )
+
+    @property
+    def build_partition_first(self) -> bool:
+        """The pipelined partition-first build tail (the same bytes as the
+        legacy route; False takes the legacy route)."""
+        return self.get_bool(
+            C.INDEX_BUILD_PARTITION_FIRST, C.INDEX_BUILD_PARTITION_FIRST_DEFAULT
+        )
+
+    @property
+    def serve_approx_enabled(self) -> bool:
+        """Explicit opt-in for sample-based approximate aggregates
+        (``DataFrame.collect_approx``); never substituted for exact."""
+        return self.get_bool(C.SERVE_APPROX_ENABLED, C.SERVE_APPROX_ENABLED_DEFAULT)
+
+    @property
+    def serve_approx_max_rel_error(self) -> float:
+        """Widest acceptable 95%-CI half-width relative to the estimate."""
+        return max(
+            0.0,
+            self.get_float(
+                C.SERVE_APPROX_MAX_REL_ERROR, C.SERVE_APPROX_MAX_REL_ERROR_DEFAULT
+            ),
+        )
+
+    @property
     def serve_rangeprune_enabled(self) -> bool:
         return self.get_bool(
             C.SERVE_RANGEPRUNE_ENABLED, C.SERVE_RANGEPRUNE_ENABLED_DEFAULT

@@ -59,8 +59,27 @@ INDEX_NUM_BUCKETS_DEFAULT = 200  # IndexConstants.scala:33-36 (= shuffle partiti
 INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
 INDEX_LINEAGE_ENABLED_DEFAULT = False  # IndexConstants.scala:105-106
 
+# Hybrid Scan (rules/hybrid.py): serve an index whose source has taken
+# appends or deletes since the build, the appended files read from the
+# source and unioned with the index scan, the deleted files' rows
+# excluded through the lineage column. Off by default, as upstream.
+INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
+INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO = "hyperspace.index.hybridscan.maxAppendedRatio"
+INDEX_HYBRID_SCAN_MAX_APPENDED_RATIO_DEFAULT = 0.3  # IndexConstants.scala:44-52
+INDEX_HYBRID_SCAN_MAX_DELETED_RATIO = "hyperspace.index.hybridscan.maxDeletedRatio"
+INDEX_HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT = 0.2
+
 INDEX_FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
 INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = False  # IndexConstants.scala:56-57
+
+# Partition-first, pipelined build tail (indexes/covering_build.
+# _write_bucketed_pipelined): the per-bucket runs of the card's sort go
+# to one writer thread bucket by bucket, so the writes start before the
+# whole sorted batch exists. The same bytes as the legacy route
+# (bucketize, then write_bucket_files), which False restores.
+INDEX_BUILD_PARTITION_FIRST = "hyperspace.index.build.partitionFirst"
+INDEX_BUILD_PARTITION_FIRST_DEFAULT = True
 
 # Lifecycle modes (Hyperspace.refreshIndex / optimizeIndex): optimize
 # compacts the files of a bucket below the size threshold (quick) or all
@@ -124,6 +143,17 @@ INDEX_AGG_MAX_GROUPS_DEFAULT = 256
 # ``_aggsample.parquet`` sidecar of the approximate plane; 0 disables it.
 INDEX_AGG_SAMPLE_ROWS = "hyperspace.index.agg.sampleRowsPerGroup"
 INDEX_AGG_SAMPLE_ROWS_DEFAULT = 128
+
+# Approximate serving (execution/approx_exec.py): sample-based COUNT/SUM
+# estimates with 95% confidence intervals through the explicit
+# ``DataFrame.collect_approx()``; never substituted for an exact answer.
+# With the flag off ``collect_approx`` raises. The budget is the widest
+# 95%-CI half-width relative to the estimate; wider raises
+# ApproximationError (``collect_approx(max_rel_error=...)`` overrides).
+SERVE_APPROX_ENABLED = "hyperspace.serve.approx.enabled"
+SERVE_APPROX_ENABLED_DEFAULT = False
+SERVE_APPROX_MAX_REL_ERROR = "hyperspace.serve.approx.maxRelativeError"
+SERVE_APPROX_MAX_REL_ERROR_DEFAULT = 0.05
 
 # Fused serve pipeline (execution/pipeline_compiler.py): a
 # Filter(→Project)→Aggregate over a pruned index scan runs as one fused

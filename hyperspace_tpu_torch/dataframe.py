@@ -1,9 +1,9 @@
 """DataFrame API — the user-facing query surface.
 
 Counterpart of ``hyperspace_tpu/dataframe.py``: filter, select, inner
-equi-join, group_by / agg, sort and limit, collect and explain
-(``collect_approx`` comes with the aggregate index plane, ROADMAP queue A
-item 2.3). A DataFrame is a
+equi-join, group_by / agg, sort and limit, collect, ``collect_approx``
+(the approximate plane, ``execution/approx_exec.py``) and explain. A
+DataFrame is a
 (session, logical plan) pair; ``collect()`` runs the session's optimizer —
 where index rewrites happen when ``enable_hyperspace()`` is on, like the
 reference's injected ``ApplyHyperspace`` rule (``package.scala:82-93``) —
@@ -151,6 +151,20 @@ class DataFrame:
     # -- actions ------------------------------------------------------------
     def collect(self) -> pa.Table:
         return self._session.execute(self._plan)
+
+    def collect_approx(self, max_rel_error=None) -> pa.Table:
+        """An approximate answer for an ungrouped or single-key grouped
+        COUNT/SUM aggregate from the index's stratified row sample, with
+        95 % confidence intervals (columns ``x``, ``x_lo``, ``x_hi`` per
+        aggregate ``x``; a grouped shape leads with the key column, one row
+        a group the sample saw, key-sorted). Opt in with
+        ``hyperspace.serve.approx.enabled``; an estimate wider than the
+        error budget (``max_rel_error`` or
+        ``hyperspace.serve.approx.maxRelativeError``) in any group raises
+        ApproximationError."""
+        from hyperspace_tpu_torch.execution.approx_exec import approx_aggregate
+
+        return approx_aggregate(self._session, self._plan, max_rel_error)
 
     def to_arrow(self) -> pa.Table:
         return self.collect()

@@ -39,3 +39,12 @@ class LogCorruptedError(HyperspaceException):
         super().__init__(f"corrupted log entry {path}: {reason}")
         self.path = path
         self.reason = reason
+
+
+class ApproximationError(HyperspaceException):
+    """The approximate serve plane cannot honestly answer this query
+    (``execution/approx_exec.py``): approximate serving is disabled, the
+    plan is not served by a clean sampled covering-index scan, an
+    aggregate is outside the estimable set (COUNT, SUM), or the 95 %
+    confidence interval is wider than the query's error budget. Raised,
+    never degraded to a number the caller would over-trust."""

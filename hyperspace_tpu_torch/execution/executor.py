@@ -51,11 +51,21 @@ stage seconds: ``scan`` (the child batches of its aggregates and sorts),
 ``sort``, and the wall seconds of a metadata (``metadata``) or fused
 (``fused``) answer, whose reads are under ``scan``.
 
+Hybrid Scan (``rules/hybrid.py``) leaves two shapes here. A ``Union`` of
+the index scan and the appended source files concatenates the two sides,
+index rows first; under a co-bucketed join the appended rows are hashed
+into the index's buckets by kernel B1 on the session's device and each
+such bucket's part follows the bucket's index rows (the pipelined route
+prepares this delta on the scan pool while the index side reads,
+``_prepare_delta``). A relation with ``excluded_file_ids`` (deleted
+source files) reads the lineage column and drops those files' rows
+(NOT-IN), even when the query does not project the column. Neither shape
+takes the fused or metadata routes.
+
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
 by bucket; an aggregate's groups in key-rep order, on every route. Not
-ported yet: the serve cache, the streaming join serve, and Hybrid Scan
-(ROADMAP queue A).
+ported yet: the serve cache and the streaming join serve (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from hyperspace_tpu_torch.constants import DATA_FILE_NAME_ID
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
@@ -90,6 +101,7 @@ from hyperspace_tpu_torch.plan.nodes import (
     Project,
     Scan,
     Sort,
+    Union,
 )
 
 
@@ -127,6 +139,11 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     if isinstance(plan, Project):
         batch = _exec(plan.child, set(plan.columns), session)
         return batch.select(plan.columns)
+    if isinstance(plan, Union):
+        cols = [c for c in plan.output if c in needed] or plan.output[:1]
+        left = _exec(plan.left, set(cols), session).select(cols)
+        right = _exec(plan.right, set(cols), session).select(cols)
+        return ColumnarBatch.concat([left, right])
     if isinstance(plan, Join):
         return _exec_join(plan, needed, session)
     if isinstance(plan, Aggregate):
@@ -188,13 +205,12 @@ def _exec_limit(n: int, child: LogicalPlan, needed: Set[str], session) -> Column
     """Limit execution that avoids materializing the full child.
 
     * Limit∘Sort = top-n: sort the permutation, materialize only n rows;
-    * Limit pushes through Project (row order is the child's
-      deterministic order);
+    * Limit pushes through Project and Union (row order is the child's
+      deterministic order, so the first n of the left side come first);
     * Limit∘Scan / Limit∘Filter∘Scan stream file-by-file and stop as
       soon as n rows are produced.
     The reference gets all of this from Spark's CollectLimitExec /
-    LocalLimit pushdown. (The reference's Union case comes with Hybrid
-    Scan, ROADMAP queue A item 5.)
+    LocalLimit pushdown.
     """
     if n <= 0:
         schema = child.schema()
@@ -212,12 +228,20 @@ def _exec_limit(n: int, child: LogicalPlan, needed: Set[str], session) -> Column
         return _exec_limit(
             n, child.child, set(child.columns), session
         ).select(child.columns)
+    if isinstance(child, Union):
+        cols = [c for c in child.output if c in needed] or child.output[:1]
+        left = _exec_limit(n, child.left, set(cols), session).select(cols)
+        if left.num_rows >= n:
+            return left.take(np.arange(n))
+        right = _exec_limit(n - left.num_rows, child.right, set(cols), session).select(cols)
+        return ColumnarBatch.concat([left, right])
     # file-by-file streaming for Scan / Filter(Scan) over parquet (the
     # reference also streams Delta and Iceberg, ROADMAP queue A item 6)
     scan = child.child if isinstance(child, Filter) else child
     streamable = (
         isinstance(scan, Scan)
         and scan.relation.fmt == "parquet"
+        and scan.relation.excluded_file_ids is None
         and len(scan.relation.files) > 1
     )
     if streamable:
@@ -352,8 +376,9 @@ def _range_pruned_scan(plan: LogicalPlan, cond: E.Expr, session) -> LogicalPlan:
     (and narrow survivors to matching row groups) that the predicate's
     range/Eq/In conjuncts cannot touch, per ``indexes/zonemaps.py`` — the
     payoff the reference gets from Spark's parquet min/max pruning, as
-    one vectorized pass over all files at once. Recurses through Project;
-    non-index relations pass through untouched."""
+    one vectorized pass over all files at once. Recurses through Project
+    and Union, so the Hybrid Scan index side prunes too; non-index
+    relations (the appended files) pass through untouched."""
     if not _rangeprune_on(session):
         return plan
     from hyperspace_tpu_torch.indexes import zonemaps
@@ -363,6 +388,12 @@ def _range_pruned_scan(plan: LogicalPlan, cond: E.Expr, session) -> LogicalPlan:
     if isinstance(plan, Project):
         child = _range_pruned_scan(plan.child, cond, session)
         return plan if child is plan.child else Project(plan.columns, child)
+    if isinstance(plan, Union):
+        left = _range_pruned_scan(plan.left, cond, session)
+        right = _range_pruned_scan(plan.right, cond, session)
+        if left is plan.left and right is plan.right:
+            return plan
+        return Union(left, right)
     return plan
 
 
@@ -472,11 +503,33 @@ def _filter_mask(cond: E.Expr, batch: ColumnarBatch, session) -> np.ndarray:
     return mask
 
 
+def _read_cols(rel, cols):
+    """The columns to read for ``cols``: with Hybrid Scan's delete
+    compensation also the lineage column, which the NOT-IN filter needs
+    even when the query does not project it
+    (CoveringIndexRuleUtils.scala:244-253)."""
+    if rel.excluded_file_ids is not None and DATA_FILE_NAME_ID not in cols:
+        return list(cols) + [DATA_FILE_NAME_ID]
+    return list(cols)
+
+
+def _drop_excluded(batch: ColumnarBatch, rel) -> ColumnarBatch:
+    """The rows whose lineage id is not among the relation's excluded
+    (deleted) source files, in order."""
+    if rel.excluded_file_ids is None:
+        return batch
+    lineage = batch.column(DATA_FILE_NAME_ID).values
+    return batch.filter(
+        ~np.isin(lineage, np.array(rel.excluded_file_ids, dtype=np.int64))
+    )
+
+
 def _exec_scan(
     plan: Scan, needed: Set[str], session, pushdown=None
 ) -> ColumnarBatch:
     rel = plan.relation
     cols = [c for c in rel.column_names if c in needed] or rel.column_names[:1]
+    read_cols = _read_cols(rel, cols)
     if not rel.files:
         empty = pa.table({c: pa.array([], type=rel.schema[c]) for c in cols})
         return ColumnarBatch.from_arrow(empty)
@@ -487,11 +540,11 @@ def _exec_scan(
         # filters do not compose with explicit row-group reads, and the
         # narrowing already did their row-group half.
         table = pio.read_table_row_groups(
-            list(rel.files), list(rel.file_row_groups), cols, rel.fmt
+            list(rel.files), list(rel.file_row_groups), read_cols, rel.fmt
         )
     else:
-        table = pio.read_table(list(rel.files), cols, rel.fmt, filters=pushdown)
-    return ColumnarBatch.from_arrow(table).select(cols)
+        table = pio.read_table(list(rel.files), read_cols, rel.fmt, filters=pushdown)
+    return _drop_excluded(ColumnarBatch.from_arrow(table), rel).select(cols)
 
 
 # -- joins ---------------------------------------------------------------------
@@ -516,7 +569,8 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     l_needed = (needed & lcols) | set(l_keys)
     r_needed = (needed & set(plan.right.output)) | set(r_keys)
     stats: dict = {}
-    if _aligned_bucket_layouts(plan, on) is None:
+    layout = _aligned_bucket_layouts(plan, on)
+    if layout is None:
         session.exec_stats.unbucketed_joins += 1
         t0 = time.perf_counter()
         left = _exec(plan.left, l_needed, session)
@@ -530,11 +584,17 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     # no Exchange, JoinIndexRule.scala:619-634): equal buckets are
     # matched pairwise by kernel B4.
     session.exec_stats.co_bucketed_joins += 1
-    sides = ((plan.left, l_needed, l_keys), (plan.right, r_needed, r_keys))
-    if _serve_pipeline_on(session) and all(_clean_index_scan(p) for p, _, _ in sides):
+    _, l_bucket_cols, r_bucket_cols = layout
+    sides = (
+        (plan.left, l_needed, l_keys, l_bucket_cols),
+        (plan.right, r_needed, r_keys, r_bucket_cols),
+    )
+    if _serve_pipeline_on(session) and all(_clean_index_scan(p) for p, _, _, _ in sides):
         # Pipelined serve: both sides prepare concurrently, each into its
-        # own stats. Gated on both children being clean index scans, whose
-        # execution runs no device work, so the threads share nothing.
+        # own stats. Gated on both children being clean index scans or
+        # Hybrid Scan append unions of one: their reads share nothing,
+        # and the only device work is B1 over each side's appended rows
+        # (``_prepare_delta``), on the scan pool.
         side_stats = ({}, {})
         with ThreadPoolExecutor(max_workers=2, thread_name_prefix="hs-joinside") as pool:
             futs = [
@@ -567,24 +627,48 @@ def _serve_pipeline_on(session) -> bool:
 
 
 def _cacheable_scan(rel) -> bool:
-    """A clean index scan: index data in parquet with files to read (the
-    reference also excludes delete compensation and injected partition
-    values, which come with Hybrid Scan and the lake sources). The fused
-    and metadata routes take only such scans."""
-    return rel.index_info is not None and rel.fmt == "parquet" and bool(rel.files)
+    """A clean index scan: index data in parquet with files to read and no
+    row-level delete compensation (the reference also excludes injected
+    partition values, which come with the lake sources). The fused and
+    metadata routes take only such scans."""
+    return (
+        rel.index_info is not None
+        and rel.fmt == "parquet"
+        and rel.excluded_file_ids is None
+        and bool(rel.files)
+    )
 
 
 def _clean_index_scan(plan: LogicalPlan) -> bool:
-    """A ``Project*`` chain over a non-empty parquet index scan: the shape
-    the pipelined join serve takes (it runs no device work). The Hybrid
-    Scan union shape comes with ROADMAP queue A item 5."""
-    while isinstance(plan, Project):
-        plan = plan.child
-    return isinstance(plan, Scan) and _cacheable_scan(plan.relation)
+    """The shapes the pipelined join serve takes: a ``Project*`` chain over
+    a clean index scan, or over a Hybrid Scan append ``Union`` of such a
+    chain and a ``Project*`` chain over the appended parquet files. Delete
+    compensation (``excluded_file_ids``) stays on the sequential route."""
+
+    def walk(node):
+        while isinstance(node, Project):
+            node = node.child
+        return node
+
+    node = walk(plan)
+    if isinstance(node, Scan):
+        return _cacheable_scan(node.relation)
+    if isinstance(node, Union):
+        left, right = walk(node.left), walk(node.right)
+        return (
+            isinstance(left, Scan)
+            and isinstance(right, Scan)
+            and _cacheable_scan(left.relation)
+            and right.relation.fmt == "parquet"
+            and right.relation.excluded_file_ids is None
+            and bool(right.relation.files)
+        )
+    return False
 
 
 def _prepared_join_side(
-    plan: LogicalPlan, needed: Set[str], key_cols, session, stats, stream: bool
+    plan: LogicalPlan, needed: Set[str], key_cols, bucket_cols, session, stats,
+    stream: bool,
 ):
     """A PreparedJoinSide for one co-bucketed join child, or None for an
     empty side: the sequential ``_bucket_fetches`` + ``prepare_join_side``,
@@ -598,12 +682,18 @@ def _prepared_join_side(
     )
 
     t0 = time.perf_counter()
-    fetches = _bucket_fetches(plan, needed, session, stream)
     if stream:
+        fetches = _bucket_fetches(plan, needed, session, True, bucket_cols, stats)
         _stage_add(stats, "scan", t0)
         return prepare_join_side_pipelined(fetches, key_cols, stats)
+    delta: dict = {}
+    fetches = _bucket_fetches(plan, needed, session, False, bucket_cols, delta)
     batches = {b: fetch() for b, fetch in fetches}
     _stage_add(stats, "scan", t0)
+    # the appended rows' hashing ran inside this window: it is prepare
+    moved = delta.get("prepare", 0.0)
+    stats["scan"] -= moved
+    stats["prepare"] = stats.get("prepare", 0.0) + moved
     if not batches:
         return None
     return prepare_join_side(batches, key_cols, stats)
@@ -611,7 +701,7 @@ def _prepared_join_side(
 
 def _bucket_layout(plan: LogicalPlan):
     """(num_buckets, bucket_cols) if the subtree preserves a bucketed scan
-    layout (Scan with bucket_spec under Filter/Project)."""
+    layout (Scan with bucket_spec under Filter/Project/Union)."""
     if isinstance(plan, Scan):
         return plan.relation.bucket_spec
     if isinstance(plan, Filter):
@@ -620,6 +710,11 @@ def _bucket_layout(plan: LogicalPlan):
         spec = _bucket_layout(plan.child)
         if spec and all(c in plan.columns for c in spec[1]):
             return spec
+        return None
+    if isinstance(plan, Union):
+        # Hybrid Scan: the index side (left) defines the layout; the
+        # appended side is bucketed at execution time
+        return _bucket_layout(plan.left)
     return None
 
 
@@ -642,14 +737,45 @@ def _aligned_bucket_layouts(plan: Join, on):
     return ln, tuple(lcols), tuple(rcols)
 
 
-def _bucket_fetches(plan: LogicalPlan, needed: Set[str], session, stream: bool):
+def _prepare_delta(
+    plan: LogicalPlan, read_cols, session, bucket_cols, num_buckets: int, stats
+):
+    """Per-bucket parts of the Hybrid Scan appended-files delta: the
+    appended source rows, hashed into the index's bucket layout by kernel
+    B1 on the session's device and split by bucket, each part in row
+    order: the execution-time equivalent of the reference's on-the-fly
+    shuffle of appended data (CoveringIndexRuleUtils.
+    transformPlanToShuffleUsingBucketSpec:357-417). The hashing and the
+    split count as ``prepare`` in ``stats``. (The reference also caches
+    the parts by the delta's file fingerprint in its serve cache, A.8.)"""
+    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+
+    appended = _exec(plan, set(read_cols), session).select(read_cols)
+    t0 = time.perf_counter()
+    parts = {}
+    if appended.num_rows:
+        reps = torch.from_numpy(appended.key_reps(list(bucket_cols))).to(session.device)
+        bids = bucket_ids(reps, num_buckets).cpu().numpy()
+        for b in np.unique(bids):
+            parts[int(b)] = appended.filter(bids == b)
+    _stage_add(stats, "prepare", t0)
+    return parts
+
+
+def _bucket_fetches(
+    plan: LogicalPlan, needed: Set[str], session, stream: bool, bucket_cols, stats
+):
     """Execute a linear subtree over a bucketed index scan into ordered
     ``[(bucket, fetch)]`` pairs, ``fetch()`` giving the bucket's batch:
     bucket id from each file's name, a bucket's rows in file order. The
     files are read one table each on a thread pool before this returns;
     with ``stream`` (the pipelined join serve) one read a bucket goes to
     the shared scan pool (``io/scan.scan_pool``) instead, and each fetch
-    waits for its own. The batches are the same either way."""
+    waits for its own. Over a Hybrid Scan ``Union`` each bucket's
+    appended part (``_prepare_delta``) follows its index rows, and a
+    bucket only the appended rows reach comes in bucket order; streamed,
+    the delta prepares on the scan pool while the index side reads. The
+    batches are the same either way."""
     if isinstance(plan, Scan):
         rel = plan.relation
         groups: dict = {}
@@ -658,21 +784,24 @@ def _bucket_fetches(plan: LogicalPlan, needed: Set[str], session, stream: bool):
                 raise HyperspaceException(f"Not a bucket file: {f}")
             groups.setdefault(b, []).append(f)
         cols = [c for c in rel.column_names if c in needed] or rel.column_names[:1]
+        read_cols = _read_cols(rel, cols)
         buckets = sorted(groups)
         if stream:
             from hyperspace_tpu_torch.io.scan import scan_pool
 
             pool = scan_pool()
-            reads = [pool.submit(pio.read_tables, groups[b], cols, rel.fmt).result
+            reads = [pool.submit(pio.read_tables, groups[b], read_cols, rel.fmt).result
                      for b in buckets]
         else:
             ordered = [f for b in buckets for f in groups[b]]
-            tables = iter(pio.read_tables(ordered, cols, rel.fmt))
+            tables = iter(pio.read_tables(ordered, read_cols, rel.fmt))
             parts = [[next(tables) for _ in groups[b]] for b in buckets]
             reads = [lambda ts=ts: ts for ts in parts]
 
         def decode(read):
-            return lambda: ColumnarBatch.from_arrow(pa.concat_tables(read())).select(cols)
+            return lambda: _drop_excluded(
+                ColumnarBatch.from_arrow(pa.concat_tables(read())), rel
+            ).select(cols)
 
         return [(b, decode(read)) for b, read in zip(buckets, reads)]
     if isinstance(plan, Filter):
@@ -687,7 +816,9 @@ def _bucket_fetches(plan: LogicalPlan, needed: Set[str], session, stream: bool):
 
         return [
             (b, filtered(fetch))
-            for b, fetch in _bucket_fetches(plan.child, child_needed, session, stream)
+            for b, fetch in _bucket_fetches(
+                plan.child, child_needed, session, stream, bucket_cols, stats
+            )
         ]
     if isinstance(plan, Project):
         cols = [c for c in plan.columns if c in needed] or plan.columns
@@ -701,8 +832,66 @@ def _bucket_fetches(plan: LogicalPlan, needed: Set[str], session, stream: bool):
 
         return [
             (b, project(fetch))
-            for b, fetch in _bucket_fetches(plan.child, set(cols), session, stream)
+            for b, fetch in _bucket_fetches(
+                plan.child, set(cols), session, stream, bucket_cols, stats
+            )
         ]
+    if isinstance(plan, Union):
+        cols = [c for c in plan.output if c in needed] or plan.output[:1]
+        read_cols = sorted(set(cols) | set(bucket_cols))
+        num_buckets = _bucket_layout(plan.left)[0]
+        if stream:
+            from hyperspace_tpu_torch.io.scan import scan_pool
+
+            # submitted first, so it takes a pool worker at once and runs
+            # beside the index side's bucket reads queued after it
+            delta_stats: dict = {}
+            delta_fut = scan_pool().submit(
+                _prepare_delta, plan.right, read_cols, session, bucket_cols,
+                num_buckets, delta_stats,
+            )
+            collected = []
+
+            def delta_parts():
+                parts = delta_fut.result()
+                if not collected:  # the consumer thread, once
+                    collected.append(True)
+                    for k, v in delta_stats.items():
+                        stats[k] = stats.get(k, 0.0) + v
+                return parts
+        else:
+            parts = _prepare_delta(
+                plan.right, read_cols, session, bucket_cols, num_buckets, stats
+            )
+
+            def delta_parts():
+                return parts
+
+        left = {
+            b: fetch
+            for b, fetch in _bucket_fetches(
+                plan.left, set(read_cols), session, stream, bucket_cols, stats
+            )
+        }
+
+        def merged(b):
+            def run():
+                part = delta_parts().get(b)
+                if b not in left:
+                    return part
+                batch = left[b]().select(read_cols)
+                return batch if part is None else ColumnarBatch.concat([batch, part])
+
+            return run
+
+        # with every bucket on the index side (the normal state) the
+        # delta cannot add one, so the streamed prepare need not wait for
+        # it before its first bucket
+        if stream and len(left) == num_buckets:
+            all_buckets = sorted(left)
+        else:
+            all_buckets = sorted(set(left) | set(delta_parts()))
+        return [(b, merged(b)) for b in all_buckets]
     raise HyperspaceException(
         f"Node not supported in bucketed execution: {type(plan).__name__}"
     )

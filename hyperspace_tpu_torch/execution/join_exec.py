@@ -29,6 +29,10 @@ pass — the emit pass is the reference's separate ``expand`` stage),
 The pipelined prepare (:func:`prepare_join_side_pipelined`) consumes a
 side's buckets as the executor's scan pool reads them; the waits for
 those reads count as ``scan``, as the reads do on the sequential route.
+A bucket with a Hybrid Scan tail (appended rows after the index's
+key-sorted rows) is unsorted, so its side takes the device re-sort route
+(``ops/join.segment_sort``, B2, then B4), as the reference re-sorts such
+buckets (``join_exec.py:252``, ``:658``); the pairs come out in its order.
 
 Not ported (ROADMAP queue A): the reference's match thread pools and
 host/device dispatch knobs (``deviceJoinMinRows``, the native presorted

@@ -20,6 +20,9 @@ order ascending key-rep planes, first-occurrence group key values; the
 twins ``interpreted_filter_aggregate`` and ``filter_select_interpreted``
 stay as the differential references. ``hyperspace.serve.fusedpipeline.
 enabled`` and ``hyperspace.index.agg.enabled`` turn the routes off.
+Hybrid Scan's shapes decline both routes, as in the reference: a
+``Union`` is no ``Filter(Scan)``, and a scan with delete compensation
+(``excluded_file_ids``) fails ``executor._cacheable_scan``.
 
 Two differences from the reference change which route runs, never a
 result (``ROADMAP.md``): the dispatch threshold is the module constant

@@ -33,10 +33,12 @@ nulls and no NaN in any conjunct column, interval bounds compared with
 inward rounding (which can only demote full to partial). EMPTY needs
 provable non-overlap (outward rounding). Everything else is scanned.
 
-Not ported yet (``ROADMAP.md``): the fleet fanout (item A.10), and the
-sample reader of the approximate plane (``sample_data_for``,
-``execution/approx_exec.py``; item A.2.4), so the serve path writes
-samples but reads none.
+* samples: ``sample_data_for`` assembles a file set's stratified sample
+  for the approximate plane (``execution/approx_exec.py``), strata by
+  (file, row group); a file whose sidecar entry is stale samples from its
+  backfill, never from the directory's old sample rows.
+
+Not ported yet (``ROADMAP.md``): the fleet fanout (item A.10).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pa_compute
 import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch import constants as C
@@ -963,3 +966,95 @@ def rg_partials(data: AggData, fi: int, gi: int, fplan, key: Optional[str]):
         acc_cnt=acc_cnt,
         acc_aux=acc_aux,
     )
+
+
+# ---------------------------------------------------------------------------
+# Stratified samples for the approximate plane
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _sample_table_cached(path: str, _size: int, _mtime_ns: int) -> Optional[pa.Table]:
+    try:
+        return pq.read_table(path)
+    except (OSError, pa.ArrowInvalid):
+        return None
+
+
+def _sample_table_for_dir(dirpath: str) -> Optional[pa.Table]:
+    path = os.path.join(dirpath, SAMPLE_NAME)
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return _sample_table_cached(path, st.st_size, st.st_mtime_ns)
+
+
+def sample_data_for(rel, conf=None, device=None) -> Optional[dict]:
+    """Stratified sample over a relation's file set for the approximate
+    plane: ``{"table": pa.Table (sample rows, file order), "stratum":
+    int array a sample row, "N": rows a stratum, "n": sampled rows a
+    stratum}``. Strata are (file, row group). None when a file has
+    neither a sample sidecar nor a computable backfill (a backfill runs
+    on ``device``, None being cuda)."""
+    data = agg_data_for(rel, conf, None, device)
+    if data is None:
+        return None
+    sample_rows = (
+        conf.index_agg_sample_rows if conf is not None else C.INDEX_AGG_SAMPLE_ROWS_DEFAULT
+    )
+    dev = str(PC._resolve(device))
+    tables: List[pa.Table] = []
+    stratum_ids: List[np.ndarray] = []
+    N: List[int] = []
+    n: List[int] = []
+    sample_by_dir: Dict[str, Optional[pa.Table]] = {}
+    for fi, path in enumerate(rel.files):
+        pf = data.per_file[fi]
+        if pf is None:
+            return None
+        d = os.path.dirname(path)
+        base = os.path.basename(path)
+        if d not in sample_by_dir:
+            sample_by_dir[d] = _sample_table_for_dir(d)
+        stable = sample_by_dir[d]
+        ftable = None
+        # the directory's sample serves only files whose aggstate entry
+        # was stat-fresh: a rewritten file samples from its backfill
+        fresh = fi < len(data.per_file_sidecar) and data.per_file_sidecar[fi]
+        if fresh and stable is not None and "__file" in stable.column_names:
+            ftable = stable.filter(pa_compute.equal(stable.column("__file"), base))
+        if ftable is None or ftable.num_rows == 0:
+            try:
+                st = os.stat(path)
+                _entry, ftable = _backfill_cached(
+                    path, st.st_size, st.st_mtime_ns, (), 0, sample_rows, dev
+                )
+            except _DATA_FAULTS:
+                ftable = None
+        rg_rows = pf["rg_rows"]
+        if ftable is None:
+            if sum(rg_rows) == 0:
+                continue  # an empty file contributes no strata
+            return None
+        rgs = np.asarray(ftable.column("__rg"))
+        for gi, rows in enumerate(rg_rows):
+            if rows == 0:
+                continue
+            sel = np.nonzero(rgs == gi)[0]
+            sid = len(N)
+            N.append(int(rows))
+            n.append(int(len(sel)))
+            if len(sel):
+                tables.append(ftable.take(sel).drop_columns(["__file", "__rg"]))
+                stratum_ids.append(np.full(len(sel), sid, dtype=np.int64))
+    if not N:
+        return None
+    if any(v == 0 for v in n):
+        return None  # a stratum with rows but no sample: not estimable
+    return {
+        "table": pa.concat_tables(tables, promote_options="permissive"),
+        "stratum": np.concatenate(stratum_ids),
+        "N": np.asarray(N, dtype=np.int64),
+        "n": np.asarray(n, dtype=np.int64),
+    }

@@ -7,15 +7,19 @@ Counterpart of ``hyperspace_tpu/indexes/covering_build.py`` (reference:
       →  key reps to the session's device
       →  murmur3 bucket ids                       [ops/hash, kernel B1]
       →  stable sort by (bucket, keys)            [ops/sort, torch.sort]
-      →  permutation back to the host, one parquet file per bucket
-         under the new v__=N dir
+      →  permutation and bucket offsets back to the host
+      →  one parquet file per bucket under the new v__=N dir, written
+         bucket by bucket on one writer thread
 
-The bucket files are byte-identical to the reference's: the same rows in
-the same order, written with the same encoding decision (computed once on
-the pre-sort input). The reference's mesh exchange, streaming waves under
-a memory budget and pipelined per-bucket writer are not ported yet
-(ROADMAP queue A items A.9, A.8 and A.1.3); the last one writes the same
-bytes as the ``bucketize`` → ``write_bucket_files`` route taken here.
+The last two steps are the reference's pipelined partition-first tail
+(``hyperspace.index.build.partitionFirst``, default on,
+``_write_bucketed_pipelined``); with the key off the legacy route runs
+(``bucketize`` gathers the whole sorted batch, then
+``write_bucket_files``). The bucket files are byte-identical to the
+reference's on either route: the same rows in the same order, written
+with the same encoding decision (computed once on the pre-sort input).
+The reference's mesh exchange and streaming waves under a memory budget
+are not ported yet (ROADMAP queue A items A.9 and A.8).
 
 Optimize and refresh (CoveringIndexTrait:32-135) run the same tail: an
 incremental refresh hashes and sorts the appended source files' rows, or,
@@ -47,7 +51,7 @@ from hyperspace_tpu_torch.indexes.base import UpdateMode
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.ops.hash import bucket_ids
-from hyperspace_tpu_torch.ops.sort import partitioned_sort_permutation
+from hyperspace_tpu_torch.ops.sort import bucket_sort_runs, partitioned_sort_permutation
 from hyperspace_tpu_torch.utils import resolver
 
 
@@ -287,16 +291,23 @@ def write_bucketed(
     file_idx_offset: int = 0,
 ) -> List[str]:
     """The build pipeline tail: hash, sort-within-bucket, write one parquet
-    per bucket (CoveringIndex.write:56-71 + saveWithBuckets).
+    per bucket (CoveringIndex.write:56-71 + saveWithBuckets), through the
+    pipelined partition-first writer unless
+    ``hyperspace.index.build.partitionFirst`` is off.
 
     The parquet dictionary-encoding decision is computed ONCE, on the
-    pre-sort input, as the reference does, so the bytes match."""
+    pre-sort input, as the reference does, so the two routes write the
+    same bytes."""
     import os
 
     if batch.num_rows == 0:
         os.makedirs(ctx.index_data_path, exist_ok=True)
         return []
     use_dict = pio.dictionary_columns_for_batch(batch)
+    if ctx.session.conf.build_partition_first:
+        return _write_bucketed_pipelined(
+            ctx, batch, indexed_cols, num_buckets, file_idx_offset, use_dict
+        )
     buckets, batch = bucketize(ctx, batch, indexed_cols, num_buckets)
     t0 = _time.perf_counter()
     out = pio.write_bucket_files(
@@ -309,6 +320,58 @@ def write_bucketed(
     )
     _stage_add(ctx, "write", t0)
     return out
+
+
+def _write_bucketed_pipelined(
+    ctx,
+    batch: ColumnarBatch,
+    indexed_cols: List[str],
+    num_buckets: int,
+    file_idx_offset: int,
+    use_dict,
+) -> List[str]:
+    """Partition-first, pipelined tail of an in-memory build (reference
+    ``covering_build.py:787-864``): the card hashes (B1) and sorts (B2)
+    every row, the permutation and the bucket offsets come back in one
+    copy (``ops/sort.bucket_sort_runs``), and each bucket's run goes to
+    one writer thread as soon as it is known, the file written from the
+    pre-sort table through the run's indices. No sorted copy of the
+    whole batch is built. Every bucket is submitted before the drain, so
+    a write that dies in raise mode (``mid_data_write``) still lets the
+    buckets queued behind it land, as in the reference.
+
+    Stages as the reference records them: ``sort`` spans the sort, the
+    copy and the submissions (and the writes that overlap them);
+    ``write`` is only the drain after the last submission."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    buckets, reps = _hash_shuffle(ctx, batch, indexed_cols, num_buckets)
+    os.makedirs(ctx.index_data_path, exist_ok=True)
+    t0 = _time.perf_counter()
+    perm, offsets = bucket_sort_runs(reps, buckets, num_buckets)
+    table = batch.to_arrow()
+    written: List[str] = []
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        futures = [
+            writer.submit(
+                pio.write_bucket_file,
+                ctx.index_data_path,
+                b,
+                file_idx_offset,
+                table,
+                perm[offsets[b] : offsets[b + 1]],
+                use_dict,
+            )
+            for b in range(num_buckets)
+            if offsets[b + 1] > offsets[b]
+        ]
+        _stage_add(ctx, "sort", t0)
+        t0 = _time.perf_counter()
+        for f in futures:
+            written.append(f.result())
+    _stage_add(ctx, "write", t0)
+    return written
 
 
 # ---------------------------------------------------------------------------

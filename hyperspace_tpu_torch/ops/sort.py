@@ -2,7 +2,8 @@
 permutations on the device.
 
 Counterpart of ``hyperspace_tpu/ops/sort.py`` (``sort_permutation``,
-``partitioned_sort_permutation``, ``lexsort_perm``, ``order_rep`` and
+``partitioned_sort_permutation`` with the per-bucket runs of the
+pipelined build, ``lexsort_perm``, ``order_rep`` and
 ``ordering_permutation``). The reference sorts by
 ``(bucket, key_0, key_1, ...)`` with a stable lexsort over uint32 planes
 in which each signed int64 key becomes ``(hi ^ signbit, lo)``; that plane
@@ -83,6 +84,29 @@ def partitioned_sort_permutation(
     if bucket.numel() and not 0 <= int(bucket.min()) <= int(bucket.max()) < num_buckets:
         raise ValueError(f"bucket ids outside [0, {num_buckets})")
     return sort_permutation(key_reps, bucket)
+
+
+def bucket_sort_runs(
+    key_reps: torch.Tensor, bucket: torch.Tensor, num_buckets: int
+):
+    """The partition-first build sort handed to the host for the pipelined
+    writer: ``(perm, offsets)`` as int64 numpy arrays, ``perm`` equal to
+    ``partitioned_sort_permutation(key_reps, bucket, num_buckets)`` (so to
+    ``sort_permutation(key_reps, bucket)``) and bucket ``b``'s rows, key
+    sorted, at ``perm[offsets[b]:offsets[b+1]]`` (the offsets a bincount
+    and a cumsum on the card). The reference yields the
+    runs bucket by bucket from a host counting scatter and per-bucket
+    lexsorts (``ops/sort.py:171``, ``:216``); the card computes the whole
+    permutation in a few passes, so it comes back in one copy, through
+    pinned memory from the card."""
+    perm = partitioned_sort_permutation(key_reps, bucket, num_buckets)
+    counts = torch.bincount(bucket.to(torch.int64), minlength=num_buckets)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    if perm.is_cuda:
+        host = torch.empty(perm.shape, dtype=perm.dtype, pin_memory=True)
+        host.copy_(perm)
+        return host.numpy(), offsets.cpu().numpy()
+    return perm.numpy(), offsets.numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 """Logical plan nodes: Scan / Filter / Project / Join / Aggregate / Sort / Limit.
 
-Counterpart of ``hyperspace_tpu/plan/nodes.py`` (Union is ported with
-Hybrid Scan, ROADMAP queue A item 5). In the reference these are
+Counterpart of ``hyperspace_tpu/plan/nodes.py``. In the reference these are
 Catalyst's ``LogicalRelation``, ``Filter``, ``Project``, ``Join``,
 ``Aggregate``, ``Sort`` and ``GlobalLimit``, matched against in
 ``covering/FilterIndexRule.scala:33-55`` (Filter[→Project] over a
@@ -87,6 +86,9 @@ class Relation:
     options: Tuple[Tuple[str, str], ...] = ()
     index_info: Optional[Tuple[str, int, str]] = None  # (name, log_version, abbr)
     bucket_spec: Optional[Tuple[int, Tuple[str, ...]]] = None  # (numBuckets, cols)
+    # query-time row-level compensation (Hybrid Scan deletes): lineage ids
+    # whose rows the scan drops, None if not needed
+    excluded_file_ids: Optional[Tuple[int, ...]] = None
     # query-time row-group pruning (zone maps, executor._range_pruned_scan):
     # aligned with ``files``; per file either None (read every row group)
     # or the ascending row-group indices to read. None for the whole field
@@ -182,6 +184,39 @@ class Project(LogicalPlan):
 
     def _node_string(self):
         return f"Project [{', '.join(self.columns)}]"
+
+
+class Union(LogicalPlan):
+    """Same-schema union (no dedup), for Hybrid Scan: the index data and
+    the appended source files read side by side, the logical role of the
+    reference's ``BucketUnion`` (``plans/logical/BucketUnion.scala:31-68``).
+    Bucket alignment of the appended rows happens at execution time."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        if list(left.output) != list(right.output):
+            raise HyperspaceException(
+                f"Union children must align: {left.output} vs {right.output}"
+            )
+        self.left = left
+        self.right = right
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    @property
+    def output(self):
+        return self.left.output
+
+    def schema(self):
+        return self.left.schema()
+
+    def with_children(self, children):
+        left, right = children
+        return Union(left, right)
+
+    def _node_string(self):
+        return "Union"
 
 
 class Join(LogicalPlan):

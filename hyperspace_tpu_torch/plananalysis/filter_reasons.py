@@ -34,6 +34,30 @@ def source_data_changed() -> FilterReason:
     )
 
 
+def no_delete_support() -> FilterReason:
+    return FilterReason(
+        "NO_DELETE_SUPPORT",
+        (),
+        "Source files were deleted but the index has no lineage column.",
+    )
+
+
+def too_much_appended(appended_ratio: float, threshold: float) -> FilterReason:
+    return FilterReason(
+        "TOO_MUCH_APPENDED",
+        (("appendedRatio", f"{appended_ratio:.3f}"), ("threshold", str(threshold))),
+        "Appended bytes exceed the Hybrid Scan threshold.",
+    )
+
+
+def too_much_deleted(deleted_ratio: float, threshold: float) -> FilterReason:
+    return FilterReason(
+        "TOO_MUCH_DELETED",
+        (("deletedRatio", f"{deleted_ratio:.3f}"), ("threshold", str(threshold))),
+        "Deleted bytes exceed the Hybrid Scan threshold.",
+    )
+
+
 def missing_required_col(required: str, index_cols: str) -> FilterReason:
     return FilterReason(
         "MISSING_REQUIRED_COL",

@@ -12,9 +12,9 @@ index's sidecars.
 Correctness gate: the rewrite changes ROW ORDER (index data is
 bucketed/sorted), so only order-insensitive aggregates are eligible —
 COUNT, MIN, MAX, and integer SUM/AVG (wrapping addition is associative);
-float SUM/AVG would reassociate and is left on the source scan. The
-reference also skips Hybrid Scan candidates; the port's candidates are
-exact-signature matches only (Hybrid Scan is ROADMAP queue A item 5).
+float SUM/AVG would reassociate and is left on the source scan. Hybrid
+candidates (appended/deleted compensation) are excluded: a hybrid-required
+entry is never served from metadata.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import pyarrow as pa
 
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Aggregate, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.rules import tags
 from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule
 from hyperspace_tpu_torch.rules.rule_utils import transform_plan_to_use_index
 
@@ -65,6 +66,8 @@ class AggregateIndexRule(HyperspaceRule):
             index = e.derived_dataset
             if index.kind not in self.index_kinds:
                 continue
+            if e.get_tag(scan, tags.HYBRIDSCAN_REQUIRED):
+                continue  # appended/deleted compensation: not this rule
             covered = {c.lower() for c in index.referenced_columns()}
             if required <= covered:
                 eligible.append(e)

@@ -62,10 +62,9 @@ class ApplyDataSkippingIndex(HyperspaceRule):
                 best, best_files = e, files
         if best is None:
             return plan, 0
-        # Hybrid Scan's appended files (ROADMAP queue A item 5; unset until
-        # then): a file modified in place appears both in the stale keep
-        # list and in the appended tag, and is scanned once, unpruned,
-        # through the appended list only
+        # Hybrid Scan's appended files: a file modified in place appears
+        # both in the stale keep list and in the appended tag, and is
+        # scanned once, unpruned, through the appended list only
         appended = best.get_tag(scan, tags.HYBRIDSCAN_APPENDED) or []
         appended_set = set(appended)
         pruned = [p for p in best_files if p not in appended_set]

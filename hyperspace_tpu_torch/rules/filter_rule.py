@@ -4,8 +4,8 @@ Reference: ``covering/FilterIndexRule.scala:129-174`` with its filters —
 ``FilterPlanNodeFilter`` (:33-55, plan shape), ``FilterColumnFilter``
 (:62-103, first indexed column must appear in the predicate AND the index
 must cover every referenced column), ``FilterRankFilter`` /
-``FilterIndexRanker`` (covering/FilterIndexRanker.scala:43-63: min index
-size; the Hybrid Scan ranking is not ported yet). Score = 50 (:151-173).
+``FilterIndexRanker`` (covering/FilterIndexRanker.scala:43-63: Hybrid Scan
+→ max common bytes, else min index size). Score = 50·coverage (:151-173).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import expressions as E
 from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.plananalysis import filter_reasons as FR
+from hyperspace_tpu_torch.rules import tags
 from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, tag_filter_reason
 from hyperspace_tpu_torch.rules.rule_utils import transform_plan_to_use_index
 
@@ -119,14 +120,22 @@ class FilterIndexRule(HyperspaceRule):
 
     # -- FilterRankFilter / FilterIndexRanker -------------------------------
     def _rank(self, scan: Scan, entries: List[IndexLogEntry]) -> IndexLogEntry:
-        # exact-signature candidates only (no Hybrid Scan yet): the
-        # smallest index wins (FilterIndexRanker.scala:43-63)
-        best = min(entries, key=lambda e: (e.content.size_in_bytes, e.name))
+        def hybrid_common(e):
+            return e.get_tag(scan, tags.COMMON_SOURCE_SIZE_IN_BYTES)
+
+        if all(hybrid_common(e) is not None for e in entries):
+            best = max(entries, key=lambda e: (hybrid_common(e), e.name))
+        else:
+            best = min(entries, key=lambda e: (e.content.size_in_bytes, e.name))
         for e in entries:
             if e is not best:
                 tag_filter_reason(e, scan, FR.another_index_applied(best.name))
         return best
 
-    # -- score (:151-173): full coverage of an exact-signature source ------
+    # -- score (:151-173) ---------------------------------------------------
     def _score(self, scan: Scan, entry: IndexLogEntry) -> int:
+        common = entry.get_tag(scan, tags.COMMON_SOURCE_SIZE_IN_BYTES)
+        if common is not None and entry.source_files_size_in_bytes:
+            total = entry.source_files_size_in_bytes
+            return max(1, int(self.base_score * min(1.0, common / total)))
         return self.base_score

@@ -13,13 +13,9 @@ Counterpart of ``hyperspace_tpu/rules/join_rule.py``. Reference:
   columns exactly** and which cover every referenced column
   (``JoinColumnFilter.getUsableIndexes:434-463``);
 * ranking — prefer pairs with equal bucket counts (shuffle-free zip),
-  then the larger indexed source (``JoinIndexRanker.rank:52-89``);
-* score — 70 per side (`:689-719`).
-
-Candidates are exact-signature matches only (Hybrid Scan is not ported
-yet, ROADMAP queue A), so no candidate carries a common-bytes tag: the
-ranking's common bytes are each index's whole source size and every
-side scores the full 70.
+  then the larger common source bytes, a Hybrid Scan candidate's tag or
+  else the index's whole source size (``JoinIndexRanker.rank:52-89``);
+* score — 70·coverage per side (`:689-719`).
 
 Execution-side payoff: both index relations carry ``bucket_spec``; the
 executor zips equal buckets pairwise (``execution/executor._exec_join``)
@@ -34,6 +30,7 @@ from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import expressions as E
 from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.plananalysis import filter_reasons as FR
+from hyperspace_tpu_torch.rules import tags
 from hyperspace_tpu_torch.rules.base import CandidateMap, HyperspaceRule, tag_filter_reason
 from hyperspace_tpu_torch.rules.rule_utils import transform_plan_to_use_index
 
@@ -55,7 +52,7 @@ class _Side:
                     self.filter_refs |= E.references(node.condition)
                 node = node.child
                 continue
-            break  # non-linear (join below) -> ineligible
+            break  # non-linear (join/union below) -> ineligible
 
     @property
     def ok(self) -> bool:
@@ -96,7 +93,7 @@ class JoinIndexRule(HyperspaceRule):
         r_best = self._usable(right, rcols, candidates)
         if not l_best or not r_best:
             return plan, 0
-        l_entry, r_entry = self._rank_pair(l_best, r_best)
+        l_entry, r_entry = self._rank_pair(left.scan, right.scan, l_best, r_best)
         new_left = left.rebuilt_with(
             transform_plan_to_use_index(
                 session, l_entry, left.scan, use_bucket_spec=True
@@ -115,7 +112,7 @@ class JoinIndexRule(HyperspaceRule):
             new_left = Project(plan.left.output, new_left)
         if list(new_right.output) != list(plan.right.output):
             new_right = Project(plan.right.output, new_right)
-        score = 2 * self.base_score_per_side
+        score = self._score(left.scan, l_entry) + self._score(right.scan, r_entry)
         return Join(new_left, new_right, plan.condition, plan.how), score
 
     # -- attribute one-to-one mapping (:262-301) ---------------------------
@@ -179,8 +176,11 @@ class JoinIndexRule(HyperspaceRule):
         return out
 
     # -- pair ranking (JoinIndexRanker.rank:52-89) --------------------------
-    @staticmethod
-    def _rank_pair(l_entries, r_entries):
+    def _rank_pair(self, l_scan, r_scan, l_entries, r_entries):
+        def common(scan, e):
+            v = e.get_tag(scan, tags.COMMON_SOURCE_SIZE_IN_BYTES)
+            return v if v is not None else e.source_files_size_in_bytes
+
         best = None
         best_key = None
         for le in l_entries:
@@ -189,10 +189,17 @@ class JoinIndexRule(HyperspaceRule):
                 rb = getattr(re.derived_dataset, "num_buckets", 0)
                 key = (
                     0 if lb == rb else 1,  # equal bucket counts first
-                    -(le.source_files_size_in_bytes + re.source_files_size_in_bytes),
+                    -(common(l_scan, le) + common(r_scan, re)),
                     le.name,
                     re.name,
                 )
                 if best_key is None or key < best_key:
                     best, best_key = (le, re), key
         return best
+
+    def _score(self, scan, entry: IndexLogEntry) -> int:
+        common = entry.get_tag(scan, tags.COMMON_SOURCE_SIZE_IN_BYTES)
+        if common is not None and entry.source_files_size_in_bytes:
+            ratio = min(1.0, common / entry.source_files_size_in_bytes)
+            return max(1, int(self.base_score_per_side * ratio))
+        return self.base_score_per_side

@@ -1,15 +1,15 @@
 """Plan-transformation helpers shared by the covering-index rules.
 
 Reference: ``covering/CoveringIndexRuleUtils.scala:35-418`` — swap a source
-relation for the index's data (index-only scan). The Hybrid Scan branch
-(appended files merged, deleted rows excluded) is not ported yet
-(ROADMAP queue A item 5).
+relation for the index's data (index-only scan), or build the Hybrid Scan
+compensation plan (appended files merged bucket-aligned, deleted rows
+excluded via lineage NOT-IN).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 import pyarrow as pa
 
@@ -17,6 +17,7 @@ from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Relation as PlanRelation
 from hyperspace_tpu_torch.plan.nodes import Scan
+from hyperspace_tpu_torch.rules import tags
 
 
 def parse_arrow_type(s: str) -> pa.DataType:
@@ -51,6 +52,7 @@ def index_scan_relation(
     session,
     entry: IndexLogEntry,
     use_bucket_spec: bool = False,
+    excluded_file_ids: Optional[Tuple[int, ...]] = None,
 ) -> PlanRelation:
     """The relation that reads the index data instead of the source
     (transformPlanToUseIndexOnlyScan:98-130; display string mirrors
@@ -66,6 +68,7 @@ def index_scan_relation(
         schema_fields=index_schema_fields(entry),
         index_info=(entry.name, entry.id, index.kind_abbr),
         bucket_spec=bucket_spec,
+        excluded_file_ids=excluded_file_ids,
     )
 
 
@@ -76,7 +79,11 @@ def _version_root(path: str) -> str:
 def transform_plan_to_use_index(
     session, entry: IndexLogEntry, scan: Scan, use_bucket_spec: bool = False
 ):
-    """Replace `scan` with the index-only scan
-    (transformPlanToUseIndex:55-83 → index-only :98-130). Candidates are
-    exact-signature matches only, so no Hybrid Scan compensation applies."""
-    return Scan(index_scan_relation(session, entry, use_bucket_spec))
+    """Replace `scan` with the index scan; Hybrid Scan compensation when the
+    candidate filter tagged appended/deleted files
+    (transformPlanToUseIndex:55-83 → index-only :98-130 / hybrid :146-288)."""
+    if not entry.get_tag(scan, tags.HYBRIDSCAN_REQUIRED):
+        return Scan(index_scan_relation(session, entry, use_bucket_spec))
+    from hyperspace_tpu_torch.rules.hybrid import transform_plan_to_use_hybrid_scan
+
+    return transform_plan_to_use_hybrid_scan(session, entry, scan, use_bucket_spec)

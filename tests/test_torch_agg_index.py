@@ -15,9 +15,11 @@ either package is answered from metadata by the other. The lazy backfill
 covers an index without a sidecar and a sidecar entry gone stale, and a
 file rewritten under the same name is read again, never served stale.
 The lifecycle's cases (incremental refresh, vacuum) are in
-``tests/test_torch_lifecycle_indexes.py``. Cases kept for later items:
-the serve cache's ``aggstate`` kind (item 8), the approximate plane
-(item 2.4)."""
+``tests/test_torch_lifecycle_indexes.py``, the approximate plane's in
+``tests/test_torch_approx.py``. Kept for a later item: the serve cache's
+``aggstate`` kind (item 8)."""
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import json
 import os

@@ -6,6 +6,8 @@ versions equal the reference's ``segment_*`` functions on its host route
 and, for integers, counts and the NaN rules, on its jitted route; and
 each package serves aggregates over the indexes the other built."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import os
 import re
 

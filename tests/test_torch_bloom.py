@@ -5,6 +5,8 @@ case included), the built filters' packed words and the probe masks. The
 kernel itself is held against the plain version on the card
 (``test_torch_cuda.py``, ``chip_smoke.py`` phase 3)."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import os
 import re
 

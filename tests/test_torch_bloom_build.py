@@ -9,6 +9,8 @@ held exactly against the plain build
 kernel itself is held against the plain version on the card
 (``test_torch_cuda.py``, ``chip_smoke.py`` phase 3)."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import os
 import re
 

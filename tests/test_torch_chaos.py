@@ -5,11 +5,12 @@ contract (a stable tip after recovery, zero orphans after GC, serves equal
 to the source's rows), and the port's serve results and counters equal the
 JAX harness's, step for step.
 
-The JAX harness runs with ``hyperspace.index.build.partitionFirst`` off, as
-the crash differentials do (``tests/torch_crash_twin.py``): its pipelined
-writer (ROADMAP A.1.3, not ported) writes the buckets queued behind a
-crashed file, which changes the GC's counts, not the bytes.
+Both harnesses build with their default route, the pipelined
+partition-first writer, as the crash differentials do
+(``tests/torch_crash_twin.py``).
 """
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import pytest
 
@@ -39,17 +40,10 @@ def test_schedule_equals_reference_and_is_legal(seed, n_steps):
             assert a[i - 1][0] == "append"
 
 
-class _RefHarness(jchaos.ChaosHarness):
-    def _make_session(self, run_dir):
-        s, index_root = super()._make_session(run_dir)
-        s.conf.set("hyperspace.index.build.partitionFirst", False)
-        return s, index_root
-
-
 def _harnesses(tmp_path, seed):
     return (
         tchaos.ChaosHarness(str(tmp_path / "port"), seed=seed, n_steps=10, device="cpu"),
-        _RefHarness(str(tmp_path / "jax"), seed=seed, n_steps=10),
+        jchaos.ChaosHarness(str(tmp_path / "jax"), seed=seed, n_steps=10),
     )
 
 

@@ -2,6 +2,8 @@
 the dtype matrix. Every bucket id depends on these int64 reps, so they
 must be equal bit for bit, nulls and string hashes included."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc

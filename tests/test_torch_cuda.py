@@ -7,6 +7,8 @@ machine with the card and without JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q -m cuda
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pytest
 import torch
@@ -740,3 +742,100 @@ def test_a_b1_fault_at_a_short_lease_is_rolled_back_by_the_next_refresh(
     states = [log.get_log(i).state for i in range(log.get_latest_id() + 1)
               if log.get_log(i) is not None]
     assert states[-4:] == ["REFRESHING", "ACTIVE", "REFRESHING", "ACTIVE"]
+
+
+def test_hybrid_join_hashes_the_appended_rows_with_b1_as_the_plain_version(cuda_device, tmp_path):
+    """A co-bucketed join over a Hybrid Scan ``Union`` (a file appended
+    after the build), sequential and pipelined: the appended rows' bucket
+    ids come from B1 on the card and equal the plain version's, and the
+    rows equal a cpu session's in order."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch.execution import executor as X
+
+    rng = np.random.default_rng(8)
+    items, orders = tmp_path / "items", tmp_path / "orders"
+    items.mkdir(), orders.mkdir()
+    for i in range(2):
+        pq.write_table(pa.table({"k": rng.integers(0, 3000, 20_000), "q": rng.integers(0, 9, 20_000)}),
+                       str(items / f"p{i}.parquet"))
+        pq.write_table(pa.table({"ok": np.arange(i * 1500, (i + 1) * 1500),
+                                 "c": rng.integers(0, 50, 1500)}), str(orders / f"p{i}.parquet"))
+    sessions = []
+    for device in (cuda_device, "cpu"):
+        s = HyperspaceSession(device=device)
+        s.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        s.conf.set("hyperspace.index.num_buckets", 16)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(str(items)), CoveringIndexConfig("i", ["k"], ["q"]))
+        hs.create_index(s.read.parquet(str(orders)), CoveringIndexConfig("o", ["ok"], ["c"]))
+        s.conf.set("hyperspace.index.hybridscan.enabled", True)
+        s.enable_hyperspace()
+        sessions.append(s)
+    pq.write_table(pa.table({"k": rng.integers(0, 3500, 700), "q": rng.integers(0, 9, 700)}),
+                   os.path.join(str(items), "appended.parquet"))
+    calls = []
+    real = X.bucket_ids
+
+    def recording(reps, num_buckets, seed=42):
+        out = real(reps, num_buckets, seed)
+        calls.append((reps, num_buckets, out))
+        return out
+
+    X.bucket_ids = recording
+    try:
+        rows = {}
+        for pipelined in (False, True):
+            for s in sessions:
+                s.conf.set("hyperspace.serve.pipeline.enabled", pipelined)
+                o, i = s.read.parquet(str(orders)), s.read.parquet(str(items))
+                ops.reset_launch_counts()
+                rows[(pipelined, s.device.type)] = o.join(
+                    i, on=o["ok"] == i["k"]).select("ok", "c", "q").collect()
+                if s.device.type == "cuda":
+                    assert ops.launch_counts()["murmur3_bucket_ids"] >= 1
+                    assert ops.launch_counts()["bucket_match_pairs"] > 0
+    finally:
+        X.bucket_ids = real
+    card_calls = [c for c in calls if c[0].is_cuda]
+    assert len(card_calls) == 2 and all(c[0].shape == (1, 700) for c in card_calls)
+    for reps, num_buckets, out in card_calls:
+        assert torch.equal(out, H.bucket_ids_torch(reps, num_buckets))
+    for pipelined in (False, True):
+        assert rows[(pipelined, "cuda")].equals(rows[(pipelined, "cpu")])
+    assert rows[(False, "cuda")].equals(rows[(True, "cuda")])
+    assert 700 <= rows[(False, "cuda")].num_rows
+
+
+def test_pipelined_build_on_the_card_writes_the_legacy_routes_files(cuda_device, tmp_path):
+    """``hyperspace.index.build.partitionFirst`` on (the pipelined writer,
+    the card's runs copied back through pinned memory) and off: the same
+    bucket files byte for byte, and both launch B1."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+
+    rng = np.random.default_rng(12)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(3):
+        pq.write_table(pa.table({"k": rng.integers(0, 40, 30_000), "s": rng.choice(["a", "b"], 30_000),
+                                 "v": rng.normal(size=30_000)}), str(src / f"p{i}.parquet"))
+    files = {}
+    for pf in (True, False):
+        s = HyperspaceSession(device=cuda_device)
+        s.conf.set("hyperspace.system.path", str(tmp_path / f"pf{pf}"))
+        s.conf.set("hyperspace.index.num_buckets", 32)
+        s.conf.set("hyperspace.index.build.partitionFirst", pf)
+        ops.reset_launch_counts()
+        Hyperspace(s).create_index(s.read.parquet(str(src)), CoveringIndexConfig("b", ["k"], ["s", "v"]))
+        assert ops.launch_counts()["murmur3_bucket_ids"] >= 1
+        assert {"scan", "hash_shuffle", "sort", "write"} <= set(s.build_stats)
+        files[pf] = index_files(str(tmp_path / f"pf{pf}" / "b"))
+    assert files[True] == files[False]
+    assert sum(1 for f in files[True] if f.endswith(".parquet") and "bucket" in f) > 1

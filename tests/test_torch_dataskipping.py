@@ -3,9 +3,9 @@
 First the reference's own cases (``tests/test_dataskipping.py``) on the
 port: min/max, Bloom filter and partition sketches pruning source files,
 a covering index outranking data skipping, the sketches' serialization
-and the uint64 literal reps. Its Hybrid Scan case waits for Hybrid Scan
-(ROADMAP queue A item 5) and its incremental refresh case for the
-lifecycle (item 3).
+and the uint64 literal reps. Its Hybrid Scan case is in
+``tests/test_torch_hybrid.py`` and its incremental refresh case in
+``tests/test_torch_lifecycle_indexes.py``.
 
 Then the differentials, each exact: the sketch table's parquet bytes for
 each sketch kind over a dtype grid (all-null, constant and empty files
@@ -20,6 +20,8 @@ a fused filter over a pruned scan. The sketches run on the session's
 device, and a fault of kernel B7 fails the create or the query instead
 of turning into an abstention.
 """
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import os
 

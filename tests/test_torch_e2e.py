@@ -5,6 +5,8 @@ equal apart from timestamps and ids, the same query rows in the same
 order with and without the index, and each package serving the index
 the other built."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import json
 import os
 

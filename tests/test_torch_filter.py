@@ -5,6 +5,8 @@ three-valued logic, nulls, NaN, IN lists with and without NULL, string
 compares and date/timestamp literals. Masks are booleans: exact
 equality."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import datetime
 
 import numpy as np

@@ -12,6 +12,8 @@ version's (``fused_filter_agg_torch``) and its partials the JAX package's
 ``test_torch_fused_pipeline.py`` drives it). Plans with a float
 aggregate take the ordered route."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import os
 import re
 

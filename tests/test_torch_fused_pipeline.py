@@ -21,6 +21,8 @@ index yet): fused on, fused off, unindexed and the JAX package give the
 same rows, and the port's ``last_fused_stats`` equal the reference's
 apart from the wall seconds."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq

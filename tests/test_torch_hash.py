@@ -4,6 +4,8 @@ program and the Pallas kernel (interpret mode) bit for bit. The CUDA
 kernel itself runs only on the card; chip_smoke.py holds it against the
 plain version there."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import ctypes
 
 import numpy as np

@@ -2,6 +2,8 @@
 chip_smoke.py, nor scripts/torch_*.py) imports JAX or the JAX package,
 and a session never runs on the CPU unless the caller asks for it."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import ast
 import os
 import subprocess

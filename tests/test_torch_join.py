@@ -6,9 +6,12 @@ per-bucket match (``_match_ranges_host`` + ``expand_match_ranges``), its
 unindexed ``merge_join_indices`` and its null-sentinel layout; pair lists
 must be equal in order. Wrapper level: the C arguments B4's wrapper
 packs, through ctypes callbacks standing in for the library. Rule level:
-the cases of ``tests/test_join_rule.py`` (Hybrid Scan aside) through both
+the cases of ``tests/test_join_rule.py`` (its Hybrid Scan case is in
+``tests/test_torch_hybrid.py``) through both
 packages on the same tables: the rewritten plan's text, its score, the
 filter reasons and the rows, in order. All comparisons are exact."""
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import ctypes
 import os

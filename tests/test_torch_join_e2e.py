@@ -5,6 +5,8 @@ plain version per bucket) and off (the unindexed join), and each package
 serves joins over the indexes the other built. Seeded tables, 8 buckets;
 the comparison is exact (``Table.equals``)."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq

@@ -9,6 +9,8 @@ ctypes stand-in for its C function checks how the wrapper packs the
 arguments. The executor's dispatch between the fused route, the general
 device mask and the host is checked through ``session.exec_stats``."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import ctypes
 import datetime
 

@@ -14,7 +14,10 @@ row groups are made small (``INDEX_ROW_GROUP_SIZE`` patched alike in
 both packages) for narrowing to have something to narrow; one case runs
 at the real 64k-row groups. Cases kept for later items: z-order
 (``TestZBoxRanges``), refresh and optimize (``TestLifecycleConsistency``),
-Hybrid Scan (``TestHybridFallback``) and the serve cache's eviction."""
+Hybrid Scan (``TestHybridFallback``, now in ``tests/test_torch_hybrid.py``) and the
+serve cache's eviction."""
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import datetime as dt
 import json

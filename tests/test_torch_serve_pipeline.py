@@ -7,6 +7,8 @@ must be real (an injected slow reader shows it); the side threads must
 run no device work (the clean ``Project*(Scan)`` shape has no Filter);
 and the route is off unless asked for."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import threading
 import time
 

@@ -1,6 +1,8 @@
 """The port's build sort against the JAX package's: the permutation must
 be identical (the same stable order), not just another valid one."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,8 @@ reference's rows in order (floats bit for bit); a streaming limit stops
 reading files once it has its rows; and AggregateIndexRule's explain
 equals the reference's."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq

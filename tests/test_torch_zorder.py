@@ -9,6 +9,8 @@ reference's own cases of ``tests/test_zorder.py::TestZAddress`` and
 ``tests/test_range_prune.py::TestZBoxRanges`` run on the port, and the
 wrappers' device rule."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import pytest

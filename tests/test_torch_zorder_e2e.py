@@ -11,6 +11,8 @@ the other's index. The reference's own z-order cases run on the port:
 ``tests/test_agg_index.py`` (the metadata plane over a z-order index).
 The z-span capture absorbs faults of the data only."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import json
 import os
 

@@ -12,6 +12,8 @@ one block's 2,048 rows, and an odd count of several blocks. Each
 predicate is built from the expression module passed in (either
 package's), so one case runs through both."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import datetime
 
 import numpy as np

@@ -9,6 +9,8 @@ key up to the rows' greatest, and row by row in global memory otherwise.
 Each case is (left keys, left offsets, right keys, right offsets), every
 segment ascending."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 
 WINDOW = 512  # kWindow in csrc/bucket_match.cu (test_torch_join.py holds them equal)

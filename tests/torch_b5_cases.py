@@ -11,6 +11,8 @@ type B5 takes, NaN, -0.0 / 0.0, +-inf and NaN payloads, nulls, integer
 wrap-around, one group of 100,000 rows, 10,000 groups, and groups with no
 valid row or only NaN."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import torch

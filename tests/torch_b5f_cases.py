@@ -20,6 +20,8 @@ aggregate, by the ordered route): the same shapes, plus int nulls,
 int64 extremes and wrap-around, and groups first met in later chunks. A
 B3b case is (table, terms), NEVER_MATCH included."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import numpy as np
 import pyarrow as pa
 import torch

@@ -13,6 +13,8 @@ with any bits, k = 2-4 with bits <= 16) and its generic one, with
 k * bits = 32, 33, 48 and 128 among them.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import itertools
 
 import numpy as np

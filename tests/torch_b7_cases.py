@@ -34,6 +34,8 @@ slices hold 2^16 bits, a multiple of 64, so no slice edge splits a 64-bit
 word's halves.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import itertools
 
 import numpy as np

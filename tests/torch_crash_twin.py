@@ -7,12 +7,15 @@
 (``tests/test_crash_recovery.py``) through both packages in lockstep
 (``tests/torch_lifecycle_twin.py``) with both fault registries armed.
 
-The JAX side of a crash twin runs with
-``hyperspace.index.build.partitionFirst`` off: its pipelined writer
-(ROADMAP A.1.3, not ported) keeps writing the buckets queued behind a file
-that crashed, so its quarantine would hold more files; both writers write
-the same bytes.
+Both packages run with their default build route, the pipelined
+partition-first writer (``hyperspace.index.build.partitionFirst`` on): a
+``mid_data_write`` crash fires in its writer thread, and the buckets
+queued behind the crashed file still land before the crash surfaces, in
+both alike. ``crash_twin(..., partition_first=False)`` turns the key off in
+both packages, to hold the legacy route too.
 """
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
 import os
 import time
@@ -81,7 +84,6 @@ class Pkg:
         s.conf.set(self.C.INDEX_LINEAGE_ENABLED, True)
         if self.name == "jax":
             s.conf.set(self.C.BUILD_NUM_SHARDS, 1)
-            s.conf.set(self.C.INDEX_BUILD_PARTITION_FIRST, False)  # module docstring
         return s
 
 
@@ -234,11 +236,11 @@ KINDS = {
 }
 
 
-def crash_twin(tmp_path, src):
+def crash_twin(tmp_path, src, partition_first=True):
     twin = Twin(tmp_path / "sys", src, lineage=True)
     twin.set("hyperspace.recovery.leaseMs", LEASE_MS)
     twin.set("hyperspace.recovery.orphanGraceMs", GRACE_KEEP_MS)
-    twin.j.conf.set("hyperspace.index.build.partitionFirst", False)
+    twin.set("hyperspace.index.build.partitionFirst", partition_first)
     return twin
 
 
@@ -320,10 +322,7 @@ def crash_cell(tmp_path, src, action, point, kind="covering"):
             assert after["port"] == before["port"]
     assert quarantine(paths["port"]) == quarantine(paths["jax"])
     assert twin.log_entries("idx", "port") == twin.log_entries("idx", "jax")
-    # a quick-refreshed index is not served by the port until Hybrid Scan
-    # (ROADMAP C.9): there the rows compare as a multiset
-    quick = action == "refresh_quick"
-    twin.query(_q, same_plan=not (quick and committed))
+    twin.query(_q)
     # purge the quarantine; no orphan is left and a second GC moves nothing
     for p, side in (("port", pkg("port")), ("jax", pkg("jax"))):
         side.recovery.gc_orphans(paths[p], grace_ms=0)
@@ -343,5 +342,5 @@ def crash_cell(tmp_path, src, action, point, kind="covering"):
     assert outcome["port"] == outcome["jax"]
     assert twin.latest_state("idx") in ("ACTIVE", "DELETED", "DOESNOTEXIST")
     twin.assert_equal("idx")
-    twin.query(_q, same_plan=not quick)
+    twin.query(_q)
     return rep

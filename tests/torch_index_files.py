@@ -12,6 +12,8 @@ phase 12. Imports neither JAX nor either package.
   (a random owner and a time) compared by its presence.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import json
 import os
 

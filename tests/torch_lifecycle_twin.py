@@ -19,6 +19,8 @@ the checks hold the port to the JAX package:
   system path.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads first)
+
 import os
 
 import pyarrow as pa
