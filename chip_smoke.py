@@ -242,20 +242,22 @@ against its plain PyTorch version on the card:
    After each step every index file (bucket, z-order and sketch files
    byte for byte, ``_zonemaps.json`` and ``_aggstate.json`` without
    mtime_ns) and log entry (without ids and timestamps) equals the cpu
-   session's; before step 1, after steps 2, 3 and 5 and in the
-   quick-refresh state phase 4's 36 filters
-   with 4 new keys (lc_idx), d2's point keys (lc_ds) and q_zrange (lc_z)
-   name their index in the explain (in the quick-refresh state lc_idx
-   through a Union with the recorded batch), and their rows equal the plan without Hyperspace and, in order, the
-   cpu session's; phase 5's join over o_idx and lc_idx is timed before
-   step 1, after step 2 (buckets of two files) and after step 3 (one
-   file a bucket) and held to the unindexed plan and the cpu session
-   each time (no checkpoint after steps 1 and 4, for the script's time
-   since phase 13). Each action's seconds, stages, rows written and
+   session's; before step 1, after steps 2, 3 and 5 phase 4's 36 filters
+   with 4 new keys (lc_idx), 12 of d2's point keys (lc_ds: 8 of phase 4's
+   and the 4 new ones) and q_zrange (lc_z), and in the quick-refresh state
+   10 of the filters (lc_idx through a Union with the recorded batch),
+   name their index in the explain, and their rows equal the plan without
+   Hyperspace and, in order, the cpu session's; phase 5's join over o_idx
+   and lc_idx is timed after step 2 (buckets of two files) and after step
+   3 (one file a bucket) and held to the unindexed plan and the cpu
+   session each time (for the script's time: no checkpoint after steps 1
+   and 4 since phase 13; no join before step 1, fewer d2 keys and quick
+   filters since phase 15). Each action's seconds, stages, rows written and
    launches, files a bucket around optimize and versions around vacuum
-   are logged. Every B1, B6, B7 and B5f call (B3b and B5 on its ordered
-   route) is recorded (``KernelCalls``) and held bit-equal to the plain
-   version after each action.
+   are logged, and each checkpoint set's seconds with its checks. Every
+   B1, B6, B7 and B5f call (B3b and B5 on its ordered route) is recorded
+   (``KernelCalls``) and held bit-equal to the plain version after each
+   action.
 
 13. recovery path (``recovery_path``): over a fresh copy of phase 4's 8
    lineitem files, lineage on, a 2,000 ms writer lease and orphan grace 0,
@@ -293,17 +295,19 @@ against its plain PyTorch version on the card:
    and ho_idx (o_idx's), served by a session on the card and a
    ``device="cpu"`` session over the same system path, with
    ``hyperspace.index.hybridscan.enabled`` on: (1) bench.py's hybrid file
-   (n_items // 32 = 187,537 rows) appended: phase 4's 32 point and 4
-   IN-list filters and phase 5's ``orders ⋈ lineitem`` (one warm-up, 4
-   interleaved rounds of the sequential and pipelined routes), each plan
-   a ``Union`` with the ``hybridDelta`` scan and both join sides
-   index-served, the appended rows hashed into the index's 200 buckets
-   by B1; (2) source file 0 deleted (the lineage NOT-IN), the same
-   queries; (3) appends past the 0.3 appended ratio: the index refused
-   with TOO_MUCH_APPENDED, the query reads the source; (4) Hybrid Scan
-   off, a quick refresh, the filters served in exact mode through the
-   recorded delta, then an incremental refresh and no Union. Rows equal
-   the unindexed plan as a multiset and the cpu session's in order. (5)
+   (n_items // 32 = 187,537 rows) appended: phase 4's filters and phase
+   5's ``orders ⋈ lineitem`` (one warm-up, 2 interleaved rounds of the
+   sequential and pipelined routes), each plan a ``Union`` with the
+   ``hybridDelta`` scan and both join sides index-served, the appended
+   rows hashed into the index's 200 buckets by B1; (2) source file 0
+   deleted (the lineage NOT-IN), the same queries (phase 15 repeats this
+   state over a Delta table); (3) appends past the 0.3 appended ratio: the
+   index refused with TOO_MUCH_APPENDED, the query reads the source; (4)
+   Hybrid Scan off, a quick refresh, the filters served in exact mode
+   through the recorded delta, then an incremental refresh and no Union
+   (all 36 filters). Rows equal the unindexed plan as a multiset and the
+   cpu session's in order. Over a ``Union`` or the source each state runs
+   4 point filters and 2 IN-lists (``HY_LEAN``), for the script's time. (5)
    The approximate plane over ha_idx (li_rg_idx's layout, l_extendedprice
    included, 8 buckets, 128 sample rows a row group): an ungrouped COUNT
    and SUM over a 10 % l_orderkey window, the same grouped by l_quantity,
@@ -311,6 +315,43 @@ against its plain PyTorch version on the card:
    ApproximationError on both sessions; the card's tables equal the cpu
    session's bit for bit. Every B1 call is held bit-equal to its plain
    version (``KernelCalls``).
+
+15. lake path (``lake_path``): phase 4's 8 lineitem files hard-linked (or
+   copied) into a Delta table ``ld`` whose log the port's own code writes
+   (``tests/torch_lake.py``: commit 0 with the protocol, a ``metaData``
+   whose ``schemaString`` maps the files' Arrow schema, and 8 ``add``
+   actions with the files' sizes and mtimes), a card session and a
+   ``device="cpu"`` session over one system path, lineage on: (1) ld_idx
+   (li_idx's config, 200 buckets) through ``read.delta``, its 200 bucket
+   files byte-equal to phase 14's hs_idx (the same config with lineage,
+   over the same files in the same order), and phase 4's 36 filters
+   served bucket-pruned at LogVersion 2, point filters in order; (2)
+   commit 1 appends phase 14's file (187,537 rows), commit 2 removes file
+   0, a classic checkpoint at version 2 with ``_last_checkpoint``: 8 point
+   and the 4 IN-list filters through Hybrid Scan's ``Union`` (the appended
+   file, file 0's NOT-IN), then an incremental refresh (``deltaVersions``
+   2:0,4:2) and the 36 filters bucket-pruned at LogVersion 4; (3) time
+   travel: ``version_as_of=0`` served by LogVersion 2 (the 12 filters),
+   ``version_as_of=1`` (a tie: ``closest_index`` picks log 4, whose
+   signature is version 2's, so the source serves), a vacuum of the
+   outdated versions (``deltaVersions`` reset to 4:2) and
+   ``version_as_of=0`` again, read from the source; (4) ld_z, a z-order
+   index on (l_orderkey, l_shipdate), and phase 10's q_zrange; (5) an
+   Iceberg table li_ice over the same 8 files (format 2 metadata, a
+   manifest list and a manifest through the port's Avro writer), ice_ds
+   as phase 11's ds_idx (8 binned B7 builds) and d1-d3; a second snapshot
+   appends one file: the current table is not served, a read pinned to
+   snapshot 1 is; (6) file 1 (750,152 rows) as csv and orc, its first
+   100,000 rows as json lines, avro and text (l_orderkey a line): a
+   covering index over each and 4 point filters, bucket-pruned, equal to
+   the plan without Hyperspace and to the parquet file's rows. Each
+   filter's rows equal the plan without Hyperspace and, in order, the cpu
+   session's. ``read_snapshot``'s ms (Delta from JSON and from the
+   checkpoint, Iceberg), each create's seconds and stages, the filters'
+   p50 and p99 by state and the rewrite's ms at the latest version and
+   under time travel are logged, and a ``sources`` JSON line. Every B1,
+   B3a, B5f, B6 and B7 call is held bit-equal to its plain version
+   (``KernelCalls``).
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -332,8 +373,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13 and 14 and read just after each; each kernel's count in the
-JSON line adds phases 12, 13 and 14's. The kernel checks' launches are not counted as
+11, 12, 13, 14 and 15 and read just after each; each kernel's count in
+the JSON line adds phases 12, 13, 14 and 15's. The kernel checks' launches are not counted as
 the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -3239,8 +3280,10 @@ def b6_timings(dev) -> dict:
 
 class KernelCalls:
     """Every call of B1, B6, B7 (its indices and its build) and B5f that
-    phases 10-13 make while ``label`` is set, kept with its kind, label,
-    inputs and result. The wrappers are replaced once by recording ones
+    phases 10-15 make while ``label`` is set, and of B3a between
+    ``record_b3a(True)`` and ``record_b3a(False)`` (phase 15; the other
+    phases time B3a unwrapped), kept with its kind, label, inputs and
+    result. The wrappers are replaced once by recording ones
     that call straight through, so their launches count as the main
     path's. ``settle``, outside any timed window, holds each kept call
     against its plain version on the same inputs and drops it. B1, B6 and
@@ -3254,28 +3297,41 @@ class KernelCalls:
 
     def __init__(self):
         from hyperspace_tpu_torch.ops import bloom as B
+        from hyperspace_tpu_torch.ops import filter as F
         from hyperspace_tpu_torch.ops import fused_agg as FA
         from hyperspace_tpu_torch.ops import hash as H
         from hyperspace_tpu_torch.ops import zorder as Z
 
-        self.label, self.calls, self.settle_s = None, [], 0.0
+        self.label, self.calls, self.settle_s, self._b3a = None, [], 0.0, None
         self.totals()
         self.plain = {"b1": H.bucket_ids_torch, "b6": Z.interleave_torch,
                       "b7 indices": B.bit_indices_torch, "b7 build": B.build_bloom_torch,
-                      "b5f": FA.fused_filter_agg_torch}
+                      "b5f": FA.fused_filter_agg_torch, "b3a": F.range_mask_torch}
         for mod, name, kind in ((H, "bucket_ids_kernel", "b1"), (Z, "interleave_kernel", "b6"),
                                 (B, "bit_indices_kernel", "b7 indices"),
                                 (B, "build_bloom_kernel", "b7 build"),
                                 (FA, "fused_filter_agg_kernel", "b5f")):
-            inner = getattr(mod, name)
+            setattr(mod, name, self._recording(getattr(mod, name), kind))
 
-            def recording(*args, inner=inner, kind=kind):
-                out = inner(*args)
-                if self.label is not None:
-                    self.calls.append((kind, self.label, args, out))
-                return out
+    def _recording(self, inner, kind: str):
+        def recording(*args):
+            out = inner(*args)
+            if self.label is not None:
+                self.calls.append((kind, self.label, args, out))
+            return out
 
-            setattr(mod, name, recording)
+        return recording
+
+    def record_b3a(self, on: bool) -> None:
+        """Replace B3a's wrapper by a recording one (``on``), or put the
+        original back."""
+        from hyperspace_tpu_torch.ops import filter as F
+
+        if on and self._b3a is None:
+            self._b3a = F.range_mask_kernel
+            F.range_mask_kernel = self._recording(self._b3a, "b3a")
+        elif not on and self._b3a is not None:
+            F.range_mask_kernel, self._b3a = self._b3a, None
 
     def settle(self) -> list:
         """Hold every kept call against its plain version (the first that
@@ -3287,7 +3343,10 @@ class KernelCalls:
         calls, self.calls = self.calls, []
         for kind, label, args, out in calls:
             plain = self.plain[kind]
-            if kind != "b5f":
+            if kind == "b3a":  # a mask: exact in any order, held on the card
+                ok = torch.equal(out, plain(*args))
+                rows = args[0].n
+            elif kind != "b5f":
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].shape[-1]
             elif any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs):
@@ -4109,11 +4168,12 @@ class LcCompare:
     again."""
 
     def __init__(self, cuda: LcSide, cpu: LcSide):
-        self.cuda, self.cpu, self.seen = cuda, cpu, {}
+        self.cuda, self.cpu, self.seen, self.seconds = cuda, cpu, {}, 0.0
 
     def __call__(self, names, step: str) -> int:
         from torch_index_files import index_file, normalized_log
 
+        t0 = time.perf_counter()
         read = 0
         for name in names:
             a, b = self.cuda.index_path(name), self.cpu.index_path(name)
@@ -4132,6 +4192,7 @@ class LcCompare:
             sa, sb = (s.of(name)[0].conf.get("hyperspace.system.path") for s in (self.cuda, self.cpu))
             if normalized_log(a, sa) != normalized_log(b, sb):
                 raise AssertionError(f"{step}: {name}'s log entries differ from the cpu session's")
+        self.seconds += time.perf_counter() - t0
         return read
 
 
@@ -4217,10 +4278,15 @@ def lc_action(card, cuda, cpu, kernels, actions, name, op, *args) -> dict:
 
 
 #: the quick-refresh checkpoint's filters (indices into ``lc_filters``):
-#: 8 of the 32 point keys, the 4 new keys and the 4 IN-lists. Each filter
-#: reads the whole index side through the Union (about 0.4 s on the card),
-#: so the 40 of the other checkpoints would cost the script about 20 s more.
-LC_QUICK_FILTERS = tuple(range(8)) + tuple(range(32, 40))
+#: 4 of the 32 point keys, the 4 new keys and 2 of the 4 IN-lists. Each
+#: filter reads the whole index side through the Union (about 0.5 s on the
+#: card, as long in the cpu session), so the 40 of the other checkpoints
+#: would cost the script about 30 s more (PERF.md section 4).
+LC_QUICK_FILTERS = tuple(range(4)) + tuple(range(32, 38))
+#: d2's point keys at each checkpoint (indices into ``ds_queries``'s d2,
+#: the filters' first 36 keys): 8 of the 32 present keys and the 4 new
+#: ones, for the script's time (PERF.md section 4)
+LC_D2 = tuple(range(8)) + tuple(range(32, 36))
 
 
 def lc_keys():
@@ -4241,7 +4307,7 @@ def lc_filters(df):
 def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
              join: bool, filters=None) -> dict:
     """One checkpoint of phase 12. The filters (``lc_filters``) over the
-    main session; d2's 36 point keys over the ds session (lc_ds); bench's
+    main session; d2's point keys ``LC_D2`` over the ds session (lc_ds); bench's
     q_zrange (lc_z): each explain names the index ``served`` gives for its
     set (None: no index), one warm-up, one timed run a query, rows equal as
     a multiset to the plan without Hyperspace and in order to the cpu
@@ -4252,7 +4318,9 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
     out = {"step": step}
     unindexed = {}
 
-    def run(label, sess, hs, cpu_sess, plans, cpu_plans, index, kind):
+    def run(label, sess, hs, cpu_sess, plans, cpu_plans, index, kind, ids=None):
+        t_set = time.perf_counter()
+        ids = range(len(plans)) if ids is None else ids
         text = [hs.explain(q).split("Plan without indexes:")[0] for q in plans]
         for t in text:
             if index is None and "Hyperspace(" in t:
@@ -4270,7 +4338,7 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
         cpu_sess.enable_hyperspace()
         for i, (q, cq) in enumerate(zip(plans, cpu_plans)):
             # d2's point keys are the filters' first 36, in order
-            key = ("filters" if label == "d2" else label, i)
+            key = ("filters" if label == "d2" else label, ids[i])
             if key not in unindexed:
                 unindexed[key] = sorted_rows(q.collect())
             if not sorted_rows(got[i]).equals(unindexed[key]):
@@ -4281,10 +4349,12 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
         cpu_sess.disable_hyperspace()
         p50, p99 = np.percentile(times, [50, 99])
         out[label] = {"p50_ms": float(p50), "p99_ms": float(p99), "queries": len(plans),
-                      "rows": int(sum(g.num_rows for g in got)), "index": index}
+                      "rows": int(sum(g.num_rows for g in got)), "index": index,
+                      "seconds": time.perf_counter() - t_set}
         log(f"lifecycle path [{card}]: {step}: {label} ({len(plans)} queries) p50_ms {p50:.3f} "
             f"p99_ms {p99:.3f}, {out[label]['rows']} rows, served by {index}; equal to the plan "
-            f"without Hyperspace and in order to the cpu session's")
+            f"without Hyperspace and in order to the cpu session's; "
+            f"{out[label]['seconds']:.1f}s with the checks")
 
     kernels.label = f"{step} queries"
     try:
@@ -4304,14 +4374,14 @@ def _lc_check_sets(run, cuda, cpu, src, served, filters=None) -> None:
     if filters is not None:
         plans, cpu_plans = [plans[i] for i in filters], [cpu_plans[i] for i in filters]
     run("filters", cuda.main, cuda.hs["main"], cpu.main, plans, cpu_plans,
-        served.get("lc_idx"), "CI")
+        served.get("lc_idx"), "CI", filters)
     if "lc_z" in served:
         zq = [zorder_queries(d)["q_zrange"][0] for d in (items, citems)]
         run("q_zrange", cuda.main, cuda.hs["main"], cpu.main, [zq[0]], [zq[1]],
             served["lc_z"], "ZOCI")
     if "lc_ds" in served:
-        d2 = [ds_queries(s.ds.read.parquet(src))["d2"] for s in (cuda, cpu)]
-        run("d2", cuda.ds, cuda.hs["ds"], cpu.ds, d2[0], d2[1], served["lc_ds"], "DS")
+        d2 = [[ds_queries(s.ds.read.parquet(src))["d2"][i] for i in LC_D2] for s in (cuda, cpu)]
+        run("d2", cuda.ds, cuda.hs["ds"], cpu.ds, d2[0], d2[1], served["lc_ds"], "DS", LC_D2)
 
 
 def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
@@ -4324,6 +4394,7 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
         return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
             "o_orderkey", "o_custkey", "l_quantity")
 
+    t_set = time.perf_counter()
     sess, hs = cuda.main, cuda.hs["main"]
     index_served(hs, q(sess), ("o_idx", "lc_idx"))
     sess.enable_hyperspace()
@@ -4350,11 +4421,11 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
     if not got.equals(q(cpu.main).collect()):
         raise AssertionError(f"{step}: join rows differ from the cpu session's")
     cpu.main.disable_hyperspace()
-    p50 = float(np.median(times))
+    p50, secs = float(np.median(times)), time.perf_counter() - t_set
     log(f"lifecycle path [{card}]: {step}: join p50_ms {p50:.3f} (3 runs), {got.num_rows} rows, "
         f"stages s { {k: round(v, 4) for k, v in stages.items()} }; equal to the unindexed "
-        f"plan and in order to the cpu session's")
-    return {"p50_ms": p50, "rows": got.num_rows, "stages_s": stages}
+        f"plan and in order to the cpu session's; {secs:.1f}s with the checks")
+    return {"p50_ms": p50, "rows": got.num_rows, "stages_s": stages, "seconds": secs}
 
 
 def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
@@ -4378,11 +4449,12 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     the log manager. After each step every index file and log entry
     equals the cpu session's; the checkpoint queries (``lc_check``) run
     before step 1, after steps 2, 3 and 5 and in the quick-refresh state;
-    the join before step 1, after step 2 (buckets of two files: the
-    device re-sort route) and after step 3 (one file a bucket), each time
-    held to the unindexed plan and the cpu session's. (Fewer checkpoints
-    than PR 14's, for the script's time since phase 13: none after steps 1
-    and 4, whose indexes' layouts steps 2 and 3 already query.) Every B1,
+    the join after step 2 (buckets of two files: the device re-sort route)
+    and after step 3 (one file a bucket), each time held to the unindexed
+    plan and the cpu session's. (For the script's time: no checkpoint
+    after steps 1 and 4, whose indexes' layouts steps 2 and 3 already
+    query, and no join before step 1, whose one-file buckets phase 5 and
+    step 3 already join.) Every B1,
     B6, B7 and B5f call on the card is recorded in ``kernels`` under its
     action and held to its plain version after it. Launch counts read
     from 0 at its start."""
@@ -4416,7 +4488,8 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
         lc_action(card, cuda, cpu, kernels, actions, name, "create_index", src)
     compare(LC_ALL, "create")
     all_served = {n: n for n in LC_ALL}
-    checks.append(lc_check(card, cuda, cpu, kernels, src, orders_src, "before step 1", all_served, True))
+    checks.append(lc_check(card, cuda, cpu, kernels, src, orders_src, "before step 1", all_served,
+                           False))
 
     def refresh_all(mode="incremental"):
         for name in LC_ALL:
@@ -4514,7 +4587,8 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     launches = ops.launch_counts()
     secs = time.perf_counter() - t_phase
     log(f"lifecycle path [{card}]: all steps ran; {read} index files held equal to the cpu "
-        f"session's, log entries equal; phase launches {launches}; {secs:.1f}s in all")
+        f"session's, log entries equal ({compare.seconds:.1f}s reading them); phase launches "
+        f"{launches}; {secs:.1f}s in all")
     held = kernels.summary("phase 12", (
         ("b1", "refresh incremental lc_idx"), ("b1", "optimize full lc_idx"),
         ("b6", "refresh incremental lc_z"), ("b6", "refresh full lc_z"),
@@ -5010,12 +5084,12 @@ def rc_live_writer(card, ctx: dict) -> dict:
 
 
 def rc_overhead(card, ctx: dict) -> dict:
-    """RF1's incremental refresh of rc_idx with recovery on and off, three
-    times each, in turns (on, off, on, ...), each over a batch of its own."""
+    """RF1's incremental refresh of rc_idx with recovery on and off, twice
+    each, in turns (on, off, on, off), each over a batch of its own."""
     rc, kernels = ctx["rc"], ctx["kernels"]
     sess, hs = rc.of("rc_idx")
     secs = {True: [], False: []}
-    for i in range(6):
+    for i in range(4):
         on = i % 2 == 0
         lc_batch(os.path.join(ctx["rc_src"], f"rc_rf1_{i}.parquet"), ctx["next_key"], RF1_ORDERS,
                  SEED + 50 + i)
@@ -5214,33 +5288,55 @@ def hy_expect(shape: dict, want: dict, indexes, label: str) -> None:
         raise AssertionError(f"{label}: plan {shape}, expected {want} over {set(indexes)}")
 
 
-#: phase 14's depth (PERF.md section 4): a filter over the Union reads
-#: every index file's matching row groups and the appended file (about
-#: 0.4-0.7 s on the card, as long in the cpu session), so only the first
-#: state holds all 36 against the cpu session; the others hold 8 point
-#: filters and the 4 IN-lists, and the quick-refresh state and the refused
-#: one run just those 12
+def explain_with_indexes(hs, df) -> str:
+    """The "Plan with indexes" part of ``hs.explain(df)``, Hyperspace on."""
+    sess = hs.session
+    sess.enable_hyperspace()
+    try:
+        return hs.explain(df).split("Plan without indexes:")[0]
+    finally:
+        sess.disable_hyperspace()
+
+
+#: phase 15's depth (PERF.md section 4): its Union state, its time travel
+#: and the read after the vacuum run 8 point filters and the 4 IN-lists
 HY_SHORT = tuple(range(8)) + tuple(range(32, 36))
+#: phase 14's depth: a filter over the Union reads every index file's
+#: matching row groups and the appended file (about 0.4-0.7 s on the card,
+#: as long in the cpu session), and one no index serves reads the source,
+#: so each such state runs 4 point filters and 2 IN-lists
+HY_LEAN = tuple(range(4)) + tuple(range(32, 34))
 
 
-def hy_filter_set(c: dict, step: str, want: dict, indexes=("hs_idx",), run=None,
-                  held=None) -> dict:
+def hy_filter_set(c: dict, step: str, want: dict, indexes=("hs_idx",), run=None, read=None,
+                  log_version=None, in_order: bool = False, pruned: bool = False) -> dict:
     """Phase 4's filters (``run``: the indices of those to run, all by
-    default) in one source state (``c["state"]``): each plan's shape as
-    ``want`` (Unions, delta scans, NOT-INs) over ``indexes``; one warm-up,
-    one timed run a query on the card; rows equal as a multiset to the
-    plan without Hyperspace (computed once a source state) and, for the
-    filters in ``held`` (all by default), in order to the cpu session's."""
-    cs, ps, src = c["card_s"], c["cpu_s"], c["src"]
-    plans, cpu_plans = hy_filters(cs.read.parquet(src)), hy_filters(ps.read.parquet(src))
-    run = range(len(plans)) if run is None else run
-    held = run if held is None else held
+    default) over ``read(session)`` (phase 14's source by default) in one
+    source state (``c["state"]``): each plan's shape as ``want`` (Unions,
+    delta scans, NOT-INs) over ``indexes``, its explain naming
+    ``log_version`` when given; one warm-up, one timed run a query on the
+    card (with ``pruned``, every one bucket-pruned); rows equal to the plan
+    without Hyperspace (computed once a source state; the point filters in
+    order with ``in_order``, else as a multiset) and in order to the cpu
+    session's, which serves the same plans over the same system path."""
+    cs, ps, hs = c["card_s"], c["cpu_s"], c["card_hs"]
+    read = read or (lambda s: s.read.parquet(c["src"]))
+    plans, cpu_plans = hy_filters(read(cs)), hy_filters(read(ps))
+    run = list(range(len(plans)) if run is None else run)
+    where = f"{c['path']} {step}"
+    t_set = time.perf_counter()
     for i in run:
-        hy_expect(hy_shape(cs, plans[i]), want, indexes, f"{step} filter {i}")
-    c["kernels"].label = f"hybrid {step} filters"
+        hy_expect(hy_shape(cs, plans[i]), want, indexes, f"{where} filter {i}")
+        if log_version is not None:
+            text = explain_with_indexes(hs, plans[i])
+            if f"LogVersion: {log_version})" not in text:
+                raise AssertionError(f"{where} filter {i}: LogVersion {log_version} not "
+                                     f"served:\n{text}")
+    c["kernels"].label = f"{where} filters"
     cs.enable_hyperspace()
     try:
         plans[run[0]].collect()  # warm-up
+        cs.exec_stats.reset()
         times, got = [], {}
         for i in run:
             t0 = time.perf_counter()
@@ -5249,34 +5345,58 @@ def hy_filter_set(c: dict, step: str, want: dict, indexes=("hs_idx",), run=None,
     finally:
         cs.disable_hyperspace()
         c["kernels"].label = None
+    stats = cs.exec_stats.as_dict()
+    if pruned and stats["bucket_pruned_scans"] != len(run):
+        raise AssertionError(f"{where}: {stats['bucket_pruned_scans']} of {len(run)} filters "
+                             f"bucket-pruned")
     ps.enable_hyperspace()
-    for i in held:
-        if not got[i].equals(cpu_plans[i].collect()):
-            raise AssertionError(f"{step} filter {i}: rows differ from the cpu session's")
-    ps.disable_hyperspace()
+    try:
+        for i in run:
+            if not got[i].equals(cpu_plans[i].collect()):
+                raise AssertionError(f"{where} filter {i}: rows differ from the cpu session's")
+    finally:
+        ps.disable_hyperspace()
     rows = 0
     for i in run:
         key = (c["state"], i)
         if key not in c["unindexed"]:
-            c["unindexed"][key] = sorted_rows(plans[i].collect())
-        if not sorted_rows(got[i]).equals(c["unindexed"][key]):
-            raise AssertionError(f"{step} filter {i}: rows differ from the plan without Hyperspace")
+            c["unindexed"][key] = plans[i].collect()
+        want_rows = c["unindexed"][key]
+        if in_order and i < 32:
+            same = got[i].equals(want_rows)
+        else:
+            same = sorted_rows(got[i]).equals(sorted_rows(want_rows))
+        if not same:
+            raise AssertionError(f"{where} filter {i}: rows differ from the plan without "
+                                 f"Hyperspace")
         rows += got[i].num_rows
     c["kernels"].settle()
     p50, p99 = np.percentile(times, [50, 99])
     out = {"p50_ms": float(p50), "p99_ms": float(p99), "queries": len(run), "rows": rows,
-           "held_against_cpu": len(held), "shape": want}
-    log(f"hybrid path [{c['card']}]: {step}: {len(run)} filters p50_ms {p50:.3f} p99_ms "
+           "shape": want, "indexes": sorted(indexes), "log_version": log_version,
+           "bucket_pruned": stats["bucket_pruned_scans"],
+           "fused_range_masks": stats["fused_range_masks"],
+           "seconds": time.perf_counter() - t_set}
+    log(f"{c['path']} path [{c['card']}]: {step}: {len(run)} filters p50_ms {p50:.3f} p99_ms "
         f"{p99:.3f} (phase 4 on the exact index: {c['p4_p50']:.3f} / {c['p4_p99']:.3f}), "
-        f"{rows} rows; plans {want} over {sorted(indexes)}; equal to the plan without "
-        f"Hyperspace, {len(held)} of them in order to the cpu session's")
+        f"{rows} rows; plans {want} over {sorted(indexes)}"
+        + (f" at LogVersion {log_version}" if log_version is not None else "")
+        + f"; bucket-pruned {stats['bucket_pruned_scans']}, B3a masks "
+        f"{stats['fused_range_masks']}; equal to the plan without Hyperspace"
+        + (" (point filters in order)" if in_order else "")
+        + f" and in order to the cpu session's; {out['seconds']:.1f}s with the checks")
     return out
+
+
+#: phase 14's join rounds a state (PERF.md section 4), each a run of both
+#: routes
+HY_JOIN_ROUNDS = 2
 
 
 def hy_join(c: dict, step: str, want: dict) -> dict:
     """Phase 5's ``orders ⋈ lineitem`` in one source state: both sides
     index-served, the lineitem side's plan as ``want``; one warm-up, then
-    4 interleaved rounds of the sequential and pipelined routes (rows equal
+    2 interleaved rounds of the sequential and pipelined routes (rows equal
     in order across all runs), each run's ``join_stats``; rows equal as a
     multiset to the unindexed plan and in order to the cpu session's."""
     cs, ps, hs = c["card_s"], c["cpu_s"], c["card_hs"]
@@ -5295,7 +5415,7 @@ def hy_join(c: dict, step: str, want: dict) -> dict:
     cs.exec_stats.reset()
     try:
         q(cs).collect()  # warm-up, the default (sequential) route
-        for rnd in range(4):
+        for rnd in range(HY_JOIN_ROUNDS):
             for on in ((True, False) if rnd % 2 == 0 else (False, True)):
                 cs.conf.set(pipe, on)
                 t0 = time.perf_counter()
@@ -5310,7 +5430,7 @@ def hy_join(c: dict, step: str, want: dict) -> dict:
         cs.conf.set(pipe, False)
         cs.disable_hyperspace()
         c["kernels"].label = None
-    if cs.exec_stats.co_bucketed_joins != 9:
+    if cs.exec_stats.co_bucketed_joins != 1 + 2 * HY_JOIN_ROUNDS:
         raise AssertionError(f"{step}: the join did not run co-bucketed: "
                              f"{cs.exec_stats.as_dict()}")
     ps.enable_hyperspace()
@@ -5329,7 +5449,7 @@ def hy_join(c: dict, step: str, want: dict) -> dict:
         stage_p50 = {k: float(np.median([st.get(k, 0.0) for st in stages[on]]))
                      for k in stages[on][0]}
         out[route] = {"p50_ms": float(p50), "p99_ms": float(p99), "stages_s": stage_p50}
-        log(f"hybrid path [{c['card']}]: {step}: join, {route} x4 (interleaved) p50_ms "
+        log(f"hybrid path [{c['card']}]: {step}: join, {route} x{HY_JOIN_ROUNDS} (interleaved) p50_ms "
             f"{p50:.3f} p99_ms {p99:.3f} (phase 5 on the exact indexes: "
             f"{c['p5'][route]:.3f}), {got.num_rows} rows, stage p50 s "
             f"{ {k: round(v, 4) for k, v in stage_p50.items()} }")
@@ -5482,7 +5602,7 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     card_hs = Hyperspace(card_s)
     c = {"card_s": card_s, "cpu_s": cpu_s, "card_hs": card_hs, "src": src, "osrc": osrc,
          "kernels": kernels, "card": card, "p4_p50": ctx["p50_ms"], "p4_p99": ctx["p99_ms"],
-         "p5": ctx["join_p50_ms"], "state": "append", "unindexed": {}}
+         "p5": ctx["join_p50_ms"], "state": "append", "unindexed": {}, "path": "hybrid"}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     kernels.label = "hybrid create hs_idx"
@@ -5497,10 +5617,10 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     out = {"create_s": time.perf_counter() - t0, "steps": {}}
     log(f"hybrid path [{card}]: hs_idx and ho_idx created in {out['create_s']:.3f}s")
 
-    def step(name, *, filters=None, join=None, indexes=("hs_idx",), run=None, held=None):
+    def step(name, *, filters=None, join=None, indexes=("hs_idx",), run=None):
         res = {}
         if filters is not None:
-            res["filters"] = hy_filter_set(c, name, filters, indexes, run, held)
+            res["filters"] = hy_filter_set(c, name, filters, indexes, run)
         if join is not None:
             res["join"] = hy_join(c, name, join)
         out["steps"][name] = res
@@ -5511,13 +5631,13 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
         s.conf.set(HYBRID, True)
     log(f"hybrid path [{card}]: step 1: appended {n_extra} rows in one file")
     union = {"unions": 1, "delta_scans": 1, "excluded": 0}
-    step("append", filters=union, join=union)
+    step("append", filters=union, join=union, run=HY_LEAN)
     # (2) source file 0 deleted: the lineage NOT-IN joins the Union
     os.remove(os.path.join(src, "part0.parquet"))
     c["state"] = "append and delete"
     log(f"hybrid path [{card}]: step 2: deleted source file part0.parquet")
     both = {"unions": 1, "delta_scans": 1, "excluded": 1}
-    step("append and delete", filters=both, join=both, held=HY_SHORT)
+    step("append and delete", filters=both, join=both, run=HY_LEAN)
     # (3) appends past the 0.3 appended ratio: the index is refused
     copies = []
     for i in range(1, 5):
@@ -5534,7 +5654,7 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     log(f"hybrid path [{card}]: step 3: 4 more files appended; hs_idx refused: {reasons}")
     c["state"] = "too much appended"
     step("too much appended", filters={"unions": 0, "delta_scans": 0, "excluded": 0},
-         indexes=(), run=HY_SHORT)
+         indexes=(), run=HY_LEAN)
     for f in copies:
         os.remove(f)
     c["state"] = "append and delete"
@@ -5559,7 +5679,7 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
             f"{refresh[mode]['seconds']:.3f}s, stages "
             f"{ {k: round(v, 4) for k, v in refresh[mode]['stages'].items()} }")
         step(f"after the {mode} refresh", filters=want,
-             run=HY_SHORT if mode == "quick" else None)
+             run=HY_LEAN if mode == "quick" else None)
     out["refresh"] = refresh
     # (5) the approximate plane
     out["approx"] = hy_approx(c, work)
@@ -5572,6 +5692,422 @@ def hybrid_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"hybrid path [{card}]: all steps ran; launches {out['launches']}; "
         f"{out['seconds']:.1f}s in all")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the lake sources (Delta Lake with time travel, Iceberg, the
+# plain formats) with B1, B3a, B5f, B6 and B7 over them
+# ---------------------------------------------------------------------------
+
+#: phase 15's cut of file 1 for json lines, avro and text (PERF.md section 4):
+#: the avro codec is pure Python, and the script's time is bounded
+LK_CUT = 100_000
+#: the plain formats of phase 15, and whether each takes file 1 whole
+LK_FORMATS = (("csv", True), ("orc", True), ("json", False), ("avro", False),
+              ("text", False))
+
+
+def lk_median_ms(fn, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def lk_create(c: dict, label: str, df, config, rows: int) -> dict:
+    """One create on the card, its seconds, rows/s and stages; its kernel
+    calls held against their plain versions."""
+    import torch
+
+    cs, hs = c["card_s"], c["card_hs"]
+    cs.build_stats.clear()
+    c["kernels"].label = f"lake create {label}"
+    t0 = time.perf_counter()
+    try:
+        hs.create_index(df, config)
+        torch.cuda.synchronize()
+    finally:
+        c["kernels"].label = None
+    seconds = time.perf_counter() - t0
+    c["kernels"].settle()
+    c["cpu_s"].index_manager.clear_cache()
+    stages = {k: v for k, v in cs.build_stats.items() if isinstance(v, float)}
+    out = {"seconds": seconds, "rows": rows, "rows_per_s": rows / seconds, "stages_s": stages}
+    log(f"lake path [{c['card']}]: created {label} over {rows} rows in {seconds:.3f}s "
+        f"({rows / seconds:,.0f} rows/s), stages { {k: round(v, 4) for k, v in stages.items()} }")
+    return out
+
+
+def lk_bucket_files(index_dir: str) -> dict:
+    """Bucket file name -> sha256 of a version dir's bucket files."""
+    return {f: file_sha(os.path.join(index_dir, f)) for f in sorted(os.listdir(index_dir))
+            if "-bucket_" in f and f.endswith(".parquet")}
+
+
+def lk_formats(c: dict, lake: str, part1: str) -> dict:
+    """Step 6: file 1 of the table as csv and orc, its first ``LK_CUT``
+    rows as json lines, avro (the port's writer) and text (l_orderkey a
+    line); for each a covering index and 4 point filters on keys of the
+    cut, served bucket-pruned, equal to the plan without Hyperspace and to
+    the same rows read from the parquet file (dates compared as dates)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch_lake as L
+
+    from hyperspace_tpu_torch import CoveringIndexConfig
+
+    cs, hs = c["card_s"], c["card_hs"]
+    whole = pq.read_table(part1)
+    cut = whole.slice(0, LK_CUT)
+    keys = [int(cut.column("l_orderkey")[i].as_py()) for i in (0, LK_CUT // 3,
+                                                                 2 * LK_CUT // 3, LK_CUT - 1)]
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    out = {}
+    for fmt, full in LK_FORMATS:
+        d = os.path.join(lake, "formats", fmt)
+        os.makedirs(d)
+        src = whole if full else cut
+        t0 = time.perf_counter()
+        if fmt == "text":
+            L.write_text_lines([str(k) for k in src.column("l_orderkey").to_pylist()],
+                               os.path.join(d, "part1.txt"))
+        else:
+            {"csv": L.write_csv, "orc": L.write_orc, "json": L.write_json_lines,
+             "avro": L.write_avro_table}[fmt](src, os.path.join(d, f"part1.{fmt}"))
+        write_s = time.perf_counter() - t0
+        name = f"{fmt}_idx"
+        df = getattr(cs.read, fmt)(d)
+        config = (CoveringIndexConfig(name, ["value"], []) if fmt == "text" else
+                  CoveringIndexConfig(name, ["l_orderkey"], ["l_shipdate", "l_quantity"]))
+        rec = {"rows": src.num_rows, "write_s": write_s,
+               "create": lk_create(c, name, df, config, src.num_rows)}
+        times, n = [], 0
+        for k in keys:
+            if fmt == "text":
+                q = df.filter(df["value"] == str(k))
+            else:
+                q = df.filter(df["l_orderkey"] == k).select(*cols)
+            text = explain_with_indexes(hs, q)
+            if f"Name: {name}," not in text:
+                raise AssertionError(f"lake {fmt}: {name} not used:\n{text}")
+            c["kernels"].label = f"lake {fmt} filters"
+            cs.enable_hyperspace()
+            cs.exec_stats.reset()
+            try:
+                t0 = time.perf_counter()
+                got = q.collect()
+                times.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                cs.disable_hyperspace()
+                c["kernels"].label = None
+            if cs.exec_stats.bucket_pruned_scans != 1:
+                raise AssertionError(f"lake {fmt}: the filter on {k} was not bucket-pruned")
+            unindexed = q.collect()
+            if got.schema != unindexed.schema:
+                # json's timestamp[s] comes back from the index's parquet
+                # as timestamp[ms], in both packages (ROADMAP C.16)
+                rec["served_types"] = [f"{f.name}:{f.type}" for f in got.schema]
+                got = got.cast(unindexed.schema)
+            if not got.equals(unindexed):
+                raise AssertionError(f"lake {fmt}: rows on {k} differ from the plan without "
+                                     f"Hyperspace")
+            want = src.filter(pc.equal(src.column("l_orderkey"), k))
+            if fmt == "text":
+                same = got.column("value").to_pylist() == [str(k)] * want.num_rows
+            else:
+                same = (got.column("l_orderkey").equals(want.column("l_orderkey"))
+                        and got.column("l_quantity").equals(want.column("l_quantity"))
+                        and got.column("l_shipdate").cast(pa.date32()).equals(
+                            want.column("l_shipdate")))
+            if not same or want.num_rows == 0:
+                raise AssertionError(f"lake {fmt}: rows on {k} differ from the parquet file's")
+            n += got.num_rows
+        c["kernels"].settle()
+        rec.update(p50_ms=float(np.median(times)), p99_ms=float(np.percentile(times, 99)),
+                   rows_served=n, schema=[f"{f.name}:{f.type}" for f in
+                                          pa.schema(list(df.logical_plan.collect_leaves()[0]
+                                                         .relation.schema_fields))])
+        out[fmt] = rec
+        log(f"lake path [{c['card']}]: {fmt}: {src.num_rows} rows written in {write_s:.3f}s; "
+            f"4 point filters over {name} p50_ms {rec['p50_ms']:.3f} p99_ms {rec['p99_ms']:.3f}, "
+            f"{n} rows, each bucket-pruned and equal to the plan without Hyperspace and to the "
+            f"parquet file's rows; schema {rec['schema']}"
+            + (f", served as {rec['served_types']}" if "served_types" in rec else ""))
+    return out
+
+
+def lake_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 15: the lake sources at SF1 (module docstring, item 15).
+    Launch counts read from 0 at its start."""
+    import pyarrow.parquet as pq
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_lake as L
+
+    from hyperspace_tpu_torch import (
+        CoveringIndexConfig,
+        DataSkippingIndexConfig,
+        Hyperspace,
+        HyperspaceSession,
+        ZOrderCoveringIndexConfig,
+        ops,
+    )
+    from hyperspace_tpu_torch.indexes.sketches import BloomFilterSketch, MinMaxSketch
+    from hyperspace_tpu_torch.sources import delta_log, iceberg_meta
+
+    t_phase = time.perf_counter()
+    lake = os.path.join(work, "lake")
+    ld = os.path.join(lake, "ld")
+    files = [L.link_or_copy(os.path.join(ctx["src"], f"part{i}.parquet"),
+                            os.path.join(ld, f"part{i}.parquet")) for i in range(N_FILES)]
+    schema = pq.read_schema(files[0])
+    schema_string = L.delta_schema_string(schema)
+    L.write_commit(ld, 0, L.delta_metadata(schema_string)
+                   + [{"add": L.add_action(ld, f)} for f in files])
+    snapshot_ms = {"delta v0, json": lk_median_ms(lambda: delta_log.read_snapshot(ld))}
+    card_s, cpu_s = HyperspaceSession(), HyperspaceSession(device="cpu")
+    for s in (card_s, cpu_s):  # one index lake, served by both sessions
+        s.conf.set("hyperspace.system.path", os.path.join(work, "lake_indexes"))
+        s.conf.set("hyperspace.index.lineage.enabled", True)
+        s.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+    card_hs = Hyperspace(card_s)
+    c = {"card_s": card_s, "cpu_s": cpu_s, "card_hs": card_hs, "kernels": kernels,
+         "card": card, "p4_p50": ctx["p50_ms"], "p4_p99": ctx["p99_ms"], "path": "lake",
+         "state": "v0", "unindexed": {}}
+    ops.reset_launch_counts()
+    kernels.record_b3a(True)
+    out = {"creates": {}, "filters": {}, "snapshot_ms": snapshot_ms}
+    try:
+        # (1) the Delta table ld and its covering index
+        delta = lambda s, v=None: s.read.delta(ld, version_as_of=v)  # noqa: E731
+        out["creates"]["ld_idx"] = lk_create(c, "ld_idx", delta(card_s), CoveringIndexConfig(
+            "ld_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"]), N_ROWS)
+        ld_dir = os.path.join(work, "lake_indexes", "ld_idx", "v__=1")
+        hs_dir = os.path.join(work, "hy_indexes", "hs_idx", "v__=1")
+        mine, theirs = lk_bucket_files(ld_dir), lk_bucket_files(hs_dir)
+        if len(mine) != N_BUCKETS or mine != theirs:
+            raise AssertionError(f"ld_idx's {len(mine)} bucket files differ from phase 14's "
+                                 f"hs_idx ({len(theirs)})")
+        out["bucket_files_equal_hs_idx"] = len(mine)
+        log(f"lake path [{card}]: ld_idx's {len(mine)} bucket files equal phase 14's hs_idx "
+            f"(li_idx's config with lineage, over the same 8 files in the same order) byte "
+            f"for byte")
+        exact = {"unions": 0, "delta_scans": 0, "excluded": 0}
+        out["filters"]["v0"] = hy_filter_set(c, "v0", exact, ("ld_idx",), read=delta,
+                                             log_version=2, in_order=True, pruned=True)
+        # (2) commit 1 appends bench.py's hybrid file, commit 2 removes file 0;
+        # a classic checkpoint at version 2
+        appended = os.path.join(ld, "appended.parquet")
+        n_extra = hy_append(appended)
+        L.write_commit(ld, 1, [{"add": L.add_action(ld, appended)}])
+        L.write_commit(ld, 2, [{"remove": L.remove_action(ld, files[0])}])
+        snapshot_ms["delta v2, json"] = lk_median_ms(lambda: delta_log.read_snapshot(ld))
+        L.write_checkpoint(ld, schema_string, version=2)
+        snapshot_ms["delta v2, checkpoint"] = lk_median_ms(lambda: delta_log.read_snapshot(ld))
+        snap = delta_log.read_snapshot(ld)
+        if snap.version != 2 or len(snap.files) != N_FILES:
+            raise AssertionError(f"version {snap.version} with {len(snap.files)} files")
+        log(f"lake path [{card}]: commit 1 appended {n_extra} rows, commit 2 removed "
+            f"part0.parquet, checkpoint at version 2; read_snapshot ms "
+            f"{ {k: round(v, 3) for k, v in snapshot_ms.items()} }")
+        for s in (card_s, cpu_s):
+            s.conf.set(HYBRID, True)
+            s.index_manager.clear_cache()
+        both = {"unions": 1, "delta_scans": 1, "excluded": 1}
+        c["state"] = "v2"
+        out["filters"]["v2 hybrid"] = hy_filter_set(c, "v2 hybrid", both, ("ld_idx",),
+                                                    HY_SHORT, delta)
+        for s in (card_s, cpu_s):
+            s.conf.set(HYBRID, False)
+        card_s.build_stats.clear()
+        kernels.label = "lake refresh incremental ld_idx"
+        t0 = time.perf_counter()
+        try:
+            card_hs.refresh_index("ld_idx", "incremental")
+            torch.cuda.synchronize()
+        finally:
+            kernels.label = None
+        out["refresh"] = {"seconds": time.perf_counter() - t0,
+                          "stages_s": {k: v for k, v in card_s.build_stats.items()
+                                       if isinstance(v, float)}}
+        kernels.settle()
+        cpu_s.index_manager.clear_cache()
+        history = card_s.index_manager.get_index_log_entry("ld_idx").derived_dataset.properties[
+            "deltaVersions"]
+        if history != "2:0,4:2":
+            raise AssertionError(f"deltaVersions {history!r} after the refresh")
+        log(f"lake path [{card}]: refresh incremental of ld_idx in "
+            f"{out['refresh']['seconds']:.3f}s, stages "
+            f"{ {k: round(v, 4) for k, v in out['refresh']['stages_s'].items()} }; "
+            f"deltaVersions {history}")
+        out["filters"]["v2 refreshed"] = hy_filter_set(c, "v2 refreshed", exact, ("ld_idx",),
+                                                       read=delta, log_version=4, pruned=True)
+        # (3) time travel
+        travel = {"history": history}
+        latest = hy_filters(delta(card_s))[0].logical_plan
+        pinned = hy_filters(delta(card_s, 0))[0].logical_plan
+        card_s.enable_hyperspace()
+        try:
+            travel["rewrite_ms"] = {"latest": lk_median_ms(lambda: card_s.optimize(latest)),
+                                    "version_as_of 0": lk_median_ms(
+                                        lambda: card_s.optimize(pinned))}
+        finally:
+            card_s.disable_hyperspace()
+        c["state"] = "v0"
+        out["filters"]["v0 travel"] = hy_filter_set(
+            c, "v0 travel", exact, ("ld_idx",), HY_SHORT, lambda s: delta(s, 0), log_version=2,
+            in_order=True, pruned=True)
+        entry = card_s.index_manager.get_index_log_entry("ld_idx")
+        rel = delta(card_s, 1).logical_plan.collect_leaves()[0].relation
+        travel["v1 closest log"] = card_s.source_manager.get_relation(rel).closest_index(entry).id
+        if travel["v1 closest log"] != 4:
+            raise AssertionError(f"version 1: closest_index picked log {travel['v1 closest log']}")
+        c["state"] = "v1"
+        out["filters"]["v1 travel"] = hy_filter_set(c, "v1 travel", exact, (), HY_SHORT,
+                                                    lambda s: delta(s, 1))
+        kernels.label = "lake vacuum ld_idx"
+        t0 = time.perf_counter()
+        try:
+            card_hs.vacuum_index("ld_idx")
+        finally:
+            kernels.label = None
+        travel["vacuum_s"] = time.perf_counter() - t0
+        for s in (card_s, cpu_s):
+            s.index_manager.clear_cache()
+        travel["history after vacuum"] = card_s.index_manager.get_index_log_entry(
+            "ld_idx").derived_dataset.properties["deltaVersions"]
+        if travel["history after vacuum"] != "4:2":
+            raise AssertionError(f"deltaVersions {travel['history after vacuum']!r} after vacuum")
+        c["state"] = "v0"
+        out["filters"]["v0 after vacuum"] = hy_filter_set(c, "v0 after vacuum", exact, (),
+                                                          HY_SHORT, lambda s: delta(s, 0))
+        travel["v0 served after vacuum"] = False
+        out["time_travel"] = travel
+        log(f"lake path [{card}]: time travel: version 0 served by ld_idx's LogVersion 2; "
+            f"version 1 ties (|delta| 1 to delta 0 and 2) and closest_index picks log "
+            f"{travel['v1 closest log']}, whose signature is version 2's: the source serves; "
+            f"vacuum in {travel['vacuum_s']:.3f}s resets deltaVersions to "
+            f"{travel['history after vacuum']}, and version 0 is no longer index-served; "
+            f"rewrite ms {travel['rewrite_ms']}")
+        # (4) a z-order index over ld
+        out["creates"]["ld_z"] = lk_create(c, "ld_z", delta(card_s), ZOrderCoveringIndexConfig(
+            "ld_z", ["l_orderkey", "l_shipdate"], ["l_quantity"]), N_ROWS - N_ROWS // N_FILES
+            + n_extra)
+        out["zrange"] = lk_query_pair(c, "ld_z q_zrange", lambda s: zorder_queries(
+            delta(s))["q_zrange"][0], "ld_z", "ZOCI")
+        # (5) the Iceberg table li_ice over the same 8 files
+        ice = os.path.join(lake, "li_ice")
+        b = L.IcebergBuilder(ice, schema=L.iceberg_schema(schema))
+        for i in range(N_FILES):
+            b.add_existing(L.link_or_copy(files[i], os.path.join(ice, "data",
+                                                                   f"part{i}.parquet")))
+        b.commit()
+        snapshot_ms["iceberg"] = lk_median_ms(lambda: iceberg_meta.read_snapshot(ice))
+        counts = ops.launch_counts()
+        builds0 = counts["bloom_bits.build_binned"]
+        out["creates"]["ice_ds"] = lk_create(c, "ice_ds", card_s.read.iceberg(ice),
+                                             DataSkippingIndexConfig(
+            "ice_ds", MinMaxSketch("l_shipdate"),
+            BloomFilterSketch("l_orderkey", DS_FPP, DS_EXPECTED)), N_ROWS)
+        builds = ops.launch_counts()["bloom_bits.build_binned"] - builds0
+        if builds != N_FILES:
+            raise AssertionError(f"ice_ds made {builds} binned B7 builds")
+        out["creates"]["ice_ds"]["b7_builds"] = builds
+        ds = {}
+        for label in ("d1", "d2", "d3"):
+            ds[label] = lk_query_pair(c, f"ice_ds {label}", lambda s, label=label: ds_queries(
+                s.read.iceberg(ice))[label], "ice_ds", "DS")
+        out["iceberg"] = ds
+        b.add_existing(L.link_or_copy(appended, os.path.join(ice, "data", "appended.parquet")))
+        b.commit()
+        for s in (card_s, cpu_s):
+            s.index_manager.clear_cache()
+        d1 = lambda s, sid=None: ds_queries(s.read.iceberg(ice, snapshot_id=sid))["d1"][0]  # noqa
+        current = explain_with_indexes(card_hs, d1(card_s))
+        pinned_text = explain_with_indexes(card_hs, d1(card_s, 1))
+        if "Hyperspace" in current or "Type: DS, Name: ice_ds" not in pinned_text:
+            raise AssertionError(f"snapshot 2 served {('Hyperspace' in current)}, snapshot 1 "
+                                 f"not served:\n{pinned_text}")
+        out["iceberg"]["pinned"] = lk_query_pair(c, "ice_ds d1 at snapshot 1",
+                                                 lambda s: d1(s, 1), "ice_ds", "DS")
+        log(f"lake path [{card}]: li_ice's second snapshot (one file appended) is not served, "
+            f"the read pinned to snapshot 1 is")
+        # (6) the other formats
+        out["formats"] = lk_formats(c, lake, files[1])
+    finally:
+        kernels.record_b3a(False)
+        kernels.label = None
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["held"] = kernels.summary("phase 15", (("b1", "lake create ld_idx"),
+                                               ("b1", "lake v0 filters"),
+                                               ("b3a", "lake v0 filters"),
+                                               ("b6", "lake create ld_z"),
+                                               ("b7", "lake create ice_ds")))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lake path [{card}]: all steps ran; launches {out['launches']}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
+def lk_query_pair(c: dict, label: str, build, index: str, kind: str) -> dict:
+    """One query (or a list) over ``build(session)``: the explain names
+    ``index`` (``Type: kind``); a warm-up, then 3 runs (a list: 1 a query)
+    with Hyperspace on and off in turns; rows equal as a multiset to the plan without
+    Hyperspace and in order to the cpu session's."""
+    cs, ps, hs = c["card_s"], c["cpu_s"], c["card_hs"]
+    plans = build(cs)
+    cpu_plans = build(ps)
+    if not isinstance(plans, list):
+        plans, cpu_plans = [plans], [cpu_plans]
+    for q in plans:
+        text = explain_with_indexes(hs, q)
+        if f"Type: {kind}, Name: {index}" not in text:
+            raise AssertionError(f"lake {label}: {index} not used:\n{text}")
+    c["kernels"].label = f"lake {label}"
+    on_ms, off_ms, got = [], [], [None] * len(plans)
+    rounds = 3 if len(plans) == 1 else 1
+    try:
+        cs.enable_hyperspace()
+        plans[0].collect()  # warm-up
+        for _ in range(rounds):
+            for i, q in enumerate(plans):
+                for enabled in (True, False):
+                    (cs.enable_hyperspace if enabled else cs.disable_hyperspace)()
+                    t0 = time.perf_counter()
+                    rows = q.collect()
+                    (on_ms if enabled else off_ms).append((time.perf_counter() - t0) * 1e3)
+                    if enabled:
+                        got[i] = rows
+                    elif not sorted_rows(got[i]).equals(sorted_rows(rows)):
+                        raise AssertionError(f"lake {label}[{i}]: rows differ from the plan "
+                                             f"without Hyperspace")
+    finally:
+        cs.disable_hyperspace()
+        c["kernels"].label = None
+    ps.enable_hyperspace()
+    try:
+        for i, q in enumerate(cpu_plans):
+            if not got[i].equals(q.collect()):
+                raise AssertionError(f"lake {label}[{i}]: rows differ from the cpu session's")
+    finally:
+        ps.disable_hyperspace()
+    c["kernels"].settle()
+    rows = sum(g.num_rows for g in got)
+    if rows == 0:
+        raise AssertionError(f"lake {label}: no row matched")
+    out = {"queries": len(plans), "rows": rows, "p50_ms": float(np.percentile(on_ms, 50)),
+           "p99_ms": float(np.percentile(on_ms, 99)),
+           "off_p50_ms": float(np.percentile(off_ms, 50))}
+    log(f"lake path [{c['card']}]: {label} ({len(plans)} quer{'y' if len(plans) == 1 else 'ies'})"
+        f" over {index}: p50_ms {out['p50_ms']:.3f} p99_ms {out['p99_ms']:.3f} with Hyperspace, "
+        f"{out['off_p50_ms']:.3f} without ({rounds} round{'s' if rounds > 1 else ''} in turns); {rows} rows, equal as a multiset "
+        f"to the plan without Hyperspace and in order to the cpu session's")
     return out
 
 
@@ -5719,6 +6255,8 @@ def main() -> int:
         phase("13")
         hypath = hybrid_path(work, ctx, kernels, card)
         phase("14")
+        lkpath = lake_path(work, ctx, kernels, card)
+        phase("15")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -5749,7 +6287,8 @@ def main() -> int:
                                  for r in ("block", "binned", "global")})
 
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
-    late = (lcpath["launches"], rcpath["launches"], hypath["launches"])
+    lk_held = lkpath["held"]
+    late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -5759,8 +6298,14 @@ def main() -> int:
         b7["launches_by_route"][r] += sum(counts[f"bloom_bits.build_{r}"] for counts in late)
     for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
         record["cases"] = (record.get("cases", 0) + lc_held[key] + rc_held[key]
-                           + hy_held.get(key, 0))
+                           + hy_held.get(key, 0) + lk_held.get(key, 0))
+    b3a["cases"] += lk_held.get("b3a", 0)
     b1["phase_14_launches"] = hypath["launches"]["murmur3_bucket_ids"]
+    for record, kernel in ((b1, "murmur3_bucket_ids"), (b3a, "range_mask"),
+                           (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
+                           (b7, "bloom_bits")):
+        record["phase_15_launches"] = lkpath["launches"][kernel]
+    b5f["lake_calls"] = lk_held.get("b5f", 0)
     b1["phase_4_launches"] = ctx["launches"]
     b5f["lifecycle_capture_calls"] = lc_held["b5f"]
     b5f["recovery_calls"] = rc_held["b5f"]
@@ -5774,6 +6319,10 @@ def main() -> int:
     log(json.dumps({"hybrid": {k: hypath[k] for k in (
         "seconds", "create_s", "steps", "refresh", "approx", "held", "launches")},
         "legacy_build": ctx["legacy_build"], "card": card}, default=str))
+    log(json.dumps({"sources": {k: lkpath[k] for k in (
+        "seconds", "creates", "filters", "snapshot_ms", "refresh", "time_travel", "zrange",
+        "iceberg", "formats", "bucket_files_equal_hs_idx", "held", "launches")},
+        "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)

@@ -9,9 +9,9 @@ does not reference and every data file of a retained dir it does not
 list). Counterpart of ``hyperspace_tpu/actions/vacuum.py``: files under a
 live pin (``metadata/recovery.all_pinned_files``: this process's pins and
 every process's unexpired durable pin files) are held back, and the
-``mid_vacuum_delete`` crash point sits before each delete. Not ported: the
-reset of a Delta source's version history (`:56-67`; Delta sources come
-with ROADMAP A.6).
+``mid_vacuum_delete`` crash point sits before each delete. Vacuuming the
+outdated versions resets a Delta source's version history to its last pair
+(`:56-67`; reference ``actions/vacuum.py:151-160``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import os
 
 from hyperspace_tpu_torch.actions.delete import _StateFlipAction
 from hyperspace_tpu_torch.constants import (
+    DELTA_VERSION_HISTORY_PROPERTY,
     HYPERSPACE_LOG_DIR,
     HYPERSPACE_PINS_DIR,
     States,
@@ -116,3 +117,14 @@ class VacuumOutdatedAction(_StateFlipAction):
                     faults.crash("mid_vacuum_delete", path)
                     file_utils.delete(path)
             aggindex.prune_missing(root)
+
+    def log_entry(self) -> IndexLogEntry:
+        entry = self._previous.copy()
+        # reset the provider's version history: only the surviving index
+        # version remains addressable (Delta reset :56-67)
+        index = entry.derived_dataset
+        if DELTA_VERSION_HISTORY_PROPERTY in index.properties:
+            history = index.properties[DELTA_VERSION_HISTORY_PROPERTY]
+            last = history.split(",")[-1] if history else ""
+            index.properties[DELTA_VERSION_HISTORY_PROPERTY] = last
+        return entry

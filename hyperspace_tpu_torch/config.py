@@ -8,7 +8,7 @@ trimmed to the accessors this slice reads; defaults come from
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from hyperspace_tpu_torch import constants as C
 
@@ -20,14 +20,21 @@ def _to_bool(v: Any) -> bool:
 
 
 class Config:
-    """Flat key→value config with typed accessors."""
+    """Flat key→value config with typed accessors and change tracking.
+
+    ``version`` increments on every mutation; caches keyed on config state
+    (``CacheWithTransform``, reference ``util/CacheWithTransform.scala``)
+    compare it to decide invalidation.
+    """
 
     def __init__(self, initial: Optional[dict] = None):
         self._values: dict = dict(initial or {})
+        self.version = 0
 
     # -- raw access ---------------------------------------------------------
     def set(self, key: str, value: Any) -> None:
         self._values[key] = value
+        self.version += 1
 
     def get(self, key: str, default: Any = None) -> Any:
         return self._values.get(key, default)
@@ -90,6 +97,20 @@ class Config:
         return self.get_int(
             C.INDEX_CACHE_EXPIRY_SECONDS, C.INDEX_CACHE_EXPIRY_SECONDS_DEFAULT
         )
+
+    @property
+    def source_provider_builders(self) -> list:
+        raw = self.get_str(
+            C.INDEX_SOURCES_PROVIDERS, C.INDEX_SOURCES_PROVIDERS_DEFAULT
+        )
+        return [s.strip() for s in raw.split(",") if s.strip()]
+
+    @property
+    def default_supported_formats(self) -> set:
+        raw = self.get_str(
+            C.DEFAULT_SUPPORTED_FORMATS, C.DEFAULT_SUPPORTED_FORMATS_DEFAULT
+        )
+        return {s.strip().lower() for s in raw.split(",") if s.strip()}
 
     @property
     def support_nested_fields(self) -> bool:
@@ -242,3 +263,23 @@ class Config:
             1,
             self.get_int(C.SERVE_SPILL_ORPHAN_TTL_MS, C.SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT),
         )
+
+
+class CacheWithTransform:
+    """Caches ``transform(conf)`` until the config is mutated.
+
+    Reference: ``util/CacheWithTransform.scala:45`` — the source-provider
+    list is rebuilt only when the backing conf changes.
+    """
+
+    def __init__(self, conf: Config, transform: Callable[[Config], Any]):
+        self._conf = conf
+        self._transform = transform
+        self._cached = None
+        self._cached_version = -1
+
+    def load(self) -> Any:
+        if self._cached_version != self._conf.version:
+            self._cached = self._transform(self._conf)
+            self._cached_version = self._conf.version
+        return self._cached

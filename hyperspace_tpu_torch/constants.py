@@ -99,6 +99,19 @@ REFRESH_MODES = (REFRESH_MODE_FULL, REFRESH_MODE_INCREMENTAL, REFRESH_MODE_QUICK
 INDEX_CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
 INDEX_CACHE_EXPIRY_SECONDS_DEFAULT = 300  # CachingIndexCollectionManager.scala
 
+# Source providers, loaded from this list by sources/manager.py (reference
+# FileBasedSourceProviderManager.scala:38-174); the port's own builders
+INDEX_SOURCES_PROVIDERS = "hyperspace.index.sources.fileBasedBuilders"
+INDEX_SOURCES_PROVIDERS_DEFAULT = (
+    "hyperspace_tpu_torch.sources.default.DefaultFileBasedSourceBuilder,"
+    "hyperspace_tpu_torch.sources.delta.DeltaLakeSourceBuilder,"
+    "hyperspace_tpu_torch.sources.iceberg.IcebergSourceBuilder"
+)
+
+DEFAULT_SUPPORTED_FORMATS = "hyperspace.index.sources.defaultSupportedFormats"
+# reference default: DefaultFileBasedSource.scala:76-85
+DEFAULT_SUPPORTED_FORMATS_DEFAULT = "avro,csv,json,orc,parquet,text"
+
 # Nested (struct) field indexing is opt-in, as in the reference
 # (conf.supportNestedFields gate, actions/CreateAction.scala:69-71;
 # flattened-name machinery in util/ResolverUtils.scala:130-234).
@@ -205,6 +218,7 @@ LATEST_STABLE_LOG_NAME = "latestStable"
 # IndexLogEntry property keys
 LINEAGE_PROPERTY = "lineage"
 HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY = "hasParquetAsSourceFormat"
+DELTA_VERSION_HISTORY_PROPERTY = "deltaVersions"
 
 # Nested-column prefix (util/ResolverUtils.scala `__hs_nested.`)
 NESTED_FIELD_PREFIX = "__hs_nested."

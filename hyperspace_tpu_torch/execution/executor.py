@@ -235,12 +235,12 @@ def _exec_limit(n: int, child: LogicalPlan, needed: Set[str], session) -> Column
             return left.take(np.arange(n))
         right = _exec_limit(n - left.num_rows, child.right, set(cols), session).select(cols)
         return ColumnarBatch.concat([left, right])
-    # file-by-file streaming for Scan / Filter(Scan) over parquet (the
-    # reference also streams Delta and Iceberg, ROADMAP queue A item 6)
+    # file-by-file streaming for Scan / Filter(Scan) over footer-counted
+    # formats (parquet and the lake tables) without post-read row filtering
     scan = child.child if isinstance(child, Filter) else child
     streamable = (
         isinstance(scan, Scan)
-        and scan.relation.fmt == "parquet"
+        and scan.relation.fmt in pio.PARQUET_FAMILY
         and scan.relation.excluded_file_ids is None
         and len(scan.relation.files) > 1
     )
@@ -450,7 +450,7 @@ def _pushdown_filters(cond: E.Expr, rel):
     mask after the read. On a key-sorted index bucket this turns a point
     lookup into a read of the row group whose min/max covers the key.
     """
-    if rel.fmt != "parquet":
+    if rel.fmt not in pio.PARQUET_FAMILY:
         return None
     cols = {c.lower(): c for c in rel.column_names}
     out = []
@@ -627,14 +627,14 @@ def _serve_pipeline_on(session) -> bool:
 
 
 def _cacheable_scan(rel) -> bool:
-    """A clean index scan: index data in parquet with files to read and no
-    row-level delete compensation (the reference also excludes injected
-    partition values, which come with the lake sources). The fused and
-    metadata routes take only such scans."""
+    """A clean index scan: index data in a parquet-like format with files
+    to read, no row-level delete compensation and no injected partition
+    constants. The fused and metadata routes take only such scans."""
     return (
         rel.index_info is not None
-        and rel.fmt == "parquet"
+        and rel.fmt in pio.PARQUET_FAMILY
         and rel.excluded_file_ids is None
+        and not rel.file_partition_values
         and bool(rel.files)
     )
 
@@ -659,8 +659,9 @@ def _clean_index_scan(plan: LogicalPlan) -> bool:
             isinstance(left, Scan)
             and isinstance(right, Scan)
             and _cacheable_scan(left.relation)
-            and right.relation.fmt == "parquet"
+            and right.relation.fmt in pio.PARQUET_FAMILY
             and right.relation.excluded_file_ids is None
+            and not right.relation.file_partition_values
             and bool(right.relation.files)
         )
     return False

@@ -1031,6 +1031,7 @@ def prune_scan_relation(scan, cond: E.Expr):
     the surviving files with ``file_row_groups`` narrowing (the same
     node when nothing prunes). Superset-safe by construction — see the
     module docstring; the executor re-applies the full mask."""
+    from hyperspace_tpu_torch.io.parquet import PARQUET_FAMILY
     from hyperspace_tpu_torch.plan.nodes import Scan
 
     rel = scan.relation
@@ -1047,7 +1048,7 @@ def prune_scan_relation(scan, cond: E.Expr):
     global last_prune_stats
     if (
         rel.index_info is None
-        or rel.fmt != "parquet"
+        or rel.fmt not in PARQUET_FAMILY
         or not rel.files
         or rel.file_row_groups is not None
     ):

@@ -19,6 +19,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.csv as pacsv
+import pyarrow.json as pajson
 import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
@@ -26,6 +28,10 @@ from hyperspace_tpu_torch.io.columnar import ColumnarBatch
 from hyperspace_tpu_torch.testing import faults
 
 _BUCKET_FILE_RE = re.compile(r"part-\d+-bucket_(\d+)\.parquet$")
+
+#: formats whose data files are parquet: plain parquet and the lake tables
+#: (Delta and Iceberg data files are parquet)
+PARQUET_FAMILY = ("parquet", "delta", "iceberg")
 
 
 def _pool_map(fn, items):
@@ -51,7 +57,11 @@ def read_tables(
     bucketed index scan. Files that carry every column literally (index
     data does) are read directly, without a dataset per file."""
     paths = list(paths)
-    if fmt != "parquet" or not paths or _resolve_nested_columns(paths, columns, fmt)[1]:
+    if (
+        fmt not in PARQUET_FAMILY
+        or not paths
+        or _resolve_nested_columns(paths, columns, fmt)[1]
+    ):
         return _pool_map(lambda p: read_table([p], columns, fmt), paths)
     faults.check("parquet_read", paths)
     return _pool_map(lambda p: pq.ParquetFile(p).read(columns=list(columns)), paths)
@@ -86,7 +96,7 @@ def _resolve_nested_columns(paths, columns, fmt):
     if not prefixed:
         return list(columns), {}
     virtual = prefixed
-    if fmt in ("parquet", "delta", "iceberg"):
+    if fmt in PARQUET_FAMILY:
         literal = _literal_column_names(paths[0])
         virtual = [c for c in prefixed if c not in literal]
     if not virtual:
@@ -107,10 +117,15 @@ def read_table(
     fmt: str = "parquet",
     filters=None,
 ) -> pa.Table:
-    """Read and concatenate parquet files into one Arrow table (row order
-    follows ``paths`` order, file by file).
+    """Read and concatenate files into one Arrow table (row order follows
+    ``paths`` order, file by file). Parquet, Delta and Iceberg data files
+    are read as parquet; csv and json through pyarrow's readers with their
+    default options (types inferred as the reference infers them), orc
+    through pyarrow, text as Spark's one string column ``value``, avro
+    through ``utils/avro.py`` typed by its embedded schema.
 
-    ``filters`` is a pyarrow DNF conjunction. REQUIRED INVARIANT: each
+    ``filters`` (parquet-like formats only) is a pyarrow DNF conjunction.
+    REQUIRED INVARIANT: each
     pushed conjunct must keep a **row-level superset** of the rows the
     engine's own mask keeps — pyarrow applies filters per ROW, so a
     conjunct that is only row-group-safe would silently drop matching
@@ -118,12 +133,7 @@ def read_table(
 
     ``__hs_nested.``-prefixed columns that are not literal flat columns
     in the files are served by reading the struct root and extracting
-    the leaf (``_resolve_nested_columns``). Formats other than parquet
-    are not ported yet (ROADMAP queue A item 10)."""
-    if fmt != "parquet":
-        raise NotImplementedError(
-            f"format {fmt!r} is not ported yet (ROADMAP queue A item 10)"
-        )
+    the leaf (``_resolve_nested_columns``)."""
     # fault-injection seam (testing/faults.py "parquet_read"): every data
     # read funnels through here, read_tables or read_file_row_groups
     faults.check("parquet_read", paths)
@@ -147,7 +157,7 @@ def read_table(
                 else:
                     out[c] = t.column(c)
             return pa.table(out)
-    if len(paths) > 1:
+    if fmt in PARQUET_FAMILY and len(paths) > 1:
         # One threaded dataset read beats N sequential reads and keeps the
         # given file order — but it locks the first file's schema, so it
         # is only safe when all schemas match (always true for index
@@ -162,15 +172,46 @@ def read_table(
                 filters=filters,
                 partitioning=None,
             )
-    tables = [
-        pq.read_table(
-            p,
-            columns=list(columns) if columns else None,
-            filters=filters,
-            partitioning=None,
-        )
-        for p in paths
-    ]
+    tables = []
+    for p in paths:
+        if fmt in PARQUET_FAMILY:
+            tables.append(
+                pq.read_table(
+                    p,
+                    columns=list(columns) if columns else None,
+                    filters=filters,
+                    partitioning=None,
+                )
+            )
+        elif fmt == "csv":
+            t = pacsv.read_csv(p)
+            tables.append(t.select(list(columns)) if columns else t)
+        elif fmt == "json":
+            t = pajson.read_json(p)
+            tables.append(t.select(list(columns)) if columns else t)
+        elif fmt == "orc":
+            from pyarrow import orc as paorc
+
+            t = paorc.read_table(p, columns=list(columns) if columns else None)
+            tables.append(t)
+        elif fmt == "text":
+            # Spark's text source shape: one string column named `value`
+            with open(p, "r", encoding="utf-8") as fh:
+                lines = fh.read().splitlines()
+            t = pa.table({"value": pa.array(lines, type=pa.string())})
+            tables.append(t.select(list(columns)) if columns else t)
+        elif fmt == "avro":
+            from hyperspace_tpu_torch.utils.avro import read_avro_with_schema
+
+            avro_schema, records = read_avro_with_schema(p)
+            arrow_schema = _avro_to_arrow_schema(avro_schema)
+            if arrow_schema is not None:
+                t = pa.Table.from_pylist(list(records), schema=arrow_schema)
+            else:  # non-record / exotic top-level schema: infer from values
+                t = pa.Table.from_pylist(list(records))
+            tables.append(t.select(list(columns)) if columns else t)
+        else:
+            raise HyperspaceException(f"Unsupported format: {fmt}")
     if not tables:
         raise HyperspaceException("No files to read")
     return pa.concat_tables(tables, promote_options="permissive")
@@ -188,8 +229,9 @@ def read_table_row_groups(
     a file follows ascending row-group index, which is the file's own row
     order, so a selection of ALL groups equals ``read_table``. Reads
     overlap on the shared scan pool (``io/scan.scan_pool``) when more than
-    one file needs opening."""
-    if fmt != "parquet":
+    one file needs opening; parquet-like formats only (callers gate on
+    fmt)."""
+    if fmt not in PARQUET_FAMILY:
         raise HyperspaceException(
             f"Row-group reads require a parquet-like format, got {fmt!r}"
         )
@@ -228,12 +270,51 @@ def list_format_files(root: str, fmt: str = "parquet") -> List[str]:
     hidden-path filtering Spark's ``DataPathFilter`` applies)."""
     from hyperspace_tpu_torch.utils.files import list_leaf_files
 
-    if fmt != "parquet":
-        raise NotImplementedError(
-            f"format {fmt!r} is not ported yet (ROADMAP queue A item 10)"
-        )
-    ext = ".parquet"
+    ext = {
+        "parquet": ".parquet",
+        "csv": ".csv",
+        "json": ".json",
+        "orc": ".orc",
+        "avro": ".avro",
+        "text": ".txt",
+    }[fmt]
     return sorted(p for p, _s, _m in list_leaf_files(root, suffix=ext, data_only=True))
+
+
+def _avro_to_arrow_schema(avro_schema) -> Optional[pa.Schema]:
+    """Arrow schema from an Avro record schema (embedded-schema-driven
+    typing, so empty/all-null files concat cleanly with siblings). Returns
+    None when the top level is not a record or a field type is beyond the
+    primitive/union-with-null set (caller falls back to value inference)."""
+    prim = {
+        "boolean": pa.bool_(),
+        "int": pa.int32(),
+        "long": pa.int64(),
+        "float": pa.float32(),
+        "double": pa.float64(),
+        "bytes": pa.binary(),
+        "string": pa.string(),
+    }
+
+    def field_type(t):
+        if isinstance(t, list):  # union: only [null, prim] shapes
+            non_null = [x for x in t if x != "null"]
+            if len(non_null) != 1:
+                return None
+            return field_type(non_null[0])
+        if isinstance(t, str):
+            return prim.get(t)
+        return None
+
+    if not isinstance(avro_schema, dict) or avro_schema.get("type") != "record":
+        return None
+    fields = []
+    for f in avro_schema.get("fields", []):
+        at = field_type(f["type"])
+        if at is None:
+            return None
+        fields.append(pa.field(f["name"], at))
+    return pa.schema(fields)
 
 
 def has_glob_magic(path: str) -> bool:

@@ -89,6 +89,13 @@ class Relation:
     # query-time row-level compensation (Hybrid Scan deletes): lineage ids
     # whose rows the scan drops, None if not needed
     excluded_file_ids: Optional[Tuple[int, ...]] = None
+    # hive-style partitioned sources (e.g. partitioned Delta): per file, the
+    # partition column values that are NOT stored in the data file and must
+    # be injected as constants at scan time: (path, ((col, str_value),...)).
+    # As in the reference, no reader fills it yet (ROADMAP C.15).
+    file_partition_values: Tuple[
+        Tuple[str, Tuple[Tuple[str, Optional[str]], ...]], ...
+    ] = ()
     # query-time row-group pruning (zone maps, executor._range_pruned_scan):
     # aligned with ``files``; per file either None (read every row group)
     # or the ascending row-group indices to read. None for the whole field

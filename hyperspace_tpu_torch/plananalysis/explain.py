@@ -4,7 +4,7 @@ Reference: ``plananalysis/PlanAnalyzer.scala:37-418`` — build the plan both
 ways, highlight the subtrees that changed (the index scans: both sides
 of a rewritten join), and list the indexes used. Counterpart of ``hyperspace_tpu/plananalysis/explain.py`` in
 its plain-text form; the console/HTML display modes and the verbose
-operator diff are not ported yet (ROADMAP queue A item 10).
+operator diff are not ported yet (ROADMAP A.7).
 """
 
 from __future__ import annotations

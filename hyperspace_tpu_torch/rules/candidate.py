@@ -52,11 +52,12 @@ def file_signature_filter(
     session, scan: Scan, entries: List[IndexLogEntry]
 ) -> List[IndexLogEntry]:
     """Exact-signature mode, or Hybrid Scan candidacy
-    (FileSignatureFilter.scala:49-191). The reference first swaps each
-    entry for the index version closest to a time-travel query's source
-    version (``closestIndex``); that comes with the Delta and Iceberg
-    sources (ROADMAP A.6): a Parquet source has one version."""
+    (FileSignatureFilter.scala:49-191). Time-travel sources first swap each
+    entry for the historical index version closest to the queried source
+    version (``closestIndex``, DeltaLakeRelation.scala:179-251)."""
     hybrid = session.conf.hybrid_scan_enabled
+    provider_rel = session.source_manager.get_relation(scan.relation)
+    entries = [provider_rel.closest_index(e) or e for e in entries]
     out = []
     for e in entries:
         if hybrid:

@@ -16,7 +16,7 @@ The device is carried on the session and reaches every op call.
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -72,33 +72,97 @@ class ExecStats:
 
 
 class DataFrameReader:
-    """``session.read.parquet(path)`` — builds a Scan over a file snapshot
-    (listing happens here, like Spark's ``InMemoryFileIndex``). Other
-    formats and the Delta/Iceberg readers are ported with their sources
-    (ROADMAP queue A item 10)."""
+    """``session.read.parquet(path)`` etc. — builds a Scan over a file
+    snapshot (listing happens here, like Spark's ``InMemoryFileIndex``):
+    the default provider's formats (parquet, csv, json, orc, avro, text),
+    Delta Lake tables with time travel and Iceberg tables pinned to a
+    snapshot. Counterpart of the reference's reader
+    (``hyperspace_tpu/session.py:29-121``)."""
 
     def __init__(self, session: "HyperspaceSession"):
         self._session = session
 
-    def parquet(self, *paths: str) -> DataFrame:
+    def _scan(self, fmt: str, paths: Sequence[str]) -> DataFrame:
         from hyperspace_tpu_torch.io.columnar import flatten_schema_fields
-        from hyperspace_tpu_torch.io.parquet import expand_path
+        from hyperspace_tpu_torch.io.parquet import expand_path, read_table
 
         files: List[str] = []
         for p in paths:
-            files.extend(expand_path(p, "parquet"))
+            files.extend(expand_path(p, fmt))
         if not files:
-            raise HyperspaceException(f"No parquet files under {list(paths)}")
-        schema = pq.read_schema(files[0])
+            raise HyperspaceException(f"No {fmt} files under {list(paths)}")
+        if fmt == "parquet":
+            schema = pq.read_schema(files[0])
+            fields = tuple((f.name, f.type) for f in schema)
+        else:
+            head = read_table(files[:1], None, fmt)
+            fields = tuple((n, head.schema.field(n).type) for n in head.column_names)
         # struct columns surface as flat __hs_nested.<path> leaf columns
-        fields = flatten_schema_fields(tuple((f.name, f.type) for f in schema))
+        fields = flatten_schema_fields(fields)
         # glob patterns stay patterns in root_paths, absolutized like plain
         # paths so re-expansion does not depend on the process cwd
         rel = Relation(
             root_paths=tuple(os.path.abspath(p) for p in paths),
             files=tuple(os.path.abspath(f) for f in files),
-            fmt="parquet",
+            fmt=fmt,
             schema_fields=fields,
+        )
+        return DataFrame(self._session, Scan(rel))
+
+    def parquet(self, *paths: str) -> DataFrame:
+        return self._scan("parquet", paths)
+
+    def csv(self, *paths: str) -> DataFrame:
+        return self._scan("csv", paths)
+
+    def json(self, *paths: str) -> DataFrame:
+        return self._scan("json", paths)
+
+    def orc(self, *paths: str) -> DataFrame:
+        return self._scan("orc", paths)
+
+    def avro(self, *paths: str) -> DataFrame:
+        return self._scan("avro", paths)
+
+    def text(self, *paths: str) -> DataFrame:
+        return self._scan("text", paths)
+
+    def delta(self, path: str, version_as_of: Optional[int] = None) -> DataFrame:
+        """Read a Delta Lake table, optionally pinned to a version (the
+        reference records ``versionAsOf`` for time travel,
+        DeltaLakeRelation.scala:96-99)."""
+        from hyperspace_tpu_torch.io.columnar import flatten_schema_fields
+        from hyperspace_tpu_torch.sources import delta_log
+
+        snap = delta_log.read_snapshot(path, version_as_of)
+        options = [("deltaVersion", str(snap.version))]
+        if version_as_of is not None:
+            options.append(("versionAsOf", str(version_as_of)))
+        rel = Relation(
+            root_paths=(os.path.abspath(path),),
+            files=tuple(snap.file_paths),
+            fmt="delta",
+            schema_fields=flatten_schema_fields(snap.schema_fields),
+            options=tuple(options),
+        )
+        return DataFrame(self._session, Scan(rel))
+
+    def iceberg(self, path: str, snapshot_id: Optional[int] = None) -> DataFrame:
+        """Read an Iceberg table, optionally pinned to a snapshot (the
+        reference pins scans to snapshot ids, IcebergRelation.scala:222-223)."""
+        from hyperspace_tpu_torch.io.columnar import flatten_schema_fields
+        from hyperspace_tpu_torch.sources import iceberg_meta
+
+        snap = iceberg_meta.read_snapshot(path, snapshot_id)
+        options = [("snapshotId", str(snap.snapshot_id))]
+        if snapshot_id is not None:
+            options.append(("snapshotAsOf", str(snapshot_id)))
+        rel = Relation(
+            root_paths=(os.path.abspath(path),),
+            files=tuple(snap.file_paths),
+            fmt="iceberg",
+            schema_fields=flatten_schema_fields(snap.schema_fields),
+            options=tuple(options),
         )
         return DataFrame(self._session, Scan(rel))
 

@@ -1,7 +1,7 @@
-"""Default file-based source provider: plain Parquet directories.
+"""Default file-based source provider: plain file-format directories.
 
 Reference: ``sources/default/DefaultFileBasedSource.scala:37-124`` (formats
-from conf; this slice ports Parquet only),
+from conf, default avro,csv,json,orc,parquet,text — same set here),
 ``DefaultFileBasedRelation.scala:38-242`` (signature = md5 fold over
 (len, mtime, path) of all files; globbed roots re-expanded on every
 listing), ``DefaultFileBasedRelationMetadata.scala``.
@@ -72,8 +72,13 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
     name = "default"
 
     def is_supported(self, session, plan_relation: PlanRelation) -> Optional[bool]:
-        return True if plan_relation.fmt == "parquet" else None
+        if plan_relation.fmt in session.conf.default_supported_formats:
+            return True
+        return None
 
     def get_relation(self, session, plan_relation: PlanRelation) -> FileBasedRelation:
         return DefaultFileBasedRelation(session, plan_relation)
 
+
+def DefaultFileBasedSourceBuilder():  # noqa: N802  (builder entry in conf list)
+    return DefaultFileBasedSource()

@@ -4,9 +4,8 @@ Reference: ``index/sources/interfaces.scala:43-277`` (``SourceRelation`` /
 ``FileBasedRelation`` / ``FileBasedSourceProvider``). A provider
 adapts one kind of lake layout to the operations the actions and rules
 need: file snapshot, plan-fingerprint signature and metadata Relation
-construction. This slice ports the plain Parquet provider; Delta and
-Iceberg, refresh re-listing and time travel come with later slices
-(ROADMAP queue A items 6 and 10).
+construction, refresh re-listing, and (for time-travel sources) picking
+the closest index version.
 """
 
 from __future__ import annotations
@@ -48,7 +47,7 @@ class FileBasedRelation(abc.ABC):
     # -- lifecycle hooks ----------------------------------------------------
     def refresh(self) -> "FileBasedRelation":
         """Re-list the current state of the source (used by the refresh
-        actions)."""
+        actions; DeltaLakeRelationMetadata.refresh drops versionAsOf)."""
         return self
 
     def enrich_index_properties(
@@ -58,6 +57,13 @@ class FileBasedRelation(abc.ABC):
         (DeltaLakeRelationMetadata.enrichIndexProperties:45-58).
         ``log_version`` is the log id the enclosing action will commit."""
         return dict(properties)
+
+    def closest_index(self, entry):
+        """For time-travel sources: the historical index log entry whose
+        recorded source version is closest to this relation's queried
+        version (DeltaLakeRelation.closestIndex:179-251). Default: the
+        given (latest) entry."""
+        return entry
 
 
 class FileBasedSourceProvider(abc.ABC):

@@ -1,16 +1,20 @@
 """Source provider manager.
 
 Reference: ``index/sources/FileBasedSourceProviderManager.scala:38-174`` —
-every dispatch requires **exactly one** provider to answer
-(``runWithDefault:126-146``). This slice has the default Parquet provider
-only; loading the provider list from ``hyperspace.index.sources.fileBasedBuilders``
-comes with the Delta and Iceberg providers (ROADMAP queue A item 10).
+builders are loaded from the config key
+``hyperspace.index.sources.fileBasedBuilders`` (cached, invalidated when
+the conf changes, via ``CacheWithTransform``), and every dispatch
+requires **exactly one** provider to answer (``runWithDefault:126-146``).
+The default list names the port's three providers: plain file formats,
+Delta Lake and Iceberg.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import List
 
+from hyperspace_tpu_torch.config import CacheWithTransform
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.nodes import Relation as PlanRelation
 from hyperspace_tpu_torch.sources.interfaces import (
@@ -19,12 +23,28 @@ from hyperspace_tpu_torch.sources.interfaces import (
 )
 
 
+def _load_builders(conf) -> List[FileBasedSourceProvider]:
+    providers = []
+    for qualname in conf.source_provider_builders:
+        qualname = qualname.strip()
+        if not qualname:
+            continue
+        mod_name, _, attr = qualname.rpartition(".")
+        builder = getattr(importlib.import_module(mod_name), attr)
+        providers.append(builder())
+    if not providers:
+        raise HyperspaceException("No source providers configured")
+    return providers
+
+
 class SourceProviderManager:
     def __init__(self, session):
-        from hyperspace_tpu_torch.sources.default import DefaultFileBasedSource
-
         self.session = session
-        self.providers: List[FileBasedSourceProvider] = [DefaultFileBasedSource()]
+        self._providers = CacheWithTransform(session.conf, _load_builders)
+
+    @property
+    def providers(self) -> List[FileBasedSourceProvider]:
+        return self._providers.load()
 
     def is_supported(self, plan_relation: PlanRelation) -> bool:
         try:

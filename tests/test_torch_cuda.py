@@ -839,3 +839,70 @@ def test_pipelined_build_on_the_card_writes_the_legacy_routes_files(cuda_device,
         files[pf] = index_files(str(tmp_path / f"pf{pf}" / "b"))
     assert files[True] == files[False]
     assert sum(1 for f in files[True] if f.endswith(".parquet") and "bucket" in f) > 1
+
+
+def test_delta_filter_and_time_travel_on_the_card_equal_a_cpu_session(cuda_device, tmp_path):
+    """A Delta table indexed on the card and in a cpu session over the same
+    lake: the index files byte for byte; a bucket-pruned point filter (B1
+    on its literal, B3a on its residual) and a filter pinned with
+    ``version_as_of`` (served by the first index version through
+    ``closest_index``) give rows equal in order to the cpu session's, and
+    to the plan without Hyperspace."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from torch_lake import add_action, delta_metadata, delta_schema_string, write_commit
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+
+    rng = np.random.default_rng(15)
+    table = tmp_path / "ld"
+    table.mkdir()
+    files = []
+    for i in range(3):
+        t = pa.table({"k": rng.integers(0, 5000, 40_000), "q": rng.integers(0, 50, 40_000)})
+        files.append(str(table / f"part{i}.parquet"))
+        pq.write_table(t, files[-1])
+    schema = delta_schema_string(pq.read_schema(files[0]))
+    write_commit(str(table), 0, delta_metadata(schema)
+                 + [{"add": add_action(str(table), f)} for f in files[:2]])
+    keys = [int(k) for k in rng.integers(0, 5000, 3)]
+    out = {}
+    for device in (cuda_device, "cpu"):
+        s = HyperspaceSession(device=device)
+        s.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        s.conf.set("hyperspace.index.num_buckets", 16)
+        s.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+        hs = Hyperspace(s)
+        ops.reset_launch_counts()
+        hs.create_index(s.read.delta(str(table)), CoveringIndexConfig("d", ["k"], ["q"]))
+        if s.device.type == "cuda":
+            assert ops.launch_counts()["murmur3_bucket_ids"] >= 1
+        out[s.device.type] = {"s": s, "hs": hs}
+    write_commit(str(table), 1, [{"add": add_action(str(table), files[2])}])
+    for side in out.values():
+        side["hs"].refresh_index("d", "full")
+    assert index_files(str(tmp_path / "cuda" / "d")) == index_files(str(tmp_path / "cpu" / "d"))
+    rows = {}
+    for dev, side in out.items():
+        s, hs = side["s"], side["hs"]
+        s.index_manager.clear_cache()
+        for version in (None, 0):
+            df = s.read.delta(str(table), version_as_of=version)
+            for k in keys:
+                q = df.filter(df["k"] == k).select("k", "q")
+                s.enable_hyperspace()
+                text = hs.explain(q).split("Plan without indexes:")[0]
+                log_version = 2 if version == 0 else 4
+                assert f"Name: d, LogVersion: {log_version}" in text, text
+                ops.reset_launch_counts()
+                s.exec_stats.reset()
+                got = q.collect()
+                if dev == "cuda":
+                    assert ops.launch_counts()["murmur3_bucket_ids"] >= 1
+                    assert s.exec_stats.bucket_pruned_scans == 1
+                s.disable_hyperspace()
+                assert got.equals(q.collect())
+                rows[(dev, version, k)] = got
+    for version in (None, 0):
+        for k in keys:
+            assert rows[("cuda", version, k)].equals(rows[("cpu", version, k)])

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of hyperspace_tpu_torch (nor
-chip_smoke.py, nor scripts/torch_*.py) imports JAX or the JAX package,
+chip_smoke.py, nor scripts/torch_*.py, nor the lake builders
+tests/torch_lake.py that chip_smoke.py imports) imports JAX or the JAX package,
 and a session never runs on the CPU unless the caller asks for it."""
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
@@ -18,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "hyperspace_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_lake.py")]
     scripts = os.path.join(ROOT, "scripts")
     out += [
         os.path.join(scripts, f)
