@@ -353,6 +353,34 @@ against its plain PyTorch version on the card:
    B3a, B5f, B6 and B7 call is held bit-equal to its plain version
    (``KernelCalls``).
 
+16. out-of-core path (``outofcore_path``): a session of its own whose build
+   memory budget (``hyperspace.index.build.memoryBudgetBytes``) is 2.5 times
+   part0's estimated materialized bytes (its footers), so every build
+   over phase 4's 8 files reads 4 waves of 2: (1) st_idx, li_idx's
+   configuration, streamed (each wave hashed by B1 and sorted on the
+   card, each bucket's run spilled, each bucket merged with a key sort on
+   the card), its waves, spill files, stages and rows/s logged; each of
+   its 200 bucket files holds li_idx's rows of the same name after sorting
+   by every column, key-sorted (the files matching in order too are
+   counted); the peak device bytes of its data write (from the create's
+   start to its last bucket file, before the captures) below li_idx's in
+   phase 4, measured the same way (``write_peak``); phase 4's 36 filters
+   over st_idx, bucket-pruned, equal to the plan without Hyperspace; (2)
+   sz_idx, phase 10's z_idx configuration with lineage on over a
+   hard-linked copy of the 8 files, streamed in two passes (a stats pass
+   freezing the min/max spec, a spill pass into 64 z-ranges by B6's
+   planes, a merge a range), its rows in file order equal to z_idx's;
+   q_zrange served by it, equal to the plan without Hyperspace; then file
+   0 deleted and phase 14's file (187,537 rows) appended, an incremental
+   refresh whose previous data streams with the appended file, and
+   q_zrange again; (3) ``hs.why_not`` (plain and extended) and
+   ``hs.explain(verbose=True)`` in the plaintext, console and html modes
+   for a point filter and q_zrange, each naming the index applied and a
+   reason for the other, and ``analyze_min_max_string`` of l_orderkey and
+   l_shipdate over li_idx's and z_idx's files, printed. Every B1, B3a, B6
+   and B5f call is recorded (``KernelCalls``, as CPU copies, so that no
+   record holds device memory) and held bit-equal to its plain version.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -373,8 +401,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14 and 15 and read just after each; each kernel's count in
-the JSON line adds phases 12, 13, 14 and 15's. The kernel checks' launches are not counted as
+11, 12, 13, 14, 15 and 16 and read just after each; each kernel's count
+in the JSON line adds phases 12, 13, 14, 15 and 16's. The kernel checks' launches are not counted as
 the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -1155,9 +1183,8 @@ def filter_path(work: str, device) -> dict:
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    hs.create_index(
-        df, CoveringIndexConfig("li_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"])
-    )
+    _, write_peak_bytes = write_peak(lambda: hs.create_index(
+        df, CoveringIndexConfig("li_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"])))
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()["murmur3_bucket_ids"]
     entry = hs.get_index("li_idx")
@@ -1167,7 +1194,7 @@ def filter_path(work: str, device) -> dict:
         f"main path: build {build_s:.3f}s, {N_ROWS / build_s:,.0f} rows/s, "
         f"{len(files)} bucket files, {rows} rows, stages "
         f"{ {k: round(v, 4) for k, v in sess.build_stats.items()} }, "
-        f"B1 launches {build_launches}"
+        f"B1 launches {build_launches}, data write's peak device bytes {write_peak_bytes:,}"
     )
     if rows != N_ROWS or len(files) != 200 or build_launches <= 0:
         raise AssertionError("build did not index every row through B1")
@@ -1241,6 +1268,7 @@ def filter_path(work: str, device) -> dict:
     )
     return {"launches": total_launches, "all_launches": ops.launch_counts(),
             "session": sess, "hs": hs, "items": df, "src": src, "legacy_build": legacy,
+            "li_write_peak": write_peak_bytes,
             "p50_ms": float(p50), "p99_ms": float(p99)}
 
 
@@ -3303,6 +3331,9 @@ class KernelCalls:
         from hyperspace_tpu_torch.ops import zorder as Z
 
         self.label, self.calls, self.settle_s, self._b3a = None, [], 0.0, None
+        # phase 16 keeps CPU copies, so that no recorded call holds device
+        # memory while it measures a write's peak device bytes
+        self.on_host = False
         self.totals()
         self.plain = {"b1": H.bucket_ids_torch, "b6": Z.interleave_torch,
                       "b7 indices": B.bit_indices_torch, "b7 build": B.build_bloom_torch,
@@ -3317,7 +3348,8 @@ class KernelCalls:
         def recording(*args):
             out = inner(*args)
             if self.label is not None:
-                self.calls.append((kind, self.label, args, out))
+                kept = (to_cpu(args), to_cpu(out)) if self.on_host else (args, out)
+                self.calls.append((kind, self.label, *kept))
             return out
 
         return recording
@@ -3343,13 +3375,16 @@ class KernelCalls:
         calls, self.calls = self.calls, []
         for kind, label, args, out in calls:
             plain = self.plain[kind]
+            floats = kind == "b5f" and any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs)
+            if self.on_host and not floats:  # an integer function: held on the card
+                args, out = to_cpu(args, "cuda"), to_cpu(out, "cuda")
             if kind == "b3a":  # a mask: exact in any order, held on the card
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].n
             elif kind != "b5f":
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].shape[-1]
-            elif any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs):
+            elif floats:
                 ok = states_equal(to_cpu(out), plain(*to_cpu(args)))
                 rows = args[1].n
             else:
@@ -4099,22 +4134,22 @@ def lc_batch(path: str, first_key: int, n_orders: int, seed: int, rows=None) -> 
     return n
 
 
-def to_cpu(x):
+def to_cpu(x, device="cpu"):
     """A copy of ``x`` (tensors, devices, dataclasses, lists and tuples of
-    them) on the CPU."""
+    them) on the CPU, or on ``device``."""
     import dataclasses
 
     import torch
 
     if isinstance(x, torch.Tensor):
-        return x.cpu().clone()
+        return x.to(device, copy=True)
     if isinstance(x, torch.device):
-        return torch.device("cpu")
+        return torch.device(device)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name), device)
                                          for f in dataclasses.fields(x)})
     if isinstance(x, (list, tuple)):
-        return type(x)(to_cpu(v) for v in x)
+        return type(x)(to_cpu(v, device) for v in x)
     return x
 
 
@@ -6111,6 +6146,355 @@ def lk_query_pair(c: dict, label: str, build, index: str, kind: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the out-of-core build (budgeted waves, per-bucket spill and
+# merge, the streamed z-order two-pass write, the streamed refresh) and plan
+# analysis (why_not, explain's modes, the min/max analysis)
+# ---------------------------------------------------------------------------
+
+#: the build memory budget of phase 16, in units of the first source file's
+#: estimated materialized bytes: 2 files a wave, 4 waves over phase 4's 8
+OC_BUDGET_FILES = 2.5
+OC_MODES = ("plaintext", "console", "html")
+
+
+def write_peak(fn) -> tuple:
+    """``(fn(), bytes)``: the peak device bytes allocated over an index's
+    data write, from the reset just before ``fn`` (a create: the scan, then
+    the write) to the return of the index's ``write``, before the captures,
+    less the bytes allocated at the reset. ``write`` is wrapped for the
+    call (covering and z-order indexes)."""
+    import torch
+
+    from hyperspace_tpu_torch.indexes.covering import CoveringIndex
+    from hyperspace_tpu_torch.indexes.zorder import ZOrderCoveringIndex
+
+    seen = []
+    reals = {cls: cls.write for cls in (CoveringIndex, ZOrderCoveringIndex)}
+
+    def wrap(real):
+        def write(index, ctx, data):
+            real(index, ctx, data)
+            torch.cuda.synchronize()
+            seen.append(torch.cuda.max_memory_allocated())
+
+        return write
+
+    for cls, real in reals.items():
+        cls.write = wrap(real)
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+    finally:
+        for cls, real in reals.items():
+            cls.write = real
+    if len(seen) != 1:
+        raise AssertionError(f"the create wrote {len(seen)} times")
+    return out, seen[0] - base
+
+
+def oc_create(c: dict, name: str, df, config) -> dict:
+    """One budgeted create on the card: its seconds, rows/s, stages, waves
+    and spill files, and its data write's peak device bytes; its kernel
+    calls held after it."""
+    hs, sess, kernels = c["hs"], c["sess"], c["kernels"]
+    kernels.label = f"outofcore create {name}"
+    t0 = time.perf_counter()
+    try:
+        _, peak = write_peak(lambda: hs.create_index(df, config))
+    finally:
+        kernels.label = None
+    seconds = time.perf_counter() - t0
+    kernels.settle()
+    stats = dict(sess.build_stats)
+    out = {"seconds": seconds, "rows_per_s": N_ROWS / seconds, "write_peak_bytes": peak,
+           "stages_s": {k: v for k, v in stats.items() if isinstance(v, float)},
+           "counts": {k: v for k, v in stats.items() if isinstance(v, int)}}
+    log(f"outofcore path [{c['card']}]: {name} streamed in {seconds:.3f}s, "
+        f"{N_ROWS / seconds:,.0f} rows/s; {out['counts']}; stages s "
+        f"{ {k: round(v, 4) for k, v in out['stages_s'].items()} }; data write's peak device "
+        f"bytes {peak:,}")
+    if stats.get("waves") != 4:
+        raise AssertionError(f"{name}: {stats.get('waves')} waves, not 4")
+    return out
+
+
+def oc_hold_buckets(st_files, li_files) -> dict:
+    """Each of st_idx's bucket files against li_idx's of the same name: the
+    same rows after sorting by every column, key-sorted; how many also
+    match in order."""
+    import pyarrow.parquet as pq
+
+    names = sorted(os.path.basename(f) for f in st_files)
+    if names != sorted(os.path.basename(f) for f in li_files) or len(names) != N_BUCKETS:
+        raise AssertionError("st_idx's bucket files are not li_idx's")
+    by_name = {os.path.basename(f): f for f in li_files}
+    in_order, rows = 0, 0
+    for f in st_files:
+        # ParquetFile reads the file alone: no partition column inferred
+        # from a key=value directory name
+        mine, theirs = pq.ParquetFile(f).read(), pq.ParquetFile(by_name[os.path.basename(f)]).read()
+        if mine.schema != theirs.schema:
+            raise AssertionError(f"{os.path.basename(f)}: schema {mine.schema} against "
+                                 f"li_idx's {theirs.schema}")
+        keys = mine.column("l_orderkey").to_numpy()
+        if not (np.diff(keys) >= 0).all():
+            raise AssertionError(f"{os.path.basename(f)} is not key-sorted")
+        if not sorted_rows(mine).equals(sorted_rows(theirs)):
+            raise AssertionError(f"{os.path.basename(f)}: rows differ from li_idx's")
+        in_order += mine.equals(theirs)
+        rows += mine.num_rows
+    if rows != N_ROWS:
+        raise AssertionError(f"st_idx holds {rows} rows")
+    return {"files": len(names), "rows": rows, "in_order": in_order}
+
+
+def oc_filters(c: dict, df) -> dict:
+    """Phase 4's 36 filters over st_idx: each names st_idx, bucket-pruned;
+    rows equal the plan without Hyperspace (point filters in order)."""
+    sess, hs, kernels = c["sess"], c["hs"], c["kernels"]
+    plans = hy_filters(df)
+    sess.enable_hyperspace()
+    kernels.record_b3a(True)
+    kernels.label = "outofcore filters"
+    try:
+        for q in plans:
+            if "Name: st_idx" not in hs.explain(q).split("Plan without indexes:")[0]:
+                raise AssertionError("a filter not served by st_idx")
+        plans[0].collect()  # warm-up
+        sess.exec_stats.reset()
+        times, got = [], []
+        for q in plans:
+            t0 = time.perf_counter()
+            got.append(q.collect())
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        kernels.label = None
+        kernels.record_b3a(False)
+        sess.disable_hyperspace()
+    pruned = sess.exec_stats.as_dict()["bucket_pruned_scans"]
+    if pruned != len(plans):
+        raise AssertionError(f"{pruned} of {len(plans)} filters bucket-pruned")
+    rows = 0
+    for i, (q, rows_got) in enumerate(zip(plans, got)):
+        want = q.collect()
+        same = rows_got.equals(want) if i < 32 else sorted_rows(rows_got).equals(sorted_rows(want))
+        if not same:
+            raise AssertionError(f"st_idx filter {i}: rows differ from the plan without "
+                                 f"Hyperspace")
+        rows += rows_got.num_rows
+    kernels.settle()
+    p50, p99 = np.percentile(times, [50, 99])
+    out = {"queries": len(plans), "rows": rows, "p50_ms": float(p50), "p99_ms": float(p99)}
+    log(f"outofcore path [{c['card']}]: 36 filters over st_idx p50_ms {p50:.3f} p99_ms "
+        f"{p99:.3f} (li_idx in phase 4: {c['p4_p50']:.3f} / {c['p4_p99']:.3f}), {rows} rows, "
+        f"bucket-pruned, equal to the plan without Hyperspace (point filters in order)")
+    return out
+
+
+def oc_zrange(c: dict, src: str, step: str) -> dict:
+    """q_zrange over the copy: served by sz_idx (one warm-up, 3 timed runs,
+    the files and row groups its z-spans kept), rows equal as a multiset to
+    the plan without Hyperspace."""
+    from hyperspace_tpu_torch.indexes import zonemaps
+
+    sess, hs = c["sess"], c["hs"]
+    q = zorder_queries(sess.read.parquet(src))["q_zrange"][0]
+    sess.enable_hyperspace()
+    c["kernels"].label = f"outofcore q_zrange {step}"
+    try:
+        text = hs.explain(q).split("Plan without indexes:")[0]
+        if "Type: ZOCI, Name: sz_idx" not in text:
+            raise AssertionError(f"q_zrange {step}: sz_idx not used:\n{text}")
+        q.collect()  # warm-up
+        times = []
+        for _ in range(3):
+            zonemaps.last_prune_stats = {}
+            t0 = time.perf_counter()
+            got = q.collect()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prune = dict(zonemaps.last_prune_stats)
+    finally:
+        c["kernels"].label = None
+        sess.disable_hyperspace()
+    t0 = time.perf_counter()
+    want = q.collect()
+    off_ms = (time.perf_counter() - t0) * 1e3
+    if got.num_rows == 0 or not sorted_rows(got).equals(sorted_rows(want)):
+        raise AssertionError(f"q_zrange {step}: rows differ from the plan without Hyperspace")
+    c["kernels"].settle()
+    out = {"p50_ms": float(np.median(times)), "unindexed_ms": off_ms, "rows": got.num_rows,
+           "prune": prune}
+    log(f"outofcore path [{c['card']}]: q_zrange over sz_idx {step}: p50_ms "
+        f"{out['p50_ms']:.3f} (3 runs; the plan without Hyperspace {off_ms:.3f}), "
+        f"{got.num_rows} rows, equal to the plan without Hyperspace as a multiset; "
+        f"pruning {prune}")
+    return out
+
+
+def oc_analysis(c: dict, src: str, copy: str, z_dir: str) -> dict:
+    """why_not (plain and extended) and explain (verbose, each display
+    mode) for one point filter over st_idx's source and q_zrange over
+    sz_idx's, each naming the index applied and a reason for every other
+    ACTIVE index; then the min/max analysis of l_orderkey and l_shipdate
+    over li_idx's and z_idx's files."""
+    from hyperspace_tpu_torch.plananalysis.minmax_analysis import analyze_min_max_string
+
+    sess, hs = c["sess"], c["hs"]
+    point = hy_filters(sess.read.parquet(src))[0]
+    zrange = zorder_queries(sess.read.parquet(copy))["q_zrange"][0]
+    out = {"why_not_ms": {}, "explain_ms": {}}
+    for label, q, applied, other in (("point", point, "st_idx", "sz_idx"),
+                                     ("q_zrange", zrange, "sz_idx", "st_idx")):
+        for extended in (False, True):
+            t0 = time.perf_counter()
+            text = hs.why_not(q, extended=extended)
+            out["why_not_ms"][f"{label} {'extended' if extended else 'plain'}"] = (
+                time.perf_counter() - t0) * 1e3
+            reasons = text.split("Non-applicable indexes:")[1].split(f"{other} (")[1]
+            if (f"{applied}: applied by the optimizer" not in text
+                    or not reasons.split("\n")[1].startswith("  - [")):
+                raise AssertionError(f"why_not {label}: {applied} not applied or no reason "
+                                     f"for {other}:\n{text}")
+            log(f"outofcore path: hs.why_not({label}, extended={extended}):\n{text}")
+        for mode in OC_MODES:
+            t0 = time.perf_counter()
+            text = hs.explain(q, verbose=True, mode=mode)
+            out["explain_ms"][f"{label} {mode}"] = (time.perf_counter() - t0) * 1e3
+            if f"Name: {applied}" not in text or "Operator diff:" not in text:
+                raise AssertionError(f"explain {label} ({mode}): {applied} not named:\n{text}")
+            log(f"outofcore path: hs.explain({label}, verbose=True, mode={mode!r}):\n{text}")
+    li_dir = os.path.dirname(c["li_files"][0])
+    for label, d in (("li_idx", li_dir), ("z_idx", z_dir)):
+        t0 = time.perf_counter()
+        text = analyze_min_max_string(sess.read.parquet(d), ["l_orderkey", "l_shipdate"])
+        out[f"minmax_ms {label}"] = (time.perf_counter() - t0) * 1e3
+        if "Max files for a point lookup" not in text:
+            raise AssertionError(f"min/max analysis over {label}:\n{text}")
+        log(f"outofcore path: analyze_min_max_string over {label}'s files "
+            f"(l_orderkey, l_shipdate):\n{text}")
+    return out
+
+
+def outofcore_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 16: the out-of-core build and plan analysis (module docstring,
+    item 16). Launch counts read from 0 at its start."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_lake as L
+
+    from hyperspace_tpu_torch import (
+        CoveringIndexConfig,
+        Hyperspace,
+        HyperspaceSession,
+        ZOrderCoveringIndexConfig,
+        ops,
+    )
+    from hyperspace_tpu_torch.indexes import covering_build as CB
+
+    t_phase = time.perf_counter()
+    src = ctx["src"]
+    per_file = CB.per_file_materialized_bytes([os.path.join(src, "part0.parquet")], "parquet")[0]
+    budget = int(OC_BUDGET_FILES * per_file)
+    sess = HyperspaceSession()
+    sess.conf.set("hyperspace.system.path", os.path.join(work, "oc_indexes"))
+    sess.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+    sess.conf.set("hyperspace.index.build.memoryBudgetBytes", budget)
+    hs = Hyperspace(sess)
+    c = {"sess": sess, "hs": hs, "kernels": kernels, "card": card, "p4_p50": ctx["p50_ms"],
+         "p4_p99": ctx["p99_ms"], "li_files": ctx["hs"].get_index("li_idx").content.files}
+    out = {"budget_bytes": budget, "first_file_bytes": per_file,
+           "li_idx_write_peak_bytes": ctx["li_write_peak"]}
+    kernels.on_host = True  # recorded tensors must not hold device memory
+    settle0 = kernels.settle_s
+    ops.reset_launch_counts()
+    try:
+        # (1) st_idx: li_idx's configuration, streamed
+        items = sess.read.parquet(src)
+        out["st_idx"] = oc_create(c, "st_idx", items, CoveringIndexConfig(
+            "st_idx", ["l_orderkey"], ["l_shipdate", "l_quantity"]))
+        t0 = time.perf_counter()
+        out["st_idx"]["held_to_li_idx"] = oc_hold_buckets(
+            hs.get_index("st_idx").content.files, c["li_files"])
+        peak, li_peak = out["st_idx"]["write_peak_bytes"], ctx["li_write_peak"]
+        log(f"outofcore path [{card}]: st_idx's {N_BUCKETS} bucket files hold li_idx's rows "
+            f"(sorted by every column; {out['st_idx']['held_to_li_idx']['in_order']} in order "
+            f"too), key-sorted ({time.perf_counter() - t0:.1f}s); data write's peak device "
+            f"bytes {peak:,} streamed against li_idx's {li_peak:,} in memory "
+            f"({100.0 * peak / li_peak:.1f} %)")
+        if not peak < li_peak:
+            raise AssertionError("the streamed write's peak device bytes are not below the "
+                                 "in-memory write's")
+        out["filters"] = oc_filters(c, items)
+        # (2) sz_idx: phase 10's z_idx, streamed, lineage on, over a copy
+        copy = os.path.join(work, "oc_src")
+        for i in range(N_FILES):
+            L.link_or_copy(os.path.join(src, f"part{i}.parquet"),
+                           os.path.join(copy, f"part{i}.parquet"))
+        sess.conf.set("hyperspace.index.lineage.enabled", True)
+        indexed, included = Z_INDEXES["z_idx"]
+        out["sz_idx"] = oc_create(c, "sz_idx", sess.read.parquet(copy),
+                                  ZOrderCoveringIndexConfig("sz_idx", indexed, included))
+        z_dir = os.path.join(work, "zindexes", "z_idx", "v__=1")
+        cols = indexed + included
+        mine = pa.concat_tables([pq.ParquetFile(f).read(columns=cols) for f in sorted(
+            hs.get_index("sz_idx").content.files)])
+        theirs = pa.concat_tables([pq.ParquetFile(os.path.join(z_dir, f)).read(columns=cols)
+                                   for f in sorted(os.listdir(z_dir)) if f.endswith(".parquet")
+                                   and f.startswith("part-")])
+        if not mine.equals(theirs):
+            raise AssertionError("sz_idx's rows in file order differ from z_idx's")
+        log(f"outofcore path [{card}]: sz_idx's {mine.num_rows} rows in file order equal "
+            f"phase 10's z_idx's (the same min/max spec)")
+        out["zrange"] = {"before": oc_zrange(c, copy, "before")}
+        # (3) file 0 deleted, phase 14's file appended, refreshed incrementally
+        os.remove(os.path.join(copy, "part0.parquet"))
+        n_extra = hy_append(os.path.join(copy, "appended.parquet"))
+        sess.index_manager.clear_cache()
+        sess.build_stats.clear()
+        kernels.label = "outofcore refresh sz_idx"
+        t0 = time.perf_counter()
+        try:
+            hs.refresh_index("sz_idx", "incremental")
+            torch.cuda.synchronize()
+        finally:
+            kernels.label = None
+        stats = dict(sess.build_stats)
+        out["refresh"] = {"seconds": time.perf_counter() - t0, "appended_rows": n_extra,
+                          "stages_s": {k: v for k, v in stats.items() if isinstance(v, float)},
+                          "counts": {k: v for k, v in stats.items() if isinstance(v, int)}}
+        kernels.settle()
+        log(f"outofcore path [{card}]: sz_idx refreshed incrementally (part0 deleted, "
+            f"{n_extra} rows appended; the previous data streamed) in "
+            f"{out['refresh']['seconds']:.3f}s; {out['refresh']['counts']}; stages s "
+            f"{ {k: round(v, 4) for k, v in out['refresh']['stages_s'].items()} }")
+        if stats.get("waves", 0) < 2 or "stats" not in stats:
+            raise AssertionError(f"the refresh did not stream: {stats}")
+        out["zrange"]["after"] = oc_zrange(c, copy, "after")
+        # (4) plan analysis
+        out["analysis"] = oc_analysis(c, src, copy, z_dir)
+    finally:
+        kernels.label = None
+        kernels.on_host = False
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["settle_s"] = kernels.settle_s - settle0
+    out["held"] = kernels.summary("phase 16", (("b1", "outofcore create st_idx"),
+                                               ("b1", "outofcore filters"),
+                                               ("b5f", "outofcore create st_idx"),
+                                               ("b6", "outofcore create sz_idx"),
+                                               ("b6", "outofcore refresh sz_idx")))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"outofcore path [{card}]: all steps ran; launches {out['launches']}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -6257,6 +6641,8 @@ def main() -> int:
         phase("14")
         lkpath = lake_path(work, ctx, kernels, card)
         phase("15")
+        ocpath = outofcore_path(work, ctx, kernels, card)
+        phase("16")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -6287,8 +6673,9 @@ def main() -> int:
                                  for r in ("block", "binned", "global")})
 
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
-    lk_held = lkpath["held"]
-    late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"])
+    lk_held, oc_held = lkpath["held"], ocpath["held"]
+    late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
+            ocpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -6298,14 +6685,17 @@ def main() -> int:
         b7["launches_by_route"][r] += sum(counts[f"bloom_bits.build_{r}"] for counts in late)
     for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
         record["cases"] = (record.get("cases", 0) + lc_held[key] + rc_held[key]
-                           + hy_held.get(key, 0) + lk_held.get(key, 0))
-    b3a["cases"] += lk_held.get("b3a", 0)
+                           + hy_held.get(key, 0) + lk_held.get(key, 0)
+                           + oc_held.get(key, 0))
+    b3a["cases"] += lk_held.get("b3a", 0) + oc_held.get("b3a", 0)
     b1["phase_14_launches"] = hypath["launches"]["murmur3_bucket_ids"]
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b3a, "range_mask"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
                            (b7, "bloom_bits")):
         record["phase_15_launches"] = lkpath["launches"][kernel]
+        record["phase_16_launches"] = ocpath["launches"][kernel]
     b5f["lake_calls"] = lk_held.get("b5f", 0)
+    b5f["outofcore_calls"] = oc_held.get("b5f", 0)
     b1["phase_4_launches"] = ctx["launches"]
     b5f["lifecycle_capture_calls"] = lc_held["b5f"]
     b5f["recovery_calls"] = rc_held["b5f"]
@@ -6322,6 +6712,11 @@ def main() -> int:
     log(json.dumps({"sources": {k: lkpath[k] for k in (
         "seconds", "creates", "filters", "snapshot_ms", "refresh", "time_travel", "zrange",
         "iceberg", "formats", "bucket_files_equal_hs_idx", "held", "launches")},
+        "card": card}, default=str))
+    log(json.dumps({"outofcore": {k: ocpath[k] for k in (
+        "seconds", "budget_bytes", "first_file_bytes", "li_idx_write_peak_bytes", "st_idx",
+        "filters", "sz_idx", "zrange", "refresh", "analysis", "settle_s", "held",
+        "launches")},
         "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)

@@ -140,6 +140,17 @@ class Config:
         )
 
     @property
+    def build_memory_budget(self) -> int:
+        """Max bytes materialized per build wave (0 = unbounded)."""
+        return self.get_int(
+            C.INDEX_BUILD_MEMORY_BUDGET, C.INDEX_BUILD_MEMORY_BUDGET_DEFAULT
+        )
+
+    @property
+    def explain_display_mode(self) -> str:
+        return self.get_str(C.EXPLAIN_DISPLAY_MODE, C.EXPLAIN_DISPLAY_MODE_DEFAULT)
+
+    @property
     def build_partition_first(self) -> bool:
         """The pipelined partition-first build tail (the same bytes as the
         legacy route; False takes the legacy route)."""

@@ -81,6 +81,19 @@ INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = False  # IndexConstants.scala:56-57
 INDEX_BUILD_PARTITION_FIRST = "hyperspace.index.build.partitionFirst"
 INDEX_BUILD_PARTITION_FIRST_DEFAULT = True
 
+# Out-of-core build (indexes/covering_build._write_bucketed_streaming, the
+# z-order index's two-pass write): a source whose estimated materialized
+# size exceeds this many bytes is read in waves within it, each bucket's
+# (or z-range's) rows spilled to disk and merged at the end (0 = unbounded,
+# one in-memory pass). The reference gets disk-backed spill from Spark's
+# shuffle (covering/CoveringIndex.scala:58-61 repartition).
+INDEX_BUILD_MEMORY_BUDGET = "hyperspace.index.build.memoryBudgetBytes"
+INDEX_BUILD_MEMORY_BUDGET_DEFAULT = 0
+
+# Explain rendering (DisplayMode.scala: plaintext / console / html)
+EXPLAIN_DISPLAY_MODE = "hyperspace.explain.displayMode"
+EXPLAIN_DISPLAY_MODE_DEFAULT = "plaintext"
+
 # Lifecycle modes (Hyperspace.refreshIndex / optimizeIndex): optimize
 # compacts the files of a bucket below the size threshold (quick) or all
 # of them (full); refresh rebuilds (full), indexes the source's changes
@@ -209,7 +222,7 @@ HYPERSPACE_PINS_DIR = "_hyperspace_pins"
 # orphan GC's quarantine, underscore-prefixed like the log dir so data
 # scans never see it
 HYPERSPACE_QUARANTINE_DIR = "_hyperspace_quarantine"
-# the serve cache's spill tier under the system path (ROADMAP A.8); the
+# the serve cache's spill tier under the system path (ROADMAP A.8b); the
 # recovery plane reaps expired spill files and GC skips the directory
 HYPERSPACE_SPILL_DIR = "_hyperspace_spill"
 INDEX_VERSION_DIR_PREFIX = "v__"

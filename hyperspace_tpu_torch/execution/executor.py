@@ -65,7 +65,7 @@ takes the fused or metadata routes.
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
 by bucket; an aggregate's groups in key-rep order, on every route. Not
-ported yet: the serve cache and the streaming join serve (ROADMAP A.8).
+ported yet: the serve cache and the streaming join serve (ROADMAP A.8b).
 """
 
 from __future__ import annotations
@@ -748,7 +748,7 @@ def _prepare_delta(
     shuffle of appended data (CoveringIndexRuleUtils.
     transformPlanToShuffleUsingBucketSpec:357-417). The hashing and the
     split count as ``prepare`` in ``stats``. (The reference also caches
-    the parts by the delta's file fingerprint in its serve cache, A.8.)"""
+    the parts by the delta's file fingerprint in its serve cache, A.8b.)"""
     from hyperspace_tpu_torch.execution.join_exec import _stage_add
 
     appended = _exec(plan, set(read_cols), session).select(read_cols)

@@ -4,13 +4,12 @@ Reference: ``Hyperspace.scala:27-193`` and its Python binding
 (``python/hyperspace/hyperspace.py:9-192``). Counterpart of
 ``hyperspace_tpu/hyperspace.py`` for the ported slices: create, the
 lifecycle (delete, restore, vacuum, refresh, optimize, cancel, recover), list,
-one index's statistics and explain.
-Index maintenance runs with the query-rewrite rule disabled so
+one index's statistics, explain (verbose, in three display modes) and
+whyNot. Index maintenance runs with the query-rewrite rule disabled so
 maintenance scans never get rewritten to use the index being maintained
 (``ApplyHyperspace.withHyperspaceRuleDisabled``,
 rules/ApplyHyperspace.scala:68-75). ``recover`` repairs a crashed writer's
-leavings (``metadata/recovery.py``). Explain's verbose and mode arguments
-and whyNot come with the tooling (ROADMAP A.7).
+leavings (``metadata/recovery.py``).
 """
 
 from __future__ import annotations
@@ -107,8 +106,19 @@ class Hyperspace:
         """The latest stable log entry of ``index_name``, or None."""
         return self._manager.get_index_log_entry(index_name)
 
-    def explain(self, df) -> str:
-        """Plan diff with vs without Hyperspace (PlanAnalyzer.explainString)."""
+    def explain(self, df, verbose: bool = False, mode: Optional[str] = None) -> str:
+        """Plan diff with vs without Hyperspace (PlanAnalyzer.explainString).
+        ``mode``: plaintext (default) / console (ANSI highlight) / html;
+        None reads ``hyperspace.explain.displayMode``."""
         from hyperspace_tpu_torch.plananalysis.explain import explain_string
 
-        return explain_string(df, self.session)
+        return explain_string(df, self.session, self._manager, verbose, mode)
+
+    def why_not(
+        self, df, index_name: Optional[str] = None, extended: bool = False
+    ) -> str:
+        """Why indexes were not applied to df's plan
+        (CandidateIndexAnalyzer.whyNotIndexString:30-43)."""
+        from hyperspace_tpu_torch.plananalysis.why_not import why_not_string
+
+        return why_not_string(df, self.session, self._manager, index_name, extended)

@@ -18,18 +18,27 @@ The last two steps are the reference's pipelined partition-first tail
 ``write_bucket_files``). The bucket files are byte-identical to the
 reference's on either route: the same rows in the same order, written
 with the same encoding decision (computed once on the pre-sort input).
-The reference's mesh exchange and streaming waves under a memory budget
-are not ported yet (ROADMAP queue A items A.9 and A.8).
+
+A source whose estimated materialized size (parquet footers) exceeds
+``hyperspace.index.build.memoryBudgetBytes`` is never read whole:
+``create_covering_index`` hands back a lazy :class:`SourceScan` and
+``_write_bucketed_streaming`` reads it in waves within the budget, hashes
+and sorts each wave on the device, spills each bucket's run to disk and
+at the end merges each bucket's runs with a key sort on the device, so the
+device holds one wave, then one bucket. The files are the reference's
+streamed ones byte for byte. The reference's mesh exchange and its
+concurrent per-shard merges are not ported (ROADMAP A.9).
 
 Optimize and refresh (CoveringIndexTrait:32-135) run the same tail: an
 incremental refresh hashes and sorts the appended source files' rows, or,
 when source files were deleted, the previous index data minus the rows
 whose lineage id is among the deleted (``SourceScan.excluded_lineage_ids``)
-together with the appended rows; a full refresh rebuilds from the source;
-optimize rewrites the listed index files. Every input is materialized
-whole (the reference streams it beyond its memory budget, A.8).
+together with the appended rows, each side streamed past the budget; a
+full refresh rebuilds from the source; optimize rewrites the listed index
+files.
 
-Stage wall times of the latest build (scan / hash_shuffle / sort / write)
+Stage wall times of the latest build (scan / hash_shuffle / sort / write,
+and under a budget spill / merge with the counts waves / spill_files)
 land in ``session.build_stats``; the hash and sort stages include the
 transfers to and from the device.
 """
@@ -51,7 +60,11 @@ from hyperspace_tpu_torch.indexes.base import UpdateMode
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.ops.hash import bucket_ids
-from hyperspace_tpu_torch.ops.sort import bucket_sort_runs, partitioned_sort_permutation
+from hyperspace_tpu_torch.ops.sort import (
+    bucket_sort_runs,
+    partitioned_sort_permutation,
+    sort_permutation,
+)
 from hyperspace_tpu_torch.utils import resolver
 
 
@@ -90,20 +103,62 @@ def _scan_with_lineage(
 
 @dataclasses.dataclass
 class SourceScan:
-    """What the build reads: source files, projection and lineage ids."""
+    """Lazy build-side input: what to read, not the rows themselves.
+
+    Past ``hyperspace.index.build.memoryBudgetBytes`` the build keeps this
+    descriptor and ``write_bucketed`` reads it in waves instead of
+    materializing one batch (the role Spark's disk-backed shuffle plays
+    for the reference, covering/CoveringIndex.scala:58-61)."""
 
     files: Tuple[str, ...]
     fmt: str
     columns: Tuple[str, ...]  # projection to read
     file_ids: Optional[Dict[str, int]]  # lineage ids (None = lineage off)
     select_cols: Optional[Tuple[str, ...]] = None  # output column order
+    # per-file estimated materialized bytes, computed once at create time
+    # (footer parses are a round trip each on object stores)
+    file_sizes: Optional[Tuple[int, ...]] = None
     # rows whose stored lineage id is listed are dropped at materialize
     # time: a refresh's delete compensation over previous index data
     excluded_lineage_ids: Optional[Tuple[int, ...]] = None
 
-    def materialize(self) -> ColumnarBatch:
+    def empty_batch(self) -> ColumnarBatch:
+        """Zero-row batch with this scan's output structure. Parquet-family
+        sources read only the first file's footer schema; anything else
+        materializes one file and slices it to zero rows."""
+        if not self.files:
+            raise HyperspaceException("No source files to index")
+        if self.fmt in ("parquet", "delta", "iceberg"):
+            try:
+                import pyarrow.parquet as pq
+
+                t = pq.read_schema(self.files[0]).empty_table()
+                b = ColumnarBatch.from_arrow(t.select(list(self.columns)))
+                if self.file_ids is not None:
+                    b = b.with_column(
+                        DATA_FILE_NAME_ID,
+                        Column("numeric", pa.int64(), values=np.zeros(0, dtype=np.int64)),
+                    )
+                if self.select_cols is not None:
+                    b = b.select(list(self.select_cols))
+                return b
+            except (
+                OSError,
+                KeyError,
+                pa.ArrowInvalid,
+                pa.ArrowNotImplementedError,
+            ):  # nested/exotic schema or unreadable footer: pay the row read
+                pass
+        b = self.materialize(list(self.files[:1]))
+        return b.filter(np.zeros(b.num_rows, dtype=bool))
+
+    def materialize(self, files: Optional[Sequence[str]] = None) -> ColumnarBatch:
+        """The rows of ``files`` (all of the scan's by default), in order."""
         batch = _scan_with_lineage(
-            self.files, self.fmt, list(self.columns), self.file_ids
+            files if files is not None else self.files,
+            self.fmt,
+            list(self.columns),
+            self.file_ids,
         )
         if self.excluded_lineage_ids:
             lineage = batch.column(DATA_FILE_NAME_ID).values
@@ -118,30 +173,159 @@ class SourceScan:
     def select(self, cols: Sequence[str]) -> "SourceScan":
         return dataclasses.replace(self, select_cols=tuple(cols))
 
+    def stats_view(self, stat_cols: Sequence[str]) -> "SourceScan":
+        """A projection of this scan reading only ``stat_cols`` (plus the
+        lineage column when delete exclusion applies, so excluded rows do
+        not contribute to encoding statistics)."""
+        cols = tuple(stat_cols)
+        read = cols
+        if self.excluded_lineage_ids and DATA_FILE_NAME_ID not in read:
+            read = read + (DATA_FILE_NAME_ID,)
+        return dataclasses.replace(self, columns=read, file_ids=None, select_cols=cols)
 
-def materialize(ctx, scans: Sequence[SourceScan]) -> ColumnarBatch:
-    """The scans' rows as one batch, in order, their read timed as the
-    build stage ``scan``: the materialized branch of the reference's
-    ``lazy_or_materialized`` (covering_build.py:466; its streamed branch
-    past the build memory budget is A.8)."""
+    def estimated_bytes(self) -> int:
+        if self.file_sizes is not None:
+            return sum(self.file_sizes)
+        return estimated_materialized_bytes(self.files, self.fmt)
+
+
+@dataclasses.dataclass
+class CompositeScan:
+    """Several :class:`SourceScan` parts streamed as one input: a z-order
+    index's incremental refresh mixes appended source files (projection
+    and lineage attach) with previous index files (lineage-filtered for
+    deletes). Each keeps its own read semantics; wave planning and
+    materialization see one ordered file list. All parts select the same
+    output columns."""
+
+    scans: Tuple[SourceScan, ...]
+
+    @property
+    def files(self) -> Tuple[str, ...]:
+        return tuple(f for s in self.scans for f in s.files)
+
+    @property
+    def fmt(self) -> str:
+        return self.scans[0].fmt
+
+    @property
+    def file_sizes(self) -> Tuple[int, ...]:
+        out: List[int] = []
+        for s in self.scans:
+            out.extend(
+                s.file_sizes
+                if s.file_sizes is not None
+                else per_file_materialized_bytes(s.files, s.fmt)
+            )
+        return tuple(out)
+
+    def materialize(self, files: Optional[Sequence[str]] = None) -> ColumnarBatch:
+        wanted = set(self.files if files is None else files)
+        parts = []
+        # scans are ordered and wave file lists are contiguous slices of
+        # self.files, so per-scan grouping preserves global row order
+        for s in self.scans:
+            sub = [f for f in s.files if f in wanted]
+            if sub:
+                parts.append(s.materialize(sub))
+        if not parts:
+            raise HyperspaceException("No files to materialize")
+        return ColumnarBatch.concat(parts)
+
+    def empty_batch(self) -> ColumnarBatch:
+        return self.scans[0].empty_batch()
+
+    def select(self, cols: Sequence[str]) -> "CompositeScan":
+        return CompositeScan(tuple(s.select(cols) for s in self.scans))
+
+    def stats_view(self, stat_cols: Sequence[str]) -> "CompositeScan":
+        return CompositeScan(tuple(s.stats_view(stat_cols) for s in self.scans))
+
+    def estimated_bytes(self) -> int:
+        return sum(s.estimated_bytes() for s in self.scans)
+
+
+def per_file_materialized_bytes(files: Sequence[str], fmt: str) -> List[int]:
+    """Per-file rough in-memory size of every column: parquet's
+    uncompressed data size from the footers; other formats the on-disk
+    size times two."""
+    import os
+
+    if fmt in ("parquet", "delta", "iceberg"):
+        import pyarrow.parquet as pq
+
+        def uncompressed(p):
+            md = pq.ParquetFile(p).metadata
+            return sum(md.row_group(i).total_byte_size for i in range(md.num_row_groups))
+
+        return [uncompressed(f) for f in files]
+    return [os.path.getsize(f) * 2 for f in files]
+
+
+def estimated_materialized_bytes(files: Sequence[str], fmt: str) -> int:
+    return sum(per_file_materialized_bytes(files, fmt))
+
+
+def plan_waves(
+    files: Sequence[str],
+    fmt: str,
+    budget: int,
+    file_sizes: Optional[Sequence[int]] = None,
+) -> List[List[str]]:
+    """Greedy pack files into waves of estimated materialized size <=
+    ``budget`` (always at least one file per wave: a single file larger
+    than the budget still has to be read whole). ``file_sizes`` reuses
+    estimates computed at create time instead of re-parsing footers."""
+    if file_sizes is None:
+        file_sizes = per_file_materialized_bytes(files, fmt)
+    waves: List[List[str]] = []
+    cur: List[str] = []
+    cur_bytes = 0
+    for f, sz in zip(files, file_sizes):
+        if cur and cur_bytes + sz > budget:
+            waves.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(f)
+        cur_bytes += sz
+    if cur:
+        waves.append(cur)
+    return waves
+
+
+def lazy_or_materialized(ctx, scan):
+    """The build memory-budget rule, in one place: keep the scan lazy
+    (streamed at write time through the wave loop) when its estimated
+    materialized size exceeds ``hyperspace.index.build.memoryBudgetBytes``,
+    else materialize it now, timed as the build stage ``scan``. Takes a
+    SourceScan or a CompositeScan."""
+    budget = ctx.session.conf.build_memory_budget
+    if budget and scan.estimated_bytes() > budget:
+        return scan
     t0 = _time.perf_counter()
-    parts = [s.materialize() for s in scans]
-    out = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+    out = scan.materialize() if scan.files else scan.empty_batch()
     _stage_add(ctx, "scan", t0)
     return out
 
 
 def previous_index_scan(
-    previous_content, schema_cols: Sequence[str], deleted_source_file_ids
+    ctx, previous_content, schema_cols: Sequence[str], deleted_source_file_ids
 ) -> SourceScan:
-    """Scan of a previous index version's data files minus the rows of the
-    deleted source files (the refresh's delete compensation input)."""
+    """Lazy scan of a previous index version's data files minus the rows
+    of the deleted source files (the refresh's delete compensation input).
+    File sizes are computed once here when a budget is set."""
+    files = tuple(previous_content.files)
+    sizes = (
+        tuple(per_file_materialized_bytes(files, "parquet"))
+        if ctx.session.conf.build_memory_budget
+        else None
+    )
     return SourceScan(
-        files=tuple(previous_content.files),
+        files=files,
         fmt="parquet",
         columns=tuple(schema_cols),
         file_ids=None,
         select_cols=tuple(schema_cols),
+        file_sizes=sizes,
         excluded_lineage_ids=tuple(deleted_source_file_ids),
     )
 
@@ -196,8 +380,9 @@ def _single_relation(source_df):
 
 
 def prepare_covering_index(ctx, source_df, config, properties: Dict[str, str]):
-    """(CoveringIndex, SourceScan) — column resolution and lineage-id
-    registration, with no row read yet."""
+    """(CoveringIndex, lazy SourceScan) — column resolution and lineage-id
+    registration, with no row read yet (the z-order incremental refresh
+    composes the scan further before any row is read)."""
     from hyperspace_tpu_torch.indexes.covering import CoveringIndex
 
     ctx.session.build_stats.clear()
@@ -219,20 +404,24 @@ def prepare_covering_index(ctx, source_df, config, properties: Dict[str, str]):
         num_buckets=ctx.session.conf.num_buckets,
         properties=dict(properties),
     )
+    budget = ctx.session.conf.build_memory_budget
+    sizes = per_file_materialized_bytes(rel.files, rel.fmt) if budget else None
     scan = SourceScan(
         files=tuple(rel.files),
         fmt=rel.fmt,
         columns=tuple(indexed + included),
         file_ids=file_ids,
+        file_sizes=tuple(sizes) if sizes is not None else None,
     )
     return index, scan
 
 
 def create_covering_index(ctx, source_df, config, properties: Dict[str, str]):
-    """(CoveringIndex, index_data batch) — the reference's
+    """(CoveringIndex, index data): a batch, or past the build memory
+    budget a lazy SourceScan — the reference's
     ``CoveringIndexConfig.createIndex:43-61``."""
     index, scan = prepare_covering_index(ctx, source_df, config, properties)
-    return index, materialize(ctx, [scan])
+    return index, lazy_or_materialized(ctx, scan)
 
 
 def source_file_infos(session, plan_relation) -> List[Tuple[str, int, int]]:
@@ -285,7 +474,7 @@ def bucketize(ctx, batch: ColumnarBatch, indexed_cols: List[str], num_buckets: i
 
 def write_bucketed(
     ctx,
-    batch: ColumnarBatch,
+    data,
     indexed_cols: List[str],
     num_buckets: int,
     file_idx_offset: int = 0,
@@ -295,11 +484,21 @@ def write_bucketed(
     pipelined partition-first writer unless
     ``hyperspace.index.build.partitionFirst`` is off.
 
-    The parquet dictionary-encoding decision is computed ONCE, on the
-    pre-sort input, as the reference does, so the two routes write the
-    same bytes."""
+    ``data`` is a ColumnarBatch, a :class:`SourceScan` (streamed in waves
+    by ``_write_bucketed_streaming``), or a list mixing both (an
+    incremental refresh: the appended rows and the previous data kept).
+
+    The parquet dictionary-encoding decision of an in-memory build is
+    computed ONCE, on the pre-sort input, as the reference does, so the
+    two routes write the same bytes."""
     import os
 
+    sources = data if isinstance(data, list) else [data]
+    if any(isinstance(s, SourceScan) for s in sources):
+        return _write_bucketed_streaming(
+            ctx, sources, indexed_cols, num_buckets, file_idx_offset
+        )
+    batch = sources[0] if len(sources) == 1 else ColumnarBatch.concat(sources)
     if batch.num_rows == 0:
         os.makedirs(ctx.index_data_path, exist_ok=True)
         return []
@@ -374,6 +573,120 @@ def _write_bucketed_pipelined(
     return written
 
 
+def spill_root_for(index_data_path: str, tag: str = "") -> str:
+    """The spill directory of a streamed write into ``index_data_path``:
+    beside the ``v__=N`` directory, inside the index directory, named
+    ``_spill_<tag>v__<N>`` (no ``=`` in any spill path component: Arrow's
+    dataset reader would hive-infer a partition column from it)."""
+    import os
+
+    return os.path.join(
+        os.path.dirname(index_data_path),
+        "_spill_" + tag + os.path.basename(index_data_path).replace("=", "_"),
+    )
+
+
+def _spill_wave(ctx, batch, indexed_cols, num_buckets, spill_root, wave_idx,
+                bucket_parts) -> None:
+    """One wave of the streamed build: B1 and the bucket sort on the
+    device (``bucket_sort_runs``), then each bucket's key-sorted run
+    spilled to ``b<bucket>-w<wave>.parquet``. The wave's device tensors
+    die with this frame, before the next wave is read."""
+    import os
+
+    buckets, reps = _hash_shuffle(ctx, batch, indexed_cols, num_buckets)
+    t0 = _time.perf_counter()
+    perm, offsets = bucket_sort_runs(reps, buckets, num_buckets)
+    _stage_add(ctx, "sort", t0)
+    t0 = _time.perf_counter()
+    table = batch.to_arrow()
+    for b in range(num_buckets):
+        lo, hi = int(offsets[b]), int(offsets[b + 1])
+        if hi == lo:
+            continue
+        path = os.path.join(spill_root, f"b{b:05d}-w{wave_idx:05d}.parquet")
+        pio.write_table(path, table.take(pa.array(perm[lo:hi])))
+        bucket_parts.setdefault(b, []).append(path)
+    _stage_add(ctx, "spill", t0)
+
+
+def _merge_bucket(ctx, parts, b, indexed_cols, num_buckets, file_idx_offset) -> List[str]:
+    """A bucket's spilled runs read in wave order, key-sorted stably on the
+    device (ties keep wave order) and written as the bucket's file with the
+    encoding decision taken on the merged rows, as the reference does."""
+    merged = ColumnarBatch.from_arrow(pio.read_table(parts, None))
+    reps = torch.from_numpy(merged.key_reps(indexed_cols)).to(ctx.device)
+    perm = sort_permutation(reps).cpu().numpy()
+    merged = merged.take(perm)
+    return pio.write_bucket_files(
+        ctx.index_data_path,
+        np.full(merged.num_rows, b, dtype=np.int32),
+        merged,
+        num_buckets,
+        file_idx_offset,
+    )
+
+
+def _write_bucketed_streaming(
+    ctx,
+    sources,
+    indexed_cols: List[str],
+    num_buckets: int,
+    file_idx_offset: int = 0,
+) -> List[str]:
+    """The out-of-core wave loop (reference ``covering_build.py:962-1112``,
+    one process, one device). The device never holds more than one wave
+    (<= the budget) and, at merge time, one bucket:
+
+    1. **Waves**: each SourceScan's files packed into waves within the
+       budget (``plan_waves``; a batch among the sources is one wave); per
+       wave, B1 and the bucket sort on the device, and each bucket's run
+       spilled to ``_spill_v__<N>/b<bucket>-w<wave>.parquet``;
+    2. **Merge**: per bucket, ascending, its runs read in wave order,
+       key-sorted on the device, written as the bucket's file.
+
+    The spill directory is removed whatever happens. Stages: ``scan`` (the
+    wave reads), hash_shuffle and sort (the device), ``spill``, ``merge``;
+    counts ``waves`` and ``spill_files``."""
+    import os
+    import shutil
+
+    budget = ctx.session.conf.build_memory_budget or (1 << 62)
+    stats = ctx.session.build_stats
+    spill_root = spill_root_for(ctx.index_data_path)
+    os.makedirs(spill_root, exist_ok=True)
+    os.makedirs(ctx.index_data_path, exist_ok=True)
+    wave_idx = 0
+    bucket_parts: Dict[int, List[str]] = {}
+    try:
+        for src in sources:
+            waves = (
+                plan_waves(src.files, src.fmt, budget, src.file_sizes)
+                if isinstance(src, SourceScan)
+                else [None]
+            )
+            for w in waves:
+                t0 = _time.perf_counter()
+                batch = src if w is None else src.materialize(w)
+                _stage_add(ctx, "scan", t0)
+                if batch.num_rows:
+                    _spill_wave(ctx, batch, indexed_cols, num_buckets, spill_root,
+                                wave_idx, bucket_parts)
+                    wave_idx += 1
+                del batch
+        stats["waves"] = wave_idx
+        stats["spill_files"] = sum(len(p) for p in bucket_parts.values())
+        t0 = _time.perf_counter()
+        written: List[str] = []
+        for b in sorted(bucket_parts):
+            written.extend(_merge_bucket(ctx, bucket_parts[b], b, indexed_cols,
+                                         num_buckets, file_idx_offset))
+        _stage_add(ctx, "merge", t0)
+        return written
+    finally:
+        shutil.rmtree(spill_root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # Optimize / refresh data plane (CoveringIndexTrait:57-134)
 # ---------------------------------------------------------------------------
@@ -395,11 +708,10 @@ def refresh_scans(
     ctx, index, config, appended_df, deleted_source_file_ids, previous_content
 ):
     """The inputs of an incremental refresh of a covering-family index, as
-    scans of the index's columns (lineage last): the appended source files
-    resolved through ``config`` (their lineage ids registered in
-    ``ctx.file_id_tracker``) and, when
-    source files were deleted, the previous index data minus their rows.
-    Returns ``(scans, UpdateMode)``."""
+    lazy scans of the index's columns (lineage last): the appended source
+    files resolved through ``config`` (their lineage ids registered in
+    ``ctx.file_id_tracker``) and, when source files were deleted, the
+    previous index data minus their rows. Returns ``(scans, UpdateMode)``."""
     schema_cols = list(index.indexed_columns) + list(index.included_columns)
     if index.lineage_enabled:
         schema_cols.append(DATA_FILE_NAME_ID)
@@ -415,7 +727,7 @@ def refresh_scans(
                 "Cannot handle deleted source files without lineage"
             )
         scans.append(
-            previous_index_scan(previous_content, schema_cols, deleted_source_file_ids)
+            previous_index_scan(ctx, previous_content, schema_cols, deleted_source_file_ids)
         )
         return scans, UpdateMode.OVERWRITE
     return scans, UpdateMode.MERGE
@@ -427,21 +739,23 @@ def refresh_incremental(
     """CoveringIndexTrait.refreshIncremental:57-106: the appended source
     files' rows, and for deleted source files the previous index data
     minus their lineage ids, hashed, sorted and written into the new
-    version dir. Returns ``(index, UpdateMode.MERGE | OVERWRITE)``."""
+    version dir; each side past the build memory budget streams through
+    the wave loop. Returns ``(index, UpdateMode.MERGE | OVERWRITE)``."""
     ctx.session.build_stats.clear()
     scans, mode = refresh_scans(
         ctx, index, _config_of(index), appended_df, deleted_source_file_ids,
         previous_content,
     )
     if scans:
-        batch = materialize(ctx, scans)
-        write_bucketed(ctx, batch, index.indexed_columns, index.num_buckets)
+        parts = [lazy_or_materialized(ctx, s) for s in scans]
+        write_bucketed(ctx, parts, index.indexed_columns, index.num_buckets)
     return index, mode
 
 
 def refresh_full(ctx, index, df):
-    """Rebuild the whole index from the current source
-    (CoveringIndexTrait.refreshFull:108-126). Returns the REBUILT index:
+    """Rebuild the whole index from the current source, streamed past the
+    build memory budget (CoveringIndexTrait.refreshFull:108-126). Returns
+    the REBUILT index:
     its schema_json reflects the current source types, which may have
     changed since the original build."""
     new_index, batch = create_covering_index(

@@ -586,6 +586,15 @@ class IndexLogEntry(LogEntry):
     def get_tag(self, plan_key: Any, tag: str) -> Optional[Any]:
         return self._tags.get((plan_key, tag))
 
+    def unset_tag(self, plan_key: Any, tag: str) -> None:
+        self._tags.pop((plan_key, tag), None)
+
+    def collect_tag(self, tag: str) -> List[Tuple[Any, Any]]:
+        """All (plan_key, value) pairs recorded under ``tag``: the harvest
+        side of the whyNot analysis (CandidateIndexAnalyzer reads the
+        FILTER_REASONS tags written across plan nodes)."""
+        return [(k, v) for (k, t), v in self._tags.items() if t == tag]
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
         return {

@@ -31,7 +31,7 @@ wrote. This module repairs both:
 
 Everything is idempotent: a rollback loses races gracefully, a second GC
 finds nothing, healing rewrites the same bytes. The port has no spill
-tier yet (ROADMAP A.8), so :func:`reap_spill_orphans` treats every spill
+tier yet (ROADMAP A.8b), so :func:`reap_spill_orphans` treats every spill
 file as unindexed by a live cache.
 """
 
@@ -765,7 +765,7 @@ def reap_spill_orphans(
 
     * files a live in-process serve cache still indexes are never
       touched, mirroring the serve-pin exemption of :func:`gc_orphans`
-      (the port has no serve cache yet, ROADMAP A.8, so none is);
+      (the port has no serve cache yet, ROADMAP A.8b, so none is);
     * files younger than ``ttl_ms`` (``hyperspace.serve.spill\
 .orphanTtlMs``) are kept — a sibling process's cache may index them,
       and a freshly published file is by definition younger than its
@@ -783,7 +783,7 @@ def reap_spill_orphans(
     if not os.path.isdir(spill_dir):
         return report
     now = now_ms() if now is None else now
-    live: Set[str] = set()  # no serve cache indexes spill files yet (A.8)
+    live: Set[str] = set()  # no serve cache indexes spill files yet (A.8b)
     for name in sorted(os.listdir(spill_dir)):
         if not (name.endswith(".spill") or name.startswith(".tmp_spool_")):
             continue

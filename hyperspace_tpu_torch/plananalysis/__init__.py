@@ -1,1 +1,2 @@
-"""Plan analysis: explain and the filter-reason catalog."""
+"""Plan analysis: explain, whyNot, the filter-reason catalog, statistics and
+the min/max layout analysis."""

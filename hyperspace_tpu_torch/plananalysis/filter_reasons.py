@@ -16,6 +16,15 @@ class FilterReason:
     args: Tuple[Tuple[str, str], ...] = ()
     verbose: str = ""
 
+    @property
+    def arg_string(self) -> str:
+        return ", ".join(f"{k}={v}" for k, v in self.args)
+
+    def to_string(self, extended: bool = False) -> str:
+        if extended and self.verbose:
+            return f"[{self.code}] {self.verbose}"
+        return f"[{self.code}] {self.arg_string}"
+
 
 def col_schema_mismatch(index_cols: str, relation_cols: str) -> FilterReason:
     return FilterReason(
@@ -88,6 +97,18 @@ def not_eligible_join(reason: str) -> FilterReason:
         (("reason", reason),),
         "The join shape is not eligible for the join-index rewrite.",
     )
+
+
+def no_avail_join_index_pair(side: str) -> FilterReason:
+    return FilterReason(
+        "NO_AVAIL_JOIN_INDEX_PAIR",
+        (("child", side),),
+        "No compatible index pair covers both join sides.",
+    )
+
+
+def not_covering_filter(reason: str) -> FilterReason:
+    return FilterReason("NOT_APPLICABLE", (("reason", reason),), reason)
 
 
 def another_index_applied(applied: str) -> FilterReason:

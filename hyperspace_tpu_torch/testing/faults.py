@@ -32,7 +32,7 @@ version, a fallback that would hide the kernel. A kernel's fault in the
 port is raised (``kernels.KERNEL_FAULTS``, ROADMAP C.7), so arming
 ``kernel_dispatch`` raises :class:`HyperspaceException` (ROADMAP C.11).
 ``cache_insert`` and ``fastbus_send`` come with the serve cache and the
-fleet (ROADMAP A.8, A.10).
+fleet (ROADMAP A.8b, A.10).
 
 **Crash points** (``hyperspace.faults.crash.<point>``) are named places
 inside every action where a writer can die mid-protocol, leaving a
@@ -63,7 +63,7 @@ crash point               armed site
 ========================  ====================================================
 
 The reference's ``mid_querylog_rotate`` and ``mid_spill_write`` come with
-their modules (ROADMAP A.10, A.8). A crash point is one-shot in ``raise``
+their modules (ROADMAP A.10, A.8b). A crash point is one-shot in ``raise``
 mode: it disarms itself when it fires, so the recovery and retry that
 follow run clean. :class:`SimulatedCrash` is a ``BaseException``: no
 ``except Exception`` cleanup may swallow it, as a real crash would not

@@ -906,3 +906,57 @@ def test_delta_filter_and_time_travel_on_the_card_equal_a_cpu_session(cuda_devic
     for version in (None, 0):
         for k in keys:
             assert rows[("cuda", version, k)].equals(rows[("cpu", version, k)])
+
+
+def test_streamed_build_holds_each_wave_b1_to_the_plain_version(cuda_device, tmp_path):
+    """A budgeted create on the card reads its 6 files in 3 waves of 2:
+    each wave's B1 call equals the plain version on the same reps, and the
+    bucket files equal those of the same streamed build through a
+    ``device="cpu"`` session byte for byte."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch.indexes import covering_build as CB
+
+    rng = np.random.default_rng(16)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(6):
+        pq.write_table(pa.table({"k": rng.integers(0, 100_000, 20_000),
+                                 "s": rng.choice(["a", "b", "c"], 20_000),
+                                 "v": rng.normal(size=20_000)}), str(src / f"p{i}.parquet"))
+    paths = sorted(str(p) for p in src.iterdir())
+    budget = int(CB.estimated_materialized_bytes(paths[:1], "parquet") * 2.5)
+    calls = []
+    real = H.bucket_ids_kernel
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    H.bucket_ids_kernel = recording
+    try:
+        files = {}
+        for device in (cuda_device, "cpu"):
+            s = HyperspaceSession(device=device)
+            s.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+            s.conf.set("hyperspace.index.num_buckets", 16)
+            s.conf.set("hyperspace.index.build.memoryBudgetBytes", budget)
+            ops.reset_launch_counts()
+            Hyperspace(s).create_index(s.read.parquet(str(src)),
+                                       CoveringIndexConfig("st", ["k"], ["s", "v"]))
+            assert s.build_stats["waves"] == 3 and s.build_stats["spill_files"] == 48
+            if s.device.type == "cuda":
+                # the three waves, then the capture's calls, if any
+                assert ops.launch_counts()["murmur3_bucket_ids"] >= 3
+            files[s.device.type] = index_files(str(tmp_path / str(device) / "st"))
+    finally:
+        H.bucket_ids_kernel = real
+    wave_calls = [c for c in calls if c[0][0].shape == (1, 40_000)]
+    assert len(wave_calls) == 3
+    for args, out in wave_calls:
+        assert torch.equal(out, H.bucket_ids_torch(*args))
+    assert files["cuda"] == files["cpu"]
+    assert sum(1 for f in files["cuda"] if f.endswith(".parquet")) >= 16

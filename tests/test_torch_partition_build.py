@@ -13,9 +13,10 @@ thread leaves the same data files in both packages: in raise mode every
 bucket but the crashed one (the buckets queued behind it still land), in
 exit mode, in a child interpreter of each package, those before it.
 
-The reference's streaming-spill and native-leg cases wait for the
-out-of-core build (ROADMAP A.8): the port has no build memory budget and
-no native host kernels.
+The reference's streaming-spill case runs in
+``tests/test_torch_streaming_build.py`` with the other budgeted builds;
+its native-leg case has no counterpart (the port has no native host
+kernels).
 """
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
