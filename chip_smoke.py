@@ -381,6 +381,28 @@ against its plain PyTorch version on the card:
    and B5f call is recorded (``KernelCalls``, as CPU copies, so that no
    record holds device memory) and held bit-equal to its plain version.
 
+17. out-of-core serve and caches (``ooserve_path``): a session of its own
+   over phase 4's system path (li_idx and o_idx, built again with their
+   configs if an earlier phase took them away): (1) phase 5's orders ⋈
+   lineitem on the materializing route, then streamed
+   (``hyperspace.serve.stream.enabled``) at a wave budget of an eighth of
+   both sides' footer estimate (about 8 waves, at least 4 required), at
+   the default 256 MiB (one wave), and at the small budget with
+   ``hyperspace.io.mmap.enabled``: each run's rows equal the materializing
+   route's in order, one B4 call a wave; waves, buckets, stage
+   seconds and each run's peak device bytes logged; (2) with
+   ``hyperspace.serve.cache.enabled``: phase 4's 36 filters cache off,
+   cold and warm (rows equal in order to the cache-off route's, B3a on the
+   warm residual masks), the join cache off (3 runs), cold and warm from
+   its ``joinside`` entries (3 runs), f1 over the cached scan (B5f) the
+   same way; p50s and ``cache.stats()`` logged; (3) the spill tier: the
+   cache capped at the larger join side, a 4 GiB spill cap, the join
+   twice (the first demotes, the second restores, rows equal); between
+   the two, ``hs.recover`` with the cache alive keeps the live spill files
+   (``kept_live``). Every B4, B3a and B5f call is recorded (as CPU copies)
+   and held equal to its plain version: B4's pair lists in order, B3a's
+   masks and B5f's states bit for bit. An ``ooserve`` JSON line.
+
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -401,8 +423,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14, 15 and 16 and read just after each; each kernel's count
-in the JSON line adds phases 12, 13, 14, 15 and 16's. The kernel checks' launches are not counted as
+11, 12, 13, 14, 15, 16 and 17 and read just after each; each kernel's
+count in the JSON line adds phases 12, 13, 14, 15, 16 and 17's. The kernel checks' launches are not counted as
 the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -3365,6 +3387,18 @@ class KernelCalls:
         elif not on and self._b3a is not None:
             F.range_mask_kernel, self._b3a = self._b3a, None
 
+    def record_b4(self, on: bool) -> None:
+        """Replace B4's wrapper by a recording one (``on``, phase 17; the
+        earlier phases hold B4 through ``B4Inputs``), or put it back."""
+        from hyperspace_tpu_torch.ops import join as J
+
+        if on and getattr(self, "_b4", None) is None:
+            self._b4 = J.match_pairs_kernel
+            self.plain["b4"] = J.match_pairs_torch
+            J.match_pairs_kernel = self._recording(self._b4, "b4")
+        elif not on and getattr(self, "_b4", None) is not None:
+            J.match_pairs_kernel, self._b4 = self._b4, None
+
     def settle(self) -> list:
         """Hold every kept call against its plain version (the first that
         differs raises), count it and its rows under its kind and label,
@@ -3381,6 +3415,9 @@ class KernelCalls:
             if kind == "b3a":  # a mask: exact in any order, held on the card
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].n
+            elif kind == "b4":  # (li, ri) pair lists: equal in order
+                ok = all(torch.equal(a, b) for a, b in zip(out, plain(*args)))
+                rows = args[0].shape[0] + args[2].shape[0]
             elif kind != "b5f":
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].shape[-1]
@@ -6495,6 +6532,316 @@ def outofcore_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     return out
 
 
+#: phase 17's timed runs a route (after a warm-up where the route has one)
+OS_RUNS = 3
+#: phase 17's streamed join: about this many waves at its small budget
+OS_WAVES = 8
+
+
+def os_join_plan(sess, ctx):
+    """Phase 5's orders ⋈ lineitem over ``sess``."""
+    orders, items = sess.read.parquet(ctx["orders_src"]), sess.read.parquet(ctx["src"])
+    return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+        "o_orderkey", "o_custkey", "l_quantity")
+
+
+def os_timed(c: dict, label: str, fn, runs: int = OS_RUNS) -> tuple:
+    """``fn()`` ``runs`` times under kernel label ``label``: (the rows of
+    the first run, each later run's rows equal in order to it, ms a run);
+    the kept kernel calls held after the runs."""
+    import torch
+
+    kernels = c["kernels"]
+    kernels.label = label
+    times, got = [], None
+    try:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got is None:
+                got = out
+            elif not out.equals(got):
+                raise AssertionError(f"{label}: rows differ between runs")
+    finally:
+        kernels.label = None
+    kernels.settle()
+    return got, times
+
+
+def os_join_peak(c: dict, label: str) -> tuple:
+    """One run of the join under ``label``: (rows, its peak device bytes less
+    the bytes allocated at the reset just before it, seconds, B4 calls
+    held)."""
+    import torch
+
+    kernels = c["kernels"]
+    kernels.label = label
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = os_join_plan(c["sess"], c["ctx"]).collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        kernels.label = None
+    held = kernels.settle()
+    return got, peak, secs, sum(1 for call in held if call[0] == "b4")
+
+
+def os_keys_h2d_ms(cache) -> float:
+    """The host-to-device copy of both cached join sides' combined keys,
+    as a warm join makes it (``torch.from_numpy(...).to("cuda")``): the
+    median ms of 5, host clock around a synchronised copy."""
+    import torch
+
+    keys = [v.combined for k, (v, _nb) in cache._entries.items() if k[0] == "joinside"]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in keys:
+            torch.from_numpy(k).to("cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def os_stream(c: dict, want, budget: int, mmap: bool, label: str) -> dict:
+    """The streamed join at wave budget ``budget``: rows equal in order to
+    the materializing route's ``want``; its waves, buckets, stage seconds,
+    B4 launches and peak device bytes."""
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.execution import executor as X
+
+    sess = c["sess"]
+    sess.conf.set("hyperspace.serve.stream.enabled", True)
+    sess.conf.set("hyperspace.serve.stream.maxBytes", budget)
+    sess.conf.set("hyperspace.io.mmap.enabled", mmap)
+    try:
+        before = ops.launch_counts()["bucket_match_pairs"]
+        got, peak, secs, b4_calls = os_join_peak(c, label)
+        b4 = ops.launch_counts()["bucket_match_pairs"] - before
+        stats, stages = dict(X.last_stream_stats), dict(sess.join_stats)
+    finally:
+        sess.conf.set("hyperspace.serve.stream.enabled", False)
+        sess.conf.set("hyperspace.io.mmap.enabled", False)
+    if not got.equals(want):
+        raise AssertionError(f"{label}: rows differ from the materializing route's")
+    if b4_calls != stats["stream_waves"] or b4 < b4_calls:
+        raise AssertionError(f"{label}: {b4_calls} B4 calls ({b4} launches) for "
+                             f"{stats['stream_waves']} waves")
+    out = {"budget_bytes": budget, "mmap": mmap, "seconds": secs, "peak_device_bytes": peak,
+           "waves": stats["stream_waves"], "buckets": stats["stream_buckets"],
+           "b4_calls": b4_calls, "b4_launches": b4, "stages_s": stages}
+    log(f"ooserve path [{c['card']}]: {label}: {stats['stream_waves']} waves over "
+        f"{stats['stream_buckets']} buckets (budget {budget:,} bytes, mmap {mmap}) in "
+        f"{secs:.3f}s, B4 calls {b4_calls} (launches {b4}: count, scan and emit passes), "
+        f"peak device bytes {peak:,}; stages s "
+        f"{ {k: round(v, 4) for k, v in stages.items()} }; rows equal in order to the "
+        f"materializing route's")
+    return out
+
+
+def os_filters(c: dict) -> dict:
+    """Phase 4's 36 filters over li_idx with the cache off, then on (cold,
+    warm): each cache-on run's rows equal the cache-off route's in order;
+    p50s and the cache's counters."""
+    sess, cache_key = c["sess"], "hyperspace.serve.cache.enabled"
+    plans = hy_filters(sess.read.parquet(c["ctx"]["src"]))
+    for q in plans:
+        if "Name: li_idx" not in c["hs"].explain(q).split("Plan without indexes:")[0]:
+            raise AssertionError("a filter not served by li_idx")
+    out = {}
+    got = {}
+    for step, on in (("off", False), ("cold", True), ("warm", True)):
+        sess.conf.set(cache_key, on)
+        sess.exec_stats.reset()
+        times, rows = [], []
+        c["kernels"].label = f"ooserve filters {step}"
+        try:
+            for q in plans:
+                t0 = time.perf_counter()
+                rows.append(q.collect())
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            c["kernels"].label = None
+        c["kernels"].settle()
+        got[step] = rows
+        st = sess.exec_stats.as_dict()
+        out[step] = {"p50_ms": float(np.median(times)), "p99_ms": float(np.percentile(times, 99)),
+                     "fused_range_masks": st["fused_range_masks"],
+                     "device_filter_evals": st["device_filter_evals"]}
+    for step in ("cold", "warm"):
+        for i, (a, b) in enumerate(zip(got[step], got["off"])):
+            if not a.equals(b):
+                raise AssertionError(f"filter {i} ({step} cache): rows differ from the "
+                                     f"cache-off route's")
+    out["stats"] = c["sess"].serve_cache.stats()
+    if (out["stats"]["hits"] < len(plans)
+            or not out["warm"]["fused_range_masks"] > 0):
+        raise AssertionError(f"warm filters did not hit the cache through B3a: {out}")
+    log(f"ooserve path [{c['card']}]: 36 filters over li_idx, p50_ms cache off "
+        f"{out['off']['p50_ms']:.3f}, cold {out['cold']['p50_ms']:.3f}, warm "
+        f"{out['warm']['p50_ms']:.3f} (p99 {out['off']['p99_ms']:.3f} / "
+        f"{out['cold']['p99_ms']:.3f} / {out['warm']['p99_ms']:.3f}); warm fused range masks "
+        f"(B3a) {out['warm']['fused_range_masks']}, general device masks "
+        f"{out['warm']['device_filter_evals']}; rows equal in order to the cache-off route's; "
+        f"cache {out['stats']}")
+    return out
+
+
+def ooserve_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 17: the out-of-core serve and the serve cache (module
+    docstring, item 17). Launch counts read from 0 at its start."""
+    import torch
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch import functions as F
+
+    t_phase = time.perf_counter()
+    sess = HyperspaceSession()
+    sess.conf.set("hyperspace.system.path", ctx["session"].conf.get("hyperspace.system.path"))
+    sess.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+    hs = Hyperspace(sess)
+    names = set(hs.indexes().column("name").to_pylist())
+    for name, src, config in (
+            ("li_idx", ctx["src"], ("l_orderkey", "l_shipdate", "l_quantity")),
+            ("o_idx", ctx["orders_src"], ("o_orderkey", "o_custkey", "o_totalprice"))):
+        if name not in names:  # an earlier phase took it away: build it again
+            hs.create_index(sess.read.parquet(src),
+                            CoveringIndexConfig(name, [config[0]], list(config[1:])))
+            log(f"ooserve path [{card}]: built {name} again")
+    sess.enable_hyperspace()
+    index_served(hs, os_join_plan(sess, ctx), ("o_idx", "li_idx"))
+    c = {"sess": sess, "hs": hs, "kernels": kernels, "card": card, "ctx": ctx}
+    out = {}
+    kernels.on_host = True  # recorded tensors must not hold device memory
+    kernels.record_b3a(True)
+    kernels.record_b4(True)
+    settle0 = kernels.settle_s
+    ops.reset_launch_counts()
+    try:
+        # (1) the streamed join against the materializing route
+        want, mat_peak, mat_s, _ = os_join_peak(c, "ooserve join materializing")
+        est = (N_ROWS + N_ORDERS) * 2 * 8  # footer rows x 2 columns x 8 bytes, both sides
+        small = est // OS_WAVES + 1
+        out["materializing"] = {"seconds": mat_s, "peak_device_bytes": mat_peak,
+                                "stages_s": dict(sess.join_stats)}
+        out["stream_small"] = os_stream(c, want, small, False, "ooserve join streamed")
+        out["stream_default"] = os_stream(c, want, 256 << 20, False,
+                                          "ooserve join streamed default")
+        out["stream_mmap"] = os_stream(c, want, small, True, "ooserve join streamed mmap")
+        if out["stream_small"]["waves"] < 4 or out["stream_mmap"]["waves"] < 4:
+            raise AssertionError(f"the streamed join ran in fewer than 4 waves: {out}")
+        log(f"ooserve path [{card}]: join peak device bytes: materializing {mat_peak:,} "
+            f"({mat_s:.3f}s), {out['stream_small']['waves']} waves "
+            f"{out['stream_small']['peak_device_bytes']:,}, one wave "
+            f"{out['stream_default']['peak_device_bytes']:,}")
+        # (2) the serve cache: filters, the join, f1
+        out["filters"] = os_filters(c)
+        sess.conf.set("hyperspace.serve.cache.enabled", False)
+        _, off_ms = os_timed(c, "ooserve join cache off", lambda: os_join_plan(sess, ctx).collect())
+        sess.conf.set("hyperspace.serve.cache.enabled", True)
+        cold, cold_ms = os_timed(c, "ooserve join cold", lambda: os_join_plan(sess, ctx).collect(),
+                                 runs=1)
+        hits0 = sess.serve_cache.hits
+        warm, warm_ms = os_timed(c, "ooserve join warm", lambda: os_join_plan(sess, ctx).collect())
+        warm_stages = dict(sess.join_stats)
+        if not (cold.equals(want) and warm.equals(want)):
+            raise AssertionError("the cached join's rows differ from the cache-off route's")
+        if sess.serve_cache.hits - hits0 != 2 * OS_RUNS:
+            raise AssertionError("the warm joins did not take both sides from the cache")
+        out["join"] = {"off_p50_ms": float(np.median(off_ms)), "cold_ms": cold_ms[0],
+                       "warm_p50_ms": float(np.median(warm_ms)), "warm_stages_s": warm_stages,
+                       "joinside_bytes": sess.serve_cache.bytes_by_kind().get("joinside"),
+                       "keys_h2d_ms": os_keys_h2d_ms(sess.serve_cache)}
+        log(f"ooserve path [{card}]: join p50_ms cache off {out['join']['off_p50_ms']:.3f}, "
+            f"cold {cold_ms[0]:.3f}, warm {out['join']['warm_p50_ms']:.3f}; warm stages s "
+            f"{ {k: round(v, 4) for k, v in warm_stages.items()} }; joinside bytes "
+            f"{out['join']['joinside_bytes']:,}; the cached sides' combined keys to the card "
+            f"{out['join']['keys_h2d_ms']:.3f} ms (median of 5); rows equal in order")
+        f1 = aggregate_queries(F, sess.read.parquet(ctx["src"]))["a"]
+        sess.conf.set("hyperspace.serve.cache.enabled", False)
+        f_off, f_off_ms = os_timed(c, "ooserve f1 cache off", f1.collect)
+        sess.conf.set("hyperspace.serve.cache.enabled", True)
+        sess.exec_stats.reset()
+        f_cold, f_cold_ms = os_timed(c, "ooserve f1 cold", f1.collect, runs=1)
+        f_warm, f_warm_ms = os_timed(c, "ooserve f1 warm", f1.collect)
+        if not (f_cold.equals(f_off) and f_warm.equals(f_off)):
+            raise AssertionError("f1 over the cached scan differs from the cache-off route")
+        if sess.exec_stats.fused_aggregates != 1 + OS_RUNS:
+            raise AssertionError(f"f1 did not take the fused pass: {sess.exec_stats.as_dict()}")
+        from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+
+        out["f1"] = {"off_p50_ms": float(np.median(f_off_ms)), "cold_ms": f_cold_ms[0],
+                     "warm_p50_ms": float(np.median(f_warm_ms)),
+                     "warm_agg_stats_s": dict(sess.agg_stats),
+                     "warm_fused_stats": dict(PC.last_fused_stats),
+                     "stats": sess.serve_cache.stats()}
+        log(f"ooserve path [{card}]: f1 over the cached scan (B5f) p50_ms cache off "
+            f"{out['f1']['off_p50_ms']:.3f}, cold {f_cold_ms[0]:.3f}, warm "
+            f"{out['f1']['warm_p50_ms']:.3f}; the last warm run's stages s "
+            f"{ {k: round(v, 4) for k, v in out['f1']['warm_agg_stats_s'].items()} } and fused "
+            f"pass {out['f1']['warm_fused_stats']}; rows equal; cache {out['f1']['stats']}")
+        # (3) the spill tier: room for the larger join side only
+        side_bytes = {"+".join(k[2]): nb for k, (_v, nb) in sess.serve_cache._entries.items()
+                      if k[0] == "joinside"}
+        # above the larger side, below both together
+        cap = max(side_bytes.values()) + min(side_bytes.values()) // 2
+        sess.conf.set("hyperspace.serve.cache.maxBytes", cap)
+        sess.conf.set("hyperspace.serve.spill.maxBytes", 4 << 30)
+        sess.conf.set("hyperspace.serve.spill.orphanTtlMs", 1)
+        cache = sess.serve_cache  # a new, empty cache with a spill tier
+        spilled, report = [], None
+        for step in ("first", "second"):
+            got, ms = os_timed(c, f"ooserve join spill {step}",
+                               lambda: os_join_plan(sess, ctx).collect(), runs=1)
+            if not got.equals(want):
+                raise AssertionError(f"the spill tier's {step} join differs from the "
+                                     f"cache-off route")
+            spilled.append({"ms": ms[0], **cache.stats()})
+            if report is None:
+                # recover with the cache alive: its spill files stay (the
+                # second join restores from them), with a 1 ms orphan TTL
+                time.sleep(0.01)
+                live = len(cache.spill_paths())
+                report = hs.recover("li_idx")["spill_gc"]
+                if report["kept_live"] != live or live < 1:
+                    raise AssertionError(f"recover did not keep the live spill files: {report}")
+        if spilled[0]["spill_demotes"] < 1 or spilled[1]["spill_restores"] < 1:
+            raise AssertionError(f"the spill tier did not demote and restore: {spilled}")
+        out["spill"] = {"side_bytes": side_bytes, "max_bytes": cache.max_bytes, "runs": spilled,
+                        "recover_spill_gc": report}
+        log(f"ooserve path [{card}]: spill tier (cache cap {cache.max_bytes:,} bytes, sides "
+            f"{side_bytes}): first join {spilled[0]['ms']:.1f} ms, demotes "
+            f"{spilled[0]['spill_demotes']}; second {spilled[1]['ms']:.1f} ms, restores "
+            f"{spilled[1]['spill_restores']}, demotes {spilled[1]['spill_demotes']}; rows equal; "
+            f"recover's spill_gc {report}")
+        sess.clear_serve_cache()
+    finally:
+        kernels.label = None
+        kernels.record_b3a(False)
+        kernels.record_b4(False)
+        kernels.on_host = False
+        sess.conf.set("hyperspace.serve.cache.enabled", False)
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["settle_s"] = kernels.settle_s - settle0
+    out["held"] = kernels.summary("phase 17", (("b4", "ooserve join streamed"),
+                                               ("b4", "ooserve join warm"),
+                                               ("b3a", "ooserve filters warm"),
+                                               ("b5f", "ooserve f1 warm")))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"ooserve path [{card}]: all steps ran; launches {out['launches']}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -6643,6 +6990,8 @@ def main() -> int:
         phase("15")
         ocpath = outofcore_path(work, ctx, kernels, card)
         phase("16")
+        ospath = ooserve_path(work, ctx, kernels, card)
+        phase("17")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -6673,9 +7022,9 @@ def main() -> int:
                                  for r in ("block", "binned", "global")})
 
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
-    lk_held, oc_held = lkpath["held"], ocpath["held"]
+    lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
-            ocpath["launches"])
+            ocpath["launches"], ospath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -6686,8 +7035,13 @@ def main() -> int:
     for record, key in ((b1, "b1"), (b6, "b6"), (b7, "b7")):
         record["cases"] = (record.get("cases", 0) + lc_held[key] + rc_held[key]
                            + hy_held.get(key, 0) + lk_held.get(key, 0)
-                           + oc_held.get(key, 0))
-    b3a["cases"] += lk_held.get("b3a", 0) + oc_held.get("b3a", 0)
+                           + oc_held.get(key, 0) + os_held.get(key, 0))
+    b3a["cases"] += lk_held.get("b3a", 0) + oc_held.get("b3a", 0) + os_held.get("b3a", 0)
+    b4["cases"] += os_held.get("b4", 0)
+    b5f["cases"] += os_held.get("b5f", 0)
+    for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
+                           (b3a, "range_mask"), (b5f, "fused_filter_agg")):
+        record["phase_17_launches"] = ospath["launches"][kernel]
     b1["phase_14_launches"] = hypath["launches"]["murmur3_bucket_ids"]
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b3a, "range_mask"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -6717,6 +7071,10 @@ def main() -> int:
         "seconds", "budget_bytes", "first_file_bytes", "li_idx_write_peak_bytes", "st_idx",
         "filters", "sz_idx", "zrange", "refresh", "analysis", "settle_s", "held",
         "launches")},
+        "card": card}, default=str))
+    log(json.dumps({"ooserve": {k: ospath[k] for k in (
+        "seconds", "materializing", "stream_small", "stream_default", "stream_mmap", "filters",
+        "join", "f1", "spill", "settle_s", "held", "launches")},
         "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)

@@ -214,6 +214,39 @@ class Config:
         )
 
     @property
+    def serve_cache_enabled(self) -> bool:
+        return self.get_bool(C.SERVE_CACHE_ENABLED, C.SERVE_CACHE_ENABLED_DEFAULT)
+
+    @property
+    def serve_cache_max_bytes(self) -> int:
+        return self.get_int(C.SERVE_CACHE_MAX_BYTES, C.SERVE_CACHE_MAX_BYTES_DEFAULT)
+
+    @property
+    def serve_stream_enabled(self) -> bool:
+        """The streaming per-bucket join serve: prepared sides a wave of
+        buckets at a time; rows equal the materializing route's."""
+        return self.get_bool(C.SERVE_STREAM_ENABLED, C.SERVE_STREAM_ENABLED_DEFAULT)
+
+    @property
+    def serve_stream_max_bytes(self) -> int:
+        """Wave budget: estimated decoded bytes of the buckets in flight."""
+        return max(
+            1, self.get_int(C.SERVE_STREAM_MAX_BYTES, C.SERVE_STREAM_MAX_BYTES_DEFAULT)
+        )
+
+    @property
+    def serve_spill_max_bytes(self) -> int:
+        """The serve cache's on-disk spill tier byte cap (0 = spill off)."""
+        return max(
+            0, self.get_int(C.SERVE_SPILL_MAX_BYTES, C.SERVE_SPILL_MAX_BYTES_DEFAULT)
+        )
+
+    @property
+    def io_mmap_enabled(self) -> bool:
+        """Memory-mapped parquet reads (io/parquet.read_table)."""
+        return self.get_bool(C.IO_MMAP_ENABLED, C.IO_MMAP_ENABLED_DEFAULT)
+
+    @property
     def zorder_target_source_bytes_per_partition(self) -> int:
         return self.get_int(
             C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION,

@@ -189,6 +189,42 @@ SERVE_APPROX_MAX_REL_ERROR_DEFAULT = 0.05
 SERVE_FUSEDPIPELINE_ENABLED = "hyperspace.serve.fusedpipeline.enabled"
 SERVE_FUSEDPIPELINE_ENABLED_DEFAULT = True
 
+# Serve-server mode (execution/serve_cache.py): an opt-in cache of
+# decoded index data (scans, prepared join sides, zone maps, fused plans,
+# aggregate state) in host RAM between queries, keyed by the immutable
+# index file set, LRU-evicted by bytes.
+SERVE_CACHE_ENABLED = "hyperspace.serve.cache.enabled"
+SERVE_CACHE_ENABLED_DEFAULT = False
+SERVE_CACHE_MAX_BYTES = "hyperspace.serve.cache.maxBytes"
+SERVE_CACHE_MAX_BYTES_DEFAULT = 4 << 30  # 4 GiB
+
+# Streaming per-bucket join serve (executor._exec_join_streaming): the
+# co-bucketed join's prepared sides are read, prepared, matched (kernel B4)
+# and released a wave of buckets at a time instead of held whole. Rows
+# equal the materializing route's in order.
+SERVE_STREAM_ENABLED = "hyperspace.serve.stream.enabled"
+SERVE_STREAM_ENABLED_DEFAULT = False
+
+# Wave budget of the streaming join: the estimated decoded bytes of the
+# buckets of both sides in flight at once (footer row counts x projected
+# columns x 8). A bucket larger than the budget runs as a wave of its own.
+SERVE_STREAM_MAX_BYTES = "hyperspace.serve.stream.maxBytes"
+SERVE_STREAM_MAX_BYTES_DEFAULT = 256 << 20  # 256 MiB
+
+# Spill tier of the serve cache: evicted scans, bucketed batches, prepared
+# join sides and hybrid deltas are written to fsync'd files under
+# <system.path>/_hyperspace_spill/ and restored through mmap on the next
+# miss instead of being re-read from parquet. 0 = off. The byte cap bounds
+# the on-disk tier; the oldest files go first.
+SERVE_SPILL_MAX_BYTES = "hyperspace.serve.spill.maxBytes"
+SERVE_SPILL_MAX_BYTES_DEFAULT = 0
+
+# Memory-mapped parquet reads (io/parquet.read_table): pyarrow maps the
+# files instead of reading them onto the heap. Rows are the same either
+# way.
+IO_MMAP_ENABLED = "hyperspace.io.mmap.enabled"
+IO_MMAP_ENABLED_DEFAULT = False
+
 # Scanned rows at or above which the fused routes dispatch. The reference
 # calibrates this per machine and keeps this value as the fallback; the
 # port has no calibration probe (ROADMAP queue A item 10) and uses it as
@@ -222,8 +258,8 @@ HYPERSPACE_PINS_DIR = "_hyperspace_pins"
 # orphan GC's quarantine, underscore-prefixed like the log dir so data
 # scans never see it
 HYPERSPACE_QUARANTINE_DIR = "_hyperspace_quarantine"
-# the serve cache's spill tier under the system path (ROADMAP A.8b); the
-# recovery plane reaps expired spill files and GC skips the directory
+# the serve cache's spill tier under the system path; the recovery plane
+# reaps expired spill files no live cache indexes, and GC skips the directory
 HYPERSPACE_SPILL_DIR = "_hyperspace_spill"
 INDEX_VERSION_DIR_PREFIX = "v__"
 LATEST_STABLE_LOG_NAME = "latestStable"
@@ -284,7 +320,7 @@ RECOVERY_RETRY_BACKOFF_MS_DEFAULT = 10
 # it (ROADMAP A.10).
 FLEET_PIN_LEASE_MS_DEFAULT = 30_000
 
-# Age after which recovery's spill reaper deletes a spill file no live
-# cache indexes.
+# Age after which recovery's spill reaper deletes a spill file (or a torn
+# .tmp_spool_ temp) that no live serve cache in this process indexes.
 SERVE_SPILL_ORPHAN_TTL_MS = "hyperspace.serve.spill.orphanTtlMs"
 SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT = 10 * 60 * 1000

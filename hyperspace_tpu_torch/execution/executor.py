@@ -62,20 +62,35 @@ source files) reads the lineage column and drops those files' rows
 (NOT-IN), even when the query does not project the column. Neither shape
 takes the fused or metadata routes.
 
+With the serve cache on (``hyperspace.serve.cache.enabled``,
+``execution/serve_cache.py``) a clean index scan's decoded columns, a
+co-bucketed join's prepared sides, per-bucket batches and the Hybrid Scan
+delta stay in host RAM between queries, keyed by the fingerprint of their
+files: a cached filter narrows the cached rows by binary search over a
+key-sorted column and masks the rest (kernel B3a), a warm join matches
+the cached sides (kernel B4), and the fused aggregate folds the cached
+batch (kernel B5f). With the streaming join serve on
+(``hyperspace.serve.stream.enabled``) a co-bucketed join over clean index
+scans is read, prepared, matched and released a wave of buckets at a
+time, each wave packed under ``hyperspace.serve.stream.maxBytes``
+(``last_stream_stats`` counts the waves); its rows are the materializing
+route's. ``hyperspace.io.mmap.enabled`` maps the parquet files the serve
+reads.
+
 Rows come out in the reference's order: files in relation order, rows in
 file order, the mask applied in place; a co-bucketed join's rows bucket
-by bucket; an aggregate's groups in key-rep order, on every route. Not
-ported yet: the serve cache and the streaming join serve (ROADMAP A.8b).
+by bucket; an aggregate's groups in key-rep order, on every route.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache as _lru_cache
-from typing import Set
+from typing import Dict, Optional, Set
 
 import numpy as np
 import pyarrow as pa
@@ -120,6 +135,9 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
         child = _range_pruned_scan(child, plan.condition, session)
         child_needed = set(needed) | E.references(plan.condition)
         if isinstance(child, Scan):
+            cached = _cached_filter(child, plan.condition, child_needed, session)
+            if cached is not None:
+                return cached
             batch = _exec_scan(
                 child,
                 child_needed,
@@ -383,8 +401,15 @@ def _range_pruned_scan(plan: LogicalPlan, cond: E.Expr, session) -> LogicalPlan:
         return plan
     from hyperspace_tpu_torch.indexes import zonemaps
 
+    cache = _serve_cache(session)
     if isinstance(plan, Scan):
-        return zonemaps.prune_scan_relation(plan, cond)
+        if cache is not None and _cacheable_scan(plan.relation):
+            # the serve cache keeps whole decoded files keyed by the
+            # complete file set, shared across predicates and narrowed by
+            # binary search: pruning a cacheable scan would only split that
+            # entry into per-predicate file subsets
+            return plan
+        return zonemaps.prune_scan_relation(plan, cond, cache)
     if isinstance(plan, Project):
         child = _range_pruned_scan(plan.child, cond, session)
         return plan if child is plan.child else Project(plan.columns, child)
@@ -543,8 +568,194 @@ def _exec_scan(
             list(rel.files), list(rel.file_row_groups), read_cols, rel.fmt
         )
     else:
-        table = pio.read_table(list(rel.files), read_cols, rel.fmt, filters=pushdown)
+        table = pio.read_table(
+            list(rel.files), read_cols, rel.fmt, filters=pushdown,
+            memory_map=_io_mmap_on(session),
+        )
     return _drop_excluded(ColumnarBatch.from_arrow(table), rel).select(cols)
+
+
+# -- serve cache ---------------------------------------------------------------
+
+
+def _serve_cache(session):
+    """The session's ServeCache, or None when serve-server mode is off."""
+    return session.serve_cache
+
+
+def _serve_stream_on(session) -> bool:
+    """Streaming per-bucket join serve (``hyperspace.serve.stream.enabled``,
+    default off)."""
+    return session.conf.serve_stream_enabled
+
+
+def _io_mmap_on(session) -> bool:
+    """Memory-mapped parquet reads (``hyperspace.io.mmap.enabled``, default
+    off)."""
+    return session.conf.io_mmap_enabled
+
+
+# Wave counters of the LAST streamed join in this process, reset at the
+# start of each: ``stream_waves`` and ``stream_buckets``. Process-global and
+# last-writer-wins, as in the reference: concurrent streamed joins blur the
+# attribution, never the rows.
+last_stream_stats: Dict[str, int] = {}
+_stream_stats_lock = threading.Lock()
+
+
+def stream_stats_reset() -> None:
+    with _stream_stats_lock:
+        last_stream_stats.clear()
+
+
+def _stream_stats_add(key: str, amount: int = 1) -> None:
+    with _stream_stats_lock:
+        last_stream_stats[key] = last_stream_stats.get(key, 0) + amount
+
+
+def _scan_cache_entry(rel, needed: Set[str], session):
+    """(ScanCacheEntry, cols) of a clean index scan from the serve cache
+    (one entry a file set, columns accruing as queries need them), or None
+    when serve-server mode is off or the scan is not cacheable."""
+    cache = _serve_cache(session)
+    if cache is None or not _cacheable_scan(rel):
+        return None
+    from hyperspace_tpu_torch.execution.serve_cache import ScanCacheEntry, file_fingerprint
+
+    fp = file_fingerprint(rel.files)
+    if fp is None:
+        return None
+    cols = tuple(c for c in rel.column_names if c in needed) or (rel.column_names[0],)
+    key = ("scan", fp)
+    state = cache.get(key)
+    if state is None:
+        counts = pio.file_row_counts(list(rel.files))
+        segs = []
+        pos = 0
+        for c in counts:
+            segs.append((pos, pos + c))
+            pos += c
+        state = ScanCacheEntry(segs)
+    missing = [c for c in cols if c not in state.columns]
+    if missing:
+        table = pio.read_table(list(rel.files), missing, rel.fmt)
+        new_cols = {c: Column.from_arrow(table.column(c)) for c in missing}
+        # copy-on-write publication: never mutate an entry other threads
+        # may hold, and merge onto the FRESHEST published entry (a
+        # non-counting peek) so a racing thread's new columns survive; the
+        # union keeps this thread's stale-entry columns too, which the
+        # freshest entry may lack after an evict/recreate race, so the
+        # returned entry always covers ``cols``
+        latest = cache.peek(key)
+        base = latest if latest is not None else state
+        stale_extra = {c: col for c, col in state.columns.items() if c not in base.columns}
+        state = base.with_new_columns({**stale_extra, **new_cols})
+        cache.put(key, state, state.budget_nbytes)
+    return state, cols
+
+
+def _cached_filter(scan: Scan, cond: E.Expr, child_needed: Set[str], session):
+    """A Filter∘Scan served from the serve cache, or None when the cache is
+    off or the scan is not cacheable (the caller reads as usual). On a
+    key-sorted cached column a pinned-key or range conjunct narrows the
+    candidate rows by binary search before the whole predicate's mask
+    (``_filter_mask``, kernel B3a for range terms) runs over them."""
+    hit = _scan_cache_entry(scan.relation, child_needed, session)
+    if hit is None:
+        return None
+    state, cols = hit
+    batch = state.batch_for(cols)
+    idx = _sorted_narrow(state, cond, scan.relation)
+    if idx is not None:
+        sub = batch.take(idx)
+        return sub.filter(_filter_mask(cond, sub, session))
+    return batch.filter(_filter_mask(cond, batch, session))
+
+
+def _order_preserving(t: pa.DataType) -> bool:
+    """Key-rep order is value order: signed ints, temporals, bools (not
+    floats, whose reps are a sign-bit view, nor strings, hashed)."""
+    return pa.types.is_signed_integer(t) or pa.types.is_temporal(t) or pa.types.is_boolean(t)
+
+
+def _sorted_narrow(state, cond: E.Expr, rel) -> Optional[np.ndarray]:
+    """Candidate row indices (ascending) from the first conjunct that can
+    binary-search a segment-sorted cached column, else None.
+
+    The returned set is a SUPERSET of the rows the whole condition keeps
+    (the caller applies the full mask over it): equality and IN search by
+    key rep hold for every type (equal values have equal reps); range
+    conjuncts need rep order to be value order (``_order_preserving``)."""
+    cols = {c.lower(): c for c in rel.column_names}
+    for cj in E.split_conjuncts(cond):
+        col = None
+        pts = None  # key reps of = / IN
+        bound = None  # (op, rep) of a range conjunct
+        norm = E.normalize_comparison(cj)
+        if norm is not None:
+            op, name, lit = norm
+            col = cols.get(name.lower())
+            if col is None or lit is None:
+                continue
+            rep = _literal_key_rep(lit, rel.schema[col])
+            if rep is None:
+                continue
+            if op == "=":
+                pts = [rep]
+            elif op in ("<", "<=", ">", ">=") and _order_preserving(rel.schema[col]):
+                bound = (op, rep)
+            else:
+                continue
+        elif isinstance(cj, E.In) and isinstance(cj.child, E.Col):
+            col = cols.get(cj.child.name.lower())
+            if col is None:
+                continue
+            vals = [v for v in cj.values if v is not None]
+            if not vals or len(vals) > _MAX_PRUNE_COMBOS:
+                continue
+            pts = []
+            for v in vals:
+                rep = _literal_key_rep(v, rel.schema[col])
+                if rep is None:
+                    pts = None
+                    break
+                pts.append(rep)
+            if pts is None:
+                continue
+        else:
+            continue
+        if col not in state.columns:
+            continue
+        krep, sorted_ok = state.column_state(col)
+        if not sorted_ok:
+            continue
+        parts = []
+        for s, e in state.segments:
+            seg = krep[s:e]
+            if pts is not None:
+                for p in set(pts):
+                    a = int(np.searchsorted(seg, p, side="left"))
+                    b = int(np.searchsorted(seg, p, side="right"))
+                    if b > a:
+                        parts.append(np.arange(s + a, s + b, dtype=np.int64))
+            else:
+                op, rep = bound
+                if op == "<":
+                    a, b = 0, int(np.searchsorted(seg, rep, side="left"))
+                elif op == "<=":
+                    a, b = 0, int(np.searchsorted(seg, rep, side="right"))
+                elif op == ">":
+                    a, b = int(np.searchsorted(seg, rep, side="right")), e - s
+                else:  # >=
+                    a, b = int(np.searchsorted(seg, rep, side="left")), e - s
+                if b > a:
+                    parts.append(np.arange(s + a, s + b, dtype=np.int64))
+        if not parts:
+            return np.zeros(0, dtype=np.int64)
+        # ascending row order (IN points may interleave within a segment);
+        # the ranges are disjoint after the per-point dedup
+        return np.sort(np.concatenate(parts))
+    return None
 
 
 # -- joins ---------------------------------------------------------------------
@@ -582,42 +793,79 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
     # Shuffle-free co-bucketed join (the JoinIndexRule payoff; the
     # physical analogue of Spark SMJ over co-bucketed index scans with
     # no Exchange, JoinIndexRule.scala:619-634): equal buckets are
-    # matched pairwise by kernel B4.
+    # matched pairwise by kernel B4. Prepared sides are kept by the serve
+    # cache, so a warm join pays only the match and the assembly.
     session.exec_stats.co_bucketed_joins += 1
     _, l_bucket_cols, r_bucket_cols = layout
+    if _serve_stream_on(session):
+        # Out-of-core serve: buckets stream through in waves sized by
+        # hyperspace.serve.stream.maxBytes, each side's prepared state
+        # built, matched and released a wave at a time. None when either
+        # side's shape does not stream: the materializing route below runs.
+        streamed = _exec_join_streaming(plan, needed, session, layout, on, l_needed,
+                                        r_needed, stats)
+        if streamed is not None:
+            session.join_stats = stats
+            return streamed
     sides = (
         (plan.left, l_needed, l_keys, l_bucket_cols),
         (plan.right, r_needed, r_keys, r_bucket_cols),
     )
-    if _serve_pipeline_on(session) and all(_clean_index_scan(p) for p, _, _, _ in sides):
-        # Pipelined serve: both sides prepare concurrently, each into its
-        # own stats. Gated on both children being clean index scans or
-        # Hybrid Scan append unions of one: their reads share nothing,
-        # and the only device work is B1 over each side's appended rows
-        # (``_prepare_delta``), on the scan pool.
+    # Pipelined serve: both sides prepare concurrently, each into its own
+    # stats. Gated on both children being clean index-scan shapes, whose
+    # reads share nothing and whose only device work is B1 over a Hybrid
+    # Scan's appended rows (``_prepare_delta``, on the scan pool). A
+    # self-join whose sides resolve to the same serve-cache entry stays
+    # sequential: racing both sides past the shared miss would read and
+    # prepare twice what the second side gets from the first side's put.
+    rels_l = _joinside_cache_relations(plan.left)
+    rels_r = _joinside_cache_relations(plan.right)
+    same_cached_side = (
+        _serve_cache(session) is not None
+        and rels_l is not None
+        and rels_l == rels_r
+        and l_needed == r_needed
+        and l_keys == r_keys
+    )
+    if (
+        _serve_pipeline_on(session)
+        and rels_l is not None
+        and rels_r is not None
+        and not same_cached_side
+    ):
         side_stats = ({}, {})
         with ThreadPoolExecutor(max_workers=2, thread_name_prefix="hs-joinside") as pool:
             futs = [
-                pool.submit(_prepared_join_side, *side, session, st, True)
+                pool.submit(_prepared_join_side, *side, session, st)
                 for side, st in zip(sides, side_stats)
             ]
             lp, rp = (f.result() for f in futs)
-        for st in side_stats:
-            for k, v in st.items():
-                stats[k] = stats.get(k, 0.0) + v
+        _merge_stats(stats, side_stats)
     else:
-        lp, rp = (_prepared_join_side(*side, session, stats, False) for side in sides)
+        lp, rp = (_prepared_join_side(*side, session, stats) for side in sides)
     joined = None
     if lp is not None and rp is not None:
         joined = co_bucketed_join_prepared(lp, rp, on, session.device, stats)
     session.join_stats = stats
     if joined is not None:
         return joined
+    return _empty_join(plan, needed, l_keys, r_keys)
+
+
+def _empty_join(plan: Join, needed: Set[str], l_keys, r_keys) -> ColumnarBatch:
+    """The schema-correct empty result of a co-bucketed join."""
     schema = plan.schema()
     out_cols = [c for c in plan.output if c in (needed | set(l_keys) | set(r_keys))]
     return ColumnarBatch.from_arrow(
         pa.table({c: pa.array([], type=schema[c]) for c in out_cols})
     )
+
+
+def _merge_stats(stats: dict, parts) -> None:
+    """Add each side thread's stage seconds into the join's."""
+    for st in parts:
+        for k, v in st.items():
+            stats[k] = stats.get(k, 0.0) + v
 
 
 def _serve_pipeline_on(session) -> bool:
@@ -629,7 +877,9 @@ def _serve_pipeline_on(session) -> bool:
 def _cacheable_scan(rel) -> bool:
     """A clean index scan: index data in a parquet-like format with files
     to read, no row-level delete compensation and no injected partition
-    constants. The fused and metadata routes take only such scans."""
+    constants (both are query-shaped state that must not leak between
+    queries). The serve cache, the fused and the metadata routes take only
+    such scans."""
     return (
         rel.index_info is not None
         and rel.fmt in pio.PARQUET_FAMILY
@@ -639,11 +889,15 @@ def _cacheable_scan(rel) -> bool:
     )
 
 
-def _clean_index_scan(plan: LogicalPlan) -> bool:
-    """The shapes the pipelined join serve takes: a ``Project*`` chain over
-    a clean index scan, or over a Hybrid Scan append ``Union`` of such a
-    chain and a ``Project*`` chain over the appended parquet files. Delete
-    compensation (``excluded_file_ids``) stays on the sequential route."""
+def _joinside_cache_relations(plan: LogicalPlan):
+    """The relations whose file fingerprints key a cacheable prepared join
+    side, or None when the child's shape is not cacheable. Two shapes: a
+    ``Project*`` chain over a clean index scan, and a ``Project*`` chain
+    over a Hybrid Scan append ``Union`` of such a chain and a ``Project*``
+    chain over the appended parquet files (keyed on both file sets, so a
+    further append or a refresh changes the key). Delete compensation
+    (``excluded_file_ids``) breaks the shape. These are also the shapes the
+    pipelined join serve takes."""
 
     def walk(node):
         while isinstance(node, Project):
@@ -651,11 +905,11 @@ def _clean_index_scan(plan: LogicalPlan) -> bool:
         return node
 
     node = walk(plan)
-    if isinstance(node, Scan):
-        return _cacheable_scan(node.relation)
+    if isinstance(node, Scan) and _cacheable_scan(node.relation):
+        return [node.relation]
     if isinstance(node, Union):
         left, right = walk(node.left), walk(node.right)
-        return (
+        if (
             isinstance(left, Scan)
             and isinstance(right, Scan)
             and _cacheable_scan(left.relation)
@@ -663,41 +917,289 @@ def _clean_index_scan(plan: LogicalPlan) -> bool:
             and right.relation.excluded_file_ids is None
             and not right.relation.file_partition_values
             and bool(right.relation.files)
-        )
-    return False
+        ):
+            return [left.relation, right.relation]
+    return None
 
 
 def _prepared_join_side(
     plan: LogicalPlan, needed: Set[str], key_cols, bucket_cols, session, stats,
-    stream: bool,
 ):
     """A PreparedJoinSide for one co-bucketed join child, or None for an
-    empty side: the sequential ``_bucket_fetches`` + ``prepare_join_side``,
-    or with ``stream`` the per-bucket batches flowing straight into
-    ``prepare_join_side_pipelined``, so bucket *i*'s prepare runs while
-    the scan pool still reads bucket *i+1*."""
+    empty side. Served from the serve cache (``("joinside", fps, cols,
+    keys)``) when the child is a clean shape (``_joinside_cache_relations``).
+    Otherwise: with the pipelined serve on and a clean shape, the
+    per-bucket batches flow straight into ``prepare_join_side_pipelined``
+    (bucket *i*'s prepare runs while the scan pool still reads bucket
+    *i+1*); else the sequential ``_bucket_fetches`` + ``prepare_join_side``.
+    A side the cache will keep does not also cache its raw bucketed
+    batches: the prepared side holds the same decoded data."""
     from hyperspace_tpu_torch.execution.join_exec import (
         _stage_add,
         prepare_join_side,
         prepare_join_side_pipelined,
     )
 
+    cache = _serve_cache(session)
+    key = None
+    rels = _joinside_cache_relations(plan)
+    if cache is not None and rels is not None:
+        from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+
+        fps = tuple(file_fingerprint(r.files) for r in rels)
+        if None not in fps:
+            key = ("joinside", fps, tuple(sorted(needed)), tuple(key_cols))
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
     t0 = time.perf_counter()
-    if stream:
+    if _serve_pipeline_on(session) and rels is not None and (cache is None or key is not None):
         fetches = _bucket_fetches(plan, needed, session, True, bucket_cols, stats)
         _stage_add(stats, "scan", t0)
-        return prepare_join_side_pipelined(fetches, key_cols, stats)
-    delta: dict = {}
-    fetches = _bucket_fetches(plan, needed, session, False, bucket_cols, delta)
-    batches = {b: fetch() for b, fetch in fetches}
-    _stage_add(stats, "scan", t0)
-    # the appended rows' hashing ran inside this window: it is prepare
-    moved = delta.get("prepare", 0.0)
-    stats["scan"] -= moved
-    stats["prepare"] = stats.get("prepare", 0.0) + moved
-    if not batches:
+        prep = prepare_join_side_pipelined(fetches, key_cols, stats)
+    else:
+        delta: dict = {}
+        fetches = _bucket_fetches(plan, needed, session, False, bucket_cols, delta,
+                                  cache_scan=key is None)
+        batches = {b: fetch() for b, fetch in fetches}
+        _stage_add(stats, "scan", t0)
+        # the appended rows' hashing ran inside this window: it is prepare
+        moved = delta.get("prepare", 0.0)
+        stats["scan"] -= moved
+        stats["prepare"] = stats.get("prepare", 0.0) + moved
+        prep = prepare_join_side(batches, key_cols, stats) if batches else None
+    if prep is not None and key is not None:
+        prep.sort_perms = {}  # a kept side sorts once (bucket_sort_perm)
+        cache.put(key, prep, prep.nbytes)
+    return prep
+
+
+# -- the streaming join serve ----------------------------------------------------
+
+
+def _stream_side_probe(plan: LogicalPlan, needed: Set[str], session, bucket_cols):
+    """The wave-streamable decomposition of one join side, or None when its
+    shape does not stream (the caller takes the materializing route): a
+    ``Project*`` chain over a clean multi-file bucketed index scan,
+    optionally through one Hybrid Scan append ``Union`` whose appended
+    rows are split by bucket once up front (``_prepare_delta``; capped by
+    the Hybrid Scan ratio, so fixed residency across waves). Reads only
+    parquet footers: the per-bucket row counts seed the wave planner."""
+    sel_chain = []  # the Project selects, outermost first
+    node = plan
+    nd = set(needed)
+    while isinstance(node, Project):
+        cols = [c for c in node.columns if c in nd] or node.columns
+        sel_chain.append(cols)
+        nd = set(cols)
+        node = node.child
+    read_cols = None
+    delta_parts = None
+    inner_chain = []
+    if isinstance(node, Union):
+        cols = [c for c in node.output if c in nd] or node.output[:1]
+        read_cols = sorted(set(cols) | set(bucket_cols))
+        spec = _bucket_layout(node.left)
+        if spec is None:
+            return None
+        delta_parts = _prepare_delta(
+            node.right, read_cols, session, bucket_cols, spec[0], None, _serve_cache(session)
+        )
+        inner = node.left
+        nd = set(read_cols)
+        while isinstance(inner, Project):
+            cols = [c for c in inner.columns if c in nd] or inner.columns
+            inner_chain.append(cols)
+            nd = set(cols)
+            inner = inner.child
+        node = inner
+    if not isinstance(node, Scan):
         return None
-    return prepare_join_side(batches, key_cols, stats)
+    rel = node.relation
+    groups: dict = {}
+    for f, b in zip(rel.files, _bucket_ids_of_files(rel.files)):
+        groups.setdefault(b, []).append(f)
+    streamable = (
+        rel.fmt in pio.PARQUET_FAMILY
+        and rel.excluded_file_ids is None
+        and not rel.file_partition_values
+        and len(rel.files) > 1
+        and None not in groups
+    )
+    if not streamable:
+        return None
+    scan_cols = [c for c in rel.column_names if c in nd] or rel.column_names[:1]
+    all_files = [f for b in sorted(groups) for f in groups[b]]
+    rows_of = dict(zip(all_files, pio.file_row_counts(all_files)))
+    bucket_rows = {b: sum(rows_of[f] for f in groups[b]) for b in groups}
+    return {
+        "rel": rel,
+        "groups": groups,
+        "scan_cols": scan_cols,
+        "bucket_rows": bucket_rows,
+        "sel_chain": sel_chain,
+        "inner_chain": inner_chain,
+        "read_cols": read_cols,
+        "delta_parts": delta_parts,
+    }
+
+
+def _stream_side_bytes(state) -> Dict[int, int]:
+    """Estimated decoded bytes a bucket for the wave packing: footer row
+    counts x projected columns x 8 for the scan part (a planning estimate;
+    strings cost more, and the prepared side's reps and combined keys ride
+    on top), plus the real size of any delta part in the bucket."""
+    est = {b: r * len(state["scan_cols"]) * 8 for b, r in state["bucket_rows"].items()}
+    if state["delta_parts"]:
+        from hyperspace_tpu_torch.execution.serve_cache import batch_nbytes
+
+        for b, part in state["delta_parts"].items():
+            est[b] = est.get(b, 0) + batch_nbytes(part)
+    return est
+
+
+def _select_chain(batch: ColumnarBatch, chain) -> ColumnarBatch:
+    for cols in reversed(chain):
+        batch = batch.select([c for c in cols if c in batch.column_names])
+    return batch
+
+
+def _stream_wave_side(state, wave, session, stats):
+    """One wave of one side. The clean-scan shape gives ``(batch, buckets,
+    sizes)``: one read of the wave's files whose decoded table IS the
+    bucket-ordered concatenation, for ``prepare_join_side_contiguous``. The
+    Hybrid Scan ``Union`` shape gives a per-bucket dict: the index slices
+    merged with the delta parts, as ``_bucket_fetches``' Union merges
+    them."""
+    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+
+    groups = state["groups"]
+    rel = state["rel"]
+    in_scan = [b for b in wave if b in groups]
+    table = None
+    if in_scan:
+        files = [f for b in in_scan for f in groups[b]]
+        t0 = time.perf_counter()
+        table = pio.read_table(files, state["scan_cols"], rel.fmt,
+                               memory_map=_io_mmap_on(session))
+        _stage_add(stats, "scan", t0)
+    if state["read_cols"] is None:
+        # clean index scan: decode the wave's read once, select once
+        t0 = time.perf_counter()
+        batch = _select_chain(ColumnarBatch.from_arrow(table), state["sel_chain"])
+        _stage_add(stats, "prepare", t0)
+        return batch, in_scan, [state["bucket_rows"][b] for b in in_scan]
+    t0 = time.perf_counter()
+    out = {}
+    pos = 0
+    for b in in_scan:
+        c = state["bucket_rows"][b]
+        bb = _select_chain(ColumnarBatch.from_arrow(table.slice(pos, c)), state["inner_chain"])
+        pos += c
+        out[b] = bb.select(state["read_cols"])
+    for b in wave:
+        part = state["delta_parts"].get(b)
+        if part is not None:
+            out[b] = ColumnarBatch.concat([out[b], part]) if b in out else part
+    out = {b: _select_chain(bb, state["sel_chain"]) for b, bb in out.items()}
+    _stage_add(stats, "prepare", t0)
+    return out
+
+
+def _stream_wave_prepared(state, wave, key_cols, session, stats):
+    """PreparedJoinSide of one side's wave (None for an empty wave)."""
+    from hyperspace_tpu_torch.execution.join_exec import (
+        prepare_join_side,
+        prepare_join_side_contiguous,
+    )
+
+    side = _stream_wave_side(state, wave, session, stats)
+    if isinstance(side, dict):
+        return prepare_join_side(side, key_cols, stats) if side else None
+    batch, buckets, sizes = side
+    return prepare_join_side_contiguous(batch, tuple(buckets), sizes, key_cols, stats)
+
+
+def pack_waves(est: Dict[int, int], budget: int) -> list:
+    """Buckets in ascending order packed greedily into waves whose summed
+    estimate stays within ``budget``; a bucket over it is a wave alone."""
+    waves = []
+    cur: list = []
+    cur_bytes = 0
+    for b in sorted(est):
+        if cur and cur_bytes + est[b] > budget:
+            waves.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(b)
+        cur_bytes += est[b]
+    if cur:
+        waves.append(cur)
+    return waves
+
+
+def _exec_join_streaming(plan: Join, needed: Set[str], session, layout, on, l_needed,
+                         r_needed, stats):
+    """Streaming per-bucket join serve: the bucket is the unit of
+    residency. The buckets both sides hold are packed into WAVES whose
+    estimated decoded bytes across both sides fit
+    ``hyperspace.serve.stream.maxBytes`` (a bucket over the budget runs as
+    a wave of its own: correctness never depends on the estimate). Each
+    wave is read and prepared (the two sides on two threads), matched by
+    kernel B4 on the session's device and RELEASED before the next wave's
+    read, so the prepared state held at once is one wave's, not the
+    join's. Wave outputs concatenate in ascending bucket order: the
+    materializing route's rows in order (buckets are independent, and each
+    wave's null sentinels and sortedness are decided as for a whole side).
+    None when either side's shape does not stream. The serve cache's
+    joinside and bucketed entries are not used: streaming is for sides too
+    large to keep. A B4 fault inside a wave propagates (ROADMAP C.7)."""
+    from hyperspace_tpu_torch.execution.join_exec import _stage_add, co_bucketed_join_prepared
+
+    _, l_bucket_cols, r_bucket_cols = layout
+    l_state = _stream_side_probe(plan.left, l_needed, session, l_bucket_cols)
+    if l_state is None:
+        return None
+    r_state = _stream_side_probe(plan.right, r_needed, session, r_bucket_cols)
+    if r_state is None:
+        return None
+    stream_stats_reset()
+    l_keys = [l for l, _ in on]
+    r_keys = [r for _, r in on]
+    l_est = _stream_side_bytes(l_state)
+    r_est = _stream_side_bytes(r_state)
+    # only buckets on BOTH sides can give pairs; one-sided buckets are
+    # never read (the materializing route reads them and drops them)
+    common = sorted(set(l_est) & set(r_est))
+    waves = pack_waves({b: l_est[b] + r_est[b] for b in common},
+                       session.conf.serve_stream_max_bytes)
+    parts = []
+    if waves:
+        with ThreadPoolExecutor(max_workers=2, thread_name_prefix="hs-stream") as side_pool:
+            for wave in waves:
+                t0 = time.perf_counter()
+                side_stats = ({}, {})
+                fl = side_pool.submit(_stream_wave_prepared, l_state, wave, l_keys, session,
+                                      side_stats[0])
+                fr = side_pool.submit(_stream_wave_prepared, r_state, wave, r_keys, session,
+                                      side_stats[1])
+                lp, rp = fl.result(), fr.result()
+                _merge_stats(stats, side_stats)
+                joined = (
+                    co_bucketed_join_prepared(lp, rp, on, session.device, stats)
+                    if lp is not None and rp is not None
+                    else None
+                )
+                if joined is not None:
+                    parts.append(joined)
+                # the wave's prepared sides go here: the wave, not the join,
+                # is the high-water mark
+                lp = rp = None
+                _stream_stats_add("stream_waves")
+                _stream_stats_add("stream_buckets", len(wave))
+                _stage_add(stats, "stream_wave", t0)
+    if parts:
+        return ColumnarBatch.concat(parts)
+    return _empty_join(plan, needed, l_keys, r_keys)
 
 
 def _bucket_layout(plan: LogicalPlan):
@@ -739,7 +1241,7 @@ def _aligned_bucket_layouts(plan: Join, on):
 
 
 def _prepare_delta(
-    plan: LogicalPlan, read_cols, session, bucket_cols, num_buckets: int, stats
+    plan: LogicalPlan, read_cols, session, bucket_cols, num_buckets: int, stats, cache=None
 ):
     """Per-bucket parts of the Hybrid Scan appended-files delta: the
     appended source rows, hashed into the index's bucket layout by kernel
@@ -747,10 +1249,34 @@ def _prepare_delta(
     order: the execution-time equivalent of the reference's on-the-fly
     shuffle of appended data (CoveringIndexRuleUtils.
     transformPlanToShuffleUsingBucketSpec:357-417). The hashing and the
-    split count as ``prepare`` in ``stats``. (The reference also caches
-    the parts by the delta's file fingerprint in its serve cache, A.8b.)"""
+    split count as ``prepare`` in ``stats``.
+
+    With a serve ``cache`` (the pipelined and streamed routes pass the
+    session's) the parts are kept under the delta's FILE FINGERPRINT (with
+    the columns, bucket columns and bucket count): appended source files
+    are immutable once written and a further append changes the file set,
+    so repeated Hybrid Scan joins pay only the per-bucket merge."""
     from hyperspace_tpu_torch.execution.join_exec import _stage_add
 
+    key = None
+    if cache is not None:
+        node = plan
+        while isinstance(node, Project):
+            node = node.child
+        if (
+            isinstance(node, Scan)
+            and node.relation.excluded_file_ids is None
+            and not node.relation.file_partition_values
+            and node.relation.files
+        ):
+            from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+
+            fp = file_fingerprint(node.relation.files)
+            if fp is not None:
+                key = ("delta", fp, tuple(read_cols), tuple(bucket_cols), num_buckets)
+                hit = cache.get(key)
+                if hit is not None:
+                    return hit
     appended = _exec(plan, set(read_cols), session).select(read_cols)
     t0 = time.perf_counter()
     parts = {}
@@ -760,11 +1286,16 @@ def _prepare_delta(
         for b in np.unique(bids):
             parts[int(b)] = appended.filter(bids == b)
     _stage_add(stats, "prepare", t0)
+    if key is not None:
+        from hyperspace_tpu_torch.execution.serve_cache import batch_nbytes
+
+        cache.put(key, dict(parts), sum(batch_nbytes(p) for p in parts.values()))
     return parts
 
 
 def _bucket_fetches(
-    plan: LogicalPlan, needed: Set[str], session, stream: bool, bucket_cols, stats
+    plan: LogicalPlan, needed: Set[str], session, stream: bool, bucket_cols, stats,
+    cache_scan: bool = True,
 ):
     """Execute a linear subtree over a bucketed index scan into ordered
     ``[(bucket, fetch)]`` pairs, ``fetch()`` giving the bucket's batch:
@@ -776,7 +1307,11 @@ def _bucket_fetches(
     appended part (``_prepare_delta``) follows its index rows, and a
     bucket only the appended rows reach comes in bucket order; streamed,
     the delta prepares on the scan pool while the index side reads. The
-    batches are the same either way."""
+    batches are the same either way.
+
+    On the sequential route with the serve cache on, a clean multi-file
+    index scan's per-bucket batches are kept under ``("bucketed", fp,
+    cols)`` (``cache_scan``; off where the prepared side itself is kept)."""
     if isinstance(plan, Scan):
         rel = plan.relation
         groups: dict = {}
@@ -787,17 +1322,40 @@ def _bucket_fetches(
         cols = [c for c in rel.column_names if c in needed] or rel.column_names[:1]
         read_cols = _read_cols(rel, cols)
         buckets = sorted(groups)
+        mmap = _io_mmap_on(session)
+        cache = _serve_cache(session)
+        key = None
+        if (not stream and cache_scan and cache is not None and _cacheable_scan(rel)
+                and len(rel.files) > 1):
+            from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+
+            fp = file_fingerprint(rel.files)
+            if fp is not None:
+                key = ("bucketed", fp, tuple(cols))
+                hit = cache.get(key)
+                if hit is not None:
+                    return [(b, lambda bb=hit[b]: bb) for b in sorted(hit)]
         if stream:
             from hyperspace_tpu_torch.io.scan import scan_pool
 
             pool = scan_pool()
-            reads = [pool.submit(pio.read_tables, groups[b], read_cols, rel.fmt).result
+            reads = [pool.submit(pio.read_tables, groups[b], read_cols, rel.fmt, mmap).result
                      for b in buckets]
         else:
             ordered = [f for b in buckets for f in groups[b]]
-            tables = iter(pio.read_tables(ordered, read_cols, rel.fmt))
+            tables = iter(pio.read_tables(ordered, read_cols, rel.fmt, mmap))
             parts = [[next(tables) for _ in groups[b]] for b in buckets]
             reads = [lambda ts=ts: ts for ts in parts]
+        if key is not None:
+            from hyperspace_tpu_torch.execution.serve_cache import batch_nbytes
+
+            out = {
+                b: _drop_excluded(ColumnarBatch.from_arrow(pa.concat_tables(read())), rel)
+                .select(cols)
+                for b, read in zip(buckets, reads)
+            }
+            cache.put(key, dict(out), sum(batch_nbytes(bb) for bb in out.values()))
+            return [(b, lambda bb=out[b]: bb) for b in buckets]
 
         def decode(read):
             return lambda: _drop_excluded(
@@ -818,7 +1376,7 @@ def _bucket_fetches(
         return [
             (b, filtered(fetch))
             for b, fetch in _bucket_fetches(
-                plan.child, child_needed, session, stream, bucket_cols, stats
+                plan.child, child_needed, session, stream, bucket_cols, stats, cache_scan
             )
         ]
     if isinstance(plan, Project):
@@ -834,7 +1392,7 @@ def _bucket_fetches(
         return [
             (b, project(fetch))
             for b, fetch in _bucket_fetches(
-                plan.child, set(cols), session, stream, bucket_cols, stats
+                plan.child, set(cols), session, stream, bucket_cols, stats, cache_scan
             )
         ]
     if isinstance(plan, Union):
@@ -849,7 +1407,7 @@ def _bucket_fetches(
             delta_stats: dict = {}
             delta_fut = scan_pool().submit(
                 _prepare_delta, plan.right, read_cols, session, bucket_cols,
-                num_buckets, delta_stats,
+                num_buckets, delta_stats, _serve_cache(session),
             )
             collected = []
 
@@ -871,7 +1429,7 @@ def _bucket_fetches(
         left = {
             b: fetch
             for b, fetch in _bucket_fetches(
-                plan.left, set(read_cols), session, stream, bucket_cols, stats
+                plan.left, set(read_cols), session, stream, bucket_cols, stats, cache_scan
             )
         }
 

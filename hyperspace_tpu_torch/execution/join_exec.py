@@ -34,12 +34,20 @@ key-sorted rows) is unsorted, so its side takes the device re-sort route
 (``ops/join.segment_sort``, B2, then B4), as the reference re-sorts such
 buckets (``join_exec.py:252``, ``:658``); the pairs come out in its order.
 
+The prepared side is what the serve cache (``execution/serve_cache.py``)
+keeps between queries, so a warm join pays only the match and the
+assembly; the streaming join serve builds one from each wave's
+contiguous read (:func:`prepare_join_side_contiguous`). A cached side
+that is not key-sorted keeps its per-bucket sort permutation on the host
+(:meth:`PreparedJoinSide.bucket_sort_perm`), so later joins gather
+instead of sorting again.
+
 Not ported (ROADMAP queue A): the reference's match thread pools and
 host/device dispatch knobs (``deviceJoinMinRows``, the native presorted
-fast path and its thresholds), the sharded, streaming and serve-cached
-prepares, and the sort-permutation memo. A CUDA session always matches
-with B4; a CPU session with its plain version. The outputs are identical
-on every one of the reference's routes, so the port keeps one.
+fast path and its thresholds) and the sharded prepare (A.9). A CUDA
+session always matches with B4; a CPU session with its plain version. The
+outputs are identical on every one of the reference's routes, so the port
+keeps one.
 """
 
 from __future__ import annotations
@@ -210,7 +218,8 @@ class PreparedJoinSide:
     order, concatenated batch, per-bucket offsets, [k, n] key reps,
     the combined int64 key, the null-key mask, and whether every bucket's
     combined keys are already monotonic (true for clean single-version
-    covering-index scans, whose bucket files are key-sorted on disk)."""
+    covering-index scans, whose bucket files are key-sorted on disk). The
+    serve cache keeps these keyed by the immutable index file set."""
 
     buckets: Tuple[int, ...]
     batch: ColumnarBatch
@@ -219,6 +228,53 @@ class PreparedJoinSide:
     combined: np.ndarray  # [n] int64 (no null sentinels applied)
     nulls: Optional[np.ndarray]  # [n] bool, None when no null keys
     sorted_buckets: bool
+    # The per-bucket stable sort permutation of the SENTINELED combined key
+    # a sentinel parity, as a host int64 array. A pure function of
+    # (combined, nulls, parity), so a serve-cached side that is not
+    # key-sorted (Hybrid Scan tails, null keys) sorts once, not a query.
+    # None (the default) keeps no memo: the executor gives the side a dict
+    # when the serve cache takes it. Racing fills write equal values.
+    sort_perms: Optional[Dict[int, np.ndarray]] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def sizes(self) -> np.ndarray:
+        """[B] int64 rows a bucket."""
+        return np.diff(self.offs)
+
+    @property
+    def nbytes(self) -> int:
+        """What the serve cache charges for this side: the batch, reps,
+        combined keys, offsets and null mask, plus the sort-permutation
+        memo at its worst case (both sentinel parities, 8 bytes a row),
+        charged up front when the side can fill it (sizes are fixed at
+        ``put``)."""
+        from hyperspace_tpu_torch.execution.serve_cache import batch_nbytes
+
+        n = batch_nbytes(self.batch)
+        n += self.reps.nbytes + self.combined.nbytes + self.offs.nbytes
+        if self.nulls is not None:
+            n += self.nulls.nbytes
+        if not self.sorted_buckets or self.nulls is not None:
+            n += 2 * self.combined.nbytes
+        return n
+
+    def bucket_sort_perm(
+        self, parity: int, keys: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``keys`` (this side's sentineled combined keys on the device)
+        stably sorted within each bucket, and the permutation (sorted
+        position -> row): ``ops/join.segment_sort``, or with a memo filled
+        the gather through the kept permutation, which is the same."""
+        perm = None if self.sort_perms is None else self.sort_perms.get(parity)
+        if perm is not None:
+            perm_t = torch.from_numpy(perm).to(keys.device)
+            return keys[perm_t], perm_t
+        sorted_keys, perm_t = segment_sort(keys, self.offs)
+        if self.sort_perms is not None:
+            self.sort_perms[parity] = perm_t.cpu().numpy()
+        return sorted_keys, perm_t
 
     def subset(self, buckets: Tuple[int, ...]) -> "PreparedJoinSide":
         """Restrict to a bucket subset (sides with mismatched bucket sets,
@@ -278,6 +334,53 @@ def prepare_join_side(
     _stage_add(stats, "prepare", t0)
     return PreparedJoinSide(
         buckets=buckets,
+        batch=batch,
+        offs=offs,
+        reps=reps,
+        combined=combined,
+        nulls=nulls,
+        sorted_buckets=sorted_buckets,
+    )
+
+
+def prepare_join_side_contiguous(
+    batch: ColumnarBatch,
+    wave_buckets: Tuple[int, ...],
+    sizes,
+    key_cols: List[str],
+    stats: Optional[Dict[str, float]] = None,
+) -> Optional[PreparedJoinSide]:
+    """Serve state from an already contiguous batch whose rows are ordered
+    by ascending bucket (``sizes[i]`` rows belong to ``wave_buckets[i]``):
+    the streaming wave's twin of :func:`prepare_join_side`. A wave's one
+    decoded read IS the concatenation the materializing route builds
+    bucket by bucket, so no concatenation is copied and only the per-row
+    passes remain: key reps, null mask, combine and the same
+    boundary-exempt sortedness test. Equal field by field to
+    ``prepare_join_side`` over the equivalent per-bucket slices. None for
+    an empty wave."""
+    if not wave_buckets:
+        return None
+    t0 = time.perf_counter()
+    offs = np.concatenate([[0], np.cumsum(np.asarray(sizes, dtype=np.int64))]).astype(np.int64)
+    reps = batch.key_reps(key_cols)
+    nulls_m = batch.null_any(key_cols)
+    nulls = nulls_m if nulls_m.any() else None
+    combined = combine_reps(reps)
+    n = combined.shape[0]
+    if n <= 1:
+        sorted_buckets = True
+    else:
+        ge = combined[1:] >= combined[:-1]
+        # the same cross-bucket boundary exemption as prepare_join_side
+        starts = offs[1:-1]
+        cross_idx = starts[(starts > 0) & (starts < n)] - 1
+        if len(cross_idx):
+            ge[cross_idx] = True
+        sorted_buckets = bool(np.all(ge))
+    _stage_add(stats, "prepare", t0)
+    return PreparedJoinSide(
+        buckets=tuple(wave_buckets),
         batch=batch,
         offs=offs,
         reps=reps,
@@ -347,7 +450,7 @@ def _sentineled(prep: PreparedJoinSide, parity: int) -> np.ndarray:
     return combined
 
 
-def _side_on_device(prep: PreparedJoinSide, comb: np.ndarray, device):
+def _side_on_device(prep: PreparedJoinSide, comb: np.ndarray, parity: int, device):
     """One side's B4 inputs: its keys on the device in emission order and
     the row map (None when the buckets are key-sorted already and carry
     no sentinels, so every row is its own position; else the stable
@@ -355,7 +458,7 @@ def _side_on_device(prep: PreparedJoinSide, comb: np.ndarray, device):
     keys = torch.from_numpy(comb).to(device)
     if prep.sorted_buckets and prep.nulls is None:
         return keys, None
-    return segment_sort(keys, prep.offs)
+    return prep.bucket_sort_perm(parity, keys)
 
 
 def _match(
@@ -369,8 +472,8 @@ def _match(
     """Per-bucket match of two sides over the same buckets -> global
     (li, ri) into the sides' batches, in the reference's pair order."""
     t0 = time.perf_counter()
-    lk, l_row = _side_on_device(lp, l_comb, device)
-    rk, r_row = _side_on_device(rp, r_comb, device)
+    lk, l_row = _side_on_device(lp, l_comb, 0, device)
+    rk, r_row = _side_on_device(rp, r_comb, 1, device)
     li, ri = match_pairs(lk, lp.offs, rk, rp.offs, l_row, r_row)
     _sync(device)
     _stage_add(stats, "match", t0)

@@ -28,8 +28,13 @@ Two differences from the reference change which route runs, never a
 result (``ROADMAP.md``): the dispatch threshold is the module constant
 ``_NATIVE_FUSED_PIPELINE_MIN_ROWS`` (the reference calibrates it per
 machine, queue A item 10), and ``fused_filter_batch`` has no
-device-regime gate (the port has no host regime for masks). Not ported:
-the serve-cache branches (queue A item 8).
+device-regime gate (the port has no host regime for masks).
+
+With serve-server mode on (``execution/serve_cache.py``) the fused
+aggregate folds the cached scan batch in one pass instead of reading
+parquet chunks, lowered plans are kept under ``("fusedplan", fp, ...)``,
+and the metadata route leaves boundary row groups to the fused pass when
+their columns are already cached.
 """
 
 from __future__ import annotations
@@ -206,6 +211,9 @@ class FusedAggPlan:
     agg_ops: Tuple[Tuple[int, Optional[str]], ...]
     aggs: Tuple
     out_types: Tuple
+
+    # what the serve cache's LRU charges: the symbolic lowering only
+    nbytes: int = 2048
 
 
 def _lower_from_terms(
@@ -786,12 +794,44 @@ def try_fused_aggregate(plan: Aggregate, session) -> Optional[ColumnarBatch]:
     # the condition's columns live in the scan's schema
     child_schema = dict(rel.schema)
     child_schema.update(plan.child.schema())
-    fplan = _compiled_plan(node.condition, plan, rel, child_schema)
+    fplan = _compiled_plan(node.condition, plan, rel, child_schema, session)
     if fplan is None:
         return None
+    cache = X._serve_cache(session)
+    if cache is not None:  # rel passed _cacheable_scan above
+        # serve-server mode keeps the decoded scan in RAM: one fused pass
+        # over the cached batch (no read at all) instead of streaming
+        # parquet chunks past a warm cache
+        return _run_cached(fplan, rel, session)
     if _scan_row_total(rel) < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
         return None
     return _run_chunked(fplan, rel, session)
+
+
+def _run_cached(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
+    """The fused pass over the serve cache's batch of ``rel`` (read and
+    cached on a miss) as one chunk; None below the dispatch threshold or
+    when a column falls outside the fused set."""
+    global last_fused_stats
+    from hyperspace_tpu_torch.execution import executor as X
+    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+
+    t_read = time.perf_counter()
+    hit = X._scan_cache_entry(rel, set(fplan.read_cols), session)
+    if hit is None:
+        return None
+    entry, _cols = hit
+    batch = entry.batch_for(fplan.read_cols)
+    _stage_add(session.agg_stats, "scan", t_read)
+    if batch is None or batch.num_rows < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
+        return None
+    t0 = time.perf_counter()
+    state = AggState(fplan, session.device)
+    if not state.accumulate(batch):
+        return None
+    out = _finalize(state)
+    last_fused_stats = _agg_stats(state, t0)
+    return out
 
 
 def _agg_stats(state: AggState, t0: float) -> Dict[str, Any]:
@@ -812,13 +852,29 @@ def _agg_stats(state: AggState, t0: float) -> Dict[str, Any]:
 
 
 def _compiled_plan(
-    cond: E.Expr, plan: Aggregate, rel, child_schema
+    cond: E.Expr, plan: Aggregate, rel, child_schema, session
 ) -> Optional[FusedAggPlan]:
-    """The lowered plan (the reference memoizes it in its serve cache,
-    queue A item 8)."""
-    return _lower_fused_agg(
+    """The lowered plan, from the serve cache when it is on
+    (``("fusedplan", fp, ...)``, evictable with ``ServeCache.evict_kind``)."""
+    from hyperspace_tpu_torch.execution import executor as X
+
+    cache = X._serve_cache(session)
+    key = None
+    if cache is not None:
+        from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+
+        fp = file_fingerprint(rel.files)
+        if fp is not None:
+            key = ("fusedplan", fp, repr(cond), tuple(plan.group_by), tuple(plan.aggs))
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
+    fplan = _lower_fused_agg(
         cond, plan.group_by, plan.aggs, child_schema, rel.column_names
     )
+    if fplan is not None and key is not None:
+        cache.put(key, fplan, fplan.nbytes)
+    return fplan
 
 
 # ---------------------------------------------------------------------------
@@ -1065,7 +1121,8 @@ def try_metadata_aggregate(plan: Aggregate, session) -> Optional[ColumnarBatch]:
     from hyperspace_tpu_torch.indexes import aggindex
 
     key = plan.group_by[0] if plan.group_by else None
-    data = aggindex.agg_data_for(rel, session.conf, key, session.device)
+    cache = X._serve_cache(session)
+    data = aggindex.agg_data_for(rel, session.conf, key, session.device, cache)
     if data is None:
         return None
     cells = aggindex.classify_row_groups(data, rel, ivs, key, fplan)
@@ -1081,6 +1138,19 @@ def try_metadata_aggregate(plan: Aggregate, session) -> Optional[ColumnarBatch]:
         for i, (fi, gi, kind) in enumerate(cells)
         if kind == "partial"
     ]
+    if partial_cells and cache is not None:
+        # serve-server mode with a WARM decoded scan: the fused pass serves
+        # the boundary rows from RAM, where reading them from parquet here
+        # would make partial coverage slower than the route it preempts (a
+        # cold cache still favours metadata and boundary reads; full
+        # coverage never reads)
+        from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+
+        fp = file_fingerprint(rel.files)
+        if fp is not None:
+            entry = cache.peek(("scan", fp))
+            if entry is not None and entry.batch_for(cols) is not None:
+                return None
     # the boundary row groups read on the scan pool, a file's in one read,
     # and passed in one fused pass; folding stays in (file, row group)
     # order, the interpreted chain's row order

@@ -38,7 +38,11 @@ provable non-overlap (outward rounding). Everything else is scanned.
   (file, row group); a file whose sidecar entry is stale samples from its
   backfill, never from the directory's old sample rows.
 
-Not ported yet (``ROADMAP.md``): the fleet fanout (item A.10).
+With serve-server mode on, ``agg_data_for`` keeps the assembled state in
+the session's serve cache (``("aggstate", fp)``), and ``fanout_payload`` /
+``install_fanout_payload`` carry a committed file set's state to another
+process's caches. Not ported yet (``ROADMAP.md``): the fleet bus that
+pushes them (item A.10).
 """
 
 from __future__ import annotations
@@ -680,19 +684,22 @@ def _local_put(key, data: AggData) -> None:
 
 
 def agg_data_for(
-    rel, conf=None, group_key: Optional[str] = None, device=None
+    rel, conf=None, group_key: Optional[str] = None, device=None, cache=None
 ) -> Optional[AggData]:
-    """Assembled aggregate state of a relation's file set, from the module
-    LRU, the sidecars or the lazy backfill (on ``device``; None is cuda,
-    resolved before any file). ``conf``
-    gives the capture knobs for a backfill; ``group_key`` restricts its
-    grouped pass to the one key the query needs. None when the files
-    cannot be fingerprinted (the caller skips the plane). The reference
-    also consults its serve cache here (queue A item 8)."""
+    """Assembled aggregate state of a relation's file set, from the serve
+    ``cache`` (``("aggstate", fp)``), the module LRU, the sidecars or the
+    lazy backfill (on ``device``; None is cuda, resolved before any file).
+    ``conf`` gives the capture knobs for a backfill; ``group_key``
+    restricts its grouped pass to the one key the query needs. None when
+    the files cannot be fingerprinted (the caller skips the plane)."""
     fp = file_fingerprint(rel.files)
     if fp is None:
         return None
     key = ("aggstate", fp)
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None and hit.covers_key(group_key):
+            return hit
     with _local_lock:
         hit = _local_cache.get(key)
         if hit is not None and hit.covers_key(group_key):
@@ -738,6 +745,8 @@ def agg_data_for(
         backfill_keys=frozenset(bf_keys) if backfill_n else None,
         per_file_sidecar=tuple(provenance),
     )
+    if cache is not None:
+        cache.put(key, data, data.nbytes)
     _local_put(key, data)
     return data
 
@@ -775,6 +784,86 @@ def invalidate_paths_under(root: str) -> int:
 # ---------------------------------------------------------------------------
 # Classification: FULL / EMPTY / PARTIAL per selected row group
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Fan-out payloads: a committed file set's aggregate state, pushed to peer
+# serve processes instead of invalidated (the push and its bus come with the
+# serve tier, ROADMAP A.10; these two are its payload and its install)
+# ---------------------------------------------------------------------------
+
+
+def fanout_payload(files) -> Optional[dict]:
+    """JSON-safe push payload of one committed file set: the raw per-file
+    sidecar entries and the file fingerprint the receivers key by. None
+    unless EVERY file has a stat-fresh sidecar entry (a partial push would
+    make the receiver's assembly lie about coverage)."""
+    files = tuple(files)
+    if not files:
+        return None
+    fp = file_fingerprint(files)
+    if fp is None:
+        return None
+    side_by_dir: Dict[str, Optional[dict]] = {}
+    entries: Dict[str, dict] = {}
+    for path in files:
+        d = os.path.dirname(path)
+        if d not in side_by_dir:
+            side_by_dir[d] = _sidecar_for_dir(d)
+        side = side_by_dir[d]
+        if side is None:
+            return None
+        entry = side.get("files", {}).get(os.path.basename(path))
+        try:
+            st = os.stat(path)
+        except OSError:
+            return None
+        if (
+            entry is None
+            or entry.get("size") != st.st_size
+            or entry.get("mtime_ns") != st.st_mtime_ns
+        ):
+            return None
+        entries[path] = entry
+    return {"files": list(files), "fp": [[p, s, m] for p, s, m in fp], "entries": entries}
+
+
+def install_fanout_payload(payload: dict, cache=None) -> bool:
+    """Install a pushed payload into this process's caches under
+    ``("aggstate", fp)``, after checking the fingerprint against the files
+    on disk now (a stale push would sit under an unreachable key, so it is
+    dropped). Returns whether the install happened."""
+    try:
+        files = tuple(str(f) for f in payload["files"])
+        fp = tuple((str(p), int(s), int(m)) for p, s, m in payload["fp"])
+        raw_entries = payload["entries"]
+    except (KeyError, TypeError, ValueError):
+        return False
+    if not files or file_fingerprint(files) != fp:
+        return False
+    per_file: list = []
+    nbytes = 256
+    try:
+        for path in files:
+            decoded, nb = _decode_entry(raw_entries[path])
+            per_file.append(decoded)
+            nbytes += nb
+    except (KeyError, TypeError, ValueError):
+        return False
+    data = AggData(
+        files=files,
+        per_file=per_file,
+        sidecar_files=len(files),
+        backfill_files=0,
+        nbytes=nbytes,
+        backfill_keys=None,
+        per_file_sidecar=(True,) * len(files),
+    )
+    key = ("aggstate", fp)
+    if cache is not None:
+        cache.put(key, data, data.nbytes)
+    _local_put(key, data)
+    return True
 
 
 def _zone_verdict(st: Optional[dict], gi: int, iv, rows: int) -> str:

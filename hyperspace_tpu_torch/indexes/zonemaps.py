@@ -32,8 +32,9 @@ converted to a float64 comparable domain with OUTWARD directed rounding,
 so rounding can only over-keep. The executor re-applies the full mask on
 whatever survives.
 
-Not ported yet (ROADMAP queue A): the serve-cache entry kind (item 8)
-and the trace spans (item 10).
+With serve-server mode on, the assembled zone maps are also kept in the
+session's serve cache (``("zonemap", fp)``, ``execution/serve_cache.py``).
+Not ported yet: the trace spans (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
 from hyperspace_tpu_torch.plan import expressions as E
 
 _log = logging.getLogger("hyperspace_tpu_torch.zonemaps")
@@ -786,20 +788,6 @@ def assemble_zone_data(
     )
 
 
-def file_fingerprint(files) -> Optional[Tuple]:
-    """(path, size, mtime_ns) per file — the cache key that makes stale
-    entries unreachable. None when any file is missing (the caller skips
-    pruning and the read raises its own error)."""
-    out = []
-    try:
-        for f in files:
-            st = os.stat(f)
-            out.append((f, st.st_size, st.st_mtime_ns))
-    except OSError:
-        return None
-    return tuple(out)
-
-
 # Module-level bounded LRU for assembled zone data, keyed by the file
 # fingerprint. Bounded in BYTES as well as entries (entries carry their
 # zd.nbytes; _local_bytes is the ledger). Every access under _local_lock.
@@ -830,21 +818,27 @@ def _local_put(key, zd: ZoneData, nbytes: int) -> None:
         _local_bytes += nbytes
 
 
-def zone_data_for(rel) -> Optional[Tuple[ZoneData, bool]]:
-    """(assembled zone data, was_cache_hit) for a relation's file set, or
-    None when the files cannot be fingerprinted (caller skips pruning).
-    The reference also consults its serve cache here (ROADMAP queue A
-    item 8)."""
+def zone_data_for(rel, cache=None) -> Optional[Tuple[ZoneData, bool]]:
+    """(assembled zone data, was_cache_hit) for a relation's file set, from
+    the serve ``cache`` (``("zonemap", fp)``), the module LRU or the
+    sidecars and footers; None when the files cannot be fingerprinted
+    (caller skips pruning)."""
     fp = file_fingerprint(rel.files)
     if fp is None:
         return None
     key = ("zonemap", fp)
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            return hit, True
     with _local_lock:
         hit = _local_cache.get(key)
         if hit is not None:
             _local_cache.move_to_end(key)
             return hit[0], True
     zd = assemble_zone_data(tuple(rel.files), rel.schema)
+    if cache is not None:
+        cache.put(key, zd, zd.nbytes)
     _local_put(key, zd, zd.nbytes)
     return zd, False
 
@@ -1026,7 +1020,7 @@ def _z_keep_mask(zd: ZoneData, intervals, schema) -> Optional[np.ndarray]:
     return keep
 
 
-def prune_scan_relation(scan, cond: E.Expr):
+def prune_scan_relation(scan, cond: E.Expr, cache=None):
     """The range-pruning pass over one index Scan: returns a Scan over
     the surviving files with ``file_row_groups`` narrowing (the same
     node when nothing prunes). Superset-safe by construction — see the
@@ -1060,7 +1054,7 @@ def prune_scan_relation(scan, cond: E.Expr):
     # it even on abstain: a reader must never take a previous query's
     # stats for this one's
     last_prune_stats = stats
-    got = zone_data_for(rel)
+    got = zone_data_for(rel, cache)
     if got is None:
         return scan
     zd, was_hit = got

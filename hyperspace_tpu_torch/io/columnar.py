@@ -115,8 +115,9 @@ class Column:
     @staticmethod
     def from_arrow(arr: pa.ChunkedArray | pa.Array) -> "Column":
         if isinstance(arr, pa.ChunkedArray):
-            # combine_chunks COPIES even with exactly one chunk — take
-            # the lone chunk's zero-copy view instead.
+            # combine_chunks COPIES even with exactly one chunk, which
+            # would detach a memory-mapped column from its registered
+            # region — take the lone chunk's zero-copy view instead.
             arr = arr.chunk(0) if arr.num_chunks == 1 else arr.combine_chunks()
         t = arr.type
         if _is_string(t):
@@ -314,6 +315,26 @@ def column_value_range(col: "Column"):
     if len(v) == 0:
         return None, None
     return v.min().item(), v.max().item()
+
+
+def open_mmap_table(path: str) -> pa.Table:
+    """Zero-copy memory-mapped read of an Arrow IPC file: the table's
+    buffers are views into the OS file mapping, not heap copies, and the
+    mapping is registered with the serve cache's residency accounting
+    (``execution/serve_cache.register_mapped_region``), so
+    ``estimate_nbytes`` charges these columns as file-backed views. The
+    region unregisters itself when the table is collected."""
+    import pyarrow.ipc as ipc
+
+    from hyperspace_tpu_torch.execution.serve_cache import register_mapped_region
+
+    source = pa.memory_map(path, "r")
+    size = source.size()
+    buf = source.read_buffer(size) if size else None
+    table = ipc.open_file(source).read_all()
+    if buf is not None and buf.size:
+        register_mapped_region(buf.address, buf.size, owner=table)
+    return table
 
 
 def remap_codes(target_dictionary: List[str], col: "Column") -> np.ndarray:

@@ -49,22 +49,31 @@ def _file_schemas(paths: Sequence[str]) -> List[pa.Schema]:
     return _pool_map(lambda p: pq.ParquetFile(p).schema_arrow, list(paths))
 
 
+def file_row_counts(paths: Sequence[str]) -> List[int]:
+    """Per-file row counts from parquet footers (threaded)."""
+    return _pool_map(lambda p: pq.ParquetFile(p).metadata.num_rows, list(paths))
+
+
 def read_tables(
-    paths: Sequence[str], columns: Sequence[str], fmt: str = "parquet"
+    paths: Sequence[str], columns: Sequence[str], fmt: str = "parquet",
+    memory_map: bool = False,
 ) -> List[pa.Table]:
     """One table per file, in ``paths`` order (each file's rows in file
     order), read on a small thread pool: the per-bucket reads of a
     bucketed index scan. Files that carry every column literally (index
-    data does) are read directly, without a dataset per file."""
+    data does) are read directly, without a dataset per file;
+    ``memory_map`` maps them (``read_table``)."""
     paths = list(paths)
     if (
         fmt not in PARQUET_FAMILY
         or not paths
         or _resolve_nested_columns(paths, columns, fmt)[1]
     ):
-        return _pool_map(lambda p: read_table([p], columns, fmt), paths)
+        return _pool_map(lambda p: read_table([p], columns, fmt, memory_map=memory_map), paths)
     faults.check("parquet_read", paths)
-    return _pool_map(lambda p: pq.ParquetFile(p).read(columns=list(columns)), paths)
+    return _pool_map(
+        lambda p: pq.ParquetFile(p, memory_map=memory_map).read(columns=list(columns)), paths
+    )
 
 
 def _literal_column_names(path: str) -> frozenset:
@@ -116,6 +125,7 @@ def read_table(
     columns: Optional[Sequence[str]] = None,
     fmt: str = "parquet",
     filters=None,
+    memory_map: bool = False,
 ) -> pa.Table:
     """Read and concatenate files into one Arrow table (row order follows
     ``paths`` order, file by file). Parquet, Delta and Iceberg data files
@@ -123,6 +133,10 @@ def read_table(
     default options (types inferred as the reference infers them), orc
     through pyarrow, text as Spark's one string column ``value``, avro
     through ``utils/avro.py`` typed by its embedded schema.
+
+    ``memory_map`` (parquet-like formats, ``hyperspace.io.mmap.enabled``)
+    has pyarrow map the files instead of reading them onto the heap; the
+    rows are the same either way.
 
     ``filters`` (parquet-like formats only) is a pyarrow DNF conjunction.
     REQUIRED INVARIANT: each
@@ -148,7 +162,7 @@ def read_table(
                 filters = [
                     f for f in filters if f[0] not in extract
                 ] or None
-            t = read_table(paths, read_cols, fmt, filters)
+            t = read_table(paths, read_cols, fmt, filters, memory_map)
             out = {}
             for c in columns:
                 if c in extract:
@@ -171,6 +185,7 @@ def read_table(
                 columns=list(columns) if columns else None,
                 filters=filters,
                 partitioning=None,
+                memory_map=memory_map,
             )
     tables = []
     for p in paths:
@@ -181,6 +196,7 @@ def read_table(
                     columns=list(columns) if columns else None,
                     filters=filters,
                     partitioning=None,
+                    memory_map=memory_map,
                 )
             )
         elif fmt == "csv":

@@ -30,9 +30,9 @@ wrote. This module repairs both:
   live durable pin file of another process are never quarantined.
 
 Everything is idempotent: a rollback loses races gracefully, a second GC
-finds nothing, healing rewrites the same bytes. The port has no spill
-tier yet (ROADMAP A.8b), so :func:`reap_spill_orphans` treats every spill
-file as unindexed by a live cache.
+finds nothing, healing rewrites the same bytes. :func:`reap_spill_orphans`
+deletes the serve cache's expired spill files, except those a live
+``ServeCache`` of this process still indexes.
 """
 
 from __future__ import annotations
@@ -763,9 +763,9 @@ def reap_spill_orphans(
     truth index data, which spill files never are. Three protections
     keep a live serve unharmed:
 
-    * files a live in-process serve cache still indexes are never
-      touched, mirroring the serve-pin exemption of :func:`gc_orphans`
-      (the port has no serve cache yet, ROADMAP A.8b, so none is);
+    * files a live in-process serve cache still indexes
+      (``execution/serve_cache.live_spill_paths``) are never touched,
+      mirroring the serve-pin exemption of :func:`gc_orphans`;
     * files younger than ``ttl_ms`` (``hyperspace.serve.spill\
 .orphanTtlMs``) are kept — a sibling process's cache may index them,
       and a freshly published file is by definition younger than its
@@ -778,12 +778,14 @@ def reap_spill_orphans(
     Idempotent; returns ``{"reaped": n, "kept_live": n, "kept_young":
     n}``.
     """
+    from hyperspace_tpu_torch.execution.serve_cache import live_spill_paths
+
     report = {"reaped": 0, "kept_live": 0, "kept_young": 0}
     spill_dir = os.path.join(system_path, HYPERSPACE_SPILL_DIR)
     if not os.path.isdir(spill_dir):
         return report
     now = now_ms() if now is None else now
-    live: Set[str] = set()  # no serve cache indexes spill files yet (A.8b)
+    live = live_spill_paths()
     for name in sorted(os.listdir(spill_dir)):
         if not (name.endswith(".spill") or name.startswith(".tmp_spool_")):
             continue

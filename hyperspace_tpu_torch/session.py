@@ -16,6 +16,7 @@ The device is carried on the session and reaches every op call.
 from __future__ import annotations
 
 import os
+import threading
 from typing import List, Optional, Sequence
 
 import pyarrow as pa
@@ -182,6 +183,8 @@ class HyperspaceSession:
         self._hyperspace_enabled = False
         self._source_manager = None
         self._index_manager = None
+        self._serve_cache = None
+        self._serve_cache_lock = threading.Lock()
 
     # -- context (HyperspaceContext, Hyperspace.scala:195-223) --------------
     @property
@@ -199,6 +202,36 @@ class HyperspaceSession:
 
             self._index_manager = CachingIndexCollectionManager(self)
         return self._index_manager
+
+    @property
+    def serve_cache(self):
+        """The serve-server data cache (``execution/serve_cache.py``) when
+        ``hyperspace.serve.cache.enabled`` is on, else None. Stale entries
+        are impossible (keys fingerprint the immutable index file set);
+        ``clear_serve_cache()`` just frees the memory. A change of
+        ``maxBytes`` or of the spill cap builds a new, empty cache."""
+        if not self.conf.serve_cache_enabled:
+            return None
+        max_bytes = self.conf.serve_cache_max_bytes
+        spill_max_bytes = self.conf.serve_spill_max_bytes
+        with self._serve_cache_lock:
+            if (
+                self._serve_cache is None
+                or self._serve_cache.max_bytes != max_bytes
+                or self._serve_cache.spill_max_bytes != spill_max_bytes
+            ):
+                from hyperspace_tpu_torch.execution.serve_cache import ServeCache, spill_root
+
+                self._serve_cache = ServeCache(
+                    max_bytes,
+                    spill_dir=spill_root(self.conf) if spill_max_bytes > 0 else None,
+                    spill_max_bytes=spill_max_bytes,
+                )
+            return self._serve_cache
+
+    def clear_serve_cache(self) -> None:
+        if self._serve_cache is not None:
+            self._serve_cache.clear()
 
     # -- reading ------------------------------------------------------------
     @property

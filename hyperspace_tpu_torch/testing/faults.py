@@ -13,6 +13,9 @@ point                     armed site
                           ``read_file_row_groups`` (every data read)
 ``log_read``              ``metadata/log_manager.py`` log-entry and
                           latestStable reads
+``cache_insert``          ``ServeCache.put``: a fired fault drops the insert
+                          (the query still answers, uncached; counted in
+                          ``ServeCache.insert_failures``)
 ========================  ====================================================
 
 Spec grammar::
@@ -24,15 +27,16 @@ Spec grammar::
     "off" / ""               disarm
 
 ``check`` raises :class:`InjectedFault`, an ``OSError``, so an injected
-fault travels the path a real I/O error takes.
+fault travels the path a real I/O error takes; :func:`degraded` is the
+non-raising form for a site whose contract is to degrade in place
+(``cache_insert``).
 
 The reference's ``kernel_dispatch`` point is deliberately not ported: there
 a fired fault makes a kernel wrapper return None and take its plain
 version, a fallback that would hide the kernel. A kernel's fault in the
 port is raised (``kernels.KERNEL_FAULTS``, ROADMAP C.7), so arming
 ``kernel_dispatch`` raises :class:`HyperspaceException` (ROADMAP C.11).
-``cache_insert`` and ``fastbus_send`` come with the serve cache and the
-fleet (ROADMAP A.8b, A.10).
+``fastbus_send`` comes with the fleet (ROADMAP A.10).
 
 **Crash points** (``hyperspace.faults.crash.<point>``) are named places
 inside every action where a writer can die mid-protocol, leaving a
@@ -60,10 +64,12 @@ crash point               armed site
                           vacuum or a vacuum of outdated versions
 ``mid_sidecar_publish``   ``indexes/aggindex.py``: before the replace that
                           publishes ``_aggstate.json`` / ``_aggsample.parquet``
+``mid_spill_write``       ``execution/serve_cache.py``: a demotion between
+                          choosing its spill path and the atomic publish
 ========================  ====================================================
 
-The reference's ``mid_querylog_rotate`` and ``mid_spill_write`` come with
-their modules (ROADMAP A.10, A.8b). A crash point is one-shot in ``raise``
+The reference's ``mid_querylog_rotate`` comes with its module (ROADMAP
+A.10). A crash point is one-shot in ``raise``
 mode: it disarms itself when it fires, so the recovery and retry that
 follow run clean. :class:`SimulatedCrash` is a ``BaseException``: no
 ``except Exception`` cleanup may swallow it, as a real crash would not
@@ -78,7 +84,7 @@ from typing import Dict, Optional
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 
-POINTS = ("parquet_read", "log_read")
+POINTS = ("parquet_read", "log_read", "cache_insert")
 
 #: the reference's point that the port refuses to arm (module docstring)
 KERNEL_DISPATCH = "kernel_dispatch"
@@ -90,6 +96,7 @@ CRASH_POINTS = (
     "after_end_log",
     "mid_vacuum_delete",
     "mid_sidecar_publish",
+    "mid_spill_write",
 )
 
 #: ``exit``-mode status: a subprocess test tells a simulated crash from an
@@ -292,6 +299,16 @@ def check(point: str, detail="") -> None:
     fp = _active.get(point)
     if fp is not None and fp.fire(str(detail)):
         raise InjectedFault(point, fp.transient)
+
+
+def degraded(point: str, detail="") -> bool:
+    """True when ``point`` is armed and fires: the non-raising form for
+    sites that degrade in place (a dropped cache insert). ``detail`` is
+    stringified only when the point is armed."""
+    if not _active:
+        return False
+    fp = _active.get(point)
+    return fp is not None and fp.fire(str(detail))
 
 
 def crash(point: str, detail="") -> None:

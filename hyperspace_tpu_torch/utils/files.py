@@ -117,6 +117,30 @@ def atomic_overwrite(path: str, text: str) -> None:
         raise
 
 
+def atomic_overwrite_bytes(path: str, data: bytes) -> None:
+    """:func:`atomic_overwrite` for binary payloads (the serve cache's
+    spill files): the same fsync-before-replace discipline, so a reader
+    sees the complete payload under the final name or no file at all. A
+    writer that dies mid-write leaves a ``.tmp_spool_`` temp, which
+    recovery's spill reaper deletes once it has aged."""
+    d = os.path.dirname(path)
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp_spool_")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        fsync_dir(d)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except FileNotFoundError:
+            pass
+        raise
+
+
 def delete(path: str) -> None:
     """Recursive delete, ignore-missing (FileUtils.delete)."""
     if os.path.isdir(path) and not os.path.islink(path):

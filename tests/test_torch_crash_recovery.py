@@ -3,7 +3,8 @@ matrix (``tests/test_torch_crash_matrix.py``).
 
 The reference's cases (``tests/test_crash_recovery.py``: crash registry,
 leases and heartbeat, rollback, healing, GC, the sidecar publish seam,
-cancel, the base-id resnapshot, durable pins) run as scenarios over either
+cancel, the base-id resnapshot, durable pins, the spill write's crash
+seam ``TestSpillWriteCrash``) run as scenarios over either
 package (``tests/torch_crash_twin.py``: :class:`Pkg`, :func:`both`), each
 asserting the reference's own checks, and their observations are held
 equal across the packages. Port-only cases: a kernel's fault (never
@@ -21,6 +22,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 from torch_crash_twin import (
     LEASE_MS,
@@ -118,12 +120,28 @@ class TestCrashRegistry:
         assert tfaults.stats() == {}
 
     def test_points_of_later_modules_are_refused(self):
-        for point in ("cache_insert", "fastbus_send"):
-            with pytest.raises(ValueError):
-                tfaults.set_fault(point, "transient")
-        for point in ("mid_querylog_rotate", "mid_spill_write"):
-            with pytest.raises(ValueError):
-                tfaults.set_crash(point, "raise")
+        with pytest.raises(ValueError):
+            tfaults.set_fault("fastbus_send", "transient")
+        with pytest.raises(ValueError):
+            tfaults.set_crash("mid_querylog_rotate", "raise")
+
+    def test_serve_cache_points_arm(self):
+        """The serve cache's points arm in the port as in the reference,
+        by call and by config."""
+        for f in (tfaults, jfaults):
+            assert f.set_fault("cache_insert", "transient:2") is True
+            assert f.set_crash("mid_spill_write", "raise;at=2") is True
+            f.reset()
+        from hyperspace_tpu_torch.config import Config
+
+        conf = Config()
+        conf.set("hyperspace.faults.cache_insert", "persistent")
+        conf.set("hyperspace.faults.crash.mid_spill_write", "raise")
+        assert tfaults.configure(conf) == 2
+        assert tfaults.degraded("cache_insert", ("scan",)) is True
+        with pytest.raises(tfaults.SimulatedCrash):
+            tfaults.crash("mid_spill_write", "p")
+        assert tfaults.stats() == {"cache_insert": 1, "crash.mid_spill_write": 1}
 
     @pytest.mark.parametrize("point", ["parquet_read", "log_read"])
     def test_fault_points_fire_at_their_sites_in_both_packages(self, tmp_path, point):
@@ -781,6 +799,89 @@ class TestCrossProcessPins:
             return files, (not os.path.isdir(pins_dir) or not os.listdir(pins_dir))
 
         assert both(scenario, tmp_path) == (set(), True)
+
+
+# ---------------------------------------------------------------------------
+# The spill tier's crash seam and the reaper's live set
+# ---------------------------------------------------------------------------
+
+
+def _spill_modules(P):
+    import importlib
+
+    root = "hyperspace_tpu_torch" if P.name == "port" else "hyperspace_tpu"
+    sc = importlib.import_module(f"{root}.execution.serve_cache")
+    col = importlib.import_module(f"{root}.io.columnar")
+    return sc, col
+
+
+class TestSpillWriteCrash:
+    """``mid_spill_write``: a demotion killed between choosing its spill
+    path and the atomic publish leaves no final ``.spill`` file, so a torn
+    spill is never served, the reaper clears what is left, and the tier
+    heals on the next demote."""
+
+    def test_crash_mid_spill_write_never_serves_torn_state(self, tmp_path):
+        import pyarrow as pa
+
+        def scenario(P, root):
+            sc, col = _spill_modules(P)
+            rng = np.random.default_rng(11)
+            batch = col.ColumnarBatch.from_arrow(pa.table({
+                "k": rng.integers(0, 50, 2_000).astype(np.int64),
+                "v": rng.normal(0, 1, 2_000)}))
+            spill_dir = root / P.C.HYPERSPACE_SPILL_DIR
+            nb = sc.batch_nbytes(batch)
+            c = sc.ServeCache(max_bytes=nb + 16, spill_dir=str(spill_dir),
+                              spill_max_bytes=1 << 30)
+            c.put(("scan", "fp-a", ("k",)), batch, nb)
+            P.faults.set_crash("mid_spill_write", "raise")
+            # displacing fp-a pushes its demotion across the crash seam
+            with pytest.raises(P.faults.SimulatedCrash):
+                c.put(("zonemap", "fp-b"), "displacer", nb)
+            fired = P.faults.stats().get("crash.mid_spill_write", 0)
+            P.faults.reset()
+            torn = [p for p in os.listdir(spill_dir) if p.endswith(".spill")] \
+                if spill_dir.is_dir() else []
+            miss = c.get(("scan", "fp-a", ("k",)))
+            # the reaper clears the wreckage (ttl 0: all that no live cache
+            # indexes has expired)
+            P.recovery.reap_spill_orphans(str(root), ttl_ms=0)
+            left = os.listdir(spill_dir) if spill_dir.is_dir() else []
+            # the tier heals: a retried demote and restore round-trip
+            c.put(("scan", "fp-a", ("k",)), batch, nb)
+            c.put(("zonemap", "fp-c"), "displacer", nb)
+            restored = c.get(("scan", "fp-a", ("k",)))
+            return (fired, torn, c.spill_paths(), miss, left, c.spill_demotes,
+                    restored.to_arrow().equals(batch.to_arrow()))
+
+        assert both(scenario, tmp_path) == (1, [], set(), None, [], 1, True)
+
+    def test_recover_keeps_live_spill_files(self, tmp_path):
+        """``hs.recover`` with a live session cache whose spill tier holds
+        demoted entries keeps their files (``kept_live``) and reaps an
+        expired orphan beside them, in both packages."""
+
+        def scenario(P, root):
+            sc, _col = _spill_modules(P)
+            s, hs, src, _log = mk_index(P, root)
+            s.conf.set(P.C.SERVE_SPILL_ORPHAN_TTL_MS, 1)
+            s.conf.set(P.C.SERVE_CACHE_ENABLED, True)
+            s.conf.set(P.C.SERVE_SPILL_MAX_BYTES, 1 << 30)
+            s.conf.set(P.C.SERVE_CACHE_MAX_BYTES, 1_000)
+            cache = s.serve_cache
+            for i in range(3):
+                cache.put(("scan", f"fp-{i}"), np.arange(100, dtype=np.int64) + i, 800)
+            spill = os.path.join(str(root / "sys"), P.C.HYPERSPACE_SPILL_DIR)
+            with open(os.path.join(spill, "dead.spill"), "wb") as f:
+                f.write(b"x")
+            time.sleep(0.01)
+            report = hs.recover("idx")["spill_gc"]
+            live = sorted(os.path.basename(p) for p in cache.spill_paths())
+            return report, len(live), sorted(os.listdir(spill)) == live
+
+        assert both(scenario, tmp_path) == ({"reaped": 1, "kept_live": 2, "kept_young": 0}, 2,
+                                            True)
 
 
 def test_spill_reaper_finds_nothing_without_a_spill_tier_and_reaps_expired_files(tmp_path):

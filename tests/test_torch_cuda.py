@@ -960,3 +960,109 @@ def test_streamed_build_holds_each_wave_b1_to_the_plain_version(cuda_device, tmp
         assert torch.equal(out, H.bucket_ids_torch(*args))
     assert files["cuda"] == files["cpu"]
     assert sum(1 for f in files["cuda"] if f.endswith(".parquet")) >= 16
+
+
+def test_stream_join_launches_b4_a_wave_and_a_warm_cached_filter_launches_b3a(
+        cuda_device, tmp_path):
+    """The streamed co-bucketed join at 3 waves on the card: rows equal in
+    order to the same join on a ``device="cpu"`` session (streamed and
+    materializing), one B4 call a wave, each wave's pairs equal to B4's
+    plain version. Then with the serve cache on, a warm filter served from
+    the cached scan launches B3a, its mask equal to the plain version, its
+    rows the cpu session's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch.execution import executor as X
+    from hyperspace_tpu_torch.io import parquet as pio
+
+    rng = np.random.default_rng(19)
+    items, orders = tmp_path / "items", tmp_path / "orders"
+    items.mkdir(), orders.mkdir()
+    for i in range(2):
+        pq.write_table(pa.table({"k": rng.integers(0, 3000, 20_000), "q": rng.integers(0, 9, 20_000)}),
+                       str(items / f"p{i}.parquet"))
+        pq.write_table(pa.table({"ok": np.arange(i * 1500, (i + 1) * 1500),
+                                 "c": rng.integers(0, 50, 1500)}), str(orders / f"p{i}.parquet"))
+    sessions = {}
+    for device in (cuda_device, "cpu"):
+        s = HyperspaceSession(device=device)
+        s.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        s.conf.set("hyperspace.index.num_buckets", 16)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(str(items)), CoveringIndexConfig("i", ["k"], ["q"]))
+        hs.create_index(s.read.parquet(str(orders)), CoveringIndexConfig("o", ["ok"], ["c"]))
+        s.enable_hyperspace()
+        sessions[s.device.type] = (s, hs)
+    # the wave budget that packs the 16 buckets into 3 waves: each bucket's
+    # footer estimate, two columns a side
+    est = {}
+    for name in ("i", "o"):
+        files = sessions["cuda"][1].get_index(name).content.files
+        for f, n in zip(files, pio.file_row_counts(files)):
+            b = pio.bucket_id_of_file(f)
+            est[b] = est.get(b, 0) + n * 2 * 8
+    budget = next(x for x in range(1, sum(est.values()) + 1, 64)
+                  if len(X.pack_waves(est, x)) == 3)
+
+    def q(s):
+        o, i = s.read.parquet(str(orders)), s.read.parquet(str(items))
+        return o.join(i, on=o["ok"] == i["k"]).select("ok", "c", "q")
+
+    calls = []
+    real = J.match_pairs_kernel
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    J.match_pairs_kernel = recording
+    try:
+        want = q(sessions["cpu"][0]).collect()
+        for s, _hs in sessions.values():
+            s.conf.set("hyperspace.serve.stream.enabled", True)
+            s.conf.set("hyperspace.serve.stream.maxBytes", budget)
+        ops.reset_launch_counts()
+        got = q(sessions["cuda"][0]).collect()
+        torch.cuda.synchronize()
+        assert dict(X.last_stream_stats) == {"stream_waves": 3, "stream_buckets": 16}
+        # one B4 call a wave; each call launches its passes (count, scan, emit)
+        assert len(calls) == 3 and ops.launch_counts()["bucket_match_pairs"] >= 3
+        for args, out in calls:
+            for a, b in zip(out, J.match_pairs_torch(*args)):
+                assert torch.equal(a, b)
+        assert got.equals(want)
+        assert q(sessions["cpu"][0]).collect().equals(want)
+    finally:
+        J.match_pairs_kernel = real
+    masks = []
+    real_mask = F.range_mask_kernel
+
+    def recording_mask(*args):
+        out = real_mask(*args)
+        masks.append((args, out))
+        return out
+
+    def f(s):
+        df = s.read.parquet(str(items))
+        return df.filter((df["k"] >= 100) & (df["k"] < 900) & (df["q"] < 5)).select("k", "q")
+
+    want = f(sessions["cpu"][0]).collect()
+    s = sessions["cuda"][0]
+    s.conf.set("hyperspace.serve.cache.enabled", True)
+    f(s).collect()  # cold: decodes and caches the scan
+    F.range_mask_kernel = recording_mask
+    try:
+        ops.reset_launch_counts()
+        hits = s.serve_cache.hits
+        got = f(s).collect()
+        torch.cuda.synchronize()
+    finally:
+        F.range_mask_kernel = real_mask
+    assert s.serve_cache.hits == hits + 1
+    assert ops.launch_counts()["range_mask"] >= 1 and masks
+    for args, out in masks:
+        assert torch.equal(out, F.range_mask_torch(*args))
+    assert got.equals(want)

@@ -18,6 +18,8 @@ rows must equal the unindexed plan's as a multiset. Ported cases:
 * ``tests/test_dataskipping.py::TestBloomSkipping::
   test_modified_file_not_scanned_twice_hybrid``;
 * ``tests/test_join_rule.py::test_join_hybrid_appended_rows``;
+* ``tests/test_serve_pipeline.py::TestDeltaCache`` (the serve cache keeps
+  the appended rows split by bucket under their files' fingerprint);
 * a ``limit`` over a ``Union``, and an aggregate over a hybrid plan, which
   declines the metadata plane and the fused route.
 """
@@ -36,6 +38,7 @@ import hyperspace_tpu_torch as T
 from hyperspace_tpu import constants as JC
 from hyperspace_tpu import functions as JF
 from hyperspace_tpu.execution import executor as JX
+from hyperspace_tpu.execution import serve_cache as JSC
 from hyperspace_tpu.execution import pipeline_compiler as JPC
 from hyperspace_tpu.hyperspace import Hyperspace as JHyperspace
 from hyperspace_tpu.indexes import aggindex as JA
@@ -49,6 +52,7 @@ from hyperspace_tpu.session import HyperspaceSession as JSession
 from hyperspace_tpu_torch import constants as TC
 from hyperspace_tpu_torch import functions as TF
 from hyperspace_tpu_torch.execution import executor as TX
+from hyperspace_tpu_torch.execution import serve_cache as TSC
 from hyperspace_tpu_torch.execution import pipeline_compiler as TPC
 from hyperspace_tpu_torch.indexes import aggindex as TA
 from hyperspace_tpu_torch.indexes import zonemaps as TZ
@@ -540,3 +544,68 @@ def test_keys_and_defaults_match_the_reference():
         assert getattr(TC, name) == getattr(JC, name)
         assert getattr(TC, name + "_DEFAULT") == getattr(JC, name + "_DEFAULT")
     assert not T.HyperspaceSession(device="cpu").conf.hybrid_scan_enabled
+
+
+class TestDeltaCache:
+    """``tests/test_serve_pipeline.py::TestDeltaCache`` through both
+    packages (``torch_serve_twin.Twin``: the pipelined serve on, as the
+    reference's default)."""
+
+    def test_delta_entry_cached_and_reused(self, tmp_path, monkeypatch):
+        """With serve-server mode on, the hybrid delta is kept by its files'
+        fingerprint: evicting every other kind does not read the appended
+        file again; appending another file re-keys the entry."""
+        from torch_serve_twin import Twin
+
+        idir, odir = _join_tables(tmp_path)
+        tw = Twin(tmp_path)
+        tw.create("covering", idir, "i1", ["k"], ["q", "price", "tag"])
+        tw.create("covering", odir, "o1", ["ok"], ["cust"])
+        tw.enable()
+        rng = np.random.default_rng(9)
+        extra = pa.table({
+            "k": rng.integers(0, 500, 300).astype(np.int64),
+            "q": np.full(300, 9, dtype=np.int64),
+            "price": np.full(300, 2.0),
+            "tag": pa.array(np.full(300, "late")),
+        })
+        pq.write_table(extra, idir + "/appended.parquet")
+        tw.set(HYBRID, True)
+        tw.set("hyperspace.serve.cache.enabled", True)
+        tw.clear()
+        q = _join_q(idir, odir)
+
+        def run():
+            return tw.run(lambda s, f: q(s.read.parquet, f))
+
+        baseline = run()
+        for cache in tw.caches():
+            assert "delta" in {k[0] for k in cache._entries}
+            for kind in ("joinside", "bucketed", "scan"):
+                cache.evict_kind(kind)
+        reads = []
+        for X in (TX, JX):
+            real = X.pio.read_table
+
+            def counting(paths, *a, real=real, **k):
+                reads.extend(p for p in paths if str(p).endswith("appended.parquet"))
+                return real(paths, *a, **k)
+
+            monkeypatch.setattr(X.pio, "read_table", counting)
+        assert same_rows(run(), baseline)
+        assert not reads, "appended delta read again despite its cached entry"
+        monkeypatch.undo()
+        pq.write_table(extra, idir + "/appended2.parquet")
+        tw.clear()
+        assert run().num_rows > baseline.num_rows
+
+    def test_evict_kind(self):
+        for sc in (TSC, JSC):
+            c = sc.ServeCache(max_bytes=1000)
+            c.put(("delta", 1), "a", 10)
+            c.put(("joinside", 1), "b", 10)
+            c.put(("joinside", 2), "c", 10)
+            assert c.evict_kind("joinside") == 2
+            assert c.get(("delta", 1)) == "a"
+            assert c.get(("joinside", 1)) is None
+            assert c.resident_bytes == 10

@@ -14,8 +14,9 @@ row groups are made small (``INDEX_ROW_GROUP_SIZE`` patched alike in
 both packages) for narrowing to have something to narrow; one case runs
 at the real 64k-row groups. Cases kept for later items: z-order
 (``TestZBoxRanges``), refresh and optimize (``TestLifecycleConsistency``),
-Hybrid Scan (``TestHybridFallback``, now in ``tests/test_torch_hybrid.py``) and the
-serve cache's eviction."""
+Hybrid Scan (``TestHybridFallback``, now in ``tests/test_torch_hybrid.py``).
+The serve cache's ``zonemap`` kind is held here too
+(``test_serve_cache_zonemap_kind_evicts``)."""
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
 
@@ -497,3 +498,34 @@ def test_each_package_prunes_the_other_index_alike(lake, query):
     assert _same_rows(cross, out)
     assert cross_counts == counts
     assert counts["row_groups_total"] > N_BUCKETS
+
+
+def test_serve_cache_zonemap_kind_evicts(tmp_path):
+    """Assembled zone maps go into a serve cache under ``("zonemap", fp)``
+    (a miss, then a hit from the cache once the module LRU is dropped) and
+    leave with ``evict_kind("zonemap")``, in both packages; the two
+    assemblies prune alike."""
+    from hyperspace_tpu.execution.serve_cache import ServeCache as JCache
+    from hyperspace_tpu.plan.nodes import Relation as JRelation
+    from hyperspace_tpu_torch.execution.serve_cache import ServeCache as TCache
+    from hyperspace_tpu_torch.plan.nodes import Relation as TRelation
+
+    rng = np.random.default_rng(23)
+    p = str(tmp_path / "g.parquet")
+    pq.write_table(pa.table({"a": rng.integers(0, 100, 100)}), p)
+    out = {}
+    for Z, Relation, Cache in ((TZ, TRelation, TCache), (JZ, JRelation, JCache)):
+        rel = Relation(root_paths=(str(tmp_path),), files=(p,), fmt="parquet",
+                       schema_fields=(("a", pa.int64()),), index_info=("x", 1, "CI"))
+        cache = Cache(1 << 20)
+        Z.invalidate_local_cache()
+        zd, hit = Z.zone_data_for(rel, cache)
+        first = (hit, len(cache))
+        Z.invalidate_local_cache()
+        _zd2, hit2 = Z.zone_data_for(rel, cache)
+        out[Z.__name__.split(".")[0]] = (first, hit2, cache.evict_kind("zonemap"), len(cache),
+                                         cache.stats()["hits"], cache.stats()["misses"],
+                                         zd.footer_files, zd.sidecar_files)
+        Z.invalidate_local_cache()
+    assert out["hyperspace_tpu_torch"] == out["hyperspace_tpu"] == (
+        (False, 1), True, 1, 0, 1, 1, 1, 0)
