@@ -226,8 +226,9 @@ against its plain PyTorch version on the card:
    take the binned route; the build is timed cold on the first file's
    own l_orderkey reps.
 
-12. lifecycle path (``lifecycle_path``): over a copy of phase 4's 8
-   lineitem files, lineage on, lc_idx (li_idx's config, beside phase
+12. lifecycle path (``lifecycle_path``): over a copy of the first 4 of
+   phase 4's 8 lineitem files (3,000,607 rows; a depth cut for the script's
+   time), lineage on, lc_idx (li_idx's config, beside phase
    5's o_idx), lc_z (phase 10's z_idx) and lc_ds (phase 11's ds_idx, in a
    system path of its own), each step run on the card and then in a
    ``device="cpu"`` session. TPC-H's refresh functions at lake
@@ -402,6 +403,31 @@ against its plain PyTorch version on the card:
    (``kept_live``). Every B4, B3a and B5f call is recorded (as CPU copies)
    and held equal to its plain version: B4's pair lists in order, B3a's
    masks and B5f's states bit for bit. An ``ooserve`` JSON line.
+18. sharded path (``sharded_path``): 4 shards on the one card
+   (``devices=["cuda:0"] * 4``): (1) li_idx's configuration over phase
+   4's lineitem built through the exchange strategies flat (kernels B1,
+   B8a and B8b), compact, host and twostage (2 simulated hosts), and flat
+   with ``hyperspace.build.shardedTail.enabled`` off: every build's 200
+   bucket files byte-equal to phase 4's one-shard li_idx, its
+   ``last_shuffle_stats`` (pack, exchange and unpack seconds, cap, skew)
+   logged; (2) every B8a and B8b call of the main path held bit-equal to
+   its plain version on the same card tensors, and one of each (the flat
+   build's first shard) timed cold, 256 MiB read first, median of 30,
+   beside its byte bound at 3.35 TB/s, its plain version and
+   ``torch.sort(keys, stable=True)`` of the same keys as the library
+   yardstick; (3) phase 5's ``o_idx ⋈ li_idx`` served at 4 shards,
+   sequential and streamed (``hyperspace.serve.stream.enabled``): rows
+   equal to phase 5's plan in order, a block of buckets a shard matched
+   by B4 (counted in ``bucket_match_pairs.shard``), every B4 call held to
+   its plain version; (4) phase 16's budgeted st_idx build at 4 shards
+   with the concurrent per-shard merges: its files byte-equal to phase
+   16's; (5) the 4-shard build served at one shard and phase 4's li_idx
+   at 4: phase 4's first 8 point filters and an IN list, rows equal to
+   phase 4's session's; (6) ``scripts/torch_dryrun_multihost.py --device
+   cuda``, 2 processes on the one card over gloo (NCCL refuses two ranks
+   on one GPU), started at the phase's start and awaited at its end:
+   exit 0, ``DRYRUN-OK`` twice, equal content hashes. A ``sharded`` JSON
+   line.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -423,9 +449,10 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14, 15, 16 and 17 and read just after each; each kernel's
-count in the JSON line adds phases 12, 13, 14, 15, 16 and 17's. The kernel checks' launches are not counted as
-the main path's. Any failure raises and exits non-zero. The last two
+11, 12, 13, 14, 15, 16, 17 and 18 and read just after each; each kernel's
+count in the JSON line adds phases 12, 13, 14, 15, 16, 17 and 18's; B8a
+and B8b (``bucket_exchange_pack`` / ``_order``) run in phase 18 alone. The
+kernel checks' launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
 it lives in; the tables are written under build/chip_smoke/ and removed
@@ -437,6 +464,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3399,6 +3427,19 @@ class KernelCalls:
         elif not on and getattr(self, "_b4", None) is not None:
             J.match_pairs_kernel, self._b4 = self._b4, None
 
+    def record_b8(self, on: bool) -> None:
+        """Replace B8a's and B8b's wrappers by recording ones (``on``, phase
+        18), or put them back."""
+        from hyperspace_tpu_torch.ops import exchange as X
+
+        if on and getattr(self, "_b8", None) is None:
+            self._b8 = (X.pack_kernel, X.order_kernel)
+            self.plain["b8a"], self.plain["b8b"] = X.pack_torch, X.order_torch
+            X.pack_kernel = self._recording(self._b8[0], "b8a")
+            X.order_kernel = self._recording(self._b8[1], "b8b")
+        elif not on and getattr(self, "_b8", None) is not None:
+            (X.pack_kernel, X.order_kernel), self._b8 = self._b8, None
+
     def settle(self) -> list:
         """Hold every kept call against its plain version (the first that
         differs raises), count it and its rows under its kind and label,
@@ -3418,6 +3459,9 @@ class KernelCalls:
             elif kind == "b4":  # (li, ri) pair lists: equal in order
                 ok = all(torch.equal(a, b) for a, b in zip(out, plain(*args)))
                 rows = args[0].shape[0] + args[2].shape[0]
+            elif kind in ("b8a", "b8b"):  # counts and columns, bit for bit
+                ok = b8_same(out, plain(*args))
+                rows = args[0].shape[0]
             elif kind != "b5f":
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].shape[-1]
@@ -4127,6 +4171,8 @@ def dataskipping_path(work: str, ctx: dict, kernels: KernelCalls) -> dict:
 RF1_ORDERS = 1_500
 #: phase 12's indexes: lc_idx is li_idx's covering config, lc_z phase 10's
 #: z_idx, lc_ds phase 11's ds_idx
+#: phase 12's source: the first LC_FILES of phase 4's N_FILES lineitem files
+LC_FILES = 4
 LC_MAIN = ("lc_idx", "lc_z")
 LC_ALL = ("lc_idx", "lc_z", "lc_ds")
 
@@ -4501,8 +4547,8 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
 
 
 def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
-    """Phase 12: the index lifecycle over a copy of phase 4's 8 lineitem
-    files, lineage on, in sessions of its own on the card and, step for
+    """Phase 12: the index lifecycle over a copy of the first LC_FILES of
+    phase 4's 8 lineitem files, lineage on, in sessions of its own on the card and, step for
     step, on the cpu: lc_idx (li_idx's config) and
     lc_z (phase 10's z_idx) in phase 4's system path beside phase 5's
     o_idx, which stays unchanged; lc_ds (phase 11's ds_idx) in one of its
@@ -4541,7 +4587,11 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
 
     t_phase = time.perf_counter()
     src = os.path.join(work, "lc_lineitem")
-    _shutil.copytree(ctx["src"], src)
+    # the first LC_FILES of phase 4's files (a depth cut: the cpu session's
+    # SF1 actions were the script's largest share)
+    os.makedirs(src)
+    for i in range(LC_FILES):
+        _shutil.copy(os.path.join(ctx["src"], f"part{i}.parquet"), src)
     orders_src = ctx["orders_src"]
     cuda = LcSide(None, ctx["session"].conf.get("hyperspace.system.path"),
                   os.path.join(work, "lc_ds_indexes"))
@@ -6437,7 +6487,7 @@ def outofcore_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     t_phase = time.perf_counter()
     src = ctx["src"]
     per_file = CB.per_file_materialized_bytes([os.path.join(src, "part0.parquet")], "parquet")[0]
-    budget = int(OC_BUDGET_FILES * per_file)
+    budget = ctx["oc_budget"] = int(OC_BUDGET_FILES * per_file)
     sess = HyperspaceSession()
     sess.conf.set("hyperspace.system.path", os.path.join(work, "oc_indexes"))
     sess.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
@@ -6842,6 +6892,324 @@ def ooserve_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded build and serve (kernels B8a and B8b, B4 a shard)
+# ---------------------------------------------------------------------------
+
+#: phase 18's shards on the one card, and its builds of li_idx: (exchange
+#: strategy, sharded tail on)
+SH_SHARDS = 4
+SH_DEVICE = "cuda:0"
+SH_BUILDS = (("flat", True), ("compact", True), ("host", True), ("twostage", True),
+             ("flat", False))
+
+
+def b8_bits(t):
+    """A tensor's raw bits (floats as integers: NaN equals itself)."""
+    import torch
+
+    if t.dtype.is_floating_point:
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def b8_same(a, b) -> bool:
+    """B8 outputs equal bit for bit: nested lists and tuples of tensors."""
+    import torch
+
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(b8_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(b8_bits(a), b8_bits(b))
+
+
+def b8_bound(kind: str, args) -> dict:
+    """Least time of a B8 call: each distinct input read once, each output
+    written once, over HBM bandwidth (a few integer operations a row: far
+    under the bytes). B8a writes [D, cap] a column and D counts; B8b
+    writes its columns and one count."""
+    bucket, valid = args[0], args[1]
+    cols = args[4] if kind == "b8a" else args[3]
+    seen, nbytes = set(), 0
+    for t in (bucket, valid, *cols):
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    if kind == "b8a":
+        D, cap = args[2], args[3]
+        nbytes += D * cap * sum(c.element_size() for c in cols) + 8 * D
+    else:
+        nbytes += sum(c.numel() * c.element_size() for c in cols) + 8
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+def b8_timing(kind: str, args, flush, launches: int, calls_held: int) -> dict:
+    """Time one main-path call of B8a or B8b cold (256 MiB read before
+    each run, median of 30) beside its byte bound, its plain version and,
+    as the library yardstick, ``torch.sort(..., stable=True)`` of the same
+    keys (the destination digits, or the bucket with invalid slots last)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import exchange as X
+
+    if kind == "b8a":
+        kernel, plain = X.pack_kernel, X.pack_torch
+        keys = torch.where(args[1], args[0].to(torch.int64) % args[2], args[2])
+    else:
+        kernel, plain = X.order_kernel, X.order_torch
+        keys = torch.where(args[1], args[0], args[2])
+    ms = float(np.median(time_cold(lambda: kernel(*args), flush)))
+    plain_ms = float(np.median(time_cold(lambda: plain(*args), flush, warmup=1, iters=5)))
+    library_ms = float(np.median(time_cold(lambda: torch.sort(keys, stable=True), flush)))
+    b = b8_bound(kind, args)
+    names = {"b8a": ("bucket_exchange_pack", "hs_exchange_pack"),
+             "b8b": ("bucket_exchange_order", "hs_exchange_order")}
+    log(f"kernels: {kind.upper()} ({names[kind][1]}) cold at {args[0].shape[0]} rows: ms {ms:.4f} "
+        f"bound_ms {b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%} of it; {b['bytes']} bytes); "
+        f"plain_ms {plain_ms:.4f}; torch.sort(stable) of the same keys {library_ms:.4f} ms; "
+        f"{calls_held} main-path calls bit-equal to the plain version")
+    return {
+        "name": names[kind][0],
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/bucket_exchange.cu",
+        "replaces": "hyperspace_tpu/parallel/shuffle.py:306",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": library_ms,
+        "library_call": "torch.sort(keys, stable=True)",
+        "rows": int(args[0].shape[0]),
+        "bytes": b["bytes"],
+        "cases": calls_held,
+        "timing": "cold: 256 MiB read before each run, median of 30 (plain: of 5); "
+                  "the call includes the read of its error word",
+        "phase_18_launches": launches,
+    }
+
+
+def sh_session(root: str, shards: int, **conf):
+    """A session of ``shards`` shards on the one card (``devices=[SH_DEVICE]
+    * shards``), the aggregate sidecars off (phase 9 times them)."""
+    from hyperspace_tpu_torch import HyperspaceSession
+
+    sess = HyperspaceSession(devices=[SH_DEVICE] * shards)
+    sess.conf.set("hyperspace.system.path", root)
+    sess.conf.set(AGG_SWITCH, False)
+    for key, value in conf.items():
+        sess.conf.set(key, value)
+    return sess
+
+
+def sh_same_files(files, want: dict, label: str) -> int:
+    """``files`` against ``want`` (basename -> sha256): the same names,
+    byte for byte the same contents."""
+    got = {os.path.basename(f): f for f in files}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: other bucket files than the one-shard build's")
+    for name, path in got.items():
+        if file_sha(path) != want[name]:
+            raise AssertionError(f"{label}: {name} differs from the one-shard build's")
+    return len(got)
+
+
+def sharded_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 18: the sharded build and serve at SH_SHARDS shards on the one
+    card (module docstring, item 18). Launch counts read from 0 at its
+    start."""
+    import torch
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+
+    t_phase = time.perf_counter()
+    # (6) two processes on the card, in the background while the rest runs:
+    # NCCL refuses two ranks on one GPU, so the job takes gloo, whose
+    # collectives stage the CUDA tensors through host memory
+    dryrun = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", "torch_dryrun_multihost.py"),
+         "--device", torch.device(SH_DEVICE).type, "--timeout", "240"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+    )
+    config = lambda name: CoveringIndexConfig(name, ["l_orderkey"], ["l_shipdate", "l_quantity"])
+    li_sha = {os.path.basename(f): file_sha(f) for f in ctx["hs"].get_index("li_idx").content.files}
+    out = {"shards": SH_SHARDS, "builds": {}}
+    keep = {}
+    kernels.record_b8(True)
+    kernels.record_b4(True)
+    ops.reset_launch_counts()
+    try:
+        # (1) li_idx built at SH_SHARDS shards through every strategy
+        for strategy, tail in SH_BUILDS:
+            name = f"sh_{strategy}" + ("" if tail else "_onetail")
+            root = os.path.join(work, "sh_indexes", name)
+            sess = sh_session(root, SH_SHARDS, **{
+                "hyperspace.build.exchange.strategy": strategy,
+                "hyperspace.build.exchange.twostageHosts": 2,
+                "hyperspace.build.shardedTail.enabled": tail})
+            hs = Hyperspace(sess)
+            kernels.label = f"sharded create {name}"
+            t0 = time.perf_counter()
+            try:
+                hs.create_index(sess.read.parquet(ctx["src"]), config(name))
+            finally:
+                kernels.label = None
+            seconds = time.perf_counter() - t0
+            if strategy == "flat" and tail:
+                for kind in ("b8a", "b8b"):
+                    keep[kind] = next(c[2] for c in kernels.calls if c[0] == kind)
+            kernels.settle()
+            n = sh_same_files(hs.get_index(name).content.files, li_sha, name)
+            tele = dict(sess.build_telemetry)
+            stats = {k: round(v, 4) for k, v in sess.build_stats.items()}
+            out["builds"][name] = {"seconds": seconds, "files_equal": n, "telemetry": tele,
+                                   "stages_s": stats}
+            log(f"sharded path [{card}]: {name} at {SH_SHARDS} shards on one card in "
+                f"{seconds:.3f}s; all {n} bucket files byte-equal to phase 4's one-shard li_idx; "
+                f"last_shuffle_stats {tele}; stages {stats}")
+            if tele.get("shuffle_strategy") != strategy or (tail and stats.get("tail_shards") != SH_SHARDS):
+                raise AssertionError(f"{name}: strategy {tele.get('shuffle_strategy')}, "
+                                     f"tail shards {stats.get('tail_shards')}")
+            if name != "sh_flat":
+                shutil.rmtree(root, ignore_errors=True)
+        # (3) the sharded join: o_idx and li_idx (built at one shard) served
+        # at SH_SHARDS, sequential and streamed, against phase 5's plan at 1
+        def join(s):
+            orders, items = s.read.parquet(ctx["orders_src"]), s.read.parquet(ctx["src"])
+            return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+                "o_orderkey", "o_custkey", "l_quantity")
+
+        one = ctx["session"]
+        one.enable_hyperspace()
+        want = join(one).collect()
+        serve = sh_session(one.conf.get("hyperspace.system.path"), SH_SHARDS)
+        serve.enable_hyperspace()
+        index_served(Hyperspace(serve), join(serve), ("o_idx", "li_idx"))
+        joins = {}
+        for label, stream in (("sequential", False), ("streamed", True)):
+            serve.conf.set("hyperspace.serve.stream.enabled", stream)
+            before = ops.launch_counts()
+            kernels.label = f"sharded join {label}"
+            t0 = time.perf_counter()
+            try:
+                got = join(serve).collect()
+            finally:
+                kernels.label = None
+            seconds = time.perf_counter() - t0
+            after = ops.launch_counts()
+            held = len([c for c in kernels.settle() if c[0] == "b4"])
+            shard = after["bucket_match_pairs.shard"] - before["bucket_match_pairs.shard"]
+            if not got.equals(want):
+                raise AssertionError(f"the {label} join at {SH_SHARDS} shards differs from phase "
+                                     "5's rows in order")
+            if shard <= 0 or shard != after["bucket_match_pairs"] - before["bucket_match_pairs"]:
+                raise AssertionError(f"the {label} join did not match a shard block at a time")
+            joins[label] = {"seconds": seconds, "rows": got.num_rows, "b4_shard_launches": shard,
+                            "b4_calls_held": held, "stages_s": dict(serve.join_stats)}
+            log(f"sharded path [{card}]: o_idx join li_idx at {SH_SHARDS} shards, {label}: "
+                f"{got.num_rows} rows equal to phase 5's plan in order, {seconds:.3f}s; "
+                f"B4 launches a shard block {shard}, {held} B4 calls bit-equal to the plain "
+                f"version; stages {serve.join_stats}")
+        out["join"] = joins
+        # (4) phase 16's budgeted st_idx build at SH_SHARDS shards, the
+        # concurrent per-shard merges on
+        oc = HyperspaceSession(device=SH_DEVICE)
+        oc.conf.set("hyperspace.system.path", os.path.join(work, "oc_indexes"))
+        st_sha = {os.path.basename(f): file_sha(f)
+                  for f in Hyperspace(oc).get_index("st_idx").content.files}
+        st = sh_session(os.path.join(work, "sh_oc"), SH_SHARDS,
+                        **{"hyperspace.index.build.memoryBudgetBytes": ctx["oc_budget"]})
+        kernels.label = "sharded streamed create sh_st"
+        t0 = time.perf_counter()
+        try:
+            Hyperspace(st).create_index(st.read.parquet(ctx["src"]), config("sh_st"))
+        finally:
+            kernels.label = None
+        seconds = time.perf_counter() - t0
+        kernels.settle()
+        n = sh_same_files(Hyperspace(st).get_index("sh_st").content.files, st_sha, "sh_st")
+        stats = dict(st.build_stats)
+        out["streamed_build"] = {"seconds": seconds, "files_equal": n,
+                                 "stages_s": {k: round(v, 4) for k, v in stats.items()}}
+        log(f"sharded path [{card}]: phase 16's st_idx streamed at {SH_SHARDS} shards in "
+            f"{seconds:.3f}s: {stats.get('waves')} waves, {stats.get('merge_workers')} concurrent "
+            f"merge workers, all {n} bucket files byte-equal to phase 16's")
+        if stats.get("waves") != 4 or stats.get("merge_workers") != SH_SHARDS:
+            raise AssertionError(f"sh_st: {stats.get('waves')} waves, "
+                                 f"{stats.get('merge_workers')} merge workers")
+        shutil.rmtree(os.path.join(work, "sh_oc"), ignore_errors=True)
+        # (5) cross-mesh serve: sh_flat (built at SH_SHARDS) served at one
+        # shard, li_idx (built at one) at SH_SHARDS: phase 4's point filters
+        point_keys, in_lists = phase4_keys()
+        cross = {}
+        for label, sess, name in (
+                ("built at 4, served at 1", HyperspaceSession(device=SH_DEVICE), "sh_flat"),
+                ("built at 1, served at 4", sh_session("", SH_SHARDS), "li_idx")):
+            root = (os.path.join(work, "sh_indexes", "sh_flat") if name == "sh_flat"
+                    else one.conf.get("hyperspace.system.path"))
+            sess.conf.set("hyperspace.system.path", root)
+            sess.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+            items = sess.read.parquet(ctx["src"])
+            conds = [items["l_orderkey"] == k for k in point_keys[:8]] + [
+                items["l_orderkey"].isin(in_lists[0])]
+            base = one.read.parquet(ctx["src"])
+            one_conds = [base["l_orderkey"] == k for k in point_keys[:8]] + [
+                base["l_orderkey"].isin(in_lists[0])]
+            sess.enable_hyperspace()
+            rows = 0
+            for cond, one_cond in zip(conds, one_conds):
+                plan = items.filter(cond).select("l_orderkey", "l_shipdate", "l_quantity")
+                text = Hyperspace(sess).explain(plan).split("Plan without indexes:")[0]
+                if f"Name: {name}" not in text:
+                    raise AssertionError(f"{label}: a filter not served by {name}")
+                got = sorted_rows(plan.collect())
+                ref = sorted_rows(base.filter(one_cond).select(
+                    "l_orderkey", "l_shipdate", "l_quantity").collect())
+                if not got.equals(ref):
+                    raise AssertionError(f"{label}: filter rows differ from phase 4's session")
+                rows += got.num_rows
+            cross[label] = {"queries": len(conds), "rows": rows}
+            log(f"sharded path [{card}]: {name} {label}: {len(conds)} filters equal to phase 4's "
+                f"session's rows ({rows} rows)")
+        out["cross_mesh"] = cross
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        # (6) the two-process dryrun
+        t0 = time.perf_counter()
+        text, _ = dryrun.communicate(timeout=300)
+        hashes = re.findall(r"create_content=(\w+)", text)
+        log(f"sharded path [{card}]: two processes on the one card over gloo (NCCL refuses two "
+            f"ranks on one GPU; gloo stages CUDA tensors through host memory): exit "
+            f"{dryrun.returncode}, waited {time.perf_counter() - t0:.1f}s at the end\n"
+            + text.strip())
+        if dryrun.returncode != 0 or text.count("DRYRUN-OK") != 2 or len(set(hashes)) != 1:
+            raise AssertionError("the two-process dryrun on the card failed")
+        out["two_process"] = {"exit": dryrun.returncode, "content": hashes[0],
+                              "ok_lines": text.count("DRYRUN-OK")}
+    finally:
+        kernels.label = None
+        kernels.record_b4(False)
+        kernels.record_b8(False)
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+        shutil.rmtree(os.path.join(work, "sh_indexes"), ignore_errors=True)
+    for kernel in ("bucket_exchange_pack", "bucket_exchange_order", "murmur3_bucket_ids",
+                   "bucket_match_pairs"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"phase 18 launched no {kernel}")
+    out["held"] = kernels.summary("phase 18", (
+        ("b8a", "sharded create sh_flat"), ("b8b", "sharded create sh_flat"),
+        ("b1", "sharded create sh_flat"), ("b4", "sharded join sequential"),
+        ("b4", "sharded join streamed")))
+    out["launches"] = launches
+    out["keep"] = keep
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded path [{card}]: phase launches {launches}; {out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -6992,6 +7360,8 @@ def main() -> int:
         phase("16")
         ospath = ooserve_path(work, ctx, kernels, card)
         phase("17")
+        shpath = sharded_path(work, ctx, kernels, card)
+        phase("18")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -7024,7 +7394,7 @@ def main() -> int:
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
     lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
-            ocpath["launches"], ospath["launches"])
+            ocpath["launches"], ospath["launches"], shpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -7048,6 +7418,22 @@ def main() -> int:
                            (b7, "bloom_bits")):
         record["phase_15_launches"] = lkpath["launches"][kernel]
         record["phase_16_launches"] = ocpath["launches"][kernel]
+    sh_held = shpath["held"]
+    for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
+                           (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
+                           (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
+                           (b7, "bloom_bits")):
+        record["phase_18_launches"] = shpath["launches"][kernel]
+    b4["phase_18_shard_launches"] = shpath["launches"]["bucket_match_pairs.shard"]
+    b1["cases"] += sh_held.get("b1", 0)
+    b4["cases"] += sh_held.get("b4", 0)
+    # 256 MiB read before every cold run: five times the L2
+    flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    b8a = b8_timing("b8a", shpath["keep"]["b8a"], flush,
+                    shpath["launches"]["bucket_exchange_pack"], sh_held.get("b8a", 0))
+    b8b = b8_timing("b8b", shpath["keep"]["b8b"], flush,
+                    shpath["launches"]["bucket_exchange_order"], sh_held.get("b8b", 0))
+    del flush
     b5f["lake_calls"] = lk_held.get("b5f", 0)
     b5f["outofcore_calls"] = oc_held.get("b5f", 0)
     b1["phase_4_launches"] = ctx["launches"]
@@ -7076,9 +7462,13 @@ def main() -> int:
         "seconds", "materializing", "stream_small", "stream_default", "stream_mmap", "filters",
         "join", "f1", "spill", "settle_s", "held", "launches")},
         "card": card}, default=str))
+    log(json.dumps({"sharded": {k: shpath[k] for k in (
+        "seconds", "shards", "builds", "join", "streamed_build", "cross_mesh", "two_process",
+        "held", "launches")},
+        "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7]}), flush=True)
+    print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7, b8a, b8b]}), flush=True)
     print(
         json.dumps(
             {

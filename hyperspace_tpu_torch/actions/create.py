@@ -41,9 +41,14 @@ def capture_sidecars(session, index_data_path: str, index) -> None:
     computed on the session's device, their seconds the build stage
     "sidecar_capture", split into its row-group reads and its folds (with
     the folds' fused passes and their overflowed chunks). Create, refresh
-    and optimize each run it over their new directory alone."""
+    and optimize each run it over their new directory alone. On a job of
+    several processes only the coordinator writes them, after the build's
+    barrier (``covering_build._global_written``) has every bucket file in
+    place."""
     from hyperspace_tpu_torch.indexes import aggindex, zonemaps
 
+    if not session.runtime.is_coordinator:
+        return
     t0 = time.perf_counter()
     zonemaps.capture_safely(index_data_path, index, session.device)
     session.build_stats["zonemap_capture"] = time.perf_counter() - t0

@@ -147,6 +147,37 @@ class Config:
         )
 
     @property
+    def build_num_shards(self) -> int:
+        """Shards of the build plane (0 = the whole session mesh); a
+        positive value caps the build mesh to the first N shards."""
+        return self.get_int(C.BUILD_NUM_SHARDS, C.BUILD_NUM_SHARDS_DEFAULT)
+
+    @property
+    def build_exchange_strategy(self) -> str:
+        """Exchange strategy of the build's bucket shuffle
+        (``parallel/shuffle.py``): ``auto`` | ``flat`` | ``compact`` |
+        ``host`` | ``twostage``, all with the same output; ``auto``
+        resolves per topology (``shuffle.resolve_strategy``)."""
+        return self.get_str(C.BUILD_EXCHANGE_STRATEGY, C.BUILD_EXCHANGE_STRATEGY_DEFAULT)
+
+    @property
+    def build_exchange_twostage_hosts(self) -> int:
+        """Simulated host count of the twostage exchange in one process
+        (0 = the process count)."""
+        return self.get_int(
+            C.BUILD_EXCHANGE_TWOSTAGE_HOSTS, C.BUILD_EXCHANGE_TWOSTAGE_HOSTS_DEFAULT
+        )
+
+    @property
+    def build_sharded_tail(self) -> bool:
+        """The sharded build and serve tail on a mesh of more than one
+        shard (the same files and rows as the single tail, which False
+        restores)."""
+        return self.get_bool(
+            C.BUILD_SHARDED_TAIL_ENABLED, C.BUILD_SHARDED_TAIL_ENABLED_DEFAULT
+        )
+
+    @property
     def explain_display_mode(self) -> str:
         return self.get_str(C.EXPLAIN_DISPLAY_MODE, C.EXPLAIN_DISPLAY_MODE_DEFAULT)
 

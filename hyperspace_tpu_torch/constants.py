@@ -90,6 +90,36 @@ INDEX_BUILD_PARTITION_FIRST_DEFAULT = True
 INDEX_BUILD_MEMORY_BUDGET = "hyperspace.index.build.memoryBudgetBytes"
 INDEX_BUILD_MEMORY_BUDGET_DEFAULT = 0
 
+# Sharded build and serve tail (reference constants.py:130-140): on a
+# mesh of more than one shard each shard's bucket range runs its own sort
+# and bucket-file writes (build) and its own prepare and match (serve),
+# with a per-bucket union at the edge. The files and rows are the same
+# either way; False restores the single tail. No effect on one shard.
+BUILD_SHARDED_TAIL_ENABLED = "hyperspace.build.shardedTail.enabled"
+BUILD_SHARDED_TAIL_ENABLED_DEFAULT = True
+
+# Exchange strategy of the build's bucket shuffle (parallel/shuffle.py):
+# auto | flat | compact | host | twostage, all with the same output;
+# "auto" resolves per topology (shuffle.resolve_strategy).
+BUILD_EXCHANGE_STRATEGY = "hyperspace.build.exchange.strategy"
+BUILD_EXCHANGE_STRATEGY_DEFAULT = "auto"
+
+# Simulated host count of the twostage exchange in one process (the flat
+# mesh carved into this many groups of contiguous shards); 0 = the
+# process count. A multi-process job always uses the process count.
+BUILD_EXCHANGE_TWOSTAGE_HOSTS = "hyperspace.build.exchange.twostageHosts"
+BUILD_EXCHANGE_TWOSTAGE_HOSTS_DEFAULT = 0
+
+# Warn (once a build) when the exchange's per-(shard, peer) send-count
+# skew (max/mean) exceeds this ratio on a slot of at least the row floor.
+BUILD_SHUFFLE_SKEW_WARN_RATIO = 4.0
+BUILD_SHUFFLE_SKEW_WARN_MIN_ROWS = 1 << 12
+
+# Shards of the build plane; 0 = every shard of the session mesh, a
+# positive value caps the build mesh to the first N.
+BUILD_NUM_SHARDS = "hyperspace.build.numShards"
+BUILD_NUM_SHARDS_DEFAULT = 0
+
 # Explain rendering (DisplayMode.scala: plaintext / console / html)
 EXPLAIN_DISPLAY_MODE = "hyperspace.explain.displayMode"
 EXPLAIN_DISPLAY_MODE_DEFAULT = "plaintext"
@@ -246,6 +276,9 @@ ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT = 0.01
 # ---------------------------------------------------------------------------
 # Reserved column / property names
 # ---------------------------------------------------------------------------
+
+# File names written by the index data plane start with this prefix.
+INDEX_FILE_PREFIX = "part"
 
 # Lineage column (IndexConstants: DATA_FILE_NAME_ID = "_data_file_id")
 DATA_FILE_NAME_ID = "_data_file_id"

@@ -16,7 +16,10 @@ A join whose two sides keep aligned bucketed index layouts (the
 JoinIndexRule rewrite) runs shuffle-free: each side is executed into
 per-bucket batches (bucket id from the file names, rows in file order)
 and ``execution/join_exec`` zips equal buckets pairwise, matching them
-with kernel B4 (``ops/join.py``) on the session's device. With the
+with kernel B4 (``ops/join.py``) on the session's device, or on a shard
+mesh (``session.runtime``, more than one shard, the sharded tail on) a
+block of buckets a shard on the shards' devices, whose pipelined prepare
+then runs a worker a shard (``_serve_shards``). With the
 pipelined serve on (``hyperspace.serve.pipeline.enabled``, default off)
 and both sides clean index scans (``Project*(Scan)``), the two sides
 prepare on two threads, each streaming its per-bucket reads from the
@@ -845,7 +848,8 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
         lp, rp = (_prepared_join_side(*side, session, stats) for side in sides)
     joined = None
     if lp is not None and rp is not None:
-        joined = co_bucketed_join_prepared(lp, rp, on, session.device, stats)
+        joined = co_bucketed_join_prepared(lp, rp, on, session.device, stats,
+                                           _serve_mesh(session))
     session.join_stats = stats
     if joined is not None:
         return joined
@@ -866,6 +870,24 @@ def _merge_stats(stats: dict, parts) -> None:
     for st in parts:
         for k, v in st.items():
             stats[k] = stats.get(k, 0.0) + v
+
+
+def _serve_shards(session) -> int:
+    """Shards of the sharded serve tail (``hyperspace.build.shardedTail.
+    enabled``, one flag for the build and the serve): the session mesh's
+    local shards when the flag is on, else 1. The shard layout is the
+    build's bucket ownership (``bucket % D``): each prepare worker takes
+    the buckets its shard owns, and the match a contiguous block of
+    buckets a shard; the rows come out the same at every count."""
+    if not session.conf.build_sharded_tail:
+        return 1
+    return session.runtime.mesh.local_size
+
+
+def _serve_mesh(session):
+    """The mesh a co-bucketed join matches over (one block of buckets a
+    shard, kernel B4 on each shard's device), or None for one device."""
+    return session.runtime.mesh if _serve_shards(session) > 1 else None
 
 
 def _serve_pipeline_on(session) -> bool:
@@ -956,7 +978,11 @@ def _prepared_join_side(
     if _serve_pipeline_on(session) and rels is not None and (cache is None or key is not None):
         fetches = _bucket_fetches(plan, needed, session, True, bucket_cols, stats)
         _stage_add(stats, "scan", t0)
-        prep = prepare_join_side_pipelined(fetches, key_cols, stats)
+        shards = _serve_shards(session)
+        if shards > 1:
+            prep = prepare_join_side_pipelined(fetches, key_cols, stats, num_shards=shards)
+        else:
+            prep = prepare_join_side_pipelined(fetches, key_cols, stats)
     else:
         delta: dict = {}
         fetches = _bucket_fetches(plan, needed, session, False, bucket_cols, delta,
@@ -1185,7 +1211,8 @@ def _exec_join_streaming(plan: Join, needed: Set[str], session, layout, on, l_ne
                 lp, rp = fl.result(), fr.result()
                 _merge_stats(stats, side_stats)
                 joined = (
-                    co_bucketed_join_prepared(lp, rp, on, session.device, stats)
+                    co_bucketed_join_prepared(lp, rp, on, session.device, stats,
+                                              _serve_mesh(session))
                     if lp is not None and rp is not None
                     else None
                 )

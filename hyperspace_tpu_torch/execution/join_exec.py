@@ -42,12 +42,21 @@ that is not key-sorted keeps its per-bucket sort permutation on the host
 (:meth:`PreparedJoinSide.bucket_sort_perm`), so later joins gather
 instead of sorting again.
 
-Not ported (ROADMAP queue A): the reference's match thread pools and
-host/device dispatch knobs (``deviceJoinMinRows``, the native presorted
-fast path and its thresholds) and the sharded prepare (A.9). A CUDA
-session always matches with B4; a CPU session with its plain version. The
-outputs are identical on every one of the reference's routes, so the port
-keeps one.
+On a shard mesh (the session's ``runtime``, more than one shard, with
+``hyperspace.build.shardedTail.enabled`` on) the match is the reference's
+mesh route (``_device_match``, ``join_exec.py:760-803``): the buckets
+padded to a multiple of the shard count, each shard's contiguous block
+matched by B4 on the shard's device (``ops/join.match_pairs_sharded``),
+and the pipelined prepare runs a worker a shard over the buckets the shard
+owns (``bucket % D``, ``parallel/mesh.bucket_owner_groups``). The rows and
+their order are the same at every shard count.
+
+Not ported: the reference's host/device dispatch knobs
+(``deviceJoinMinRows`` and the native presorted fast path with its
+thresholds), which choose between its host twin and its device program.
+A CUDA session always matches with B4, a CPU session with its plain
+version; the outputs are identical on every one of the reference's
+routes, so the port keeps one.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from hyperspace_tpu_torch.io.columnar import ColumnarBatch, remap_codes
 from hyperspace_tpu_torch.ops.join import (
     combine_reps,
     match_pairs,
+    match_pairs_sharded,
     segment_sort,
 )
 from hyperspace_tpu_torch.ops.sort import sort_permutation
@@ -394,6 +404,7 @@ def prepare_join_side_pipelined(
     items: Iterable[Tuple[int, Callable[[], ColumnarBatch]]],
     key_cols: List[str],
     stats: Optional[Dict[str, float]] = None,
+    num_shards: int = 1,
 ) -> Optional[PreparedJoinSide]:
     """Streaming twin of :func:`prepare_join_side`: consumes ``(bucket,
     fetch)`` pairs in ascending bucket order and computes each bucket's
@@ -404,19 +415,50 @@ def prepare_join_side_pipelined(
     sortedness test ignores bucket boundaries in both. Returns None for
     an empty stream (the executor's empty-side contract). The time each
     ``fetch()`` takes (the wait for a read the prepare did not hide, and
-    the decode) counts as ``scan``, the rest as ``prepare``."""
-    rows = []
-    for b, fetch in items:
+    the decode) counts as ``scan``, the rest as ``prepare``.
+
+    ``num_shards > 1`` prepares shard-locally (reference ``join_exec.py:
+    449-490``): a worker a shard, each taking the buckets its shard owns
+    (``bucket % num_shards``), the per-bucket states put back in bucket
+    order at the edge; the same side either way."""
+    import threading
+
+    lock = threading.Lock()
+
+    def add(stage: str, t0: float) -> None:
+        with lock:
+            _stage_add(stats, stage, t0)
+
+    def prep_one(item):
+        b, fetch = item
         t0 = time.perf_counter()
         batch = fetch()
-        _stage_add(stats, "scan", t0)
+        add("scan", t0)
         t0 = time.perf_counter()
         reps = batch.key_reps(key_cols)
         nulls_m = batch.null_any(key_cols)
         combined = combine_reps(reps)
         sorted_b = len(combined) <= 1 or bool(np.all(combined[1:] >= combined[:-1]))
-        _stage_add(stats, "prepare", t0)
-        rows.append((b, batch, reps, nulls_m, combined, sorted_b))
+        add("prepare", t0)
+        return b, batch, reps, nulls_m, combined, sorted_b
+
+    items = list(items)
+    if num_shards > 1 and len(items) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from hyperspace_tpu_torch.parallel.mesh import bucket_owner_groups
+
+        groups = bucket_owner_groups([b for b, _ in items], num_shards)
+        rows = [None] * len(items)
+
+        def prep_group(group):
+            for i in group:
+                rows[i] = prep_one(items[i])
+
+        with ThreadPoolExecutor(max_workers=len(groups), thread_name_prefix="hs-shardprep") as pool:
+            list(pool.map(prep_group, groups))
+    else:
+        rows = [prep_one(item) for item in items]
     if not rows:
         return None
     t0 = time.perf_counter()
@@ -468,13 +510,20 @@ def _match(
     r_comb: np.ndarray,
     device: torch.device,
     stats: Optional[Dict[str, float]],
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-bucket match of two sides over the same buckets -> global
-    (li, ri) into the sides' batches, in the reference's pair order."""
+    (li, ri) into the sides' batches, in the reference's pair order; on a
+    mesh each shard matches its block of buckets on its own device."""
     t0 = time.perf_counter()
     lk, l_row = _side_on_device(lp, l_comb, 0, device)
     rk, r_row = _side_on_device(rp, r_comb, 1, device)
-    li, ri = match_pairs(lk, lp.offs, rk, rp.offs, l_row, r_row)
+    if mesh is not None:
+        li, ri = match_pairs_sharded(mesh.local_devices, lk, lp.offs, rk, rp.offs, l_row, r_row)
+        for dev in set(mesh.local_devices):
+            _sync(dev)
+    else:
+        li, ri = match_pairs(lk, lp.offs, rk, rp.offs, l_row, r_row)
     _sync(device)
     _stage_add(stats, "match", t0)
     return _pairs_to_host(li, ri, stats)
@@ -486,9 +535,12 @@ def co_bucketed_join_prepared(
     on: List[Tuple[str, str]],
     device: torch.device,
     stats: Optional[Dict[str, float]] = None,
+    mesh=None,
 ) -> Optional[ColumnarBatch]:
     """Shuffle-free join of two prepared co-bucketed sides: each bucket
-    pair is matched independently by B4, no exchange ever happens.
+    pair is matched independently by B4, no exchange ever happens. With a
+    ``mesh`` the buckets are matched a block of them a local shard, on the
+    shards' devices (the same rows in the same order).
 
     Returns the joined batch, or None when the sides share no bucket (the
     caller builds the schema-correct empty result)."""
@@ -499,7 +551,7 @@ def co_bucketed_join_prepared(
     rp = rp.subset(common)
     l_comb = _sentineled(lp, 0)
     r_comb = _sentineled(rp, 1)
-    li, ri = _match(lp, rp, l_comb, r_comb, device, stats)
+    li, ri = _match(lp, rp, l_comb, r_comb, device, stats, mesh)
     # Single-key matching on the raw combined reps is exact (identity
     # combine, no sentinels in play when no side has null keys): only the
     # string hash-collision guard is needed. Multi-key combines can

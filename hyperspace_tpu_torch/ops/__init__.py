@@ -24,7 +24,10 @@ the plain version, a tensor on the card launches the kernel or raises.
   scaling, the bit interleave (kernel B6, ``csrc/zorder_interleave.cu``),
   and the z-order sort through :mod:`.sort`'s ``lexsort_permutation``;
 * :mod:`.bloom` — Bloom filter bit indices, build and probe of the
-  data-skipping index (kernel B7, ``csrc/bloom_bits.cu``).
+  data-skipping index (kernel B7, ``csrc/bloom_bits.cu``);
+* :mod:`.exchange` — the sharded build's bucket exchange: the pack of a
+  shard's rows into ``[D, cap]`` slots (kernel B8a) and the order of a
+  shard's received slots by bucket (kernel B8b), ``csrc/bucket_exchange.cu``.
 """
 
 from __future__ import annotations
@@ -91,10 +94,26 @@ KERNEL_TWINS = {
         "bit_indices_torch",
         "hyperspace_tpu_torch/csrc/bloom_bits.cu",
     ),
+    "bucket_exchange_pack": (
+        "hyperspace_tpu_torch.ops.exchange",
+        "pack_kernel",
+        "pack_torch",
+        "hyperspace_tpu_torch/csrc/bucket_exchange.cu",
+    ),
+    "bucket_exchange_order": (
+        "hyperspace_tpu_torch.ops.exchange",
+        "order_kernel",
+        "order_torch",
+        "hyperspace_tpu_torch/csrc/bucket_exchange.cu",
+    ),
 }
 
 #: kernels whose module counts them under another attribute than ``launches``
-LAUNCH_COUNTERS = {"fused_select": "select_launches"}
+LAUNCH_COUNTERS = {
+    "fused_select": "select_launches",
+    "bucket_exchange_pack": "pack_launches",
+    "bucket_exchange_order": "order_launches",
+}
 
 #: launches by route of a kernel entry with more than one route, each also
 #: counted in its kernel's own count: name -> (module, attribute)
@@ -102,6 +121,7 @@ ROUTE_COUNTERS = {
     "bloom_bits.build_block": ("hyperspace_tpu_torch.ops.bloom", "block_launches"),
     "bloom_bits.build_binned": ("hyperspace_tpu_torch.ops.bloom", "binned_launches"),
     "bloom_bits.build_global": ("hyperspace_tpu_torch.ops.bloom", "global_launches"),
+    "bucket_match_pairs.shard": ("hyperspace_tpu_torch.ops.join", "shard_launches"),
 }
 
 

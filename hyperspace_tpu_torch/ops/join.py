@@ -21,6 +21,12 @@ whole match — ranges and pair expansion — is kernel B4
   pass, a scan of its per-range totals that sizes the output, emit
   pass) and counts each launch in :data:`launches`. It raises on
   what it cannot take; there is no fallback.
+* :func:`match_pairs_sharded` is the reference's mesh route
+  (``_sharded_join``, ``ops/join.py:174``): the segments padded with
+  empty ones to a multiple of the shard count, each shard's contiguous
+  block of segments matched by B4 on the shard's device (its launches
+  also counted in :data:`shard_launches`), the pairs concatenated in
+  segment order.
 
 Pair order: segment ascending, then left position, then right sorted
 position — the reference's order on every one of its routes.
@@ -41,6 +47,9 @@ from hyperspace_tpu_torch.ops.sort import sort_permutation
 #: kernel launches made by :func:`match_pairs` on CUDA tensors (count
 #: pass, scan and emit pass each count one; never the plain version)
 launches = 0
+#: the part of :data:`launches` made by :func:`match_pairs_sharded`'s
+#: shard calls
+shard_launches = 0
 
 
 def combine_reps(reps: np.ndarray) -> np.ndarray:
@@ -395,3 +404,50 @@ def match_pairs(
     if l_keys.device.type == "cuda":
         return match_pairs_kernel(l_keys, l_offs, r_sorted, r_offs, l_row, r_row)
     raise ValueError(f"match_pairs: unsupported device {l_keys.device}")
+
+
+def match_pairs_sharded(
+    devices,
+    l_keys: torch.Tensor,
+    l_offs,
+    r_sorted: torch.Tensor,
+    r_offs,
+    l_row: Optional[torch.Tensor] = None,
+    r_row: Optional[torch.Tensor] = None,
+    out_device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`match_pairs` over a shard mesh (``devices``, one a shard; a
+    device may repeat): the B segments padded with empty ones to a
+    multiple of D, as the reference pads its bucket dimension
+    (``join_exec.py:784-800``), shard s matching segments ``[s * B' / D,
+    (s + 1) * B' / D)`` on ``devices[s]``. Identity row maps become each
+    slice's base offset. The pairs (on ``out_device``, default the
+    keys') are :func:`match_pairs`'s, in the same order."""
+    global shard_launches
+    lo_np, ro_np = _check(l_keys, l_offs, r_sorted, r_offs, l_row, r_row)
+    D = len(devices)
+    out_device = torch.device(out_device) if out_device is not None else l_keys.device
+    B = len(lo_np) - 1
+    per = -(-B // D)
+    lo_np = np.concatenate([lo_np, np.full(per * D - B, lo_np[-1], dtype=np.int64)])
+    ro_np = np.concatenate([ro_np, np.full(per * D - B, ro_np[-1], dtype=np.int64)])
+    li_parts, ri_parts = [], []
+    for s in range(D):
+        b0, b1 = s * per, (s + 1) * per
+        l0, l1, r0, r1 = int(lo_np[b0]), int(lo_np[b1]), int(ro_np[b0]), int(ro_np[b1])
+        if l0 == l1 or r0 == r1:
+            continue
+        dev = torch.device(devices[s])
+        before = launches
+        li, ri = match_pairs(
+            l_keys[l0:l1].to(dev), lo_np[b0 : b1 + 1] - l0,
+            r_sorted[r0:r1].to(dev), ro_np[b0 : b1 + 1] - r0,
+            None if l_row is None else l_row[l0:l1].to(dev),
+            None if r_row is None else r_row[r0:r1].to(dev),
+        )
+        shard_launches += launches - before
+        li_parts.append(li.to(out_device) + (l0 if l_row is None else 0))
+        ri_parts.append(ri.to(out_device) + (r0 if r_row is None else 0))
+    if not li_parts:
+        return _empty_pairs(out_device)
+    return torch.cat(li_parts), torch.cat(ri_parts)

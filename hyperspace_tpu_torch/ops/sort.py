@@ -109,6 +109,50 @@ def bucket_sort_runs(
     return perm.numpy(), offsets.numpy()
 
 
+def shard_tail_plan(shard_offsets: np.ndarray) -> list:
+    """The shards of a sharded tail that hold rows: the units that sort
+    and write concurrently (reference ``ops/sort.py:288``; its per-shard
+    share of host sort threads has no counterpart here, the sorts run on
+    the devices)."""
+    return [
+        s for s in range(len(shard_offsets) - 1) if shard_offsets[s + 1] > shard_offsets[s]
+    ]
+
+
+def sharded_sort_permutation(
+    key_reps: torch.Tensor,
+    bucket: torch.Tensor,
+    num_buckets: int,
+    shard_offsets: np.ndarray,
+    devices: Optional[Sequence] = None,
+) -> torch.Tensor:
+    """The sharded twin of :func:`partitioned_sort_permutation` (reference
+    ``ops/sort.py:302``): each shard's post-exchange slice
+    (``shard_offsets[s]:shard_offsets[s + 1]``, exactly the buckets it
+    owns) sorts by (bucket, keys) on its own device (``devices[s]``,
+    default the input's), concurrently with the other shards. The output
+    (int64, on the input's device) is shard-major, not globally bucket
+    ascending, but every bucket lives in one slice, so each bucket's rows
+    come in the same order as in the global sort, the only order the
+    bucketed writers see."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shards = shard_tail_plan(shard_offsets)
+
+    def run_shard(s: int) -> torch.Tensor:
+        lo, hi = int(shard_offsets[s]), int(shard_offsets[s + 1])
+        dev = key_reps.device if devices is None else torch.device(devices[s])
+        perm = partitioned_sort_permutation(
+            key_reps[:, lo:hi].to(dev), bucket[lo:hi].to(dev), num_buckets
+        )
+        return perm.to(key_reps.device) + lo
+
+    if not shards:
+        return torch.zeros(0, dtype=torch.int64, device=key_reps.device)
+    with ThreadPoolExecutor(max_workers=len(shards), thread_name_prefix="hs-shardsort") as pool:
+        return torch.cat(list(pool.map(run_shard, shards)))
+
+
 # ---------------------------------------------------------------------------
 # User-facing ORDER BY (value order, not key-rep order)
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ index-rewrite rule — mirroring ``spark.enableHyperspace()``
 Device rule: the session runs on ``cuda`` unless the caller asks for the
 CPU with ``device="cpu"`` (as the tests do). Without a CUDA device and
 without that request it raises; it never falls back to the CPU quietly.
-The device is carried on the session and reaches every op call.
+The device is carried on the session and reaches every op call; the
+shard mesh of the build and the sharded serve is ``session.runtime``
+(``devices=``, one shard on ``device`` by default).
 """
 
 from __future__ import annotations
@@ -169,12 +171,34 @@ class DataFrameReader:
 
 
 class HyperspaceSession:
-    def __init__(self, device=None):
+    """``device`` is where queries run; ``devices`` the shard mesh of the
+    build and the sharded serve (``parallel/mesh.py``), one entry a shard,
+    a device listed once a shard it holds (``["cpu"] * 4`` runs 4 shards
+    on the CPU, ``["cuda:0"] * 4`` 4 shards on one GPU). Default: one
+    shard on ``device``; given only ``devices``, ``device`` is the first
+    shard's."""
+
+    def __init__(self, device=None, devices: Optional[Sequence] = None):
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise HyperspaceException("devices must name at least one device")
+            if device is not None and resolve_device(device) != devices[0]:
+                raise HyperspaceException(
+                    f"device {device} is not the mesh's first shard {devices[0]}"
+                )
+            device = devices[0]
         self.device = resolve_device(device)
+        from hyperspace_tpu_torch.parallel.mesh import MeshRuntime
+
+        self.runtime = MeshRuntime(devices if devices is not None else [self.device])
         self.conf = Config()
         self.exec_stats = ExecStats()
         #: stage wall seconds of the latest index build (indexes/covering_build)
         self.build_stats: dict = {}
+        #: the bucket exchange's telemetry of the latest build
+        #: (``shuffle_<key>``, indexes/covering_build)
+        self.build_telemetry: dict = {}
         #: stage wall seconds of the latest join (execution/join_exec)
         self.join_stats: dict = {}
         #: stage wall seconds of the latest query's aggregates, sorts and

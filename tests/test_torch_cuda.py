@@ -1066,3 +1066,105 @@ def test_stream_join_launches_b4_a_wave_and_a_warm_cached_filter_launches_b3a(
     for args, out in masks:
         assert torch.equal(out, F.range_mask_torch(*args))
     assert got.equals(want)
+
+
+def _b8_columns(rng, n, dev):
+    """A shard's rows for B8: bucket ids with some out of order, a valid
+    mask with invalid rows scattered and last, and one column of each
+    width the build decomposes batches into (8-byte ints and floats with
+    NaN, 4-byte codes, 2-byte, 1-byte and bool)."""
+    f = rng.normal(size=n)
+    f[::9] = np.nan
+    cols = [
+        torch.from_numpy(rng.integers(-(2**62), 2**62, n)),
+        torch.from_numpy(f),
+        torch.from_numpy(rng.integers(-5, 300, n).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 2**16, n).astype(np.int16)),
+        torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8)),
+        torch.from_numpy(rng.integers(0, 2, n).astype(bool)),
+    ]
+    valid = np.ones(n, dtype=bool)
+    valid[::13] = False
+    valid[n - n // 5 :] = False
+    return [c.to(dev) for c in cols], torch.from_numpy(valid).to(dev)
+
+
+def _same_bits(a, b) -> bool:
+    """Bit equality (``torch.equal`` holds NaN unequal to itself)."""
+    if a.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, D, nb", [(1, 1, 1), (1025, 4, 200), (70_001, 4, 200),
+                                      (1_500_304, 4, 200), (33_000, 8, 50_000)])
+def test_b8_pack_and_order_equal_their_plain_versions(cuda_device, n, D, nb):
+    """B8a and B8b on the card, bit-equal to their plain versions on the
+    same card tensors, every column width included; a rank past cap
+    raises."""
+    from hyperspace_tpu_torch.ops import exchange as X
+
+    rng = np.random.default_rng(n + D)
+    ids = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32)).to(cuda_device)
+    cols, valid = _b8_columns(rng, n, cuda_device)
+    dest = torch.where(valid, ids.long() % D, D)
+    cap = max(int(torch.bincount(dest, minlength=D + 1)[:D].max()), 1)
+    before = X.pack_launches
+    got = X.pack_kernel(ids, valid, D, cap, [ids, valid, *cols])
+    assert X.pack_launches == before + 1
+    want = X.pack_torch(ids, valid, D, cap, [ids, valid, *cols])
+    assert torch.equal(got[0], want[0])
+    assert all(_same_bits(g, w) for g, w in zip(got[1], want[1]))
+    recv_ids, recv_valid = got[1][0].reshape(-1), got[1][1].reshape(-1)
+    recv = [c.reshape(-1) for c in got[1][2:]]
+    o_got = X.order_kernel(recv_ids, recv_valid, nb, [recv_ids, *recv])
+    o_want = X.order_torch(recv_ids, recv_valid, nb, [recv_ids, *recv])
+    assert torch.equal(o_got[1], o_want[1])
+    assert all(_same_bits(g, w) for g, w in zip(o_got[0], o_want[0]))
+    if cap > 1 and n > D:
+        with pytest.raises(ValueError, match="overflow"):
+            X.pack_kernel(ids, valid, D, cap - 1, [ids])
+
+
+def test_sharded_build_on_the_card_writes_the_one_shard_files(cuda_device, tmp_path):
+    """A D = 2 build on one card (kernels B1, B8a, B8b, the sharded tail)
+    and a D = 1 build write the same bucket files byte for byte; the
+    sharded join serves the rows of the one-shard join in order."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession, ops
+
+    rng = np.random.default_rng(20)
+    src, dim = tmp_path / "src", tmp_path / "dim"
+    src.mkdir()
+    dim.mkdir()
+    for i in range(3):
+        pq.write_table(pa.table({"k": rng.integers(0, 400, 30_000), "s": rng.choice(["a", "b"], 30_000),
+                                 "v": rng.normal(size=30_000)}), str(src / f"p{i}.parquet"))
+    pq.write_table(pa.table({"j": np.arange(400), "w": rng.normal(size=400)}), str(dim / "d.parquet"))
+    files, rows = {}, {}
+    for D in (1, 2):
+        s = HyperspaceSession(devices=[cuda_device] * D)
+        s.conf.set("hyperspace.system.path", str(tmp_path / f"d{D}"))
+        s.conf.set("hyperspace.index.num_buckets", 32)
+        s.conf.set("hyperspace.build.exchange.strategy", "flat")
+        ops.reset_launch_counts()
+        hs = Hyperspace(s)
+        f, d = s.read.parquet(str(src)), s.read.parquet(str(dim))
+        hs.create_index(f, CoveringIndexConfig("b", ["k"], ["s", "v"]))
+        hs.create_index(d, CoveringIndexConfig("dj", ["j"], ["w"]))
+        counts = ops.launch_counts()
+        if D == 2:
+            assert counts["bucket_exchange_pack"] == 2 * D  # two creates, a shard each
+            assert counts["bucket_exchange_order"] == 2 * D
+            assert s.build_stats.get("tail_shards") == 2.0
+        files[D] = index_files(str(tmp_path / f"d{D}" / "b"))
+        s.enable_hyperspace()
+        ops.reset_launch_counts()
+        rows[D] = f.join(d, on=f["k"] == d["j"]).select("k", "v", "w").collect()
+        shard = ops.launch_counts()["bucket_match_pairs.shard"]
+        assert shard == (ops.launch_counts()["bucket_match_pairs"] if D == 2 else 0)
+    assert files[1] == files[2]
+    assert rows[1].equals(rows[2]) and rows[1].num_rows > 0
