@@ -413,9 +413,10 @@ against its plain PyTorch version on the card:
    logged; (2) every B8a and B8b call of the main path held bit-equal to
    its plain version on the same card tensors, and one of each (the flat
    build's first shard) timed cold, 256 MiB read first, median of 30,
-   beside its byte bound at 3.35 TB/s, its plain version and
-   ``torch.sort(keys, stable=True)`` of the same keys as the library
-   yardstick; (3) phase 5's ``o_idx ⋈ li_idx`` served at 4 shards,
+   whole with its error word's read (as PR 20 timed it) and its launches
+   alone, with the digit route it took, beside its byte bound at 3.35
+   TB/s, its plain version and ``torch.sort(keys, stable=True)`` of the
+   same keys as the library yardstick; (3) phase 5's ``o_idx ⋈ li_idx`` served at 4 shards,
    sequential and streamed (``hyperspace.serve.stream.enabled``): rows
    equal to phase 5's plan in order, a block of buckets a shard matched
    by B4 (counted in ``bucket_match_pairs.shard``), every B4 call held to
@@ -6945,29 +6946,36 @@ def b8_bound(kind: str, args) -> dict:
 
 def b8_timing(kind: str, args, flush, launches: int, calls_held: int) -> dict:
     """Time one main-path call of B8a or B8b cold (256 MiB read before
-    each run, median of 30) beside its byte bound, its plain version and,
-    as the library yardstick, ``torch.sort(..., stable=True)`` of the same
-    keys (the destination digits, or the bucket with invalid slots last)."""
+    each run, median of 30): the whole call with its read of the error
+    word (``ms``, as PR 20 timed it) and its launches alone, CUDA events
+    around them (``device_ms``), beside its byte bound, its plain version
+    and, as the library yardstick, ``torch.sort(..., stable=True)`` of the
+    same keys (the destination digits, or the bucket with invalid slots
+    last)."""
     import torch
 
     from hyperspace_tpu_torch.ops import exchange as X
 
     if kind == "b8a":
-        kernel, plain = X.pack_kernel, X.pack_torch
+        kernel, launch, plain = X.pack_kernel, X.pack_launch, X.pack_torch
         keys = torch.where(args[1], args[0].to(torch.int64) % args[2], args[2])
+        plan = X.plan(args[0].shape[0], args[2] + 1, args[2], args[3])
     else:
-        kernel, plain = X.order_kernel, X.order_torch
+        kernel, launch, plain = X.order_kernel, X.order_launch, X.order_torch
         keys = torch.where(args[1], args[0], args[2])
+        plan = X.plan(args[0].shape[0], args[2] + 1)
     ms = float(np.median(time_cold(lambda: kernel(*args), flush)))
+    device_ms = float(np.median(time_cold(lambda: launch(*args), flush)))
     plain_ms = float(np.median(time_cold(lambda: plain(*args), flush, warmup=1, iters=5)))
     library_ms = float(np.median(time_cold(lambda: torch.sort(keys, stable=True), flush)))
     b = b8_bound(kind, args)
-    names = {"b8a": ("bucket_exchange_pack", "hs_exchange_pack"),
-             "b8b": ("bucket_exchange_order", "hs_exchange_order")}
-    log(f"kernels: {kind.upper()} ({names[kind][1]}) cold at {args[0].shape[0]} rows: ms {ms:.4f} "
-        f"bound_ms {b['bound_ms']:.4f} ({b['bound_ms'] / ms:.1%} of it; {b['bytes']} bytes); "
-        f"plain_ms {plain_ms:.4f}; torch.sort(stable) of the same keys {library_ms:.4f} ms; "
-        f"{calls_held} main-path calls bit-equal to the plain version")
+    names = {"b8a": ("bucket_exchange_pack", "hs_exchange_pack_count / _move"),
+             "b8b": ("bucket_exchange_order", "hs_exchange_order_count / _move")}
+    log(f"kernels: {kind.upper()} ({names[kind][1]}, PR 21's design, {plan.route} route) cold at "
+        f"{args[0].shape[0]} rows: ms {ms:.4f} with the error word's read ({b['bound_ms'] / ms:.1%} "
+        f"of bound_ms {b['bound_ms']:.4f}; {b['bytes']} bytes), launches alone {device_ms:.4f} "
+        f"({b['bound_ms'] / device_ms:.1%}); plain_ms {plain_ms:.4f}; torch.sort(stable) of the "
+        f"same keys {library_ms:.4f} ms; {calls_held} main-path calls bit-equal to the plain version")
     return {
         "name": names[kind][0],
         "route": "cuda",
@@ -6981,11 +6989,14 @@ def b8_timing(kind: str, args, flush, launches: int, calls_held: int) -> dict:
         "bound_by": b["bound_by"],
         "library_ms": library_ms,
         "library_call": "torch.sort(keys, stable=True)",
+        "device_ms": device_ms,
+        "digit_route": plan.route,
+        "design": "PR 21",
         "rows": int(args[0].shape[0]),
         "bytes": b["bytes"],
         "cases": calls_held,
-        "timing": "cold: 256 MiB read before each run, median of 30 (plain: of 5); "
-                  "the call includes the read of its error word",
+        "timing": "cold: 256 MiB read before each run, median of 30 (plain: of 5); ms is the "
+                  "call with the read of its error word, device_ms its launches alone",
         "phase_18_launches": launches,
     }
 

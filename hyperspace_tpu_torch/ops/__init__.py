@@ -27,7 +27,12 @@ the plain version, a tensor on the card launches the kernel or raises.
   data-skipping index (kernel B7, ``csrc/bloom_bits.cu``);
 * :mod:`.exchange` — the sharded build's bucket exchange: the pack of a
   shard's rows into ``[D, cap]`` slots (kernel B8a) and the order of a
-  shard's received slots by bucket (kernel B8b), ``csrc/bucket_exchange.cu``.
+  shard's received slots by bucket (kernel B8b), ``csrc/bucket_exchange.cu``,
+  replacing ``hyperspace_tpu/parallel/shuffle.py:306``'s two argsorts:
+  each a stable counting sort over 4,096-row tiles in three launches
+  (tile histograms, their scan, a rank-and-move pass that stages each
+  column in shared memory in digit order), bound by HBM bytes; B8b over
+  more than 4,095 buckets in two such passes.
 """
 
 from __future__ import annotations

@@ -1097,32 +1097,78 @@ def _same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n, D, nb", [(1, 1, 1), (1025, 4, 200), (70_001, 4, 200),
-                                      (1_500_304, 4, 200), (33_000, 8, 50_000)])
-def test_b8_pack_and_order_equal_their_plain_versions(cuda_device, n, D, nb):
+#: B8's card cases: (n, D, num_buckets, cap, layout, offset). cap None is
+#: the largest destination's count (tight); layout "random", "one_dest"
+#: (every row to one destination) or "all_invalid"; offset 1 makes every
+#: input a view one element into a larger tensor, so that no column's
+#: address is 16-byte aligned. 2,097,152 rows at D = 4 and cap 1,048,576
+#: are chip_smoke.py phase 18's shard, whose pack the order then takes
+#: over 4,194,304 slots; 4,095 and 4,097 rows sit one row either side of
+#: the kernels' tile; 50,000 buckets take B8b's two-digit route.
+B8_CASES = [
+    pytest.param(1, 1, 1, None, "random", 0, id="1-1-1"),
+    pytest.param(1025, 4, 200, None, "random", 0, id="1025-4-200"),
+    pytest.param(70_001, 4, 200, None, "random", 0, id="70001-4-200"),
+    pytest.param(1_500_304, 4, 200, None, "random", 0, id="1500304-4-200"),
+    pytest.param(33_000, 8, 50_000, None, "random", 0, id="33000-8-50000"),
+    pytest.param(2_097_152, 4, 200, 1 << 20, "random", 0, id="phase18"),
+    pytest.param(4095, 4, 200, None, "random", 0, id="tile-minus-1"),
+    pytest.param(4097, 4, 200, None, "random", 0, id="tile-plus-1"),
+    pytest.param(10_000, 4, 200, None, "one_dest", 0, id="one-destination"),
+    pytest.param(10_000, 4, 200, None, "all_invalid", 0, id="all-invalid"),
+    pytest.param(70_001, 4, 200, None, "random", 1, id="odd-offset"),
+]
+
+
+def _b8_inputs(rng, n, D, nb, layout, offset, dev):
+    """bucket, valid and the columns of one B8 card case (``B8_CASES``)."""
+    ids = rng.integers(0, nb, n + offset).astype(np.int32)
+    if layout == "one_dest":
+        ids = ids - ids % D + 1 % D
+        ids[ids >= nb] -= D
+    cols, valid = _b8_columns(rng, n + offset, "cpu")
+    if layout == "all_invalid":
+        valid = torch.zeros_like(valid)
+    ids = torch.from_numpy(ids)
+    return [t.to(dev)[offset:] for t in (ids, valid, *cols)]
+
+
+@pytest.mark.parametrize("n, D, nb, cap, layout, offset", B8_CASES)
+def test_b8_pack_and_order_equal_their_plain_versions(cuda_device, n, D, nb, cap, layout,
+                                                       offset):
     """B8a and B8b on the card, bit-equal to their plain versions on the
-    same card tensors, every column width included; a rank past cap
-    raises."""
+    same card tensors, every column width included, and to themselves
+    over three calls; a count past cap raises."""
     from hyperspace_tpu_torch.ops import exchange as X
 
-    rng = np.random.default_rng(n + D)
-    ids = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32)).to(cuda_device)
-    cols, valid = _b8_columns(rng, n, cuda_device)
+    rng = np.random.default_rng(n + D + offset)
+    ids, valid, *cols = _b8_inputs(rng, n, D, nb, layout, offset, cuda_device)
+    if offset:
+        assert all(c.data_ptr() % 16 for c in (ids, *cols) if c.element_size() > 1)
     dest = torch.where(valid, ids.long() % D, D)
-    cap = max(int(torch.bincount(dest, minlength=D + 1)[:D].max()), 1)
+    tight = max(int(torch.bincount(dest, minlength=D + 1)[:D].max()), 1)
+    cap = cap or tight
     before = X.pack_launches
-    got = X.pack_kernel(ids, valid, D, cap, [ids, valid, *cols])
-    assert X.pack_launches == before + 1
+    runs = [X.pack_kernel(ids, valid, D, cap, [ids, valid, *cols]) for _ in range(3)]
+    assert X.pack_launches == before + 3
+    got = runs[0]
     want = X.pack_torch(ids, valid, D, cap, [ids, valid, *cols])
-    assert torch.equal(got[0], want[0])
-    assert all(_same_bits(g, w) for g, w in zip(got[1], want[1]))
+    for run in runs:
+        assert torch.equal(run[0], want[0])
+        assert all(_same_bits(g, w) for g, w in zip(run[1], want[1]))
     recv_ids, recv_valid = got[1][0].reshape(-1), got[1][1].reshape(-1)
     recv = [c.reshape(-1) for c in got[1][2:]]
-    o_got = X.order_kernel(recv_ids, recv_valid, nb, [recv_ids, *recv])
     o_want = X.order_torch(recv_ids, recv_valid, nb, [recv_ids, *recv])
+    for _ in range(3):
+        o_got = X.order_kernel(recv_ids, recv_valid, nb, [recv_ids, *recv])
+        assert torch.equal(o_got[1], o_want[1])
+        assert all(_same_bits(g, w) for g, w in zip(o_got[0], o_want[0]))
+    # the order over the rows as they came, views included
+    o_got = X.order_kernel(ids, valid, nb, [ids, valid, *cols])
+    o_want = X.order_torch(ids, valid, nb, [ids, valid, *cols])
     assert torch.equal(o_got[1], o_want[1])
     assert all(_same_bits(g, w) for g, w in zip(o_got[0], o_want[0]))
-    if cap > 1 and n > D:
+    if tight > 1 and cap == tight:
         with pytest.raises(ValueError, match="overflow"):
             X.pack_kernel(ids, valid, D, cap - 1, [ids])
 
