@@ -429,6 +429,30 @@ against its plain PyTorch version on the card:
    on one GPU), started at the phase's start and awaited at its end:
    exit 0, ``DRYRUN-OK`` twice, equal content hashes. A ``sharded`` JSON
    line.
+19. SQL, tracing and the witnesses' plane (``obs_sql_path``) over phases 4
+   and 5's session, lineitem and orders registered as views: (1) phase
+   4's 36 filters, phase 5's join and phase 8's queries a-e as SQL strings
+   (``sql_queries``), each equal to the DataFrame API's in logical and
+   optimized plan and in rows (in order, floats bit for bit), the filters,
+   the join, a and d index-served (b, c and e read a column no index
+   covers, as in phase 8); every B1, B3a and B4 call under SQL recorded
+   and held to its plain version, and every B5 call on a CPU copy; (2) 5
+   rounds with ``hyperspace.obs.enabled`` off and 5 on, in turns, of the
+   36 filters and the join: p50 and p99 of the filters, p50 of the join;
+   with tracing on each query runs under a root span (``traced_run``)
+   whose stage spans equal ``session.join_stats`` and whose record goes to
+   the query log ``querylog.open_log`` opens, with ``recordPlans`` on; the
+   records read back with
+   ``read_valid_records``, each valid, all replayed through
+   ``testing/replay.replay_records`` with the original rows; (3) a create
+   of ``obs_idx`` (orders on o_custkey) under its root span, whose stage
+   spans equal ``build_stats``, with ``log_commit``, and whose
+   ``CreateActionEvent`` reaches a ``JsonlEventLogger`` file; (4) with
+   ``hyperspace.profile.traceDir`` set, one filter and the join on the
+   same session (``profile_check``): two Chrome traces whose CUDA kernel
+   events name B1 (``murmur3_bucket_kernel``) and B4 (``count_kernel``,
+   ``emit_kernel``), with no kernel launch missing its device event.
+   An ``obs`` JSON line.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -450,8 +474,8 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14, 15, 16, 17 and 18 and read just after each; each kernel's
-count in the JSON line adds phases 12, 13, 14, 15, 16, 17 and 18's; B8a
+11, 12, 13, 14, 15, 16, 17, 18 and 19 and read just after each; each kernel's
+count in the JSON line adds phases 12, 13, 14, 15, 16, 17, 18 and 19's; B8a
 and B8b (``bucket_exchange_pack`` / ``_order``) run in phase 18 alone. The
 kernel checks' launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
@@ -7221,6 +7245,351 @@ def sharded_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
     return out
 
 
+# -- phase 19: SQL, tracing, the query log and the profiler ---------------------
+
+#: phase 19's timed rounds a mode (tracing off, then on, in turns)
+OBS_ROUNDS = 5
+#: phase 19's queries that read a column no index covers (phase 8 serves
+#: them from the source too)
+SQL_SOURCE_SERVED = ("b", "c", "e_top", "e_stream")
+
+
+def sql_queries(F, items, orders) -> list:
+    """Phase 19's queries: ``(label, kind, SQL, DataFrame)``, the
+    DataFrame the same query through the DataFrame API over ``items``
+    (lineitem) and ``orders``: phase 4's 32 point and 4 IN filters, phase
+    5's join and phase 8's queries a-e (TPC-H Q18's shape; a projection
+    where the SQL's select list names a group column, which the SQL
+    surface writes as one)."""
+    point_keys, in_lists = phase4_keys()
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    sel = ", ".join(cols)
+    key, qty, ship = items["l_orderkey"], items["l_quantity"], items["l_shipdate"]
+    out = []
+    for i, k in enumerate(point_keys):
+        out.append((f"point {i}", "filter", f"SELECT {sel} FROM lineitem WHERE l_orderkey = {k}",
+                    items.filter(key == k).select(*cols)))
+    for i, keys in enumerate(in_lists):
+        out.append((f"in {i}", "filter",
+                    f"SELECT {sel} FROM lineitem WHERE l_orderkey IN ({', '.join(map(str, keys))})",
+                    items.filter(key.isin(keys)).select(*cols)))
+    out.append(("join", "join",
+                "SELECT o_orderkey, o_custkey, l_quantity FROM orders "
+                "JOIN lineitem ON o_orderkey = l_orderkey",
+                orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
+                    "o_orderkey", "o_custkey", "l_quantity")))
+    window = items.filter((key >= AGG_LO) & (key < AGG_HI))
+    where = f"WHERE l_orderkey >= {AGG_LO} AND l_orderkey < {AGG_HI}"
+    b_aggs = [F.count(), F.sum("l_extendedprice")]
+    out += [
+        ("a", "agg", "SELECT COUNT(*), SUM(l_quantity), AVG(l_quantity), MIN(l_shipdate), "
+         f"MAX(l_shipdate) FROM lineitem {where}",
+         window.agg(F.count(), F.sum("l_quantity"), F.avg("l_quantity"), F.min("l_shipdate"),
+                    F.max("l_shipdate"))),
+        ("b", "agg", f"SELECT l_quantity, COUNT(*), SUM(l_extendedprice) FROM lineitem {where} "
+         "GROUP BY l_quantity",
+         window.group_by("l_quantity").agg(*b_aggs).select(
+             "l_quantity", *[s.name for s in b_aggs])),
+        ("c", "agg", "SELECT SUM(l_extendedprice), MIN(l_extendedprice), MAX(l_extendedprice) "
+         "FROM lineitem",
+         items.agg(F.sum("l_extendedprice"), F.min("l_extendedprice"),
+                   F.max("l_extendedprice"))),
+        ("d", "agg", "SELECT l_orderkey, SUM(l_quantity) AS q FROM lineitem GROUP BY l_orderkey "
+         "ORDER BY q DESC, l_orderkey LIMIT 100",
+         items.group_by("l_orderkey").agg(F.sum("l_quantity").alias("q"))
+         .select("l_orderkey", "q").sort(("q", False), "l_orderkey").limit(100)),
+        ("e_top", "agg", f"SELECT * FROM lineitem WHERE l_shipdate < DATE '{E_SHIP_CUTOFF}' "
+         "ORDER BY l_extendedprice DESC LIMIT 10",
+         items.filter(ship < np.datetime64(E_SHIP_CUTOFF)).sort(("l_extendedprice", False))
+         .limit(10)),
+        ("e_stream", "agg", "SELECT * FROM lineitem WHERE l_quantity = 7 LIMIT 1000",
+         items.filter(qty == 7).limit(1000)),
+    ]
+    return out
+
+
+def traced_run(sess, df, qlog):
+    """One query with tracing on, as the serve tier will run it (A.10b's
+    frontend takes its place): a root span ``serve.query`` with a
+    fingerprint, the plan attributes of ``querylog.plan_attrs`` (the
+    replay spec under ``recordPlans``), indexes and rule, the query inside
+    it, one ``qlog`` record after it. Returns (rows, root). The session's
+    join breakdown starts empty, so the root's stage spans and
+    ``session.join_stats`` describe the same query."""
+    import hashlib
+
+    from hyperspace_tpu_torch.execution import execute
+    from hyperspace_tpu_torch.obs import querylog, trace
+
+    plan = df.logical_plan
+    root = trace.root("serve.query")
+    root.set("fingerprint", hashlib.sha256(plan.pretty().encode()).hexdigest()[:16])
+    for key, value in querylog.plan_attrs(sess.conf, plan).items():
+        root.set(key, value)
+    sess.join_stats = {}
+    with trace.activate(root):
+        try:
+            with trace.span("rewrite"):
+                optimized = sess.optimize(plan)
+            root.set("indexes", querylog.indexes_in_plan(optimized))
+            root.set("rule", querylog.rule_flavor(plan))
+            out = execute(optimized, sess)
+            root.set("status", "ok").set("rows_returned", int(out.num_rows))
+        except BaseException:
+            root.set("status", "failed").set("rows_returned", 0)
+            raise
+        finally:
+            root.finish()
+            qlog.append(querylog.record_from_root(root))
+    return out, root
+
+
+def profile_check(sess, sql_texts, trace_dir: str) -> dict:
+    """Phase 19's profiler leg, in this process after every phase before
+    it: ``hyperspace.profile.traceDir`` set on ``sess``, each SQL query in
+    ``sql_texts`` once, one Chrome trace a query. On a CUDA session the
+    traces' kernel events must name B1 (``murmur3_bucket_kernel``) and B4
+    (``count_kernel``, ``emit_kernel``), every kernel launch of the queries
+    must have its device event (``session.launches_without_kernels``,
+    which leaves out the session's pads) and the session must have
+    warned of none. Returns the files, seconds, the kernel names found, the
+    launches without a kernel event, the warnings and the events'
+    categories."""
+    import collections
+    import warnings
+
+    from hyperspace_tpu_torch.session import launches_without_kernels
+
+    sess.conf.set("hyperspace.profile.traceDir", trace_dir)
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for text in sql_texts:
+                sess.sql(text).collect()
+    finally:
+        sess.conf.set("hyperspace.profile.traceDir", "")
+    profile_s = time.perf_counter() - t0
+    warned = [str(w.message) for w in seen if "torch.profiler kept no device event" in
+              str(w.message)]
+    names, cats, missing = set(), collections.Counter(), {}
+    files = sorted(os.listdir(trace_dir))
+    for name in files:
+        path = os.path.join(trace_dir, name)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        cats.update(e.get("cat") for e in events)
+        names |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        missing[name] = launches_without_kernels(path)
+    want = {"B1": ("murmur3_bucket_kernel",), "B4": ("count_kernel", "emit_kernel")}
+    found = {k: sorted(n for n in names if any(x in n for x in subs)) for k, subs in want.items()}
+    out = {"files": len(files), "s": round(profile_s, 3), "kernels": found,
+           "launches_without_kernel": missing, "warnings": warned,
+           "categories": {str(k): v for k, v in cats.items()}}
+    log(f"obs path: profiler traces {files} ({profile_s:.2f}s, in this process): kernel "
+        f"events naming B1 {found['B1']} and B4 {found['B4']}; launches without a kernel "
+        f"event {missing}; warnings {warned}; event categories {out['categories']}")
+    cuda = sess.device.type == "cuda"
+    if len(files) != len(sql_texts) or (cuda and (
+            not (found["B1"] and len(found["B4"]) >= 2) or any(missing.values()) or warned)):
+        raise AssertionError(f"profiler trace: {files}, kernel events {found}, launches "
+                             f"without a kernel event {missing}, warnings {warned}")
+    return out
+
+
+def obs_sql_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs,
+                 card: str) -> dict:
+    """Phase 19: the SQL surface, tracing, the query log, an action's root
+    span and the profiler over phases 4 and 5's session (li_idx, li_rg_idx,
+    o_idx; lineitem and orders registered as views). Launch counts read
+    from 0 at its start."""
+    import math
+
+    import torch
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, functions as F
+    from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.obs import metrics, querylog, trace
+    from hyperspace_tpu_torch.testing import replay
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    t_phase = time.perf_counter()
+    sess, hs, items = ctx["session"], ctx["hs"], ctx["items"]
+    orders = sess.read.parquet(ctx["orders_src"])
+    items.create_or_replace_temp_view("lineitem")
+    orders.create_or_replace_temp_view("orders")
+    sess.enable_hyperspace()
+    ops.reset_launch_counts()
+    queries = sql_queries(F, items, orders)
+    out = {"card": card}
+
+    # 1. SQL against the DataFrame API: the same plans, the same rows
+    cuda = sess.device.type == "cuda"
+    kernels.record_b3a(True)
+    kernels.record_b4(True)
+    sql_rows, plans = {}, {}
+    before = ops.launch_counts()
+    for label, kind, text, df in queries:
+        sdf = sess.sql(text)
+        if sdf.logical_plan.pretty() != df.logical_plan.pretty():
+            raise AssertionError(f"sql {label}: the plan differs from the DataFrame API's:\n"
+                                 f"{sdf.logical_plan.pretty()}\n{df.logical_plan.pretty()}")
+        opt = sess.optimize(sdf.logical_plan)
+        if opt.pretty() != sess.optimize(df.logical_plan).pretty():
+            raise AssertionError(f"sql {label}: the optimized plan differs from the DataFrame "
+                                 f"API's")
+        plans[label] = querylog.indexes_in_plan(opt)
+        # b, c and e read l_extendedprice, which no index of the session
+        # covers: they read the source through either API, as in phase 8
+        if not plans[label] and label not in SQL_SOURCE_SERVED:
+            raise AssertionError(f"sql {label}: not index-served:\n{opt.pretty()}")
+        kernels.label = f"sql {kind}"
+        b5_inputs.label = f"sql {label}" if kind == "agg" else None
+        sql_rows[label] = sdf.collect()
+        kernels.label = b5_inputs.label = None
+    after = ops.launch_counts()
+    sql_launches = {k: after[k] - before[k] for k in after}
+    kernels.record_b3a(False)
+    kernels.record_b4(False)
+    for label, kind, _text, df in queries:
+        want = df.collect()
+        # a point key may match no row (phase 4's keys are drawn at random)
+        if (kind != "filter" and sql_rows[label].num_rows == 0) or not same_rows(
+                sql_rows[label], want):
+            raise AssertionError(f"sql {label}: rows differ from the DataFrame API's")
+    if not sum(sql_rows[lab].num_rows for lab, kind, _t, _d in queries if kind == "filter"):
+        raise AssertionError("no SQL filter matched a row")
+    need = ("murmur3_bucket_ids", "range_mask", "bucket_match_pairs", "segment_reduce")
+    if cuda and not all(sql_launches[k] > 0 for k in need):
+        raise AssertionError(f"SQL did not launch B1, B3a, B4 and B5: {sql_launches}")
+    kernels.settle()
+    held = kernels.summary("phase 19 (SQL)", required=(
+        [("b1", "sql filter"), ("b3a", "sql filter"), ("b4", "sql join")] if cuda else ()))
+    sql_b5 = {k: b5_inputs.calls.pop(k) for k in list(b5_inputs.calls) if k.startswith("sql ")}
+    b5_calls = check_b5_main_path(sql_b5, "phase 19's SQL")[0] if cuda else 0
+    if cuda and not b5_calls:
+        raise AssertionError("phase 19's SQL aggregates made no B5 call")
+    held["b5"] = b5_calls
+    out["sql"] = {"queries": len(queries), "launches": {k: sql_launches[k] for k in need},
+                  "held": held, "indexes": {k: v for k, v in plans.items()
+                                            if not k.startswith(("point", "in "))}}
+    log(f"obs path: {len(queries)} SQL queries (36 filters, the join, a-e) equal to the "
+        f"DataFrame API's in plan, optimized plan and rows (floats bit for bit); indexes "
+        f"{ {k: v for k, v in plans.items() if not k.startswith(('point', 'in '))} }; SQL launches B1 {sql_launches['murmur3_bucket_ids']}, B3a "
+        f"{sql_launches['range_mask']}, B4 {sql_launches['bucket_match_pairs']}, B5 "
+        f"{sql_launches['segment_reduce']}; calls held {held}")
+
+    # 2. tracing off and on, in turns; the query log and its replay
+    obs_dir = os.path.join(work, "obs_sys", "_hyperspace_obs")
+    sess.conf.set("hyperspace.obs.enabled", True)
+    sess.conf.set("hyperspace.obs.querylog.recordPlans", True)
+    qlog = querylog.open_log(sess.conf, obs_dir)
+    filters = [(lab, df) for lab, kind, _t, df in queries if kind == "filter"]
+    join_df = next(df for lab, _k, _t, df in queries if lab == "join")
+    times = {False: {"filter": [], "join": []}, True: {"filter": [], "join": []}}
+    traced, checked = [], 0
+    for rnd in range(OBS_ROUNDS * 2):
+        on = rnd % 4 in (1, 2)  # off, on, on, off, off, on, ...
+        sess.conf.set("hyperspace.obs.enabled", on)
+        trace.configure(sess.conf)
+        for kind, runs in (("filter", filters), ("join", [("join", join_df)])):
+            for label, df in runs:
+                t0 = time.perf_counter()
+                if on:
+                    got, root = traced_run(sess, df, qlog)
+                else:
+                    sess.join_stats = {}
+                    got = df.collect()
+                times[on][kind].append((time.perf_counter() - t0) * 1e3)
+                if not same_rows(got, sql_rows[label]):
+                    raise AssertionError(f"{label}: rows differ with tracing {on}")
+                if on:
+                    spans = {k: v for k, v in root.stage_seconds().items()
+                             if k not in ("rewrite", "agg")}
+                    stats = sess.join_stats
+                    if set(spans) != set(stats) or any(
+                            not math.isclose(spans[k], v, rel_tol=1e-9, abs_tol=1e-12)
+                            for k, v in stats.items()):
+                        raise AssertionError(f"{label}: stage spans {spans} differ from the "
+                                             f"session's breakdown {stats}")
+                    traced.append(label)
+                    checked += len(stats)
+    sess.conf.set("hyperspace.obs.enabled", False)
+    trace.configure(sess.conf)
+    qlog.close()
+    turns = {}
+    for on in (False, True):
+        fp = np.percentile(times[on]["filter"], [50, 99])
+        turns["on" if on else "off"] = {
+            "filter_p50_ms": float(fp[0]), "filter_p99_ms": float(fp[1]),
+            "join_p50_ms": float(np.median(times[on]["join"])),
+            "runs": {k: len(v) for k, v in times[on].items()}}
+    records = querylog.read_valid_records(obs_dir)
+    bad = [querylog.validate_record(r) for r in records if querylog.validate_record(r)]
+    if len(records) != len(traced) or bad:
+        raise AssertionError(f"query log: {len(records)} records for {len(traced)} traced "
+                             f"queries, invalid: {bad[:3]}")
+    t0 = time.perf_counter()
+    res = replay.replay_records(sess, records, keep_results=True)
+    replay_s = time.perf_counter() - t0
+    if res.completed != len(records) or res.failed or res.skipped:
+        raise AssertionError(f"replay: {res.to_dict()}")
+    for label, got in zip(traced, res.tables):
+        if not same_rows(got, sql_rows[label]):
+            raise AssertionError(f"replayed {label}: rows differ from the original query's")
+    out["turns"] = turns
+    out["querylog"] = {"records": len(records), "replayed": res.completed,
+                       "replay_s": round(replay_s, 3), "stage_keys_checked": checked}
+    log(f"obs path: tracing off / on in turns x{OBS_ROUNDS}: filters p50 "
+        f"{turns['off']['filter_p50_ms']:.3f} / {turns['on']['filter_p50_ms']:.3f} ms, p99 "
+        f"{turns['off']['filter_p99_ms']:.3f} / {turns['on']['filter_p99_ms']:.3f} ms, join "
+        f"p50 {turns['off']['join_p50_ms']:.3f} / {turns['on']['join_p50_ms']:.3f} ms; every "
+        f"traced query's stage spans equal the session's join breakdown ({checked} stage "
+        f"values); {len(records)} query-log records valid, all replayed with the original "
+        f"rows in {replay_s:.2f}s; {card}")
+
+    # 3. one action's root span and its event
+    events = os.path.join(work, "obs_events.jsonl")
+    sess.conf.set("hyperspace.eventLoggerClass", "hyperspace_tpu_torch.telemetry.JsonlEventLogger")
+    sess.conf.set("hyperspace.obs.eventlog.path", events)
+    sess.conf.set("hyperspace.obs.enabled", True)
+    trace.reset()
+    t0 = time.perf_counter()
+    hs.create_index(orders, CoveringIndexConfig("obs_idx", ["o_custkey"], ["o_totalprice"]))
+    create_s = time.perf_counter() - t0
+    sess.conf.set("hyperspace.obs.enabled", False)
+    sess.conf.set("hyperspace.eventLoggerClass", "")
+    trace.configure(sess.conf)
+    (root,) = trace.finished("action.CreateAction")
+    spans = root.stage_seconds()
+    timed = {k: v for k, v in sess.build_stats.items()
+             if not k.startswith("sidecar_capture_") and k not in ("tail_wall", "tail_shards")}
+    if root.attrs.get("status") != "ok" or "log_commit" not in spans or any(
+            not math.isclose(spans.get(k, -1.0), v, rel_tol=1e-9, abs_tol=1e-12)
+            for k, v in timed.items()) or set(spans) - {"log_commit", "pack", "exchange",
+                                                         "unpack"} != set(timed):
+        raise AssertionError(f"obs_idx: spans {spans} differ from build_stats {timed}")
+    evs = [r for r in metrics.read_jsonl(events) if r.get("event") == "CreateActionEvent"]
+    if [r["index_name"] for r in evs] != ["obs_idx"]:
+        raise AssertionError(f"obs_idx: event log {evs}")
+    out["action"] = {"create_s": round(create_s, 3),
+                     "spans_s": {k: round(v, 4) for k, v in spans.items()}}
+    log(f"obs path: obs_idx created in {create_s:.3f}s under one root span; its stage spans "
+        f"equal build_stats, log_commit {spans['log_commit']:.4f}s; CreateActionEvent in the "
+        f"JSONL event log")
+
+    # 4. the profiler trace: B1's and B4's CUDA symbols as kernel events
+    out["profile"] = profile_check(
+        sess, [queries[0][2], next(t for lab, _k, t, _d in queries if lab == "join")],
+        os.path.join(work, "profile"))
+    out["launches"] = ops.launch_counts()
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    torch.cuda.synchronize() if cuda else None
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -7373,6 +7742,8 @@ def main() -> int:
         phase("17")
         shpath = sharded_path(work, ctx, kernels, card)
         phase("18")
+        obpath = obs_sql_path(work, ctx, kernels, b5_inputs, card)
+        phase("19")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -7405,7 +7776,7 @@ def main() -> int:
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
     lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
-            ocpath["launches"], ospath["launches"], shpath["launches"])
+            ocpath["launches"], ospath["launches"], shpath["launches"], obpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -7436,6 +7807,12 @@ def main() -> int:
                            (b7, "bloom_bits")):
         record["phase_18_launches"] = shpath["launches"][kernel]
     b4["phase_18_shard_launches"] = shpath["launches"]["bucket_match_pairs.shard"]
+    ob_held, ob_sql = obpath["sql"]["held"], obpath["sql"]["launches"]
+    for record, kernel, key in ((b1, "murmur3_bucket_ids", "b1"), (b4, "bucket_match_pairs", "b4"),
+                                (b3a, "range_mask", "b3a"), (b5, "segment_reduce", "b5")):
+        record["phase_19_launches"] = obpath["launches"][kernel]
+        record["phase_19_sql_launches"] = ob_sql[kernel]
+        record["cases"] += ob_held.get(key, 0)
     b1["cases"] += sh_held.get("b1", 0)
     b4["cases"] += sh_held.get("b4", 0)
     # 256 MiB read before every cold run: five times the L2
@@ -7477,6 +7854,9 @@ def main() -> int:
         "seconds", "shards", "builds", "join", "streamed_build", "cross_mesh", "two_process",
         "held", "launches")},
         "card": card}, default=str))
+    log(json.dumps({"obs": {k: obpath[k] for k in (
+        "seconds", "sql", "turns", "querylog", "action", "profile", "launches")}},
+        default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7, b8a, b8b]}), flush=True)

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import abc
 import time
+from typing import Optional
 
 from hyperspace_tpu_torch.exceptions import (
     ConcurrentWriteException,
@@ -53,7 +54,9 @@ from hyperspace_tpu_torch.exceptions import (
 )
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
 from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
+from hyperspace_tpu_torch.obs import trace as obs_trace
 from hyperspace_tpu_torch.parallel import mesh as _mesh
+from hyperspace_tpu_torch.telemetry import HyperspaceEvent
 from hyperspace_tpu_torch.testing import faults
 
 
@@ -124,6 +127,10 @@ class Action(abc.ABC):
         content only exists after op() (create) override this."""
         return self.log_entry()
 
+    def event(self, success: bool, message: str = "") -> Optional[HyperspaceEvent]:
+        """The action's telemetry event (each subclass names its own)."""
+        return None
+
     def _resnapshot(self) -> None:
         """Re-read every log-derived member off the CURRENT tip (an action
         may run long after construction)."""
@@ -131,7 +138,23 @@ class Action(abc.ABC):
 
     # -- driver (Action.run:84-105 + recovery and retry) ----------------------
     def run(self) -> None:
-        self._run_protocol()
+        """One root span ``action.<Class>`` around the protocol, finished
+        whatever the outcome; the build's stage hooks and ``log_commit``
+        attach to it (the reference's ``Action.run``)."""
+        obs_trace.configure(self.session.conf)
+        index_name = getattr(self, "index_name", "") or getattr(
+            getattr(self, "index_config", None), "index_name", ""
+        )
+        root = obs_trace.root(f"action.{type(self).__name__}", index=str(index_name))
+        with obs_trace.activate(root):
+            try:
+                self._run_protocol()
+                root.set("status", "ok")
+            except BaseException:
+                root.set("status", "failed")
+                raise
+            finally:
+                root.finish()
 
     def _run_protocol(self) -> None:
         """The reference's protocol (an action that writes no begin entry,
@@ -165,6 +188,7 @@ class Action(abc.ABC):
             try:
                 self.validate()
             except NoChangesException:
+                self._log_event(True, "No-op action")
                 return
             begin = self.begin_log_entry().with_state(self.transient_state)
             if recovery_on:
@@ -187,23 +211,28 @@ class Action(abc.ABC):
         try:
             self.op()
             faults.crash("after_data_write", type(self).__name__)
-            final = self.log_entry().with_state(self.final_state)
-            final.id = self.base_id + 2
-            if not _publish_log(self.log_manager, self.base_id + 2, final):
-                # the end id exists already: a cancel or a recovery rolled
-                # our transient entry back, and the data work must not be
-                # published over their write
-                raise ConcurrentWriteException(
-                    f"Concurrent write at log id {self.base_id + 2}"
-                )
-            faults.crash("after_end_log", type(self).__name__)
-            _publish_latest_stable(self.log_manager, self.base_id + 2)
+            with obs_trace.span("log_commit"):
+                final = self.log_entry().with_state(self.final_state)
+                final.id = self.base_id + 2
+                if not _publish_log(self.log_manager, self.base_id + 2, final):
+                    # the end id exists already: a cancel or a recovery
+                    # rolled our transient entry back, and the data work
+                    # must not be published over their write
+                    raise ConcurrentWriteException(
+                        f"Concurrent write at log id {self.base_id + 2}"
+                    )
+                faults.crash("after_end_log", type(self).__name__)
+                _publish_latest_stable(self.log_manager, self.base_id + 2)
+        except Exception as e:
+            self._log_event(False, str(e))
+            raise
         finally:
             # stopped on every in-process exit, SimulatedCrash included: in
             # a real death the thread dies with the process and the lease
             # starts aging all the same
             if heartbeat is not None:
                 heartbeat.stop()
+        self._log_event(True)
 
     # -- jobs of several processes (reference base.py:259-364) ---------------
     def _rendezvous_step(self, step: str, fn) -> int:
@@ -251,6 +280,7 @@ class Action(abc.ABC):
             self.validate()
 
         if self._rendezvous_step("validate", snapshot_validate) == _STEP_NOOP:
+            self._log_event(True, "No-op action")
             return
         begin_box = []
 
@@ -276,14 +306,19 @@ class Action(abc.ABC):
             ).start()
         try:
             self.op()
-            final = self.log_entry().with_state(self.final_state)
-            final.id = self.base_id + 2
-            if not _publish_log(self.log_manager, self.base_id + 2, final):
-                raise ConcurrentWriteException(f"Concurrent write at log id {self.base_id + 2}")
-            _publish_latest_stable(self.log_manager, self.base_id + 2)
+            with obs_trace.span("log_commit"):
+                final = self.log_entry().with_state(self.final_state)
+                final.id = self.base_id + 2
+                if not _publish_log(self.log_manager, self.base_id + 2, final):
+                    raise ConcurrentWriteException(f"Concurrent write at log id {self.base_id + 2}")
+                _publish_latest_stable(self.log_manager, self.base_id + 2)
+        except Exception as e:
+            self._log_event(False, str(e))
+            raise
         finally:
             if heartbeat is not None:
                 heartbeat.stop()
+        self._log_event(True)
 
     def _run_data_plane(self) -> None:
         """A worker of a job of several processes: the coordinator's
@@ -298,6 +333,17 @@ class Action(abc.ABC):
             self.validate()
 
         if self._rendezvous_step("validate", snapshot_validate) == _STEP_NOOP:
+            self._log_event(True, "No-op action")
             return
         self._rendezvous_step("begin", lambda: None)
-        self.op()
+        try:
+            self.op()
+        except Exception as e:
+            self._log_event(False, str(e))
+            raise
+        self._log_event(True)
+
+    def _log_event(self, success: bool, message: str = "") -> None:
+        ev = self.event(success, message)
+        if ev is not None:
+            self.session.event_logging.log_event(ev)

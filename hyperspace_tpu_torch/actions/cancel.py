@@ -22,6 +22,7 @@ from hyperspace_tpu_torch.exceptions import (
     LogCorruptedError,
 )
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
+from hyperspace_tpu_torch.telemetry import CancelActionEvent
 
 
 class CancelAction(Action):
@@ -50,6 +51,9 @@ class CancelAction(Action):
     def op(self) -> None:  # pragma: no cover - not used
         pass
 
+    def event(self, success, message=""):
+        return CancelActionEvent(index_name=self.index_name, message=message)
+
     def log_entry(self) -> IndexLogEntry:  # pragma: no cover - not used
         raise NotImplementedError
 
@@ -65,4 +69,5 @@ class CancelAction(Action):
             raise ConcurrentWriteException(
                 f"Concurrent write at log id {self.base_id + 1}"
             )
+        self._log_event(True)
 

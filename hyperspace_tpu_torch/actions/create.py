@@ -28,7 +28,9 @@ from hyperspace_tpu_torch.metadata.entry import (
     Source,
     SourcePlan,
 )
+from hyperspace_tpu_torch.obs import trace as _obs_trace
 from hyperspace_tpu_torch.signatures import IndexSignatureProvider
+from hyperspace_tpu_torch.telemetry import CreateActionEvent
 from hyperspace_tpu_torch.utils import resolver
 
 
@@ -51,10 +53,14 @@ def capture_sidecars(session, index_data_path: str, index) -> None:
         return
     t0 = time.perf_counter()
     zonemaps.capture_safely(index_data_path, index, session.device)
-    session.build_stats["zonemap_capture"] = time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    session.build_stats["zonemap_capture"] = dt
+    _obs_trace.stage("zonemap_capture", t0, seconds=dt)
     t0 = time.perf_counter()
     aggindex.capture_safely(index_data_path, index, session.conf, session.device)
-    session.build_stats["sidecar_capture"] = time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    session.build_stats["sidecar_capture"] = dt
+    _obs_trace.stage("sidecar_capture", t0, seconds=dt)
     for k in ("read", "fold", "passes", "overflowed"):
         session.build_stats[f"sidecar_capture_{k}"] = aggindex.capture_stats[k]
 
@@ -143,6 +149,9 @@ class CreateAction(Action):
     # -- log entry (CreateActionBase.getIndexLogEntry:41-83) ----------------
     def begin_log_entry(self) -> IndexLogEntry:
         return self._build_entry(content=Content.from_leaf_files([]))
+
+    def event(self, success: bool, message: str = ""):
+        return CreateActionEvent(index_name=self.index_config.index_name, message=message)
 
     def log_entry(self) -> IndexLogEntry:
         content = Content.from_directory_scan(self.index_data_path, self.tracker)

@@ -14,6 +14,7 @@ from hyperspace_tpu_torch.actions.base import Action
 from hyperspace_tpu_torch.constants import States
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.metadata.entry import IndexLogEntry
+from hyperspace_tpu_torch.telemetry import DeleteActionEvent, RestoreActionEvent
 
 
 class _StateFlipAction(Action):
@@ -55,8 +56,14 @@ class DeleteAction(_StateFlipAction):
     final_state = States.DELETED
     required_state = States.ACTIVE
 
+    def event(self, success, message=""):
+        return DeleteActionEvent(index_name=self.index_name, message=message)
+
 
 class RestoreAction(_StateFlipAction):
     transient_state = States.RESTORING
     final_state = States.ACTIVE
     required_state = States.DELETED
+
+    def event(self, success, message=""):
+        return RestoreActionEvent(index_name=self.index_name, message=message)

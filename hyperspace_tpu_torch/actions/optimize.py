@@ -22,6 +22,7 @@ from hyperspace_tpu_torch.exceptions import HyperspaceException, NoChangesExcept
 from hyperspace_tpu_torch.indexes.context import IndexerContext
 from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
 from hyperspace_tpu_torch.metadata.entry import Content, IndexLogEntry
+from hyperspace_tpu_torch.telemetry import OptimizeActionEvent
 
 
 class OptimizeAction(Action):
@@ -86,6 +87,9 @@ class OptimizeAction(Action):
         index = self._previous.derived_dataset
         index.optimize(ctx, files)
         capture_sidecars(self.session, self.index_data_path, index)
+
+    def event(self, success, message=""):
+        return OptimizeActionEvent(index_name=self.index_name, mode=self.mode, message=message)
 
     def log_entry(self) -> IndexLogEntry:
         new_content = Content.from_directory_scan(self.index_data_path, self.tracker)

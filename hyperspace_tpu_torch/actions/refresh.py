@@ -38,6 +38,11 @@ from hyperspace_tpu_torch.metadata.entry import (
 from hyperspace_tpu_torch.plan.nodes import Relation as PlanRelation
 from hyperspace_tpu_torch.plan.nodes import Scan
 from hyperspace_tpu_torch.signatures import IndexSignatureProvider
+from hyperspace_tpu_torch.telemetry import (
+    RefreshActionEvent,
+    RefreshIncrementalActionEvent,
+    RefreshQuickActionEvent,
+)
 
 
 class RefreshActionBase(Action):
@@ -174,6 +179,9 @@ class RefreshAction(RefreshActionBase):
         self._index = self._previous.derived_dataset.refresh_full(self._context(), df)
         capture_sidecars(self.session, self.index_data_path, self._index)
 
+    def event(self, success, message=""):
+        return RefreshActionEvent(index_name=self.index_name, message=message)
+
     def log_entry(self) -> IndexLogEntry:
         content = Content.from_directory_scan(self.index_data_path, self.tracker)
         return self._build_entry(self._index, content)
@@ -202,6 +210,9 @@ class RefreshIncrementalAction(RefreshActionBase):
         # their own sidecars, so the capture folds the new files alone
         capture_sidecars(self.session, self.index_data_path, self._index)
 
+    def event(self, success, message=""):
+        return RefreshIncrementalActionEvent(index_name=self.index_name, message=message)
+
     def log_entry(self) -> IndexLogEntry:
         new_content = Content.from_directory_scan(self.index_data_path, self.tracker)
         if self._mode == UpdateMode.MERGE:
@@ -220,6 +231,9 @@ class RefreshQuickAction(RefreshActionBase):
 
     def begin_log_entry(self) -> IndexLogEntry:
         return self.log_entry()
+
+    def event(self, success, message=""):
+        return RefreshQuickActionEvent(index_name=self.index_name, message=message)
 
     def log_entry(self) -> IndexLogEntry:
         appended = Content.from_leaf_files(self.appended_files(), self.tracker)

@@ -27,6 +27,7 @@ from hyperspace_tpu_torch.constants import (
 )
 from hyperspace_tpu_torch.metadata.data_manager import version_from_path
 from hyperspace_tpu_torch.metadata.entry import Content, IndexLogEntry
+from hyperspace_tpu_torch.telemetry import VacuumActionEvent, VacuumOutdatedActionEvent
 from hyperspace_tpu_torch.testing import faults
 from hyperspace_tpu_torch.utils import files as file_utils
 from hyperspace_tpu_torch.utils import paths as path_utils
@@ -70,6 +71,9 @@ class VacuumAction(_StateFlipAction):
         entry = self._previous.copy()
         entry.content = Content.from_leaf_files([])
         return entry
+
+    def event(self, success, message=""):
+        return VacuumActionEvent(index_name=self.index_name, message=message)
 
 
 class VacuumOutdatedAction(_StateFlipAction):
@@ -128,3 +132,6 @@ class VacuumOutdatedAction(_StateFlipAction):
             last = history.split(",")[-1] if history else ""
             index.properties[DELTA_VERSION_HISTORY_PROPERTY] = last
         return entry
+
+    def event(self, success, message=""):
+        return VacuumOutdatedActionEvent(index_name=self.index_name, message=message)

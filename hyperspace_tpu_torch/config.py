@@ -340,6 +340,47 @@ class Config:
         )
 
 
+    @property
+    def profile_trace_dir(self) -> str:
+        return self.get_str(C.PROFILE_TRACE_DIR, C.PROFILE_TRACE_DIR_DEFAULT)
+
+    # -- observability plane (obs/) -------------------------------------------
+    @property
+    def obs_enabled(self) -> bool:
+        """Structured tracing and the query log; off is the one-bool-check
+        path with bit-identical serve behaviour."""
+        return self.get_bool(C.OBS_ENABLED, C.OBS_ENABLED_DEFAULT)
+
+    @property
+    def obs_querylog_enabled(self) -> bool:
+        return self.get_bool(C.OBS_QUERYLOG_ENABLED, C.OBS_QUERYLOG_ENABLED_DEFAULT)
+
+    @property
+    def obs_querylog_max_bytes(self) -> int:
+        return max(1, self.get_int(C.OBS_QUERYLOG_MAX_BYTES, C.OBS_QUERYLOG_MAX_BYTES_DEFAULT))
+
+    @property
+    def obs_querylog_max_files(self) -> int:
+        return max(1, self.get_int(C.OBS_QUERYLOG_MAX_FILES, C.OBS_QUERYLOG_MAX_FILES_DEFAULT))
+
+    @property
+    def obs_trace_max_spans(self) -> int:
+        return max(1, self.get_int(C.OBS_TRACE_MAX_SPANS, C.OBS_TRACE_MAX_SPANS_DEFAULT))
+
+    @property
+    def obs_trace_retain(self) -> int:
+        return max(1, self.get_int(C.OBS_TRACE_RETAIN, C.OBS_TRACE_RETAIN_DEFAULT))
+
+    @property
+    def obs_eventlog_path(self) -> str:
+        return self.get_str(C.OBS_EVENTLOG_PATH, C.OBS_EVENTLOG_PATH_DEFAULT)
+
+    @property
+    def obs_querylog_record_plans(self) -> bool:
+        """Replayable plan specs in query-log records (they carry literals)."""
+        return self.get_bool(C.OBS_QUERYLOG_RECORD_PLANS, C.OBS_QUERYLOG_RECORD_PLANS_DEFAULT)
+
+
 class CacheWithTransform:
     """Caches ``transform(conf)`` until the config is mutated.
 

@@ -357,3 +357,63 @@ FLEET_PIN_LEASE_MS_DEFAULT = 30_000
 # .tmp_spool_ temp) that no live serve cache in this process indexes.
 SERVE_SPILL_ORPHAN_TTL_MS = "hyperspace.serve.spill.orphanTtlMs"
 SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT = 10 * 60 * 1000
+
+# -- execution tuning keys the port reads nowhere ------------------------------
+# The reference evaluates a filter on its host path below this row count and
+# on the device at or above it (its measured host-device round trip). The
+# port always evaluates the mask on the session's device
+# (execution/executor._filter_mask): setting the key changes neither rows
+# nor route. Left out on purpose, beside deviceJoinMinRows (ROADMAP A.11).
+EXECUTION_DEVICE_FILTER_MIN_ROWS = "hyperspace.execution.deviceFilterMinRows"
+EXECUTION_DEVICE_FILTER_MIN_ROWS_DEFAULT = 8_000_000
+
+# -- profiling and telemetry events -------------------------------------------
+# When set, session.execute runs each query under torch.profiler and writes a
+# Chrome trace into this directory (CPU activity, plus CUDA activity on a
+# CUDA session). Empty = off.
+PROFILE_TRACE_DIR = "hyperspace.profile.traceDir"
+PROFILE_TRACE_DIR_DEFAULT = ""
+
+# Pluggable telemetry event logger (telemetry.EventLogging), a dotted class
+# path; empty = the no-op EventLogger.
+EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
+EVENT_LOGGER_CLASS_DEFAULT = ""
+
+# -- observability plane (obs/) -----------------------------------------------
+# Master switch for structured tracing: every lifecycle action gets one root
+# span with child stage spans mirroring the breakdown keys
+# (session.build_stats / session.join_stats). Off (the default): every obs
+# call site is one module-bool check.
+OBS_ENABLED = "hyperspace.obs.enabled"
+OBS_ENABLED_DEFAULT = False
+
+# Durable query log (obs/querylog.py): per-process JSONL files under
+# <system.path>/_hyperspace_obs/, rotated past maxBytes (fsync before the
+# rename; the mid_querylog_rotate crash point), at most maxFiles sealed
+# segments a process.
+OBS_QUERYLOG_ENABLED = "hyperspace.obs.querylog.enabled"
+OBS_QUERYLOG_ENABLED_DEFAULT = True
+OBS_QUERYLOG_MAX_BYTES = "hyperspace.obs.querylog.maxBytes"
+OBS_QUERYLOG_MAX_BYTES_DEFAULT = 4 << 20
+OBS_QUERYLOG_MAX_FILES = "hyperspace.obs.querylog.maxFiles"
+OBS_QUERYLOG_MAX_FILES_DEFAULT = 8
+
+# Trace bounds (obs/trace.py): child spans kept a trace (the rest counted in
+# the root's spans_dropped) and finished traces kept in memory.
+OBS_TRACE_MAX_SPANS = "hyperspace.obs.trace.maxSpans"
+OBS_TRACE_MAX_SPANS_DEFAULT = 512
+OBS_TRACE_RETAIN = "hyperspace.obs.trace.retain"
+OBS_TRACE_RETAIN_DEFAULT = 256
+
+# JSONL path of telemetry.JsonlEventLogger; empty =
+# <system.path>/_hyperspace_obs/events.<pid>.jsonl.
+OBS_EVENTLOG_PATH = "hyperspace.obs.eventlog.path"
+OBS_EVENTLOG_PATH_DEFAULT = ""
+
+# Replayable plan specs in query-log records (obs/planspec.py). Specs carry
+# literals, unlike the scrubbed predicate shape, so this is opt-in.
+OBS_QUERYLOG_RECORD_PLANS = "hyperspace.obs.querylog.recordPlans"
+OBS_QUERYLOG_RECORD_PLANS_DEFAULT = False
+
+# Observability sidecar directory under the system path.
+HYPERSPACE_OBS_DIR = "_hyperspace_obs"

@@ -148,6 +148,13 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, Limit(n, self._plan))
 
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this DataFrame in the session catalog for
+        ``session.sql`` (Spark's createOrReplaceTempView shape)."""
+        self._session.register_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
     # -- actions ------------------------------------------------------------
     def collect(self) -> pa.Table:
         return self._session.execute(self._plan)

@@ -21,7 +21,7 @@ import pyarrow as pa
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
-from hyperspace_tpu_torch.execution.join_exec import _stage_add, _sync
+from hyperspace_tpu_torch.execution.join_exec import _stats_add, _sync
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.ops import aggregate as agg_ops
 from hyperspace_tpu_torch.ops.sort import order_rep, sort_permutation
@@ -35,7 +35,7 @@ def stage(stats: Optional[Dict[str, float]], name: str, device: torch.device):
     t0 = time.perf_counter()
     yield
     _sync(device)
-    _stage_add(stats, name, t0)
+    _stats_add(stats, name, t0)
 
 
 def _grouping_planes(col: Column) -> List[np.ndarray]:

@@ -103,6 +103,7 @@ from hyperspace_tpu_torch.constants import DATA_FILE_NAME_ID
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
+from hyperspace_tpu_torch.obs import trace as _obs_trace
 from hyperspace_tpu_torch.ops.filter import (
     Unsupported,
     device_filter_mask,
@@ -168,25 +169,10 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     if isinstance(plan, Join):
         return _exec_join(plan, needed, session)
     if isinstance(plan, Aggregate):
-        from hyperspace_tpu_torch.execution import pipeline_compiler as PC
-        from hyperspace_tpu_torch.execution.aggregate_exec import execute_aggregate
-        from hyperspace_tpu_torch.execution.join_exec import _stage_add
-
-        for route, counter, stage_name in (
-            (PC.try_metadata_aggregate, "metadata_aggregates", "metadata"),
-            (PC.try_fused_aggregate, "fused_aggregates", "fused"),
-        ):
-            t0 = time.perf_counter()
-            served = route(plan, session)
-            if served is not None:
-                setattr(session.exec_stats, counter, getattr(session.exec_stats, counter) + 1)
-                _stage_add(session.agg_stats, stage_name, t0)
-                return served
-        batch = _exec_input(plan.child, plan.input_columns, session)
-        return execute_aggregate(
-            batch, plan.group_by, plan.aggs, plan.child.schema(), session.device,
-            session.agg_stats,
-        )
+        # one agg span over the metadata plane, the fused pass and the
+        # interpreted chain, as the reference traces it
+        with _obs_trace.span("agg"):
+            return _exec_aggregate(plan, session)
     if isinstance(plan, Sort):
         child_needed = set(needed) | {c for c, _ in plan.keys}
         batch = _exec_input(plan.child, child_needed, session)
@@ -198,16 +184,38 @@ def _exec(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     raise HyperspaceException(f"Unknown plan node: {type(plan).__name__}")
 
 
+def _exec_aggregate(plan: Aggregate, session) -> ColumnarBatch:
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.execution.aggregate_exec import execute_aggregate
+    from hyperspace_tpu_torch.execution.join_exec import _stats_add
+
+    for route, counter, stage_name in (
+        (PC.try_metadata_aggregate, "metadata_aggregates", "metadata"),
+        (PC.try_fused_aggregate, "fused_aggregates", "fused"),
+    ):
+        t0 = time.perf_counter()
+        served = route(plan, session)
+        if served is not None:
+            setattr(session.exec_stats, counter, getattr(session.exec_stats, counter) + 1)
+            _stats_add(session.agg_stats, stage_name, t0)
+            return served
+    batch = _exec_input(plan.child, plan.input_columns, session)
+    return execute_aggregate(
+        batch, plan.group_by, plan.aggs, plan.child.schema(), session.device,
+        session.agg_stats,
+    )
+
+
 def _exec_input(plan: LogicalPlan, needed: Set[str], session) -> ColumnarBatch:
     """An aggregate's or sort's child batch, its seconds under the
     ``scan`` stage unless the child records its own stages."""
-    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+    from hyperspace_tpu_torch.execution.join_exec import _stats_add
 
     if isinstance(plan, (Aggregate, Sort, Limit)):
         return _exec(plan, needed, session)
     t0 = time.perf_counter()
     batch = _exec(plan, needed, session)
-    _stage_add(session.agg_stats, "scan", t0)
+    _stats_add(session.agg_stats, "scan", t0)
     return batch
 
 
@@ -839,7 +847,9 @@ def _exec_join(plan: Join, needed: Set[str], session) -> ColumnarBatch:
         side_stats = ({}, {})
         with ThreadPoolExecutor(max_workers=2, thread_name_prefix="hs-joinside") as pool:
             futs = [
-                pool.submit(_prepared_join_side, *side, session, st)
+                # carry: contextvars do not cross pool threads, so each
+                # side's stage spans join the query's trace through it
+                pool.submit(_obs_trace.carry(_prepared_join_side), *side, session, st)
                 for side, st in zip(sides, side_stats)
             ]
             lp, rp = (f.result() for f in futs)
@@ -1204,10 +1214,10 @@ def _exec_join_streaming(plan: Join, needed: Set[str], session, layout, on, l_ne
             for wave in waves:
                 t0 = time.perf_counter()
                 side_stats = ({}, {})
-                fl = side_pool.submit(_stream_wave_prepared, l_state, wave, l_keys, session,
-                                      side_stats[0])
-                fr = side_pool.submit(_stream_wave_prepared, r_state, wave, r_keys, session,
-                                      side_stats[1])
+                fl = side_pool.submit(_obs_trace.carry(_stream_wave_prepared), l_state, wave,
+                                      l_keys, session, side_stats[0])
+                fr = side_pool.submit(_obs_trace.carry(_stream_wave_prepared), r_state, wave,
+                                      r_keys, session, side_stats[1])
                 lp, rp = fl.result(), fr.result()
                 _merge_stats(stats, side_stats)
                 joined = (
@@ -1366,7 +1376,8 @@ def _bucket_fetches(
             from hyperspace_tpu_torch.io.scan import scan_pool
 
             pool = scan_pool()
-            reads = [pool.submit(pio.read_tables, groups[b], read_cols, rel.fmt, mmap).result
+            read = _obs_trace.carry(pio.read_tables)
+            reads = [pool.submit(read, groups[b], read_cols, rel.fmt, mmap).result
                      for b in buckets]
         else:
             ordered = [f for b in buckets for f in groups[b]]
@@ -1433,7 +1444,7 @@ def _bucket_fetches(
             # beside the index side's bucket reads queued after it
             delta_stats: dict = {}
             delta_fut = scan_pool().submit(
-                _prepare_delta, plan.right, read_cols, session, bucket_cols,
+                _obs_trace.carry(_prepare_delta), plan.right, read_cols, session, bucket_cols,
                 num_buckets, delta_stats, _serve_cache(session),
             )
             collected = []

@@ -814,7 +814,7 @@ def _run_cached(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
     when a column falls outside the fused set."""
     global last_fused_stats
     from hyperspace_tpu_torch.execution import executor as X
-    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+    from hyperspace_tpu_torch.execution.join_exec import _stats_add
 
     t_read = time.perf_counter()
     hit = X._scan_cache_entry(rel, set(fplan.read_cols), session)
@@ -822,7 +822,7 @@ def _run_cached(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
         return None
     entry, _cols = hit
     batch = entry.batch_for(fplan.read_cols)
-    _stage_add(session.agg_stats, "scan", t_read)
+    _stats_add(session.agg_stats, "scan", t_read)
     if batch is None or batch.num_rows < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
         return None
     t0 = time.perf_counter()
@@ -935,7 +935,7 @@ def _run_chunked(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
     chain. ``session.agg_stats["scan"]`` gains the seconds spent waiting
     for the reads and decoding them."""
     global last_fused_stats
-    from hyperspace_tpu_torch.execution.join_exec import _stage_add
+    from hyperspace_tpu_torch.execution.join_exec import _stats_add
     from hyperspace_tpu_torch.io.scan import scan_pool
 
     t0 = time.perf_counter()
@@ -964,7 +964,7 @@ def _run_chunked(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
         batch = ColumnarBatch.from_arrow(pending[0] if len(pending) == 1 else pa.concat_tables(
             pending, promote_options="permissive"))
         pending = []
-        _stage_add(stats, "scan", t_read)
+        _stats_add(stats, "scan", t_read)
         if not state.accumulate(batch):
             return None  # the executor falls back to the interpreted chain
         t_read = time.perf_counter()

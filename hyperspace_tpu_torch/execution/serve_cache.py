@@ -60,6 +60,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
+from hyperspace_tpu_torch.obs import metrics as _obs_metrics
+from hyperspace_tpu_torch.obs import trace as _obs_trace
 from hyperspace_tpu_torch.testing import faults
 from hyperspace_tpu_torch.utils import files as file_utils
 
@@ -438,6 +440,10 @@ class ServeCache:
         self.spill_restores = 0
         self.spill_drops = 0
         self.spill_bytes_written = 0
+        # live stats() view in the metrics registry (last-registered cache
+        # wins), weakly bound so the registry never keeps a replaced cache
+        # and its bytes alive
+        _obs_metrics.registry.register_weak_view("serve_cache", self)
         _LIVE_CACHES.add(self)
 
     @property
@@ -518,6 +524,7 @@ class ServeCache:
         A value that refuses to pickle or exceeds the tier's cap is dropped
         (counted); the tier is LRU by demotion, its oldest files deleted
         when the cap overflows."""
+        t0 = time.perf_counter()
         try:
             blob = _spill_encode(value)
         except Exception:  # noqa: BLE001 - demotion is best-effort: drop what cannot pickle
@@ -540,6 +547,7 @@ class ServeCache:
             with self._lock:
                 self.spill_drops += 1
             return
+        _obs_trace.stage("spill_write", t0=t0, attrs={"bytes": len(blob)})
         reap = []
         with self._lock:
             old = self._spill.pop(key, None)
@@ -563,6 +571,7 @@ class ServeCache:
         file is unlinked after the restore; the live mapping keeps its
         pages readable, and the disk space returns when the value is
         dropped."""
+        t0 = time.perf_counter()
         try:
             value = _spill_decode(path)
         except Exception:  # noqa: BLE001 - a spill-tier defect is a miss, never a query failure
@@ -571,6 +580,7 @@ class ServeCache:
             _delete_quietly([path])
             return None, 0
         nbytes = estimate_nbytes(value)
+        _obs_trace.stage("spill_restore", t0=t0, attrs={"resident_bytes": nbytes})
         _delete_quietly([path])
         return value, nbytes
 

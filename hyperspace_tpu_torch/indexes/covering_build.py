@@ -86,6 +86,7 @@ from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.indexes.base import UpdateMode
 from hyperspace_tpu_torch.io import parquet as pio
 from hyperspace_tpu_torch.io.columnar import Column, ColumnarBatch
+from hyperspace_tpu_torch.obs import trace as _obs_trace
 from hyperspace_tpu_torch.ops.hash import bucket_ids
 from hyperspace_tpu_torch.ops.sort import (
     bucket_sort_runs,
@@ -102,10 +103,14 @@ _stats_lock = threading.Lock()
 
 
 def _stage_add(ctx, name: str, t0: float) -> None:
+    """Add ``[t0, now]`` to a build stage of ``session.build_stats`` and,
+    under an active trace, record a stage span of exactly those seconds
+    (the one build stage hook)."""
     dt = _time.perf_counter() - t0
     with _stats_lock:
         stats = ctx.session.build_stats
         stats[name] = stats.get(name, 0.0) + dt
+    _obs_trace.stage(name, t0, seconds=dt)
 
 
 def reset_build_stats(ctx) -> None:
@@ -825,7 +830,7 @@ def _write_bucketed_sharded(
         return out
 
     with ThreadPoolExecutor(max_workers=len(shards), thread_name_prefix="hs-shardtail") as pool:
-        results = list(pool.map(run_shard, shards))
+        results = list(pool.map(_obs_trace.carry(run_shard), shards))
     with _stats_lock:
         stats = ctx.session.build_stats
         stats["tail_wall"] = stats.get("tail_wall", 0.0) + _time.perf_counter() - t_tail
@@ -1004,7 +1009,9 @@ def _write_bucketed_streaming(
         if workers > 1:
             groups = _mesh.bucket_owner_groups(ordered, D)
             with ThreadPoolExecutor(max_workers=workers, thread_name_prefix="hs-shardmerge") as pool:
-                maps = list(pool.map(lambda g: {ordered[i]: merge(ordered[i]) for i in g}, groups))
+                maps = list(pool.map(
+                    _obs_trace.carry(lambda g: {ordered[i]: merge(ordered[i]) for i in g}), groups
+                ))
             by_bucket = {b: fs for m in maps for b, fs in m.items()}
             for b in ordered:
                 written.extend(by_bucket[b])

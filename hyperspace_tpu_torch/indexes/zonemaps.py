@@ -56,6 +56,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch.execution.serve_cache import file_fingerprint
+from hyperspace_tpu_torch.obs import trace as _obs_trace
 from hyperspace_tpu_torch.plan import expressions as E
 
 _log = logging.getLogger("hyperspace_tpu_torch.zonemaps")
@@ -1082,6 +1083,8 @@ def prune_scan_relation(scan, cond: E.Expr, cache=None):
     # opaque files (unreadable stats) are never narrowed
     keep |= zd.opaque[zd.rg_file]
     stats["row_groups_kept"] = int(keep.sum())
+    # the calling query's root span gets exactly this evaluation's delta
+    _obs_trace.accumulate("rows_pruned", n - stats["row_groups_kept"])
     if bool(keep.all()):
         stats["files_kept"] = len(rel.files)
         stats["row_groups_kept"] = n

@@ -143,6 +143,13 @@ def _publish_stats(strategy: str, D: int, cap: int, counts: np.ndarray, extra: D
     }
     stats.update(extra)
     last_shuffle_stats = stats
+    # stage spans from the exchange's own measured seconds
+    from hyperspace_tpu_torch.obs import trace as _obs_trace
+
+    for _stage_name in ("pack", "exchange", "unpack"):
+        _sec = extra.get(f"{_stage_name}_s")
+        if _sec:
+            _obs_trace.stage(_stage_name, seconds=float(_sec))
     if (
         skew > BUILD_SHUFFLE_SKEW_WARN_RATIO
         and max_count >= BUILD_SHUFFLE_SKEW_WARN_MIN_ROWS

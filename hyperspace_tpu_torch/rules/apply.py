@@ -24,6 +24,7 @@ from hyperspace_tpu_torch.kernels import KERNEL_FAULTS
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, prune_join_columns
 from hyperspace_tpu_torch.rules.candidate import collect_candidates
 from hyperspace_tpu_torch.rules.score import ScoreBasedIndexPlanOptimizer
+from hyperspace_tpu_torch.telemetry import HyperspaceIndexUsageEvent
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +58,20 @@ def apply_hyperspace(
         candidates = collect_candidates(session, plan, entries)
         if not candidates:
             return plan
-        return ScoreBasedIndexPlanOptimizer(session).apply(plan, candidates)
+        new_plan = ScoreBasedIndexPlanOptimizer(session).apply(plan, candidates)
+        if new_plan is not plan:
+            used = sorted(
+                {
+                    leaf.relation.index_info[0]
+                    for leaf in new_plan.collect_leaves()
+                    if leaf.relation.index_info
+                }
+            )
+            if used:
+                session.event_logging.log_event(
+                    HyperspaceIndexUsageEvent(index_names=used, plan=new_plan.pretty())
+                )
+        return new_plan
     except KERNEL_FAULTS:
         raise
     # catch-all is the contract (reference ApplyHyperspace :60-64): a

@@ -17,8 +17,12 @@ shard mesh of the build and the sharded serve is ``session.runtime``
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import json
 import os
 import threading
+import warnings
 from typing import List, Optional, Sequence
 
 import pyarrow as pa
@@ -44,6 +48,53 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise HyperspaceException(f"Unsupported device {dev}")
     return dev
+
+
+#: the ``record_function`` around the kernels ``_profiled`` launches at
+#: each end of a CUDA trace
+PROFILE_PAD = "hyperspace.profile.pad"
+#: one-element kernels in each pad
+PROFILE_PAD_LAUNCHES = 256
+
+
+def launches_without_kernels(trace_path: str) -> int:
+    """Kernel launches in the Chrome trace at ``trace_path`` (its
+    ``cuda_runtime`` events named ``*LaunchKernel*``), outside the pads
+    :data:`PROFILE_PAD` where the trace has them, whose correlation id no
+    device ``kernel`` event carries: 0 when the trace holds every kernel
+    it saw launched."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    pads = [
+        (e["ts"], e["ts"] + e.get("dur", 0))
+        for e in events
+        if e.get("cat") == "user_annotation" and e.get("name") == PROFILE_PAD
+    ]
+    launched, ran = set(), set()
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", ""):
+            if not any(lo <= e["ts"] <= hi for lo, hi in pads):
+                launched.add(corr)
+        elif e.get("cat") == "kernel":
+            ran.add(corr)
+    return len(launched - ran)
+
+
+def _profile_pad(device: torch.device) -> None:
+    """:data:`PROFILE_PAD_LAUNCHES` one-element kernels, waited for, under
+    the ``record_function`` :data:`PROFILE_PAD`. On an H100 (torch 2.11,
+    CUDA 12.8), once a process's first trace is some tens of seconds old,
+    torch.profiler drops device records at the ends of a new trace as
+    outside its capture window (PERF.md §7); a pad at each end takes that
+    loss instead of the query's kernels."""
+    import torch.profiler as tp
+
+    with tp.record_function(PROFILE_PAD):
+        x = torch.zeros(1, device=device)
+        for _ in range(PROFILE_PAD_LAUNCHES):
+            x.add_(1)
+        torch.cuda.synchronize(device)
 
 
 class ExecStats:
@@ -209,6 +260,22 @@ class HyperspaceSession:
         self._index_manager = None
         self._serve_cache = None
         self._serve_cache_lock = threading.Lock()
+        self._catalog: dict = {}
+        self._trace_seq = itertools.count(1)
+        from hyperspace_tpu_torch.obs import metrics as obs_metrics
+        from hyperspace_tpu_torch.telemetry import EventLogging
+
+        self.event_logging = EventLogging(self.conf)
+        # the reference's breakdown instruments, read from this session's
+        # own dicts (the newest session wins; no second copy is kept)
+        obs_metrics.registry.register_stage_view(
+            "hs_serve_stage_seconds", "serve stage busy seconds (breakdown view)",
+            self, "join_stats",
+        )
+        obs_metrics.registry.register_stage_view(
+            "hs_build_stage_seconds", "build stage busy seconds (breakdown view)",
+            self, "build_stats",
+        )
 
     # -- context (HyperspaceContext, Hyperspace.scala:195-223) --------------
     @property
@@ -274,6 +341,16 @@ class HyperspaceSession:
     def is_hyperspace_enabled(self) -> bool:
         return self._hyperspace_enabled
 
+    # -- SQL surface (HyperspaceSparkSessionExtension.scala:44-69 analogue:
+    # SQL flows through the same optimizer, so index rewrites apply) ------
+    def register_view(self, name: str, df: DataFrame) -> None:
+        self._catalog[name.lower()] = df
+
+    def sql(self, query: str) -> DataFrame:
+        from hyperspace_tpu_torch.sql import parse_sql
+
+        return parse_sql(self, query, self._catalog)
+
     # -- planning & execution ----------------------------------------------
     def optimize(self, plan):
         """Apply the Hyperspace rewrite when enabled (the injected-rule
@@ -287,4 +364,47 @@ class HyperspaceSession:
     def execute(self, plan) -> pa.Table:
         from hyperspace_tpu_torch.execution import execute
 
+        trace_dir = self.conf.profile_trace_dir
+        if trace_dir:
+            # the port's jax.profiler.trace: host ops, and on a CUDA session
+            # the kernels and copies, in a Chrome trace a query
+            with self._profiled(trace_dir):
+                return execute(self.optimize(plan), self)
         return execute(self.optimize(plan), self)
+
+    @contextlib.contextmanager
+    def _profiled(self, trace_dir: str):
+        """Run the block under ``torch.profiler.profile`` and write its
+        Chrome trace to ``<trace_dir>/hs_trace.<pid>.<seq>.json``. On a CUDA
+        session the device is synchronised before the profiler starts, and
+        the block runs between two pads (:func:`_profile_pad`), each of which
+        waits for the device, so every kernel the block launched has ended
+        inside the trace's window, away from its ends; a trace that still
+        lacks the device event of a kernel the block launched warns
+        (:func:`launches_without_kernels`)."""
+        import torch.profiler as tp
+
+        cuda = self.device.type == "cuda"
+        activities = [tp.ProfilerActivity.CPU]
+        if cuda:
+            activities.append(tp.ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"hs_trace.{os.getpid()}.{next(self._trace_seq):06d}.json")
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        with tp.profile(activities=activities) as prof:
+            if cuda:
+                _profile_pad(self.device)
+            yield
+            if cuda:
+                _profile_pad(self.device)
+        prof.export_chrome_trace(path)
+        if cuda:
+            missing = launches_without_kernels(path)
+            if missing:
+                warnings.warn(
+                    f"{path}: torch.profiler kept no device event for {missing} kernel "
+                    "launches of the query",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )

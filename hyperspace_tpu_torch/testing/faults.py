@@ -66,10 +66,12 @@ crash point               armed site
                           publishes ``_aggstate.json`` / ``_aggsample.parquet``
 ``mid_spill_write``       ``execution/serve_cache.py``: a demotion between
                           choosing its spill path and the atomic publish
+``mid_querylog_rotate``   ``obs/querylog.py``: a rotation between the fsync
+                          of the active file and its rename to a sealed
+                          segment
 ========================  ====================================================
 
-The reference's ``mid_querylog_rotate`` comes with its module (ROADMAP
-A.10). A crash point is one-shot in ``raise``
+A crash point is one-shot in ``raise``
 mode: it disarms itself when it fires, so the recovery and retry that
 follow run clean. :class:`SimulatedCrash` is a ``BaseException``: no
 ``except Exception`` cleanup may swallow it, as a real crash would not
@@ -97,6 +99,7 @@ CRASH_POINTS = (
     "mid_vacuum_delete",
     "mid_sidecar_publish",
     "mid_spill_write",
+    "mid_querylog_rotate",
 )
 
 #: ``exit``-mode status: a subprocess test tells a simulated crash from an

@@ -27,6 +27,12 @@ the 2-process build's. It prints ``DRYRUN-OK`` once a worker and exits 0
 when both workers passed, their content hashes agree and the one-process
 build matches.
 
+With ``HS_COLLECTIVE_WITNESS=<prefix>`` set, each worker wraps the port's
+``COLLECTIVE_SITES`` (``testing/collective_witness.py``) before the
+bootstrap and writes its ordered collective sequence to
+``<prefix>.p<rank>.json`` (``tests/test_torch_witnesses.py`` holds the two
+sequences to each other).
+
 Run as one worker (the parent does): ``--worker RANK ROOT``.
 """
 
@@ -216,6 +222,13 @@ def worker(pid: int, root: str, device: str) -> None:
     torch.set_num_threads(1)
     from hyperspace_tpu_torch.parallel import mesh as hs_mesh
 
+    witness_prefix = os.environ.get("HS_COLLECTIVE_WITNESS")
+    if witness_prefix:
+        # installed before the bootstrap, so initialize_distributed is
+        # recorded too
+        from hyperspace_tpu_torch.testing import collective_witness
+
+        collective_witness.install()
     hs_mesh.initialize_distributed(
         "file://" + os.path.join(root, "rendezvous"), WORLD, pid, "gloo", timeout_s=60.0
     )
@@ -232,6 +245,9 @@ def worker(pid: int, root: str, device: str) -> None:
             f"{exchange} create_content={content} create_rows={rows} {abort}",
             flush=True,
         )
+        if witness_prefix:
+            doc = collective_witness.dump(witness_prefix)
+            print(f"witness proc={pid} records={len(doc['sequence'])}", flush=True)
     finally:
         hs_mesh.shutdown_distributed()
 

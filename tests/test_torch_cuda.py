@@ -1214,3 +1214,86 @@ def test_sharded_build_on_the_card_writes_the_one_shard_files(cuda_device, tmp_p
         assert shard == (ops.launch_counts()["bucket_match_pairs"] if D == 2 else 0)
     assert files[1] == files[2]
     assert rows[1].equals(rows[2]) and rows[1].num_rows > 0
+
+
+def _sql_sessions(cuda_device, tmp_path):
+    """A cuda and a cpu session over one two-table lake, each with its own
+    covering indexes on the join keys and the views ``items`` and
+    ``orders``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+
+    rng = np.random.default_rng(29)
+    items, orders = tmp_path / "items", tmp_path / "orders"
+    items.mkdir(), orders.mkdir()
+    for i in range(2):
+        pq.write_table(pa.table({"k": rng.integers(0, 3000, 20_000), "q": rng.integers(0, 9, 20_000)}),
+                       str(items / f"p{i}.parquet"))
+        pq.write_table(pa.table({"ok": np.arange(i * 1500, (i + 1) * 1500),
+                                 "c": rng.integers(0, 50, 1500)}), str(orders / f"p{i}.parquet"))
+    sessions = {}
+    for device in (cuda_device, "cpu"):
+        s = HyperspaceSession(device=device)
+        s.conf.set("hyperspace.system.path", str(tmp_path / str(device)))
+        s.conf.set("hyperspace.index.num_buckets", 16)
+        s.conf.set("hyperspace.index.filterRule.useBucketSpec", True)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(str(items)), CoveringIndexConfig("i", ["k"], ["q"]))
+        hs.create_index(s.read.parquet(str(orders)), CoveringIndexConfig("o", ["ok"], ["c"]))
+        s.read.parquet(str(items)).create_or_replace_temp_view("items")
+        s.read.parquet(str(orders)).create_or_replace_temp_view("orders")
+        s.enable_hyperspace()
+        sessions[s.device.type] = s
+    return sessions
+
+
+SQL_FILTER = "SELECT k, q FROM items WHERE k = 1234"
+SQL_JOIN = "SELECT ok, c, q FROM orders JOIN items ON ok = k"
+
+
+def test_sql_filter_and_join_on_the_card_equal_a_cpu_session(cuda_device, tmp_path):
+    """The SQL surface on the card: the point filter launches B1 and B3a,
+    the join B4, and the rows equal a cpu session's in order."""
+    from torch_b5_cases import same_rows
+
+    from hyperspace_tpu_torch import ops
+
+    sessions = _sql_sessions(cuda_device, tmp_path)
+    for text, kernels in ((SQL_FILTER, ("murmur3_bucket_ids", "range_mask")),
+                          (SQL_JOIN, ("bucket_match_pairs",))):
+        ops.reset_launch_counts()
+        got = sessions["cuda"].sql(text).collect()
+        launched = ops.launch_counts()
+        assert all(launched[k] > 0 for k in kernels), (text, launched)
+        want = sessions["cpu"].sql(text).collect()
+        assert got.num_rows > 0 and same_rows(got, want), text
+
+
+def test_profiler_trace_names_b1_and_b4(cuda_device, tmp_path):
+    """``hyperspace.profile.traceDir`` on a cuda session: a Chrome trace a
+    query whose CUDA kernel events name B1's and B4's symbols, with every
+    kernel the query launched."""
+    import json
+    import os
+
+    from hyperspace_tpu_torch.session import launches_without_kernels
+
+    s = _sql_sessions(cuda_device, tmp_path)["cuda"]
+    trace_dir = str(tmp_path / "trace")
+    s.conf.set("hyperspace.profile.traceDir", trace_dir)
+    s.sql(SQL_FILTER).collect()
+    s.sql(SQL_JOIN).collect()
+    s.conf.set("hyperspace.profile.traceDir", "")
+    files = sorted(os.listdir(trace_dir))
+    assert len(files) == 2, files
+    kernels = []
+    for name in files:
+        assert launches_without_kernels(os.path.join(trace_dir, name)) == 0, name
+        with open(os.path.join(trace_dir, name)) as fh:
+            kernels.append({e["name"] for e in json.load(fh)["traceEvents"]
+                            if e.get("cat") == "kernel"})
+    assert any("murmur3_bucket_kernel" in n for n in kernels[0]), kernels[0]
+    assert any("count_kernel" in n for n in kernels[1]), kernels[1]
+    assert any("emit_kernel" in n for n in kernels[1]), kernels[1]

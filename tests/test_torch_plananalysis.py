@@ -9,8 +9,9 @@ verbose and not), ``hs.why_not`` (plain and extended, all indexes or one)
 and the min/max texts are equal as strings, the system paths aside; each
 reference assertion is held on the port too. Two why_not calls on
 different plans leak no reason from one to the other. The reference's
-profiler-trace case has no counterpart in the port (no
-``hyperspace.profile.traceDir``).
+profiler-trace case runs on the port: ``hyperspace.profile.traceDir``
+makes ``session.execute`` write a ``torch.profiler`` Chrome trace (CPU
+activity here; CUDA activity too on the card, ``tests/test_torch_cuda.py``).
 """
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
@@ -183,6 +184,59 @@ class TestDisplayModes:
         file, on the port's output too."""
         twin.create("covering", "dm_idx", ["clicks"], ["query"])
         _golden("explain_filter.txt", explain(twin, _dm_query), twin.src)
+
+
+class TestProfilerIntegration:
+    def test_trace_dir_produces_trace(self, twin, tmp_path):
+        import json
+
+        s = twin.t
+        df = s.read.parquet(twin.src)
+        trace_dir = str(tmp_path / "trace")
+        s.conf.set("hyperspace.profile.traceDir", trace_dir)
+        got = df.filter(df["clicks"] >= 100).select("clicks").collect()
+        s.conf.set("hyperspace.profile.traceDir", "")
+        found = []
+        for root, _dirs, files in os.walk(trace_dir):
+            found.extend(os.path.join(root, f) for f in files)
+        assert found, "no profiler trace files written"
+        with open(found[0]) as fh:
+            doc = json.load(fh)
+        assert doc["traceEvents"], "an empty trace"
+        # traced or not, the rows are the same
+        assert got.equals(df.filter(df["clicks"] >= 100).select("clicks").collect())
+        assert len(os.listdir(trace_dir)) == 1
+        # a CPU session runs no pads and has no launches to lose
+        assert not any(e.get("name") == "hyperspace.profile.pad" for e in doc["traceEvents"])
+
+    @pytest.mark.parametrize("pads", [False, True])
+    def test_launches_without_kernels_counts_the_querys_lost_kernels(self, tmp_path, pads):
+        """The check behind the session's warning, on a written trace: a
+        launch whose correlation id no kernel event carries counts, unless
+        it falls in a pad."""
+        import json
+
+        from hyperspace_tpu_torch.session import PROFILE_PAD, launches_without_kernels
+
+        def launch(ts, corr):
+            return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ph": "X", "ts": ts,
+                    "dur": 2, "args": {"correlation": corr}}
+
+        def kernel(ts, corr):
+            return {"cat": "kernel", "name": "k", "ph": "X", "ts": ts, "dur": 1,
+                    "args": {"correlation": corr}}
+
+        events = [launch(10, 1), launch(12, 2), launch(60, 6), launch(100, 3), kernel(101, 3),
+                  launch(110, 4),
+                  {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ph": "X", "ts": 120,
+                   "dur": 1, "args": {"correlation": 5}}]
+        if pads:
+            events += [{"cat": "user_annotation", "name": PROFILE_PAD, "ph": "X", "ts": lo,
+                        "dur": 20} for lo in (5, 105)]
+        path = tmp_path / "t.json"
+        path.write_text(json.dumps({"traceEvents": events}))
+        # launches 1, 2, 4 and 6 lost; with pads all but 6 fall in one
+        assert launches_without_kernels(str(path)) == (1 if pads else 4)
 
 
 class TestWhyNot:
