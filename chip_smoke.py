@@ -1,6 +1,6 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5 | --only-b5f]
+    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5 | --only-b5f | --only-serve]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -439,12 +439,13 @@ against its plain PyTorch version on the card:
    and held to its plain version, and every B5 call on a CPU copy; (2) 5
    rounds with ``hyperspace.obs.enabled`` off and 5 on, in turns, of the
    36 filters and the join: p50 and p99 of the filters, p50 of the join;
-   with tracing on each query runs under a root span (``traced_run``)
-   whose stage spans equal ``session.join_stats`` and whose record goes to
-   the query log ``querylog.open_log`` opens, with ``recordPlans`` on; the
-   records read back with
-   ``read_valid_records``, each valid, all replayed through
-   ``testing/replay.replay_records`` with the original rows; (3) a create
+   every query is served by ``session.serve_frontend`` (one client), and
+   with tracing on each runs under the frontend's root span, whose stage
+   spans equal ``session.join_stats`` and whose record goes to the query
+   log the frontend opens, with ``recordPlans`` on; the records read back
+   with ``read_valid_records``, each valid, all replayed through
+   ``testing/replay.replay_records`` (the frontend again) with the
+   original rows; (3) a create
    of ``obs_idx`` (orders on o_custkey) under its root span, whose stage
    spans equal ``build_stats``, with ``log_commit``, and whose
    ``CreateActionEvent`` reaches a ``JsonlEventLogger`` file; (4) with
@@ -453,6 +454,22 @@ against its plain PyTorch version on the card:
    events name B1 (``murmur3_bucket_kernel``) and B4 (``count_kernel``,
    ``emit_kernel``), with no kernel launch missing its device event.
    An ``obs`` JSON line.
+20. The serve tier (``serve_path``) over phases 4 and 5's session: phase
+   4's 36 filters served directly and through ``session.serve_frontend``
+   from 1, 8 and 64 client threads (p50, p99, queries a second, every
+   answer equal in order to the direct one); 8 submits of phase 5's join
+   from one barrier coalesced into one execution (``deduped`` 7); phase
+   8's a-d from 8 clients; an SLO class ``batch`` (maxConcurrency 1,
+   maxQueueDepth 2) admitting two joins and shedding two beside 8
+   unclassed filter clients; an RF1-sized batch over phase 4's keys
+   appended, li_idx refreshed and vacuumed while 8 clients serve, every
+   answer the truth before or after; a transient and a persistent
+   ``parquet_read`` fault and a B1 ``KernelLaunchError`` (failed, neither
+   retried nor degraded); two ``FleetFrontend`` sessions sharing one
+   claim and the bus; ``testing/fleet_harness`` with 2 processes on the
+   card over 1,000,000 rows and its kill -9 rung. Every B1, B3a, B4, B5f
+   and B5 call from the frontend's threads is held to its plain version.
+   A ``serve`` JSON line.
 
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
@@ -465,7 +482,9 @@ path does not run. ``--only-b5`` is the same for iterating on B5: phases
 key-sorted within each, then the stable group sort; b's 50 groups over
 the agg window; c's identity), built on the card from phase 4's
 generators and seeds without writing Parquet, each held bit-equal to the
-plain version; records under ``only_b5``. ``--only-b5f`` does the same
+plain version; records under ``only_b5``. ``--only-serve`` builds the
+kernels and runs phases 4, 5 and 20 alone, records under ``only_serve``
+(about 4 minutes). ``--only-b5f`` does the same
 for B5f and B3b: phases 1-3, then phase 9's B5f/B3b timings on inputs
 built on the card from phase 4's generators (``b5f_replica``: li_idx's
 rows, l_orderkey in B1's 200 buckets and key-sorted within each, as one
@@ -474,8 +493,9 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14, 15, 16, 17, 18 and 19 and read just after each; each kernel's
-count in the JSON line adds phases 12, 13, 14, 15, 16, 17, 18 and 19's; B8a
+11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 and read just after each; each
+kernel's count in the JSON line adds phases 12, 13, 14, 15, 16, 17, 18, 19
+and 20's (phase 20's worker processes count their own); B8a
 and B8b (``bucket_exchange_pack`` / ``_order``) run in phase 18 alone. The
 kernel checks' launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
@@ -493,6 +513,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2043,6 +2064,11 @@ class B5Inputs:
         from hyperspace_tpu_torch.ops import aggregate as A
 
         self.calls, self.host, self.label = {}, {}, None
+        # phase 20's frontend threads record under one window label; the
+        # calls from the frontend's ``hs-serve-*`` workers count in
+        # ``serve_calls``
+        self._lock = threading.Lock()
+        self.serve_calls = 0
         for op in self.OPS:
             setattr(A, op, self._recording(op, getattr(A, op)))
         inner_values = A.device_values
@@ -2050,15 +2076,20 @@ class B5Inputs:
         def values(host, device):
             out = inner_values(host, device)
             if self.label is not None:
-                self.host[id(out[0])] = host  # the recorded call keeps the tensor alive
+                with self._lock:
+                    self.host[id(out[0])] = host  # the recorded call keeps the tensor alive
             return out
 
         A.device_values = values
 
     def _recording(self, op, inner):
         def recording(*args):
-            if self.label is not None:
-                self.calls.setdefault(self.label, []).append((op, args))
+            label = self.label
+            if label is not None:
+                serving = threading.current_thread().name.startswith(SERVE_THREADS)
+                with self._lock:
+                    self.calls.setdefault(label, []).append((op, args))
+                    self.serve_calls += serving
             return inner(*args)
 
         return recording
@@ -3406,6 +3437,13 @@ class KernelCalls:
         from hyperspace_tpu_torch.ops import zorder as Z
 
         self.label, self.calls, self.settle_s, self._b3a = None, [], 0.0, None
+        # phase 20 launches the kernels from the serve frontend's threads: a
+        # call is kept under the lock, with the label its window set before
+        # the threads started (a window's label never changes inside it),
+        # and counted by kind in ``serve_calls`` where the calling thread is
+        # one of the frontend's ``hs-serve-*`` workers
+        self._lock = threading.Lock()
+        self.serve_calls = {}
         # phase 16 keeps CPU copies, so that no recorded call holds device
         # memory while it measures a write's peak device bytes
         self.on_host = False
@@ -3422,9 +3460,14 @@ class KernelCalls:
     def _recording(self, inner, kind: str):
         def recording(*args):
             out = inner(*args)
-            if self.label is not None:
+            label = self.label
+            if label is not None:
                 kept = (to_cpu(args), to_cpu(out)) if self.on_host else (args, out)
-                self.calls.append((kind, self.label, *kept))
+                serving = threading.current_thread().name.startswith(SERVE_THREADS)
+                with self._lock:
+                    self.calls.append((kind, label, *kept))
+                    if serving:
+                        self.serve_calls[kind] = self.serve_calls.get(kind, 0) + 1
             return out
 
         return recording
@@ -3472,7 +3515,8 @@ class KernelCalls:
         import torch
 
         t0 = time.perf_counter()
-        calls, self.calls = self.calls, []
+        with self._lock:
+            calls, self.calls = self.calls, []
         for kind, label, args, out in calls:
             plain = self.plain[kind]
             floats = kind == "b5f" and any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs)
@@ -4197,7 +4241,11 @@ RF1_ORDERS = 1_500
 #: phase 12's indexes: lc_idx is li_idx's covering config, lc_z phase 10's
 #: z_idx, lc_ds phase 11's ds_idx
 #: phase 12's source: the first LC_FILES of phase 4's N_FILES lineitem files
-LC_FILES = 4
+LC_FILES = 1
+#: rows of the day's file phases 12 and 13 append (half a source file's)
+DAY_ROWS = FILE_ROWS // 2
+#: phase 13's source: the first RC_FILES of phase 4's N_FILES lineitem files
+RC_FILES = 2
 LC_MAIN = ("lc_idx", "lc_z")
 LC_ALL = ("lc_idx", "lc_z", "lc_ds")
 
@@ -4447,6 +4495,32 @@ def lc_filters(df):
             + [df.filter(key.isin(keys)).select(*cols) for keys in in_lists])
 
 
+def lc_filter_keys(i: int) -> list:
+    """The keys of ``lc_filters``' filter ``i`` (and of d2's point ``i``)."""
+    point_keys, in_lists, new_keys = lc_keys()
+    points = point_keys + new_keys
+    return [points[i]] if i < len(points) else list(in_lists[i - len(points)])
+
+
+def unindexed_key_filters(df, ids) -> dict:
+    """The plan without Hyperspace (the caller turned it off) of the
+    ``lc_filters`` in ``ids``, run once: ``df`` filtered to the union of
+    their keys, each filter's rows then taken from it by its own keys,
+    sorted (``sorted_rows``). A key filter's rows are exactly the union's
+    rows with its keys, so this equals each filter's own unindexed plan
+    while reading the source once instead of once a filter."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    keys = {i: lc_filter_keys(i) for i in ids}
+    every = sorted({k for ks in keys.values() for k in ks})
+    whole = df.filter(df["l_orderkey"].isin(every)).select(
+        "l_orderkey", "l_shipdate", "l_quantity").collect()
+    col = whole.column("l_orderkey")
+    return {i: sorted_rows(whole.filter(pc.is_in(col, value_set=pa.array(ks, pa.int64()))))
+            for i, ks in keys.items()}
+
+
 def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
              join: bool, filters=None) -> dict:
     """One checkpoint of phase 12. The filters (``lc_filters``) over the
@@ -4479,8 +4553,14 @@ def lc_check(card, cuda, cpu, kernels, src, orders_src, step: str, served: dict,
             times.append((time.perf_counter() - t0) * 1e3)
         sess.disable_hyperspace()
         cpu_sess.enable_hyperspace()
+        if label in ("filters", "d2"):
+            # d2's point keys are the filters' first 36, in order: one
+            # unindexed read of the source for both sets
+            todo = [i for i in ids if ("filters", i) not in unindexed]
+            if todo:
+                for i, rows in unindexed_key_filters(sess.read.parquet(src), todo).items():
+                    unindexed[("filters", i)] = rows
         for i, (q, cq) in enumerate(zip(plans, cpu_plans)):
-            # d2's point keys are the filters' first 36, in order
             key = ("filters" if label == "d2" else label, ids[i])
             if key not in unindexed:
                 unindexed[key] = sorted_rows(q.collect())
@@ -4527,11 +4607,15 @@ def _lc_check_sets(run, cuda, cpu, src, served, filters=None) -> None:
         run("d2", cuda.ds, cuda.hs["ds"], cpu.ds, d2[0], d2[1], served["lc_ds"], "DS", LC_D2)
 
 
+#: phase 12's timed join runs at a checkpoint, after the warm-up
+LC_JOIN_RUNS = 1
+
+
 def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
     """Phase 5's orders ⋈ lineitem over phase 12's lineitem: o_idx and
-    lc_idx both serve it; 3 timed runs after a warm-up, rows equal in order
-    across runs, equal as a multiset to the unindexed plan and in order to
-    the cpu session's."""
+    lc_idx both serve it; one timed run after a warm-up, rows equal in order
+    across the two runs, equal as a multiset to the unindexed plan and in
+    order to the cpu session's."""
     def q(sess):
         orders, items = sess.read.parquet(orders_src), sess.read.parquet(src)
         return orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"]).select(
@@ -4541,21 +4625,19 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
     sess, hs = cuda.main, cuda.hs["main"]
     index_served(hs, q(sess), ("o_idx", "lc_idx"))
     sess.enable_hyperspace()
-    q(sess).collect()  # warm-up
-    times, got = [], None
+    got = q(sess).collect()  # warm-up
+    times = []
     sess.exec_stats.reset()
-    for _ in range(3):
+    for _ in range(LC_JOIN_RUNS):
         t0 = time.perf_counter()
         res = q(sess).collect()
         times.append((time.perf_counter() - t0) * 1e3)
-        if got is None:
-            got = res
-        elif not res.equals(got):
+        if not res.equals(got):
             raise AssertionError(f"{step}: join rows differ between runs")
     stats = sess.exec_stats.as_dict()
     stages = dict(sess.join_stats)
     sess.disable_hyperspace()
-    if stats["co_bucketed_joins"] != 3:
+    if stats["co_bucketed_joins"] != LC_JOIN_RUNS:
         raise AssertionError(f"{step}: the join did not run co-bucketed: {stats}")
     want = q(sess).collect()
     if not sorted_rows(got).equals(sorted_rows(want)):
@@ -4565,7 +4647,7 @@ def lc_join(card, cuda, cpu, src, orders_src, step: str) -> dict:
         raise AssertionError(f"{step}: join rows differ from the cpu session's")
     cpu.main.disable_hyperspace()
     p50, secs = float(np.median(times)), time.perf_counter() - t_set
-    log(f"lifecycle path [{card}]: {step}: join p50_ms {p50:.3f} (3 runs), {got.num_rows} rows, "
+    log(f"lifecycle path [{card}]: {step}: join p50_ms {p50:.3f} ({LC_JOIN_RUNS} runs), {got.num_rows} rows, "
         f"stages s { {k: round(v, 4) for k, v in stages.items()} }; equal to the unindexed "
         f"plan and in order to the cpu session's; {secs:.1f}s with the checks")
     return {"p50_ms": p50, "rows": got.num_rows, "stages_s": stages, "seconds": secs}
@@ -4579,7 +4661,7 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     o_idx, which stays unchanged; lc_ds (phase 11's ds_idx) in one of its
     own. The steps follow TPC-H's refresh functions at lake granularity:
     (1) RF1's batch, 1,500 new orders of 1-7 lines, then an incremental
-    refresh of all three; (2) a day's file of FILE_ROWS rows of new orders,
+    refresh of all three; (2) a day's file of DAY_ROWS rows of new orders,
     incremental again; (3) RF2 as the delete of source file 0, incremental
     (the lineage rewrite, which leaves one file a bucket); (4) a second RF1
     batch indexed incrementally by all three (two files a bucket again),
@@ -4597,7 +4679,8 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     plan and the cpu session's. (For the script's time: no checkpoint
     after steps 1 and 4, whose indexes' layouts steps 2 and 3 already
     query, and no join before step 1, whose one-file buckets phase 5 and
-    step 3 already join.) Every B1,
+    step 3 already join; the join one timed run after its warm-up, and
+    half a source file's rows in the day's file.) Every B1,
     B6, B7 and B5f call on the card is recorded in ``kernels`` under its
     action and held to its plain version after it. Launch counts read
     from 0 at its start."""
@@ -4649,7 +4732,7 @@ def lifecycle_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dic
     read = compare(LC_ALL, "step 1")
     # (2) a day's file of new orders
     n2 = lc_batch(os.path.join(src, "day_a.parquet"), N_ORDERS + RF1_ORDERS, FILE_ROWS // 4,
-                  SEED + 21, rows=FILE_ROWS)
+                  SEED + 21, rows=DAY_ROWS)
     log(f"lifecycle path [{card}]: step 2: appended a day's file, {n2} rows")
     refresh_all()
     read += compare(LC_ALL, "step 2")
@@ -4898,7 +4981,8 @@ class RcQueries:
     """The queries each cell runs after its recovery: phase 4's 36 filters
     over rc_idx, q_zrange over rc_z, d2 over rc_ds. Where the index serves
     them, their rows equal as a multiset the plan without Hyperspace's,
-    computed once a source state; where it serves none (rolled back, or
+    computed once a source state (the point filters' and d2's by one read
+    of the source, ``unindexed_key_filters``); where it serves none (rolled back, or
     stale after a source change), each plan is the unindexed one and is
     not run again. Their kernel calls (B1 on the literals, B7's probes) go
     to ``kernels``."""
@@ -4930,6 +5014,12 @@ class RcQueries:
         finally:
             self.kernels.label = None
             sess.disable_hyperspace()
+        if name.endswith(("_idx", "_ds")) and (self.state, name, 0) not in self.unindexed:
+            # the 36 point filters' (or d2's, the same keys) unindexed plan,
+            # one read of the source
+            base = sess.read.parquet(self.src)
+            for i, rows in unindexed_key_filters(base, range(len(plans))).items():
+                self.unindexed[(self.state, name, i)] = rows
         for i, q in enumerate(plans):
             key = (self.state, name, i)
             if key not in self.unindexed:
@@ -5231,12 +5321,12 @@ def rc_live_writer(card, ctx: dict) -> dict:
 
 
 def rc_overhead(card, ctx: dict) -> dict:
-    """RF1's incremental refresh of rc_idx with recovery on and off, twice
-    each, in turns (on, off, on, off), each over a batch of its own."""
+    """RF1's incremental refresh of rc_idx with recovery on and off, in
+    turns (on, off), each over a batch of its own."""
     rc, kernels = ctx["rc"], ctx["kernels"]
     sess, hs = rc.of("rc_idx")
     secs = {True: [], False: []}
-    for i in range(4):
+    for i in range(2):
         on = i % 2 == 0
         lc_batch(os.path.join(ctx["rc_src"], f"rc_rf1_{i}.parquet"), ctx["next_key"], RF1_ORDERS,
                  SEED + 50 + i)
@@ -5257,8 +5347,8 @@ def rc_overhead(card, ctx: dict) -> dict:
 
 
 def recovery_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
-    """Phase 13: crash recovery at SF1. Over a fresh copy of phase 4's 8
-    lineitem files, lineage on, the lease at RC_LEASE_MS and the orphan
+    """Phase 13: crash recovery. Over a copy of the first RC_FILES of phase
+    4's 8 lineitem files (a depth cut, for the script's time), lineage on, the lease at RC_LEASE_MS and the orphan
     grace 0: rc_idx (li_idx's config), rc_z (z_idx's) and rc_ds (ds_idx's,
     a system path of its own), and beside them a crash-free run (``ref``) of
     every action in system paths of their own. In-process crash cells
@@ -5282,7 +5372,9 @@ def recovery_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     t_phase = time.perf_counter()
     src = os.path.join(work, "rc_lineitem")
-    _shutil.copytree(ctx["src"], src)
+    os.makedirs(src)
+    for i in range(RC_FILES):
+        _shutil.copy(os.path.join(ctx["src"], f"part{i}.parquet"), src)
     # system paths of one depth, so the entries' directory names normalize
     # alike; each rc_idx create cell takes a fresh rc side (``fresh``)
     ref = RcSide(None, os.path.join(work, "rc_refm"), os.path.join(work, "rc_refd"))
@@ -5317,7 +5409,7 @@ def recovery_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict
     rc = c["rc"]
     # a day's file, refreshed incrementally: two files a bucket after it
     lc_batch(os.path.join(src, "rc_day.parquet"), N_ORDERS, FILE_ROWS // 4, SEED + 31,
-             rows=FILE_ROWS)
+             rows=DAY_ROWS)
     c["queries"].state = "day"
     cells.append(rc_cell(card, c, "rc_idx", "rc_idx refresh incremental (a day's file) at "
                          "mid_data_write", "mid_data_write", "raise;at=101",
@@ -7308,42 +7400,6 @@ def sql_queries(F, items, orders) -> list:
     return out
 
 
-def traced_run(sess, df, qlog):
-    """One query with tracing on, as the serve tier will run it (A.10b's
-    frontend takes its place): a root span ``serve.query`` with a
-    fingerprint, the plan attributes of ``querylog.plan_attrs`` (the
-    replay spec under ``recordPlans``), indexes and rule, the query inside
-    it, one ``qlog`` record after it. Returns (rows, root). The session's
-    join breakdown starts empty, so the root's stage spans and
-    ``session.join_stats`` describe the same query."""
-    import hashlib
-
-    from hyperspace_tpu_torch.execution import execute
-    from hyperspace_tpu_torch.obs import querylog, trace
-
-    plan = df.logical_plan
-    root = trace.root("serve.query")
-    root.set("fingerprint", hashlib.sha256(plan.pretty().encode()).hexdigest()[:16])
-    for key, value in querylog.plan_attrs(sess.conf, plan).items():
-        root.set(key, value)
-    sess.join_stats = {}
-    with trace.activate(root):
-        try:
-            with trace.span("rewrite"):
-                optimized = sess.optimize(plan)
-            root.set("indexes", querylog.indexes_in_plan(optimized))
-            root.set("rule", querylog.rule_flavor(plan))
-            out = execute(optimized, sess)
-            root.set("status", "ok").set("rows_returned", int(out.num_rows))
-        except BaseException:
-            root.set("status", "failed").set("rows_returned", 0)
-            raise
-        finally:
-            root.finish()
-            qlog.append(querylog.record_from_root(root))
-    return out, root
-
-
 def profile_check(sess, sql_texts, trace_dir: str) -> dict:
     """Phase 19's profiler leg, in this process after every phase before
     it: ``hyperspace.profile.traceDir`` set on ``sess``, each SQL query in
@@ -7481,44 +7537,50 @@ def obs_sql_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs
         f"{sql_launches['range_mask']}, B4 {sql_launches['bucket_match_pairs']}, B5 "
         f"{sql_launches['segment_reduce']}; calls held {held}")
 
-    # 2. tracing off and on, in turns; the query log and its replay
-    obs_dir = os.path.join(work, "obs_sys", "_hyperspace_obs")
+    # 2. tracing off and on, in turns, through the session's serve frontend
+    # (made with tracing on, so it opens the query log); the log's replay
     sess.conf.set("hyperspace.obs.enabled", True)
     sess.conf.set("hyperspace.obs.querylog.recordPlans", True)
-    qlog = querylog.open_log(sess.conf, obs_dir)
+    fe = sess.serve_frontend
+    obs_dir = querylog.obs_root(sess.conf)
     filters = [(lab, df) for lab, kind, _t, df in queries if kind == "filter"]
     join_df = next(df for lab, _k, _t, df in queries if lab == "join")
     times = {False: {"filter": [], "join": []}, True: {"filter": [], "join": []}}
     traced, checked = [], 0
+    frontend_stages = ("queue_wait", "pin", "rewrite", "execute", "agg")
     for rnd in range(OBS_ROUNDS * 2):
         on = rnd % 4 in (1, 2)  # off, on, on, off, off, on, ...
         sess.conf.set("hyperspace.obs.enabled", on)
         trace.configure(sess.conf)
         for kind, runs in (("filter", filters), ("join", [("join", join_df)])):
             for label, df in runs:
+                # one client: the session's breakdown is this query's alone
+                sess.join_stats = {}
                 t0 = time.perf_counter()
-                if on:
-                    got, root = traced_run(sess, df, qlog)
-                else:
-                    sess.join_stats = {}
-                    got = df.collect()
+                got = fe.serve(df)
                 times[on][kind].append((time.perf_counter() - t0) * 1e3)
                 if not same_rows(got, sql_rows[label]):
                     raise AssertionError(f"{label}: rows differ with tracing {on}")
                 if on:
+                    root = trace.finished("serve.query")[-1]
                     spans = {k: v for k, v in root.stage_seconds().items()
-                             if k not in ("rewrite", "agg")}
+                             if k not in frontend_stages}
                     stats = sess.join_stats
                     if set(spans) != set(stats) or any(
                             not math.isclose(spans[k], v, rel_tol=1e-9, abs_tol=1e-12)
                             for k, v in stats.items()):
                         raise AssertionError(f"{label}: stage spans {spans} differ from the "
                                              f"session's breakdown {stats}")
+                    if not {"queue_wait", "pin", "rewrite", "execute"} <= set(
+                            root.stage_seconds()) or root.attrs.get("status") != "ok":
+                        raise AssertionError(f"{label}: the frontend's root {root.to_dict()}")
                     traced.append(label)
                     checked += len(stats)
     sess.conf.set("hyperspace.obs.enabled", False)
     trace.configure(sess.conf)
-    qlog.close()
+    fe_stats = fe.stats()
+    if fe_stats["failed"] or fe_stats["completed"] != len(traced) * 2:
+        raise AssertionError(f"phase 19's frontend: {fe_stats}")
     turns = {}
     for on in (False, True):
         fp = np.percentile(times[on]["filter"], [50, 99])
@@ -7541,7 +7603,9 @@ def obs_sql_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs
             raise AssertionError(f"replayed {label}: rows differ from the original query's")
     out["turns"] = turns
     out["querylog"] = {"records": len(records), "replayed": res.completed,
-                       "replay_s": round(replay_s, 3), "stage_keys_checked": checked}
+                       "replay_s": round(replay_s, 3), "stage_keys_checked": checked,
+                       "frontend": {k: fe_stats[k] for k in ("admitted", "completed", "deduped",
+                                                             "failed")}}
     log(f"obs path: tracing off / on in turns x{OBS_ROUNDS}: filters p50 "
         f"{turns['off']['filter_p50_ms']:.3f} / {turns['on']['filter_p50_ms']:.3f} ms, p99 "
         f"{turns['off']['filter_p99_ms']:.3f} / {turns['on']['filter_p99_ms']:.3f} ms, join "
@@ -7590,6 +7654,631 @@ def obs_sql_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs
     return out
 
 
+# -- phase 20: the serve tier ---------------------------------------------------
+
+#: phase 20's client counts through the serve frontend
+SERVE_CLIENTS = (1, 8, 64)
+#: timed rounds of the 36 filters served directly (the frontend off)
+SERVE_DIRECT_ROUNDS = 3
+#: rows of the fleet harness's lake (its two worker processes on the card)
+FLEET_ROWS = 1_000_000
+#: the name prefix of the serve frontend's worker threads: the recorders
+#: count a kernel call as the frontend's where its thread's name has it
+SERVE_THREADS = "hs-serve"
+#: the kernels phase 20 must see called from those threads and from the fleet
+#: harness's worker processes: (recorder kind, launch counter)
+SERVE_KERNELS = (("b1", "murmur3_bucket_ids"), ("b3a", "range_mask"),
+                 ("b4", "bucket_match_pairs"), ("b5f", "fused_filter_agg"),
+                 ("b5", "segment_reduce"))
+#: the filters each client serves after the lifecycle writer ends (phase 20's
+#: snapshot-pin window), and a client's pause between two of them there (the
+#: writer's refresh shares the host's interpreter with the clients)
+SERVE_AFTER_WRITER = 4
+SERVE_THINK_S = 0.2
+
+
+def sv_filters(items) -> list:
+    """Phase 4's 32 point and 4 IN-list filters over ``items``."""
+    point_keys, in_lists = phase4_keys()
+    key = items["l_orderkey"]
+    cols = ("l_orderkey", "l_shipdate", "l_quantity")
+    return ([items.filter(key == k).select(*cols) for k in point_keys]
+            + [items.filter(key.isin(keys)).select(*cols) for keys in in_lists])
+
+
+def sv_joins(items, orders) -> list:
+    """Phase 5's join with four projections (distinct plans, so they do
+    not coalesce)."""
+    j = orders.join(items, on=orders["o_orderkey"] == items["l_orderkey"])
+    return [j.select(*cols) for cols in (("o_orderkey", "o_custkey", "l_quantity"),
+                                         ("o_orderkey", "l_quantity"),
+                                         ("o_custkey", "l_quantity"),
+                                         ("o_orderkey", "o_custkey"))]
+
+
+def sv_clients(fn, n_clients: int, per_client: int, name: str = "sv-client") -> tuple:
+    """``fn(client, j)`` for ``j`` in ``range(per_client)`` on ``n_clients``
+    threads released from one barrier; returns (each call's ms, the wall
+    seconds from the release to the last return). The first exception a
+    client raises is raised here."""
+    barrier = threading.Barrier(n_clients + 1)
+    lock, lat, errors = threading.Lock(), [], []
+
+    def client(c):
+        barrier.wait()
+        try:
+            for j in range(per_client):
+                t0 = time.perf_counter()
+                fn(c, j)
+                dt = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    lat.append(dt)
+        except BaseException as e:  # reported by the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"{name}-{c}")
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return lat, wall
+
+
+def sv_latency(lat: list, wall: float) -> dict:
+    p50, p99 = np.percentile(lat, [50, 99])
+    return {"queries": len(lat), "p50_ms": float(p50), "p99_ms": float(p99),
+            "qps": len(lat) / wall, "wall_s": wall}
+
+
+def sv_delta(fe, before: dict) -> dict:
+    """The frontend's counters moved since ``before``."""
+    now = fe.stats()
+    return {k: now[k] - before[k] for k in ("admitted", "completed", "deduped", "shed", "retries",
+                                            "degraded", "failed")}
+
+
+def sv_batch(path: str, order_keys, seed: int) -> int:
+    """An RF1-sized lineitem batch written outside ``path``'s directory and
+    renamed in (a listing never sees it torn): 1-7 lines for each of
+    ``order_keys``, the other columns drawn as ``lc_batch`` draws them."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    keys = np.repeat(np.asarray(order_keys, dtype=np.int64), rng.integers(1, 8, len(order_keys)))
+    n = len(keys)
+    ship = np.datetime64("1994-01-01") + rng.integers(0, 2400, n).astype("timedelta64[D]")
+    tmp = os.path.join(os.path.dirname(os.path.dirname(path)), "." + os.path.basename(path))
+    pq.write_table(pa.table({
+        "l_orderkey": keys,
+        "l_shipdate": pa.array(ship.astype("datetime64[D]")),
+        "l_quantity": rng.integers(1, 51, n, dtype=np.int64),
+        "l_extendedprice": rng.normal(30000, 8000, n),
+    }), tmp)
+    os.rename(tmp, path)
+    return n
+
+
+def serve_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs,
+               card: str) -> dict:
+    """Phase 20: the serve tier over phase 4's li_idx and phase 5's o_idx
+    (the session of phases 4-19, on the card). (1) Phase 4's 36 filters
+    served directly (``collect()``, the frontend off, one client,
+    SERVE_DIRECT_ROUNDS rounds), then through ``session.serve_frontend``
+    from 1, 8 and 64 client threads, each client every filter once from its
+    own starting point: p50, p99 and queries a second; every answer equal
+    in order to the direct one. (2) Single-flight: 8 submits of phase 5's
+    join released from one barrier onto a fresh frontend whose execution
+    is gated until all 8 are in: one execution, ``deduped`` 7, 8 equal
+    answers. (3) Phase 8's a-d from 8 clients. (4) SLO classes: a frontend
+    with ``hyperspace.fleet.class.batch.maxConcurrency`` 1 and
+    ``.maxQueueDepth`` 2; four distinct joins submitted as ``batch`` (the
+    first gated) while 8 clients serve the filters unclassed: two admitted
+    and answered, two shed with ``ServeOverloadedError`` naming the class.
+    (5) Snapshot pins: 8 clients serve the filters (pausing SERVE_THINK_S
+    between two), while a writer appends an RF1-sized batch holding phase
+    4's keys, refreshes li_idx incrementally and vacuums it; a client serves
+    the listing it started from until the refresh commits, then lists the
+    lake anew: every answer equals the direct answer over the file list it
+    read, before or after, never a mix. (6) Faults:
+    a transient ``parquet_read`` (retried), a persistent one on the index
+    files (degraded to the source), a ``KernelLaunchError`` from B1
+    (failed, neither retried nor degraded). (7) Two ``FleetFrontend``
+    sessions over phase 4's system path, the fast plane off: one claim and
+    one spool hit for one plan; a refresh from the first reaches the second
+    over the bus. (8) ``fleet_harness.run_fleet`` on the card: 2 processes
+    over a lake of FLEET_ROWS rows with bucket-pruned filters, owner
+    routing off (the claim/spool single-flight), then the kill -9 rung with
+    the fast plane's probes; each rung's workers must have launched B1.
+    Every B1, B3a, B4 and B5f call under the frontend is recorded in
+    ``kernels`` and held to its plain version after its window, every B5
+    call through ``b5_inputs``; the calls from the frontend's ``hs-serve-*``
+    threads are counted apart. Launch counts read from 0 at its start."""
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch import functions as F
+    from hyperspace_tpu_torch.exceptions import ServeOverloadedError
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+    from hyperspace_tpu_torch.ops import hash as H
+    from hyperspace_tpu_torch.serve import ServeFrontend
+    from hyperspace_tpu_torch.testing import faults, fleet_harness
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    t_phase = time.perf_counter()
+    sess, hs, src = ctx["session"], ctx["hs"], ctx["src"]
+    items = sess.read.parquet(src)
+    orders = sess.read.parquet(ctx["orders_src"])
+    sess.enable_hyperspace()
+    cuda = sess.device.type == "cuda"
+    sess.serve_frontend.close()  # phase 19's: this phase's counters start at 0
+    ops.reset_launch_counts()
+    out = {"card": card}
+    window_launches = {}
+    kernels.serve_calls, b5_inputs.serve_calls = {}, 0
+
+    def frontend_window(label, fn):
+        """``fn()`` with the kernels' calls recorded under ``label``, then
+        held to their plain versions. Its launches, from every thread of
+        the process (the snapshot-pin window's writer too), add to
+        ``window_launches``; the recorders count the calls from the
+        frontend's threads."""
+        before = ops.launch_counts()
+        kernels.label = b5_inputs.label = label
+        try:
+            res = fn()
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            kernels.label = b5_inputs.label = None
+        after = ops.launch_counts()
+        for k in after:
+            window_launches[k] = window_launches.get(k, 0) + after[k] - before[k]
+        kernels.settle()
+        return res
+
+    kernels.record_b3a(True)
+    kernels.record_b4(True)
+    try:
+        # 1. the 36 filters, direct and through the frontend at 1, 8, 64 clients
+        filters = sv_filters(items)
+        truth = [q.collect() for q in filters]
+        lat = []
+        t0 = time.perf_counter()
+        for _ in range(SERVE_DIRECT_ROUNDS):
+            for i, q in enumerate(filters):
+                t1 = time.perf_counter()
+                got = q.collect()
+                lat.append((time.perf_counter() - t1) * 1e3)
+                if not same_rows(got, truth[i]):
+                    raise AssertionError(f"filter {i}: a direct run's rows differ")
+        direct = sv_latency(lat, time.perf_counter() - t0)
+        if not sum(t.num_rows for t in truth):
+            raise AssertionError("no filter matched a row")
+        fe = sess.serve_frontend
+        if not isinstance(fe, ServeFrontend) or fe.closed:
+            raise AssertionError(f"session.serve_frontend is {fe!r}")
+        rounds = {}
+        for n in SERVE_CLIENTS:
+            before = fe.stats()
+
+            def serve_filter(c, j):
+                i = (c * 5 + j) % len(filters)
+                if not same_rows(fe.serve(filters[i]), truth[i]):
+                    raise AssertionError(f"filter {i}: the frontend's rows differ ({n} clients)")
+
+            lat, wall = frontend_window(f"serve filters, {n} clients",
+                                        lambda: sv_clients(serve_filter, n, len(filters)))
+            rounds[n] = {**sv_latency(lat, wall), **sv_delta(fe, before)}
+            log(f"serve path [{card}]: {n} clients x 36 filters through the frontend: p50 "
+                f"{rounds[n]['p50_ms']:.3f} ms, p99 {rounds[n]['p99_ms']:.3f} ms, "
+                f"{rounds[n]['qps']:.1f} queries/s; counters {sv_delta(fe, before)}")
+        log(f"serve path [{card}]: the 36 filters served directly ({SERVE_DIRECT_ROUNDS} "
+            f"rounds, one client, the frontend off): p50 {direct['p50_ms']:.3f} ms, p99 "
+            f"{direct['p99_ms']:.3f} ms, {direct['qps']:.1f} queries/s")
+        out["filters"] = {"direct": direct, "clients": rounds}
+
+        # 2. single-flight: 8 submits of the join from one barrier
+        join_df = sv_joins(items, orders)[0]
+        index_served(hs, join_df, ("o_idx", "li_idx"))
+        join_truth = join_df.collect()
+        import hyperspace_tpu_torch.execution as X
+
+        real_execute, gate, runs = X.execute, threading.Event(), []
+
+        def gated(plan, session=None):
+            runs.append(1)
+            gate.wait(60)
+            return real_execute(plan, session)
+
+        fe_sf = ServeFrontend(sess)
+        futs, lock = [], threading.Lock()
+
+        def submit(c, j):
+            f = fe_sf.submit(join_df)
+            with lock:
+                futs.append(f)
+
+        X.execute = gated
+        try:
+            def single_flight():
+                sv_clients(submit, 8, 1, "sv-submit")
+                gate.set()
+                return [f.result(120) for f in futs]
+
+            joined = frontend_window("serve join, single-flight", single_flight)
+        finally:
+            X.execute = real_execute
+            gate.set()
+        sf = fe_sf.stats()
+        fe_sf.close()
+        if sf["deduped"] != 7 or sf["admitted"] != 1 or len(runs) != 1 or sf["failed"] or \
+                len({id(f) for f in futs}) != 1 or not all(same_rows(t, join_truth) for t in joined):
+            raise AssertionError(f"single-flight: {sf}, executions {len(runs)}")
+        out["single_flight"] = {k: sf[k] for k in ("admitted", "completed", "deduped", "failed")}
+        log(f"serve path [{card}]: 8 submits of the join from one barrier: 1 execution, "
+            f"deduped {sf['deduped']}, 8 answers equal to the direct join's {join_truth.num_rows} "
+            f"rows")
+
+        # 3. phase 8's aggregates a-d from 8 clients
+        aggs = {k: v for k, v in aggregate_queries(F, items).items() if k in ("a", "b", "c", "d")}
+        labels = sorted(aggs)
+        agg_truth = {k: aggs[k].collect() for k in labels}
+        before = fe.stats()
+
+        def serve_agg(c, j):
+            k = labels[(c + j) % len(labels)]
+            if not same_rows(fe.serve(aggs[k]), agg_truth[k]):
+                raise AssertionError(f"aggregate {k}: the frontend's rows differ")
+
+        lat, wall = frontend_window("serve aggregates", lambda: sv_clients(serve_agg, 8, 4))
+        out["aggregates"] = {**sv_latency(lat, wall), **sv_delta(fe, before)}
+        b5_recorded = {"serve aggregates": b5_inputs.calls.pop("serve aggregates", [])}
+        b5_calls = check_b5_main_path(b5_recorded, "phase 20's aggregates")[0] if cuda else 0
+        del b5_recorded
+        if cuda and not b5_calls:
+            raise AssertionError("phase 20's aggregates made no B5 call")
+        out["aggregates"]["b5_calls_held"] = b5_calls
+        log(f"serve path [{card}]: a-d from 8 clients: p50 {out['aggregates']['p50_ms']:.3f} ms, "
+            f"{out['aggregates']['qps']:.1f} queries/s; rows equal to direct; B5 calls held "
+            f"{b5_calls}")
+
+        # 4. SLO classes: batch joins beside unclassed filters
+        prefix = C.FLEET_CLASS_KEY_PREFIX + "batch."
+        sess.conf.set(prefix + "maxConcurrency", 1)
+        sess.conf.set(prefix + "maxQueueDepth", 2)
+        fe_slo = ServeFrontend(sess)
+        sess.conf.set(prefix + "maxConcurrency", 0)
+        sess.conf.set(prefix + "maxQueueDepth", 0)
+        joins = sv_joins(items, orders)
+        slo_gate = threading.Event()
+        gated_plan = joins[0].logical_plan
+        real_pinned = fe_slo._execute_pinned
+
+        def slo_pinned(plan, pin):
+            if plan is gated_plan:
+                slo_gate.wait(60)
+            return real_pinned(plan, pin)
+
+        fe_slo._execute_pinned = slo_pinned
+        shed, stop = [], threading.Event()
+
+        def slo_window():
+            def filter_client(c, j):
+                i = (c * 7 + j) % len(filters)
+                if not same_rows(fe_slo.serve(filters[i]), truth[i]):
+                    raise AssertionError(f"filter {i}: rows differ beside the batch class")
+
+            box = {}
+            clients = threading.Thread(target=lambda: box.update(
+                r=sv_clients(filter_client, 8, len(filters), "sv-slo")))
+            clients.start()
+            admitted = [fe_slo.submit(joins[0], slo_class="batch"),
+                        fe_slo.submit(joins[1], slo_class="batch")]
+            for q in joins[2:]:
+                try:
+                    fe_slo.submit(q, slo_class="batch")
+                except ServeOverloadedError as e:
+                    shed.append(str(e))
+            slo_gate.set()
+            answers = [f.result(120) for f in admitted]
+            clients.join()
+            return answers, box["r"]
+
+        try:
+            answers, (lat, wall) = frontend_window("serve SLO classes", slo_window)
+        finally:
+            slo_gate.set()
+        slo = fe_slo.stats()
+        fe_slo.close()
+        batch = slo["slo_classes"]["batch"]
+        if len(shed) != 2 or not all("'batch'" in m for m in shed) or batch["shed"] != 2 or \
+                batch["admitted"] != 2 or slo["failed"]:
+            raise AssertionError(f"SLO classes: shed {shed}, stats {slo}")
+        for got, q in zip(answers, joins[:2]):
+            if not same_rows(got, q.collect()):
+                raise AssertionError("an admitted batch join's rows differ from the direct join's")
+        out["slo"] = {"batch": batch, "shed_messages": shed[:1], "filters": sv_latency(lat, wall),
+                      "failed": slo["failed"]}
+        log(f"serve path [{card}]: SLO class batch (maxConcurrency 1, maxQueueDepth 2): 2 joins "
+            f"admitted and equal to direct, 2 shed ({shed[0]!r}); 8 unclassed filter clients "
+            f"beside it p50 {out['slo']['filters']['p50_ms']:.3f} ms")
+
+        # 5. snapshot pins: append, refresh, vacuum while 8 clients serve
+        point_keys, in_lists = phase4_keys()
+        batch_keys = sorted(set(point_keys) | {k for ks in in_lists for k in ks})
+        batch_keys += list(range(N_ORDERS + 5_000_000,
+                                 N_ORDERS + 5_000_000 + RF1_ORDERS - len(batch_keys)))
+        files0 = tuple(items.logical_plan.relation.files)
+        served, served_lock, writer_done = [], threading.Lock(), threading.Event()
+        refreshed, listing = threading.Event(), {}
+        after_writer = {}
+        before = fe.stats()
+
+        def pin_client(c, j):
+            while True:
+                # a client lists the lake anew once the refresh has committed
+                # (its view advances with the index); before, it serves the
+                # listing it started from
+                df = listing["after"] if refreshed.is_set() else items
+                i = (c * 3 + j) % len(filters)
+                q = sv_filters(df)[i]
+                got = fe.serve(q)
+                with served_lock:
+                    served.append((tuple(df.logical_plan.relation.files), i, got))
+                    if writer_done.is_set():
+                        after_writer[c] = after_writer.get(c, 0) + 1
+                        if after_writer[c] >= SERVE_AFTER_WRITER:
+                            return
+                j += 1
+                time.sleep(SERVE_THINK_S)
+
+        def writer():
+            t0 = time.perf_counter()
+            rows = sv_batch(os.path.join(src, "rf1_serve.parquet"), batch_keys, SEED + 60)
+            sess.index_manager.clear_cache()
+            hs.refresh_index("li_idx", "incremental")
+            listing["after"] = sess.read.parquet(src)
+            refreshed.set()
+            hs.vacuum_index("li_idx")
+            writer_done.set()
+            return rows, time.perf_counter() - t0
+
+        def pins_window():
+            box = {}
+            w = threading.Thread(target=lambda: box.update(r=writer()))
+            clients = threading.Thread(target=lambda: box.update(
+                c=sv_clients(pin_client, 8, 1, "sv-pin")))
+            clients.start()
+            time.sleep(0.2)  # the clients are serving when the batch lands
+            w.start()
+            w.join()
+            clients.join()
+            if "r" not in box or "c" not in box:
+                raise AssertionError("the snapshot-pin window's writer or clients failed")
+            return box["r"]
+
+        (batch_rows, writer_s) = frontend_window("serve snapshot pins", pins_window)
+        pins = sv_delta(fe, before)
+        items1 = sess.read.parquet(src)
+        files1 = tuple(items1.logical_plan.relation.files)
+        truth1 = [q.collect() for q in sv_filters(items1)]
+        counts = {"before": 0, "after": 0}
+        for files, i, got in served:
+            if files == files0:
+                want, kind = truth[i], "before"
+            elif files == files1:
+                want, kind = truth1[i], "after"
+            else:
+                raise AssertionError(f"a served query read an unexpected file list ({len(files)})")
+            # as a multiset: between the append and the refresh's commit the
+            # new file list is served from the source, in its own row order
+            if not same_rows(sorted_rows(got), sorted_rows(want)):
+                raise AssertionError(f"filter {i}: the answer is neither the truth before the "
+                                     f"refresh nor after it ({kind})")
+            counts[kind] += 1
+        changed = sum(not same_rows(sorted_rows(a), sorted_rows(b)) for a, b in zip(truth, truth1))
+        if not changed or pins["failed"]:
+            raise AssertionError(f"snapshot pins: {changed} filters changed, counters {pins}")
+        out["pins"] = {"answers": counts, "filters_changed": changed, "batch_rows": batch_rows,
+                       "writer_s": writer_s, **pins}
+        log(f"serve path [{card}]: an RF1-sized batch ({batch_rows} rows over phase 4's keys and "
+            f"new ones), li_idx's incremental refresh and vacuum ({writer_s:.2f}s) while 8 "
+            f"clients served: {counts['before']} answers equal to the truth before, "
+            f"{counts['after']} after ({changed} of 36 filters changed), none mixed; retries "
+            f"{pins['retries']}, degraded {pins['degraded']}, failed {pins['failed']}")
+        truth, filters, items = truth1, sv_filters(items1), items1
+
+        # 6. faults
+        fault = {}
+        before = fe.stats()
+        faults.set_fault("parquet_read", "transient:1")
+        try:
+            got = frontend_window("serve fault transient", lambda: fe.serve(filters[0]))
+        finally:
+            faults.reset()
+        fault["transient"] = sv_delta(fe, before)
+        if fault["transient"]["retries"] < 1 or not same_rows(got, truth[0]):
+            raise AssertionError(f"transient parquet_read: {fault['transient']}")
+        before = fe.stats()
+        faults.set_fault("parquet_read", "persistent;match=v__=")
+        try:
+            got = frontend_window("serve fault persistent", lambda: fe.serve(filters[1]))
+        finally:
+            faults.reset()
+        fault["persistent"] = sv_delta(fe, before)
+        sess.disable_hyperspace()
+        unindexed = filters[1].collect()
+        sess.enable_hyperspace()
+        if fault["persistent"]["degraded"] < 1 or not same_rows(got, unindexed):
+            raise AssertionError(f"persistent parquet_read: {fault['persistent']}")
+        before = fe.stats()
+        # B1's C entry returns CUDA error 700 (as tests/test_torch_cuda.py
+        # injects it); a cpu session has no C entry, so there the wrapper the
+        # bucket-pruned filter calls raises what the kernel's would
+        from hyperspace_tpu_torch.execution import executor as EX
+
+        def raising(*_a, **_k):
+            raise KernelLaunchError("murmur3 bucket kernel launch failed: CUDA error 700")
+
+        site, attr = (H, "_kernel_fn") if cuda else (EX, "bucket_ids")
+        real_fn = getattr(site, attr)
+        setattr(site, attr, (lambda: (lambda *a: 700)) if cuda else raising)
+        try:
+            fe.serve(filters[2])
+            raise AssertionError("B1's launch error did not fail the query")
+        except KernelLaunchError as e:
+            fault["kernel_error"] = str(e)
+        finally:
+            setattr(site, attr, real_fn)
+        fault["kernel"] = sv_delta(fe, before)
+        if fault["kernel"]["failed"] != 1 or fault["kernel"]["retries"] or \
+                fault["kernel"]["degraded"]:
+            raise AssertionError(f"B1's launch error: {fault['kernel']}")
+        if not same_rows(fe.serve(filters[2]), truth[2]):
+            raise AssertionError("the filter after the kernel fault differs")
+        out["faults"] = fault
+        log(f"serve path [{card}]: faults: transient parquet_read retried "
+            f"({fault['transient']['retries']}), persistent on the index files degraded to the "
+            f"source ({fault['persistent']['degraded']}), B1's KernelLaunchError failed the "
+            f"query (failed +{fault['kernel']['failed']}, retries +0, degraded +0)")
+        stats = fe.stats()
+        if stats["failed"] != 1:
+            raise AssertionError(f"the frontend failed other queries than the faulted one: {stats}")
+        out["stats"] = {k: v for k, v in stats.items() if k != "slo_classes"}
+
+        # 7. two fleet frontends in this process over phase 4's system path
+        def fleet_session():
+            s = HyperspaceSession(device=sess.device)
+            for key in ("hyperspace.system.path", "hyperspace.index.filterRule.useBucketSpec"):
+                s.conf.set(key, sess.conf.get(key))
+            s.conf.set(C.FLEET_ENABLED, True)
+            s.conf.set(C.FLEET_FAST_ENABLED, False)
+            s.conf.set(C.FLEET_BUS_POLL_MS, 20)
+            s.enable_hyperspace()
+            return s
+
+        s1, s2 = fleet_session(), fleet_session()
+        fe1, fe2 = s1.serve_frontend, s2.serve_frontend
+        try:
+            def fleet_window():
+                a = fe1.serve(sv_filters(s1.read.parquet(src))[3])
+                b = fe2.serve(sv_filters(s2.read.parquet(src))[3])
+                return a, b
+
+            a, b = frontend_window("serve fleet in one process", fleet_window)
+            st1, st2 = fe1.stats()["fleet"], fe2.stats()["fleet"]
+            if st1["claims_won"] + st2["claims_won"] != 1 or \
+                    st1["spool_hits"] + st2["spool_hits"] != 1 or \
+                    not (same_rows(a, truth[3]) and same_rows(b, truth[3])):
+                raise AssertionError(f"fleet single-flight: {st1}, {st2}")
+            sv_batch(os.path.join(src, "rf1_fleet.parquet"),
+                     range(N_ORDERS + 7_000_000, N_ORDERS + 7_000_000 + RF1_ORDERS), SEED + 61)
+            t0 = time.perf_counter()
+            Hyperspace(s1).refresh_index("li_idx", "incremental")
+            refresh_s = time.perf_counter() - t0
+            deadline = time.time() + 60
+            while fe2.stats()["fleet"]["bus_installed"] < 1 and time.time() < deadline:
+                time.sleep(0.02)
+            reach_s = time.perf_counter() - t0 - refresh_s
+            st2 = fe2.stats()["fleet"]
+            if st2["bus_installed"] < 1:
+                raise AssertionError(f"the refresh did not reach the second session: {st2}")
+        finally:
+            fe1.close()
+            fe2.close()
+        out["fleet_one_process"] = {
+            "claims_won": st1["claims_won"] + fe2.stats()["fleet"]["claims_won"],
+            "spool_hits": st1["spool_hits"] + st2["spool_hits"],
+            "bus_events": st2["bus_events"], "bus_installed": st2["bus_installed"],
+            "refresh_s": refresh_s, "bus_after_refresh_s": reach_s}
+        log(f"serve path [{card}]: two FleetFrontend sessions over phase 4's system path: one "
+            f"claim won, one spool hit, answers equal; a refresh from session 1 ({refresh_s:.2f}s) "
+            f"reached session 2 {reach_s:.3f}s after it (bus_installed {st2['bus_installed']})")
+    finally:
+        kernels.record_b3a(False)
+        kernels.record_b4(False)
+        faults.reset()
+    launches_in_process = ops.launch_counts()
+
+    # 8. the fleet harness: processes on the card
+    device = "cuda" if cuda else "cpu"
+    root1 = os.path.join(work, "fleet")
+    t0 = time.perf_counter()
+    # bucket-pruned point filters, as phase 4 serves them: the workers'
+    # schedule then launches B1 beside B3a and B5
+    pruned = {C.INDEX_FILTER_RULE_USE_BUCKET_SPEC: True}
+    rung = fleet_harness.run_fleet(root1, n_procs=2, iters=3, rows=FLEET_ROWS, device=device,
+                                   conf={**pruned, C.FLEET_FAST_ROUTING_ENABLED: False})
+    rung_s = time.perf_counter() - t0
+    if rung["wrong_answers"] or rung["leaked_pin_files"] or rung["cross_process_dedup"] < 1 or \
+            rung["device"] != device:
+        raise AssertionError(f"fleet rung: {rung}")
+    t0 = time.perf_counter()
+    kill = fleet_harness.run_fleet(
+        os.path.join(work, "fleet_kill"), n_procs=2, iters=3, rows=FLEET_ROWS, device=device,
+        kill_one=True, fastpath_phase=True, conf=pruned,
+        reuse_lake=(os.path.join(root1, "source"), os.path.join(root1, "indexes")))
+    kill_s = time.perf_counter() - t0
+    if kill["wrong_answers"] or kill["leaked_pin_files"] or not kill["killed"] or \
+            kill["device"] != device:
+        raise AssertionError(f"fleet kill rung: {kill}")
+    # each rung's worker processes launched B1 on the card: the schedule's
+    # bucket-pruned point filters (and the kill rung's survivor's probe,
+    # which it runs itself once its owner is dead)
+    if cuda and not (rung["launches"].get("murmur3_bucket_ids", 0) > 0
+                     and kill["launches"].get("murmur3_bucket_ids", 0) > 0):
+        raise AssertionError(f"a fleet rung's workers launched no B1: {rung['launches']}, "
+                             f"{kill['launches']}")
+    keep = ("processes", "workers_reporting", "queries", "wrong_answers", "qps", "p50_ms",
+            "p99_ms", "cross_process_dedup", "claims_won", "bus_events", "fast_frontends",
+            "fast_handoffs", "fast_fallbacks", "fast_result_hits", "probes", "probe_mismatches",
+            "leaked_pin_files", "leaked_fast_members")
+    fleet_names = [name for _kind, name in SERVE_KERNELS]
+    out["fleet_processes"] = {
+        "rows": FLEET_ROWS,
+        "rung": {**{k: rung[k] for k in keep}, "seconds": rung_s,
+                 "worker_launches": {k: rung["launches"].get(k, 0) for k in fleet_names}},
+        "kill": {**{k: kill[k] for k in keep}, "seconds": kill_s,
+                 "worker_launches": {k: kill["launches"].get(k, 0) for k in fleet_names}}}
+    log(f"serve path [{card}]: fleet_harness on {device}, {FLEET_ROWS} rows: 2 processes "
+        f"{rung['queries']} queries, wrong {rung['wrong_answers']}, cross-process dedup "
+        f"{rung['cross_process_dedup']}, leaked pins {rung['leaked_pin_files']} ({rung_s:.1f}s); "
+        f"kill -9 rung: wrong {kill['wrong_answers']}, fast fallbacks {kill['fast_fallbacks']}, "
+        f"leaked pins {kill['leaked_pin_files']} ({kill_s:.1f}s); the workers' launches "
+        f"{out['fleet_processes']['rung']['worker_launches']} and "
+        f"{out['fleet_processes']['kill']['worker_launches']}")
+    frontend_calls = {name: kernels.serve_calls.get(kind, 0) for kind, name in SERVE_KERNELS}
+    frontend_calls["segment_reduce"] = b5_inputs.serve_calls
+    need = ("murmur3_bucket_ids", "range_mask", "bucket_match_pairs", "fused_filter_agg")
+    if cuda and not all(frontend_calls[k] > 0 for k in need):
+        raise AssertionError(f"the frontend's threads did not call B1, B3a, B4 and B5f: "
+                             f"{frontend_calls}")
+    held = kernels.summary("phase 20", required=(
+        [("b1", "serve filters, 64 clients"), ("b3a", "serve filters, 64 clients"),
+         ("b4", "serve join, single-flight"), ("b5f", "serve aggregates")] if cuda else ()))
+    held["b5"] = out["aggregates"]["b5_calls_held"]
+    out["launches"] = launches_in_process
+    out["window_launches"] = {k: window_launches.get(k, 0) for k in fleet_names}
+    out["frontend_calls"] = frontend_calls
+    out["held"] = held
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"serve path [{card}]: kernel calls from the frontend's {SERVE_THREADS}-* threads "
+        f"{frontend_calls}; launches in the frontend's windows from every thread (the "
+        f"snapshot-pin writer's refresh too) {out['window_launches']}; calls held {held}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -7631,6 +8320,12 @@ def main() -> int:
         "path, no final ok line",
     )
     parser.add_argument(
+        "--only-serve", action="store_true",
+        help="for iterating on the serve tier: build the kernels, run phases 4 and 5, then "
+        "phase 20, and print its record under only_serve; no kernel cases, no other phase, "
+        "no final ok line",
+    )
+    parser.add_argument(
         "--only-b5", action="store_true",
         help="for iterating on kernel B5: run phases 1-3, then time B5 on device "
         "tensors shaped like phase 8's calls (built from the same columns without "
@@ -7669,6 +8364,22 @@ def main() -> int:
     baseline = load_baseline(*pending) if pending else None
 
     dev = torch.device("cuda")
+    if args.only_serve:
+        work = os.path.join(ROOT, "build", "chip_smoke")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            phase = PhaseClock(started)
+            ctx = filter_path(work, None)
+            join_path(work, ctx, B4Inputs())
+            phase("4-5")
+            svpath = serve_path(work, ctx, KernelCalls(), B5Inputs(), card)
+            phase("20")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"only_serve": svpath}, default=str), flush=True)
+        return 0
     b1 = check_kernels(dev, baseline)
     b4_cases_run, b4_case_err = check_b4_cases(dev)
     b3a_cases_run, b3a_case_err = check_b3a_cases(dev)
@@ -7744,6 +8455,8 @@ def main() -> int:
         phase("18")
         obpath = obs_sql_path(work, ctx, kernels, b5_inputs, card)
         phase("19")
+        svpath = serve_path(work, ctx, kernels, b5_inputs, card)
+        phase("20")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -7776,7 +8489,8 @@ def main() -> int:
     lc_held, rc_held, hy_held = lcpath["held"], rcpath["held"], hypath["held"]
     lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
-            ocpath["launches"], ospath["launches"], shpath["launches"], obpath["launches"])
+            ocpath["launches"], ospath["launches"], shpath["launches"], obpath["launches"],
+            svpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -7815,6 +8529,15 @@ def main() -> int:
         record["cases"] += ob_held.get(key, 0)
     b1["cases"] += sh_held.get("b1", 0)
     b4["cases"] += sh_held.get("b4", 0)
+    sv_held = svpath["held"]
+    for record, kernel, key in ((b1, "murmur3_bucket_ids", "b1"), (b4, "bucket_match_pairs", "b4"),
+                                (b3a, "range_mask", "b3a"), (b5, "segment_reduce", "b5"),
+                                (b5f, "fused_filter_agg", "b5f")):
+        record["phase_20_launches"] = svpath["launches"][kernel]
+        record["phase_20_frontend_calls"] = svpath["frontend_calls"][kernel]
+        record["phase_20_fleet_worker_launches"] = sum(
+            svpath["fleet_processes"][r]["worker_launches"][kernel] for r in ("rung", "kill"))
+        record["cases"] = record.get("cases", 0) + sv_held.get(key, 0)
     # 256 MiB read before every cold run: five times the L2
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     b8a = b8_timing("b8a", shpath["keep"]["b8a"], flush,
@@ -7857,6 +8580,11 @@ def main() -> int:
     log(json.dumps({"obs": {k: obpath[k] for k in (
         "seconds", "sql", "turns", "querylog", "action", "profile", "launches")}},
         default=str))
+    log(json.dumps({"serve": {k: svpath[k] for k in (
+        "seconds", "filters", "single_flight", "aggregates", "slo", "pins", "faults", "stats",
+        "fleet_one_process", "fleet_processes", "frontend_calls", "window_launches", "held",
+        "launches")},
+        "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b4, b3a, b5, b3b, b5f, b6, b7, b8a, b8b]}), flush=True)

@@ -62,6 +62,7 @@ _LAZY = {
         "DataSkippingIndexConfig",
     ),
     "functions": ("hyperspace_tpu_torch.functions", None),
+    "ServeFrontend": ("hyperspace_tpu_torch.serve", "ServeFrontend"),
 }
 
 

@@ -39,7 +39,8 @@ plane before the begin entry is written (``begin``). One action at a time
 a job: the coordinator makes one begin-write attempt, since a quiet retry
 on one process would put the rendezvous out of step.
 
-Not ported: fleet events and tracing (ROADMAP A.10).
+A committed action publishes one fleet event (``serve/bus.py``) in fleet
+mode, and every action runs under a root span (``obs/trace.py``).
 """
 
 from __future__ import annotations
@@ -232,6 +233,7 @@ class Action(abc.ABC):
             # starts aging all the same
             if heartbeat is not None:
                 heartbeat.stop()
+        self._publish_fleet_event(final)
         self._log_event(True)
 
     # -- jobs of several processes (reference base.py:259-364) ---------------
@@ -318,6 +320,9 @@ class Action(abc.ABC):
         finally:
             if heartbeat is not None:
                 heartbeat.stop()
+        # coordinator-only, like every other metadata-plane write: one
+        # publisher an action
+        self._publish_fleet_event(final)
         self._log_event(True)
 
     def _run_data_plane(self) -> None:
@@ -342,6 +347,23 @@ class Action(abc.ABC):
             self._log_event(False, str(e))
             raise
         self._log_event(True)
+
+    def _publish_fleet_event(self, entry) -> None:
+        """Fan the committed action out to peer serve frontends
+        (``serve/bus.py``; a no-op outside fleet mode, never raises: the
+        commit already happened, a failed fanout only costs peers a lazy
+        re-read)."""
+        if not self.session.conf.fleet_enabled:
+            return
+        from hyperspace_tpu_torch.serve import bus
+
+        bus.publish_action_event(
+            self.session,
+            getattr(self, "index_name", ""),
+            self.log_manager.index_path,
+            type(self).__name__,
+            entry,
+        )
 
     def _log_event(self, success: bool, message: str = "") -> None:
         ev = self.event(success, message)

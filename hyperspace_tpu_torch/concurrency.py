@@ -3,9 +3,10 @@
 Counterpart of ``hyperspace_tpu/concurrency.py``, naming the port's own
 state and locks: the session's breakdowns (``build_stats`` under
 ``covering_build._stats_lock``, ``join_stats`` rebind-only) take the place
-of the reference's module breakdown dicts, the serve cache's instance
-state is declared, and the kernel loader's map replaces the reference's
-native library. The serve tier's entries come with it (ROADMAP A.10b).
+of the reference's module breakdown dicts, the serve cache's and the serve
+tier's instance state is declared (the frontend's single-flight map, the
+fleet's fast-plane maps, the bus's event sequence), and the kernel loader's
+map replaces the reference's native library.
 
 The KERNEL_TWINS doctrine applied to concurrency: every module-level
 (and registered class-level) mutable object that a thread-pool-submitted
@@ -148,6 +149,64 @@ SHARED_STATE: Dict[str, Tuple[str, str, str]] = {
         "per-query streaming-join wave/bucket counters accumulated from "
         "the wave worker threads; reset and add both hold the stream "
         "stats lock (last-writer-wins by contract, like the breakdown)",
+    ),
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend._inflight": (
+        "self._lock",
+        "guarded",
+        "single-flight dedup map: lookup+insert must be atomic or two "
+        "identical plans both execute; all accesses hold the frontend lock",
+    ),
+    # -- fleet fanout bus (serve/bus.py) -------------------------------------
+    "hyperspace_tpu_torch.serve.bus._seq": (
+        "hyperspace_tpu_torch.serve.bus._seq_lock",
+        "guarded",
+        "process-wide bus event sequence: every publisher increments under "
+        "the one lock so same-millisecond publishes cannot collide on a "
+        "file name",
+    ),
+    # -- fleet fast plane (serve/fleet.py) -----------------------------------
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_results": (
+        "self._lock",
+        "guarded",
+        "the digest->Arrow-result LRU served to routed peers; get/put/evict "
+        "from serve workers and fast-bus handler threads all hold the "
+        "frontend lock",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_results_bytes": (
+        "self._lock",
+        "guarded",
+        "byte ledger of the fast result cache, mutated in the same critical "
+        "sections as the cache it accounts for",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_inflight": (
+        "self._lock",
+        "guarded",
+        "owner-side single-flight map (digest -> Future): lookup+insert must "
+        "be atomic or two identical routed requests both execute",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._wake_events": (
+        "self._lock",
+        "guarded",
+        "digest -> (Event, waiters) parking lot for spool waiters woken by "
+        "result-ready pushes; register/unregister/wake hold the frontend lock",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_applied": (
+        "self._lock",
+        "guarded",
+        "bus-event names applied via fast push, consulted by the durable "
+        "poll to dedup push-vs-poll delivery",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_applied_order": (
+        "self._lock",
+        "guarded",
+        "FIFO eviction order of the applied-name dedup set, mutated in the "
+        "same critical sections as the set it bounds",
+    ),
+    "hyperspace_tpu_torch.serve.fleet.FleetFrontend._peer_slo": (
+        "self._lock",
+        "guarded",
+        "gossiped per-peer SLO class depths read by the admission check and "
+        "written by the gossip handler; both hold the frontend lock",
     ),
     # -- telemetry (process-global, last-writer-wins by contract) ------------
     "hyperspace_tpu_torch.session.HyperspaceSession.build_stats": (

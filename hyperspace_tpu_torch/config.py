@@ -339,6 +339,138 @@ class Config:
             self.get_int(C.SERVE_SPILL_ORPHAN_TTL_MS, C.SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT),
         )
 
+    # -- concurrent serve frontend (serve/frontend.py) -------------------------
+    @property
+    def serve_max_concurrency(self) -> int:
+        """Serve-frontend worker threads (0 = auto-size)."""
+        n = self.get_int(C.SERVE_MAX_CONCURRENCY, C.SERVE_MAX_CONCURRENCY_DEFAULT)
+        if n > 0:
+            return n
+        import os
+
+        return min(32, 4 * (os.cpu_count() or 1))
+
+    @property
+    def serve_max_queue_depth(self) -> int:
+        return self.get_int(C.SERVE_MAX_QUEUE_DEPTH, C.SERVE_MAX_QUEUE_DEPTH_DEFAULT)
+
+    @property
+    def serve_retry_max_attempts(self) -> int:
+        return max(
+            1, self.get_int(C.SERVE_RETRY_MAX_ATTEMPTS, C.SERVE_RETRY_MAX_ATTEMPTS_DEFAULT)
+        )
+
+    @property
+    def serve_retry_backoff_ms(self) -> int:
+        return max(0, self.get_int(C.SERVE_RETRY_BACKOFF_MS, C.SERVE_RETRY_BACKOFF_MS_DEFAULT))
+
+    # -- replicated serve fleet (serve/fleet.py, serve/bus.py) ----------------
+    @property
+    def fleet_enabled(self) -> bool:
+        """Fleet mode: durable cross-process pins, the index-version fanout
+        bus, cross-process single-flight."""
+        return self.get_bool(C.FLEET_ENABLED, C.FLEET_ENABLED_DEFAULT)
+
+    @property
+    def fleet_pin_lease_ms(self) -> int:
+        return max(1, self.get_int(C.FLEET_PIN_LEASE_MS, C.FLEET_PIN_LEASE_MS_DEFAULT))
+
+    @property
+    def fleet_bus_poll_ms(self) -> int:
+        return max(1, self.get_int(C.FLEET_BUS_POLL_MS, C.FLEET_BUS_POLL_MS_DEFAULT))
+
+    @property
+    def fleet_bus_retain_ms(self) -> int:
+        return max(0, self.get_int(C.FLEET_BUS_RETAIN_MS, C.FLEET_BUS_RETAIN_MS_DEFAULT))
+
+    @property
+    def fleet_singleflight_enabled(self) -> bool:
+        return self.get_bool(
+            C.FLEET_SINGLEFLIGHT_ENABLED, C.FLEET_SINGLEFLIGHT_ENABLED_DEFAULT
+        )
+
+    @property
+    def fleet_singleflight_wait_ms(self) -> int:
+        return max(
+            0, self.get_int(C.FLEET_SINGLEFLIGHT_WAIT_MS, C.FLEET_SINGLEFLIGHT_WAIT_MS_DEFAULT)
+        )
+
+    @property
+    def fleet_singleflight_claim_ms(self) -> int:
+        return max(
+            1,
+            self.get_int(C.FLEET_SINGLEFLIGHT_CLAIM_MS, C.FLEET_SINGLEFLIGHT_CLAIM_MS_DEFAULT),
+        )
+
+    @property
+    def fleet_spool_max_bytes(self) -> int:
+        return max(0, self.get_int(C.FLEET_SPOOL_MAX_BYTES, C.FLEET_SPOOL_MAX_BYTES_DEFAULT))
+
+    # -- fleet fast data plane (serve/fastbus.py, serve/router.py) ------------
+    @property
+    def fleet_fast_enabled(self) -> bool:
+        """The push bus and owner routing over the durable fleet planes."""
+        return self.get_bool(C.FLEET_FAST_ENABLED, C.FLEET_FAST_ENABLED_DEFAULT)
+
+    @property
+    def fleet_fast_routing_enabled(self) -> bool:
+        return self.get_bool(
+            C.FLEET_FAST_ROUTING_ENABLED, C.FLEET_FAST_ROUTING_ENABLED_DEFAULT
+        )
+
+    @property
+    def fleet_fast_request_timeout_ms(self) -> int:
+        return max(
+            1,
+            self.get_int(
+                C.FLEET_FAST_REQUEST_TIMEOUT_MS, C.FLEET_FAST_REQUEST_TIMEOUT_MS_DEFAULT
+            ),
+        )
+
+    @property
+    def fleet_fast_member_lease_ms(self) -> int:
+        return max(
+            1,
+            self.get_int(C.FLEET_FAST_MEMBER_LEASE_MS, C.FLEET_FAST_MEMBER_LEASE_MS_DEFAULT),
+        )
+
+    @property
+    def fleet_fast_result_cache_bytes(self) -> int:
+        return max(
+            0,
+            self.get_int(
+                C.FLEET_FAST_RESULT_CACHE_BYTES, C.FLEET_FAST_RESULT_CACHE_BYTES_DEFAULT
+            ),
+        )
+
+    @property
+    def fleet_fast_gossip_ms(self) -> int:
+        return max(1, self.get_int(C.FLEET_FAST_GOSSIP_MS, C.FLEET_FAST_GOSSIP_MS_DEFAULT))
+
+    @property
+    def fleet_fast_slo_fleet_wide(self) -> bool:
+        return self.get_bool(C.FLEET_FAST_SLO_FLEET_WIDE, C.FLEET_FAST_SLO_FLEET_WIDE_DEFAULT)
+
+    @property
+    def fleet_slo_classes(self) -> dict:
+        """``{class name: (max_concurrency, max_queue_depth)}`` from the
+        ``hyperspace.fleet.class.<name>.{maxConcurrency,maxQueueDepth}``
+        prefix family (0 = unlimited for either bound)."""
+        out: dict = {}
+        prefix = C.FLEET_CLASS_KEY_PREFIX
+        for key, value in self.prefixed(prefix).items():
+            name, _, attr = key[len(prefix):].rpartition(".")
+            if not name:
+                continue
+            caps = out.setdefault(name, [0, 0])
+            try:
+                if attr == "maxConcurrency":
+                    caps[0] = max(0, int(value))
+                elif attr == "maxQueueDepth":
+                    caps[1] = max(0, int(value))
+            except (TypeError, ValueError):
+                continue
+        return {name: (c[0], c[1]) for name, c in out.items()}
 
     @property
     def profile_trace_dir(self) -> str:

@@ -347,16 +347,106 @@ RECOVERY_RETRY_MAX_ATTEMPTS_DEFAULT = 3
 RECOVERY_RETRY_BACKOFF_MS = "hyperspace.recovery.retry.backoffMs"
 RECOVERY_RETRY_BACKOFF_MS_DEFAULT = 10
 
-# Durable pin lease (register_pins(durable=True)): renewed every leaseMs/3;
-# an expired pin file belongs to a dead reader and is reaped by GC/vacuum.
-# Its key, hyperspace.fleet.pin.leaseMs, comes with the serve tier that sets
-# it (ROADMAP A.10).
-FLEET_PIN_LEASE_MS_DEFAULT = 30_000
 
 # Age after which recovery's spill reaper deletes a spill file (or a torn
 # .tmp_spool_ temp) that no live serve cache in this process indexes.
 SERVE_SPILL_ORPHAN_TTL_MS = "hyperspace.serve.spill.orphanTtlMs"
 SERVE_SPILL_ORPHAN_TTL_MS_DEFAULT = 10 * 60 * 1000
+
+# -- concurrent serve frontend (serve/frontend.py) ----------------------------
+# Worker threads answering queries concurrently. 0 = auto: min(32,
+# 4 x cores); serve work is read-dominated, so oversubscribing cores keeps
+# the scan pool fed while masks and merges run.
+SERVE_MAX_CONCURRENCY = "hyperspace.serve.maxConcurrency"
+SERVE_MAX_CONCURRENCY_DEFAULT = 0
+
+# Admission control: queries queued (admitted but not yet running) beyond
+# this bound are shed with a typed ServeOverloadedError. 0 = unbounded.
+SERVE_MAX_QUEUE_DEPTH = "hyperspace.serve.maxQueueDepth"
+SERVE_MAX_QUEUE_DEPTH_DEFAULT = 128
+
+# Retry with backoff for transient failures at the serve operation
+# boundary: maxAttempts tries in all, exponential backoff from backoffMs.
+# Each retry re-pins the index snapshot, so a vacuum that removed the
+# pinned version's files mid-query recovers onto the current version.
+SERVE_RETRY_MAX_ATTEMPTS = "hyperspace.serve.retry.maxAttempts"
+SERVE_RETRY_MAX_ATTEMPTS_DEFAULT = 3
+SERVE_RETRY_BACKOFF_MS = "hyperspace.serve.retry.backoffMs"
+SERVE_RETRY_BACKOFF_MS_DEFAULT = 10
+
+# -- replicated serve fleet (serve/fleet.py, serve/bus.py) --------------------
+# Master switch for fleet mode: N serve frontend processes over one index
+# lake. Turns on durable query pins (lease-expiring files under
+# <index>/_hyperspace_pins/), the index-version fanout bus under
+# <system.path>/_hyperspace_fleet/, and cross-process single-flight (a
+# fingerprint-keyed claim file and a bounded result spool).
+FLEET_ENABLED = "hyperspace.fleet.enabled"
+FLEET_ENABLED_DEFAULT = False
+
+# Durable pin lease (register_pins(durable=True)): renewed every leaseMs/3;
+# an expired pin file belongs to a dead reader and is reaped by GC/vacuum.
+FLEET_PIN_LEASE_MS = "hyperspace.fleet.pin.leaseMs"
+FLEET_PIN_LEASE_MS_DEFAULT = 30_000
+
+# How often each subscribed frontend lists the bus directory, and how long
+# event files live before the next publisher prunes them.
+FLEET_BUS_POLL_MS = "hyperspace.fleet.bus.pollMs"
+FLEET_BUS_POLL_MS_DEFAULT = 100
+FLEET_BUS_RETAIN_MS = "hyperspace.fleet.bus.retainMs"
+FLEET_BUS_RETAIN_MS_DEFAULT = 60_000
+
+# Cross-process single-flight: identical plans elect one executor through an
+# atomic claim file; losers wait up to waitMs for the spooled result before
+# executing locally. claimMs bounds how long a dead winner's claim blocks.
+FLEET_SINGLEFLIGHT_ENABLED = "hyperspace.fleet.singleflight.enabled"
+FLEET_SINGLEFLIGHT_ENABLED_DEFAULT = True
+FLEET_SINGLEFLIGHT_WAIT_MS = "hyperspace.fleet.singleflight.waitMs"
+FLEET_SINGLEFLIGHT_WAIT_MS_DEFAULT = 5_000
+FLEET_SINGLEFLIGHT_CLAIM_MS = "hyperspace.fleet.singleflight.claimMs"
+FLEET_SINGLEFLIGHT_CLAIM_MS_DEFAULT = 10_000
+
+# Result spool byte budget under <system.path>/_hyperspace_fleet/spool/;
+# writers prune the oldest results past it.
+FLEET_SPOOL_MAX_BYTES = "hyperspace.fleet.spool.maxBytes"
+FLEET_SPOOL_MAX_BYTES_DEFAULT = 256 << 20  # 256 MiB
+
+# Per-tenant SLO classes (a prefix family, like hyperspace.faults.):
+# hyperspace.fleet.class.<name>.maxConcurrency caps the class's queries
+# running at once (0 = unlimited; the rest wait without a worker thread),
+# .maxQueueDepth sheds the class's admissions past that backlog, under the
+# global hyperspace.serve.maxQueueDepth bound.
+FLEET_CLASS_KEY_PREFIX = "hyperspace.fleet.class."
+
+# -- fleet fast data plane (serve/fastbus.py, serve/router.py) ----------------
+# A per-host push bus over Unix sockets announced through lease-stamped
+# member files, and owner routing (rendezvous-hash the plan digest to one
+# member, ship the plan spec, stream the Arrow result back). Every fast
+# message is replayable from the durable planes: a dropped push costs a poll
+# interval, a dead owner a fallback to the claim/spool path.
+FLEET_FAST_ENABLED = "hyperspace.fleet.fast.enabled"
+FLEET_FAST_ENABLED_DEFAULT = True
+# Owner routing alone; off keeps the pushes but single-flight on the claims.
+FLEET_FAST_ROUTING_ENABLED = "hyperspace.fleet.fast.routing.enabled"
+FLEET_FAST_ROUTING_ENABLED_DEFAULT = True
+# Round-trip budget of one owner-routed request; past it the durable plane.
+FLEET_FAST_REQUEST_TIMEOUT_MS = "hyperspace.fleet.fast.requestTimeoutMs"
+FLEET_FAST_REQUEST_TIMEOUT_MS_DEFAULT = 2_000
+# Member lease, renewed every leaseMs/3; an expired member is reaped.
+FLEET_FAST_MEMBER_LEASE_MS = "hyperspace.fleet.fast.memberLeaseMs"
+FLEET_FAST_MEMBER_LEASE_MS_DEFAULT = 10_000
+# Byte budget of each member's in-memory digest->result LRU (0 = off).
+FLEET_FAST_RESULT_CACHE_BYTES = "hyperspace.fleet.fast.resultCacheBytes"
+FLEET_FAST_RESULT_CACHE_BYTES_DEFAULT = 64 << 20  # 64 MiB
+# Cadence of the per-class queue-depth gossip to live peers.
+FLEET_FAST_GOSSIP_MS = "hyperspace.fleet.fast.gossipMs"
+FLEET_FAST_GOSSIP_MS_DEFAULT = 50
+# The class queue-depth bound counts live peers' gossiped depths too.
+FLEET_FAST_SLO_FLEET_WIDE = "hyperspace.fleet.fast.sloFleetWide"
+FLEET_FAST_SLO_FLEET_WIDE_DEFAULT = True
+
+# Fleet coordination directory under the system path: bus/ events, spool/
+# single-flight claims and results, members/ fast-plane member files.
+HYPERSPACE_FLEET_DIR = "_hyperspace_fleet"
 
 # -- execution tuning keys the port reads nowhere ------------------------------
 # The reference evaluates a filter on its host path below this row count and

@@ -48,3 +48,12 @@ class ApproximationError(HyperspaceException):
     aggregate is outside the estimable set (COUNT, SUM), or the 95 %
     confidence interval is wider than the query's error budget. Raised,
     never degraded to a number the caller would over-trust."""
+
+
+class ServeOverloadedError(HyperspaceException):
+    """Admission control shed this query: the serve frontend's queue of
+    admitted-but-not-running queries reached
+    ``hyperspace.serve.maxQueueDepth``, or an SLO class its own
+    ``maxQueueDepth`` (``serve/frontend.py``). Raised at submit time,
+    before any work is queued, so a caller can tell "saturated, back off"
+    from a query that failed."""

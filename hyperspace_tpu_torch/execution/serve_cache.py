@@ -38,9 +38,9 @@ Every cached value holds host arrays (numpy, pyarrow), never tensors on
 the card, so the byte governor counts host RAM; a query moves what it
 needs to the session's device as the uncached route does.
 
-Not ported: the reference's metrics-registry view of :meth:`ServeCache.
-stats` and its trace spans around spill writes and restores (``obs/``,
-ROADMAP A.10).
+:meth:`ServeCache.stats` exports live as the metrics registry's
+``serve_cache`` view, and spill writes and restores record the stage spans
+``spill_write`` / ``spill_restore`` (``obs/``).
 """
 
 from __future__ import annotations

@@ -41,8 +41,7 @@ provable non-overlap (outward rounding). Everything else is scanned.
 With serve-server mode on, ``agg_data_for`` keeps the assembled state in
 the session's serve cache (``("aggstate", fp)``), and ``fanout_payload`` /
 ``install_fanout_payload`` carry a committed file set's state to another
-process's caches. Not ported yet (``ROADMAP.md``): the fleet bus that
-pushes them (item A.10).
+process's caches over the fleet bus (``serve/bus.py``, ``serve/fleet.py``).
 """
 
 from __future__ import annotations
@@ -788,8 +787,8 @@ def invalidate_paths_under(root: str) -> int:
 
 # ---------------------------------------------------------------------------
 # Fan-out payloads: a committed file set's aggregate state, pushed to peer
-# serve processes instead of invalidated (the push and its bus come with the
-# serve tier, ROADMAP A.10; these two are its payload and its install)
+# serve processes instead of invalidated (``serve/bus.py`` carries the
+# payload, ``serve/fleet.py`` installs it)
 # ---------------------------------------------------------------------------
 
 

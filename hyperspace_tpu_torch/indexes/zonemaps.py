@@ -33,8 +33,10 @@ so rounding can only over-keep. The executor re-applies the full mask on
 whatever survives.
 
 With serve-server mode on, the assembled zone maps are also kept in the
-session's serve cache (``("zonemap", fp)``, ``execution/serve_cache.py``).
-Not ported yet: the trace spans (ROADMAP A.10).
+session's serve cache (``("zonemap", fp)``, ``execution/serve_cache.py``);
+:func:`invalidate_paths_under` drops one index's assembled maps when a fleet
+peer changes it (``serve/fleet.py``). The pruning pass accumulates its
+pruned rows onto the query's root span (``obs/trace.accumulate``).
 """
 
 from __future__ import annotations
@@ -851,6 +853,30 @@ def invalidate_local_cache() -> None:
     with _local_lock:
         _local_cache.clear()
         _local_bytes = 0
+
+
+def invalidate_paths_under(root: str) -> int:
+    """Drop only the LRU entries whose fingerprint names a file under
+    ``root`` (the fleet fanout's scoped invalidation, ``serve/fleet.py``: a
+    refresh of index A must not cost index B its warm assembled state);
+    returns how many went. Entries are fingerprint-keyed, so this reclaims
+    memory and never fixes staleness."""
+    prefix = root.replace("\\", "/").rstrip("/") + "/"
+
+    def _mentions(obj) -> bool:
+        if isinstance(obj, str):
+            return obj.replace("\\", "/").startswith(prefix)
+        if isinstance(obj, tuple):
+            return any(_mentions(x) for x in obj)
+        return False
+
+    global _local_bytes
+    with _local_lock:
+        victims = [k for k in _local_cache if _mentions(k)]
+        for k in victims:
+            _zd, freed = _local_cache.pop(k)
+            _local_bytes -= freed
+        return len(victims)
 
 
 # ---------------------------------------------------------------------------

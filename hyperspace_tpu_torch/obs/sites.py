@@ -23,9 +23,9 @@ Paths name a module-level function
 (``hyperspace_tpu_torch.execution.join_exec._stage_add``), a method
 (``hyperspace_tpu_torch.actions.base.Action.run``), or a whole module
 (``hyperspace_tpu_torch.testing.replay`` — module-level instrument
-registration). The serve tier's and the advisor's sites come with those
-modules (ROADMAP A.10b, A.10c); their stage names are in the vocabulary
-already. Calls in nested defs/lambdas attribute to
+registration). The advisor's sites come with it (ROADMAP A.10c); its
+stage names are in the vocabulary already. Calls in nested defs/lambdas
+attribute to
 their outermost enclosing def, like the collective registry.
 
 Stage-span VOCABULARY: HS902 rejects any constant stage/span name that
@@ -112,6 +112,31 @@ STAGE_NAMES = tuple(
 
 OBS_SITES: Dict[str, Tuple[str, str]] = {
     # -- serve plane ---------------------------------------------------------
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend.submit": (
+        "span",
+        "the query ROOT span starts at admission so queue-wait is "
+        "attributable; one root per admitted query",
+    ),
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend._pin": (
+        "span",
+        "snapshot pinning is a metadata read with its own retry loop; a "
+        "slow pin must be distinguishable from a slow execute",
+    ),
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend._run": (
+        "span",
+        "queue_wait closes when a worker picks the query up; the root span "
+        "finishes (and the querylog row lands) here",
+    ),
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend._execute_pinned": (
+        "span",
+        "rewrite vs execute split: index selection time is never conflated "
+        "with data-plane time",
+    ),
+    "hyperspace_tpu_torch.serve.frontend.ServeFrontend.__init__": (
+        "view",
+        "the frontend's stats() counters export live through the registry "
+        "(one owner, one lock)",
+    ),
     "hyperspace_tpu_torch.execution.serve_cache.ServeCache.__init__": (
         "view",
         "the memory governor's stats() export live through the registry "
@@ -127,6 +152,11 @@ OBS_SITES: Dict[str, Tuple[str, str]] = {
         "span",
         "spill_restore shows the cost of serving from the disk tier next "
         "to the scan/prepare stages it displaces",
+    ),
+    "hyperspace_tpu_torch.serve.fleet": (
+        "metric",
+        "cross-process single-flight election attempts/wins/losses as "
+        "process-global counters: election health is fleet-level telemetry",
     ),
     "hyperspace_tpu_torch.session.HyperspaceSession.__init__": (
         "metric",

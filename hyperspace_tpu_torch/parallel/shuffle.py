@@ -560,7 +560,7 @@ def resolve_strategy(strategy: str, mesh, n_rows: int) -> str:
     there), a CPU mesh ``host`` (the copies between shards of one CPU
     would only cost), a CUDA mesh ``flat``. The reference's accelerator
     default is ``compact`` above a per-machine calibrated row count, else
-    ``flat``; the port has no calibration probe yet (ROADMAP A.10), and
+    ``flat``; the port has no calibration probe yet (ROADMAP A.10c), and
     with no measured threshold the reference takes ``flat`` too
     (``shuffle.py:903-908``; the uncalibrated threshold is 0)."""
     s = (strategy or STRATEGY_AUTO).strip().lower()

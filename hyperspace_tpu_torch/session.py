@@ -260,6 +260,8 @@ class HyperspaceSession:
         self._index_manager = None
         self._serve_cache = None
         self._serve_cache_lock = threading.Lock()
+        self._serve_frontend = None
+        self._serve_frontend_lock = threading.Lock()
         self._catalog: dict = {}
         self._trace_seq = itertools.count(1)
         from hyperspace_tpu_torch.obs import metrics as obs_metrics
@@ -323,6 +325,35 @@ class HyperspaceSession:
     def clear_serve_cache(self) -> None:
         if self._serve_cache is not None:
             self._serve_cache.clear()
+
+    @property
+    def serve_frontend(self):
+        """The session's long-lived concurrent serve frontend
+        (``serve/frontend.py``): admission control, snapshot-consistent
+        pinning, retry/degrade, its queries run on the session's device.
+        With ``hyperspace.fleet.enabled`` it is a
+        :class:`~hyperspace_tpu_torch.serve.fleet.FleetFrontend`: the same
+        surface plus durable cross-process pins, the fanout bus and
+        cross-process single-flight. Created lazily; the pool size, SLO
+        classes and the fleet flag are read at first touch. A closed or
+        mode-mismatched frontend (after a fleet-flag flip) is discarded
+        and replaced on the next touch."""
+        with self._serve_frontend_lock:
+            from hyperspace_tpu_torch.serve import ServeFrontend
+
+            fe = self._serve_frontend
+            if self.conf.fleet_enabled:
+                from hyperspace_tpu_torch.serve.fleet import FleetFrontend
+
+                if fe is None or fe.closed or not isinstance(fe, FleetFrontend):
+                    if fe is not None and not fe.closed:
+                        fe.close(wait=False)
+                    self._serve_frontend = FleetFrontend(self)
+            elif fe is None or fe.closed or type(fe) is not ServeFrontend:
+                if fe is not None and not fe.closed:
+                    fe.close(wait=False)
+                self._serve_frontend = ServeFrontend(self)
+            return self._serve_frontend
 
     # -- reading ------------------------------------------------------------
     @property

@@ -16,6 +16,10 @@ point                     armed site
 ``cache_insert``          ``ServeCache.put``: a fired fault drops the insert
                           (the query still answers, uncached; counted in
                           ``ServeCache.insert_failures``)
+``fastbus_send``          ``serve/fastbus.push`` / ``request``, the fleet
+                          fast plane's send seam: a fired fault is a dead
+                          peer socket, and the caller falls back to the
+                          durable planes with the same answer
 ========================  ====================================================
 
 Spec grammar::
@@ -36,7 +40,6 @@ a fired fault makes a kernel wrapper return None and take its plain
 version, a fallback that would hide the kernel. A kernel's fault in the
 port is raised (``kernels.KERNEL_FAULTS``, ROADMAP C.7), so arming
 ``kernel_dispatch`` raises :class:`HyperspaceException` (ROADMAP C.11).
-``fastbus_send`` comes with the fleet (ROADMAP A.10).
 
 **Crash points** (``hyperspace.faults.crash.<point>``) are named places
 inside every action where a writer can die mid-protocol, leaving a
@@ -86,7 +89,7 @@ from typing import Dict, Optional
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 
-POINTS = ("parquet_read", "log_read", "cache_insert")
+POINTS = ("parquet_read", "log_read", "cache_insert", "fastbus_send")
 
 #: the reference's point that the port refuses to arm (module docstring)
 KERNEL_DISPATCH = "kernel_dispatch"

@@ -6,13 +6,11 @@ Counterpart of ``hyperspace_tpu/testing/replay.py``. Two halves:
   ``obs/querylog.py``) and re-runs every record that carries a
   ``replay`` plan spec (``obs/planspec.py``): arrival order preserved
   (``ts_ms`` sort), optionally honouring the recorded inter-arrival gaps
-  (``preserve_timing`` / ``speedup``). The reference submits through its
-  serve frontend; the port has none yet (ROADMAP A.10b), so each query
-  runs through ``session.execute`` on a pool of ``max_inflight`` threads
-  and ``slo_class`` is not enforced. ``keep_results`` keeps each
-  completed query's table (``ReplayResult.tables``, in arrival order), so
-  a replay can be held to the original rows. Records without a spec are
-  counted and skipped.
+  (``preserve_timing`` / ``speedup``), each submitted through
+  ``session.serve_frontend`` with its recorded ``slo_class``.
+  ``keep_results`` keeps each completed query's table
+  (``ReplayResult.tables``, in arrival order), so a replay can be held to
+  the original rows. Records without a spec are counted and skipped.
 
 * Scenario generators (:func:`skewed_keys`, :func:`hot_key_storm`,
   :func:`rolling_appends`, :func:`tenant_mix`) emit canned workloads in
@@ -32,9 +30,9 @@ import hashlib
 import json
 import random
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+from hyperspace_tpu_torch.exceptions import ServeOverloadedError
 from hyperspace_tpu_torch.obs import metrics as _metrics
 from hyperspace_tpu_torch.obs import planspec as _planspec
 from hyperspace_tpu_torch.obs import querylog as _querylog
@@ -110,18 +108,17 @@ def replay_records(
     max_inflight: int = 1,
     keep_results: bool = False,
 ) -> ReplayResult:
-    """Re-run ``records`` through ``session.execute``.
+    """Re-submit ``records`` through ``session.serve_frontend``.
 
     Arrival ORDER is always the recorded one (``ts_ms`` sort, stable).
     With ``preserve_timing`` the recorded inter-arrival gaps are honoured
     too, compressed by ``speedup``; without it, submission is
     back-to-back. ``max_inflight`` bounds overlap: 1 (default) replays
-    strictly serially, larger values run that many queries at once. Per
-    query latency is measured submit-to-result. ``use_slo_classes`` is
-    accepted for the reference's signature; without a serve frontend no
-    class is enforced."""
-    from hyperspace_tpu_torch.obs import trace as _trace
-
+    strictly serially, larger values pipeline submissions the way
+    concurrent clients would. Each record's ``slo_class`` is submitted
+    with it unless ``use_slo_classes`` is off. Per-query latency is
+    measured submit-to-result; a shed submit counts as failed."""
+    frontend = session.serve_frontend
     ordered = sorted(records, key=lambda r: int(r.get("ts_ms", 0) or 0))
     result = ReplayResult()
     inflight: List = []  # (future, t_submit, slot)
@@ -144,41 +141,48 @@ def replay_records(
                 result.tables[slot] = table
         result.latencies.append(time.perf_counter() - t_submit)
 
-    with ThreadPoolExecutor(max_workers=max_inflight, thread_name_prefix="hs-replay") as pool:
-        for rec in ordered:
-            spec = rec.get("replay")
-            if not isinstance(spec, dict):
-                result.skipped += 1
-                replay_skipped_total.inc()
-                continue
-            try:
-                plan = _planspec.from_spec(session, spec)
-            except Exception:  # hslint: disable=HS402
-                # spec outside this build's replayable subset: skip + count
-                result.skipped += 1
-                replay_skipped_total.inc()
-                continue
-            if preserve_timing:
-                ts = int(rec.get("ts_ms", 0) or 0)
-                if base_ts is None:
-                    base_ts = ts
-                due = (ts - base_ts) / 1000.0 / speedup
-                delay = due - (time.perf_counter() - t0)
-                if delay > 0:
-                    time.sleep(delay)
-            slot = None
-            if keep_results:
-                slot = len(result.tables)
-                result.tables.append(None)
-            t_submit = time.perf_counter()
-            fut = pool.submit(_trace.carry(session.execute), plan)
+    for rec in ordered:
+        spec = rec.get("replay")
+        if not isinstance(spec, dict):
+            result.skipped += 1
+            replay_skipped_total.inc()
+            continue
+        try:
+            plan = _planspec.from_spec(session, spec)
+        except Exception:  # hslint: disable=HS402
+            # spec outside this build's replayable subset: skip + count
+            result.skipped += 1
+            replay_skipped_total.inc()
+            continue
+        if preserve_timing:
+            ts = int(rec.get("ts_ms", 0) or 0)
+            if base_ts is None:
+                base_ts = ts
+            due = (ts - base_ts) / 1000.0 / speedup
+            delay = due - (time.perf_counter() - t0)
+            if delay > 0:
+                time.sleep(delay)
+        slot = None
+        if keep_results:
+            slot = len(result.tables)
+            result.tables.append(None)
+        slo = rec.get("slo_class") if use_slo_classes else None
+        t_submit = time.perf_counter()
+        try:
+            fut = frontend.submit(plan, slo_class=slo)
+        except ServeOverloadedError:
             result.submitted += 1
+            result.failed += 1
             replay_queries_total.inc()
-            inflight.append((fut, t_submit, slot))
-            while len(inflight) >= max_inflight:
-                drain_one()
-        while inflight:
+            replay_failed_total.inc()
+            continue
+        result.submitted += 1
+        replay_queries_total.inc()
+        inflight.append((fut, t_submit, slot))
+        while len(inflight) >= max_inflight:
             drain_one()
+    while inflight:
+        drain_one()
     result.duration_s = time.perf_counter() - t0
     global last_replay_stats
     last_replay_stats = result.to_dict()  # rebind-only telemetry publish

@@ -120,9 +120,13 @@ class TestCrashRegistry:
         assert tfaults.stats() == {}
 
     def test_points_of_later_modules_are_refused(self):
-        with pytest.raises(ValueError):
-            tfaults.set_fault("fastbus_send", "transient")
-        # the query log's point came with obs/querylog.py (A.10a) and arms
+        # a point no ported module carries is refused, as in the reference
+        for f in (tfaults, jfaults):
+            with pytest.raises(ValueError):
+                f.set_fault("not_a_point", "transient")
+        # the fleet's send seam came with serve/fastbus.py (A.10b) and the
+        # query log's point with obs/querylog.py (A.10a): both arm
+        assert tfaults.set_fault("fastbus_send", "transient") is True
         assert tfaults.set_crash("mid_querylog_rotate", "raise") is True
         tfaults.reset()
 

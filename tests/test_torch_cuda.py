@@ -1297,3 +1297,81 @@ def test_profiler_trace_names_b1_and_b4(cuda_device, tmp_path):
     assert any("murmur3_bucket_kernel" in n for n in kernels[0]), kernels[0]
     assert any("count_kernel" in n for n in kernels[1]), kernels[1]
     assert any("emit_kernel" in n for n in kernels[1]), kernels[1]
+
+
+def test_frontend_threads_serve_the_filters_with_b1_and_b3a_held(cuda_device, tmp_path):
+    """8 client threads serve 32 point and 4 IN-list filters through the
+    session's serve frontend on the card: every B1 and B3a call, launched
+    from the frontend's ``hs-serve-*`` threads, equals its plain version on
+    the same inputs, and every answer equals the cpu session's in order."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch_b5_cases import same_rows
+
+    sessions = _sql_sessions(cuda_device, tmp_path)
+    rng = np.random.default_rng(31)
+    keys = [int(k) for k in rng.integers(0, 3000, 32)]
+    lists = [[int(k) for k in rng.integers(0, 3000, 5)] for _ in range(4)]
+
+    def queries(s):
+        df = s.read.parquet(str(tmp_path / "items"))
+        return ([df.filter(df["k"] == k).select("k", "q") for k in keys]
+                + [df.filter(df["k"].isin(ks)).select("k", "q") for ks in lists])
+
+    lock, calls, threads_seen = threading.Lock(), {"b1": [], "b3a": []}, set()
+    real = {"b1": H.bucket_ids_kernel, "b3a": F.range_mask_kernel}
+
+    def recording(kind):
+        def run(*args):
+            out = real[kind](*args)
+            with lock:
+                calls[kind].append((args, out))
+                threads_seen.add(threading.current_thread().name)
+            return out
+        return run
+
+    want = [q.collect() for q in queries(sessions["cpu"])]
+    H.bucket_ids_kernel, F.range_mask_kernel = recording("b1"), recording("b3a")
+    fe = sessions["cuda"].serve_frontend
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(fe.serve, queries(sessions["cuda"])))
+        torch.cuda.synchronize()
+    finally:
+        H.bucket_ids_kernel, F.range_mask_kernel = real["b1"], real["b3a"]
+        fe.close()
+    assert all(same_rows(g, w) for g, w in zip(got, want))
+    assert sum(w.num_rows for w in want) > 0
+    assert fe.stats()["failed"] == 0
+    assert calls["b1"] and calls["b3a"], {k: len(v) for k, v in calls.items()}
+    assert all(name.startswith("hs-serve") for name in threads_seen), threads_seen
+    for args, out in calls["b1"]:
+        assert torch.equal(out, H.bucket_ids_torch(*args))
+    for args, out in calls["b3a"]:
+        assert torch.equal(out, F.range_mask_torch(*args))
+
+
+def test_b1_launch_error_propagates_through_the_serve_frontend(cuda_device, tmp_path,
+                                                               monkeypatch):
+    """An error code from B1's C entry inside a frontend serve fails the
+    query with KernelLaunchError: ``failed`` rises by 1 and neither
+    ``retries`` nor ``degraded`` moves (ROADMAP C.7, C.21)."""
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+
+    s = _sql_sessions(cuda_device, tmp_path)["cuda"]
+    df = s.read.parquet(str(tmp_path / "items"))
+    fe = s.serve_frontend
+    try:
+        assert fe.serve(df.filter(df["k"] == 77).select("k", "q")) is not None
+        before = fe.stats()
+        monkeypatch.setattr(H, "_kernel_fn", lambda: (lambda *a: 700))
+        with pytest.raises(KernelLaunchError):
+            fe.serve(df.filter(df["k"] == 1234).select("k", "q"))
+        after = fe.stats()
+        monkeypatch.undo()
+        assert after["failed"] == before["failed"] + 1
+        assert (after["retries"], after["degraded"]) == (before["retries"], before["degraded"])
+        assert fe.serve(df.filter(df["k"] == 1234).select("k", "q")).num_rows >= 0
+    finally:
+        fe.close()

@@ -1,9 +1,14 @@
 """The port's observability plane against the JAX package's, on the CPU.
 
-The cases of ``tests/test_obs.py`` that need no serve tier (the trace
-core, ``merge_snapshots``, the metrics registry, telemetry events, the
-actions' root spans) run through both packages' ``obs`` modules, plus the
-port's own contract:
+The cases of ``tests/test_obs.py`` (the trace core, ``merge_snapshots``,
+the metrics registry, telemetry events, the actions' root spans) run
+through both packages. The serve frontend's (one root per execution with
+its stage children, join spans across the scan pool, obs off bit-identical,
+concurrent parent-child integrity, the ``serve_frontend`` view and its
+Prometheus text, one query-log row per execution, the spool-hit trace link)
+run in the port, and the root's attributes, the view's Prometheus lines and
+the query-log records (apart from ids, times and latencies) are held equal
+to the JAX package's. Plus the port's own contract:
 
 * the stage spans of a join under one root equal ``session.join_stats``
   on every route: sequential, pipelined, streamed in waves and over 4
@@ -27,6 +32,7 @@ import pyarrow.parquet as pq
 import pytest
 from torch_b5_cases import same_rows
 
+import torch_frontend_twin as twin
 import hyperspace_tpu_torch as T
 from hyperspace_tpu import telemetry as JT
 from hyperspace_tpu.execution import join_exec as _jje  # noqa: F401  (registers its timer)
@@ -556,3 +562,284 @@ class TestDeviceFilterMinRows:
         for rows, stats in runs[1:]:
             assert stats == base_stats
             assert all(same_rows(a, b) for a, b in zip(rows, base_rows))
+
+
+# ---------------------------------------------------------------------------
+# The serve frontend's spans, view and query log (the port; the cases named
+# "across packages" or "the reference's" hold it to the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fe_env(tmp_path, lake):
+    """The port builds oi1 and oo1; a session of each package serves them
+    with tracing on."""
+    _indexed(tmp_path, lake)
+    sp = str(tmp_path / "sys")
+    out = {}
+    for pkg in PKGS:
+        P = twin.PKG[pkg]
+        s = twin.session(pkg, sp, **{P.C.OBS_ENABLED: True})
+        out[pkg] = (s, s.read.parquet(lake[0]), s.read.parquet(lake[1]))
+    return out
+
+
+def _frontend(pkg, s):
+    return twin.PKG[pkg].frontend.ServeFrontend(s)
+
+
+class TestServeSpans:
+    def test_one_root_per_query_with_stage_children(self, fe_env):
+        s, items, _orders = fe_env["port"]
+        fe = _frontend("port", s)
+        try:
+            out = fe.serve(items.filter(items["k"] == 7).select("k", "q"))
+        finally:
+            fe.close()
+        roots = TRACES["port"].finished("serve.query")
+        assert len(roots) == 1
+        root = roots[0]
+        _assert_trace_integrity(root)
+        stages = root.stage_seconds()
+        assert {"queue_wait", "pin", "execute"} <= set(stages)
+        assert root.attrs["status"] == "ok"
+        assert root.attrs["rows_returned"] == out.num_rows
+        assert root.attrs["fingerprint"]
+        assert root.attrs["indexes"] == ["oi1"]
+        assert root.attrs["rule"] == "filter"
+        assert "7" not in root.attrs["predicate"].replace("int64", "")
+
+    def test_root_attributes_equal_across_packages(self, fe_env):
+        attrs = {}
+        for pkg in PKGS:
+            s, items, _orders = fe_env[pkg]
+            fe = _frontend(pkg, s)
+            try:
+                fe.serve(items.filter(items["k"] == 7).select("k", "q"))
+            finally:
+                fe.close()
+            (root,) = TRACES[pkg].finished("serve.query")
+            attrs[pkg] = {k: v for k, v in root.attrs.items() if k != "fingerprint"}
+        assert attrs["port"] == attrs["jax"]
+
+    def test_join_spans_cross_scan_pool(self, fe_env):
+        s, items, orders = fe_env["port"]
+        s.conf.set(C.SERVE_PIPELINE_ENABLED, True)
+        fe = _frontend("port", s)
+        try:
+            fe.serve(orders.join(items, on=orders["ok"] == items["k"]).select("ok", "cust", "q"))
+        finally:
+            fe.close()
+        (root,) = TRACES["port"].finished("serve.query")
+        _assert_trace_integrity(root)
+        stages = root.stage_seconds()
+        assert {"scan", "prepare", "match", "assemble"} <= set(stages), sorted(stages)
+        assert root.attrs["rule"] == "join"
+        assert set(root.attrs["indexes"]) == {"oi1", "oo1"}
+        # one measurement: the stage spans are the session's breakdown (this
+        # was the only query)
+        join = {k: v for k, v in stages.items()
+                if k not in ("queue_wait", "pin", "rewrite", "execute")}
+        _assert_spans_equal_stats(join, s.join_stats)
+
+    def test_obs_off_bit_identical_and_traceless(self, fe_env):
+        s, items, _orders = fe_env["port"]
+        q = items.filter(items["k"] == 9).select("k", "q")
+        fe = _frontend("port", s)
+        try:
+            with_obs = fe.serve(q)
+        finally:
+            fe.close()
+        s.conf.set(twin.PKG["port"].C.OBS_ENABLED, False)
+        TRACES["port"].reset()
+        fe2 = _frontend("port", s)
+        try:
+            without = fe2.serve(q)
+        finally:
+            fe2.close()
+        assert same_rows(with_obs, without)
+        assert TRACES["port"].finished() == []
+        _js, jitems, _jorders = fe_env["jax"]
+        assert same_rows(with_obs, jitems.filter(jitems["k"] == 9).select("k", "q").collect())
+
+    def test_concurrent_parent_child_integrity(self, fe_env):
+        """16 clients x 4 distinct queries: every trace's spans chain to its
+        own root, and roots == executions (dedup shares a trace)."""
+        s, items, _orders = fe_env["port"]
+        s.conf.set(twin.PKG["port"].C.SERVE_MAX_QUEUE_DEPTH, 0)
+        fe = _frontend("port", s)
+        errors = []
+
+        def client(ci):
+            try:
+                for j in range(4):
+                    fe.serve(items.filter(items["k"] == (ci * 17 + j * 5) % 200).select("k", "q"))
+            except Exception as exc:  # pragma: no cover
+                errors.append(exc)
+
+        try:
+            with ThreadPoolExecutor(16) as pool:
+                list(pool.map(client, range(16)))
+            stats = fe.stats()
+        finally:
+            fe.close()
+        assert not errors, errors[:3]
+        roots = TRACES["port"].finished("serve.query")
+        assert len(roots) == stats["completed"]
+        assert stats["completed"] + stats["deduped"] == stats["admitted"]
+        assert len({r.trace_id for r in roots}) == len(roots)
+        for root in roots:
+            _assert_trace_integrity(root)
+
+
+class TestFrontendMetrics:
+    def test_frontend_view_is_stats(self, fe_env):
+        s, items, _orders = fe_env["port"]
+        registry = tmetrics.registry
+        fe = _frontend("port", s)
+        try:
+            for k in (1, 2, 3):
+                fe.serve(items.filter(items["k"] == k).select("k"))
+            view = registry.snapshot()["views"]["serve_frontend"]
+            direct = fe.stats()
+            for key in twin.COUNTERS:
+                assert view[key] == direct[key], key
+            assert direct["completed"] == 3 and "snapshot_at_ms" in direct
+            text = registry.render_prometheus()
+            assert "hs_view_serve_frontend" in text and 'key="completed"' in text
+            assert "# TYPE hs_obs_traces_total counter" in text
+        finally:
+            fe.close()
+        # a closed frontend unregisters its view
+        assert "serve_frontend" not in registry.snapshot()["views"]
+
+    def test_view_lines_equal_across_packages(self, fe_env):
+        lines = {}
+        for pkg in PKGS:
+            s, items, _orders = fe_env[pkg]
+            registry = (tmetrics if pkg == "port" else jmetrics).registry
+            fe = _frontend(pkg, s)
+            try:
+                for k in (1, 2, 3):
+                    fe.serve(items.filter(items["k"] == k).select("k"))
+                lines[pkg] = sorted(
+                    ln for ln in registry.render_prometheus().splitlines()
+                    if ln.startswith("hs_view_serve_frontend")
+                    and any(f'key="{k}"' in ln for k in twin.COUNTERS))
+            finally:
+                fe.close()
+        assert lines["port"] == lines["jax"] and len(lines["port"]) == len(twin.COUNTERS)
+
+
+class TestFrontendQuerylog:
+    def test_row_per_execution_and_schema(self, fe_env):
+        s, items, _orders = fe_env["port"]
+        ql = twin.PKG["port"].querylog
+        fe = _frontend("port", s)
+        try:
+            for k in (11, 12, 13, 11):
+                fe.serve(items.filter(items["k"] == k).select("k", "q"))
+            completed = fe.stats()["completed"]
+        finally:
+            fe.close()
+        records = ql.read_records(ql.obs_root(s.conf))
+        assert len(records) == completed == 4
+        for r in records:
+            assert ql.validate_record(r) is None, r
+            assert r["trace_id"] and r["stages"].get("execute", 0) >= 0
+            assert r["indexes"] == ["oi1"]
+        assert len({r["fingerprint"] for r in records}) == 3  # k=11 twice
+        assert len({r["predicate"] for r in records}) == 1  # literals scrubbed
+        ring = {t.trace_id for t in TRACES["port"].finished("serve.query")}
+        assert {r["trace_id"] for r in records} <= ring
+
+    def test_records_equal_the_references(self, tmp_path, lake):
+        """The same queries through both frontends (each package on its own
+        system path over the same lake, so each writes its own log): the
+        records are equal apart from ids, times and latencies, and each
+        validates under the other package's ``validate_record``."""
+        recs = {}
+        for pkg in PKGS:
+            P = twin.PKG[pkg]
+            sp = str(tmp_path / f"ql_{pkg}")
+            s = twin.session(pkg, sp, **{P.C.OBS_ENABLED: True,
+                                         P.C.OBS_QUERYLOG_RECORD_PLANS: True})
+            P.Hyperspace(s).create_index(s.read.parquet(lake[0]), P.Covering("oi1", ["k"], ["q"]))
+            items = s.read.parquet(lake[0])
+            fe = _frontend(pkg, s)
+            try:
+                for q in (items.filter(items["k"] == 11).select("k", "q"),
+                          items.filter(items["k"].isin([3, 4])).select("k", "q"),
+                          items.filter(items["k"] >= 1990).select("k")):
+                    fe.serve(q)
+            finally:
+                fe.close()
+            recs[pkg] = sorted(P.querylog.read_records(P.querylog.obs_root(s.conf)),
+                               key=lambda r: r["ts_ms"])
+        volatile = {"ts_ms", "trace_id", "duration_s", "stages", "fingerprint"}
+
+        def stable(r):
+            out = {k: v for k, v in r.items() if k not in volatile}
+            out["events"] = [{k: v for k, v in e.items() if k != "ts_ms"} for e in r["events"]]
+            return out
+
+        assert len(recs["port"]) == len(recs["jax"]) == 3
+        for a, b in zip(recs["port"], recs["jax"]):
+            assert stable(a) == stable(b)
+            assert set(a) == set(b)
+            assert {"queue_wait", "pin", "rewrite", "execute"} <= set(a["stages"]) & set(b["stages"])
+            assert twin.PKG["jax"].querylog.validate_record(a) is None
+            assert twin.PKG["port"].querylog.validate_record(b) is None
+
+    def test_querylog_disabled_writes_nothing(self, fe_env):
+        s, items, _orders = fe_env["port"]
+        P = twin.PKG["port"]
+        s.conf.set(P.C.OBS_QUERYLOG_ENABLED, False)
+        fe = _frontend("port", s)
+        try:
+            fe.serve(items.filter(items["k"] == 3).select("k"))
+        finally:
+            fe.close()
+        assert P.querylog.read_records(P.querylog.obs_root(s.conf)) == []
+
+
+class TestFleetTraceLinkage:
+    def test_spool_hit_links_winner_trace(self, tmp_path):
+        """Two in-process FleetFrontends on one lake (fast plane off, so the
+        durable claim/spool plane elects): the loser serving the winner's
+        spooled result records a spool_hit event with the winner's trace id."""
+        P = twin.PKG["port"]
+        src = tmp_path / "src"
+        src.mkdir()
+        rng = np.random.default_rng(5)
+        pq.write_table(pa.table({"k": pa.array(rng.integers(0, 50, 3000), pa.int64()),
+                                 "v": pa.array(rng.integers(0, 100, 3000), pa.int64())}),
+                       str(src / "p0.parquet"))
+        sp = str(tmp_path / "indexes")
+        conf = {P.C.FLEET_ENABLED: True, P.C.FLEET_FAST_ENABLED: False, P.C.OBS_ENABLED: True}
+        s1 = twin.session("port", sp, num_buckets=4, **conf)
+        P.Hyperspace(s1).create_index(s1.read.parquet(str(src)), P.Covering("fl1", ["k"], ["v"]))
+        TRACES["port"].reset()
+        s2 = twin.session("port", sp, num_buckets=4, **conf)
+        fe1, fe2 = s1.serve_frontend, s2.serve_frontend
+        try:
+            q1 = s1.read.parquet(str(src))
+            q2 = s2.read.parquet(str(src))
+            t1 = fe1.serve(q1.filter(q1["k"] == 9))
+            t2 = fe2.serve(q2.filter(q2["k"] == 9))
+            assert t1.sort_by("v").equals(t2.sort_by("v"))
+            st1, st2 = fe1.stats()["fleet"], fe2.stats()["fleet"]
+            assert st1["claims_won"] + st2["claims_won"] == 1
+            assert st1["spool_hits"] + st2["spool_hits"] == 1
+        finally:
+            fe1.close()
+            fe2.close()
+        roots = TRACES["port"].finished("serve.query")
+        assert len(roots) == 2
+        winner = next(r for r in roots if any(e["name"] == "singleflight_won" for e in r.events))
+        loser = next(r for r in roots if r is not winner)
+        hits = [e for e in loser.events if e["name"] == "spool_hit"]
+        assert hits and hits[0]["winner_trace_id"] == winner.trace_id
+        won = [e for e in winner.events if e["name"] == "singleflight_won"]
+        assert won[0]["digest"] == hits[0]["digest"]
+

@@ -44,10 +44,27 @@ from hyperspace_tpu_torch.testing import artifacts, collective_witness, lock_wit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+def _closed_frontend(fleet: bool):
+    """A serve frontend (a fleet one with ``fleet``) over a fresh system
+    path, closed at once: its declared state outlives ``close``."""
+    import tempfile
+
+    from hyperspace_tpu_torch.serve import FleetFrontend, ServeFrontend
+
+    s = T.HyperspaceSession(device="cpu")
+    s.conf.set("hyperspace.system.path", tempfile.mkdtemp(prefix="hs_witness_"))
+    s.conf.set("hyperspace.fleet.fast.enabled", False)
+    fe = FleetFrontend(s) if fleet else ServeFrontend(s)
+    fe.close()
+    return fe
+
+
 #: how to build an instance of each class whose instance state is declared
 INSTANCES = {
     "ServeCache": lambda: ServeCache(1 << 20),
     "HyperspaceSession": lambda: T.HyperspaceSession(device="cpu"),
+    "ServeFrontend": lambda: _closed_frontend(False),
+    "FleetFrontend": lambda: _closed_frontend(True),
 }
 
 
@@ -96,10 +113,14 @@ class TestRegistries:
                 assert hasattr(getattr(inst, lock[5:]), "acquire"), path
             elif lock:
                 assert hasattr(_resolve(lock), "acquire"), (path, lock)
-        # the port's own locks and the serve cache's state are declared
+        # the port's own locks, the serve cache's and the serve tier's state
+        # are declared
         for want in ("hyperspace_tpu_torch.session.HyperspaceSession.build_stats",
                      "hyperspace_tpu_torch.execution.serve_cache.ServeCache._entries",
-                     "hyperspace_tpu_torch.obs.trace._finished"):
+                     "hyperspace_tpu_torch.obs.trace._finished",
+                     "hyperspace_tpu_torch.serve.frontend.ServeFrontend._inflight",
+                     "hyperspace_tpu_torch.serve.fleet.FleetFrontend._fast_results",
+                     "hyperspace_tpu_torch.serve.bus._seq"):
             assert want in TCc.SHARED_STATE
         assert TCc.SHARED_STATE["hyperspace_tpu_torch.session.HyperspaceSession.build_stats"][0] == (
             "hyperspace_tpu_torch.indexes.covering_build._stats_lock")
@@ -118,7 +139,9 @@ class TestRegistries:
                      "obs/planspec.py", "obs/__init__.py", "telemetry.py", "concurrency.py",
                      "memory.py", "sql.py", "testing/artifacts.py", "testing/lock_witness.py",
                      "testing/residency_witness.py", "testing/replay.py",
-                     "testing/collective_witness.py"):
+                     "testing/collective_witness.py", "testing/fleet_harness.py",
+                     "serve/__init__.py", "serve/frontend.py", "serve/bus.py",
+                     "serve/fastbus.py", "serve/router.py", "serve/fleet.py"):
             src = open(os.path.join(pkg, name)).read()
             for line in src.splitlines():
                 s = line.strip()
