@@ -1,6 +1,7 @@
 """Chip smoke test of hyperspace_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-src PATH] [--only-b4 | --only-b5 | --only-b5f | --only-serve]
+    python3 chip_smoke.py [--baseline-src PATH]
+                          [--only-b4 | --only-b5 | --only-b5f | --only-serve | --only-advisor]
 
 Drives the port's main path once at real scale and holds every kernel
 against its plain PyTorch version on the card:
@@ -80,6 +81,17 @@ against its plain PyTorch version on the card:
      m = 5,751,040, the build at m = 95,872, 5,751,040 and 2^31 - 64;
      k = 7), beside its byte and int32-operation bounds and the plain
      version on the card; the indices also at the probe's 1 and 8 reps;
+   then the calibration probe (``calibrate_path``): its cache file
+   removed and ``calibrate.thresholds()`` measured on the card (at
+   doubling sizes, for an integer-aggregate and a float-SUM plan, the
+   fused pass, B5f, against the route the executor takes when it
+   declines, B3a's mask and the hash aggregate with B5, on the same
+   device columns; the exchange probe needs 2 cards), then the exchange
+   probe on a ``mesh=`` of 4 shards on the card (compact against flat)
+   printed and not cached; every B1, B3a, B3b, B5, B5f, B8a and B8b call
+   held to its plain version; a
+   ``calibrate`` line (after phase 9, the B3b and B5f launches of phases
+   7-9 under the calibrated threshold);
 4. filter path: a lineitem-shaped table of 6,001,215 rows (TPC-H SF1
    lineitem's row count, l_orderkey over SF1's 1,500,000 orders), a
    covering index with the default 200 buckets through the pipelined
@@ -470,7 +482,21 @@ against its plain PyTorch version on the card:
    card over 1,000,000 rows and its kill -9 rung. Every B1, B3a, B4, B5f
    and B5 call from the frontend's threads is held to its plain version.
    A ``serve`` JSON line.
+21. The advisor's closed loop (``advisor_path``) over phase 4's lineitem
+   and phase 5's orders, in a session of its own on a fresh system path
+   with obs, the query log and ``recordPlans`` on: 24 Zipf-skewed point
+   lookups, a two-column range filter and 2 key-range joins recorded into
+   the query log, replayed through ``serve_frontend`` as the baseline,
+   ``advise`` (its ranked report printed), ``apply_recommendations`` under
+   the byte budget (each create's seconds and launches), the replay again
+   (every answer equal in order, every plan index-served, p50 and queries a
+   second before and after), a second ``advise`` with no create, and
+   ``python -m hyperspace_tpu_torch.advisor report`` on the log. Every B1,
+   B3a, B4, B5 and B5f call is held to its plain version. An ``advisor``
+   JSON line.
 
+``--only-advisor`` runs phases 1-3, the calibration probe, phase 4 and
+phase 21 (records under ``only_advisor``; about 4 minutes).
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
 timings of phase 6 on device tensors shaped like phase 5's indexed and
 unindexed calls, built from the same keys with B1 and a device sort
@@ -492,11 +518,12 @@ chunk; f1's and f2's plans; s1's batch); records under ``only_b5f``. The
 numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
-Kernel launch counts are set to 0 just before phases 4, 5, 7, 8, 9, 10,
-11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 and read just after each; each
-kernel's count in the JSON line adds phases 12, 13, 14, 15, 16, 17, 18, 19
-and 20's (phase 20's worker processes count their own); B8a
-and B8b (``bucket_exchange_pack`` / ``_order``) run in phase 18 alone. The
+Kernel launch counts are set to 0 just before the calibration probe and
+phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21
+and read just after each; each kernel's count in the JSON line adds the
+probe's and phases 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21's (phase
+20's worker processes count their own); B8a and B8b
+(``bucket_exchange_pack`` / ``_order``) run in the probe and phase 18. The
 kernel checks' launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
 lines of standard output are the kernels' JSON record and ``{"ok": true,
 "device": ...}``. It needs one CUDA device and the repository checkout
@@ -1847,6 +1874,23 @@ RANGE_FRACTIONS = (0.001, 0.01, 0.1)  # of the orderkeys a range query spans
 SHIP_CUTOFF = "1996-01-01T12:00"
 
 
+def range_queries(items) -> tuple:
+    """Phase 7's queries over the lineitem DataFrame ``items``: the three
+    key ranges and the date cut-off, each as (label suffix, condition,
+    selected columns)."""
+    rng = np.random.default_rng(SEED + 9)
+    key, qty, ship = items["l_orderkey"], items["l_quantity"], items["l_shipdate"]
+    queries = []
+    for frac in RANGE_FRACTIONS:
+        width = int(frac * N_ORDERS)
+        a = int(rng.integers(0, N_ORDERS - width))
+        queries.append((f"{frac:.1%}", (key >= a) & (key < a + width) & (qty < 24),
+                        ("l_orderkey", "l_quantity")))
+    cutoff = ("date cut-off", (key >= 0) & (ship < np.datetime64(SHIP_CUTOFF)),
+              ("l_orderkey", "l_shipdate"))
+    return queries, cutoff
+
+
 def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
     """Phase 7: range filters ``l_orderkey >= a AND l_orderkey < b AND
     l_quantity < 24`` over about 0.1 %, 1 % and 10 % of the orderkeys,
@@ -1872,16 +1916,7 @@ def range_path(work: str, ctx: dict, b3a_inputs: B3aInputs) -> dict:
     # default route, where residuals of 32,768 rows or more take the fused
     # select (B3b)
     sess.conf.set(FUSED_SWITCH, False)
-    rng = np.random.default_rng(SEED + 9)
-    key, qty, ship = items["l_orderkey"], items["l_quantity"], items["l_shipdate"]
-    queries = []  # (label suffix, condition, selected columns)
-    for frac in RANGE_FRACTIONS:
-        width = int(frac * N_ORDERS)
-        a = int(rng.integers(0, N_ORDERS - width))
-        queries.append((f"{frac:.1%}", (key >= a) & (key < a + width) & (qty < 24),
-                        ("l_orderkey", "l_quantity")))
-    cutoff = ("date cut-off", (key >= 0) & (ship < np.datetime64(SHIP_CUTOFF)),
-              ("l_orderkey", "l_shipdate"))
+    queries, cutoff = range_queries(items)
     results = []
     for index in ("li_idx", "li_rg_idx"):
         if index == "li_rg_idx":
@@ -3457,12 +3492,16 @@ class KernelCalls:
                                 (FA, "fused_filter_agg_kernel", "b5f")):
             setattr(mod, name, self._recording(getattr(mod, name), kind))
 
-    def _recording(self, inner, kind: str):
+    def _recording(self, inner, kind: str, clone: bool = False):
         def recording(*args):
+            # ``clone``: the inputs are copied before the call, since the
+            # caller may write them in place after it
+            kept_args = to_cpu(args, "cpu" if self.on_host else "cuda") \
+                if clone and self.label is not None else args
             out = inner(*args)
             label = self.label
             if label is not None:
-                kept = (to_cpu(args), to_cpu(out)) if self.on_host else (args, out)
+                kept = (to_cpu(kept_args), to_cpu(out)) if self.on_host else (kept_args, out)
                 serving = threading.current_thread().name.startswith(SERVE_THREADS)
                 with self._lock:
                     self.calls.append((kind, label, *kept))
@@ -3495,6 +3534,40 @@ class KernelCalls:
         elif not on and getattr(self, "_b4", None) is not None:
             J.match_pairs_kernel, self._b4 = self._b4, None
 
+    def record_b3b(self, on: bool) -> None:
+        """Replace B3b's wrapper by a recording one (``on``, the calibration
+        probe; phase 9 holds B3b through ``B3bInputs``), or put it back."""
+        from hyperspace_tpu_torch.ops import filter as F
+
+        if on and getattr(self, "_b3b", None) is None:
+            self._b3b = F.select_kernel
+            self.plain["b3b"] = F.select_torch
+            F.select_kernel = self._recording(self._b3b, "b3b")
+        elif not on and getattr(self, "_b3b", None) is not None:
+            F.select_kernel, self._b3b = self._b3b, None
+
+    #: B5's kernel wrappers in ``ops/aggregate.py``, recorded as "b5 <op>"
+    B5_KERNELS = ("segment_sum_count", "segment_minmax", "segment_count")
+
+    def record_b5(self, on: bool) -> None:
+        """Replace B5's three kernel wrappers by recording ones (``on``: the
+        calibration probe and phase 21, where B5 runs inside B5f's ordered
+        route and under the hash aggregate; phases 8, 19 and 20 hold B5
+        through ``B5Inputs``), or put them back. The inputs are cloned on
+        the card when a call is kept: the ordered route writes its float
+        start row in place after the call."""
+        from hyperspace_tpu_torch.ops import aggregate as A
+
+        if on and getattr(self, "_b5", None) is None:
+            self._b5 = tuple(getattr(A, f"{op}_kernel") for op in self.B5_KERNELS)
+            for op, inner in zip(self.B5_KERNELS, self._b5):
+                self.plain[f"b5 {op}"] = getattr(A, f"{op}_torch")
+                setattr(A, f"{op}_kernel", self._recording(inner, f"b5 {op}", clone=True))
+        elif not on and getattr(self, "_b5", None) is not None:
+            for op, inner in zip(self.B5_KERNELS, self._b5):
+                setattr(A, f"{op}_kernel", inner)
+            self._b5 = None
+
     def record_b8(self, on: bool) -> None:
         """Replace B8a's and B8b's wrappers by recording ones (``on``, phase
         18), or put them back."""
@@ -3522,7 +3595,7 @@ class KernelCalls:
             floats = kind == "b5f" and any(op in self.FLOAT_OPS for op, _v, _valid in args[1].aggs)
             if self.on_host and not floats:  # an integer function: held on the card
                 args, out = to_cpu(args, "cuda"), to_cpu(out, "cuda")
-            if kind == "b3a":  # a mask: exact in any order, held on the card
+            if kind in ("b3a", "b3b"):  # a mask, passing indices: exact, on the card
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].n
             elif kind == "b4":  # (li, ri) pair lists: equal in order
@@ -3531,6 +3604,13 @@ class KernelCalls:
             elif kind in ("b8a", "b8b"):  # counts and columns, bit for bit
                 ok = b8_same(out, plain(*args))
                 rows = args[0].shape[0]
+            elif kind.startswith("b5 "):  # on CPU copies: the float fold's ordered index_add_
+                from torch_b5_cases import abs_err
+
+                want = plain(*to_cpu(args))
+                pairs = zip(out, want) if isinstance(want, tuple) else [(out, want)]
+                ok = all(abs_err(got, exp) == 0 for got, exp in pairs)
+                rows = int(args[1][-1])
             elif kind != "b5f":
                 ok = torch.equal(out, plain(*args))
                 rows = args[0].shape[-1]
@@ -8279,6 +8359,322 @@ def serve_path(work: str, ctx: dict, kernels: KernelCalls, b5_inputs: B5Inputs,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The calibration probe (before phase 4) and phase 21, the advisor
+# ---------------------------------------------------------------------------
+
+#: the exchange probe's mesh on the one card: 4 shards, as phase 18's
+CALIBRATE_SHARDS = 4
+
+
+def calibrate_path(dev, kernels: KernelCalls, card: str) -> dict:
+    """The per-machine calibration probe (``calibrate.py``), first so that
+    no timed window pays for it: the cache file removed, the memo dropped,
+    then ``calibrate.thresholds()`` (at doubling sizes, on each plan shape,
+    the fused pass against the executor's declined route on the same
+    device columns: B5f's one pass, or its ordered route with B3b and B5,
+    against B3a's mask and the hash aggregate with B5; the exchange probe
+    measures nothing with one card), then the exchange probe itself on a
+    ``mesh=`` of CALIBRATE_SHARDS shards on the card (compact against flat:
+    B1, B8a, B8b), printed and not cached. Every B1, B3a, B3b, B5, B5f,
+    B8a and B8b call is recorded in ``kernels`` and held to its plain
+    version after the probe. Launch counts read from 0 at its start."""
+    import torch
+
+    from hyperspace_tpu_torch import calibrate, ops
+    from hyperspace_tpu_torch.execution import pipeline_compiler as PC
+    from hyperspace_tpu_torch.parallel.mesh import Mesh
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    t_phase = time.perf_counter()
+    fused_label = "calibrate fused probe"
+    ex_label = f"calibrate exchange probe ({CALIBRATE_SHARDS} shards)"
+    path = calibrate.cache_file()
+    if os.path.exists(path):
+        os.remove(path)
+    calibrate.invalidate()
+    ops.reset_launch_counts()
+    recorders = (kernels.record_b3a, kernels.record_b3b, kernels.record_b5, kernels.record_b8)
+    for record in recorders:
+        record(True)
+    try:
+        kernels.label = fused_label
+        t0 = time.perf_counter()
+        th = calibrate.thresholds()
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        kernels.label = ex_label
+        t0 = time.perf_counter()
+        ex_rows, ex_times = calibrate.probe_exchange_compact_min(
+            mesh=Mesh([dev] * CALIBRATE_SHARDS))
+        torch.cuda.synchronize()
+        exchange_s = time.perf_counter() - t0
+    finally:
+        kernels.label = None
+        for record in recorders:
+            record(False)
+    launches = ops.launch_counts()
+    kernels.settle()
+    held = kernels.summary("calibrate", required=[
+        ("b5f", fused_label), ("b3b", fused_label), ("b3a", fused_label), ("b5", fused_label),
+        ("b8a", ex_label), ("b8b", ex_label)])
+    fused_times = calibrate.probe_times().get("fused", [])
+    if th.source != "calibrated" or not os.path.exists(path):
+        raise AssertionError(f"calibration did not probe and cache: {th}, {path}")
+    sizes = calibrate._FUSED_PROBE_SIZES
+    if th.native_fused_pipeline_min_rows not in sizes + [2 * sizes[-1]] or \
+            {t["shape"] for t in fused_times} != set(calibrate._FUSED_SHAPES):
+        raise AssertionError(f"fused probe gave {th.native_fused_pipeline_min_rows}: {fused_times}")
+    if not ex_times:
+        raise AssertionError("the exchange probe timed nothing on its mesh")
+    out = {
+        "card": card,
+        "native_fused_pipeline_min_rows": th.native_fused_pipeline_min_rows,
+        "exchange_compact_min_rows": th.exchange_compact_min_rows,
+        "fused_threshold_before": PC._NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT,
+        "fused_probe": {"win_margin": calibrate._WIN_MARGIN, "best_of": calibrate._REPS,
+                        "sizes": [{"shape": t["shape"], "rows": t["rows"],
+                                   "fused_ms": t["fused_s"] * 1e3,
+                                   "declined_ms": t["declined_s"] * 1e3} for t in fused_times]},
+        "fused_probe_s": probe_s,
+        "exchange_probe_mesh": {"shards": CALIBRATE_SHARDS, "compact_min_rows": ex_rows,
+                                "sizes": [{"rows": t["rows"], "compact_ms": t["compact_s"] * 1e3,
+                                           "flat_ms": t["flat_s"] * 1e3} for t in ex_times],
+                                "seconds": exchange_s},
+        "cache_file": path,
+        "held": held,
+        "launches": launches,
+        "seconds": round(time.perf_counter() - t_phase, 1),
+    }
+    log("calibrate " + json.dumps(out, default=str))
+    return out
+
+
+#: phase 21's workload over phase 4's lineitem (and phase 5's orders)
+ADVISOR_COLS = ["l_orderkey", "l_quantity", "l_extendedprice"]
+ADVISOR_POINTS = 24
+# one range filter: served from an index it reads every bucket file, and
+# each file's mask is a B3a call held after the replay, the phase's largest
+# cost
+ADVISOR_RANGES = 1
+ADVISOR_JOINS = 2
+ADVISOR_RANGE_KEYS = 15_000
+
+
+def advisor_records(sess, src: str, orders_src: str) -> list:
+    """Phase 21's workload as query-log records with replay specs:
+    ADVISOR_POINTS Zipf-skewed point lookups over l_orderkey (phase 4's
+    first 8 keys, ``replay.skewed_keys``), ADVISOR_RANGES range filters
+    over l_orderkey and l_quantity and ADVISOR_JOINS joins of an orders key
+    range with lineitem's, each ordered by its lineitem columns (so every
+    answer has one order, whichever index serves it)."""
+    from hyperspace_tpu_torch.obs import planspec
+    from hyperspace_tpu_torch.testing import replay
+
+    point_keys, _ = phase4_keys()
+    recs = replay.skewed_keys([src], "l_orderkey", point_keys[:8], ADVISOR_POINTS,
+                              project=ADVISOR_COLS, seed=SEED)
+    items, orders = sess.read.parquet(src), sess.read.parquet(orders_src)
+    rng = np.random.default_rng(SEED + 21)
+
+    def key_range(df, col, lo):
+        return (df[col] >= int(lo)) & (df[col] < int(lo) + ADVISOR_RANGE_KEYS)
+
+    plans = []
+    for lo in rng.integers(0, N_ORDERS - ADVISOR_RANGE_KEYS, ADVISOR_RANGES):
+        plans.append(items.filter(key_range(items, "l_orderkey", lo) & (items["l_quantity"] < 24))
+                     .select(*ADVISOR_COLS).sort(*ADVISOR_COLS))
+    for lo in rng.integers(0, N_ORDERS - ADVISOR_RANGE_KEYS, ADVISOR_JOINS):
+        o = orders.filter(key_range(orders, "o_orderkey", lo)).select("o_orderkey", "o_totalprice")
+        li = items.filter(key_range(items, "l_orderkey", lo)).select(*ADVISOR_COLS)
+        plans.append(o.join(li, o["o_orderkey"] == li["l_orderkey"]).sort(*ADVISOR_COLS))
+    ts = recs[-1]["ts_ms"]
+    for i, df in enumerate(plans, 1):
+        spec = planspec.to_spec(df.logical_plan)
+        if spec is None:
+            raise AssertionError(f"no replay spec for {df.logical_plan.pretty()}")
+        recs.append(replay._record(spec, ts + 10 * i))
+    return recs
+
+
+def advisor_path(work: str, ctx: dict, kernels: KernelCalls, card: str, device=None) -> dict:
+    """Phase 21: the advisor's closed loop over phase 4's lineitem (and
+    phase 5's orders) in a session of its own on a fresh system path, no
+    index on it, with obs, the query log and ``recordPlans`` on. The
+    workload (``advisor_records``) is recorded into the session's query log
+    (``replay.record_workload``), replayed through ``sess.serve_frontend``
+    as the baseline, then ``advise`` ranks its candidates,
+    ``apply_recommendations(force=True)`` builds every create under the
+    configured byte budget (each create's seconds and launches), the
+    workload is replayed again (every answer equal to the baseline's in
+    order, every plan index-served, p50 and queries a second before and
+    after), a second ``advise`` must give no create, and ``python -m
+    hyperspace_tpu_torch.advisor report`` runs on the query log. Every B1,
+    B3a, B4, B5 and B5f call (and B6's of a z-order create) is recorded in
+    ``kernels`` and held to its plain version after its window. Launch
+    counts read from 0 at its start."""
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ops
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.advisor import advise, apply_recommendations
+    from hyperspace_tpu_torch.obs import planspec
+    from hyperspace_tpu_torch.obs import querylog
+    from hyperspace_tpu_torch.testing import replay
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    t_phase = time.perf_counter()
+    src = ctx["src"]
+    orders_src = ctx.get("orders_src") or gen_orders(work)
+    sess = HyperspaceSession(device=device)
+    cuda = sess.device.type == "cuda"
+    for key, value in ((C.INDEX_SYSTEM_PATH, os.path.join(work, "advisor_indexes")),
+                       (C.OBS_ENABLED, True), (C.OBS_QUERYLOG_ENABLED, True),
+                       (C.OBS_QUERYLOG_RECORD_PLANS, True),
+                       (C.INDEX_FILTER_RULE_USE_BUCKET_SPEC, True)):
+        sess.conf.set(key, value)
+    sess.enable_hyperspace()
+    obs_dir = querylog.obs_root(sess.conf)
+    records = advisor_records(sess, src, orders_src)
+    replay.record_workload(records, obs_dir)
+    ops.reset_launch_counts()
+    kernels.record_b3a(True)
+    kernels.record_b4(True)
+    kernels.record_b5(True)
+    out = {"card": card, "records": len(records)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def replayed(label):
+        kernels.label = label
+        try:
+            res = replay.replay_records(sess, records, keep_results=True)
+            sync()
+        finally:
+            kernels.label = None
+        kernels.settle()
+        if res.completed != len(records) or res.failed:
+            raise AssertionError(f"{label}: {res.to_dict()}")
+        return res
+
+    creates_log = []
+    real_create = Hyperspace.create_index
+
+    def timed_create(self, df, config):
+        before = ops.launch_counts()
+        kernels.label = f"advisor create {config.index_name}"
+        t0 = time.perf_counter()
+        try:
+            result = real_create(self, df, config)
+            sync()
+        finally:
+            kernels.label = None
+        seconds = time.perf_counter() - t0
+        after = ops.launch_counts()
+        kernels.settle()
+        creates_log.append({"index": config.index_name, "kind": type(config).__name__,
+                            "indexed": list(config.indexed_columns), "seconds": seconds,
+                            "launches": {k: after[k] - before[k] for k in after
+                                         if after[k] != before[k]}})
+        return result
+
+    try:
+        base = replayed("advisor baseline")
+        t0 = time.perf_counter()
+        report = advise(sess)
+        out["advise_s"] = time.perf_counter() - t0
+        recs = report.recommendations
+        out["report"] = {"candidates_scored": report.candidates_scored,
+                         "candidates_skipped": report.candidates_skipped,
+                         "shapes_with_plans": report.shapes_with_plans,
+                         "profile_records": report.profile.records,
+                         "ranked": [{k: r.to_dict()[k] for k in (
+                             "kind", "index_name", "index_kind", "indexed_columns",
+                             "included_columns", "estimated_benefit_s", "estimated_build_bytes",
+                             "score_gain")} for r in recs]}
+        log(f"advisor path [{card}]: advise over {report.profile.records} records, "
+            f"{report.shapes_with_plans} replayable shapes, {report.candidates_scored} candidates "
+            f"scored in {out['advise_s']:.3f}s: " + "; ".join(
+                f"{r.kind} {r.index_name} {r.index_kind}({','.join(r.indexed_columns)}"
+                f" | {','.join(r.included_columns)}) benefit {r.estimated_benefit_s:.4f}s "
+                f"build {r.estimated_build_bytes:,} B" for r in recs))
+        creates = [r for r in recs if r.kind == "create"]
+        kinds = {(r.index_kind, tuple(r.indexed_columns)) for r in creates}
+        if not any(cols[0] == "l_orderkey" and len(cols) == 1 for _k, cols in kinds) or \
+                not any(len(cols) > 1 or k != "CoveringIndex" for k, cols in kinds):
+            raise AssertionError(f"the report ranks no point and no range candidate: {kinds}")
+        Hyperspace.create_index = timed_create
+        try:
+            summary = apply_recommendations(sess, creates, force=True)
+        finally:
+            Hyperspace.create_index = real_create
+        out["apply"] = {k: summary[k] for k in ("applied", "failed", "skipped", "spent_bytes",
+                                               "elapsed_s")}
+        out["apply"]["budget_bytes"] = sess.conf.advisor_apply_max_bytes
+        out["creates"] = creates_log
+        if summary["applied"] != len(creates) or len(creates_log) != len(creates):
+            raise AssertionError(f"apply: {summary}")
+        for c in creates_log:
+            log(f"advisor path [{card}]: create {c['index']} {c['kind']}({','.join(c['indexed'])}) "
+                f"{c['seconds']:.3f}s, launches {c['launches']}")
+        after = replayed("advisor replay")
+        rows = 0
+        for rec, a, b in zip(records, after.tables, base.tables):
+            if not same_rows(a, b):
+                raise AssertionError(f"replayed answer differs from the baseline's: {rec['predicate']}")
+            plan = sess.optimize(planspec.from_spec(sess, rec["replay"]))
+            if not any(leaf.relation.index_info for leaf in plan.collect_leaves()):
+                raise AssertionError(f"replayed plan not index-served: {rec['predicate']}")
+            rows += a.num_rows
+        if rows == 0:
+            raise AssertionError("the workload matched no row")
+        # records are replayed one at a time in their order: latencies
+        # line up with them, so each shape's p50 reads apart
+        shapes = {"point": slice(0, ADVISOR_POINTS),
+                  "range": slice(ADVISOR_POINTS, ADVISOR_POINTS + ADVISOR_RANGES),
+                  "join": slice(ADVISOR_POINTS + ADVISOR_RANGES, None)}
+        for key, res in (("baseline", base), ("after", after)):
+            out[key] = {"p50_ms": res.p50_s * 1e3, "qps": res.qps, "duration_s": res.duration_s,
+                        "shape_p50_ms": {k: float(np.median(res.latencies[s])) * 1e3
+                                         for k, s in shapes.items()}}
+        out["after"]["rows"] = rows
+        report2 = advise(sess)
+        out["second_advise"] = [f"{r.kind} {r.index_name}" for r in report2.recommendations]
+        if any(r.kind == "create" for r in report2.recommendations):
+            raise AssertionError(f"the second advise still creates: {out['second_advise']}")
+    finally:
+        kernels.record_b3a(False)
+        kernels.record_b4(False)
+        kernels.record_b5(False)
+        sess.serve_frontend.close()
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "hyperspace_tpu_torch.advisor", "report",
+                          "--log-dir", obs_dir], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    if cli.returncode != 0:
+        raise AssertionError(f"advisor CLI report exited {cli.returncode}: {cli.stderr[-2000:]}")
+    out["cli"] = {"rc": cli.returncode, "seconds": time.perf_counter() - t0,
+                  "first_line": cli.stdout.splitlines()[0] if cli.stdout else ""}
+    held = kernels.summary("phase 21")
+    if cuda and not all(held.get(k, 0) > 0 for k in ("b1", "b3a", "b4", "b5", "b5f")):
+        raise AssertionError(f"phase 21 held no B1, B3a, B4, B5 or B5f call: {held}")
+    out["held"] = held
+    out["launches"] = launches
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"advisor path [{card}]: {len(records)} records; baseline p50 "
+        f"{out['baseline']['p50_ms']:.3f} ms, {out['baseline']['qps']:.2f} q/s, by shape "
+        f"{out['baseline']['shape_p50_ms']}; after apply p50 {out['after']['p50_ms']:.3f} ms, "
+        f"{out['after']['qps']:.2f} q/s, by shape {out['after']['shape_p50_ms']}, every answer "
+        f"equal in order and index-served; second advise {out['second_advise']}; CLI report "
+        f"{out['cli']['first_line']!r}; calls held {held}; {out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -8324,6 +8720,12 @@ def main() -> int:
         help="for iterating on the serve tier: build the kernels, run phases 4 and 5, then "
         "phase 20, and print its record under only_serve; no kernel cases, no other phase, "
         "no final ok line",
+    )
+    parser.add_argument(
+        "--only-advisor", action="store_true",
+        help="for iterating on the advisor and the calibration probe: run phases 1-3, the "
+        "calibration probe, phase 4 and phase 21, and print their records under "
+        "only_advisor; no other phase, no final ok line",
     )
     parser.add_argument(
         "--only-b5", action="store_true",
@@ -8399,6 +8801,25 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps({"only_b5f": [b3b, b5f]}), flush=True)
         return 0
+    if args.only_advisor:
+        work = os.path.join(ROOT, "build", "chip_smoke")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            phase = PhaseClock(started)
+            adv_kernels = KernelCalls()
+            cal = calibrate_path(dev, adv_kernels, card)
+            phase("calibrate")
+            ctx = filter_path(work, None)
+            phase("4")
+            adv = advisor_path(work, ctx, adv_kernels, card)
+            phase("21")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"only_advisor": {"calibrate": cal, "advisor": adv}}, default=str),
+              flush=True)
+        return 0
     if args.only_b5:
         recorded, hosts = b5_replica(dev)
         b5_calls, b5_err = check_b5_main_path(recorded, "the replica of phase 8")
@@ -8419,18 +8840,27 @@ def main() -> int:
     try:
         # the default session device is cuda; the paths run it as a user would
         phase = PhaseClock(started)
+        cal = calibrate_path(dev, kernels, card)
+        phase("calibrate")
         ctx = filter_path(work, None)
         b1["launches"] = ctx["launches"]
         phase("4")
         b4_launches = join_path(work, ctx, b4_inputs)["launches"]["bucket_match_pairs"]
         phase("5")
-        b3a_launches = (ctx["all_launches"]["range_mask"]
-                        + range_path(work, ctx, b3a_inputs)["launches"]["range_mask"])
+        p7_launches = range_path(work, ctx, b3a_inputs)["launches"]
+        b3a_launches = ctx["all_launches"]["range_mask"] + p7_launches["range_mask"]
         phase("7")
-        b5_launches = aggregate_path(work, ctx, b5_inputs)["launches"]["segment_reduce"]
+        p8_launches = aggregate_path(work, ctx, b5_inputs)["launches"]
+        b5_launches = p8_launches["segment_reduce"]
         phase("8")
         fused_launches = aggplane_path(work, ctx, b3b_inputs)["launches"]
         f_in = f_inputs(dev, ctx)
+        routes = {f"phase_{p}": {k: counts.get(k, 0) for k in ("fused_select", "fused_filter_agg")}
+                  for p, counts in (("7", p7_launches), ("8", p8_launches),
+                                    ("9", fused_launches))}
+        log(f"calibrate: phases 7-9 under the calibrated fused threshold "
+            f"{cal['native_fused_pipeline_min_rows']} rows (fixed before: "
+            f"{cal['fused_threshold_before']}): B3b and B5f launches {routes}")
         phase("9")
         zpath = zorder_path(work, ctx, kernels)
         z_calls = [c for c in kernels.settle() if c[0] == "b6"]
@@ -8457,6 +8887,8 @@ def main() -> int:
         phase("19")
         svpath = serve_path(work, ctx, kernels, b5_inputs, card)
         phase("20")
+        adpath = advisor_path(work, ctx, kernels, card)
+        phase("21")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -8490,7 +8922,7 @@ def main() -> int:
     lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
             ocpath["launches"], ospath["launches"], shpath["launches"], obpath["launches"],
-            svpath["launches"])
+            svpath["launches"], cal["launches"], adpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -8538,12 +8970,30 @@ def main() -> int:
         record["phase_20_fleet_worker_launches"] = sum(
             svpath["fleet_processes"][r]["worker_launches"][kernel] for r in ("rung", "kill"))
         record["cases"] = record.get("cases", 0) + sv_held.get(key, 0)
+    cal_held, ad_held = cal["held"], adpath["held"]
+    for record, kernel, key in ((b1, "murmur3_bucket_ids", "b1"), (b4, "bucket_match_pairs", "b4"),
+                                (b3a, "range_mask", "b3a"), (b5, "segment_reduce", "b5"),
+                                (b3b, "fused_select", "b3b"), (b5f, "fused_filter_agg", "b5f"),
+                                (b6, "zorder_interleave", "b6"), (b7, "bloom_bits", "b7")):
+        record["calibrate_launches"] = cal["launches"][kernel]
+        record["phase_21_launches"] = adpath["launches"][kernel]
+        record["cases"] = (record.get("cases", 0) + cal_held.get(key, 0)
+                           + ad_held.get(key, 0))
     # 256 MiB read before every cold run: five times the L2
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     b8a = b8_timing("b8a", shpath["keep"]["b8a"], flush,
-                    shpath["launches"]["bucket_exchange_pack"], sh_held.get("b8a", 0))
+                    shpath["launches"]["bucket_exchange_pack"]
+                    + cal["launches"]["bucket_exchange_pack"]
+                    + adpath["launches"]["bucket_exchange_pack"],
+                    sh_held.get("b8a", 0) + cal_held.get("b8a", 0))
     b8b = b8_timing("b8b", shpath["keep"]["b8b"], flush,
-                    shpath["launches"]["bucket_exchange_order"], sh_held.get("b8b", 0))
+                    shpath["launches"]["bucket_exchange_order"]
+                    + cal["launches"]["bucket_exchange_order"]
+                    + adpath["launches"]["bucket_exchange_order"],
+                    sh_held.get("b8b", 0) + cal_held.get("b8b", 0))
+    for record, kernel in ((b8a, "bucket_exchange_pack"), (b8b, "bucket_exchange_order")):
+        record["phase_18_launches"] = shpath["launches"][kernel]
+        record["calibrate_launches"] = cal["launches"][kernel]
     del flush
     b5f["lake_calls"] = lk_held.get("b5f", 0)
     b5f["outofcore_calls"] = oc_held.get("b5f", 0)
@@ -8584,6 +9034,10 @@ def main() -> int:
         "seconds", "filters", "single_flight", "aggregates", "slo", "pins", "faults", "stats",
         "fleet_one_process", "fleet_processes", "frontend_calls", "window_launches", "held",
         "launches")},
+        "card": card}, default=str))
+    log(json.dumps({"advisor": {k: adpath[k] for k in (
+        "seconds", "records", "advise_s", "report", "apply", "creates", "baseline", "after",
+        "second_advise", "cli", "held", "launches")},
         "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)

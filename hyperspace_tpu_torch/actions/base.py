@@ -247,9 +247,10 @@ class Action(abc.ABC):
             fn()
         except NoChangesException:
             verdict = _STEP_NOOP
-        # every exception: the verdict must reach the peers (they are
-        # entering the same all_gather) before this process unwinds
-        except Exception as e:
+        # deliberate catch-all: the verdict must reach the peers (they are
+        # entering the same all_gather) before this process unwinds; the
+        # exception, a kernel's fault too, is re-raised after it (C.7)
+        except Exception as e:  # hslint: disable=HS402
             verdict, err = _STEP_FAIL, e
         try:
             return _action_rendezvous(step, verdict)

@@ -382,6 +382,20 @@ SHARED_STATE: Dict[str, Tuple[str, str, str]] = {
         "loader lock; the lock-free fast-path read sees None or a loaded "
         "library",
     ),
+    # -- calibration probe (calibrate.py) ------------------------------------
+    "hyperspace_tpu_torch.calibrate._cached": (
+        "hyperspace_tpu_torch.calibrate._probe_lock",
+        "guarded-writes",
+        "probe result published under the probe lock (invalidate() takes "
+        "it too); the lock-free fast path reads None or a complete "
+        "Thresholds tuple",
+    ),
+    "hyperspace_tpu_torch.calibrate._probing": (
+        "hyperspace_tpu_torch.calibrate._probe_lock",
+        "guarded-writes",
+        "re-entrancy guard for the probe's own dispatches; written only "
+        "under the probe lock, racy reads just take the defaults branch",
+    ),
     # -- import-time registries ----------------------------------------------
     "hyperspace_tpu_torch.indexes.registry._REGISTRY": (
         "",

@@ -36,6 +36,11 @@ class Config:
         self._values[key] = value
         self.version += 1
 
+    def unset(self, key: str) -> None:
+        if key in self._values:
+            del self._values[key]
+            self.version += 1
+
     def get(self, key: str, default: Any = None) -> Any:
         return self._values.get(key, default)
 
@@ -511,6 +516,31 @@ class Config:
     def obs_querylog_record_plans(self) -> bool:
         """Replayable plan specs in query-log records (they carry literals)."""
         return self.get_bool(C.OBS_QUERYLOG_RECORD_PLANS, C.OBS_QUERYLOG_RECORD_PLANS_DEFAULT)
+
+    # -- workload advisor (advisor/) ------------------------------------------
+    @property
+    def advisor_profile_max_shapes(self) -> int:
+        return max(
+            1, self.get_int(C.ADVISOR_PROFILE_MAX_SHAPES, C.ADVISOR_PROFILE_MAX_SHAPES_DEFAULT)
+        )
+
+    @property
+    def advisor_max_candidates(self) -> int:
+        return max(1, self.get_int(C.ADVISOR_MAX_CANDIDATES, C.ADVISOR_MAX_CANDIDATES_DEFAULT))
+
+    @property
+    def advisor_apply_enabled(self) -> bool:
+        return self.get_bool(C.ADVISOR_APPLY_ENABLED, C.ADVISOR_APPLY_ENABLED_DEFAULT)
+
+    @property
+    def advisor_apply_max_bytes(self) -> int:
+        return max(1, self.get_int(C.ADVISOR_APPLY_MAX_BYTES, C.ADVISOR_APPLY_MAX_BYTES_DEFAULT))
+
+    @property
+    def advisor_apply_max_seconds(self) -> float:
+        return max(
+            0.0, self.get_float(C.ADVISOR_APPLY_MAX_SECONDS, C.ADVISOR_APPLY_MAX_SECONDS_DEFAULT)
+        )
 
 
 class CacheWithTransform:

@@ -255,10 +255,10 @@ SERVE_SPILL_MAX_BYTES_DEFAULT = 0
 IO_MMAP_ENABLED = "hyperspace.io.mmap.enabled"
 IO_MMAP_ENABLED_DEFAULT = False
 
-# Scanned rows at or above which the fused routes dispatch. The reference
-# calibrates this per machine and keeps this value as the fallback; the
-# port has no calibration probe (ROADMAP queue A item 10) and uses it as
-# it is (pipeline_compiler._NATIVE_FUSED_PIPELINE_MIN_ROWS).
+# Scanned rows at or above which the fused routes dispatch: the fallback of
+# the per-machine calibration probe (calibrate.py, measured on the card),
+# as in the reference; a session on the CPU uses it as it is
+# (pipeline_compiler._native_fused_pipeline_min_rows).
 NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT = 1 << 15
 
 # Z-order covering index (IndexConstants.scala:59-74): the build splits
@@ -272,6 +272,21 @@ ZORDER_QUANTILE_ENABLED = "hyperspace.index.zorder.quantile.enabled"
 ZORDER_QUANTILE_ENABLED_DEFAULT = False
 ZORDER_QUANTILE_RELATIVE_ERROR = "hyperspace.index.zorder.quantile.relativeError"
 ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT = 0.01
+
+# Data-skipping (IndexConstants.scala:149-169), with the reference's values.
+# No module of either package reads them: the data-skipping build writes one
+# sketch file per create whatever their values (ROADMAP, "Left out on
+# purpose").
+# hslint: disable=HS704 accepted for the reference's configs; the build ignores it
+DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE = (
+    "hyperspace.index.dataskipping.targetIndexDataFileSize"
+)
+DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE_DEFAULT = 256 * 1024 * 1024
+# hslint: disable=HS704 accepted for the reference's configs; the build ignores it
+DATASKIPPING_AUTO_PARTITION_SKETCH = (
+    "hyperspace.index.dataskipping.autoPartitionSketch"
+)
+DATASKIPPING_AUTO_PARTITION_SKETCH_DEFAULT = True
 
 # ---------------------------------------------------------------------------
 # Reserved column / property names
@@ -454,8 +469,17 @@ HYPERSPACE_FLEET_DIR = "_hyperspace_fleet"
 # port always evaluates the mask on the session's device
 # (execution/executor._filter_mask): setting the key changes neither rows
 # nor route. Left out on purpose, beside deviceJoinMinRows (ROADMAP A.11).
+# hslint: disable=HS704 accepted and unread: the mask always runs on the device
 EXECUTION_DEVICE_FILTER_MIN_ROWS = "hyperspace.execution.deviceFilterMinRows"
 EXECUTION_DEVICE_FILTER_MIN_ROWS_DEFAULT = 8_000_000
+
+# The reference matches a single-device join on its host twin unless the
+# rows reach this count (0 = never on one device). The port always launches
+# kernel B4 on the session's device, so the key changes neither rows nor
+# route (ROADMAP, "Left out on purpose").
+# hslint: disable=HS704 accepted and unread: B4 always runs on the device
+EXECUTION_DEVICE_JOIN_MIN_ROWS = "hyperspace.execution.deviceJoinMinRows"
+EXECUTION_DEVICE_JOIN_MIN_ROWS_DEFAULT = 0
 
 # -- profiling and telemetry events -------------------------------------------
 # When set, session.execute runs each query under torch.profiler and writes a
@@ -507,3 +531,25 @@ OBS_QUERYLOG_RECORD_PLANS_DEFAULT = False
 
 # Observability sidecar directory under the system path.
 HYPERSPACE_OBS_DIR = "_hyperspace_obs"
+
+# -- workload advisor (advisor/, docs/advisor.md) ------------------------------
+# Workload-profile bound: the query-log aggregator keeps at most this many
+# predicate-shape groups (further shapes fold into an overflow counter), so
+# the profile is O(maxShapes), never O(records) (ALLOC_SITES const-bounded).
+ADVISOR_PROFILE_MAX_SHAPES = "hyperspace.advisor.profile.maxShapes"
+ADVISOR_PROFILE_MAX_SHAPES_DEFAULT = 256
+
+# What-if search bound: candidate indexes enumerated from the hot shapes and
+# scored against the recorded workload per advise() pass (hottest first).
+ADVISOR_MAX_CANDIDATES = "hyperspace.advisor.maxCandidates"
+ADVISOR_MAX_CANDIDATES_DEFAULT = 32
+
+# Opt-in budgeted apply: apply_recommendations() runs the top
+# recommendations as lifecycle actions (lease-stamped like any maintenance)
+# until either budget is spent. Off = advise only, nothing touches the lake.
+ADVISOR_APPLY_ENABLED = "hyperspace.advisor.apply.enabled"
+ADVISOR_APPLY_ENABLED_DEFAULT = False
+ADVISOR_APPLY_MAX_BYTES = "hyperspace.advisor.apply.maxBytes"
+ADVISOR_APPLY_MAX_BYTES_DEFAULT = 1 << 30
+ADVISOR_APPLY_MAX_SECONDS = "hyperspace.advisor.apply.maxSeconds"
+ADVISOR_APPLY_MAX_SECONDS_DEFAULT = 300.0

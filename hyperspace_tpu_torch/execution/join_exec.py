@@ -578,3 +578,25 @@ def co_bucketed_join_prepared(
         lp.batch, rp.batch, on, li, ri, lp.reps, rp.reps, verify_numeric, stats
     )
 
+
+
+def co_bucketed_join(
+    lbs: Dict[int, ColumnarBatch],
+    rbs: Dict[int, ColumnarBatch],
+    on: List[Tuple[str, str]],
+    mesh=None,
+    device=None,
+) -> Optional[ColumnarBatch]:
+    """Prepare both sides then serve (``co_bucketed_join_prepared``) on
+    ``device`` (None is cuda, raising without a card; with a ``mesh``,
+    its shards' devices): the entry point for callers without a serve
+    cache. The reference's ``device_min_rows`` picks its host twin below a
+    row count; the port always matches with B4, so it takes no such
+    argument."""
+    if not lbs or not rbs:
+        return None
+    from hyperspace_tpu_torch.session import resolve_device
+
+    lp = prepare_join_side(lbs, [l for l, _ in on])
+    rp = prepare_join_side(rbs, [r for _, r in on])
+    return co_bucketed_join_prepared(lp, rp, on, resolve_device(device), mesh=mesh)

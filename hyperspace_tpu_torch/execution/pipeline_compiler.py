@@ -24,11 +24,15 @@ Hybrid Scan's shapes decline both routes, as in the reference: a
 ``Union`` is no ``Filter(Scan)``, and a scan with delete compensation
 (``excluded_file_ids``) fails ``executor._cacheable_scan``.
 
-Two differences from the reference change which route runs, never a
-result (``ROADMAP.md``): the dispatch threshold is the module constant
-``_NATIVE_FUSED_PIPELINE_MIN_ROWS`` (the reference calibrates it per
-machine, queue A item 10), and ``fused_filter_batch`` has no
-device-regime gate (the port has no host regime for masks).
+The dispatch threshold is the reference's: the per-machine calibration
+probe's ``native_fused_pipeline_min_rows`` (``calibrate.py``, measured on
+the card), the module constant ``_NATIVE_FUSED_PIPELINE_MIN_ROWS`` the
+fallback and an explicit override of it winning
+(:func:`_native_fused_pipeline_min_rows`). A session on the CPU keeps the
+constant: the probe measures the card. One difference from the reference
+changes which route runs, never a result (``ROADMAP.md``):
+``fused_filter_batch`` has no device-regime gate (the port has no host
+regime for masks).
 
 With serve-server mode on (``execution/serve_cache.py``) the fused
 aggregate folds the cached scan batch in one pass instead of reading
@@ -68,9 +72,12 @@ last_fused_stats: Dict[str, Any] = {}
 # chunks read.
 last_aggplane_stats: Dict[str, Any] = {}
 
-#: scanned rows at or above which the fused routes dispatch (tests and
-#: scripts may override it)
-_NATIVE_FUSED_PIPELINE_MIN_ROWS = C.NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT
+# At or above this SCANNED-row count the fused routes dispatch. FALLBACK
+# DEFAULT: on the card the effective threshold comes from the per-machine
+# calibration probe (calibrate.py); an explicit module-attribute override
+# wins (tests, scripts).
+_NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT = C.NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT
+_NATIVE_FUSED_PIPELINE_MIN_ROWS = _NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT
 
 #: rows the chunked fused pass folds at once: consecutive files' tables are
 #: joined up to this many rows before one fold. The fold of a
@@ -94,6 +101,23 @@ def _resolve(device) -> torch.device:
     from hyperspace_tpu_torch.session import resolve_device
 
     return resolve_device(device)
+
+
+def _native_fused_pipeline_min_rows(device) -> int:
+    """The fused routes' scanned-row threshold on ``device``: an explicit
+    override of ``_NATIVE_FUSED_PIPELINE_MIN_ROWS`` wins; on a CUDA device
+    the calibrated value (0, no measurement, keeps the constant); on the
+    CPU the constant."""
+    if _NATIVE_FUSED_PIPELINE_MIN_ROWS != _NATIVE_FUSED_PIPELINE_MIN_ROWS_DEFAULT:
+        return _NATIVE_FUSED_PIPELINE_MIN_ROWS  # explicit override wins
+    if torch.device(device).type != "cuda":
+        return _NATIVE_FUSED_PIPELINE_MIN_ROWS
+    from hyperspace_tpu_torch import calibrate
+
+    return (
+        calibrate.thresholds().native_fused_pipeline_min_rows
+        or _NATIVE_FUSED_PIPELINE_MIN_ROWS
+    )
 
 
 def fused_pipeline_on(session) -> bool:
@@ -424,15 +448,19 @@ class AggState:
                 aggs.append((op, None, None if nm is None else _device_col(~nm, dev)))
         return FA.FusedChunk(batch.num_rows, terms, keys, aggs, self.state.device)
 
-    def accumulate(self, batch: ColumnarBatch) -> bool:
+    def accumulate(self, batch: ColumnarBatch, chunk: Optional[FA.FusedChunk] = None) -> bool:
         """Fold one chunk into the state (False: a column fell outside the
-        fused set; the caller runs the interpreted chain instead)."""
+        fused set; the caller runs the interpreted chain instead).
+        ``chunk``: the batch's device inputs when the caller moved them
+        already (``_chunk``; the calibration probe times the fold on
+        columns that are on the card)."""
         n = batch.num_rows
         self.rows_scanned += n
         self.chunks += 1
         if n == 0:
             return True
-        chunk = self._chunk(batch)
+        if chunk is None:
+            chunk = self._chunk(batch)
         if chunk is None:
             return False
         for j, name in enumerate(self.plan.group_by):
@@ -747,7 +775,7 @@ def fused_filter_batch(cond: E.Expr, batch: ColumnarBatch, session):
     dispatch threshold."""
     global last_fused_stats
     n = batch.num_rows
-    if n == 0 or n < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
+    if n == 0 or n < _native_fused_pipeline_min_rows(session.device):
         return None
     from hyperspace_tpu_torch.ops import filter as F
 
@@ -803,7 +831,7 @@ def try_fused_aggregate(plan: Aggregate, session) -> Optional[ColumnarBatch]:
         # over the cached batch (no read at all) instead of streaming
         # parquet chunks past a warm cache
         return _run_cached(fplan, rel, session)
-    if _scan_row_total(rel) < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
+    if _scan_row_total(rel) < _native_fused_pipeline_min_rows(session.device):
         return None
     return _run_chunked(fplan, rel, session)
 
@@ -823,7 +851,7 @@ def _run_cached(fplan: FusedAggPlan, rel, session) -> Optional[ColumnarBatch]:
     entry, _cols = hit
     batch = entry.batch_for(fplan.read_cols)
     _stats_add(session.agg_stats, "scan", t_read)
-    if batch is None or batch.num_rows < _NATIVE_FUSED_PIPELINE_MIN_ROWS:
+    if batch is None or batch.num_rows < _native_fused_pipeline_min_rows(session.device):
         return None
     t0 = time.perf_counter()
     state = AggState(fplan, session.device)

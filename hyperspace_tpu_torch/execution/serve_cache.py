@@ -216,7 +216,10 @@ def _arrow_resident_nbytes(value) -> Optional[int]:
                 seen.add(addr)
                 total += _MMAP_TOKEN_NBYTES if _address_in_mapped_region(addr) else buf.size
         return total
-    except Exception:  # noqa: BLE001 - sizing never raises; the caller takes the total size
+    except Exception:  # hslint: disable=HS402
+        # any unexpected container shape degrades to the caller's
+        # get_total_buffer_size fallback: sizing must never raise (no
+        # kernel runs here)
         return None
 
 
@@ -527,7 +530,9 @@ class ServeCache:
         t0 = time.perf_counter()
         try:
             blob = _spill_encode(value)
-        except Exception:  # noqa: BLE001 - demotion is best-effort: drop what cannot pickle
+        except Exception:  # hslint: disable=HS402
+            # a value that refuses to pickle is dropped, counted: demotion
+            # is best-effort and must never fail the query that evicted it
             with self._lock:
                 self.spill_drops += 1
             return
@@ -574,7 +579,10 @@ class ServeCache:
         t0 = time.perf_counter()
         try:
             value = _spill_decode(path)
-        except Exception:  # noqa: BLE001 - a spill-tier defect is a miss, never a query failure
+        except Exception:  # hslint: disable=HS402
+            # a torn, foreign or vanished spill file degrades to a cache
+            # miss (the caller re-reads the parquet): restore never
+            # surfaces a spill-tier defect as a query failure
             with self._lock:
                 self.spill_drops += 1
             _delete_quietly([path])

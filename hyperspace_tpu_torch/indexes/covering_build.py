@@ -891,13 +891,13 @@ def _spill_wave(ctx, batch, indexed_cols, num_buckets, spill_root, wave_idx,
     _stage_add(ctx, "spill", t0)
 
 
-def _merge_bucket(ctx, parts, b, indexed_cols, num_buckets, file_idx_offset,
+def _merge_bucket(ctx, wave_parts, b, indexed_cols, num_buckets, file_idx_offset,
                   device=None) -> List[str]:
-    """A bucket's spilled runs read in wave order, key-sorted stably on the
+    """A bucket's spilled runs (one a wave) read in wave order, key-sorted stably on the
     device (the bucket's shard's on a mesh; ties keep wave order) and
     written as the bucket's file with the encoding decision taken on the
     merged rows, as the reference does."""
-    merged = ColumnarBatch.from_arrow(pio.read_table(parts, None))
+    merged = ColumnarBatch.from_arrow(pio.read_table(wave_parts, None))
     reps = torch.from_numpy(merged.key_reps(indexed_cols)).to(device or ctx.device)
     perm = sort_permutation(reps).cpu().numpy()
     merged = merged.take(perm)

@@ -129,7 +129,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    with _lock:
+    # Lock-held I/O by design: the lock serialises one build a process
+    # (nvcc runs once, every waiting thread then loads its result); the
+    # lock-free ``_libs`` read above keeps launches off it.
+    with _lock:  # hslint: disable=HS502
         lib = _libs.get(name)
         if lib is None:
             out_dir = build_all()

@@ -324,6 +324,37 @@ ALLOC_SITES: Dict[str, Tuple[str, str, str]] = {
     # pure-Python dict/list growth, invisible to the checker's
     # numpy/pyarrow allocation model; declared anyway so the residency
     # witness measures it  # hslint: disable=HS1003
+    "hyperspace_tpu_torch.advisor.profile.build_profile": (
+        "maintenance",
+        "const-bounded",
+        "folds a query-log stream into at most advisor.profile."
+        "maxShapes shape groups (overflow counted, not stored), each "
+        "capped at _DURATION_SAMPLES duration samples — O(maxShapes), "
+        "never O(records)",
+    ),
+    # -- port-only sites (no same-named function in the reference) -----------
+    "hyperspace_tpu_torch.io.parquet.read_tables": (
+        "serve",
+        "cache-governed",
+        "one table per file of the pruned bucket selection, read on the "
+        "bounded scan pool; as read_table, every serve-path caller "
+        "publishes the decoded result into the ServeCache byte governor "
+        "or holds a per-chunk slice",
+    ),
+    "hyperspace_tpu_torch.execution.pipeline_compiler._run_chunked": (
+        "serve",
+        "chunk-bounded",
+        "the fused pass joins consecutive files' tables up to "
+        "_FUSED_FOLD_ROWS rows before one fold and drops them after it; "
+        "peak residency is one fold's chunk plus the group accumulator",
+    ),
+    "hyperspace_tpu_torch.indexes.covering_build._merge_bucket": (
+        "build",
+        "wave-budget",
+        "the out-of-core merge reads ONE bucket's spilled runs (a run a "
+        "wave, each written under build_memory_budget) — the reference's "
+        "_write_bucketed_streaming 'plus one bucket at merge time'",
+    ),
     # -- io: generic scan plumbing -------------------------------------------
     "hyperspace_tpu_torch.io.scan.read_relation_files": (
         "serve",

@@ -441,6 +441,14 @@ class FileIdTracker:
         self._ids[key] = info.id
         self._max_id = max(self._max_id, info.id)
 
+    def get_file_id(self, path: str, size: int, mtime: int) -> Optional[int]:
+        return self._ids.get((path, size, mtime))
+
+    def id_to_file_mapping(self) -> List[Tuple[int, str]]:
+        """(id, path) pairs (getIdToFileMapping:700), the table lineage
+        joins input file names against."""
+        return [(fid, key[0]) for key, fid in self._ids.items()]
+
 # ---------------------------------------------------------------------------
 # LogEntry / IndexLogEntry
 # ---------------------------------------------------------------------------
@@ -528,6 +536,19 @@ class IndexLogEntry(LogEntry):
     def source_files_size_in_bytes(self) -> int:
         return self.relation.content.size_in_bytes
 
+    def source_file_info_set(self) -> Dict[str, FileInfo]:
+        """path -> FileInfo of the indexed source snapshot, with the quick
+        refresh's Update applied (IndexLogEntry.sourceFileInfoSet)."""
+        files = dict(self.relation.content.file_infos)
+        if self.relation.update:
+            upd = self.relation.update
+            if upd.appended_files:
+                files.update(dict(upd.appended_files.file_infos))
+            if upd.deleted_files:
+                for p, _ in upd.deleted_files.file_infos:
+                    files.pop(p, None)
+        return files
+
     @property
     def has_source_update(self) -> bool:
         """True when a quick refresh recorded a pending source delta
@@ -550,6 +571,15 @@ class IndexLogEntry(LogEntry):
                 if info.id != UNKNOWN_FILE_ID:
                     t.add_file_info(p, info)
         return t
+
+    def index_data_dir_id(self) -> int:
+        """Latest ``v__=N`` version embedded in content paths."""
+        from hyperspace_tpu_torch.metadata.data_manager import version_from_path
+
+        versions = [
+            v for v in (version_from_path(p) for p in self.content.files) if v is not None
+        ]
+        return max(versions) if versions else 0
 
     def with_state(self, state: str) -> "IndexLogEntry":
         out = self.copy()

@@ -11,7 +11,7 @@ Counterpart of ``hyperspace_tpu/obs/metrics.py``, same surface:
   breakdown instruments, ``hs_serve_stage_seconds`` and
   ``hs_build_stage_seconds``, are stage timers over a *source*: a
   callable that reads the latest session's own dict
-  (:meth:`MetricsRegistry.register_stage_view`). No second copy is kept.
+  (:meth:`StageTimer.follow`). No second copy is kept.
 
 * **Views.** Live ``stats()`` providers (the serve cache) register a
   snapshot callable; :meth:`MetricsRegistry.snapshot` and the Prometheus
@@ -171,6 +171,22 @@ class StageTimer:
         with self.lock:
             self.data.clear()
 
+    def follow(self, obj, attr: str) -> "StageTimer":
+        """Read ``getattr(obj, attr)`` at snapshot time, through a weak
+        reference (a replaced session is never kept alive). The last call
+        wins, like views: the instrument follows the newest session."""
+        import weakref
+
+        ref = weakref.ref(obj)
+
+        def source() -> Dict[str, float]:
+            live = ref()
+            return getattr(live, attr) if live is not None else {}
+
+        with self.lock:
+            self.source = source
+        return self
+
 
 _INSTRUMENT_TYPES = (Counter, Gauge, LabeledCounter, StageTimer)
 
@@ -230,28 +246,6 @@ class MetricsRegistry:
                     f"{type(inst).__name__}, not StageTimer"
                 )
             return inst
-
-    def register_stage_view(
-        self, name: str, help_: str, obj, attr: str
-    ) -> StageTimer:
-        """Point the stage timer ``name`` at ``getattr(obj, attr)``, read
-        at snapshot time through a weak reference (a replaced session is
-        never kept alive). Last registration wins, like views: the
-        instrument follows the newest session."""
-        import weakref
-
-        ref = weakref.ref(obj)
-
-        def source() -> Dict[str, float]:
-            live = ref()
-            return getattr(live, attr) if live is not None else {}
-
-        inst = self.stage_timer(name, help_)
-        with self._lock:
-            inst.source = source
-            if help_:
-                inst.help = help_
-        return inst
 
     def register_view(self, name: str, provider: Callable[[], dict]) -> None:
         """Register a live snapshot provider (``stats()`` of a frontend

@@ -336,6 +336,7 @@ def indexes_in_plan(plan) -> List[str]:
                             names.append(parts[i - 1])
                         break
     except Exception:  # hslint: disable=HS402
+        # best-effort attribution from file paths: never fails a query
         return names
     return names
 
@@ -365,6 +366,8 @@ def rule_flavor(plan) -> Optional[str]:
             return "union"
         return "scan"
     except Exception:  # hslint: disable=HS402
+        # a plan shape this walk does not know records no flavor, never
+        # fails the query that is being logged
         return None
 
 

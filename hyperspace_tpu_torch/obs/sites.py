@@ -23,10 +23,8 @@ Paths name a module-level function
 (``hyperspace_tpu_torch.execution.join_exec._stage_add``), a method
 (``hyperspace_tpu_torch.actions.base.Action.run``), or a whole module
 (``hyperspace_tpu_torch.testing.replay`` — module-level instrument
-registration). The advisor's sites come with it (ROADMAP A.10c); its
-stage names are in the vocabulary already. Calls in nested defs/lambdas
-attribute to
-their outermost enclosing def, like the collective registry.
+registration). Calls in nested defs/lambdas attribute to their
+outermost enclosing def, like the collective registry.
 
 Stage-span VOCABULARY: HS902 rejects any constant stage/span name that
 is not listed below — stage spans exist to mirror the legacy breakdown
@@ -202,6 +200,30 @@ OBS_SITES: Dict[str, Tuple[str, str]] = {
     "hyperspace_tpu_torch.actions.base.Action._run_coordinated": (
         "span",
         "the coordinator-side log_commit stage on multi-process jobs",
+    ),
+    # -- workload advisor (advisor/, docs/advisor.md) ------------------------
+    "hyperspace_tpu_torch.advisor.recommend.advise": (
+        "span",
+        "the advisor.run ROOT span — one trace per advise() pass, so "
+        "mining + what-if time is explainable in the same plane it "
+        "consumes",
+    ),
+    "hyperspace_tpu_torch.advisor.profile.build_profile": (
+        "span",
+        "advisor.scan stage: query-log union + shape aggregation time, "
+        "separable from scoring (a huge log must be visible as a scan "
+        "cost, not a mystery)",
+    ),
+    "hyperspace_tpu_torch.advisor.whatif.score_workload": (
+        "span",
+        "advisor.score stage: one span per candidate's workload pass — "
+        "what-if cost scales with candidates x shapes and must be "
+        "attributable",
+    ),
+    "hyperspace_tpu_torch.advisor.profile": (
+        "metric",
+        "advisor health counters (profiles built, shape-cap overflows) "
+        "— the convergence loop's own telemetry rides the registry",
     ),
     # -- harnesses -----------------------------------------------------------
     "hyperspace_tpu_torch.testing.replay": (

@@ -47,20 +47,20 @@ COLLECTIVE_SITES: Dict[str, Tuple[str, str, str]] = {
     ),
     # -- exchange strategies (parallel/shuffle.py) ----------------------------
     "hyperspace_tpu_torch.parallel.shuffle._flat_exchange": (
-        "block copy",
+        "_exchange_blocks",
         "symmetric-all",
         "one process drives every shard: cap and the payload structure come "
         "from global inputs (never reached on a multi-process job: "
         "resolve_strategy takes twostage there)",
     ),
     "hyperspace_tpu_torch.parallel.shuffle._compact_exchange": (
-        "block copy",
+        "_exchange_blocks",
         "symmetric-all",
         "one process drives every shard over host-packed exact extents "
         "(never reached on a multi-process job)",
     ),
     "hyperspace_tpu_torch.parallel.shuffle._twostage_exchange": (
-        "block copy",
+        "block copy; all_gather + all_to_all_single on a job of processes",
         "symmetric-all",
         "one process carves its mesh into simulated hosts; per-round caps "
         "come from the global count matrix (a multi-process job takes "
@@ -73,6 +73,14 @@ COLLECTIVE_SITES: Dict[str, Tuple[str, str, str]] = {
         "all_gather at the same position, whose result sizes every split "
         "of the all_to_all_singles that follow, one a payload, on every "
         "process, zero-row stripes included",
+    ),
+    "hyperspace_tpu_torch.parallel.shuffle._all_to_all_bytes": (
+        "all_to_all_single",
+        "per-host-lane",
+        "called by _twostage_exchange_mp on every process at the same step, "
+        "a payload at a time, with split sizes every process derived from "
+        "the one all_gather of the count matrix; the bytes are each "
+        "process's own rows",
     ),
     # -- build metadata plane (indexes/covering_build.py) ---------------------
     "hyperspace_tpu_torch.indexes.covering_build._global_written": (

@@ -558,11 +558,10 @@ def resolve_strategy(strategy: str, mesh, n_rows: int) -> str:
     a concrete one. ``auto``: a multi-process job takes ``twostage`` (only
     it crosses the process boundary; any other name is coerced to it
     there), a CPU mesh ``host`` (the copies between shards of one CPU
-    would only cost), a CUDA mesh ``flat``. The reference's accelerator
-    default is ``compact`` above a per-machine calibrated row count, else
-    ``flat``; the port has no calibration probe yet (ROADMAP A.10c), and
-    with no measured threshold the reference takes ``flat`` too
-    (``shuffle.py:903-908``; the uncalibrated threshold is 0)."""
+    would only cost), a CUDA mesh ``compact`` at or above the calibrated
+    ``exchange_compact_min_rows`` (``calibrate.py``), else ``flat`` — the
+    reference's rule (``shuffle.py:903-908``; 0, no measurement, as on a
+    machine with one card, takes ``flat``)."""
     s = (strategy or STRATEGY_AUTO).strip().lower()
     if s != STRATEGY_AUTO and s not in STRATEGIES:
         raise ValueError(
@@ -575,6 +574,11 @@ def resolve_strategy(strategy: str, mesh, n_rows: int) -> str:
         return s
     if mesh.platform == "cpu":
         return STRATEGY_HOST
+    from hyperspace_tpu_torch import calibrate
+
+    t = calibrate.thresholds().exchange_compact_min_rows
+    if t and n_rows >= t:
+        return STRATEGY_COMPACT
     return STRATEGY_FLAT
 
 

@@ -75,7 +75,8 @@ def apply_hyperspace(
     except KERNEL_FAULTS:
         raise
     # catch-all is the contract (reference ApplyHyperspace :60-64): a
-    # rewrite failure must degrade to the original plan, never the query
-    except Exception:
+    # rewrite failure must degrade to the original plan, never the query;
+    # a kernel's fault is re-raised above (C.7)
+    except Exception:  # hslint: disable=HS402
         logger.exception("Hyperspace plan rewrite failed; using original plan")
         return plan

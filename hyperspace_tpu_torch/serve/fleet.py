@@ -335,6 +335,8 @@ class FleetFrontend(ServeFrontend):
                     self._kernel_faults += 1
                 return {"status": "miss", "reason": "kernel"}, b""
             except Exception:  # hslint: disable=HS402
+                # any other failure is a miss: the requester executes the
+                # plan itself (a kernel's fault is named above)
                 return {"status": "miss", "reason": "exec"}, b""
             with self._lock:
                 self._fast_requests_served += 1

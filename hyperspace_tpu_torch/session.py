@@ -270,14 +270,12 @@ class HyperspaceSession:
         self.event_logging = EventLogging(self.conf)
         # the reference's breakdown instruments, read from this session's
         # own dicts (the newest session wins; no second copy is kept)
-        obs_metrics.registry.register_stage_view(
-            "hs_serve_stage_seconds", "serve stage busy seconds (breakdown view)",
-            self, "join_stats",
-        )
-        obs_metrics.registry.register_stage_view(
-            "hs_build_stage_seconds", "build stage busy seconds (breakdown view)",
-            self, "build_stats",
-        )
+        obs_metrics.registry.stage_timer(
+            "hs_serve_stage_seconds", "serve stage busy seconds (breakdown view)"
+        ).follow(self, "join_stats")
+        obs_metrics.registry.stage_timer(
+            "hs_build_stage_seconds", "build stage busy seconds (breakdown view)"
+        ).follow(self, "build_stats")
 
     # -- context (HyperspaceContext, Hyperspace.scala:195-223) --------------
     @property
@@ -323,8 +321,10 @@ class HyperspaceSession:
             return self._serve_cache
 
     def clear_serve_cache(self) -> None:
-        if self._serve_cache is not None:
-            self._serve_cache.clear()
+        with self._serve_cache_lock:
+            cache = self._serve_cache
+        if cache is not None:
+            cache.clear()
 
     @property
     def serve_frontend(self):

@@ -289,6 +289,13 @@ def configure(conf) -> int:
     return n
 
 
+def clear() -> None:
+    """Disarm every point (the fired totals are kept)."""
+    with _lock:
+        _active.clear()
+        _crash_active.clear()
+
+
 def reset() -> None:
     """Disarm every point and zero the fired totals."""
     with _lock:

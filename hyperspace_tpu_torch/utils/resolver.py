@@ -31,6 +31,12 @@ class ResolvedColumn:
     def normalized_name(self) -> str:
         return (NESTED_FIELD_PREFIX + self.name) if self.is_nested else self.name
 
+    @staticmethod
+    def from_normalized(name: str) -> "ResolvedColumn":
+        if name.startswith(NESTED_FIELD_PREFIX):
+            return ResolvedColumn(name[len(NESTED_FIELD_PREFIX):], True)
+        return ResolvedColumn(name, False)
+
 
 def nested_available_from(column_names: Iterable[str]) -> List[str]:
     """The dotted struct paths a relation surfaces, derived from its

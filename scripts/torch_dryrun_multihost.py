@@ -31,7 +31,11 @@ With ``HS_COLLECTIVE_WITNESS=<prefix>`` set, each worker wraps the port's
 ``COLLECTIVE_SITES`` (``testing/collective_witness.py``) before the
 bootstrap and writes its ordered collective sequence to
 ``<prefix>.p<rank>.json`` (``tests/test_torch_witnesses.py`` holds the two
-sequences to each other).
+sequences to each other). The witness-coverage matrix below is the contract
+that ``python -m hyperspace_tpu_torch.analysis`` (HS703) holds the registry
+to: every registered site is exercised here across processes, proven
+coordinator-only, or asserted to be a one-process exchange that a job of
+processes never routes through.
 
 Run as one worker (the parent does): ``--worker RANK ROOT``.
 """
@@ -53,6 +57,27 @@ LOCAL_SHARDS = 2
 N_GLOBAL_CREATE = 4000
 CREATE_FILES = 4
 NUM_BUCKETS = 16
+
+#: sites every process of the job must witness
+WITNESS_MULTIHOST_SITES = (
+    "hyperspace_tpu_torch.parallel.mesh.initialize_distributed",
+    "hyperspace_tpu_torch.parallel.shuffle._twostage_exchange",
+    "hyperspace_tpu_torch.parallel.shuffle._twostage_exchange_mp",
+    "hyperspace_tpu_torch.parallel.shuffle._all_to_all_bytes",
+    "hyperspace_tpu_torch.indexes.covering_build._global_written",
+    "hyperspace_tpu_torch.actions.base._action_rendezvous",
+)
+#: coordinator-gated sites: witnessed on rank 0, never elsewhere
+WITNESS_COORDINATOR_SITES = (
+    "hyperspace_tpu_torch.actions.base._publish_log",
+    "hyperspace_tpu_torch.actions.base._publish_latest_stable",
+)
+#: one-process exchanges a job of processes must never route through
+#: (resolve_strategy takes twostage there)
+WITNESS_SINGLE_HOST_SITES = (
+    "hyperspace_tpu_torch.parallel.shuffle._flat_exchange",
+    "hyperspace_tpu_torch.parallel.shuffle._compact_exchange",
+)
 
 
 def _session(device: str, root: str, system_dir: str, shards: int):
@@ -247,6 +272,13 @@ def worker(pid: int, root: str, device: str) -> None:
         )
         if witness_prefix:
             doc = collective_witness.dump(witness_prefix)
+            witnessed = {r["site"] for r in doc["sequence"]}
+            missing = [s for s in WITNESS_MULTIHOST_SITES if s not in witnessed]
+            assert not missing, f"unwitnessed multi-process sites: {missing}"
+            for site in WITNESS_COORDINATOR_SITES:
+                assert (site in witnessed) == (pid == 0), (site, pid, site in witnessed)
+            routed = [s for s in WITNESS_SINGLE_HOST_SITES if s in witnessed]
+            assert not routed, f"a job of processes routed through one-process exchanges: {routed}"
             print(f"witness proc={pid} records={len(doc['sequence'])}", flush=True)
     finally:
         hs_mesh.shutdown_distributed()

@@ -1375,3 +1375,121 @@ def test_b1_launch_error_propagates_through_the_serve_frontend(cuda_device, tmp_
         assert fe.serve(df.filter(df["k"] == 1234).select("k", "q")).num_rows >= 0
     finally:
         fe.close()
+
+
+def test_calibration_on_the_card_measures_and_caches_under_the_build_dir(cuda_device):
+    """``calibrate.thresholds()`` on the card probes (B5f, both shapes,
+    against the declined route: B3a, then the hash aggregate with B5; the
+    exchange with 2 or more cards),
+    caches the result under ``kernels.build_dir()``, and a fresh memo
+    reads it back without probing."""
+    import os
+
+    from hyperspace_tpu_torch import calibrate, kernels
+
+    calibrate.invalidate()
+    path = calibrate.cache_file()
+    assert os.path.dirname(path) == kernels.build_dir()
+    if os.path.exists(path):
+        os.remove(path)
+    got = calibrate.thresholds()
+    assert got.source == "calibrated"
+    sizes = calibrate._FUSED_PROBE_SIZES
+    assert got.native_fused_pipeline_min_rows in sizes + [2 * sizes[-1]]
+    fused = calibrate.probe_times()["fused"]
+    assert fused and all(t["fused_s"] > 0 and t["declined_s"] > 0 for t in fused)
+    assert {t["shape"] for t in fused} == set(calibrate._FUSED_SHAPES)
+    if torch.cuda.device_count() < 2:
+        assert got.exchange_compact_min_rows == 0 and calibrate.probe_times()["exchange"] == []
+    assert os.path.exists(path)
+    calibrate.invalidate()
+    assert calibrate._load_cache() == got
+    assert calibrate.thresholds() == got
+
+
+def test_exchange_probe_on_a_four_shard_mesh_of_one_card(cuda_device):
+    """The exchange probe with ``mesh=``: compact against flat (B1, B8a,
+    B8b) timed at each size until compact wins; nothing is cached."""
+    from hyperspace_tpu_torch import calibrate
+    from hyperspace_tpu_torch.ops import exchange as X
+    from hyperspace_tpu_torch.parallel.mesh import Mesh
+
+    before = (X.pack_launches, X.order_launches)
+    rows, times = calibrate.probe_exchange_compact_min(mesh=Mesh([cuda_device] * 4))
+    assert times and all(t["compact_s"] > 0 and t["flat_s"] > 0 for t in times)
+    assert rows in (0, *[t["rows"] for t in times])
+    assert X.pack_launches > before[0] and X.order_launches > before[1]
+
+
+def test_a_kernel_fault_in_the_fused_probe_propagates(cuda_device, tmp_path, monkeypatch):
+    """A ``KernelLaunchError`` from B5f's group pass inside the probe fails
+    ``thresholds()``; it is never traded for the defaults (C.7)."""
+    from hyperspace_tpu_torch import calibrate
+    from hyperspace_tpu_torch.kernels import KernelLaunchError
+    from hyperspace_tpu_torch.ops import fused_agg as FA
+
+    real = FA._lib()
+
+    class Faulty:
+        hs_fused_group = staticmethod(lambda *a: 700)
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    calibrate.invalidate()
+    monkeypatch.setattr(calibrate, "cache_file", lambda: str(tmp_path / "calibration.json"))
+    monkeypatch.setattr(FA, "_lib", lambda: Faulty())
+    try:
+        with pytest.raises(KernelLaunchError):
+            calibrate.thresholds()
+        assert calibrate._cached is None and not calibrate._probing
+        assert not (tmp_path / "calibration.json").exists()
+    finally:
+        calibrate.invalidate()
+
+
+def test_advisor_loop_on_the_card_launches_b1_and_is_index_served(cuda_device, tmp_path):
+    """The advisor's closed loop on a session on the card: the workload
+    recorded, ``advise`` recommends a covering index, ``apply`` builds it
+    (B1 launched), the replay serves every query from it with the
+    baseline's answers in order, and a second ``advise`` creates nothing."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.advisor import advise, apply_recommendations
+    from hyperspace_tpu_torch.obs import planspec
+    from hyperspace_tpu_torch.testing import replay
+    from torch_b5_cases import same_rows
+
+    data = tmp_path / "lake"
+    data.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        pq.write_table(pa.table({"key": rng.integers(0, 1000, 50_000),
+                                 "payload": rng.integers(0, 1 << 30, 50_000)}),
+                       str(data / f"part-{i}.parquet"))
+    s = HyperspaceSession()
+    assert s.device.type == "cuda"
+    s.conf.set(C.INDEX_SYSTEM_PATH, str(tmp_path / "indexes"))
+    records = replay.skewed_keys([str(data)], "key", list(range(0, 1000, 37)), 16,
+                                 project=["key", "payload"])
+    obs_dir = str(tmp_path / "obs")
+    replay.record_workload(records, obs_dir)
+    s.enable_hyperspace()
+    baseline = replay.replay_records(s, records, keep_results=True)
+    creates = [r for r in advise(s, directory=obs_dir).recommendations if r.kind == "create"]
+    assert creates and creates[0].indexed_columns == ["key"]
+    before = H.launches
+    summary = apply_recommendations(s, creates, force=True)
+    torch.cuda.synchronize()
+    assert summary["applied"] == 1 and H.launches > before
+    after = replay.replay_records(s, records, keep_results=True)
+    assert after.completed == len(records) == baseline.completed
+    assert all(same_rows(a, b) for a, b in zip(after.tables, baseline.tables))
+    for r in records:
+        plan = s.optimize(planspec.from_spec(s, r["replay"]))
+        assert any(leaf.relation.index_info for leaf in plan.collect_leaves())
+    assert [r for r in advise(s, directory=obs_dir).recommendations if r.kind == "create"] == []
+    s.serve_frontend.close()
