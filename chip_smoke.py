@@ -495,6 +495,27 @@ against its plain PyTorch version on the card:
    B3a, B4, B5 and B5f call is held to its plain version. An ``advisor``
    JSON line.
 
+22. The regression corpus on the card (``regression_path``) over phases 4
+   and 5's session: (a) phase 4's 8 lineitem files rewritten with
+   ``l_orderkey``, ``l_shipdate`` and ``l_quantity`` in one struct column
+   ``li``, ``nest_idx`` built on ``li.l_orderkey`` (including the other
+   two leaves, 200 buckets) beside ``li_flat``, li_idx's configuration over
+   the same 8 files (its values equal to li_idx's first version's where
+   that is on disk); nest_idx's bucket files hold li_flat's values in its
+   order column for column, and phase 4's 36 filters and phase 5's o_idx
+   join through the nested key equal li_flat's rows in order and the
+   unindexed plan's (create seconds and stages, the filters' p50 / p99);
+   (b) the fuzz corpus of ``tests/torch_fuzz_cases.py``, 400 seeds at 500
+   rows and 4 at 6,001,215: every device mask on the card equal to the
+   CPU's, the host evaluator's and pyarrow's, and where the predicate
+   lowers to range terms the fused mask (B3a) too; (c) at 1,000,000 rows
+   the null-sentinel join (B4), the null-sentinel group-by (B5) and the
+   descending NaN sort, each equal in order to a ``device="cpu"``
+   session's rows and to the regression's own oracle. Every B1, B3a, B3b,
+   B4 and B5 call is held to its plain version (B1's, B3a's, B3b's and
+   B4's launches equal to the calls held); its launches are printed by
+   kernel. A ``regression`` JSON line.
+
 ``--only-advisor`` runs phases 1-3, the calibration probe, phase 4 and
 phase 21 (records under ``only_advisor``; about 4 minutes).
 ``--only-b4`` is for iterating on B4: it runs phases 1-3, then the
@@ -519,9 +540,9 @@ numbers that go into PERF.md come from the run without flags, which
 drives every phase.
 
 Kernel launch counts are set to 0 just before the calibration probe and
-phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21
-and read just after each; each kernel's count in the JSON line adds the
-probe's and phases 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21's (phase
+phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and
+22 and read just after each; each kernel's count in the JSON line adds the
+probe's and phases 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22's (phase
 20's worker processes count their own); B8a and B8b
 (``bucket_exchange_pack`` / ``_order``) run in the probe and phase 18. The
 kernel checks' launches are not counted as the main path's. Any failure raises and exits non-zero. The last two
@@ -8675,6 +8696,396 @@ def advisor_path(work: str, ctx: dict, kernels: KernelCalls, card: str, device=N
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the regression corpus on the card
+# ---------------------------------------------------------------------------
+
+#: phase 22b's seeds of ``tests/torch_fuzz_cases.py`` at the twin's 500 rows
+#: and at phase 4's row count
+RG_SEEDS = range(400)
+RG_BIG_SEEDS = (0, 1, 2, 3)
+#: phase 22c's rows a table (the sentinel join's sides, the group-by, the sort)
+RG_ROWS = 1_000_000
+
+
+def rg_nested_source(work: str, src: str) -> str:
+    """Phase 4's 8 lineitem files (``part0`` .. ``part7``, the rows li_idx
+    was built from) rewritten with ``l_orderkey``, ``l_shipdate`` and
+    ``l_quantity`` moved into one struct column ``li``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    out = os.path.join(work, "lineitem_nested")
+    os.makedirs(out)
+    for i in range(N_FILES):
+        t = pq.read_table(os.path.join(src, f"part{i}.parquet"))
+        leaves = ["l_orderkey", "l_shipdate", "l_quantity"]
+        li = pa.StructArray.from_arrays([t.column(c).combine_chunks() for c in leaves], leaves)
+        pq.write_table(pa.table({"li": li, "l_extendedprice": t.column("l_extendedprice")}),
+                       os.path.join(out, f"part{i}.parquet"))
+    return out
+
+
+def rg_flat_source(work: str, src: str) -> str:
+    """Phase 4's 8 lineitem files linked into a directory of their own (the
+    lineitem directory holds phase 20's appended batches too)."""
+    out = os.path.join(work, "lineitem_phase4")
+    os.makedirs(out)
+    for i in range(N_FILES):
+        os.link(os.path.join(src, f"part{i}.parquet"), os.path.join(out, f"part{i}.parquet"))
+    return out
+
+
+def rg_bucket_files(hs, name: str) -> dict:
+    """Bucket id -> the index's data file (one a bucket after a create)."""
+    from hyperspace_tpu_torch.io import parquet as pio
+
+    files = {}
+    for f in hs.get_index(name).content.files:
+        b = pio.bucket_id_of_file(f)
+        if b is None or b in files:
+            raise AssertionError(f"{name}: not one data file a bucket: {f}")
+        files[b] = f
+    return files
+
+
+def rg_nested(work: str, ctx: dict, kernels: KernelCalls, card: str, out: dict) -> None:
+    """22a: nest_idx on ``li.l_orderkey`` over the nested rewrite of phase 4's
+    files, held to li_flat (li_idx's configuration over phase 4's 8 files:
+    its files byte-equal to li_idx's first version where that is still on
+    disk). Its bucket files hold li_flat's values in li_flat's order,
+    column for column; the 36 filters and the o_idx join through the nested
+    key equal li_flat's rows and the unindexed plan's."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig
+    from hyperspace_tpu_torch import constants as C
+
+    sess, hs = ctx["session"], ctx["hs"]
+    sess.conf.set(C.INDEX_SUPPORT_NESTED_FIELDS, True)
+    t0 = time.perf_counter()
+    nsrc, fsrc = rg_nested_source(work, ctx["src"]), rg_flat_source(work, ctx["src"])
+    out["rewrite_s"] = time.perf_counter() - t0
+    nested, flat = sess.read.parquet(nsrc), sess.read.parquet(fsrc)
+    creates = {}
+    for name, df, config in (
+            ("li_flat", flat, CoveringIndexConfig("li_flat", ["l_orderkey"],
+                                                  ["l_shipdate", "l_quantity"])),
+            ("nest_idx", nested, CoveringIndexConfig("nest_idx", ["li.l_orderkey"],
+                                                     ["li.l_shipdate", "li.l_quantity"]))):
+        kernels.label = f"phase 22 create {name}"
+        t0 = time.perf_counter()
+        try:
+            hs.create_index(df, config)
+        finally:
+            kernels.label = None
+        creates[name] = {"seconds": time.perf_counter() - t0,
+                         "stages": {k: round(v, 4) for k, v in sess.build_stats.items()}}
+        kernels.settle()
+    out["creates"] = creates
+    prefix = C.NESTED_FIELD_PREFIX + "li."
+    nfiles, ffiles = rg_bucket_files(hs, "nest_idx"), rg_bucket_files(hs, "li_flat")
+    if sorted(nfiles) != sorted(ffiles) or len(nfiles) != 200:
+        raise AssertionError(f"nest_idx and li_flat differ in buckets: {len(nfiles)}, {len(ffiles)}")
+    rows = 0
+    for b in sorted(ffiles):
+        want, got = pq.read_table(ffiles[b]), pq.read_table(nfiles[b])
+        for col in ("l_orderkey", "l_shipdate", "l_quantity"):
+            if not got.column(prefix + col).equals(want.column(col)):
+                raise AssertionError(f"nest_idx bucket {b}: {col} differs from li_flat's")
+        rows += got.num_rows
+    if rows != N_ROWS:
+        raise AssertionError(f"nest_idx holds {rows} rows, want {N_ROWS}")
+    # li_idx's first version (phase 4's create, ``v__=1``), where phase 20's
+    # refreshes left it on disk: li_flat holds its values in its order
+    first = {os.path.basename(f): f for f in hs.get_index("li_idx").content.files
+             if os.sep + "v__=1" + os.sep in f}
+    same_as_li_idx = None
+    if len(first) == 200:
+        cols = ["l_orderkey", "l_shipdate", "l_quantity"]
+        for f in ffiles.values():
+            if not pq.read_table(first[os.path.basename(f)], columns=cols).equals(
+                    pq.read_table(f, columns=cols)):
+                raise AssertionError(f"li_flat's {os.path.basename(f)} differs from li_idx's")
+        same_as_li_idx = True
+    out["li_flat_equals_li_idx_first"] = same_as_li_idx
+
+    point_keys, in_lists = phase4_keys()
+
+    def queries(df, key):
+        conds = [df[key] == k for k in point_keys] + [df[key].isin(ks) for ks in in_lists]
+        leaves = [key.replace("l_orderkey", c) for c in ("l_orderkey", "l_shipdate", "l_quantity")]
+        return [df.filter(c).select(*leaves) for c in conds]
+
+    def renamed(t):
+        return t.rename_columns([c.replace(prefix, "") for c in t.column_names])
+
+    sess.enable_hyperspace()
+    nq, fq = queries(nested, "li.l_orderkey"), queries(flat, "l_orderkey")
+    for q, name in ((nq[0], "nest_idx"), (fq[0], "li_flat")):
+        text = hs.explain(q)
+        if f"Name: {name}," not in text.split("Plan without indexes:")[0] or \
+                name not in text.split("Indexes used:")[1]:
+            raise AssertionError(f"{name} does not serve its point filter:\n{text}")
+    times, served = [], []
+    kernels.label = "phase 22 filters"
+    try:
+        nq[0].collect()  # first query pays one-time set-up
+        for q in nq:
+            t0 = time.perf_counter()
+            served.append(q.collect())
+            times.append((time.perf_counter() - t0) * 1e3)
+        flat_served = [q.collect() for q in fq]
+        sess.disable_hyperspace()
+        unindexed = [q.collect() for q in nq]
+    finally:
+        kernels.label = None
+    kernels.settle()
+    n_point, matched = len(point_keys), 0
+    for i, (got, want, base) in enumerate(zip(served, flat_served, unindexed)):
+        if not renamed(got).equals(want):
+            raise AssertionError(f"nested filter {i} differs from li_flat's rows")
+        if i >= n_point:  # an IN list spans buckets: a multiset
+            got, base = sorted_rows(got), sorted_rows(base)
+        if not got.equals(base):
+            raise AssertionError(f"nested filter {i} differs from the unindexed plan")
+        matched += got.num_rows
+    if matched == 0:
+        raise AssertionError("no nested filter matched a row")
+    p50, p99 = np.percentile(times, [50, 99])
+    out["filters"] = {"p50_ms": float(p50), "p99_ms": float(p99), "rows": matched}
+
+    orders = sess.read.parquet(ctx["orders_src"])
+
+    def join(items, key, qty):
+        return orders.join(items, on=orders["o_orderkey"] == items[key]).select(
+            "o_orderkey", "o_custkey", qty)
+
+    nj = join(nested, "li.l_orderkey", "li.l_quantity")
+    fj = join(flat, "l_orderkey", "l_quantity")
+    sess.enable_hyperspace()
+    index_served(hs, nj, ("o_idx", "nest_idx"))
+    index_served(hs, fj, ("o_idx", "li_flat"))
+    kernels.label = "phase 22 joins"
+    try:
+        t0 = time.perf_counter()
+        got = nj.collect()
+        join_s = time.perf_counter() - t0
+        want = fj.collect()
+        sess.disable_hyperspace()
+        base = nj.collect()
+    finally:
+        kernels.label = None
+    kernels.settle()
+    if got.num_rows != N_ROWS or not renamed(got).equals(want):
+        raise AssertionError("the nested join differs from li_flat's in order")
+    if not sorted_rows(got).equals(sorted_rows(base)):
+        raise AssertionError("the nested join differs from the unindexed plan")
+    out["join"] = {"seconds": join_s, "rows": got.num_rows}
+    log(f"regression path [{card}]: 22a nest_idx (li.l_orderkey; li.l_shipdate, li.l_quantity; "
+        f"200 buckets) over the nested rewrite of phase 4's files ({out['rewrite_s']:.2f}s): "
+        f"create {creates['nest_idx']['seconds']:.3f}s, stages {creates['nest_idx']['stages']}; "
+        f"li_flat {creates['li_flat']['seconds']:.3f}s, stages {creates['li_flat']['stages']} "
+        f"(its values equal to li_idx's first version's: {same_as_li_idx}); 200 bucket files hold "
+        f"li_flat's values in its order column for column; 36 filters p50_ms {p50:.3f} "
+        f"p99_ms {p99:.3f}, {matched} rows, equal to li_flat's and the unindexed plan's; "
+        f"the o_idx join through li.l_orderkey {join_s * 1e3:.1f} ms, {got.num_rows} rows, "
+        f"equal in order to li_flat's and as a multiset to the unindexed plan's")
+
+
+def rg_fuzz(dev, kernels: KernelCalls, card: str, out: dict) -> None:
+    """22b: the fuzz corpus (``tests/torch_fuzz_cases.py``) at 500 rows and
+    at 6,001,215: each predicate's device mask on the card equals the CPU's,
+    the host evaluator's and pyarrow's; where it lowers to range terms, the
+    fused mask on the card (B3a) too."""
+    from hyperspace_tpu_torch.io.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.ops import filter as F
+    from hyperspace_tpu_torch.plan import expressions as E
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_fuzz_cases as FZ
+
+    counts = {"seeds": 0, "big_seeds": 0, "fused": 0, "rows_kept": 0}
+    t0 = time.perf_counter()
+    for n, seeds in ((500, RG_SEEDS), (N_ROWS, RG_BIG_SEEDS)):
+        for seed in seeds:
+            table, spec = FZ.random_case(seed, n)
+            want = FZ.pyarrow_rows(table, spec)
+            batch = ColumnarBatch.from_arrow(table)
+            cond = FZ.build(spec, E)
+            masks = {"host": E.filter_mask(cond, batch),
+                     "cpu": F.device_filter_mask(cond, batch, "cpu")}
+            kernels.label = f"phase 22 fuzz n={n}"
+            try:
+                masks["card"] = F.device_filter_mask(cond, batch, dev)
+                if F.lower_range_terms(cond, batch) is not None:
+                    fused = F.fused_range_mask(cond, batch, dev)
+                    if fused is not None:
+                        masks["fused card"] = fused
+                        masks["fused cpu"] = F.fused_range_mask(cond, batch, "cpu")
+                        counts["fused"] += 1
+            finally:
+                kernels.label = None
+            for path, mask in masks.items():
+                if not np.array_equal(np.nonzero(mask)[0], want):
+                    raise AssertionError(f"fuzz seed {seed} at {n} rows: the {path} mask "
+                                         f"differs from pyarrow's for {spec}")
+            counts["big_seeds" if n == N_ROWS else "seeds"] += 1
+            counts["rows_kept"] += len(want)
+        kernels.settle()
+    out["fuzz"] = dict(counts, seconds=time.perf_counter() - t0)
+    log(f"regression path [{card}]: 22b the fuzz corpus, {counts['seeds']} seeds at 500 rows and "
+        f"{counts['big_seeds']} at {N_ROWS}: every mask on the card equal to the CPU's, the host "
+        f"evaluator's and pyarrow's; {counts['fused']} took the fused range mask (B3a) "
+        f"({out['fuzz']['seconds']:.1f}s)")
+
+
+def rg_tables(work: str) -> dict:
+    """22c's three tables of ``RG_ROWS`` rows: join sides whose keys include
+    the null key rep as a real value (3 rows left, 2 right) and nulls, a
+    group-by table likewise, and floats with NaN and nulls for the sort."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.columnar import NULL_KEY_REP
+
+    rng = np.random.default_rng(SEED + 22)
+    n = RG_ROWS
+    sentinel = int(NULL_KEY_REP)
+
+    def keys(n_sentinel, hi):
+        k = rng.integers(0, hi, n, dtype=np.int64)
+        k[rng.choice(n, n_sentinel, replace=False)] = sentinel
+        nulls = rng.random(n) < 0.01
+        return pa.array(np.where(nulls, 0, k), mask=nulls & (k != sentinel))
+
+    x = rng.normal(0, 100, n)
+    x[rng.random(n) < 0.05] = np.nan
+    tables = {
+        "rg_left": pa.table({"k": keys(3, n), "lv": np.arange(n, dtype=np.int64)}),
+        "rg_right": pa.table({"j": keys(2, n), "rv": np.arange(n, dtype=np.int64) * 7}),
+        "rg_group": pa.table({"g": keys(3, n // 10), "v": rng.integers(-1000, 1000, n)}),
+        "rg_sort": pa.table({"x": pa.array(x, mask=rng.random(n) < 0.01),
+                             "i": np.arange(n, dtype=np.int64)}),
+    }
+    out = {}
+    for name, t in tables.items():
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        for i in range(2):
+            lo, hi = i * n // 2, (i + 1) * n // 2
+            pq.write_table(t.slice(lo, hi - lo), os.path.join(d, f"part{i}.parquet"))
+        out[name] = d
+    out["sentinel"] = sentinel
+    return out
+
+
+def rg_sentinel_nan(work: str, kernels: KernelCalls, card: str, out: dict) -> None:
+    """22c: the null-sentinel join (B4), the null-sentinel group-by (B5) and
+    the descending NaN sort at ``RG_ROWS`` rows, each equal to a
+    ``device="cpu"`` session's rows in order and to the regression's oracle."""
+    import pyarrow.compute as pc
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch import functions as Fn
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_b5_cases import same_rows
+
+    paths = rg_tables(work)
+    sentinel = paths.pop("sentinel")
+
+    def queries(s):
+        r = {k: s.read.parquet(v) for k, v in paths.items()}
+        left, right = r["rg_left"], r["rg_right"]
+        return {
+            "join": left.join(right, on=left["k"] == right["j"]).select("k", "lv", "rv"),
+            "group": r["rg_group"].group_by("g").agg(Fn.sum("v").alias("s"),
+                                                    Fn.count().alias("n")),
+            "sort": r["rg_sort"].sort(("x", False)),
+        }
+
+    card_s, cpu_s = HyperspaceSession(), HyperspaceSession(device="cpu")
+    for sess, side in ((card_s, "card"), (cpu_s, "cpu")):
+        sess.conf.set("hyperspace.system.path", os.path.join(work, f"rg_indexes_{side}"))
+    got, times = {}, {}
+    for name, q in queries(card_s).items():
+        kernels.label = f"phase 22 {name}"
+        t0 = time.perf_counter()
+        try:
+            got[name] = q.collect()
+        finally:
+            kernels.label = None
+        times[name] = (time.perf_counter() - t0) * 1e3
+        kernels.settle()
+    want = {name: q.collect() for name, q in queries(cpu_s).items()}
+    for name in got:
+        if not same_rows(got[name], want[name]):
+            raise AssertionError(f"22c {name}: the card's rows differ from the CPU session's")
+    join, group, srt = got["join"], got["group"], got["sort"]
+    keys = join.column("k")
+    if keys.null_count or pc.sum(pc.equal(keys, sentinel)).as_py() != 6:
+        raise AssertionError("22c join: a null key matched, or the real sentinel keys did not "
+                             "pair 3 x 2")
+    gk = group.column("g").to_pylist()
+    if gk.count(None) != 1 or gk.count(sentinel) != 1:
+        raise AssertionError("22c group-by: the null group and the sentinel group are not apart")
+    t = cpu_s.read.parquet(paths["rg_sort"]).collect()
+    oracle = t.sort_by([("x", "descending")]).column("x")
+    if str(srt.column("x").to_pylist()) != str(oracle.to_pylist()):
+        raise AssertionError("22c sort: NaN is not ordered as pyarrow orders it, descending")
+    out["sentinel_nan"] = {"rows": RG_ROWS, "ms": times, "join_rows": join.num_rows,
+                           "groups": group.num_rows}
+    log(f"regression path [{card}]: 22c at {RG_ROWS} rows: the null-sentinel join "
+        f"{join.num_rows} rows ({times['join']:.1f} ms; 6 real sentinel pairs, no null key), "
+        f"the group-by {group.num_rows} groups ({times['group']:.1f} ms; the null and the "
+        f"sentinel groups apart), the descending NaN sort ({times['sort']:.1f} ms; pyarrow's "
+        f"order), each equal in order to a device=\"cpu\" session's rows")
+
+
+def regression_path(work: str, ctx: dict, kernels: KernelCalls, card: str) -> dict:
+    """Phase 22: the regression corpus on the card, over phases 4 and 5's
+    session and files: 22a nested columns at full size (``rg_nested``), 22b
+    the fuzz corpus (``rg_fuzz``), 22c the sentinel and NaN regressions
+    (``rg_sentinel_nan``). Every B1, B3a, B3b, B4 and B5 call is recorded
+    in ``kernels`` and held to its plain version after its window (B1, B3a
+    and B3b launch once a call, B4 three times: their launches must equal
+    the calls held). Launch counts read from 0 at its start."""
+    import torch
+
+    from hyperspace_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    recorders = (kernels.record_b3a, kernels.record_b3b, kernels.record_b4, kernels.record_b5)
+    for record in recorders:
+        record(True)
+    out = {"card": card}
+    try:
+        rg_nested(work, ctx, kernels, card, out)
+        rg_fuzz(torch.device("cuda"), kernels, card, out)
+        rg_sentinel_nan(work, kernels, card, out)
+    finally:
+        for record in recorders:
+            record(False)
+    launches = ops.launch_counts()
+    held = kernels.summary("phase 22")
+    if not all(held.get(k, 0) > 0 for k in ("b1", "b3a", "b4", "b5")):
+        raise AssertionError(f"phase 22 held no B1, B3a, B4 or B5 call: {held}")
+    for key, name, per_call in (("b1", "murmur3_bucket_ids", 1), ("b3a", "range_mask", 1),
+                                ("b3b", "fused_select", 1), ("b4", "bucket_match_pairs", 3)):
+        if launches[name] != per_call * held.get(key, 0):
+            raise AssertionError(f"phase 22: {launches[name]} {key.upper()} launches, but "
+                                 f"{held.get(key, 0)} calls held")
+    out["held"] = held
+    out["launches"] = launches
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"regression path [{card}]: launches by kernel "
+        f"{ {k: v for k, v in launches.items() if v} }; calls held {held}; "
+        f"{out['seconds']:.1f}s in all")
+    return out
+
+
 class PhaseClock:
     """Logs the seconds since the last call (or ``start``) under a phase's
     name, and the script's seconds so far."""
@@ -8889,6 +9300,8 @@ def main() -> int:
         phase("20")
         adpath = advisor_path(work, ctx, kernels, card)
         phase("21")
+        rgpath = regression_path(work, ctx, kernels, card)
+        phase("22")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_err = check_b4_main_path(dev, b4_inputs.calls)
@@ -8922,7 +9335,7 @@ def main() -> int:
     lk_held, oc_held, os_held = lkpath["held"], ocpath["held"], ospath["held"]
     late = (lcpath["launches"], rcpath["launches"], hypath["launches"], lkpath["launches"],
             ocpath["launches"], ospath["launches"], shpath["launches"], obpath["launches"],
-            svpath["launches"], cal["launches"], adpath["launches"])
+            svpath["launches"], cal["launches"], adpath["launches"], rgpath["launches"])
     for record, kernel in ((b1, "murmur3_bucket_ids"), (b4, "bucket_match_pairs"),
                            (b3a, "range_mask"), (b5, "segment_reduce"), (b3b, "fused_select"),
                            (b5f, "fused_filter_agg"), (b6, "zorder_interleave"),
@@ -8970,26 +9383,29 @@ def main() -> int:
         record["phase_20_fleet_worker_launches"] = sum(
             svpath["fleet_processes"][r]["worker_launches"][kernel] for r in ("rung", "kill"))
         record["cases"] = record.get("cases", 0) + sv_held.get(key, 0)
-    cal_held, ad_held = cal["held"], adpath["held"]
+    cal_held, ad_held, rg_held = cal["held"], adpath["held"], rgpath["held"]
     for record, kernel, key in ((b1, "murmur3_bucket_ids", "b1"), (b4, "bucket_match_pairs", "b4"),
                                 (b3a, "range_mask", "b3a"), (b5, "segment_reduce", "b5"),
                                 (b3b, "fused_select", "b3b"), (b5f, "fused_filter_agg", "b5f"),
                                 (b6, "zorder_interleave", "b6"), (b7, "bloom_bits", "b7")):
         record["calibrate_launches"] = cal["launches"][kernel]
         record["phase_21_launches"] = adpath["launches"][kernel]
+        record["phase_22_launches"] = rgpath["launches"][kernel]
         record["cases"] = (record.get("cases", 0) + cal_held.get(key, 0)
-                           + ad_held.get(key, 0))
+                           + ad_held.get(key, 0) + rg_held.get(key, 0))
     # 256 MiB read before every cold run: five times the L2
     flush = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     b8a = b8_timing("b8a", shpath["keep"]["b8a"], flush,
                     shpath["launches"]["bucket_exchange_pack"]
                     + cal["launches"]["bucket_exchange_pack"]
-                    + adpath["launches"]["bucket_exchange_pack"],
+                    + adpath["launches"]["bucket_exchange_pack"]
+                    + rgpath["launches"]["bucket_exchange_pack"],
                     sh_held.get("b8a", 0) + cal_held.get("b8a", 0))
     b8b = b8_timing("b8b", shpath["keep"]["b8b"], flush,
                     shpath["launches"]["bucket_exchange_order"]
                     + cal["launches"]["bucket_exchange_order"]
-                    + adpath["launches"]["bucket_exchange_order"],
+                    + adpath["launches"]["bucket_exchange_order"]
+                    + rgpath["launches"]["bucket_exchange_order"],
                     sh_held.get("b8b", 0) + cal_held.get("b8b", 0))
     for record, kernel in ((b8a, "bucket_exchange_pack"), (b8b, "bucket_exchange_order")):
         record["phase_18_launches"] = shpath["launches"][kernel]
@@ -9038,6 +9454,10 @@ def main() -> int:
     log(json.dumps({"advisor": {k: adpath[k] for k in (
         "seconds", "records", "advise_s", "report", "apply", "creates", "baseline", "after",
         "second_advise", "cli", "held", "launches")},
+        "card": card}, default=str))
+    log(json.dumps({"regression": {k: rgpath[k] for k in (
+        "seconds", "rewrite_s", "creates", "li_flat_equals_li_idx_first", "filters", "join", "fuzz",
+        "sentinel_nan", "held", "launches")},
         "card": card}, default=str))
     log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)

@@ -118,6 +118,23 @@ class Config:
         return {s.strip().lower() for s in raw.split(",") if s.strip()}
 
     @property
+    def device_filter_min_rows(self) -> int:
+        """Read by nothing: the port evaluates every mask on the session's
+        device (ROADMAP "Left out on purpose")."""
+        return self.get_int(
+            C.EXECUTION_DEVICE_FILTER_MIN_ROWS,
+            C.EXECUTION_DEVICE_FILTER_MIN_ROWS_DEFAULT,
+        )
+
+    @property
+    def device_join_min_rows(self) -> int:
+        """Read by nothing: the port always launches B4."""
+        return self.get_int(
+            C.EXECUTION_DEVICE_JOIN_MIN_ROWS,
+            C.EXECUTION_DEVICE_JOIN_MIN_ROWS_DEFAULT,
+        )
+
+    @property
     def support_nested_fields(self) -> bool:
         return self.get_bool(
             C.INDEX_SUPPORT_NESTED_FIELDS,
@@ -300,6 +317,22 @@ class Config:
         return self.get_float(
             C.ZORDER_QUANTILE_RELATIVE_ERROR,
             C.ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT,
+        )
+
+    @property
+    def dataskipping_target_index_data_file_size(self) -> int:
+        """Read by nothing, as in the reference."""
+        return self.get_int(
+            C.DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE,
+            C.DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE_DEFAULT,
+        )
+
+    @property
+    def dataskipping_auto_partition_sketch(self) -> bool:
+        """Read by nothing, as in the reference."""
+        return self.get_bool(
+            C.DATASKIPPING_AUTO_PARTITION_SKETCH,
+            C.DATASKIPPING_AUTO_PARTITION_SKETCH_DEFAULT,
         )
 
     # -- crash recovery (metadata/recovery.py) ------------------------------

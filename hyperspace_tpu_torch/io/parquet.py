@@ -233,6 +233,16 @@ def read_table(
     return pa.concat_tables(tables, promote_options="permissive")
 
 
+def read_batch(
+    paths: Sequence[str], columns: Optional[Sequence[str]] = None, fmt: str = "parquet"
+) -> ColumnarBatch:
+    # Convenience wrapper for out-of-package tooling: the actual
+    # materializations happen in read_table / ColumnarBatch.from_arrow,
+    # both registered ALLOC_SITES; the bound is the caller's selection.
+    # hslint: disable=HS1001
+    return ColumnarBatch.from_arrow(read_table(paths, columns, fmt))
+
+
 def read_table_row_groups(
     paths: Sequence[str],
     row_groups: Sequence[Optional[Sequence[int]]],

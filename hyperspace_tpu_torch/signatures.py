@@ -15,7 +15,7 @@ from typing import List, Optional
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.metadata.entry import LogicalPlanFingerprint, Signature
-from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.utils.hashing import md5_hex
 
 
@@ -76,3 +76,8 @@ class IndexSignatureProvider:
                 Signature(self._plan.name, self._plan.sign(plan)),
             ]
         )
+
+    def fingerprint_source_only(self, scan: Scan) -> Signature:
+        """Signature of one relation's data snapshot (what the candidate
+        filter compares; FileSignatureFilter.scala:70-88)."""
+        return Signature(self._file.name, self._file.sign(scan))

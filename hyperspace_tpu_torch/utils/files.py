@@ -15,6 +15,12 @@ import tempfile
 from typing import List, Tuple
 
 
+def write_text(path: str, text: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+
+
 def read_text(path: str) -> str:
     with open(path, "r", encoding="utf-8") as f:
         return f.read()
@@ -183,3 +189,6 @@ def list_leaf_files(
             out.append((p, st.st_size, int(st.st_mtime * 1000)))
     return out
 
+
+def dir_size(root: str) -> int:
+    return sum(size for _p, size, _m in list_leaf_files(root))

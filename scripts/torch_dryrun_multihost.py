@@ -1,11 +1,15 @@
 """Two-process dryrun of hyperspace_tpu_torch's multi-process plane.
 
-    python3 scripts/torch_dryrun_multihost.py [--device cpu|cuda] [--timeout SECONDS]
+    python3 scripts/torch_dryrun_multihost.py [--device cuda|cpu] [--local-shards N]
+        [--timeout SECONDS]
 
+Runs on the card (``--device cuda``, the default) unless asked for the CPU,
+and refuses to start when the card is asked for and CUDA is not available.
 Starts 2 worker processes joined by ``parallel/mesh.initialize_distributed``
 (gloo over a ``file://`` rendezvous in a temporary directory; both ranks
-may share one card, which NCCL would refuse), each with a mesh of 2 local
-shards on ``--device``, so the job has 4 shards. Each worker runs:
+may share one card, which NCCL would refuse), each with a mesh of
+``--local-shards`` local shards (2 by default) on ``--device``, so the job
+has 4 shards by default. Each worker runs:
 
   * the flat ``all_to_all_single`` and an ``all_reduce`` across the process
     boundary, on the device's tensors;
@@ -37,7 +41,10 @@ to: every registered site is exercised here across processes, proven
 coordinator-only, or asserted to be a one-process exchange that a job of
 processes never routes through.
 
-Run as one worker (the parent does): ``--worker RANK ROOT``.
+Run as one worker (the parent does): ``--worker RANK ROOT``. A worker
+expects the dataset under ``ROOT/data`` and leaves the index under
+``ROOT/indexes``; ``tests/test_torch_multihost_parity.py`` runs the workers
+alone at ``--local-shards 4`` and holds that index to the JAX package's.
 """
 
 from __future__ import annotations
@@ -122,7 +129,7 @@ def _check_collectives(pid: int, dev) -> str:
     return f"all_reduce={int(total.item())} ({route})"
 
 
-def _check_exchange(pid: int, dev) -> str:
+def _check_exchange(pid: int, dev, local_shards: int) -> str:
     """The process-local two-stage exchange against the canonical order."""
     import numpy as np
     import torch
@@ -131,9 +138,9 @@ def _check_exchange(pid: int, dev) -> str:
     from hyperspace_tpu_torch.parallel import mesh as hs_mesh
     from hyperspace_tpu_torch.parallel import shuffle as hs_shuffle
 
-    mesh = hs_mesh.default_mesh([dev] * LOCAL_SHARDS)
+    mesh = hs_mesh.default_mesh([dev] * local_shards)
     D, L = mesh.size, mesh.local_size
-    assert D == WORLD * LOCAL_SHARDS, mesh
+    assert D == WORLD * local_shards, mesh
     rng = np.random.default_rng(7)
     n_global = 4000
     keys_g = rng.integers(0, 500, (1, n_global)).astype(np.int64)
@@ -159,7 +166,7 @@ def _check_exchange(pid: int, dev) -> str:
     return f"exchange_rows={len(got_b)}/{n_global}"
 
 
-def _create_end_to_end(root: str, device: str, pid: int) -> tuple:
+def _create_end_to_end(root: str, device: str, local_shards: int) -> tuple:
     """The 2-process CREATE and its single-writer metadata plane; returns
     (content hash, rows)."""
     import pyarrow.parquet as pq
@@ -170,7 +177,7 @@ def _create_end_to_end(root: str, device: str, pid: int) -> tuple:
     from hyperspace_tpu_torch.constants import States
     from hyperspace_tpu_torch.metadata.log_manager import IndexLogManager
 
-    session = _session(device, root, "indexes", LOCAL_SHARDS)
+    session = _session(device, root, "indexes", local_shards)
     hs = Hyperspace(session)
     df = session.read.parquet(os.path.join(root, "data"))
     hs.create_index(df, CoveringIndexConfig("mh_create", ["k"], ["v"]))
@@ -203,7 +210,7 @@ def _create_end_to_end(root: str, device: str, pid: int) -> tuple:
     return digest.hexdigest()[:12], rows
 
 
-def _abort_one_sided(root: str, device: str, pid: int) -> str:
+def _abort_one_sided(root: str, device: str, pid: int, local_shards: int) -> str:
     """A CREATE whose validate fails on rank 1 alone: both ranks raise
     ConcurrentWriteException and no log entry is written."""
     import torch.distributed as dist
@@ -213,7 +220,7 @@ def _abort_one_sided(root: str, device: str, pid: int) -> str:
     from hyperspace_tpu_torch.actions.create import CreateAction
     from hyperspace_tpu_torch.exceptions import ConcurrentWriteException
 
-    session = _session(device, root, "indexes", LOCAL_SHARDS)
+    session = _session(device, root, "indexes", local_shards)
     hs = Hyperspace(session)
     df = session.read.parquet(os.path.join(root, "data"))
     validate = CreateAction.validate
@@ -240,7 +247,7 @@ def _abort_one_sided(root: str, device: str, pid: int) -> str:
     return "abort=ConcurrentWriteException"
 
 
-def worker(pid: int, root: str, device: str) -> None:
+def worker(pid: int, root: str, device: str, local_shards: int = LOCAL_SHARDS) -> None:
     sys.path.insert(0, REPO)
     import torch
 
@@ -261,12 +268,12 @@ def worker(pid: int, root: str, device: str) -> None:
         dev = torch.device(device)
         assert hs_mesh.process_count() == WORLD
         collectives = _check_collectives(pid, dev)
-        exchange = _check_exchange(pid, dev)
-        content, rows = _create_end_to_end(root, device, pid)
-        abort = _abort_one_sided(root, device, pid)
+        exchange = _check_exchange(pid, dev, local_shards)
+        content, rows = _create_end_to_end(root, device, local_shards)
+        abort = _abort_one_sided(root, device, pid, local_shards)
         print(
             f"DRYRUN-OK proc={pid} procs={hs_mesh.process_count()} device={device} "
-            f"backend={hs_mesh.backend()} shards={WORLD * LOCAL_SHARDS} {collectives} "
+            f"backend={hs_mesh.backend()} shards={WORLD * local_shards} {collectives} "
             f"{exchange} create_content={content} create_rows={rows} {abort}",
             flush=True,
         )
@@ -337,14 +344,30 @@ def _one_process_build(root: str, device: str, paths: list) -> int:
     return len(one)
 
 
-def main() -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--local-shards", type=int, default=LOCAL_SHARDS)
     parser.add_argument("--timeout", type=float, default=240.0)
     parser.add_argument("--worker", nargs=2, metavar=("RANK", "ROOT"))
-    args = parser.parse_args()
+    return parser.parse_args(argv)
+
+
+def check_device(device: str) -> None:
+    """Raise when the card is asked for and CUDA is not available: the
+    dryrun never falls back to the CPU."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda asked for, but CUDA is not available; "
+                           "pass --device cpu to run on the CPU")
+
+
+def main() -> int:
+    args = parse_args()
+    check_device(args.device)
     if args.worker:
-        worker(int(args.worker[0]), args.worker[1], args.device)
+        worker(int(args.worker[0]), args.worker[1], args.device, args.local_shards)
         return 0
     sys.path.insert(0, REPO)
     root = tempfile.mkdtemp(prefix="hs_torch_dryrun_")
@@ -354,7 +377,7 @@ def main() -> int:
         procs = [
             subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--device", args.device,
-                 "--worker", str(i), root],
+                 "--local-shards", str(args.local_shards), "--worker", str(i), root],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for i in range(WORLD)

@@ -1493,3 +1493,117 @@ def test_advisor_loop_on_the_card_launches_b1_and_is_index_served(cuda_device, t
         assert any(leaf.relation.index_info for leaf in plan.collect_leaves())
     assert [r for r in advise(s, directory=obs_dir).recommendations if r.kind == "create"] == []
     s.serve_frontend.close()
+
+
+# -- the regression corpus on the card (tests/torch_fuzz_cases.py) ---------------------
+
+
+@pytest.mark.parametrize("chunk", range(8))
+def test_fuzz_corpus_masks_on_the_card_equal_the_cpu_and_pyarrow(cuda_device, chunk, monkeypatch):
+    """The 400 seeds of ``test_torch_fuzz_differential.py``, 50 a case:
+    each predicate's device mask on CUDA tensors equals the same mask on
+    the CPU, the host evaluator and pyarrow; where the predicate lowers to
+    range terms, the fused mask on the card equals them too, and every B3a
+    call it makes equals ``range_mask_torch`` on the same tensors."""
+    import torch_fuzz_cases as FZ
+
+    calls = []
+    real = F.range_mask_kernel
+
+    def recording(args):
+        out = real(args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(F, "range_mask_kernel", recording)
+    fused = 0
+    for seed in FZ.SEEDS[chunk * 50:(chunk + 1) * 50]:
+        table, spec = FZ.random_case(seed)
+        want = FZ.pyarrow_rows(table, spec).tolist()
+        batch = ColumnarBatch.from_arrow(table)
+        cond = FZ.build(spec, E)
+        assert np.nonzero(E.filter_mask(cond, batch))[0].tolist() == want, spec
+        card = F.device_filter_mask(cond, batch, cuda_device)
+        assert np.array_equal(card, F.device_filter_mask(cond, batch, "cpu")), spec
+        assert np.nonzero(card)[0].tolist() == want, spec
+        if F.lower_range_terms(cond, batch) is not None:
+            before = len(calls)
+            got = F.fused_range_mask(cond, batch, cuda_device)
+            if got is not None:
+                fused += 1
+                assert np.array_equal(got, F.fused_range_mask(cond, batch, "cpu")), spec
+                assert np.nonzero(got)[0].tolist() == want, spec
+                assert len(calls) <= before + 1
+    torch.cuda.synchronize()
+    for args, out in calls:
+        assert torch.equal(out, F.range_mask_torch(args))
+    assert fused > 0 and calls
+
+
+def test_nested_leaf_create_and_serve_on_the_card_equal_a_cpu_session(cuda_device, tmp_path):
+    """A covering index on a struct leaf (``li.l_orderkey``, including two
+    more leaves) created and served on the card: its bucket files equal a
+    ``device="cpu"`` session's byte for byte, every B1 call equals the
+    plain version on the same reps, and point and IN filters through the
+    leaf equal the CPU session's rows in order and the unindexed plan's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from torch_b5_cases import same_rows
+
+    rng = np.random.default_rng(22)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(4):
+        n = 50_000
+        li = pa.StructArray.from_arrays(
+            [pa.array(rng.integers(0, 20_000, n)),
+             pa.array(np.datetime64("1994-01-01") + rng.integers(0, 2400, n).astype("timedelta64[D]")),
+             pa.array(rng.integers(1, 51, n))],
+            names=["l_orderkey", "l_shipdate", "l_quantity"])
+        pq.write_table(pa.table({"li": li, "l_extendedprice": rng.normal(30000, 8000, n)}),
+                       str(src / f"part{i}.parquet"))
+    calls = []
+    real = H.bucket_ids_kernel
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    H.bucket_ids_kernel = recording
+    keys = [int(k) for k in rng.integers(0, 20_000, 6)]
+    try:
+        files, rows = {}, {}
+        for side, device in (("card", cuda_device), ("cpu", "cpu")):
+            s = HyperspaceSession(device=device)
+            s.conf.set(C.INDEX_SYSTEM_PATH, str(tmp_path / side))
+            s.conf.set(C.INDEX_NUM_BUCKETS, 16)
+            s.conf.set(C.INDEX_SUPPORT_NESTED_FIELDS, True)
+            s.conf.set(C.INDEX_FILTER_RULE_USE_BUCKET_SPEC, True)
+            hs = Hyperspace(s)
+            df = s.read.parquet(str(src))
+            hs.create_index(df, CoveringIndexConfig("nest", ["li.l_orderkey"],
+                                                    ["li.l_shipdate", "li.l_quantity"]))
+            s.enable_hyperspace()
+            conds = [df["li.l_orderkey"] == k for k in keys] + [df["li.l_orderkey"].isin(*keys)]
+            qs = [df.filter(c).select("li.l_orderkey", "li.l_shipdate", "li.l_quantity") for c in conds]
+            assert all("Name: nest" in q.explain() for q in qs)
+            rows[side] = [q.collect() for q in qs]
+            s.disable_hyperspace()
+            for q, got in zip(qs, rows[side]):
+                srt = [(c, "ascending") for c in got.column_names]
+                assert got.sort_by(srt).equals(q.collect().sort_by(srt))
+            files[side] = index_files(str(tmp_path / side / "nest"))
+    finally:
+        H.bucket_ids_kernel = real
+    torch.cuda.synchronize()
+    assert calls
+    for args, out in calls:
+        assert torch.equal(out, H.bucket_ids_torch(*args))
+    assert files["card"] == files["cpu"]
+    assert sum(1 for f in files["card"] if f.endswith(".parquet")) >= 16
+    assert all(same_rows(a, b) for a, b in zip(rows["card"], rows["cpu"]))
+    assert sum(t.num_rows for t in rows["card"]) > 0

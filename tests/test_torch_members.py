@@ -1,8 +1,14 @@
-"""The public members of ROADMAP A.11 that the reference's tests call,
-held to the JAX package's on the CPU: ``FileIdTracker.get_file_id`` and
+"""The public members of ROADMAP A.11, held to the JAX package's on the
+CPU. Those the reference's tests call: ``FileIdTracker.get_file_id`` and
 ``.id_to_file_mapping``, ``IndexLogEntry.source_file_info_set`` and
 ``.index_data_dir_id``, ``ResolvedColumn.from_normalized``,
 ``join_exec.co_bucketed_join``, ``Config.unset`` and ``faults.clear``.
+Those with no caller in either package: ``IndexSignatureProvider.
+fingerprint_source_only``, ``utils/files.write_text`` and ``dir_size``,
+``utils/paths.normalize``, ``io/parquet.read_batch``, and the ``Config``
+properties of four keys that nothing reads (``device_filter_min_rows``,
+``device_join_min_rows``, ``dataskipping_target_index_data_file_size``,
+``dataskipping_auto_partition_sketch``).
 """
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
@@ -165,3 +171,91 @@ def test_entry_members_equal_the_reference(tmp_path):
     jhs.refresh_index("ix", "full")
     te, je = entries()
     assert te.index_data_dir_id() == je.index_data_dir_id() == first + 1
+
+
+# -- the members with no caller in either package (A.11) ---------------------
+
+
+def test_fingerprint_source_only_equals_the_reference(tmp_path):
+    """The source-only signature of a scan, before and after an append,
+    equals the JAX package's, and equals the file signature inside the full
+    fingerprint."""
+    from hyperspace_tpu.signatures import IndexSignatureProvider as JProvider
+    from hyperspace_tpu_torch.signatures import IndexSignatureProvider
+
+    src = tmp_path / "src"
+    src.mkdir()
+    pq.write_table(pa.table({"k": np.arange(20, dtype=np.int64)}), str(src / "a.parquet"))
+    t, j = T.HyperspaceSession(device="cpu"), JSession()
+
+    def sigs():
+        out = []
+        for s, cls in ((t, IndexSignatureProvider), (j, JProvider)):
+            scan = s.read.parquet(str(src)).logical_plan
+            p = cls(s.source_manager)
+            sig = p.fingerprint_source_only(scan)
+            assert sig == p.fingerprint(scan).signatures[0]
+            out.append((sig.provider, sig.value))
+        assert out[0] == out[1]
+        return out[0]
+
+    before = sigs()
+    pq.write_table(pa.table({"k": np.arange(5, dtype=np.int64)}), str(src / "b.parquet"))
+    assert sigs() != before
+
+
+def test_write_text_and_dir_size_equal_the_reference(tmp_path):
+    from hyperspace_tpu.utils import files as jfiles
+    from hyperspace_tpu_torch.utils import files
+
+    for mod, root in ((files, tmp_path / "port"), (jfiles, tmp_path / "jax")):
+        mod.write_text(str(root / "a" / "b" / "x.txt"), "héllo")  # makes its dirs
+        mod.write_text(str(root / "a" / "y.txt"), "yy")
+        mod.write_text(str(root / "a" / "y.txt"), "yyy")  # overwrites
+        assert mod.read_text(str(root / "a" / "b" / "x.txt")) == "héllo"
+    assert files.dir_size(str(tmp_path / "port")) == jfiles.dir_size(str(tmp_path / "jax")) == 9
+    assert files.dir_size(str(tmp_path / "none")) == jfiles.dir_size(str(tmp_path / "none")) == 0
+
+
+@pytest.mark.parametrize("path", ["rel/dir/", "/abs/x/../y", "gs://bucket/data/", "s3://b",
+                                  ".", "/a//b/"])
+def test_paths_normalize_equals_the_reference(path, monkeypatch, tmp_path):
+    from hyperspace_tpu.utils import paths as jpaths
+    from hyperspace_tpu_torch.utils import paths
+
+    monkeypatch.chdir(tmp_path)
+    assert paths.normalize(path) == jpaths.normalize(path)
+
+
+def test_read_batch_equals_the_reference(tmp_path):
+    from hyperspace_tpu.io import parquet as jpio
+    from hyperspace_tpu_torch.io import parquet as pio
+
+    rng = np.random.default_rng(2)
+    files = []
+    for i in range(2):
+        p = str(tmp_path / f"p{i}.parquet")
+        pq.write_table(pa.table({"k": rng.integers(0, 9, 30), "f": rng.normal(size=30),
+                                 "s": [f"s{x}" for x in rng.integers(0, 4, 30)]}), p)
+        files.append(p)
+    for cols in (None, ["f", "k"]):
+        got = pio.read_batch(files, cols)
+        assert isinstance(got, ColumnarBatch) and got.num_rows == 60
+        assert same_rows(got.to_arrow(), jpio.read_batch(files, cols).to_arrow())
+
+
+@pytest.mark.parametrize("prop,key,value", [
+    ("device_filter_min_rows", "EXECUTION_DEVICE_FILTER_MIN_ROWS", 12),
+    ("device_join_min_rows", "EXECUTION_DEVICE_JOIN_MIN_ROWS", 7),
+    ("dataskipping_target_index_data_file_size", "DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE", 1024),
+    ("dataskipping_auto_partition_sketch", "DATASKIPPING_AUTO_PARTITION_SKETCH", False),
+])
+def test_unread_config_properties_equal_the_reference(prop, key, value):
+    """Each property returns its key's value with the reference's default;
+    no module of the port reads it."""
+    mine, ref = Config(), JConfig()
+    assert getattr(TC, key) == getattr(JC, key)
+    assert getattr(mine, prop) == getattr(ref, prop) == getattr(TC, key + "_DEFAULT")
+    for c, C in ((mine, TC), (ref, JC)):
+        c.set(getattr(C, key), str(value))
+    assert getattr(mine, prop) == getattr(ref, prop) == value

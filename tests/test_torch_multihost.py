@@ -10,7 +10,8 @@ in process-major order, rows in order), and a CREATE whose validate fails
 on rank 1 alone, which raises ``ConcurrentWriteException`` on both ranks
 and writes nothing. The script runs once a module, within its own
 timeout; the cases below read its output. NCCL asked for with more ranks
-than GPUs raises.
+than GPUs raises. The script runs on the card unless asked for the CPU
+(``--device cuda`` by default), and without a card it refuses to start.
 """
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads first)
@@ -91,3 +92,29 @@ def test_collective_sites_name_the_port():
         mod, name = site.rsplit(".", 1)
         assert mod.startswith("hyperspace_tpu_torch.")
         assert callable(getattr(importlib.import_module(mod), name)), site
+
+
+def _dryrun_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_dryrun_multihost", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_dryrun_defaults_to_the_card_and_refuses_without_it(monkeypatch):
+    """The dryrun's arguments default to ``--device cuda`` and 2 local
+    shards; asked for the card where CUDA is not available, it raises
+    instead of running on the CPU. Only the arguments are parsed: no job
+    starts."""
+    import torch
+
+    mod = _dryrun_module()
+    args = mod.parse_args([])
+    assert (args.device, args.local_shards, args.worker) == ("cuda", 2, None)
+    assert mod.parse_args(["--device", "cpu", "--local-shards", "4"]).local_shards == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.check_device(args.device)
+    mod.check_device("cpu")  # asked for the CPU: no error
